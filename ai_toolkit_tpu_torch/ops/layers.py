@@ -1,0 +1,184 @@
+"""Core layers of the port (``ai_toolkit_tpu/ops/layers.py`` in PyTorch).
+
+Weights use the torch layouts that checkpoints ship in: ``Linear.weight`` is
+``[out, in]`` (the JAX kernel is ``[in, out]``) and ``Conv.weight`` is
+``[out, in/groups, kh, kw]`` (JAX: HWIO). Norm scales and biases are f32, as in
+the JAX package. Modules are built empty on an explicit ``device``/``dtype``
+and filled by :func:`init_parameters` from an explicit ``torch.Generator``,
+with the JAX package's initializers (flax ``lecun_normal`` kernels, zero
+biases, unit norm scales). The LoRA / quant / ctrl overlays of the JAX
+``Linear`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """Fill ``w`` in place; drawn in f32, then cast to ``w``'s dtype."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    nn.init.trunc_normal_(tmp, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    w.copy_(tmp)
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded init of every submodule that defines ``init_weights(generator)``."""
+    with torch.no_grad():
+        for m in module.modules():
+            if hasattr(m, "init_weights"):
+                m.init_weights(generator)
+    return module
+
+
+class Linear(nn.Module):
+    """``y = x W^T + b``; ``x`` is cast to the weight dtype first (JAX:
+    ``x.astype(self.dtype)``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
+                 device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device, dtype=dtype))
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device, dtype=dtype))
+                     if bias else None)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.in_features, generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class Conv(nn.Module):
+    """2-D convolution with NHWC tensors at its boundary, as in the JAX
+    package. The NCHW view it hands to ``conv2d`` is channels-last in memory,
+    so no copy is made for an NHWC-contiguous input."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, *,
+                 device=None, dtype=None):
+        super().__init__()
+        self.padding = kernel_size // 2  # JAX "SAME" at stride 1
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size,
+                                               device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device, dtype=dtype))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.to(self.weight.dtype).permute(0, 3, 1, 2), self.weight, self.bias,
+                     padding=self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm in f32, cast back to the input dtype. ``weight_name`` is the
+    checkpoint's name for the scale: ``scale`` (BFL flux QK norm) or
+    ``weight`` (transformers T5)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, weight_name: str = "weight", device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight_name = weight_name
+        self.register_parameter(weight_name, nn.Parameter(
+            torch.empty(dim, device=device, dtype=torch.float32)))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        getattr(self, self.weight_name).fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
+        return (y * getattr(self, self.weight_name)).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the last dim in f32, cast back to the input dtype;
+    ``affine=False`` is flux's parameter-free norm."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, affine: bool = True, *, device=None):
+        super().__init__()
+        self.dim, self.eps = dim, eps
+        if affine:
+            self.weight = nn.Parameter(torch.empty(dim, device=device, dtype=torch.float32))
+            self.bias = nn.Parameter(torch.empty(dim, device=device, dtype=torch.float32))
+        else:
+            self.weight = self.bias = None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.weight is not None:
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (self.dim,), self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """Group norm over NHWC ``[..., C]`` in f32 with ``min(32, C)`` groups
+    (JAX ``layers.py:263``)."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, *, device=None):
+        super().__init__()
+        self.groups = min(32, channels)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(channels, device=device, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.empty(channels, device=device, dtype=torch.float32))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[-1]
+        xg = x.float().reshape(x.shape[0], -1, self.groups, c // self.groups)
+        var, mean = torch.var_mean(xg, dim=(1, 3), keepdim=True, correction=0)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+class Embedding(nn.Module):
+    """Lookup table kept in f32 (JAX keeps embeddings f32), normal(std) init."""
+
+    def __init__(self, num: int, dim: int, std: float, *, device=None):
+        super().__init__()
+        self.std = std
+        self.weight = nn.Parameter(torch.empty(num, dim, device=device, dtype=torch.float32))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.weight.normal_(0.0, self.std, generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+class AdaLayerNormZero(nn.Module):
+    """DiT adaLN-Zero: conditioning -> ``n_mods`` (shift, scale, gate) chunks.
+    The projection is ``lin`` (BFL ``Modulation.lin``)."""
+
+    def __init__(self, dim: int, n_mods: int = 6, *, device=None, dtype=None):
+        super().__init__()
+        self.n_mods = n_mods
+        self.lin = Linear(dim, dim * n_mods, device=device, dtype=dtype)
+
+    def forward(self, cond: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return self.lin(F.silu(cond.to(self.lin.weight.dtype))).chunk(self.n_mods, dim=-1)
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x * (1 + scale) + shift`` broadcast over the sequence axis."""
+    while shift.dim() < x.dim():
+        shift, scale = shift.unsqueeze(1), scale.unsqueeze(1)
+    return x * (1.0 + scale) + shift
