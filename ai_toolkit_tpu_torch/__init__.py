@@ -2,10 +2,11 @@
 
 The JAX package ``ai_toolkit_tpu`` stays the reference; every module here is
 held against its counterpart there. This package imports ``torch`` and never
-``jax``. Its framework-free pieces (``ai_toolkit_tpu.config``,
-``ai_toolkit_tpu.utils.tokenizer``) are imported as they are.
+``jax`` nor any module of ``ai_toolkit_tpu``: the framework-free pieces it
+needs (the job schema, the tokenizer) are its own copies in ``config/`` and
+``utils/tokenizer.py``.
 
 Entry point: ``python -m ai_toolkit_tpu_torch.run job.yaml [--device cuda]``.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,8 +1,10 @@
 """Image generation (``ai_toolkit_tpu/generation.py`` in PyTorch): the plain
 flux flow-matching Euler loop.
 
-Unported branches of the JAX ``generate_flux`` (LoRA overlays, control/edit
-and IP-adapter conditioning, ``use_flux_cfg`` negative passes, x0-prediction
+A LoRA (``{module name: {a, b, scale}}``, ``io/lora_file.load_lora_file``)
+is overlaid on the DiT for the call, as the JAX package passes its ``lora``
+collection. Unported branches of the JAX ``generate_flux`` (the unconditional
+LoRA, control/edit and IP-adapter conditioning, ``use_flux_cfg`` negative passes, x0-prediction
 and arch-specific schedules) and of ``generate`` (DDPM samplers, video,
 audio) raise ``NotImplementedError``.
 """
@@ -15,8 +17,10 @@ import time
 import numpy as np
 import torch
 
-from ai_toolkit_tpu.config.modules import GenerateImageConfig
+from ai_toolkit_tpu_torch.adapters.lora import attach_lora, detach_lora
+from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -37,8 +41,6 @@ def generate_flux(
     from a ``torch.Generator`` seeded with ``gen.seed``. ``stats``, when
     given, receives the phase times (host clock, synchronised on a CUDA
     device) and whether the final latents were finite."""
-    if lora:
-        raise NotImplementedError("LoRA overlays come with the training slice")
     if getattr(model.config, "use_flux_cfg", False):
         raise NotImplementedError("use_flux_cfg (negative-prompt CFG pass) is not ported yet")
     if any(getattr(gen, a, None) for a in ("ctrl_img", "ctrl_img_2", "ctrl_img_3")):
@@ -49,6 +51,17 @@ def generate_flux(
     device = model.device
     h, w, c = model.latent_shape(gen.height, gen.width)
     rec = stats if stats is not None else {}
+    if lora:
+        attach_lora(variables["dit"], {k: {n: x.to(device) for n, x in v.items()} for k, v in lora.items()})
+    try:
+        return _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c)
+    finally:
+        if lora:
+            detach_lora(variables["dit"])
+
+
+def _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c) -> np.ndarray:
+    device = model.device
     with torch.inference_mode():
         t0 = time.perf_counter()
         cond = model.encode_prompt(variables, [gen.prompt])

@@ -10,6 +10,8 @@ CLIP and T5, diffusers for the VAE).
 - Conv kernels HWIO -> OIHW.
 - Scanned ``[L, ...]`` stacks (``double_blocks/block/...``) split per block.
 - Norm scales and embeddings keep their values and dtypes.
+- A flux ``lora`` collection maps onto the port's module names
+  (:func:`flux_lora_tree`).
 """
 
 from __future__ import annotations
@@ -201,6 +203,36 @@ def vae_state_dict(tree: dict) -> dict[str, torch.Tensor]:
         return f"{side}." + _lookup(_VAE_MID, rest, "vae")
 
     return _convert(tree, module)
+
+
+def flux_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX flux ``lora`` collection ``{path: {a [in,r], b [r,out], scale}}``,
+    unrolled (``double_0/img_qkv``) or scanned (``double_blocks/block/img_qkv``
+    with ``[L, in, r]`` / ``[L, r, out]`` / ``[L]``) -> ``{port module name:
+    {a, b, scale}}`` for ``adapters.lora.attach_lora``. Factors keep the JAX
+    ``[in, r]`` / ``[r, out]`` layout, as the port's ``LoRA`` does."""
+    groups: dict[str, dict[str, np.ndarray]] = {}
+    for path, v in _flatten(tree).items():
+        mod, leaf = path.rsplit("/", 1)
+        groups.setdefault(mod, {})[leaf] = v
+
+    def entry(a, b, scale):
+        return {"a": torch.from_numpy(np.array(a, np.float32)),
+                "b": torch.from_numpy(np.array(b, np.float32)),
+                "scale": torch.tensor(float(scale), dtype=torch.float32)}
+
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for mod, leaf in groups.items():
+        m = re.fullmatch(r"(double|single)_blocks/block/(.+)", mod)
+        if m:
+            kind, rest = m.groups()
+            scales = np.reshape(leaf["scale"], -1)
+            for i in range(leaf["a"].shape[0]):
+                out[_flux_module(f"{kind}_{i}/{rest}")] = entry(
+                    leaf["a"][i], leaf["b"][i], scales[i if scales.size > 1 else 0])
+        else:
+            out[_flux_module(mod)] = entry(leaf["a"], leaf["b"], np.reshape(leaf["scale"], -1)[0])
+    return out
 
 
 def flux_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:

@@ -1,7 +1,9 @@
 """Job dispatch (``ai_toolkit_tpu/jobs/dispatch.py`` in PyTorch).
 
-Only the generation process types are ported; every other process type of
-the JAX package raises ``NotImplementedError`` naming what is missing.
+Ported process types: generation (``generate``, ``pure_lora_generator``) and
+the LoRA trainer (``sd_trainer``, ``diffusion_trainer``, ``ui_trainer``); every
+other process type of the JAX package raises ``NotImplementedError`` naming
+what is missing.
 """
 
 from __future__ import annotations
@@ -10,11 +12,14 @@ from typing import Any
 
 import torch
 
-from ai_toolkit_tpu.config.modules import JobConfig
+from ai_toolkit_tpu_torch.config.modules import JobConfig
 
 PROCESS_TYPES = {
     "generate": "generate",
     "pure_lora_generator": "generate",
+    "sd_trainer": "train",
+    "diffusion_trainer": "train",
+    "ui_trainer": "train",
 }
 
 
@@ -28,9 +33,11 @@ class Job:
                 raise NotImplementedError(
                     f"process type '{proc_cfg.type}' is not ported to ai_toolkit_tpu_torch yet "
                     f"(ported: {sorted(PROCESS_TYPES)})")
-            from ai_toolkit_tpu_torch.jobs.generate_process import GenerateProcess
-
-            self.processes.append(GenerateProcess(job_config.name, proc_cfg, device))
+            if kind == "generate":
+                from ai_toolkit_tpu_torch.jobs.generate_process import GenerateProcess as Process
+            else:
+                from ai_toolkit_tpu_torch.jobs.train_process import SDTrainProcess as Process
+            self.processes.append(Process(job_config.name, proc_cfg, device))
 
     def run(self) -> list[Any]:
         return [p.run() for p in self.processes]
@@ -41,5 +48,5 @@ def get_job(raw_config: dict, device: torch.device | str) -> Job:
 
 
 def run_job(raw_config: dict, device: torch.device | str):
-    """Run a job dict (the ``ai_toolkit_tpu.config.get_config`` schema) on ``device``."""
+    """Run a job dict (the ``ai_toolkit_tpu_torch.config.get_config`` schema) on ``device``."""
     return get_job(raw_config, device).run()

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ai_toolkit_tpu.config.modules import ModelConfig
+from ai_toolkit_tpu_torch.config.modules import ModelConfig
 
 
 class BaseModel:

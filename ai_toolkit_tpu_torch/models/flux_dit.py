@@ -6,15 +6,24 @@ BFL state dict loads as it is; ``io/from_jax.py`` maps JAX trees onto them.
 One module per block (the JAX package's ``nn.scan`` stacking has no
 counterpart here). Dense GELU flux only: the JAX config's MoE, chroma, NeRF
 and SD3 flags belong to later slices and have no field here.
+
+Gradient checkpointing (``FluxDiT.gradient_checkpointing``) wraps every block
+in ``torch.utils.checkpoint`` with the JAX ``dots_flash`` remat policy
+(``ai_toolkit_tpu/models/flux_dit.py:707-716``): the outputs of matrix
+products without batch dims (``aten.mm`` / ``aten.addmm``) and of the flash
+forward (``ait::flash_attention_fwd``: out and lse) are kept, everything else
+is recomputed, so the backward never re-runs the attention forward kernel.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ai_toolkit_tpu_torch.ops.attention import dot_product_attention
 from ai_toolkit_tpu_torch.ops.embeddings import TimestepEmbedder
@@ -179,10 +188,23 @@ class LastLayer(nn.Module):
         return self.linear(modulate(self.norm_final(x), shift, scale))
 
 
+# JAX dots_with_no_batch_dims_saveable + save_only_these_names("flash_out", "flash_lse")
+_DOTS_FLASH_SAVE = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                    torch.ops.ait.flash_attention_fwd.default}
+
+
+def _dots_flash_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_FLASH_SAVE else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_flash_context = functools.partial(create_selective_checkpoint_contexts, _dots_flash_policy)
+
+
 class FluxDiT(nn.Module):
     def __init__(self, cfg: FluxConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
+        self.gradient_checkpointing = False
         h, dt = cfg.hidden_size, cfg.dtype
         self.img_in = Linear(cfg.in_channels, h, device=device, dtype=dt)
         self.txt_in = Linear(cfg.context_dim, h, device=device, dtype=dt)
@@ -222,11 +244,22 @@ class FluxDiT(nn.Module):
             mask = key_ok[:, None, None, :]
 
         for blk in self.double_blocks:
-            img, txt = blk(img, txt, vec, pe, mask)
+            img, txt = self._block(blk, img, txt, vec, pe, mask)
         x = torch.cat([txt, img], dim=1)
         for blk in self.single_blocks:
-            x = blk(x, vec, pe, mask)
+            x = self._block(blk, x, vec, pe, mask)
         return self.final_layer(x[:, txt.shape[1]:], vec)
+
+    def _block(self, blk: nn.Module, *args):
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False, context_fn=_dots_flash_context)
+        return blk(*args)
+
+
+def flux_lora_targets() -> list[str]:
+    """Default LoRA targeting: every Linear of the transformer blocks (JAX
+    ``flux_lora_targets``, over the port's BFL module names)."""
+    return [r"^double_blocks\.", r"^single_blocks\."]
 
 
 def pack_latents_cmajor(latents: torch.Tensor) -> torch.Tensor:

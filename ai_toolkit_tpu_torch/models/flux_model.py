@@ -10,12 +10,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ai_toolkit_tpu.config.modules import ModelConfig
-from ai_toolkit_tpu.utils.tokenizer import load_tokenizer
+from ai_toolkit_tpu_torch.config.modules import ModelConfig
+from ai_toolkit_tpu_torch.utils.tokenizer import load_tokenizer
 from ai_toolkit_tpu_torch.models.base import BaseModel
 from ai_toolkit_tpu_torch.models.flux_dit import (
     FluxConfig,
     FluxDiT,
+    flux_lora_targets,
     pack_latents_cmajor,
     unpack_latents_cmajor,
 )
@@ -25,9 +26,6 @@ from ai_toolkit_tpu_torch.models.text_encoders.t5 import T5Config, T5Encoder
 from ai_toolkit_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from ai_toolkit_tpu_torch.ops.layers import init_parameters
 from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
-
-# VAE keys a JAX tree carries that the decode-only port has no module for
-_VAE_UNPORTED = "encoder."
 
 
 @register_model
@@ -89,8 +87,6 @@ class FluxModel(BaseModel):
     def load_state_dicts(self, variables: dict[str, nn.Module], states: dict[str, dict]) -> None:
         """Load per-component state dicts (``io/from_jax.flux_model_state``)."""
         for name, sd in states.items():
-            if name == "vae":
-                sd = {k: v for k, v in sd.items() if not k.startswith(_VAE_UNPORTED)}
             variables[name].load_state_dict(sd, strict=True)
 
     # ---- conditioning ----
@@ -116,7 +112,9 @@ class FluxModel(BaseModel):
 
     def predict(self, variables: dict, noisy_latents: torch.Tensor, t: torch.Tensor,
                 cond: dict) -> torch.Tensor:
-        """noisy_latents ``[B, h, w, C]``; cond: txt, y, pe, guidance[, txt_mask]."""
+        """noisy_latents ``[B, h, w, C]``; cond: txt, y, pe, guidance[, txt_mask].
+        Differentiable: the train step takes gradients through it into the
+        DiT's LoRA factors."""
         if cond.get("control_latents") is not None or cond.get("ip_tokens") is not None:
             raise NotImplementedError("control / IP-adapter conditioning comes with a later slice")
         _, h, w, _ = noisy_latents.shape
@@ -124,8 +122,17 @@ class FluxModel(BaseModel):
                                cond["pe"], cond.get("guidance"), cond.get("txt_mask"))
         return unpack_latents_cmajor(out, h, w)
 
+    def encode_images(self, variables: dict, images: torch.Tensor,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+        """Images ``[B, H, W, 3]`` in [-1, 1] -> scaled, shifted latents
+        ``[B, h, w, C]`` (posterior mode unless ``generator`` is given)."""
+        return variables["vae"].encode(images.to(self.device), generator)
+
     def decode_latents(self, variables: dict, latents: torch.Tensor) -> torch.Tensor:
         return variables["vae"].decode(latents)
+
+    def lora_targets(self) -> list[str]:
+        return flux_lora_targets()
 
     # ---- geometry ----
 

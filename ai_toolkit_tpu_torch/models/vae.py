@@ -1,11 +1,11 @@
-"""KL autoencoder decoder (``ai_toolkit_tpu/models/vae.py`` in PyTorch), NHWC.
+"""KL autoencoder (``ai_toolkit_tpu/models/vae.py`` in PyTorch), NHWC.
 
-Module names follow diffusers' ``AutoencoderKL`` (``decoder.up_blocks.{i}``
-with ``i = 0`` the deepest level, ``mid_block.attentions.0.to_q``,
-``conv_norm_out``), so its state dict loads as it is. Tensors are NHWC at
-every public function, as in the JAX package; the convs hand cuDNN
-channels-last NCHW views. Only the decoder of the flux VAE (no quant convs) is
-ported: the encoder comes with the training slice (latent caching).
+Module names follow diffusers' ``AutoencoderKL`` (``encoder.down_blocks.{i}``,
+``decoder.up_blocks.{i}`` with ``i = 0`` the deepest level,
+``mid_block.attentions.0.to_q``, ``conv_norm_out``), so its state dict loads
+as it is. Tensors are NHWC at every public function, as in the JAX package;
+the convs hand cuDNN channels-last NCHW views. The flux VAE has no quant
+convs, and neither does this port (the SD/SDXL VAEs come with a later slice).
 """
 
 from __future__ import annotations
@@ -123,6 +123,61 @@ class UNetMidBlock2D(nn.Module):
         return self.resnets[1](x)
 
 
+class Downsample2D(nn.Module):
+    """Stride-2 3x3 conv after a (0, 1) pad of height and width (the SD
+    convention, JAX ``down_{i}_downsample``)."""
+
+    def __init__(self, ch: int, dtype, *, device=None):
+        super().__init__()
+        self.conv = Conv(ch, ch, 3, stride=2, padding=0, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
+class DownEncoderBlock2D(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, n_res: int, downsample: bool, dtype, *,
+                 device=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            ResnetBlock2D(in_ch if j == 0 else out_ch, out_ch, dtype, device=device)
+            for j in range(n_res))
+        self.downsamplers = (nn.ModuleList([Downsample2D(out_ch, dtype, device=device)])
+                             if downsample else None)
+
+    def forward(self, x):
+        for r in self.resnets:
+            x = r(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+        return x
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, *, device=None):
+        super().__init__()
+        dt = cfg.dtype
+        mults = cfg.channel_multipliers
+        self.conv_in = Conv(cfg.in_channels, cfg.base_channels, 3, device=device, dtype=dt)
+        blocks, ch = [], cfg.base_channels
+        for i, mult in enumerate(mults):
+            out_ch = cfg.base_channels * mult
+            blocks.append(DownEncoderBlock2D(ch, out_ch, cfg.layers_per_block, i < len(mults) - 1,
+                                             dt, device=device))
+            ch = out_ch
+        self.down_blocks = nn.ModuleList(blocks)
+        self.mid_block = UNetMidBlock2D(ch, dt, device=device)
+        self.conv_norm_out = GroupNorm(ch, device=device)
+        self.conv_out = Conv(ch, 2 * cfg.latent_channels, 3, device=device, dtype=dt)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for blk in self.down_blocks:
+            h = blk(h)
+        h = self.mid_block(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig, *, device=None):
         super().__init__()
@@ -153,7 +208,18 @@ class AutoencoderKL(nn.Module):
     def __init__(self, cfg: VAEConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg, device=device)
         self.decoder = Decoder(cfg, device=device)
+
+    def encode(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Image ``[B, H, W, 3]`` in [-1, 1] -> scaled latent ``[B, h, w, C]``:
+        the posterior mode, or a sample when ``generator`` is given."""
+        mean, logvar = self.encoder(x).chunk(2, dim=-1)
+        if generator is not None:
+            std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+            mean = mean + std * torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                                            device=mean.device)
+        return (mean - self.cfg.shift_factor) * self.cfg.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latent ``[B, h, w, C]`` -> image ``[B, H, W, 3]`` in [-1, 1]."""

@@ -65,6 +65,22 @@ def build(name: str, verbose: bool = False) -> Path:
     return out
 
 
+def build_all(names: list[str], verbose: bool = False) -> dict[str, float]:
+    """Build several kernel libraries at once, one ``nvcc`` per source, all
+    started together; returns the wall seconds of each build."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(name: str) -> float:
+        t0 = time.perf_counter()
+        build(name, verbose)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel library ``name``, built on first use."""
     lib = _libs.get(name)

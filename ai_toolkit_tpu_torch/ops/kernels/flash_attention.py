@@ -1,22 +1,29 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention: the hand-written CUDA kernels, forward and backward, and
+their plain versions.
 
-Replaces ``ai_toolkit_tpu/ops/pallas/flash_attention.py`` ``_fwd_kernel``
-(``_flash_fwd``, the resident kernel) and ``_fwd_kernel_streamed`` (the
-padded, KV-masked path of ``flash_attention_any``) with one kernel,
-``csrc/flash_attention_fwd.cu``, that streams K/V tiles through shared memory
-and masks ragged Q-row and KV-column tails itself.
+The forward replaces ``ai_toolkit_tpu/ops/pallas/flash_attention.py``
+``_fwd_kernel`` (``_flash_fwd``, the resident kernel) and
+``_fwd_kernel_streamed`` (the padded, KV-masked path of
+``flash_attention_any``) with one kernel, ``csrc/flash_attention_fwd.cu``. The
+backward replaces ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` and their streamed,
+masked forms with two kernels, ``csrc/flash_attention_bwd.cu``: dq (one block
+per 64-row Q tile) and dk/dv (one block per 64-row K/V tile). All of them
+stream the other operand through shared memory and mask ragged tails
+themselves.
 
-What bounds it on the card: about 4*S*T*D*H FLOPs against 2*(S+2T)*H*D
-bytes, so at the flux shape (S=T=4608, H=24, D=128) it is compute-bound. The
-simple design runs both products on the tensor cores (WMMA bf16, f32
-accumulation) and keeps the Q tile in registers; it does not yet overlap
-loads with compute (see the source note).
+What bounds them on the card: the forward does about 4*S*T*D*H FLOPs, the
+backward 10*S*T*D*H (five products), against O((S+T)*H*D) bytes, so at the
+flux shape (S=T=4608, H=24, D=128) both are compute-bound. The simple designs
+run every product on the tensor cores (WMMA bf16, f32 accumulation) and do not
+yet overlap loads with compute (see the source notes).
 
 ``flash_attention_fwd(q, k, v, scale) -> (out, lse)`` takes q ``[B,S,H,D]``,
 k/v ``[B,T,H,D]`` in bf16 or f32 with D in {64, 128}, through strides (only
 the last must be 1). out is ``[B,S,H,D]`` in q's dtype, lse f32 ``[B,H,S]``.
-CPU tensors go to :func:`flash_attention_fwd_plain`; CUDA tensors launch the
-kernel or raise.
+It is the custom op ``ait::flash_attention_fwd``, so a selective-checkpoint
+policy can keep its outputs (``models/flux_dit.py``); its autograd formula is
+:func:`flash_attention_bwd`. lse is not differentiable. CPU tensors go to the
+plain versions; CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -26,16 +33,19 @@ import math
 
 import torch
 
-# kernel launches by flash_attention_fwd in this process
-launches = 0
+# kernel launches in this process, one count per kernel
+launches = 0  # flash_attention_fwd
+dq_launches = 0  # flash_attention_bwd_dq
+dkv_launches = 0  # flash_attention_bwd_dkv
 
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fwd_fn = None
+_bwd_fns = None
 
 
 def flash_attention_fwd_plain(q, k, v, scale: float | None = None):
-    """f32 einsum / logsumexp / softmax / einsum: the kernel's plain version."""
+    """f32 einsum / logsumexp / softmax / einsum: the forward kernel's plain version."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     lse = torch.logsumexp(logits, dim=-1)
@@ -43,9 +53,52 @@ def flash_attention_fwd_plain(q, k, v, scale: float | None = None):
     return out.to(q.dtype), lse
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _bwd_probs(q, k, g, v, lse, delta, scale):
+    """(p, ds) in f32 ``[B,H,S,T]``: p = exp(scale q k^T - lse), ds = p (dO v^T - delta)."""
+    p = torch.exp(torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale - lse[..., None])
+    ds = p * (torch.einsum("bshd,bthd->bhst", g.float(), v.float()) - delta[..., None])
+    return p, ds
+
+
+def flash_attention_bwd_delta(out, g):
+    """delta = rowsum(dO o) in f32 ``[B,H,S]`` (the JAX wrapper's ``delta``)."""
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, scale: float):
+    """dq = scale ds k in f32, cast to q's dtype: the dq kernel's plain version."""
+    _, ds = _bwd_probs(q, k, g, v, lse, delta, scale)
+    return (torch.einsum("bhst,bthd->bshd", ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, scale: float):
+    """(dk = scale ds^T q, dv = p^T dO) in f32, cast to k's dtype: the dk/dv
+    kernel's plain version."""
+    p, ds = _bwd_probs(q, k, g, v, lse, delta, scale)
+    dk = torch.einsum("bhst,bshd->bthd", ds, q.float()) * scale
+    dv = torch.einsum("bhst,bshd->bthd", p, g.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, g, scale: float | None = None):
+    """(dq, dk, dv) by the explicit formula the backward kernels compute, in
+    f32: delta = rowsum(dO o), p = exp(scale q k^T - lse),
+    ds = p (dO v^T - delta), dq = scale ds k, dk = scale ds^T q, dv = p^T dO."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    delta = flash_attention_bwd_delta(out, g)
+    dq = flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, scale)
+    return (dq, *flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, scale))
+
+
+def _error_string(lib):
+    lib.ait_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ait_cuda_error_string.restype = ctypes.c_char_p
+    return lib.ait_cuda_error_string
+
+
+def _fwd_kernel():
+    global _fwd_fn
+    if _fwd_fn is None:
         from ai_toolkit_tpu_torch.ops.kernels.build import load
 
         lib = load("flash_attention_fwd")
@@ -55,10 +108,23 @@ def _kernel():
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-        lib.ait_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.ait_cuda_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.ait_cuda_error_string)
-    return _fn
+        _fwd_fn = (fn, _error_string(lib))
+    return _fwd_fn
+
+
+def _bwd_kernels():
+    global _bwd_fns
+    if _bwd_fns is None:
+        from ai_toolkit_tpu_torch.ops.kernels.build import load
+
+        lib = load("flash_attention_bwd")
+        tail = [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        dq, dkv = lib.ait_flash_attention_bwd_dq, lib.ait_flash_attention_bwd_dkv
+        dq.argtypes = [ctypes.c_void_p] * 7 + tail
+        dkv.argtypes = [ctypes.c_void_p] * 8 + tail
+        dq.restype = dkv.restype = ctypes.c_int
+        _bwd_fns = (dq, dkv, _error_string(lib))
+    return _bwd_fns
 
 
 def _check(q, k, v):
@@ -79,44 +145,141 @@ def _check(q, k, v):
         raise ValueError(f"B*H = {b * h} exceeds the kernel grid")
 
 
-def _launch(q, k, v, scale: float):
+def _aligned(tensors) -> bool:
+    """Every row start 16-byte aligned (the kernels' vector loads)."""
+    return all(x.data_ptr() % 16 == 0 and all(st * x.element_size() % 16 == 0
+                                              for st in x.stride()[:3])
+               for x in tensors)
+
+
+def _launch_fwd(q, k, v, scale: float):
     global launches
-    fn, err_str = _kernel()
+    fn, err_str = _fwd_kernel()
     b, s, h, d = q.shape
     t = k.shape[1]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    es = q.element_size()
-    vec = all(x.data_ptr() % 16 == 0 and all(st * es % 16 == 0 for st in x.stride()[:3])
-              for x in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             b, s, t, h, d, _DTYPES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(vec), stream)
+            float(scale), int(_aligned((q, k, v))), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: {err_str(rc).decode()} ({rc})")
     launches += 1
     return out, lse
 
 
-class _FlashFwd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        return _launch(q, k, v, scale)
+def _bwd_args(q, k, v, g, lse, delta, scale: float):
+    """The launch arguments both backward kernels share."""
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    lse, delta = lse.contiguous(), delta.contiguous()
+    b, s, h, d = q.shape
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *g.stride()[:3])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    tail = (b, s, k.shape[1], h, d, _DTYPES[q.dtype], strides, float(scale),
+            int(_aligned((q, k, v, g))), torch.cuda.current_stream(q.device).cuda_stream)
+    return ptrs, tail, (g, lse, delta, strides)  # the last: buffers kept alive over the call
 
-    @staticmethod
-    def backward(ctx, g_out, g_lse):
-        raise NotImplementedError("backward kernels come with the training slice")
+
+def _launch_bwd_dq(q, k, v, g, lse, delta, scale: float):
+    global dq_launches
+    dq_fn, _, err_str = _bwd_kernels()
+    ptrs, tail, _keep = _bwd_args(q, k, v, g, lse, delta, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rc = dq_fn(*ptrs, dq.data_ptr(), *tail)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_dq launch failed: {err_str(rc).decode()} ({rc})")
+    dq_launches += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, g, lse, delta, scale: float):
+    global dkv_launches
+    _, dkv_fn, err_str = _bwd_kernels()
+    ptrs, tail, _keep = _bwd_args(q, k, v, g, lse, delta, scale)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    rc = dkv_fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *tail)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: {err_str(rc).decode()} ({rc})")
+    dkv_launches += 1
+    return dk, dv
+
+
+def _devices(*tensors) -> str:
+    devices = {x.device for x in tensors}
+    if len(devices) == 1:
+        (dev,) = devices
+        if dev.type in ("cpu", "cuda"):
+            return dev.type
+    raise ValueError(f"flash attention got tensors on {sorted(str(d) for d in devices)}")
+
+
+@torch.library.custom_op("ait::flash_attention_fwd", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the plain forward on CPU tensors, the kernel on CUDA tensors."""
+    if _devices(q, k, v) == "cpu":
+        return flash_attention_fwd_plain(q, k, v, scale)
+    return _launch_fwd(q, k, v, scale)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, scale):
+    b, s, h, d = q.shape
+    return q.new_empty((b, s, h, d)), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+def flash_attention_bwd_dq(q, k, v, g, lse, delta, scale: float):
+    """dq ``[B,S,H,D]`` from the forward's lse and delta = rowsum(dO o)
+    (:func:`flash_attention_bwd_delta`): the plain version on CPU tensors, the
+    dq kernel on CUDA tensors."""
+    if _devices(q, k, v, g, lse, delta) == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, scale)
+    return _launch_bwd_dq(q, k, v, g, lse, delta, scale)
+
+
+def flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale: float):
+    """(dk, dv) ``[B,T,H,D]``: the plain version on CPU tensors, the dk/dv
+    kernel on CUDA tensors."""
+    if _devices(q, k, v, g, lse, delta) == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, scale)
+    return _launch_bwd_dkv(q, k, v, g, lse, delta, scale)
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, scale: float | None = None):
+    """(dq, dk, dv) of ``out`` for its cotangent ``g`` ``[B,S,H,D]``, from the
+    forward's ``out`` and ``lse``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _devices(q, k, v, out, lse, g)
+    delta = flash_attention_bwd_delta(out, g)
+    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, scale)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.scale = scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, g_out, g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out, ctx.scale)
+    return dq, dk, dv, None
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention_fwd(q, k, v, scale: float | None = None):
     """(out [B,S,H,D], lse f32 [B,H,S]) of softmax(scale q k^T) v."""
     _check(q, k, v)
+    _devices(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    devices = {q.device.type, k.device.type, v.device.type}
-    if devices == {"cpu"}:
-        return flash_attention_fwd_plain(q, k, v, scale)
-    if devices == {"cuda"} and q.device == k.device == v.device:
-        return _FlashFwd.apply(q, k, v, scale)
-    raise ValueError(f"flash attention got tensors on {q.device}, {k.device}, {v.device}")
+    return flash_attention_op(q, k, v, float(scale))

@@ -6,8 +6,9 @@ Weights use the torch layouts that checkpoints ship in: ``Linear.weight`` is
 the JAX package. Modules are built empty on an explicit ``device``/``dtype``
 and filled by :func:`init_parameters` from an explicit ``torch.Generator``,
 with the JAX package's initializers (flax ``lecun_normal`` kernels, zero
-biases, unit norm scales). The LoRA / quant / ctrl overlays of the JAX
-``Linear`` are not ported yet.
+biases, unit norm scales). ``Linear`` carries the LoRA overlay of the JAX
+``Linear`` (``_lora_delta``); its quant / ctrl / LyCORIS overlays are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -39,9 +40,29 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+class LoRA(nn.Module):
+    """Low-rank overlay ``y += ((x @ a) @ b) * scale`` (JAX ``ops/layers.py``
+    ``_lora_delta``): ``a`` ``[in, r]``, ``b`` ``[r, out]`` and the scalar
+    ``scale`` are f32 master parameters, cast to the layer's dtype in the
+    forward. ``scale`` is a parameter because the JAX package trains the whole
+    ``{a, b, scale}`` leaf."""
+
+    def __init__(self, in_features: int, rank: int, out_features: int, scale: float, *,
+                 device=None):
+        super().__init__()
+        self.a = nn.Parameter(torch.zeros(in_features, rank, device=device, dtype=torch.float32))
+        self.b = nn.Parameter(torch.zeros(rank, out_features, device=device, dtype=torch.float32))
+        self.scale = nn.Parameter(torch.tensor(float(scale), device=device, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        return y + ((x @ self.a.to(dt)) @ self.b.to(dt)) * self.scale.to(dt)
+
+
 class Linear(nn.Module):
     """``y = x W^T + b``; ``x`` is cast to the weight dtype first (JAX:
-    ``x.astype(self.dtype)``)."""
+    ``x.astype(self.dtype)``). With a :class:`LoRA` in ``self.lora``
+    (``adapters/lora.py``) its delta is added."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  device=None, dtype=None):
@@ -50,6 +71,7 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device, dtype=dtype))
         self.bias = (nn.Parameter(torch.empty(out_features, device=device, dtype=dtype))
                      if bias else None)
+        self.lora: LoRA | None = None
 
     def init_weights(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight, self.in_features, generator)
@@ -57,7 +79,9 @@ class Linear(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        x = x.to(self.weight.dtype)
+        y = F.linear(x, self.weight, self.bias)
+        return y if self.lora is None else self.lora(x, y)
 
 
 class Conv(nn.Module):
@@ -66,9 +90,10 @@ class Conv(nn.Module):
     so no copy is made for an NHWC-contiguous input."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, *,
-                 device=None, dtype=None):
+                 stride: int = 1, padding: int | None = None, device=None, dtype=None):
         super().__init__()
-        self.padding = kernel_size // 2  # JAX "SAME" at stride 1
+        self.stride = stride
+        self.padding = kernel_size // 2 if padding is None else padding  # default: "SAME" at stride 1
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size,
                                                device=device, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(out_channels, device=device, dtype=dtype))
@@ -79,7 +104,7 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.to(self.weight.dtype).permute(0, 3, 1, 2), self.weight, self.bias,
-                     padding=self.padding)
+                     stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 

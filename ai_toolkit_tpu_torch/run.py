@@ -1,6 +1,6 @@
 """CLI entry: ``python -m ai_toolkit_tpu_torch.run job.yaml [more.yaml] [--device cuda]``.
 
-Port of ``run.py``: the same job files (``ai_toolkit_tpu.config.get_config``),
+Port of ``run.py``: the same job files (``ai_toolkit_tpu_torch.config.get_config``),
 run sequentially, ``-r/--recover`` continues past failures and ``-n/--name``
 overrides the job name. The device defaults to ``cuda`` and is never chosen
 silently: ``--device cuda`` without a CUDA device raises.
@@ -32,7 +32,7 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
 
-    from ai_toolkit_tpu.config import get_config
+    from ai_toolkit_tpu_torch.config import get_config
     from ai_toolkit_tpu_torch.jobs import run_job
 
     failures = 0

@@ -1,6 +1,9 @@
-"""Flow-matching inference schedule (``ai_toolkit_tpu/samplers/flowmatch.py``,
-the Euler sampling half, in PyTorch). Train-time timestep distributions come
-with the training slice."""
+"""Flow-matching schedule (``ai_toolkit_tpu/samplers/flowmatch.py`` in PyTorch):
+the Euler sampling half and the training half the flux LoRA job takes
+(timestep distributions ``linear``, ``sigmoid``, ``shift``, ``flux_shift``;
+``add_noise``; the velocity target). The other train-time distributions
+(``lognorm_blend``, ``weighted`` weights, ``one_step``) raise
+``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -41,6 +44,63 @@ class FlowMatchSchedule:
     base_shift: float = 0.5
     max_shift: float = 1.16
     time_shift_type: str = "exp"
+
+    # ---- training ----
+
+    def timesteps_from_uniform(self, u: torch.Tensor, timestep_type: str,
+                               image_seq_len: int | None = None,
+                               timestep_bias: float = 1.0) -> torch.Tensor:
+        """t in (0, 1] from uniform draws ``u`` ~ U(1e-4, 1 - 1e-4) ``[B]``, for
+        the distributions that are a function of ``u`` (JAX
+        ``sample_timesteps``)."""
+        if timestep_type == "linear":
+            t = u
+        elif timestep_type in ("shift", "lumina2_shift"):
+            t = self.shift * u / (1.0 + (self.shift - 1.0) * u)
+        elif timestep_type == "flux_shift":
+            seq = image_seq_len if image_seq_len is not None else 1024
+            mu = calculate_flux_shift(seq, self.base_image_seq_len, self.max_image_seq_len,
+                                      self.base_shift, self.max_shift)
+            t = time_shift(mu, 1.0, u, self.time_shift_type)
+        else:
+            raise NotImplementedError(
+                f"timestep_type '{timestep_type}' is not a function of u; ported: linear, "
+                f"shift, flux_shift (sigmoid through sample_timesteps)")
+        return self._finish(t, timestep_bias)
+
+    def sample_timesteps(self, generator: torch.Generator, batch_size: int,
+                         timestep_type: str = "sigmoid", image_seq_len: int | None = None,
+                         timestep_bias: float = 1.0, device=None) -> torch.Tensor:
+        """Sample t ``[B]`` f32 per example from ``generator``."""
+        device = device if device is not None else generator.device
+        if timestep_type == "sigmoid":
+            z = torch.randn((batch_size,), generator=generator, dtype=torch.float32, device=device)
+            return self._finish(torch.sigmoid(z), timestep_bias)
+        if timestep_type in ("lognorm_blend", "one_step", "weighted"):
+            raise NotImplementedError(
+                f"timestep_type '{timestep_type}' comes with the train-step knobs slice")
+        u = torch.rand((batch_size,), generator=generator, dtype=torch.float32, device=device)
+        u = u * (1.0 - 2e-4) + 1e-4
+        return self.timesteps_from_uniform(u, timestep_type, image_seq_len, timestep_bias)
+
+    @staticmethod
+    def _finish(t: torch.Tensor, timestep_bias: float) -> torch.Tensor:
+        if timestep_bias != 1.0:
+            t = torch.pow(t, timestep_bias)
+        return torch.clamp(t, 1e-5, 1.0)
+
+    @staticmethod
+    def add_noise(x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """x_t = (1-t) x0 + t noise (t broadcast from [B] over sample dims)."""
+        t = t.reshape(t.shape + (1,) * (x0.dim() - t.dim())).to(x0.dtype)
+        return (1.0 - t) * x0 + t * noise
+
+    @staticmethod
+    def target(x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Velocity target v = noise - x0."""
+        return noise - x0
+
+    # ---- sampling ----
 
     def inference_sigmas(self, num_steps: int, image_seq_len: int | None = None) -> torch.Tensor:
         """Monotone decreasing f32 sigmas ``[num_steps + 1]``, from 1.0 to 0.0 (CPU)."""

@@ -64,6 +64,82 @@ def test_wrapper_raises_instead_of_falling_back(gen):
     q, k, v = _qkv(gen, 1, 64, 64, 2, 64, torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(q, k.cpu(), v)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, out, lse, out.cpu())
+    # the backward of the custom op launches both backward kernels, no fallback
+    before = (fa.dq_launches, fa.dkv_launches)
     out, _ = fa.flash_attention_fwd(q.requires_grad_(), k, v)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.float().sum().backward()
+    out.float().sum().backward()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1)
+
+
+# max|dX - ref| / max|ref| for dq, dk, dv against the f32 plain version: bf16
+# rounds p and ds before the second products (f32 accumulation); f32 differs
+# by summation order only
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((2, 300, 190, 4, 64), torch.float32, 1e-4),  # rect, ragged, D=64
+    ((1, 16, 16, 2, 128), torch.float32, 1e-4),  # smaller than one tile
+    ((2, 129, 65, 3, 64), torch.bfloat16, 2e-2),  # one row / column past a tile
+    ((1, 640, 640, 4, 128), torch.bfloat16, 2e-2),
+    ((1, 200, 200, 4, 128), "strided", 2e-2),  # q/k/v views of a fused projection
+])
+def test_bwd_kernels_match_plain(gen, shape, dtype, tol):
+    b, s, t, h, d = shape
+    if dtype == "strided":
+        fused = torch.randn((b, s, 3 * h * d + 64), generator=gen, device="cuda").bfloat16()
+        q, k, v = fused[..., : 3 * h * d].unflatten(-1, (3, h, d)).unbind(2)
+        dtype = torch.bfloat16
+    else:
+        q, k, v = _qkv(gen, b, s, t, h, d, dtype)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    before = (fa.dq_launches, fa.dkv_launches)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1)
+    refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, g.float())
+    for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert x.dtype == dtype and x.shape == r.shape and bool(torch.isfinite(x).all()), name
+        assert (x.float() - r).abs().max().item() <= tol * r.abs().max().item(), name
+
+
+def test_bwd_kernels_are_deterministic(gen):
+    """One owner per output tile and no atomics: equal bits from run to run."""
+    q, k, v = _qkv(gen, 1, 333, 333, 4, 128, torch.bfloat16)
+    g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, g)
+    for a, b in zip(first, fa.flash_attention_bwd(q, k, v, out, lse, g)):
+        assert torch.equal(a, b)
+
+
+def test_checkpointed_dit_runs_each_kernel_once_per_block(gen):
+    """Under the dots_flash policy the recompute keeps the flash forward's
+    outputs: one forward, one dq and one dk/dv launch per block per step."""
+    import dataclasses
+
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig, FluxDiT, flux_lora_targets
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+    from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
+
+    cfg = dataclasses.replace(FluxConfig.tiny(), hidden_size=256, num_heads=2, head_dim=128,
+                              axes_dim=(16, 56, 56), depth_double=2, depth_single=2,
+                              dtype=torch.bfloat16)
+    dit = init_parameters(FluxDiT(cfg, device="cuda"), gen)
+    lora = build_lora(dit, LoRASpec(rank=4, alpha=4.0, target_patterns=flux_lora_targets()), gen)
+    dit.gradient_checkpointing = True
+    n_txt, hh, ww = 8, 4, 6
+    pe = multi_axis_rope(torch.from_numpy(image_position_ids(hh, ww, text_len=n_txt))[None],
+                         list(cfg.axes_dim), cfg.theta).cuda()
+    args = [torch.randn((1, hh * ww, cfg.in_channels), generator=gen, device="cuda"),
+            torch.randn((1, n_txt, cfg.context_dim), generator=gen, device="cuda"),
+            torch.tensor([0.5], device="cuda"),
+            torch.randn((1, cfg.vec_dim), generator=gen, device="cuda"), pe,
+            torch.ones(1, device="cuda")]
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    loss = dit(*args).float().square().mean()
+    grads = torch.autograd.grad(loss, [p for m in lora.values() for p in m.parameters()])
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (4, 4, 4)
+    assert all(bool(torch.isfinite(x).all()) for x in grads)
