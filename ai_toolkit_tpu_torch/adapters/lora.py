@@ -68,9 +68,8 @@ def build_lora(model: nn.Module, spec: LoRASpec, generator: torch.Generator) -> 
     lora: dict[str, LoRA] = {}
     for name, mod in model.named_modules():
         if isinstance(mod, Linear) and _matches(name, spec):
-            w = mod.weight
             adapter = LoRA(mod.in_features, spec.rank, mod.out_features, spec.alpha / spec.rank,
-                           device=w.device)
+                           device=mod.stored_weight.device)
             with torch.no_grad():
                 adapter.a.normal_(0.0, spec.init_std, generator=generator)
             mod.lora = adapter
@@ -92,7 +91,7 @@ def attach_lora(model: nn.Module, tree: dict[str, dict[str, torch.Tensor]]) -> d
             raise ValueError(f"LoRA '{name}': a {tuple(a.shape)} / b {tuple(b.shape)} do not fit "
                              f"[{mod.in_features} -> {mod.out_features}]")
         adapter = LoRA(mod.in_features, a.shape[1], mod.out_features, float(leaf["scale"]),
-                       device=mod.weight.device)
+                       device=mod.stored_weight.device)
         with torch.no_grad():
             adapter.a.copy_(a)
             adapter.b.copy_(b)
@@ -114,6 +113,8 @@ def merge_lora(model: nn.Module, multiplier: float = 1.0) -> None:
     detach it (JAX ``merge_lora``; torch weights are ``[out, in]``)."""
     for mod in model.modules():
         if isinstance(mod, Linear) and mod.lora is not None:
+            if mod.qvalue is not None:
+                raise NotImplementedError("merging a LoRA into a quantized base is not ported")
             lo = mod.lora
             delta = (lo.a @ lo.b) * (lo.scale * multiplier)
             mod.weight.add_(delta.t().to(mod.weight.dtype))

@@ -1,0 +1,87 @@
+// Grouped SwiGLU input gradient (dx) of the MoE FFN for Hopper (sm_90a),
+// exported through a plain C entry point and loaded with ctypes
+// (ai_toolkit_tpu_torch/ops/kernels/moe_gmm.py).
+//
+// Replaces the TPU kernel ai_toolkit_tpu/ops/pallas/moe_gmm.py `_dx_kernel`
+// (first pallas_call in `_gs_bwd`): for every BM-row tile, with
+// g = tile_group[tile], h1 = x W1[g], h3 = x W3[g] recomputed (the forward
+// saves only its inputs) and dp = dy W2[g]^T,
+//   dh1 = dp * h3 * silu'(h1),  dh3 = dp * silu(h1),
+//   dx  = dh1 W1[g]^T + dh3 W3[g]^T,
+// with f32 accumulation. x, dy, dx [N, d]; W1/W3 [E, d, h], W2 [E, h, d];
+// dh [N, 2h] is scratch the caller allocates ([dh1 | dh3] per row).
+//
+// As in the forward, the Pallas kernel's [block_m, d] f32 accumulator over a
+// sequential hidden-axis grid does not carry over; two grouped GEMMs, each
+// block the one owner of its output tile, no atomics (so dx is the same bits
+// from run to run):
+//   1. DX_HIDDEN: h1, h3 and dp for a 128 x 64 tile of the hidden axis in one
+//      block (three products, two A operands), dh1 and dh3 in the epilogue,
+//      written in the input type;
+//   2. DX_OUT:    dx = [dh1 | dh3] [W1[g] | W3[g]]^T, one reduction over 2h.
+// What bounds it: 10 N d h operations against the three banks, x, dy, dh and
+// dx; compute-bound at the hidream shape (1.45 TFLOP at N = 8192, d = 2560,
+// h = 6912). The simple design: WMMA bf16 tiles, a two-stage cp.async
+// pipeline, and dh through device memory (4 N h bytes each way).
+//
+// The bank gradients (`_dw_kernel`) are not ported: the LoRA path trains no
+// expert bank.
+
+#include "moe_gmm_tile.cuh"
+
+using namespace ait_moe;
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Every tensor is contiguous; N % 128 == 0,
+// d % 64 == 0, h % 64 == 0. Returns the cudaError_t of the launches.
+int ait_moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* w3, const void* w2,
+                   const void* tile_group, void* dh_buf, void* dx, int N, int d, int h, int dtype,
+                   void* stream) {
+  if (!shapes_ok(N, d, h) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* tg = static_cast<const int*>(tile_group);
+
+  Args hid{};
+  hid.a[0] = x;
+  hid.a[1] = dy;
+  hid.lda[0] = hid.lda[1] = d;
+  hid.b[0] = w1;  // h1 = x W1[g]
+  hid.b[1] = w3;  // h3 = x W3[g]
+  hid.b[2] = w2;  // dp = dy W2[g]^T: element (k, n) = W2[g][n][k]
+  hid.b_expert[0] = hid.b_expert[1] = hid.b_expert[2] = (long long)d * h;
+  hid.ldb[0] = hid.ldb[1] = h;
+  hid.ldb[2] = d;
+  hid.out = dh_buf;
+  hid.ldo = 2LL * h;
+  hid.out2_col = h;
+  hid.tile_group = tg;
+  hid.K = d;
+
+  Args out{};
+  out.a[0] = dh_buf;
+  out.lda[0] = 2LL * h;
+  out.b[0] = w1;  // dh1 W1[g]^T: element (k, n) = W1[g][n][k], k < h
+  out.b_alt = w3;  // dh3 W3[g]^T for k >= h
+  out.b_expert[0] = (long long)d * h;
+  out.ldb[0] = h;
+  out.k_split = h;
+  out.out = dx;
+  out.ldo = d;
+  out.tile_group = tg;
+  out.K = 2 * h;
+
+  cudaError_t err;
+  if (dtype == 1) {
+    err = launch<bf16, DX_HIDDEN, 64>(hid, N, h, st);
+    if (err == cudaSuccess) err = launch_wide<bf16, DX_OUT>(out, N, d, st);
+  } else {
+    err = launch<float, DX_HIDDEN, 64>(hid, N, h, st);
+    if (err == cudaSuccess) err = launch_wide<float, DX_OUT>(out, N, d, st);
+  }
+  return (int)err;
+}
+
+const char* ait_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+}  // extern "C"

@@ -1,5 +1,6 @@
 """Image generation (``ai_toolkit_tpu/generation.py`` in PyTorch): the plain
-flux flow-matching Euler loop.
+flow-matching Euler loop of flux and hidream (hidream has no guidance embed
+and, as in the JAX ``generate_flux``, no CFG pass).
 
 A LoRA (``{module name: {a, b, scale}}``, ``io/lora_file.load_lora_file``)
 is overlaid on the DiT for the call, as the JAX package passes its ``lora``

@@ -7,6 +7,7 @@ checkpoint names the port's modules carry (BFL for the DiT, transformers for
 CLIP and T5, diffusers for the VAE).
 
 - Linear kernels ``[in, out]`` -> weights ``[out, in]``.
+- MoE expert banks ``[E, in, out]`` keep the JAX layout (``flux_dit.Bank``).
 - Conv kernels HWIO -> OIHW.
 - Scanned ``[L, ...]`` stacks (``double_blocks/block/...``) split per block.
 - Norm scales and embeddings keep their values and dtypes.
@@ -38,6 +39,8 @@ def _leaf(v: np.ndarray, leaf: str, norm_name: str) -> tuple[str, np.ndarray]:
     if leaf == "kernel":
         if v.ndim == 2:
             return "weight", v.T
+        if v.ndim == 3:  # an expert bank
+            return "weight", v
         if v.ndim == 4:
             return "weight", v.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {v.ndim}")
@@ -72,8 +75,11 @@ def _lookup(table: list[tuple[str, str]], path: str, family: str) -> str:
     raise KeyError(f"{family}: no port module for JAX path '{path}'")
 
 
-# ---- flux DiT (BFL names) ----
+# ---- flux DiT (BFL names; the hidream MoE modules under the same blocks) ----
 
+_MOE = [
+    ("gate", "gate"), ("experts/(w1|w3|w2)", "experts.{0}"), ("shared/(w1|w3|w2)", "shared.{0}"),
+]
 _DOUBLE = [
     ("img_qkv", "img_attn.qkv"), ("txt_qkv", "txt_attn.qkv"),
     ("img_proj", "img_attn.proj"), ("txt_proj", "txt_attn.proj"),
@@ -82,10 +88,14 @@ _DOUBLE = [
     ("img_mlp_in", "img_mlp.0"), ("img_mlp_out", "img_mlp.2"),
     ("txt_mlp_in", "txt_mlp.0"), ("txt_mlp_out", "txt_mlp.2"),
     ("img_mod/mod", "img_mod.lin"), ("txt_mod/mod", "txt_mod.lin"),
+    *((f"img_mlp_moe/{pat}", f"img_mlp.{tmpl}") for pat, tmpl in _MOE),
+    ("txt_mlp_swiglu/(w1|w3|w2)", "txt_mlp.{0}"),
 ]
 _SINGLE = [
     ("linear1", "linear1"), ("linear2", "linear2"), ("mod/mod", "modulation.lin"),
     ("qknorm/(query_norm|key_norm)", "norm.{0}"),
+    ("qkv", "qkv"), ("proj", "proj"),  # the MoE single block
+    *((f"mlp_moe/{pat}", f"mlp.{tmpl}") for pat, tmpl in _MOE),
 ]
 _FLUX_TOP = [
     ("img_in", "img_in"), ("txt_in", "txt_in"),
@@ -143,6 +153,22 @@ def clip_state_dict(tree: dict) -> dict[str, torch.Tensor]:
         "token_embedding": ["text_model.embeddings.token_embedding.weight"],
         "position_embedding": ["text_model.embeddings.position_embedding.weight"],
     })
+
+
+# ---- Llama (transformers names) ----
+
+_LLM = [
+    (r"layer_(\d+)/(q|k|v|o)", "layers.{0}.self_attn.{1}_proj"),
+    (r"layer_(\d+)/input_norm", "layers.{0}.input_layernorm"),
+    (r"layer_(\d+)/pre_mlp_norm", "layers.{0}.post_attention_layernorm"),
+    (r"layer_(\d+)/(gate|up|down)", "layers.{0}.mlp.{1}_proj"),
+    (r"final_norm", "norm"),
+]
+
+
+def llm_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    return _convert(tree, lambda p: _lookup(_LLM, p, "llm"),
+                    extra={"token_embedding": ["embed_tokens.weight"]})
 
 
 # ---- T5 (transformers names) ----
@@ -233,6 +259,19 @@ def flux_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
         else:
             out[_flux_module(mod)] = entry(leaf["a"], leaf["b"], np.reshape(leaf["scale"], -1)[0])
     return out
+
+
+def hidream_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``HiDreamModel`` variables ``{dit, vae, clip, clip2, t5, llm}`` ->
+    per-component state dicts for ``HiDreamModel.load_state_dicts``."""
+    return {
+        "dit": flux_dit_state_dict(variables["dit"]),
+        "vae": vae_state_dict(variables["vae"]),
+        "clip": clip_state_dict(variables["clip"]),
+        "clip2": clip_state_dict(variables["clip2"]),
+        "t5": t5_state_dict(variables["t5"]),
+        "llm": llm_state_dict(variables["llm"]),
+    }
 
 
 def flux_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:

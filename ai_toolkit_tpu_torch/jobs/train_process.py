@@ -1,17 +1,20 @@
 """The LoRA training job (``ai_toolkit_tpu/jobs/train_process.py``
 ``SDTrainProcess`` in PyTorch), the path the flux LoRA job takes:
 
-model (seeded random weights) -> LoRA on the DiT's block Linears -> AdamW(8bit)
+model (seeded random weights) -> optional weight-only quantization of the DiT
+(``model.quantize``, fp8 or int8: ``adapters/quantize.py``) -> LoRA on the
+DiT (the model's targets) -> AdamW(8bit)
 -> folder dataset with in-memory latent and text-embedding caches -> train
 loop (``train/step.py``) with the save cadence -> final save of the LoRA (the
 EMA copy when EMA is on) in the PEFT layout.
 
 Every branch of the JAX process that this path does not take raises
 ``NotImplementedError`` naming its slice: resume, sampling during training,
-validation, other networks and adapters, a quantized base, text-encoder
-training, several resolutions, the disk latent cache, lr schedules and the
-train-step knobs (``TrainStepConfig.from_train_config``). With
-``AIT_PROFILE_DIR`` set, the last step runs under ``torch.profiler``.
+validation, other networks and adapters, quantized text encoders
+(``quantize_te``), text-encoder training, several resolutions, the disk
+latent cache, lr schedules and the train-step knobs
+(``TrainStepConfig.from_train_config``). With ``AIT_PROFILE_DIR`` set, the
+last step runs under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora, count_lora_params
+from ai_toolkit_tpu_torch.adapters.quantize import quantize_params, quantized_bytes
 from ai_toolkit_tpu_torch.config.modules import ModelConfig, ProcessConfig, TrainConfig
 from ai_toolkit_tpu_torch.data.caching import TextEmbedCache, cache_latents
 from ai_toolkit_tpu_torch.data.loader import build_dataloader
@@ -44,7 +48,7 @@ _UNPORTED_TRAIN = (
     "reg_weight", "img_multiplier", "latent_multiplier", "standardize_images",
     "merge_network_on_save", "learnable_snr_gos",
 )
-_UNPORTED_MODEL = ("quantize", "quantize_te", "lora_path", "assistant_lora_path",
+_UNPORTED_MODEL = ("quantize_te", "lora_path", "assistant_lora_path",
                    "inference_lora_path", "unconditional_lora_path", "accuracy_recovery_adapter")
 
 
@@ -89,8 +93,9 @@ class SDTrainProcess:
         if cfg.adapter or cfg.embedding or cfg.slider:
             raise NotImplementedError("adapters / embeddings / sliders come with later slices")
         refuse_unported(tc, _UNPORTED_TRAIN, TrainConfig(), "train")
-        refuse_unported(cfg.model, _UNPORTED_MODEL, ModelConfig(), "model (quantized base: "
-                        "adapters/quantize.py slice)")
+        refuse_unported(cfg.model, _UNPORTED_MODEL, ModelConfig(), "model")
+        if cfg.model.quantize_kwargs:
+            raise NotImplementedError("model.quantize_kwargs come with slice G")
         if not tc.train_unet:
             raise NotImplementedError("train_unet: false trains nothing the port has")
         if (tc.noise_scheduler or "flowmatch").lower() not in ("flowmatch", "flowmatch_euler"):
@@ -128,10 +133,14 @@ class SDTrainProcess:
                 f"{self.save_root} holds a save to resume from: resume comes with a later slice "
                 f"(use another training_folder or name)")
 
-        # 1. model, 2. LoRA on the DiT
+        # 1. model (1b. quantized DiT), 2. LoRA on the DiT
         model = get_model_class(cfg.model.arch)(cfg.model, dev)
         variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed))
         dit = variables["dit"]
+        if cfg.model.quantize:
+            names = quantize_params(dit, qtype=cfg.model.qtype)
+            print(f"quantized base: {len(names)} weights, {quantized_bytes(dit) / 1e9:.2f} GB "
+                  f"({cfg.model.qtype})")
         spec = LoRASpec.from_network_config(cfg.network, target_patterns=model.lora_targets())
         lora = build_lora(dit, spec, torch.Generator(device=dev).manual_seed(seed))
         n_params = count_lora_params(lora)

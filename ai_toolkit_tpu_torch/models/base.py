@@ -33,6 +33,11 @@ class BaseModel:
     def load_variables(self, generator: torch.Generator) -> dict[str, nn.Module]:
         raise NotImplementedError
 
+    def load_state_dicts(self, variables: dict[str, nn.Module], states: dict[str, dict]) -> None:
+        """Load per-component state dicts (``io/from_jax.*_model_state``)."""
+        for name, sd in states.items():
+            variables[name].load_state_dict(sd, strict=True)
+
     def refuse_or_init(self, generator: torch.Generator) -> dict[str, nn.Module]:
         """Empty ``name_or_path`` = seeded random init; any other path raises
         until checkpoint loading is ported (never a silent random init)."""

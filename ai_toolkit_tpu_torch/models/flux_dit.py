@@ -4,8 +4,13 @@ Modules carry the BFL checkpoint names (``double_blocks.{i}.img_attn.qkv``,
 ``single_blocks.{i}.linear1``, ``final_layer.adaLN_modulation.1``, ...), so a
 BFL state dict loads as it is; ``io/from_jax.py`` maps JAX trees onto them.
 One module per block (the JAX package's ``nn.scan`` stacking has no
-counterpart here). Dense GELU flux only: the JAX config's MoE, chroma, NeRF
-and SD3 flags belong to later slices and have no field here.
+counterpart here). Dense GELU flux, and the hidream-class MoE flags of the
+JAX config (``moe_experts``, ``moe_top_k``, ``moe_dispatch``,
+``moe_shared_hidden``, ``qk_norm_across_heads``): a routed SwiGLU
+:class:`MoEFFN` in the image stream of every block, a dense
+:class:`SwiGLU` in the text stream of a double block, the single block with
+separate attention and FFN sublayers. The chroma, NeRF and SD3 flags belong
+to later slices and have no field here.
 
 Gradient checkpointing (``FluxDiT.gradient_checkpointing``) wraps every block
 in ``torch.utils.checkpoint`` with the JAX ``dots_flash`` remat policy
@@ -13,6 +18,9 @@ in ``torch.utils.checkpoint`` with the JAX ``dots_flash`` remat policy
 products without batch dims (``aten.mm`` / ``aten.addmm``) and of the flash
 forward (``ait::flash_attention_fwd``: out and lse) are kept, everything else
 is recomputed, so the backward never re-runs the attention forward kernel.
+The grouped MoE op (``ait::grouped_swiglu``) is recomputed, as JAX's
+``dots_with_no_batch_dims_saveable`` recomputes the Pallas call: a
+checkpointed step launches its forward kernel twice per MoE layer.
 """
 
 from __future__ import annotations
@@ -27,7 +35,16 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from ai_toolkit_tpu_torch.ops.attention import dot_product_attention
 from ai_toolkit_tpu_torch.ops.embeddings import TimestepEmbedder
-from ai_toolkit_tpu_torch.ops.layers import AdaLayerNormZero, LayerNorm, Linear, RMSNorm, modulate
+from ai_toolkit_tpu_torch.ops.kernels.moe_gmm import moe_dispatch_swiglu
+from ai_toolkit_tpu_torch.ops.layers import (
+    AdaLayerNormZero,
+    LayerNorm,
+    Linear,
+    QuantizedWeight,
+    RMSNorm,
+    lecun_normal_,
+    modulate,
+)
 from ai_toolkit_tpu_torch.ops.rope import apply_rope
 
 
@@ -45,6 +62,12 @@ class FluxConfig:
     axes_dim: tuple[int, ...] = (16, 56, 56)
     theta: float = 10_000.0
     guidance_embed: bool = True
+    # hidream-class MoE FFN (0 experts: the dense GELU MLP of flux)
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_dispatch: str = "dense"  # dense | grouped (the CUDA grouped SwiGLU kernels)
+    moe_shared_hidden: int = 0  # 0 -> mlp width // 2
+    qk_norm_across_heads: bool = False  # QK RMSNorm over the full inner dim
     dtype: torch.dtype = torch.bfloat16
 
     @classmethod
@@ -88,21 +111,34 @@ class QKNorm(nn.Module):
         return self.query_norm(q), self.key_norm(k)
 
 
+def _qkv_heads(cfg: FluxConfig, qkv: torch.Tensor, norm: QKNorm):
+    """Fused qkv output -> QK-normed q, k and v ``[B, S, H, D]``; the norm runs
+    per head, or over the full inner dim (hidream)."""
+    if cfg.qk_norm_across_heads:
+        q, k, v = qkv.chunk(3, dim=-1)
+        q, k = norm(q, k)
+        return tuple(t.unflatten(-1, (cfg.num_heads, cfg.head_dim)) for t in (q, k, v))
+    q, k, v = qkv.unflatten(-1, (3, cfg.num_heads, cfg.head_dim)).unbind(2)
+    return (*norm(q, k), v)
+
+
+def _qk_norm(cfg: FluxConfig, device) -> QKNorm:
+    return QKNorm(cfg.hidden_size if cfg.qk_norm_across_heads else cfg.head_dim, device=device)
+
+
 class SelfAttention(nn.Module):
-    """BFL ``img_attn``/``txt_attn``: fused qkv, per-head QK norm, out proj."""
+    """BFL ``img_attn``/``txt_attn``: fused qkv, QK norm, out proj."""
 
     def __init__(self, cfg: FluxConfig, *, device=None):
         super().__init__()
         h = cfg.hidden_size
-        self.num_heads, self.head_dim = cfg.num_heads, cfg.head_dim
+        self.cfg = cfg
         self.qkv = Linear(h, 3 * h, device=device, dtype=cfg.dtype)
-        self.norm = QKNorm(cfg.head_dim, device=device)
+        self.norm = _qk_norm(cfg, device)
         self.proj = Linear(h, h, device=device, dtype=cfg.dtype)
 
     def qkv_heads(self, x):
-        q, k, v = self.qkv(x).unflatten(-1, (3, self.num_heads, self.head_dim)).unbind(2)
-        q, k = self.norm(q, k)
-        return q, k, v
+        return _qkv_heads(self.cfg, self.qkv(x), self.norm)
 
 
 def _attend(q, k, v, pe, mask=None):
@@ -110,9 +146,93 @@ def _attend(q, k, v, pe, mask=None):
     return dot_product_attention(apply_rope(q, pe), apply_rope(k, pe), v, mask=mask)
 
 
-def _mlp(cfg: FluxConfig, device) -> nn.Sequential:
-    """Dense GELU(tanh) MLP; BFL keys ``.0`` and ``.2``."""
+class SwiGLU(nn.Module):
+    """``w2(silu(w1 x) * w3 x)``, no biases (JAX ``flux_dit.SwiGLU``)."""
+
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.w1 = Linear(dim, hidden, bias=False, device=device, dtype=dtype)
+        self.w3 = Linear(dim, hidden, bias=False, device=device, dtype=dtype)
+        self.w2 = Linear(hidden, dim, bias=False, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+
+
+class Bank(QuantizedWeight):
+    """One expert bank ``weight`` ``[E, in, out]`` in the JAX layout (the
+    grouped kernels read it as it is), lecun-normal over ``in``; it may be
+    quantized like a Linear (JAX ``_BankKernel``)."""
+
+    def __init__(self, experts: int, fan_in: int, fan_out: int, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(experts, fan_in, fan_out, device=device, dtype=dtype))
+        self._init_quant()
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
+
+    def quantize_(self, fn) -> None:
+        self._set_quantized(*fn(self.weight.detach()))
+
+
+class ExpertBanks(nn.Module):
+    def __init__(self, experts: int, dim: int, hidden: int, dtype: torch.dtype, *, device=None):
+        super().__init__()
+        self.w1 = Bank(experts, dim, hidden, dtype, device=device)
+        self.w3 = Bank(experts, dim, hidden, dtype, device=device)
+        self.w2 = Bank(experts, hidden, dim, dtype, device=device)
+
+
+class MoEFFN(nn.Module):
+    """Routed SwiGLU experts plus a shared expert (JAX ``flux_dit.MoEFFN``,
+    reference hidream ``src/models/moe.py``): an f32 gate on ``x.float()``,
+    the top-k of its softmax as unnormalised gates, and one of two exact,
+    dropless dispatches over one parameter layout:
+
+    - ``dense``: every expert on every token, gate-weighted combine (E x the
+      FFN operations, plain torch products);
+    - ``grouped``: :func:`~ai_toolkit_tpu_torch.ops.kernels.moe_gmm.moe_dispatch_swiglu`,
+      the gather into expert-sorted tiles and the CUDA grouped SwiGLU kernels
+      (top-k x the operations)."""
+
+    def __init__(self, dim: int, hidden: int, experts: int, top_k: int, dtype: torch.dtype, *,
+                 shared_hidden: int = 0, dispatch: str = "dense", device=None):
+        super().__init__()
+        if dispatch not in ("dense", "grouped"):
+            raise ValueError(f"moe_dispatch '{dispatch}' (dense | grouped)")
+        self.top_k, self.dtype, self.dispatch = top_k, dtype, dispatch
+        self.gate = Linear(dim, experts, bias=False, device=device, dtype=torch.float32)
+        self.experts = ExpertBanks(experts, dim, hidden, dtype, device=device)
+        self.shared = SwiGLU(dim, shared_hidden or hidden // 2, dtype, device=device)
+
+    def forward(self, x):
+        scores = torch.softmax(self.gate(x.float()), dim=-1)
+        topv, topi = torch.topk(scores, self.top_k, dim=-1)
+        banks = self.experts
+        w1, w3, w2 = (b.dequantized().to(self.dtype) for b in (banks.w1, banks.w3, banks.w2))
+        xd = x.to(self.dtype)
+        if self.dispatch == "grouped":
+            routed = moe_dispatch_swiglu(xd, topv, topi, w1, w3, w2)
+        else:
+            # hidream norm_topk_prob=False: the raw softmax scores are the gates
+            gates = torch.zeros_like(scores).scatter_add_(-1, topi, topv)
+            act = F.silu(torch.einsum("bsd,edh->ebsh", xd, w1)) * torch.einsum("bsd,edh->ebsh", xd, w3)
+            outs = torch.einsum("ebsh,ehd->ebsd", act, w2)
+            routed = torch.einsum("ebsd,bse->bsd", outs.float(), gates).to(x.dtype)
+        return routed + self.shared(x)
+
+
+def _mlp(cfg: FluxConfig, device, moe: bool = True) -> nn.Module:
+    """Block FFN (JAX ``_ffn``): flux's dense GELU(tanh) MLP (BFL keys ``.0``
+    and ``.2``), or with ``moe_experts`` the MoE FFN; ``moe=False`` on a MoE
+    config is the dense SwiGLU at the routed width (hidream's text stream)."""
     h, m = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
+    if cfg.moe_experts:
+        if not moe:
+            return SwiGLU(h, m, cfg.dtype, device=device)
+        return MoEFFN(h, m, cfg.moe_experts, cfg.moe_top_k, cfg.dtype,
+                      shared_hidden=cfg.moe_shared_hidden, dispatch=cfg.moe_dispatch, device=device)
     return nn.Sequential(Linear(h, m, device=device, dtype=cfg.dtype), nn.GELU(approximate="tanh"),
                          Linear(m, h, device=device, dtype=cfg.dtype))
 
@@ -128,7 +248,7 @@ class DoubleBlock(nn.Module):
         self.txt_mod = AdaLayerNormZero(h, 6, device=device, dtype=cfg.dtype)
         self.txt_norm1, self.txt_norm2 = _norm(cfg), _norm(cfg)
         self.txt_attn = SelfAttention(cfg, device=device)
-        self.txt_mlp = _mlp(cfg, device)
+        self.txt_mlp = _mlp(cfg, device, moe=False)
 
     def forward(self, img, txt, vec, pe, mask=None):
         i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = self.img_mod(vec)
@@ -173,6 +293,29 @@ class SingleBlock(nn.Module):
         return x + gate[:, None] * self.linear2(out)
 
 
+class MoESingleBlock(nn.Module):
+    """The hidream-style single block (JAX ``SingleBlock`` with
+    ``moe_experts``): attention and the MoE FFN as separate sublayers, six
+    modulation chunks."""
+
+    def __init__(self, cfg: FluxConfig, *, device=None):
+        super().__init__()
+        h = cfg.hidden_size
+        self.cfg = cfg
+        self.modulation = AdaLayerNormZero(h, 6, device=device, dtype=cfg.dtype)
+        self.pre_norm, self.ffn_norm = _norm(cfg), _norm(cfg)
+        self.qkv = Linear(h, 3 * h, device=device, dtype=cfg.dtype)
+        self.norm = _qk_norm(cfg, device)
+        self.proj = Linear(h, h, device=device, dtype=cfg.dtype)
+        self.mlp = _mlp(cfg, device)
+
+    def forward(self, x, vec, pe, mask=None):
+        shift1, scale1, gate1, shift2, scale2, gate2 = self.modulation(vec)
+        q, k, v = _qkv_heads(self.cfg, self.qkv(modulate(self.pre_norm(x), shift1, scale1)), self.norm)
+        x = x + gate1[:, None] * self.proj(_attend(q, k, v, pe, mask).flatten(2))
+        return x + gate2[:, None] * self.mlp(modulate(self.ffn_norm(x), shift2, scale2))
+
+
 class LastLayer(nn.Module):
     """BFL ``final_layer``: adaLN (shift, scale) then the output projection."""
 
@@ -213,7 +356,8 @@ class FluxDiT(nn.Module):
         if cfg.guidance_embed:
             self.guidance_in = TimestepEmbedder(h, device=device, dtype=dt)
         self.double_blocks = nn.ModuleList(DoubleBlock(cfg, device=device) for _ in range(cfg.depth_double))
-        self.single_blocks = nn.ModuleList(SingleBlock(cfg, device=device) for _ in range(cfg.depth_single))
+        single = MoESingleBlock if cfg.moe_experts else SingleBlock
+        self.single_blocks = nn.ModuleList(single(cfg, device=device) for _ in range(cfg.depth_single))
         self.final_layer = LastLayer(cfg, device=device)
 
     def forward(
@@ -260,6 +404,21 @@ def flux_lora_targets() -> list[str]:
     """Default LoRA targeting: every Linear of the transformer blocks (JAX
     ``flux_lora_targets``, over the port's BFL module names)."""
     return [r"^double_blocks\.", r"^single_blocks\."]
+
+
+def pack_latents(latents: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, (H/2)(W/2), 4C] tokens in the *patch-major* feature
+    order ``(ph pw c)`` (hidream patchify; JAX ``pack_latents``)."""
+    b, h, w, c = latents.shape
+    x = latents.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // 2) * (w // 2), 4 * c)
+
+
+def unpack_latents(tokens: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, N, 4C] -> [B, H, W, C] (patch-major inverse)."""
+    b, _, c4 = tokens.shape
+    x = tokens.reshape(b, h // 2, w // 2, 2, 2, c4 // 4).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c4 // 4)
 
 
 def pack_latents_cmajor(latents: torch.Tensor) -> torch.Tensor:

@@ -84,11 +84,6 @@ class FluxModel(BaseModel):
     def load_variables(self, generator: torch.Generator) -> dict[str, nn.Module]:
         return self.refuse_or_init(generator)
 
-    def load_state_dicts(self, variables: dict[str, nn.Module], states: dict[str, dict]) -> None:
-        """Load per-component state dicts (``io/from_jax.flux_model_state``)."""
-        for name, sd in states.items():
-            variables[name].load_state_dict(sd, strict=True)
-
     # ---- conditioning ----
 
     def encode_prompt(self, variables: dict, prompts: list[str]) -> dict:

@@ -18,6 +18,7 @@ def register_model(cls):
 
 def get_model_class(arch: str):
     import ai_toolkit_tpu_torch.models.flux_model  # noqa: F401  (registers flux, flux_schnell)
+    import ai_toolkit_tpu_torch.models.hidream_model  # noqa: F401  (registers hidream)
 
     if arch not in MODEL_REGISTRY:
         raise NotImplementedError(

@@ -35,6 +35,11 @@ class CLIPTextConfig:
         return cls(projection_dim=768)
 
     @classmethod
+    def open_clip_g(cls) -> "CLIPTextConfig":
+        return cls(hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
+                   hidden_act="gelu", projection_dim=1280)
+
+    @classmethod
     def tiny(cls) -> "CLIPTextConfig":
         return cls(
             vocab_size=1000, hidden_size=64, num_layers=2, num_heads=4,
@@ -43,9 +48,11 @@ class CLIPTextConfig:
 
 
 def _act(name: str):
+    """``gelu`` is the tanh approximation, as ``jax.nn.gelu``'s default in the
+    JAX package (OpenCLIP-G)."""
     if name == "quick_gelu":
         return lambda x: x * torch.sigmoid(1.702 * x)
-    return torch.nn.functional.gelu
+    return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
 
 
 class CLIPAttention(nn.Module):

@@ -1,10 +1,10 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Each ``ai_toolkit_tpu_torch/csrc/<name>.cu`` has a plain C interface. At first
-use it is compiled with ``nvcc`` for ``sm_90a`` into
-``build/kernels/lib<name>_<hash>.so`` at the root of the checkout, where the
-hash covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time, and there
+Each ``ai_toolkit_tpu_torch/csrc/<name>.cu`` has a plain C interface and may
+include the ``.cuh`` headers beside it. At first use it is compiled with
+``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>_<hash>.so`` at the root
+of the checkout, where the hash covers the source, the headers and the flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is. Nothing here runs at import time, and there
 is no other way to get a kernel: no nvcc, no kernel.
 """
 
@@ -39,8 +39,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path; its hash covers the source, every header of
+    ``csrc/`` (a source may include any of them) and the flags."""
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

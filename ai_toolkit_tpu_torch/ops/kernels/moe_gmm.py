@@ -1,0 +1,267 @@
+"""Grouped SwiGLU MoE dispatch: the hand-written CUDA kernels, forward and dx,
+their plain versions, and the gather / combine around them
+(``ai_toolkit_tpu/ops/pallas/moe_gmm.py`` in PyTorch).
+
+The forward replaces the Pallas ``_fwd_kernel`` with ``csrc/moe_gmm_fwd.cu``,
+the input gradient replaces ``_dx_kernel`` with ``csrc/moe_gmm_bwd.cu``; both
+are two grouped GEMMs over expert-sorted 128-row tiles in which every block
+reads its tile's expert id itself and owns its output tile
+(``csrc/moe_gmm_tile.cuh``). What bounds them at the hidream shape
+(8192 routed rows, d 2560, h 6912, 4 experts, bf16): 6·N·d·h (forward) and
+10·N·d·h (dx) operations against well under a GB of weights and activations,
+so both are compute-bound; the simple designs run every product on the
+tensor cores (WMMA bf16, f32 accumulation) with a two-stage cp.async
+pipeline, and pass the SwiGLU activation (forward) or ``[dh1 | dh3]`` (dx)
+between their two GEMMs through device memory in the input type.
+
+``grouped_swiglu(x, w1, w3, w2, tile_group, block_m)`` keeps the JAX layout:
+x ``[N, d]`` expert-sorted with N a multiple of ``block_m``, w1/w3
+``[E, d, h]``, w2 ``[E, h, d]``, tile_group int32 ``[N / block_m]``. It is the
+custom op ``ait::grouped_swiglu``, whose autograd formula is the dx kernel;
+the bank gradients (the Pallas ``_dw_kernel``) are not ported and raise. CPU
+tensors go to the plain versions; CUDA tensors launch the kernels or raise.
+The kernels take ``block_m`` = :data:`BLOCK_M` = 128 (the TPU's VMEM
+budgeting, ``default_blocks``, has no counterpart here) and d, h multiples
+of 64.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+# kernel launches in this process, one count per kernel (each launch runs its two GEMM passes)
+launches = 0  # moe_gmm_fwd
+dx_launches = 0  # moe_gmm_dx
+
+BLOCK_M = 128  # rows per tile of the CUDA kernels (csrc/moe_gmm_tile.cuh BM)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fns: dict[str, tuple] = {}
+
+
+def expert_runs(tile_group: torch.Tensor, block_m: int):
+    """(expert, first row, end row) of each run of consecutive tiles of one expert."""
+    runs, start = [], 0
+    groups = tile_group.tolist()
+    for i in range(1, len(groups) + 1):
+        if i == len(groups) or groups[i] != groups[start]:
+            runs.append((groups[start], start * block_m, i * block_m))
+            start = i
+    return runs
+
+
+def grouped_swiglu_plain(x, w1, w3, w2, tile_group, block_m: int):
+    """``y = (silu(x W1[g]) * (x W3[g])) W2[g]`` per row tile in f32, cast to
+    x's dtype: the forward kernel's plain version."""
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    for g, r0, r1 in expert_runs(tile_group, block_m):
+        xs = x[r0:r1].float()
+        act = F.silu(xs @ w1[g].float()) * (xs @ w3[g].float())
+        y[r0:r1] = act @ w2[g].float()
+    return y.to(x.dtype)
+
+
+def grouped_swiglu_dx_plain(x, dy, w1, w3, w2, tile_group, block_m: int):
+    """dx per row tile in f32 with h1, h3 recomputed (the Pallas ``_dx_kernel``
+    formula), cast to x's dtype: the dx kernel's plain version."""
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    for g, r0, r1 in expert_runs(tile_group, block_m):
+        xs, dys = x[r0:r1].float(), dy[r0:r1].float()
+        a1, a3, a2 = w1[g].float(), w3[g].float(), w2[g].float()
+        h1, h3 = xs @ a1, xs @ a3
+        sg = torch.sigmoid(h1)
+        dp = dys @ a2.t()
+        dh1 = dp * h3 * (sg * (1.0 + h1 * (1.0 - sg)))
+        dh3 = dp * (h1 * sg)
+        dx[r0:r1] = dh1 @ a1.t() + dh3 @ a3.t()
+    return dx.to(x.dtype)
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        from ai_toolkit_tpu_torch.ops.kernels.build import load
+
+        lib = load(name)
+        entry = lib.ait_moe_gmm_fwd if name == "moe_gmm_fwd" else lib.ait_moe_gmm_dx
+        n_ptrs = 7 if name == "moe_gmm_fwd" else 8
+        entry.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+        lib.ait_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.ait_cuda_error_string.restype = ctypes.c_char_p
+        fn = _fns[name] = (entry, lib.ait_cuda_error_string)
+    return fn
+
+
+def _check_cuda(x, w1, w3, w2, tile_group, block_m: int, dy=None) -> None:
+    n, d = x.shape
+    e, _, h = w1.shape
+    if block_m != BLOCK_M:
+        raise ValueError(f"the CUDA kernels take block_m {BLOCK_M}, got {block_m}")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (w1, w3, w2, *(() if dy is None else (dy,)))):
+        raise TypeError(f"grouped_swiglu takes float32 or bfloat16 throughout, got x {x.dtype}, "
+                        f"banks {w1.dtype}/{w3.dtype}/{w2.dtype}")
+    if n % BLOCK_M or d % 64 or h % 64:
+        raise ValueError(f"grouped_swiglu kernels need N % {BLOCK_M} == 0 and d, h multiples of 64, "
+                         f"got N={n}, d={d}, h={h}")
+    if tile_group.dtype != torch.int32 or tile_group.shape != (n // BLOCK_M,):
+        raise ValueError(f"tile_group must be int32 [{n // BLOCK_M}], got {tile_group.dtype} "
+                         f"{tuple(tile_group.shape)}")
+    if not all(t.is_contiguous() for t in (x, w1, w3, w2, tile_group)):
+        raise ValueError("grouped_swiglu kernels need contiguous tensors")
+
+
+def _launch_fwd(x, w1, w3, w2, tile_group, block_m: int):
+    global launches
+    _check_cuda(x, w1, w3, w2, tile_group, block_m)
+    fn, err_str = _kernel("moe_gmm_fwd")
+    n, d = x.shape
+    h = w1.shape[-1]
+    act = torch.empty((n, h), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    rc = fn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(), tile_group.data_ptr(),
+            act.data_ptr(), y.data_ptr(), n, d, h, _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"moe_gmm_fwd launch failed: {err_str(rc).decode()} ({rc})")
+    launches += 1
+    return y
+
+
+def _launch_dx(x, dy, w1, w3, w2, tile_group, block_m: int):
+    global dx_launches
+    dy = dy.contiguous()
+    _check_cuda(x, w1, w3, w2, tile_group, block_m, dy)
+    fn, err_str = _kernel("moe_gmm_bwd")
+    n, d = x.shape
+    h = w1.shape[-1]
+    dh = torch.empty((n, 2 * h), dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    rc = fn(x.data_ptr(), dy.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+            tile_group.data_ptr(), dh.data_ptr(), dx.data_ptr(), n, d, h, _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"moe_gmm_dx launch failed: {err_str(rc).decode()} ({rc})")
+    dx_launches += 1
+    return dx
+
+
+def _device(*tensors) -> str:
+    devices = {t.device for t in tensors}
+    if len(devices) == 1:
+        (dev,) = devices
+        if dev.type in ("cpu", "cuda"):
+            return dev.type
+    raise ValueError(f"grouped_swiglu got tensors on {sorted(str(d) for d in devices)}")
+
+
+def _check_shapes(x, w1, w3, w2, tile_group, block_m: int) -> None:
+    if x.dim() != 2 or w1.dim() != 3:
+        raise ValueError(f"grouped_swiglu wants x [N, d] and banks [E, d, h], got {tuple(x.shape)}, "
+                         f"{tuple(w1.shape)}")
+    n, d = x.shape
+    e, _, h = w1.shape
+    if w1.shape != (e, d, h) or w3.shape != (e, d, h) or w2.shape != (e, h, d):
+        raise ValueError(f"banks w1 {tuple(w1.shape)} w3 {tuple(w3.shape)} w2 {tuple(w2.shape)} "
+                         f"do not fit x {tuple(x.shape)}")
+    if block_m <= 0 or n % block_m or tile_group.shape != (n // block_m,):
+        raise ValueError(f"N={n} is not tiled by block_m={block_m} with tile_group "
+                         f"{tuple(tile_group.shape)}")
+
+
+@torch.library.custom_op("ait::grouped_swiglu", mutates_args=())
+def grouped_swiglu_op(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+                      tile_group: torch.Tensor, block_m: int) -> torch.Tensor:
+    """The plain forward on CPU tensors, the kernel on CUDA tensors."""
+    if _device(x, w1, w3, w2, tile_group) == "cpu":
+        return grouped_swiglu_plain(x, w1, w3, w2, tile_group, block_m)
+    return _launch_fwd(x, w1, w3, w2, tile_group, block_m)
+
+
+@grouped_swiglu_op.register_fake
+def _(x, w1, w3, w2, tile_group, block_m):
+    return torch.empty_like(x)
+
+
+def grouped_swiglu_dx(x, dy, w1, w3, w2, tile_group, block_m: int):
+    """dx ``[N, d]`` of :func:`grouped_swiglu` for the cotangent ``dy``: the
+    plain version on CPU tensors, the dx kernel on CUDA tensors."""
+    if _device(x, dy, w1, w3, w2, tile_group) == "cpu":
+        return grouped_swiglu_dx_plain(x, dy, w1, w3, w2, tile_group, block_m)
+    return _launch_dx(x, dy, w1, w3, w2, tile_group, block_m)
+
+
+def _setup_context(ctx, inputs, output):
+    x, w1, w3, w2, tile_group, block_m = inputs
+    ctx.save_for_backward(x, w1, w3, w2, tile_group)
+    ctx.block_m = block_m
+
+
+def _backward(ctx, dy):
+    if any(ctx.needs_input_grad[1:4]):
+        raise NotImplementedError(
+            "grouped_swiglu: the expert-bank gradient (moe_gmm.py _dw_kernel) is not ported yet; it "
+            "comes with the full fine-tune slice that trains expert banks (only the x gradient is "
+            "ported: freeze the banks, as the LoRA path does)")
+    x, w1, w3, w2, tile_group = ctx.saved_tensors
+    dx = grouped_swiglu_dx(x, dy, w1, w3, w2, tile_group, ctx.block_m) if ctx.needs_input_grad[0] else None
+    return dx, None, None, None, None, None
+
+
+grouped_swiglu_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def grouped_swiglu(x, w1, w3, w2, tile_group, block_m: int = BLOCK_M):
+    """Row-grouped SwiGLU FFN: ``y[i*bm:(i+1)*bm] = swiglu(x_tile, W[g_i])``."""
+    _check_shapes(x, w1, w3, w2, tile_group, block_m)
+    return grouped_swiglu_op(x, w1, w3, w2, tile_group, int(block_m))
+
+
+def dispatch_rows(xf, topi, num_experts: int, block_m: int = BLOCK_M):
+    """The gather of :func:`moe_dispatch_swiglu`: token rows ``xf [T, d]`` and
+    their experts ``topi [..., K]`` (T = numel / K) -> (``x_sorted [npad, d]``,
+    expert-sorted in ``block_m``-row tiles with zero padding rows,
+    ``tile_group`` int32 ``[npad / block_m]``, ``dst [T*K]``: the row of each
+    (token, k) entry).
+
+    No host sync and no data-dependent shape: ``npad`` is the static bound of
+    the JAX code, counts come from ``index_add_`` (CUDA ``bincount`` reads its
+    maximum back to the host)."""
+    d = xf.shape[-1]
+    e, k = num_experts, topi.shape[-1]
+    n = topi.numel()
+    dev = xf.device
+    eid = topi.reshape(n).long()
+    tok = torch.arange(n // k, device=dev).repeat_interleave(k)
+    order = torch.argsort(eid, stable=True)
+    sorted_eid = eid[order]
+    counts = torch.zeros(e, dtype=torch.long, device=dev).index_add_(0, eid, torch.ones_like(eid))
+    padded = (counts + block_m - 1) // block_m * block_m
+    ends = torch.cumsum(padded, 0)
+    starts = ends - padded
+    group_start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - group_start[sorted_eid]
+    dst_sorted = starts[sorted_eid] + rank  # row in the padded buffer
+    npad = -(-(n + e * block_m) // block_m) * block_m  # static upper bound
+    x_sorted = xf.new_zeros((npad, d)).index_copy(0, dst_sorted, xf[tok[order]])
+    # expert id per row tile (tiles past the used region clamp to the last
+    # expert; their rows are zero and their outputs are never gathered)
+    tile_group = torch.searchsorted(ends, torch.arange(npad // block_m, device=dev) * block_m,
+                                    right=True).clamp_max(e - 1).to(torch.int32)
+    dst = torch.empty_like(order).scatter_(0, order, dst_sorted)
+    return x_sorted, tile_group, dst
+
+
+def moe_dispatch_swiglu(x, topv, topi, w1, w3, w2, block_m: int = BLOCK_M):
+    """Gather-dispatch MoE SwiGLU: x ``[B, S, d]``, topv/topi ``[B, S, K]``,
+    banks w1/w3 ``[E, d, h]``, w2 ``[E, h, d]`` -> ``[B, S, d]``, the
+    gate-weighted combine in f32 (JAX ``moe_dispatch_swiglu`` line for line,
+    the gather in :func:`dispatch_rows`)."""
+    b, s, d = x.shape
+    k = topi.shape[-1]
+    x_sorted, tile_group, dst = dispatch_rows(x.reshape(b * s, d), topi, w1.shape[0], block_m)
+    y_sorted = grouped_swiglu(x_sorted, w1, w3, w2, tile_group, block_m)
+    y_entries = y_sorted[dst].reshape(b, s, k, d)
+    return torch.einsum("bskd,bsk->bsd", y_entries.float(), topv.float()).to(x.dtype)

@@ -7,8 +7,8 @@ the JAX package. Modules are built empty on an explicit ``device``/``dtype``
 and filled by :func:`init_parameters` from an explicit ``torch.Generator``,
 with the JAX package's initializers (flax ``lecun_normal`` kernels, zero
 biases, unit norm scales). ``Linear`` carries the LoRA overlay of the JAX
-``Linear`` (``_lora_delta``); its quant / ctrl / LyCORIS overlays are not
-ported yet.
+``Linear`` (``_lora_delta``) and its weight-only quantized base
+(:class:`QuantizedWeight`); its ctrl / LyCORIS overlays are not ported yet.
 """
 
 from __future__ import annotations
@@ -59,10 +59,43 @@ class LoRA(nn.Module):
         return y + ((x @ self.a.to(dt)) @ self.b.to(dt)) * self.scale.to(dt)
 
 
-class Linear(nn.Module):
+class QuantizedWeight(nn.Module):
+    """A weight that ``adapters/quantize.py`` may move to weight-only storage:
+    ``qvalue`` (fp8 e4m3 or int8) and ``qscale`` (f32, one per output
+    channel) replace the ``weight`` parameter, and :meth:`dequantized` gives
+    ``qvalue * qscale`` in the compute dtype next to the product (JAX:
+    the ``quant`` collection, ``qv.astype(dtype) * qs.astype(dtype)``)."""
+
+    def _init_quant(self) -> None:
+        self.register_buffer("qvalue", None)
+        self.register_buffer("qscale", None)
+        self._qdtype: torch.dtype | None = None
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.weight.dtype if self.qvalue is None else self._qdtype
+
+    @property
+    def stored_weight(self) -> torch.Tensor:
+        """The tensor that holds the weight (parameter or quantized values)."""
+        return self.weight if self.qvalue is None else self.qvalue
+
+    def dequantized(self) -> torch.Tensor:
+        if self.qvalue is None:
+            return self.weight
+        dt = self._qdtype
+        return self.qvalue.to(dt) * self.qscale.to(dt)
+
+    def _set_quantized(self, qvalue: torch.Tensor, qscale: torch.Tensor) -> None:
+        self._qdtype = self.weight.dtype
+        self.weight = None
+        self.qvalue, self.qscale = qvalue, qscale
+
+
+class Linear(QuantizedWeight):
     """``y = x W^T + b``; ``x`` is cast to the weight dtype first (JAX:
     ``x.astype(self.dtype)``). With a :class:`LoRA` in ``self.lora``
-    (``adapters/lora.py``) its delta is added."""
+    (``adapters/lora.py``) its delta is added, also on a quantized weight."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  device=None, dtype=None):
@@ -72,15 +105,23 @@ class Linear(nn.Module):
         self.bias = (nn.Parameter(torch.empty(out_features, device=device, dtype=dtype))
                      if bias else None)
         self.lora: LoRA | None = None
+        self._init_quant()
 
     def init_weights(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight, self.in_features, generator)
         if self.bias is not None:
             self.bias.zero_()
 
+    def quantize_(self, fn) -> None:
+        """``fn(kernel [in, out]) -> (qvalue [in, out], qscale [1, out])`` in the
+        JAX layout; stored transposed, ``[out, in]`` and ``[out, 1]``."""
+        q, s = fn(self.weight.detach().t())
+        self._set_quantized(q.t().contiguous(), s.t().contiguous())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype)
-        y = F.linear(x, self.weight, self.bias)
+        w = self.dequantized()
+        x = x.to(w.dtype)
+        y = F.linear(x, w, self.bias)
         return y if self.lora is None else self.lora(x, y)
 
 
@@ -199,7 +240,7 @@ class AdaLayerNormZero(nn.Module):
         self.lin = Linear(dim, dim * n_mods, device=device, dtype=dtype)
 
     def forward(self, cond: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        return self.lin(F.silu(cond.to(self.lin.weight.dtype))).chunk(self.n_mods, dim=-1)
+        return self.lin(F.silu(cond.to(self.lin.compute_dtype))).chunk(self.n_mods, dim=-1)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -2,20 +2,28 @@
 """Smoke test of the PyTorch port on one CUDA card: ``python3 chip_smoke.py [--profile DIR]``.
 
 Phases (any failure raises and the script exits non-zero):
-  1. environment: versions, card name and power limit, TF32 off, both kernel
-     libraries built in parallel;
+  1. environment: versions, card name and power limit, TF32 off, the four
+     kernel libraries built in parallel (one nvcc each);
   2. the flash forward kernel against its plain version at the shapes the
      paths give it, timed against it and against the library yardstick;
   3. the flash backward kernels (dq, dk/dv) the same way;
-  4. a full-width, reduced-depth flux DiT on the card against the same module
-     on the CPU: the forward, and one LoRA training step's loss and gradients;
-  5. the main path of this slice: the flux-dev LoRA ``sd_trainer`` job at
-     1024^2 through ``ai_toolkit_tpu_torch.jobs``, with the launches of every
-     kernel per step checked (``--profile DIR`` adds a ``torch.profiler``
-     split of its last step, written to DIR);
-  6. the generate path: the flux-dev ``generate`` job at 1024x1024, 8 steps,
-     2 prompts, loading the LoRA the train job saved, launch count checked;
-  7. a ragged resolution (1008x1008, 4481 tokens), 1 prompt, 2 steps.
+  4. the grouped SwiGLU MoE kernels (forward, dx) the same way, at the
+     hidream shapes with a real top-2 routing;
+  5. full-width, reduced-depth flux and hidream DiTs on the card against the
+     same modules on the CPU: the forward, and one LoRA training step's loss
+     and gradients;
+  6. the flux-dev LoRA ``sd_trainer`` job at 1024^2 through
+     ``ai_toolkit_tpu_torch.jobs``, with the launches of every kernel per step
+     checked (``--profile DIR`` adds a ``torch.profiler`` split of its last
+     step, written to DIR);
+  7. the flux-dev ``generate`` job at 1024x1024, 8 steps, 2 prompts, loading
+     the LoRA the train job saved, launch count checked;
+  8. a ragged resolution (1008x1008, 4481 tokens), 1 prompt, 2 steps;
+  9. the main path of this slice: the hidream LoRA ``sd_trainer`` job at
+     1024^2 on an fp8 base with the grouped MoE dispatch, launches per step
+     checked (``--profile DIR`` profiles its last step too);
+  10. the hidream ``generate`` job at 1024x1024, 8 steps, 2 prompts, with
+     the LoRA it saved.
 The line before the last is the kernel table; the last line is the result.
 """
 
@@ -41,6 +49,7 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 FLASH_CASES = [
     ((1, 4608, 4608, 24, 128), torch.bfloat16, 2e-2),  # flux-dev 1024^2: 512 text + 4096 image
     ((1, 4481, 4481, 24, 128), torch.bfloat16, 2e-2),  # 1008^2: ragged tails
+    ((1, 4352, 4352, 20, 128), torch.bfloat16, 2e-2),  # hidream 1024^2: 256 text + 4096 image
     ((2, 300, 190, 4, 64), torch.float32, 1e-4),  # rect, ragged, D=64
     ((1, 16, 16, 2, 128), torch.float32, 1e-4),  # smaller than one tile
 ]
@@ -53,10 +62,23 @@ BLOCKS_PER_FORWARD = 19 + 38  # flux-dev double + single blocks, one attention e
 BWD_CASES = [
     ((1, 4608, 4608, 24, 128), torch.bfloat16, 2e-2),
     ((1, 4481, 4481, 24, 128), torch.bfloat16, 2e-2),
+    ((1, 4352, 4352, 20, 128), torch.bfloat16, 2e-2),  # hidream
     ((2, 300, 190, 4, 64), torch.float32, 1e-4),
     ((1, 16, 16, 2, 128), torch.float32, 1e-4),
 ]
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+# grouped SwiGLU: (tokens, d, h, experts), dtype, tolerance on max|out - ref| / max|ref|
+# for the forward and dx against the f32 plain version, the expert that gets no
+# token (or None); a real top-2 routing of random activations. bf16 rounds the
+# SwiGLU activation (forward) and dh1/dh3 (dx) to bf16 between the two GEMMs
+# (f32 accumulation); f32 differs from the plain version by summation order only
+MOE_CASES = [
+    ((4096, 2560, 6912, 4), torch.bfloat16, 2e-2, None),  # double block: 4096 image tokens x top-2
+    ((4352, 2560, 6912, 4), torch.bfloat16, 2e-2, None),  # single block: 256 text + 4096 image
+    ((1000, 2560, 6912, 4), torch.bfloat16, 2e-2, 3),  # ragged, expert 3 gets no token
+    ((100, 64, 128, 3), torch.float32, 1e-4, None),
+]
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "moe_gmm_fwd", "moe_gmm_bwd")
+HIDREAM_BLOCKS = 16 + 32  # double + single blocks: one attention and one MoE FFN each
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TRAIN_WARMUP = 2
@@ -246,28 +268,137 @@ def bwd_kernels_vs_plain() -> dict:
     return res
 
 
+def _routed_rows(n_tok, d, e, dtype, gen, empty=None):
+    """Expert-sorted rows of a top-2 routing of random activations, as the
+    MoE FFN's dispatch builds them: (x_sorted, tile_group, routed row count)."""
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm
+
+    x = _rand((n_tok, d), dtype, gen)
+    logits = torch.randn((n_tok, e), generator=gen, device="cuda")
+    if empty is not None:
+        logits[:, empty] = -30.0
+    _, topi = torch.topk(torch.softmax(logits, -1), 2)
+    x_sorted, tile_group, _ = moe_gmm.dispatch_rows(x, topi, e)
+    return x_sorted, tile_group, topi.numel()
+
+
+def moe_kernels_vs_plain() -> dict:
+    phase("moe_gmm forward and dx kernels vs plain versions")
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    err = {"moe": 0.0, "moe_dx": 0.0}
+    for (n_tok, d, h, e), dt, tol, empty in MOE_CASES:
+        banks = [(torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5).to(dt)
+                 for s in ((e, d, h), (e, d, h), (e, h, d))]
+        xs, tg, n = _routed_rows(n_tok, d, e, dt, gen, empty)
+        dy = _rand(xs.shape, dt, gen)
+        y = moe_gmm.grouped_swiglu(xs, *banks, tg)
+        dx = moe_gmm.grouped_swiglu_dx(xs, dy, *banks, tg, moe_gmm.BLOCK_M)
+        torch.cuda.synchronize()
+        rel, absd = [], []
+        for name, out, ref in (
+                ("moe", y, moe_gmm.grouped_swiglu_plain(xs.float(), *banks, tg, moe_gmm.BLOCK_M)),
+                ("moe_dx", dx, moe_gmm.grouped_swiglu_dx_plain(xs.float(), dy.float(), *banks, tg,
+                                                              moe_gmm.BLOCK_M))):
+            check(out.dtype == dt and bool(torch.isfinite(out).all()), f"{name} output not finite")
+            a = (out.float() - ref).abs().max().item()
+            absd.append(a)
+            rel.append(a / ref.abs().max().item())
+            err[name] = max(err[name], a)
+        groups = torch.bincount(tg.long(), minlength=e).tolist()
+        print(f"(tokens,d,h,E)=({n_tok},{d},{h},{e}) {str(dt)[6:]} routed rows {n} -> {xs.shape[0]} "
+              f"(tiles per expert {groups}) rel err fwd/dx = {rel[0]:.3e}/{rel[1]:.3e} (tol {tol:g}); "
+              f"max abs {absd[0]:.3e}/{absd[1]:.3e}")
+        check(max(rel) <= tol, "the MoE kernels disagree with their plain versions")
+        del banks, xs, dy, y, dx
+        torch.cuda.empty_cache()
+
+    # timing at the double-block shape
+    (n_tok, d, h, e), dt = MOE_CASES[0][:2]
+    banks = [(torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5).to(dt)
+             for s in ((e, d, h), (e, d, h), (e, h, d))]
+    w1, w3, w2 = banks
+    xs, tg, n = _routed_rows(n_tok, d, e, dt, gen)
+    dy = _rand(xs.shape, dt, gen)
+    # the library yardstick: one cuBLAS product sequence per expert over the
+    # same sorted rows (its padding rows included), its autograd for dx
+    runs = [(g, r0, r1) for g, r0, r1 in moe_gmm.expert_runs(tg, moe_gmm.BLOCK_M)]
+    xr = xs.detach().requires_grad_()
+    parts = [xr[r0:r1] for _, r0, r1 in runs]
+
+    def library():
+        return [(F.silu(xp @ w1[g]) * (xp @ w3[g])) @ w2[g] for xp, (g, _, _) in zip(parts, runs)]
+
+    @torch.no_grad()
+    def library_fwd():
+        return library()
+
+    lib_out = library()
+    res = {}
+    for name, kern, plain, lib, flops, nbytes in (
+        ("moe", lambda: moe_gmm.grouped_swiglu(xs, w1, w3, w2, tg),
+         lambda: moe_gmm.grouped_swiglu_plain(xs, w1, w3, w2, tg, moe_gmm.BLOCK_M), library_fwd,
+         6 * n * d * h, 2 * (3 * e * d * h + 2 * n * d)),  # banks, x in, y out
+        ("moe_dx", lambda: moe_gmm.grouped_swiglu_dx(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M),
+         lambda: moe_gmm.grouped_swiglu_dx_plain(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M),
+         lambda: torch.autograd.grad(lib_out, xr, [dy[r0:r1] for _, r0, r1 in runs], retain_graph=True),
+         10 * n * d * h, 2 * (3 * e * d * h + 3 * n * d)),  # banks, x and dy in, dx out
+    ):
+        ms, plain_ms, reps = _in_turns(kern, plain)
+        library_ms = statistics.median(_time_ms(lib, 20))
+        bound, by = _bound_ms(flops, nbytes)
+        res[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound, "bound_by": by}
+        print(f"double-block shape ({n_tok} tokens x top-2 = {n} rows, d {d}, h {h}, E {e}) bf16 {name}: "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, median of "
+              f"{reps}; library per-expert cuBLAS {library_ms:.4f} ms; bound {bound:.4f} ms ({by})")
+    xt = _rand((n_tok, d), dt, gen)
+    dense_ms = statistics.median(_time_ms(lambda: torch.einsum(
+        "esh,ehd->esd", F.silu(torch.einsum("sd,edh->esh", xt, w1)) * torch.einsum("sd,edh->esh", xt, w3),
+        w2), 10))
+    print(f"for information: the dense dispatch (every expert on all {n_tok} tokens, cuBLAS) "
+          f"{dense_ms:.4f} ms")
+    del banks, w1, w3, w2, xs, dy, xr, parts, lib_out
+    torch.cuda.empty_cache()
+    return res
+
+
 def _reset_launches() -> None:
     from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm
 
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    moe_gmm.launches = moe_gmm.dx_launches = 0
 
 
 def _launches() -> dict[str, int]:
     from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm
 
-    return {"fwd": fa.launches, "dq": fa.dq_launches, "dkv": fa.dkv_launches}
+    return {"fwd": fa.launches, "dq": fa.dq_launches, "dkv": fa.dkv_launches,
+            "moe": moe_gmm.launches, "moe_dx": moe_gmm.dx_launches}
 
 
-def dit_reference() -> None:
-    phase("full-width flux DiT (1 double + 1 single block, f32): card vs CPU")
+def _counts(fwd=0, dq=0, dkv=0, moe=0, moe_dx=0) -> dict[str, int]:
+    return {"fwd": fwd, "dq": dq, "dkv": dkv, "moe": moe, "moe_dx": moe_dx}
+
+
+def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_launches: dict) -> None:
+    """A full-width DiT cut to 1 double + 1 single block in f32, on the card
+    against the same module on the CPU (which takes the kernels' plain
+    versions): the forward, and one LoRA training step's loss and gradients."""
+    phase(f"full-width {label} DiT (1 double + 1 single block, f32): card vs CPU")
     from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
-    from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig, FluxDiT, flux_lora_targets
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxDiT
     from ai_toolkit_tpu_torch.ops.layers import init_parameters
     from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
 
-    cfg = dataclasses.replace(FluxConfig.dev(), depth_double=1, depth_single=1, dtype=torch.float32)
-    gpu = init_parameters(FluxDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0)).eval()
-    cpu = FluxDiT(cfg, device="cpu").eval()
+    cfg = dataclasses.replace(cfg, depth_double=1, depth_single=1, dtype=torch.float32)
+    # a frozen base, as in LoRA training (the MoE bank gradient is not ported)
+    gpu = init_parameters(FluxDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
+    gpu.eval().requires_grad_(False)
+    cpu = FluxDiT(cfg, device="cpu").eval().requires_grad_(False)
     cpu.load_state_dict(gpu.state_dict())
     g = torch.Generator().manual_seed(1)
     n_txt, hh, ww = 32, 8, 12
@@ -286,12 +417,12 @@ def dit_reference() -> None:
     tol = 1e-3 * max(1.0, scale)  # f32 both sides, TF32 off; summation order only
     print(f"forward: out {tuple(out.shape)} max|ref|={scale:.3f} max_abs_err={err:.3e} "
           f"(tol {tol:.3e}) kernel launches={_launches()}")
-    check(_launches() == {"fwd": 2, "dq": 0, "dkv": 0} and bool(torch.isfinite(out).all())
+    check(_launches() == fwd_launches and bool(torch.isfinite(out).all())
           and err <= tol, "DiT on the card disagrees with the CPU")
 
     # one LoRA training step's loss and gradients; b is made non-zero, else the
     # gradient of a is zero and the check proves nothing about it
-    spec = LoRASpec(rank=16, alpha=16.0, target_patterns=flux_lora_targets())
+    spec = LoRASpec(rank=16, alpha=16.0, target_patterns=targets)
     lg = build_lora(gpu, spec, torch.Generator("cuda").manual_seed(2))
     gb = torch.Generator("cuda").manual_seed(3)
     with torch.no_grad():
@@ -318,7 +449,7 @@ def dit_reference() -> None:
     print(f"LoRA train step: loss card {loss:.6f} vs CPU {ref_loss:.6f}; {len(names)} LoRA tensors, "
           f"worst max|dgrad|/max|grad| {worst:.3e} (tol 1e-3); kernel launches={launches}")
     check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss) and worst <= 1e-3
-          and launches == {"fwd": 2, "dq": 2, "dkv": 2}, "LoRA training step on the card disagrees")
+          and launches == step_launches, "LoRA training step on the card disagrees")
 
 
 def _train_dataset(n: int = 4, size: int = 1024) -> str:
@@ -342,17 +473,22 @@ def _train_dataset(n: int = 4, size: int = 1024) -> str:
     return folder
 
 
-def train_job(profile_dir: str | None) -> dict:
-    """The main path: configs/examples/train_lora_flux_tpu.yaml with seeded
-    random weights, bf16 base (no quantize), one 1024 bucket, latents cached
-    in memory, no sampling, one card."""
+FLUX_MODEL = {"name_or_path": "", "arch": "flux", "model_kwargs": {"size": "dev"}}
+HIDREAM_MODEL = {"name_or_path": "", "arch": "hidream",
+                 "model_kwargs": {"size": "full", "moe_dispatch": "grouped"}}
+
+
+def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None) -> dict:
+    """A LoRA ``sd_trainer`` job on the card (configs/examples/train_lora_flux_tpu.yaml,
+    train_lora_hidream_tpu.yaml) with seeded random weights, one 1024 bucket,
+    latents cached in memory, no sampling; ``per_step`` is the launches of each
+    kernel one step must make."""
     import shutil
 
     from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
     from ai_toolkit_tpu_torch.jobs import get_job
 
     steps = TRAIN_WARMUP + TRAIN_TIMED + (1 if profile_dir else 0)
-    name = "smoke_flux_lora"
     shutil.rmtree(os.path.join(OUT_DIR, "train", name), ignore_errors=True)
     raw = {"job": "extension", "config": {"name": name, "process": [{
         "type": "sd_trainer", "training_folder": os.path.join(OUT_DIR, "train"),
@@ -367,16 +503,16 @@ def train_job(profile_dir: str | None) -> dict:
                   "timestep_type": "flux_shift", "optimizer": "adamw8bit", "lr": 1e-4,
                   "max_grad_norm": 1.0, "ema_config": {"use_ema": True, "ema_decay": 0.99},
                   "dtype": "bf16", "seed": 42},
-        "model": {"name_or_path": "", "arch": "flux", "model_kwargs": {"size": "dev"}, "quantize": False},
+        "model": model,
         "logging": {"log_every": 1}}]}}
-    gc.collect()
+    gc.collect()  # the previous job's model is unreachable; free it before the next
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if profile_dir:
-        os.environ["AIT_PROFILE_DIR"] = profile_dir
+        os.environ["AIT_PROFILE_DIR"] = os.path.join(profile_dir, name)
     t0 = time.perf_counter()
     job = get_job(raw, device="cuda")
-    _reset_launches()  # count only the launches of this run of the main path
+    _reset_launches()  # count only the launches of this run of the path
     (result,) = job.run()
     launches = _launches()
     wall = time.perf_counter() - t0
@@ -393,9 +529,8 @@ def train_job(profile_dir: str | None) -> dict:
     print(f"job wall {wall:.1f} s (model build, seeded init and latent/text caching included), "
           f"peak allocated {peak:.2f} GiB, launches {launches}")
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
-    per_step = {k: v / steps for k, v in launches.items()}
-    check(per_step == {"fwd": BLOCKS_PER_FORWARD, "dq": BLOCKS_PER_FORWARD, "dkv": BLOCKS_PER_FORWARD},
-          f"launches per step {per_step} != {BLOCKS_PER_FORWARD} of each kernel")
+    got = {k: v / steps for k, v in launches.items()}
+    check(got == per_step, f"launches per step {got} != {per_step}")
     tr, ema = proc.state.trainable, proc.state.ema
     b_keys = [k for k in tr if k.endswith(".b")]
     check(all(bool(tr[k].abs().max() > 0) for k in b_keys), "a LoRA b factor is still zero")
@@ -413,19 +548,21 @@ def train_job(profile_dir: str | None) -> dict:
             "peak_gib": peak, "lora_path": path}
 
 
-def generate_job(width: int, height: int, steps: int, prompts: list[str],
-                 lora_path: str | None = None) -> int:
+def generate_job(model: dict, width: int, height: int, steps: int, prompts: list[str],
+                 per_step: dict[str, int], lora_path: str | None = None) -> dict[str, int]:
+    """A ``generate`` job on the card; ``per_step`` is the launches of each
+    kernel one denoise step must make."""
     from PIL import Image
 
     from ai_toolkit_tpu_torch.jobs import run_job
 
-    proc = {"type": "generate", "training_folder": OUT_DIR,
-            "model": {"name_or_path": "", "arch": "flux", "model_kwargs": {"size": "dev"}},
+    proc = {"type": "generate", "training_folder": OUT_DIR, "model": model,
             "sample": {"sampler": "flowmatch", "width": width, "height": height, "guidance_scale": 4,
                        "sample_steps": steps, "seed": 42, "walk_seed": True, "prompts": prompts}}
     if lora_path:
         proc["lora_path"] = lora_path
-    raw = {"job": "generate", "config": {"name": f"smoke_{width}x{height}", "process": [proc]}}
+    raw = {"job": "generate", "config": {"name": f"smoke_{model['arch']}_{width}x{height}",
+                                         "process": [proc]}}
     gc.collect()  # the previous job's model is unreachable; free it before the next
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -447,9 +584,9 @@ def generate_job(width: int, height: int, steps: int, prompts: list[str],
     print(f"job wall {wall:.1f} s (model build + seeded init included), "
           f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"launches {launches}{' (LoRA ' + lora_path + ' overlaid)' if lora_path else ''}")
-    expected = len(prompts) * steps * BLOCKS_PER_FORWARD
-    check(launches == {"fwd": expected, "dq": 0, "dkv": 0}, f"launches {launches} != {expected} forward")
-    return launches["fwd"]
+    expected = {k: v * len(prompts) * steps for k, v in per_step.items()}
+    check(launches == expected, f"launches {launches} != {expected}")
+    return launches
 
 
 def main(argv: list[str]) -> int:
@@ -464,17 +601,42 @@ def main(argv: list[str]) -> int:
     card = environment()
     fwd = kernel_vs_plain()
     bwd = bwd_kernels_vs_plain()
-    dit_reference()
 
-    phase("main path: flux-dev LoRA sd_trainer job, 1024x1024, batch 1, rank 16, adamw8bit, EMA")
-    train = train_job(args.profile)
+    moe = moe_kernels_vs_plain()
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig, flux_lora_targets
+    from ai_toolkit_tpu_torch.models.hidream_model import hidream_dit_config, hidream_lora_targets
 
-    phase("generate path: flux-dev generate job, 1024x1024, 8 steps, 2 prompts, with the trained LoRA")
+    dit_reference("flux-dev", FluxConfig.dev(), flux_lora_targets(), _counts(fwd=2), _counts(2, 2, 2))
+    # grouped MoE in f32: the kernels' CUDA-core path inside the model; with
+    # checkpointing the MoE forward runs twice per block
+    dit_reference("hidream (grouped MoE)", hidream_dit_config("grouped"), hidream_lora_targets(),
+                  _counts(fwd=2, moe=2), _counts(2, 2, 2, moe=4, moe_dx=2))
+
+    phase("flux-dev LoRA sd_trainer job, 1024x1024, batch 1, rank 16, adamw8bit, EMA")
+    flux_step = _counts(BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD)
+    train = train_job("smoke_flux_lora", {**FLUX_MODEL, "quantize": False}, flux_step, args.profile)
+
+    phase("flux-dev generate job, 1024x1024, 8 steps, 2 prompts, with the trained LoRA")
     prompts = ["p3r5on photo of a red fox", "macro photo of a dew drop on a leaf"]
-    generate_job(1024, 1024, 8, prompts, lora_path=train["lora_path"])
+    generate_job(FLUX_MODEL, 1024, 1024, 8, prompts, _counts(fwd=BLOCKS_PER_FORWARD),
+                 lora_path=train["lora_path"])
 
-    phase("ragged resolution: 1008x1008 (4481 tokens), 2 steps, 1 prompt")
-    generate_job(1008, 1008, 2, prompts[:1])
+    phase("ragged resolution: flux-dev 1008x1008 (4481 tokens), 2 steps, 1 prompt")
+    generate_job(FLUX_MODEL, 1008, 1008, 2, prompts[:1], _counts(fwd=BLOCKS_PER_FORWARD))
+
+    phase("main path of this slice: hidream LoRA sd_trainer job, 1024x1024, fp8 base, grouped MoE, "
+          "batch 1, rank 16, adamw8bit, EMA")
+    # per step: the attention forward once per block (its outputs are kept by the
+    # checkpoint policy), the grouped MoE forward twice (forward and recompute), one dq,
+    # dk/dv and MoE dx per block
+    hidream_step = _counts(HIDREAM_BLOCKS, HIDREAM_BLOCKS, HIDREAM_BLOCKS, 2 * HIDREAM_BLOCKS,
+                           HIDREAM_BLOCKS)
+    hidream = train_job("smoke_hidream_lora", {**HIDREAM_MODEL, "quantize": True, "qtype": "qfloat8"},
+                        hidream_step, args.profile)
+
+    phase("hidream generate job, 1024x1024, 8 steps, 2 prompts, bf16 base, with the trained LoRA")
+    generate_job(HIDREAM_MODEL, 1024, 1024, 8, prompts, _counts(fwd=HIDREAM_BLOCKS, moe=HIDREAM_BLOCKS),
+                 lora_path=hidream["lora_path"])
 
     banned = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ai_toolkit_tpu")]
@@ -482,14 +644,21 @@ def main(argv: list[str]) -> int:
     print(card)
     src = "ai_toolkit_tpu_torch/csrc/"
     pallas = "ai_toolkit_tpu/ops/pallas/flash_attention.py"
-    rows = [("flash_attention_fwd", src + "flash_attention_fwd.cu", f"{pallas}:31", "fwd", fwd),
-            ("flash_attention_bwd_dq", src + "flash_attention_bwd.cu", f"{pallas}:152", "dq", bwd["dq"]),
-            ("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu", f"{pallas}:174", "dkv", bwd["dkv"])]
+    gmm = "ai_toolkit_tpu/ops/pallas/moe_gmm.py"
+    # launches: each kernel's count over its main path's run (flash: the flux
+    # train job; MoE: the hidream train job)
+    rows = [("flash_attention_fwd", src + "flash_attention_fwd.cu", f"{pallas}:31", train, "fwd", fwd),
+            ("flash_attention_bwd_dq", src + "flash_attention_bwd.cu", f"{pallas}:152", train, "dq",
+             bwd["dq"]),
+            ("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu", f"{pallas}:174", train, "dkv",
+             bwd["dkv"]),
+            ("moe_gmm_fwd", src + "moe_gmm_fwd.cu", f"{gmm}:99", hidream, "moe", moe["moe"]),
+            ("moe_gmm_dx", src + "moe_gmm_bwd.cu", f"{gmm}:121", hidream, "moe_dx", moe["moe_dx"])]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": train["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "launches": run["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"]} for name, source, replaces, key, r in rows]}))
+        "library_ms": r["library_ms"]} for name, source, replaces, run, key, r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -143,3 +143,79 @@ def test_checkpointed_dit_runs_each_kernel_once_per_block(gen):
     grads = torch.autograd.grad(loss, [p for m in lora.values() for p in m.parameters()])
     assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (4, 4, 4)
     assert all(bool(torch.isfinite(x).all()) for x in grads)
+
+
+# ---- the grouped SwiGLU MoE kernels (ops/kernels/moe_gmm.py) ----
+
+def _moe_inputs(gen, n_tok, d, h, e, dtype, k=2, empty=None):
+    """Expert-sorted rows of a real top-k routing of random activations."""
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm
+
+    x = torch.randn((1, n_tok, d), generator=gen, device="cuda")
+    logits = torch.randn((1, n_tok, e), generator=gen, device="cuda")
+    if empty is not None:
+        logits[..., empty] = -30.0
+    topv, topi = torch.topk(torch.softmax(logits, -1), k)
+    banks = [(torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5).to(dtype)
+             for s in ((e, d, h), (e, d, h), (e, h, d))]
+    return x.to(dtype), topv, topi, banks, moe_gmm
+
+
+# max|out - ref| / max|ref| against the f32 plain version: bf16 rounds the
+# SwiGLU activation (forward) and dh1/dh3 (dx) between the two GEMMs; f32 is
+# summation order only
+@pytest.mark.parametrize("n_tok,d,h,e,dtype,tol,empty", [
+    (100, 64, 128, 3, torch.float32, 1e-4, None),
+    (300, 256, 512, 4, torch.bfloat16, 2e-2, None),
+    (300, 256, 512, 4, torch.bfloat16, 2e-2, 1),  # expert 1 gets no token
+    (257, 192, 320, 2, torch.bfloat16, 2e-2, None),  # d, h not multiples of 128
+])
+def test_moe_kernels_match_plain(gen, n_tok, d, h, e, dtype, tol, empty):
+    x, topv, topi, (w1, w3, w2), moe = _moe_inputs(gen, n_tok, d, h, e, dtype, empty=empty)
+    before = (moe.launches, moe.dx_launches)
+    xt = x.detach().requires_grad_()
+    out = moe.moe_dispatch_swiglu(xt, topv, topi, w1, w3, w2)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    (dx,) = torch.autograd.grad(out, xt, g)
+    torch.cuda.synchronize()
+    assert (moe.launches, moe.dx_launches) == (before[0] + 1, before[1] + 1)
+    # the same rows through the kernels' wrappers and their plain versions
+    xs = torch.randn((4 * moe.BLOCK_M, d), generator=gen, device="cuda").to(dtype)
+    dys = torch.randn(xs.shape, generator=gen, device="cuda").to(dtype)
+    tg = torch.tensor([0, 0, e - 1, e - 1], dtype=torch.int32, device="cuda")
+    for kern, plain in (
+        (moe.grouped_swiglu(xs, w1, w3, w2, tg), moe.grouped_swiglu_plain(xs.float(), w1, w3, w2, tg,
+                                                                          moe.BLOCK_M)),
+        (moe.grouped_swiglu_dx(xs, dys, w1, w3, w2, tg, moe.BLOCK_M),
+         moe.grouped_swiglu_dx_plain(xs.float(), dys.float(), w1, w3, w2, tg, moe.BLOCK_M)),
+    ):
+        assert kern.dtype == dtype and bool(torch.isfinite(kern).all())
+        assert (kern.float() - plain).abs().max().item() <= tol * plain.abs().max().item()
+    assert bool(torch.isfinite(dx).all())
+
+
+def test_moe_kernels_are_deterministic(gen):
+    x, topv, topi, (w1, w3, w2), moe = _moe_inputs(gen, 500, 256, 512, 4, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        xt = x.detach().requires_grad_()
+        out = moe.moe_dispatch_swiglu(xt, topv, topi, w1, w3, w2)
+        runs.append((out, *torch.autograd.grad(out, xt, torch.ones_like(out))))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_moe_wrapper_raises_instead_of_falling_back(gen):
+    x, topv, topi, (w1, w3, w2), moe = _moe_inputs(gen, 64, 128, 256, 2, torch.bfloat16)
+    xs = torch.zeros((moe.BLOCK_M, 128), device="cuda", dtype=torch.bfloat16)
+    tg = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        moe.grouped_swiglu(xs.half(), w1.half(), w3.half(), w2.half(), tg)
+    with pytest.raises(ValueError):
+        moe.grouped_swiglu(torch.zeros((64, 128), device="cuda", dtype=torch.bfloat16), w1, w3, w2,
+                           torch.zeros(1, dtype=torch.int32, device="cuda"), 64)
+    with pytest.raises(ValueError):
+        moe.grouped_swiglu(xs, w1.cpu(), w3, w2, tg)
+    w1g = w1.detach().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        moe.moe_dispatch_swiglu(x, topv, topi, w1g, w3, w2).float().sum().backward()

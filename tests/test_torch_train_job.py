@@ -82,13 +82,14 @@ def test_sd_trainer_job_trains_saves_and_generate_loads_the_lora(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"model": {"quantize": True}}, "quantize"),
+    ({"model": {"quantize_te": True}}, "quantize"),  # the DiT's quantize is ported; the TEs' is not
     ({"dataset": {"resolution": [64, 128]}}, "several resolutions"),
     ({"dataset": {"cache_latents_to_disk": True}}, "cache_latents_to_disk"),
     ({"train": {"lr_scheduler": "cosine"}}, "lr_scheduler"),
     ({"train": {"noise_offset": 0.1}}, "train-step knobs"),
     ({"network": {"type": "lokr"}}, "only LoRA"),
     ({"mesh": {"axes": {"fsdp": 4}}}, "multi-GPU"),
+    ({"model": {"quantize": True, "qtype": "uint4"}}, "4-bit"),
 ])
 def test_sd_trainer_refuses_what_the_slice_does_not_take(tmp_path, over, match):
     proc = _train_proc(tmp_path)
