@@ -10,6 +10,10 @@
 //   dx  = dh1 W1[g]^T + dh3 W3[g]^T,
 // with f32 accumulation. x, dy, dx [N, d]; W1/W3 [E, d, h], W2 [E, h, d];
 // dh [N, 2h] is scratch the caller allocates ([dh1 | dh3] per row).
+// When a bank needs its gradient the caller also passes act [N, h], which
+// the first pass fills with silu(h1) h3 (mode DW_HIDDEN), and moe_gmm_dw.cu
+// reads dh and act; when x needs no gradient it passes no dx, and only the
+// first pass runs.
 //
 // As in the forward, the Pallas kernel's [block_m, d] f32 accumulator over a
 // sequential hidden-axis grid does not carry over; two grouped GEMMs, each
@@ -24,9 +28,6 @@
 // h = 6912). The simple design: WMMA bf16 tiles, a two-stage cp.async
 // pipeline, and dh through device memory (4 N h bytes each way).
 //
-// The bank gradients (`_dw_kernel`) are not ported: the LoRA path trains no
-// expert bank.
-
 #include "moe_gmm_tile.cuh"
 
 using namespace ait_moe;
@@ -34,10 +35,11 @@ using namespace ait_moe;
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Every tensor is contiguous; N % 128 == 0,
-// d % 64 == 0, h % 64 == 0. Returns the cudaError_t of the launches.
+// d % 64 == 0, h % 64 == 0; act and dx may be null. Returns the cudaError_t
+// of the launches.
 int ait_moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* w3, const void* w2,
-                   const void* tile_group, void* dh_buf, void* dx, int N, int d, int h, int dtype,
-                   void* stream) {
+                   const void* tile_group, void* dh_buf, void* act, void* dx, int N, int d, int h,
+                   int dtype, void* stream) {
   if (!shapes_ok(N, d, h) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tg = static_cast<const int*>(tile_group);
@@ -55,6 +57,8 @@ int ait_moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* w3
   hid.out = dh_buf;
   hid.ldo = 2LL * h;
   hid.out2_col = h;
+  hid.act = act;
+  hid.ld_act = h;
   hid.tile_group = tg;
   hid.K = d;
 
@@ -72,13 +76,12 @@ int ait_moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* w3
   out.K = 2 * h;
 
   cudaError_t err;
-  if (dtype == 1) {
-    err = launch<bf16, DX_HIDDEN, 64>(hid, N, h, st);
-    if (err == cudaSuccess) err = launch_wide<bf16, DX_OUT>(out, N, d, st);
-  } else {
-    err = launch<float, DX_HIDDEN, 64>(hid, N, h, st);
-    if (err == cudaSuccess) err = launch_wide<float, DX_OUT>(out, N, d, st);
-  }
+  if (dtype == 1)
+    err = act ? launch<bf16, DW_HIDDEN, 64>(hid, N, h, st) : launch<bf16, DX_HIDDEN, 64>(hid, N, h, st);
+  else
+    err = act ? launch<float, DW_HIDDEN, 64>(hid, N, h, st) : launch<float, DX_HIDDEN, 64>(hid, N, h, st);
+  if (err == cudaSuccess && dx)
+    err = dtype == 1 ? launch_wide<bf16, DX_OUT>(out, N, d, st) : launch_wide<float, DX_OUT>(out, N, d, st);
   return (int)err;
 }
 

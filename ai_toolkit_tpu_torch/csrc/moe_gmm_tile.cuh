@@ -1,5 +1,5 @@
 // Grouped (per-expert) tile GEMMs for the MoE SwiGLU kernels, shared by
-// moe_gmm_fwd.cu and moe_gmm_bwd.cu.
+// moe_gmm_fwd.cu, moe_gmm_bwd.cu and moe_gmm_dw.cu.
 //
 // The rows of every operand A are expert-sorted and grouped in tiles of BM
 // rows: tile t belongs to expert tile_group[t] (ai_toolkit_tpu/ops/pallas/
@@ -10,12 +10,20 @@
 // chunks, double-buffered with cp.async. The block owns its output tile: no
 // atomics, so the results are the same bits from run to run.
 //
-// Four modes, each a pass of the two-pass kernels:
+// Six modes, each a pass of the kernels:
 //   GATE_UP   a  = silu(x W1[g]) * (x W3[g])              (forward, pass 1)
 //   DOWN      y  = a W2[g]                                 (forward, pass 2)
 //   DX_HIDDEN [dh1 | dh3] from h1 = x W1[g], h3 = x W3[g], dp = dy W2[g]^T
 //             (dh1 = dp h3 silu'(h1), dh3 = dp silu(h1))   (dx, pass 1)
+//   DW_HIDDEN DX_HIDDEN that also writes act = silu(h1) h3 (for dW2)
 //   DX_OUT    dx = dh1 W1[g]^T + dh3 W3[g]^T               (dx, pass 2)
+//   DW        dW[g] = A_g^T B_g over expert g's run of row tiles: the bank
+//             gradients [dW1 | dW3] = x^T [dh1 | dh3] and dW2 = act^T dy
+// DW is the one mode whose reduction runs over rows: its grid is (output row
+// tiles, output column tiles, experts), each block finds its expert's run of
+// tiles in tile_group itself (tiles are expert-sorted, so the run is
+// contiguous) and reads its A operand transposed (col_major WMMA fragments of
+// a [BK][BM] shared tile). An expert with no tile writes zeros.
 // bf16 products run on the tensor cores (WMMA 16x16x16, f32 accumulation);
 // f32 takes a CUDA-core FMA path with the same tiles, for exact checks.
 
@@ -40,7 +48,7 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int WARPS_M = 4, WARPS_N = 2;  // warp grid over a BM x BN tile (WMMA path)
 
-enum Mode { GATE_UP = 0, DOWN = 1, DX_HIDDEN = 2, DX_OUT = 3 };
+enum Mode { GATE_UP = 0, DOWN = 1, DX_HIDDEN = 2, DX_OUT = 3, DW_HIDDEN = 4, DW = 5 };
 
 // NA distinct A operands, NB weight operands (products), NOUT outputs.
 // colmajor(i): weight i is read transposed (B[k][n] = W[n][k]); a_of(i): its A.
@@ -65,6 +73,16 @@ struct Cfg<DX_HIDDEN> {
   __host__ __device__ static constexpr int a_of(int i) { return i == 2 ? 1 : 0; }
 };
 template <>
+struct Cfg<DW_HIDDEN> : Cfg<DX_HIDDEN> {
+  static constexpr int NOUT = 3;  // dh1, dh3 and act
+};
+template <>
+struct Cfg<DW> {
+  static constexpr int NA = 1, NB = 1, NOUT = 1;
+  __host__ __device__ static constexpr bool colmajor(int) { return false; }
+  __host__ __device__ static constexpr int a_of(int) { return 0; }
+};
+template <>
 struct Cfg<DX_OUT> {
   static constexpr int NA = 1, NB = 1, NOUT = 1;
   __host__ __device__ static constexpr bool colmajor(int) { return true; }
@@ -81,18 +99,26 @@ template <typename T, int BN>
 struct Dims {
   static constexpr int PAD = std::is_same<T, bf16>::value ? 8 : 4;
   static constexpr int LDA = BK + PAD;   // A tile [BM][LDA]
+  static constexpr int LDAT = BM + PAD;  // transposed A tile [BK][LDAT] (DW)
   static constexpr int LDBR = BN + PAD;  // row-major weight tile [BK][LDBR]
   static constexpr int LDBC = BK + PAD;  // transposed weight tile [BN][LDBC]
   static constexpr int LDO = BN + 4;     // f32 output tile [BM][LDO]
   static constexpr size_t a_bytes = round128(sizeof(T) * BM * LDA);
+  static constexpr size_t at_bytes = round128(sizeof(T) * BK * LDAT);
   static constexpr size_t out_bytes = round128(sizeof(float) * BM * LDO);
 };
+
+// Bytes of one A tile of the mode within a stage.
+template <typename T, int MODE, int BN>
+__host__ __device__ constexpr size_t a_tile_bytes() {
+  return MODE == DW ? Dims<T, BN>::at_bytes : Dims<T, BN>::a_bytes;
+}
 
 // Offset of weight tile i within a stage (the NA A tiles come first).
 template <typename T, int MODE, int BN>
 __host__ __device__ constexpr size_t b_off(int i) {
   using D = Dims<T, BN>;
-  size_t off = Cfg<MODE>::NA * D::a_bytes;
+  size_t off = Cfg<MODE>::NA * a_tile_bytes<T, MODE, BN>();
   for (int j = 0; j < i; ++j)
     off += round128(sizeof(T) * (Cfg<MODE>::colmajor(j) ? BN * D::LDBC : BK * D::LDBR));
   return off;
@@ -102,6 +128,7 @@ template <typename T, int MODE, int BN>
 struct Layout : Dims<T, BN> {
   using C = Cfg<MODE>;
   using D = Dims<T, BN>;
+  static constexpr size_t a_tile = a_tile_bytes<T, MODE, BN>();
   static constexpr size_t stage_bytes = b_off<T, MODE, BN>(C::NB);
   static constexpr size_t bytes =
       2 * stage_bytes > C::NOUT * D::out_bytes ? 2 * stage_bytes : C::NOUT * D::out_bytes;
@@ -110,7 +137,7 @@ struct Layout : Dims<T, BN> {
 struct Args {
   const void* a[2];           // A operands, row-major, BM-row tiles
   long long lda[2];           // their row strides (elements)
-  const void* b[3];           // weight banks, expert 0
+  const void* b[3];           // weight banks, expert 0 (DW: the B rows, row-major)
   long long b_expert[3];      // elements between experts of a bank
   long long ldb[3];           // row stride (row-major) or column stride (transposed)
   const void* b_alt;          // DX_OUT: the W3 bank, read for k >= k_split
@@ -118,8 +145,15 @@ struct Args {
   void* out;                  // output rows, row-major
   long long ldo;              // its row stride
   long long out2_col;         // DX_HIDDEN: column of the second output (dh3)
+  void* act;                  // DW_HIDDEN: act [N, h], row stride ld_act
+  long long ld_act;
+  void* out_hi;               // DW: output of the columns >= col_split (dW3)
+  long long col_split;        // DW: h for [dW1 | dW3]; the width (no split) for dW2
+  long long out_expert;       // DW: elements between experts of the outputs
   const int* tile_group;      // expert id of each row tile
-  int K;                      // reduction length, a multiple of BK
+  int ntiles;                 // DW: row tiles in tile_group
+  int M;                      // DW: output rows (A's columns), a multiple of 64
+  int K;                      // reduction length, a multiple of BK (DW: from the run)
 };
 
 __device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gptr) {
@@ -133,15 +167,19 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stage NROWS x NCOLS elements (global row stride ld) into shared rows of LD,
-// 16 bytes per copy.
+// 16 bytes per copy; columns from `cols` on are zero-filled, not read (the
+// ragged output-row edge of DW).
 template <typename T, int NROWS, int NCOLS, int LD>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld) {
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int cols = NCOLS) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CPR = NCOLS / VEC;
   static_assert(NCOLS % VEC == 0, "tile rows are whole 16-byte chunks");
   for (int i = threadIdx.x; i < NROWS * CPR; i += THREADS) {
     const int r = i / CPR, c = (i % CPR) * VEC;
-    cp_async16(dst + r * LD + c, src + r * ld + c);
+    if (c < cols)
+      cp_async16(dst + r * LD + c, src + r * ld + c);
+    else
+      *reinterpret_cast<uint4*>(dst + r * LD + c) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -149,16 +187,21 @@ __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-
 
 // The mode's elementwise epilogue over the accumulators of one output element.
 template <int MODE>
-__device__ __forceinline__ void epilogue(float& o0, float& o1, float o2) {
+__device__ __forceinline__ void epilogue(float& o0, float& o1, float& o2) {
   if constexpr (MODE == GATE_UP) {
     const float h1 = o0, h3 = o1;
     o0 = h1 * sigmoidf_(h1) * h3;
-  } else if constexpr (MODE == DX_HIDDEN) {
+  } else if constexpr (MODE == DX_HIDDEN || MODE == DW_HIDDEN) {
     const float h1 = o0, h3 = o1, dp = o2;
     const float sg = sigmoidf_(h1);
     o0 = dp * h3 * (sg * (1.f + h1 * (1.f - sg)));  // dh1 = dp h3 silu'(h1)
     o1 = dp * (h1 * sg);                            // dh3 = dp silu(h1)
+    if constexpr (MODE == DW_HIDDEN) o2 = h1 * sg * h3;  // act = silu(h1) h3
   }
+}
+
+__host__ __device__ constexpr bool has_epilogue(int mode) {
+  return mode == GATE_UP || mode == DX_HIDDEN || mode == DW_HIDDEN;
 }
 
 // Accumulators and products of one block tile.
@@ -173,7 +216,9 @@ struct Acc<bf16, MODE, BN> {
   using L = Layout<bf16, MODE, BN>;
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   static constexpr int FM = WM / 16, FN = WN / 16;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+  // DW reads its A tile transposed: A(m, k) at [k][m] of a [BK][LDAT] tile
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
+                               std::conditional_t<MODE == DW, wmma::col_major, wmma::row_major>>;
   using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
   using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
   using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -199,11 +244,13 @@ struct Acc<bf16, MODE, BN> {
 #pragma unroll
       for (int j = 0; j < C::NA; ++j)
 #pragma unroll
-        for (int m = 0; m < FM; ++m)
-          wmma::load_matrix_sync(
-              a[j][m],
-              reinterpret_cast<const bf16*>(base + j * L::a_bytes) + (wm0 + m * 16) * L::LDA + kk * 16,
-              L::LDA);
+        for (int m = 0; m < FM; ++m) {
+          const bf16* as = reinterpret_cast<const bf16*>(base + j * L::a_tile);
+          if constexpr (MODE == DW)
+            wmma::load_matrix_sync(a[j][m], as + kk * 16 * L::LDAT + wm0 + m * 16, L::LDAT);
+          else
+            wmma::load_matrix_sync(a[j][m], as + (wm0 + m * 16) * L::LDA + kk * 16, L::LDA);
+        }
 #pragma unroll
       for (int i = 0; i < C::NB; ++i) {
         const bf16* bs = reinterpret_cast<const bf16*>(base + b_off<bf16, MODE, BN>(i));
@@ -232,7 +279,7 @@ struct Acc<bf16, MODE, BN> {
     for (int m = 0; m < FM; ++m)
 #pragma unroll
       for (int n = 0; n < FN; ++n) {
-        if constexpr (MODE == GATE_UP || MODE == DX_HIDDEN) {
+        if constexpr (has_epilogue(MODE)) {
 #pragma unroll
           for (int e = 0; e < FragC::num_elements; ++e)
             epilogue<MODE>(f[0][m][n].x[e], f[1][m][n].x[e], f[C::NB - 1][m][n].x[e]);
@@ -273,8 +320,10 @@ struct Acc<float, MODE, BN> {
 #pragma unroll
       for (int j = 0; j < C::NA; ++j)
 #pragma unroll
-        for (int r = 0; r < TR; ++r)
-          a[j][r] = reinterpret_cast<const float*>(base + j * L::a_bytes)[(ty + 16 * r) * L::LDA + k];
+        for (int r = 0; r < TR; ++r) {
+          const float* as = reinterpret_cast<const float*>(base + j * L::a_tile);
+          a[j][r] = MODE == DW ? as[k * L::LDAT + ty + 16 * r] : as[(ty + 16 * r) * L::LDA + k];
+        }
 #pragma unroll
       for (int i = 0; i < C::NB; ++i) {
         const float* bs = reinterpret_cast<const float*>(base + b_off<float, MODE, BN>(i));
@@ -318,32 +367,56 @@ __device__ __forceinline__ void store_row<bf16>(bf16* dst, const float* src) {
 
 // Grid (rows / BM, columns / BN): the row tile is the fast index, so the blocks
 // in flight share the same columns of the weights and each weight tile is
-// read from device memory about once.
+// read from device memory about once. DW: (output rows / BM, columns / BN,
+// experts), the reduction over the expert's run of row tiles.
 template <typename T, int MODE, int BN>
 __global__ void __launch_bounds__(THREADS) moe_tile_kernel(const Args p) {
   using C = Cfg<MODE>;
   using L = Layout<T, MODE, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int tile = blockIdx.x;
   const int n0 = blockIdx.y * BN;
-  const long long row0 = (long long)tile * BM;
-  const long long g = p.tile_group[tile];
+  long long row0, g;  // first row of the reduction's rows (DW) or of the tile; the expert
+  int K, m0 = 0;      // reduction length; DW: first output row (a column of A)
+  if constexpr (MODE == DW) {
+    // the expert's run: tiles before it hold smaller ids (expert-sorted), no host sync
+    g = blockIdx.z;
+    int lo = 0, cnt = 0;
+    for (int base = 0; base < p.ntiles; base += THREADS) {
+      const int t = base + threadIdx.x;
+      const int id = t < p.ntiles ? p.tile_group[t] : -1;
+      lo += __syncthreads_count(t < p.ntiles && id < g);
+      cnt += __syncthreads_count(id == g);
+    }
+    row0 = (long long)lo * BM;
+    K = cnt * BM;
+    m0 = blockIdx.x * BM;
+  } else {
+    row0 = (long long)blockIdx.x * BM;
+    g = p.tile_group[blockIdx.x];
+    K = p.K;
+  }
 
   const T* A[C::NA];
 #pragma unroll
-  for (int j = 0; j < C::NA; ++j) A[j] = static_cast<const T*>(p.a[j]) + row0 * p.lda[j];
+  for (int j = 0; j < C::NA; ++j) A[j] = static_cast<const T*>(p.a[j]) + row0 * p.lda[j] + m0;
   const T* B[C::NB];
 #pragma unroll
   for (int i = 0; i < C::NB; ++i)
-    B[i] = static_cast<const T*>(p.b[i]) + g * p.b_expert[i] + (C::colmajor(i) ? n0 * p.ldb[i] : n0);
+    B[i] = MODE == DW ? static_cast<const T*>(p.b[i]) + row0 * p.ldb[i] + n0
+                      : static_cast<const T*>(p.b[i]) + g * p.b_expert[i] + (C::colmajor(i) ? n0 * p.ldb[i] : n0);
   const T* Balt = MODE == DX_OUT ? static_cast<const T*>(p.b_alt) + g * p.b_expert[0] + n0 * p.ldb[0]
                                  : nullptr;
 
   auto load_stage = [&](int s, int k0) {
     unsigned char* base = smem + s * L::stage_bytes;
 #pragma unroll
-    for (int j = 0; j < C::NA; ++j)
-      stage_tile<T, BM, BK, L::LDA>(reinterpret_cast<T*>(base + j * L::a_bytes), A[j] + k0, p.lda[j]);
+    for (int j = 0; j < C::NA; ++j) {
+      T* dst = reinterpret_cast<T*>(base + j * L::a_tile);
+      if constexpr (MODE == DW)  // rows k0.. of A, columns m0..m0+BM: the transposed tile
+        stage_tile<T, BK, BM, L::LDAT>(dst, A[j] + k0 * p.lda[j], p.lda[j], p.M - m0);
+      else
+        stage_tile<T, BM, BK, L::LDA>(dst, A[j] + k0, p.lda[j]);
+    }
 #pragma unroll
     for (int i = 0; i < C::NB; ++i) {
       T* dst = reinterpret_cast<T*>(base + b_off<T, MODE, BN>(i));
@@ -359,8 +432,8 @@ __global__ void __launch_bounds__(THREADS) moe_tile_kernel(const Args p) {
 
   Acc<T, MODE, BN> acc;
   acc.init();
-  const int KT = p.K / BK;
-  load_stage(0, 0);
+  const int KT = K / BK;  // 0 for an expert with no tile: its gradient is zero
+  if (KT > 0) load_stage(0, 0);
   cp_async_commit();
   for (int kt = 0; kt < KT; ++kt) {
     if (kt + 1 < KT) load_stage((kt + 1) & 1, (kt + 1) * BK);
@@ -377,23 +450,37 @@ __global__ void __launch_bounds__(THREADS) moe_tile_kernel(const Args p) {
   constexpr int VEC = 16 / sizeof(T);
 #pragma unroll
   for (int o = 0; o < C::NOUT; ++o) {
-    T* dst = static_cast<T*>(p.out) + row0 * p.ldo + (o == 1 ? p.out2_col : 0) + n0;
+    T* dst;
+    long long ld = p.ldo;
+    int rows = BM;
+    if constexpr (MODE == DW) {
+      const bool hi = n0 >= p.col_split;
+      dst = static_cast<T*>(hi ? p.out_hi : p.out) + g * p.out_expert + m0 * p.ldo +
+            (hi ? n0 - p.col_split : n0);
+      rows = min(BM, p.M - m0);
+    } else if (o == 2) {
+      dst = static_cast<T*>(p.act) + row0 * p.ld_act + n0;
+      ld = p.ld_act;
+    } else {
+      dst = static_cast<T*>(p.out) + row0 * p.ldo + (o == 1 ? p.out2_col : 0) + n0;
+    }
     const float* src = Os + o * (L::out_bytes / sizeof(float));
-    for (int i = threadIdx.x; i < BM * BN / VEC; i += THREADS) {
+    for (int i = threadIdx.x; i < rows * BN / VEC; i += THREADS) {
       const int r = i / (BN / VEC), c = (i % (BN / VEC)) * VEC;
-      store_row<T>(dst + r * p.ldo + c, src + r * L::LDO + c);
+      store_row<T>(dst + r * ld + c, src + r * L::LDO + c);
     }
   }
 }
 
+// rows: the output rows (ragged last tile only in DW); experts: DW's grid depth.
 template <typename T, int MODE, int BN>
-cudaError_t launch(const Args& p, int rows, int cols, cudaStream_t stream) {
+cudaError_t launch(const Args& p, int rows, int cols, cudaStream_t stream, int experts = 1) {
   using L = Layout<T, MODE, BN>;
   static_assert(L::bytes <= 227 * 1024, "shared memory of one block");
   auto kern = moe_tile_kernel<T, MODE, BN>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(rows / BM, cols / BN);
+  const dim3 grid((rows + BM - 1) / BM, cols / BN, experts);
   kern<<<grid, THREADS, L::bytes, stream>>>(p);
   return cudaGetLastError();
 }

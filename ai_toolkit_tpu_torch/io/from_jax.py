@@ -13,6 +13,11 @@ CLIP and T5, diffusers for the VAE).
 - Norm scales and embeddings keep their values and dtypes.
 - A flux ``lora`` collection maps onto the port's module names
   (:func:`flux_lora_tree`).
+- A partial DiT tree (a full fine-tune's filtered trainable tree) converts
+  like a whole one; the JAX full fine-tune's flat file, keyed by
+  ``_flatten_params`` (``double_0.img_mlp_moe.experts.w1.kernel``), through
+  :func:`flux_dit_flat_state_dict`.
+- bf16 arrays (numpy's ``ml_dtypes.bfloat16``) become bf16 tensors.
 """
 
 from __future__ import annotations
@@ -32,6 +37,13 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
         else:
             out[path] = np.asarray(v)
     return out
+
+
+def _tensor(v: np.ndarray) -> torch.Tensor:
+    v = np.ascontiguousarray(v)
+    if v.dtype.name == "bfloat16":  # ml_dtypes, which torch.from_numpy does not take
+        return torch.from_numpy(v.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(v)
 
 
 def _leaf(v: np.ndarray, leaf: str, norm_name: str) -> tuple[str, np.ndarray]:
@@ -59,11 +71,11 @@ def _convert(tree: dict, module_map, norm_name: str = "weight",
     for path, v in _flatten(tree).items():
         if extra and path in extra:
             for key in extra[path]:
-                sd[key] = torch.from_numpy(np.ascontiguousarray(v))
+                sd[key] = _tensor(v)
             continue
         mod, leaf = path.rsplit("/", 1)
         name, arr = _leaf(v, leaf, norm_name)
-        sd[f"{module_map(mod)}.{name}"] = torch.from_numpy(np.ascontiguousarray(arr))
+        sd[f"{module_map(mod)}.{name}"] = _tensor(arr)
     return sd
 
 
@@ -132,8 +144,22 @@ def _unscan(tree: dict) -> dict:
 
 
 def flux_dit_state_dict(tree: dict) -> dict[str, torch.Tensor]:
-    """JAX ``FluxDiT`` params (unrolled or scanned) -> ``FluxDiT`` state dict."""
+    """JAX ``FluxDiT`` params (unrolled or scanned, whole or a subtree of
+    leaves) -> ``FluxDiT`` state dict entries."""
     return _convert(_unscan(tree), _flux_module, norm_name="scale")
+
+
+def flux_dit_flat_state_dict(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """The JAX full fine-tune's save, ``{'.'-joined param path: array}``
+    (``_flatten_params``), -> ``FluxDiT`` state dict entries."""
+    tree: dict = {}
+    for key, v in flat.items():
+        *mods, leaf = key.split(".")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = v
+    return flux_dit_state_dict(tree)
 
 
 # ---- CLIP (transformers names) ----

@@ -1,5 +1,6 @@
-"""The LoRA training job (``ai_toolkit_tpu/jobs/train_process.py``
-``SDTrainProcess`` in PyTorch), the path the flux LoRA job takes:
+"""The training job (``ai_toolkit_tpu/jobs/train_process.py``
+``SDTrainProcess`` in PyTorch), on the paths of the LoRA job and of the full
+fine-tune:
 
 model (seeded random weights) -> optional weight-only quantization of the DiT
 (``model.quantize``, fp8 or int8: ``adapters/quantize.py``) -> LoRA on the
@@ -8,7 +9,17 @@ DiT (the model's targets) -> AdamW(8bit)
 loop (``train/step.py``) with the save cadence -> final save of the LoRA (the
 EMA copy when EMA is on) in the PEFT layout.
 
-Every branch of the JAX process that this path does not take raises
+A full fine-tune (``network`` absent or of type ``full`` / ``fine_tune``)
+trains the DiT's own parameters in place, those its ``only_if_contains`` /
+``ignore_if_contains`` patterns select (:func:`filter_param_names`, JAX
+``_filter_param_tree``), and saves them as they are: the trained tensors
+(not the EMA) in their own dtype, keyed by the port's parameter names, in
+``<name>_<step:09d>.safetensors`` at the save cadence and a final
+``<name>.safetensors``, with no rotation (JAX ``_save``'s full fine-tune
+branch). The JAX job's HF-layout export of the final save
+(``_export_interop``) is not ported (ROADMAP: ``io/full_export.py``).
+
+Every branch of the JAX process that these paths do not take raises
 ``NotImplementedError`` naming its slice: resume, sampling during training,
 validation, other networks and adapters, quantized text encoders
 (``quantize_te``), text-encoder training, several resolutions, the disk
@@ -52,6 +63,46 @@ _UNPORTED_MODEL = ("quantize_te", "lora_path", "assistant_lora_path",
                    "inference_lora_path", "unconditional_lora_path", "accuracy_recovery_adapter")
 
 
+def _norm_pattern(p: str) -> str:
+    p = p.strip().strip(".")
+    if p.startswith("transformer."):
+        p = p[len("transformer."):]
+    return p.replace(".", "/")
+
+
+def _pattern_variants(p: str) -> set[str]:
+    """The reference's diffusers block-list names mapped onto the module names."""
+    return {p, p.replace("single_transformer_blocks", "single_blocks"),
+            p.replace("transformer_blocks", "double_blocks"), p.replace("transformer_blocks", "blocks")}
+
+
+def filter_param_names(names, include: list[str] | None, exclude: list[str] | None) -> list[str]:
+    """The parameter names that contain an ``include`` pattern (when any is
+    given) and no ``exclude`` pattern, JAX ``_filter_param_tree`` over the
+    port's names: patterns and names are compared '/'-joined, a leading
+    ``transformer.`` is dropped, and reference configs' ``transformer_blocks``
+    / ``single_transformer_blocks`` also match the block lists."""
+    inc = [v for p in include or [] for v in _pattern_variants(_norm_pattern(p))]
+    exc = [v for p in exclude or [] for v in _pattern_variants(_norm_pattern(p))]
+    keep = []
+    for name in names:
+        path = name.replace(".", "/")
+        if (not inc or any(p in path for p in inc)) and not any(p in path for p in exc):
+            keep.append(name)
+    return keep
+
+
+def select_trainable(module: torch.nn.Module, include: list[str] | None,
+                     exclude: list[str] | None) -> dict[str, torch.nn.Parameter]:
+    """The full fine-tune's trainable parameters of ``module`` by name; they,
+    and only they, get ``requires_grad``."""
+    params = dict(module.named_parameters())
+    names = set(filter_param_names(params, include, exclude))
+    for name, p in params.items():
+        p.requires_grad_(name in names)
+    return {name: p for name, p in params.items() if name in names}
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -85,11 +136,19 @@ class SDTrainProcess:
         self.device = torch.device(device)
         self.save_root = os.path.join(cfg.training_folder, job_name)
 
+    @property
+    def full_finetune(self) -> bool:
+        return self.cfg.network is None or self.cfg.network.type in ("full", "fine_tune")
+
     def _refuse_unported(self) -> None:
         cfg, tc = self.cfg, self.cfg.train
-        if cfg.network is None or cfg.network.type not in ("lora", "locon"):
-            kind = cfg.network.type if cfg.network else "full fine-tune"
-            raise NotImplementedError(f"network '{kind}': only LoRA is ported (other networks: later slices)")
+        if not self.full_finetune and cfg.network.type not in ("lora", "locon"):
+            raise NotImplementedError(f"network '{cfg.network.type}': only LoRA and the full fine-tune "
+                                      f"are ported (other networks: later slices)")
+        if self.full_finetune and cfg.model.quantize:
+            raise NotImplementedError(
+                "model.quantize with a full fine-tune comes with slice G (the JAX job trains only the "
+                "weights that quantization leaves unquantized)")
         if cfg.adapter or cfg.embedding or cfg.slider:
             raise NotImplementedError("adapters / embeddings / sliders come with later slices")
         refuse_unported(tc, _UNPORTED_TRAIN, TrainConfig(), "train")
@@ -133,7 +192,7 @@ class SDTrainProcess:
                 f"{self.save_root} holds a save to resume from: resume comes with a later slice "
                 f"(use another training_folder or name)")
 
-        # 1. model (1b. quantized DiT), 2. LoRA on the DiT
+        # 1. model (1b. quantized DiT), 2. LoRA on the DiT or the full fine-tune's selection
         model = get_model_class(cfg.model.arch)(cfg.model, dev)
         variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed))
         dit = variables["dit"]
@@ -141,12 +200,21 @@ class SDTrainProcess:
             names = quantize_params(dit, qtype=cfg.model.qtype)
             print(f"quantized base: {len(names)} weights, {quantized_bytes(dit) / 1e9:.2f} GB "
                   f"({cfg.model.qtype})")
-        spec = LoRASpec.from_network_config(cfg.network, target_patterns=model.lora_targets())
-        lora = build_lora(dit, spec, torch.Generator(device=dev).manual_seed(seed))
-        n_params = count_lora_params(lora)
-        print(f"LoRA: {len(lora)} modules, {n_params:,} trainable params (rank {spec.rank})")
+        if self.full_finetune:
+            net = cfg.network
+            inc = cfg.model.only_if_contains or (net.only_if_contains if net else None)
+            exc = cfg.model.ignore_if_contains or (net.ignore_if_contains if net else None)
+            trainable, lora = select_trainable(dit, inc, exc), None
+            n_params = sum(p.numel() for p in trainable.values())
+            if inc or exc:
+                print(f"full fine-tune (filtered to {n_params:,} params)")
+        else:
+            spec = LoRASpec.from_network_config(cfg.network, target_patterns=model.lora_targets())
+            lora = build_lora(dit, spec, torch.Generator(device=dev).manual_seed(seed))
+            n_params = count_lora_params(lora)
+            print(f"LoRA: {len(lora)} modules, {n_params:,} trainable params (rank {spec.rank})")
+            trainable = {f"{name}.{leaf}": p for name, m in lora.items() for leaf, p in m.named_parameters()}
         dit.gradient_checkpointing = tc.gradient_checkpointing
-        trainable = {f"{name}.{leaf}": p for name, m in lora.items() for leaf, p in m.named_parameters()}
 
         # 3. optimizer + state
         tx = get_optimizer(tc.optimizer, list(trainable.values()), tc.lr, tc.optimizer_params,
@@ -180,20 +248,32 @@ class SDTrainProcess:
                 print(f"step {step + 1}/{tc.steps} loss={loss:.4f} "
                       f"grad_norm={float(metrics['grad_norm']):.4f} ({step_ms[-1]:.1f} ms)")
             if cfg.save.save_every and (step + 1) % cfg.save.save_every == 0 and step + 1 < tc.steps:
-                print(f"saved: {ckpt.save(self._save_tree(state, lora), step + 1)}")
-        path = ckpt.save(self._save_tree(state, lora), tc.steps, final=True)
+                print(f"saved: {self._save(ckpt, state, lora, step + 1)}")
+        path = self._save(ckpt, state, lora, tc.steps, final=True)
         print(f"saved: {path}")
-        self.state, self.lora = state, lora  # introspection
+        self.state, self.lora, self.variables = state, lora, variables  # introspection
         return {"final_loss": losses[-1] if losses else None, "steps": tc.steps,
                 "losses": losses, "step_ms": step_ms,
                 "median_step_ms": statistics.median(step_ms) if step_ms else None,
-                "lora_params": n_params, "lora_modules": len(lora), "save_path": path}
+                "trainable_params": n_params, "lora_modules": len(lora) if lora is not None else 0,
+                "save_path": path}
 
     @staticmethod
-    def _save_tree(state: TrainState, lora: dict) -> dict:
-        """The LoRA tree to save: the EMA copy when EMA is on (JAX ``_save``)."""
-        src = state.ema if state.ema is not None else state.trainable
-        return {name: {leaf: src[f"{name}.{leaf}"] for leaf in ("a", "b", "scale")} for name in lora}
+    def _save(ckpt: CheckpointManager, state: TrainState, lora: dict | None, step: int,
+              final: bool = False) -> str:
+        """A LoRA save: the EMA copy when EMA is on, in the PEFT layout, with
+        rotation. A full fine-tune's: the trained tensors themselves in their
+        own dtype, keyed by parameter name, no rotation (JAX ``_save``)."""
+        if lora is not None:
+            src = state.ema if state.ema is not None else state.trainable
+            tree = {name: {leaf: src[f"{name}.{leaf}"] for leaf in ("a", "b", "scale")} for name in lora}
+            return ckpt.save(tree, step, final=final)
+        from safetensors.torch import save_file
+
+        path = ckpt.final_path() if final else ckpt.path_for_step(step)
+        save_file({k: t.detach().contiguous().cpu() for k, t in state.trainable.items()}, path,
+                  metadata={"step": str(step), "software": "ai_toolkit_tpu"})
+        return path
 
     def _build_data(self, model, variables):
         cfg = self.cfg

@@ -1,28 +1,32 @@
-"""Grouped SwiGLU MoE dispatch: the hand-written CUDA kernels, forward and dx,
-their plain versions, and the gather / combine around them
-(``ai_toolkit_tpu/ops/pallas/moe_gmm.py`` in PyTorch).
+"""Grouped SwiGLU MoE dispatch: the hand-written CUDA kernels, forward, dx and
+the bank gradients (dw), their plain versions, and the gather / combine
+around them (``ai_toolkit_tpu/ops/pallas/moe_gmm.py`` in PyTorch).
 
 The forward replaces the Pallas ``_fwd_kernel`` with ``csrc/moe_gmm_fwd.cu``,
-the input gradient replaces ``_dx_kernel`` with ``csrc/moe_gmm_bwd.cu``; both
-are two grouped GEMMs over expert-sorted 128-row tiles in which every block
-reads its tile's expert id itself and owns its output tile
-(``csrc/moe_gmm_tile.cuh``). What bounds them at the hidream shape
-(8192 routed rows, d 2560, h 6912, 4 experts, bf16): 6·N·d·h (forward) and
-10·N·d·h (dx) operations against well under a GB of weights and activations,
-so both are compute-bound; the simple designs run every product on the
-tensor cores (WMMA bf16, f32 accumulation) with a two-stage cp.async
-pipeline, and pass the SwiGLU activation (forward) or ``[dh1 | dh3]`` (dx)
-between their two GEMMs through device memory in the input type.
+the input gradient ``_dx_kernel`` with ``csrc/moe_gmm_bwd.cu``, the bank
+gradients ``_dw_kernel`` with the first pass of ``moe_gmm_bwd.cu`` (which
+then also writes the SwiGLU activation) and ``csrc/moe_gmm_dw.cu``. All are
+grouped GEMMs over expert-sorted 128-row tiles in which every block reads
+its expert itself and owns its output tile (``csrc/moe_gmm_tile.cuh``); dw's
+blocks own a tile of one expert's gradient and reduce over that expert's run
+of row tiles. What bounds them at the hidream shape (8192 routed rows, d 2560,
+h 6912, 4 experts, bf16): 6·N·d·h (forward), 10·N·d·h (dx) and 12·N·d·h (dw
+from x and dy; 6·N·d·h beside a dx that shares its first pass) operations
+against well under a GB of weights and activations, so all are
+compute-bound; the simple designs run every product on the tensor cores
+(WMMA bf16, f32 accumulation) with a two-stage cp.async pipeline, and pass
+the SwiGLU activation (forward, dw) and ``[dh1 | dh3]`` (dx, dw) between
+their GEMMs through device memory in the input type.
 
 ``grouped_swiglu(x, w1, w3, w2, tile_group, block_m)`` keeps the JAX layout:
 x ``[N, d]`` expert-sorted with N a multiple of ``block_m``, w1/w3
-``[E, d, h]``, w2 ``[E, h, d]``, tile_group int32 ``[N / block_m]``. It is the
-custom op ``ait::grouped_swiglu``, whose autograd formula is the dx kernel;
-the bank gradients (the Pallas ``_dw_kernel``) are not ported and raise. CPU
-tensors go to the plain versions; CUDA tensors launch the kernels or raise.
-The kernels take ``block_m`` = :data:`BLOCK_M` = 128 (the TPU's VMEM
-budgeting, ``default_blocks``, has no counterpart here) and d, h multiples
-of 64.
+``[E, d, h]``, w2 ``[E, h, d]``, tile_group int32 ``[N / block_m]``,
+non-decreasing. It is the custom op ``ait::grouped_swiglu``, whose autograd
+runs dx where x needs a gradient and dw where a bank does. CPU tensors go to
+the plain versions; CUDA tensors launch the kernels or raise. The kernels
+take ``block_m`` = :data:`BLOCK_M` = 128 (the TPU's VMEM budgeting,
+``default_blocks`` and ``_dw_block_h``, has no counterpart here) and d, h
+multiples of 64.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch.nn.functional as F
 # kernel launches in this process, one count per kernel (each launch runs its two GEMM passes)
 launches = 0  # moe_gmm_fwd
 dx_launches = 0  # moe_gmm_dx
+dw_launches = 0  # moe_gmm_dw
 
 BLOCK_M = 128  # rows per tile of the CUDA kernels (csrc/moe_gmm_tile.cuh BM)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,20 +68,43 @@ def grouped_swiglu_plain(x, w1, w3, w2, tile_group, block_m: int):
     return y.to(x.dtype)
 
 
+def _hidden_plain(xs, dys, a1, a3, a2):
+    """(dh1, dh3, act) of one expert's rows in f32, h1 and h3 recomputed (the
+    Pallas ``_dx_kernel`` / ``_dw_kernel`` formula)."""
+    h1, h3 = xs @ a1, xs @ a3
+    sg = torch.sigmoid(h1)
+    dp = dys @ a2.t()
+    return dp * h3 * (sg * (1.0 + h1 * (1.0 - sg))), dp * (h1 * sg), h1 * sg * h3
+
+
 def grouped_swiglu_dx_plain(x, dy, w1, w3, w2, tile_group, block_m: int):
-    """dx per row tile in f32 with h1, h3 recomputed (the Pallas ``_dx_kernel``
-    formula), cast to x's dtype: the dx kernel's plain version."""
+    """dx per row tile in f32, cast to x's dtype: the dx kernel's plain version."""
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     for g, r0, r1 in expert_runs(tile_group, block_m):
-        xs, dys = x[r0:r1].float(), dy[r0:r1].float()
-        a1, a3, a2 = w1[g].float(), w3[g].float(), w2[g].float()
-        h1, h3 = xs @ a1, xs @ a3
-        sg = torch.sigmoid(h1)
-        dp = dys @ a2.t()
-        dh1 = dp * h3 * (sg * (1.0 + h1 * (1.0 - sg)))
-        dh3 = dp * (h1 * sg)
+        a1, a3 = w1[g].float(), w3[g].float()
+        dh1, dh3, _ = _hidden_plain(x[r0:r1].float(), dy[r0:r1].float(), a1, a3, w2[g].float())
         dx[r0:r1] = dh1 @ a1.t() + dh3 @ a3.t()
     return dx.to(x.dtype)
+
+
+def grouped_swiglu_dw_plain(x, dy, w1, w3, w2, tile_group, block_m: int):
+    """(dW1, dW3 ``[E, d, h]``, dW2 ``[E, h, d]``) summed over each expert's
+    row tiles in f32 (the Pallas ``_dw_kernel`` formula), each cast to its
+    bank's dtype; an expert that owns no tile gets zeros: the dw kernel's
+    plain version."""
+    dws = [torch.zeros(w.shape, dtype=torch.float32, device=x.device) for w in (w1, w3, w2)]
+    for g, r0, r1 in expert_runs(tile_group, block_m):
+        xs, dys = x[r0:r1].float(), dy[r0:r1].float()
+        dh1, dh3, act = _hidden_plain(xs, dys, w1[g].float(), w3[g].float(), w2[g].float())
+        dws[0][g] += xs.t() @ dh1
+        dws[1][g] += xs.t() @ dh3
+        dws[2][g] += act.t() @ dys
+    return tuple(dw.to(w.dtype) for dw, w in zip(dws, (w1, w3, w2)))
+
+
+# library -> (C entry, pointer arguments, int arguments); the stream comes last
+_ENTRIES = {"moe_gmm_fwd": ("ait_moe_gmm_fwd", 7, 4), "moe_gmm_bwd": ("ait_moe_gmm_dx", 9, 4),
+            "moe_gmm_dw": ("ait_moe_gmm_dw", 8, 5)}
 
 
 def _kernel(name: str):
@@ -85,9 +113,9 @@ def _kernel(name: str):
         from ai_toolkit_tpu_torch.ops.kernels.build import load
 
         lib = load(name)
-        entry = lib.ait_moe_gmm_fwd if name == "moe_gmm_fwd" else lib.ait_moe_gmm_dx
-        n_ptrs = 7 if name == "moe_gmm_fwd" else 8
-        entry.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        symbol, n_ptrs, n_ints = _ENTRIES[name]
+        entry = getattr(lib, symbol)
+        entry.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
         lib.ait_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ait_cuda_error_string.restype = ctypes.c_char_p
@@ -130,7 +158,11 @@ def _launch_fwd(x, w1, w3, w2, tile_group, block_m: int):
     return y
 
 
-def _launch_dx(x, dy, w1, w3, w2, tile_group, block_m: int):
+def _launch_bwd(x, dy, w1, w3, w2, tile_group, block_m: int, need_dx: bool, need_dw: bool):
+    """(dx or None, (dW1, dW3, dW2) or None) on CUDA tensors: the first pass
+    of ``moe_gmm_bwd`` builds ``[dh1 | dh3]`` (and the activation when a
+    bank needs its gradient) once for both, then dx's second pass and the
+    dw products run as asked."""
     global dx_launches
     dy = dy.contiguous()
     _check_cuda(x, w1, w3, w2, tile_group, block_m, dy)
@@ -138,14 +170,46 @@ def _launch_dx(x, dy, w1, w3, w2, tile_group, block_m: int):
     n, d = x.shape
     h = w1.shape[-1]
     dh = torch.empty((n, 2 * h), dtype=x.dtype, device=x.device)
-    dx = torch.empty_like(x)
+    act = torch.empty((n, h), dtype=x.dtype, device=x.device) if need_dw else None
+    dx = torch.empty_like(x) if need_dx else None
     rc = fn(x.data_ptr(), dy.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
-            tile_group.data_ptr(), dh.data_ptr(), dx.data_ptr(), n, d, h, _DTYPES[x.dtype],
+            tile_group.data_ptr(), dh.data_ptr(), _ptr(act), _ptr(dx), n, d, h, _DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"moe_gmm_dx launch failed: {err_str(rc).decode()} ({rc})")
-    dx_launches += 1
-    return dx
+        raise RuntimeError(f"moe_gmm_bwd launch failed: {err_str(rc).decode()} ({rc})")
+    if need_dx:
+        dx_launches += 1
+    dws = _launch_dw_products(x, dy, dh, act, tile_group, w1.shape[0]) if need_dw else None
+    return dx, dws
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _launch_dw_products(x, dy, dh, act, tile_group, experts: int):
+    """``csrc/moe_gmm_dw.cu`` on the first pass's ``dh`` ``[N, 2h]`` and
+    ``act`` ``[N, h]``: (dW1, dW3 ``[E, d, h]``, dW2 ``[E, h, d]``) in x's dtype."""
+    global dw_launches
+    n, d = x.shape
+    h = act.shape[1]
+    if (n % BLOCK_M or d % 64 or h % 64 or dh.shape != (n, 2 * h) or dy.shape != (n, d)
+            or tile_group.dtype != torch.int32 or tile_group.shape != (n // BLOCK_M,)
+            or x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dy, dh, act))
+            or not all(t.is_contiguous() for t in (x, dy, dh, act, tile_group))):
+        raise ValueError(f"moe_gmm_dw: x {tuple(x.shape)} {x.dtype}, dy {tuple(dy.shape)}, dh "
+                         f"{tuple(dh.shape)}, act {tuple(act.shape)}, tile_group "
+                         f"{tuple(tile_group.shape)} {tile_group.dtype} are not what the kernel takes")
+    fn, err_str = _kernel("moe_gmm_dw")
+    dw1, dw3 = (torch.empty((experts, d, h), dtype=x.dtype, device=x.device) for _ in range(2))
+    dw2 = torch.empty((experts, h, d), dtype=x.dtype, device=x.device)
+    rc = fn(x.data_ptr(), dy.data_ptr(), dh.data_ptr(), act.data_ptr(), tile_group.data_ptr(),
+            dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), n, d, h, experts, _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"moe_gmm_dw launch failed: {err_str(rc).decode()} ({rc})")
+    dw_launches += 1
+    return dw1, dw3, dw2
 
 
 def _device(*tensors) -> str:
@@ -185,12 +249,27 @@ def _(x, w1, w3, w2, tile_group, block_m):
     return torch.empty_like(x)
 
 
+def grouped_swiglu_bwd(x, dy, w1, w3, w2, tile_group, block_m: int, need_dx: bool = True,
+                       need_dw: bool = True):
+    """(dx ``[N, d]`` or None, (dW1, dW3, dW2) or None) of
+    :func:`grouped_swiglu` for the cotangent ``dy``: the plain versions on CPU
+    tensors, the kernels on CUDA tensors."""
+    if _device(x, dy, w1, w3, w2, tile_group) == "cuda":
+        return _launch_bwd(x, dy, w1, w3, w2, tile_group, block_m, need_dx, need_dw)
+    dx = grouped_swiglu_dx_plain(x, dy, w1, w3, w2, tile_group, block_m) if need_dx else None
+    dws = grouped_swiglu_dw_plain(x, dy, w1, w3, w2, tile_group, block_m) if need_dw else None
+    return dx, dws
+
+
 def grouped_swiglu_dx(x, dy, w1, w3, w2, tile_group, block_m: int):
-    """dx ``[N, d]`` of :func:`grouped_swiglu` for the cotangent ``dy``: the
-    plain version on CPU tensors, the dx kernel on CUDA tensors."""
-    if _device(x, dy, w1, w3, w2, tile_group) == "cpu":
-        return grouped_swiglu_dx_plain(x, dy, w1, w3, w2, tile_group, block_m)
-    return _launch_dx(x, dy, w1, w3, w2, tile_group, block_m)
+    """dx ``[N, d]`` of :func:`grouped_swiglu`: the dx kernel or its plain version."""
+    return grouped_swiglu_bwd(x, dy, w1, w3, w2, tile_group, block_m, need_dw=False)[0]
+
+
+def grouped_swiglu_dw(x, dy, w1, w3, w2, tile_group, block_m: int):
+    """(dW1, dW3, dW2) of :func:`grouped_swiglu`: the dw kernel (with the
+    first pass it needs) or its plain version."""
+    return grouped_swiglu_bwd(x, dy, w1, w3, w2, tile_group, block_m, need_dx=False)[1]
 
 
 def _setup_context(ctx, inputs, output):
@@ -200,14 +279,12 @@ def _setup_context(ctx, inputs, output):
 
 
 def _backward(ctx, dy):
-    if any(ctx.needs_input_grad[1:4]):
-        raise NotImplementedError(
-            "grouped_swiglu: the expert-bank gradient (moe_gmm.py _dw_kernel) is not ported yet; it "
-            "comes with the full fine-tune slice that trains expert banks (only the x gradient is "
-            "ported: freeze the banks, as the LoRA path does)")
     x, w1, w3, w2, tile_group = ctx.saved_tensors
-    dx = grouped_swiglu_dx(x, dy, w1, w3, w2, tile_group, ctx.block_m) if ctx.needs_input_grad[0] else None
-    return dx, None, None, None, None, None
+    needs = ctx.needs_input_grad
+    dx, dws = grouped_swiglu_bwd(x, dy, w1, w3, w2, tile_group, ctx.block_m, need_dx=needs[0],
+                                 need_dw=any(needs[1:4]))
+    dw1, dw3, dw2 = (g if need else None for g, need in zip(dws or (None,) * 3, needs[1:4]))
+    return dx, dw1, dw3, dw2, None, None
 
 
 grouped_swiglu_op.register_autograd(_backward, setup_context=_setup_context)

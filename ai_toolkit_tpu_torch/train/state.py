@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ai_toolkit_tpu_torch.train.optimizers import AdamW
+from ai_toolkit_tpu_torch.train.optimizers import AdamW, weak
 
 
 class TrainState:
@@ -21,9 +21,10 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self, grads: list[torch.Tensor], ema_decay: float | None = None) -> None:
         """Optimizer step on ``trainable`` (``grads`` in its order), then
-        ema <- ema * decay + p * (1 - decay)."""
+        ema <- ema * decay + p * (1 - decay) in the EMA's dtype, the scalars
+        rounded to it as JAX rounds them (0.99 is 0.98828125 in bf16)."""
         self.optimizer.step(grads)
         if self.ema is not None and ema_decay is not None:
             for k, p in self.trainable.items():
                 e = self.ema[k]
-                e.copy_(e * ema_decay + p.to(e.dtype) * (1.0 - ema_decay))
+                e.copy_(e * weak(ema_decay, e.dtype) + p.to(e.dtype) * weak(1.0 - ema_decay, e.dtype))

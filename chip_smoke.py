@@ -2,16 +2,18 @@
 """Smoke test of the PyTorch port on one CUDA card: ``python3 chip_smoke.py [--profile DIR]``.
 
 Phases (any failure raises and the script exits non-zero):
-  1. environment: versions, card name and power limit, TF32 off, the four
+  1. environment: versions, card name and power limit, TF32 off, the five
      kernel libraries built in parallel (one nvcc each);
   2. the flash forward kernel against its plain version at the shapes the
-     paths give it, timed against it and against the library yardstick;
+     paths give it, timed against it and against the library yardstick, at
+     1024^2 and at the ragged 1008^2;
   3. the flash backward kernels (dq, dk/dv) the same way;
-  4. the grouped SwiGLU MoE kernels (forward, dx) the same way, at the
-     hidream shapes with a real top-2 routing;
+  4. the grouped SwiGLU MoE kernels (forward, dx, the bank gradients dw) the
+     same way, at the hidream shapes with a real top-2 routing;
   5. full-width, reduced-depth flux and hidream DiTs on the card against the
-     same modules on the CPU: the forward, and one LoRA training step's loss
-     and gradients;
+     same modules on the CPU: the forward, one LoRA training step's loss and
+     gradients, and (hidream) one full fine-tune step of the first block's
+     expert banks;
   6. the flux-dev LoRA ``sd_trainer`` job at 1024^2 through
      ``ai_toolkit_tpu_torch.jobs``, with the launches of every kernel per step
      checked (``--profile DIR`` adds a ``torch.profiler`` split of its last
@@ -23,7 +25,11 @@ Phases (any failure raises and the script exits non-zero):
      1024^2 on an fp8 base with the grouped MoE dispatch, launches per step
      checked (``--profile DIR`` profiles its last step too);
   10. the hidream ``generate`` job at 1024x1024, 8 steps, 2 prompts, with
-     the LoRA it saved.
+     the LoRA it saved;
+  11. the main path of this slice: the hidream full fine-tune ``sd_trainer``
+     job (bf16 base, grouped MoE, the expert banks of the first double and
+     single block trained), launches per step checked, the untrained weights
+     held against a fresh seeded init and the save reloaded.
 The line before the last is the kernel table; the last line is the result.
 """
 
@@ -55,6 +61,7 @@ FLASH_CASES = [
 ]
 LSE_TOL = 1e-3
 MAIN_SHAPE = (1, 4608, 24, 128)
+RAGGED_SHAPE = (1, 4481, 24, 128)  # flux-dev at 1008^2: 512 text + 3969 image tokens, masked tails
 BLOCKS_PER_FORWARD = 19 + 38  # flux-dev double + single blocks, one attention each
 # backward: (B, S, T, H, D), dtype, tolerance on max|dX - ref| / max|ref| for dq, dk, dv:
 # bf16 inputs with p and ds rounded to bf16 before the second products (f32
@@ -77,8 +84,10 @@ MOE_CASES = [
     ((1000, 2560, 6912, 4), torch.bfloat16, 2e-2, 3),  # ragged, expert 3 gets no token
     ((100, 64, 128, 3), torch.float32, 1e-4, None),
 ]
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "moe_gmm_fwd", "moe_gmm_bwd")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "moe_gmm_fwd", "moe_gmm_bwd", "moe_gmm_dw")
 HIDREAM_BLOCKS = 16 + 32  # double + single blocks: one attention and one MoE FFN each
+# the full fine-tune's filter: the expert banks of the first double and single block
+FT_BANKS = ["double_blocks.0.img_mlp.experts", "single_blocks.0.mlp.experts"]
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TRAIN_WARMUP = 2
@@ -154,6 +163,15 @@ def _sdpa_layout(*xs):
     return [x.transpose(1, 2).contiguous() for x in xs]
 
 
+def _sdpa_bwd_ms(q, k, v, g) -> float:
+    """The library yardstick of the backward kernels: one scaled_dot_product_attention
+    backward, which gives dq, dk and dv."""
+    qt, kt, vt, gt = _sdpa_layout(q, k, v, g)
+    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+    ot = F.scaled_dot_product_attention(qt, kt, vt)
+    return statistics.median(_time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True), 20))
+
+
 def kernel_vs_plain() -> dict:
     phase("flash_attention_fwd kernel vs plain version")
     from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
@@ -191,6 +209,16 @@ def kernel_vs_plain() -> dict:
     print(f"main shape {MAIN_SHAPE} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
           f"plain {plain_ms:.4f} ms ({flops / plain_ms / 1e9:.1f} TFLOP/s), median of {n}; "
           f"library scaled_dot_product_attention {library_ms:.4f} ms; bound {bound:.4f} ms ({by})")
+    # the ragged shape: the same kernel over masked tails (the streamed Pallas kernels' work)
+    q, k, v = (_rand(RAGGED_SHAPE, torch.bfloat16, gen) for _ in range(3))
+    r_ms, r_plain, n = _in_turns(lambda: fa.flash_attention_fwd(q, k, v),
+                                 lambda: fa.flash_attention_fwd_plain(q, k, v))
+    qt, kt, vt = _sdpa_layout(q, k, v)
+    r_lib = statistics.median(_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20))
+    b, s, h, d = RAGGED_SHAPE
+    r_bound, r_by = _bound_ms(4 * b * s * s * h * d, 2 * 4 * b * s * h * d + 4 * b * h * s)
+    print(f"ragged shape {RAGGED_SHAPE} bf16: kernel {r_ms:.4f} ms, plain {r_plain:.4f} ms, median of "
+          f"{n}; library scaled_dot_product_attention {r_lib:.4f} ms; bound {r_bound:.4f} ms ({r_by})")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": by}
 
@@ -251,12 +279,29 @@ def bwd_kernels_vs_plain() -> dict:
               f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, median of {n}; "
               f"bound {bound:.4f} ms ({by})")
     torch.cuda.empty_cache()
-    # library yardstick: one scaled_dot_product_attention backward gives dq, dk and dv
+    lib_bwd = _sdpa_bwd_ms(q, k, v, g)
+    # the ragged shape (the streamed Pallas kernels' work): both kernels and the library
+    rq, rk, rv, rg = (_rand(RAGGED_SHAPE, torch.bfloat16, gen) for _ in range(4))
+    r_out, r_lse = fa.flash_attention_fwd(rq, rk, rv)
+    r_delta = fa.flash_attention_bwd_delta(r_out, rg)
+    rb, rs, rh, rd = RAGGED_SHAPE
+    for name, kern, plain, flops, tensors in (  # operations per B*H*S*T*D; [B,S,H,D] tensors in and out
+        ("dq", lambda: fa.flash_attention_bwd_dq(rq, rk, rv, rg, r_lse, r_delta, scale),
+         lambda: fa.flash_attention_bwd_dq_plain(rq, rk, rv, rg, r_lse, r_delta, scale), 6, 5),
+        ("dkv", lambda: fa.flash_attention_bwd_dkv(rq, rk, rv, rg, r_lse, r_delta, scale),
+         lambda: fa.flash_attention_bwd_dkv_plain(rq, rk, rv, rg, r_lse, r_delta, scale), 8, 6),
+    ):
+        r_ms, r_plain, n = _in_turns(kern, plain)
+        r_bound, r_by = _bound_ms(flops * rb * rh * rs * rs * rd,
+                                  2 * tensors * rb * rs * rh * rd + 8 * rb * rh * rs)
+        print(f"ragged shape {RAGGED_SHAPE} bf16 {name}: kernel {r_ms:.4f} ms, plain {r_plain:.4f} ms, "
+              f"median of {n}; bound {r_bound:.4f} ms ({r_by})")
+    print(f"ragged shape: library scaled_dot_product_attention backward {_sdpa_bwd_ms(rq, rk, rv, rg):.4f} ms")
+    del rq, rk, rv, rg, r_out, r_lse, r_delta
+    torch.cuda.empty_cache()
+    # library yardstick at the main shape, forward and backward
     qt, kt, vt, gt = _sdpa_layout(q, k, v, g)
     qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
-    ot = F.scaled_dot_product_attention(qt, kt, vt)
-    lib_bwd = statistics.median(_time_ms(
-        lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True), 20))
     lib_fb = statistics.median(_time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), gt), 20))
     total = res["dq"]["ms"] + res["dkv"]["ms"]
@@ -283,11 +328,11 @@ def _routed_rows(n_tok, d, e, dtype, gen, empty=None):
 
 
 def moe_kernels_vs_plain() -> dict:
-    phase("moe_gmm forward and dx kernels vs plain versions")
+    phase("moe_gmm forward, dx and dw kernels vs plain versions")
     from ai_toolkit_tpu_torch.ops.kernels import moe_gmm
 
     gen = torch.Generator("cuda").manual_seed(2)
-    err = {"moe": 0.0, "moe_dx": 0.0}
+    err = {"moe": 0.0, "moe_dx": 0.0, "moe_dw": 0.0}
     for (n_tok, d, h, e), dt, tol, empty in MOE_CASES:
         banks = [(torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5).to(dt)
                  for s in ((e, d, h), (e, d, h), (e, h, d))]
@@ -311,7 +356,24 @@ def moe_kernels_vs_plain() -> dict:
               f"(tiles per expert {groups}) rel err fwd/dx = {rel[0]:.3e}/{rel[1]:.3e} (tol {tol:g}); "
               f"max abs {absd[0]:.3e}/{absd[1]:.3e}")
         check(max(rel) <= tol, "the MoE kernels disagree with their plain versions")
-        del banks, xs, dy, y, dx
+        del y, dx
+        # the bank gradients, each against the f32 plain version (f32 banks: an f32 result)
+        dws = moe_gmm.grouped_swiglu_dw(xs, dy, *banks, tg, moe_gmm.BLOCK_M)
+        torch.cuda.synchronize()
+        refs = moe_gmm.grouped_swiglu_dw_plain(xs.float(), dy.float(), *(b.float() for b in banks), tg,
+                                               moe_gmm.BLOCK_M)
+        rel_dw = []
+        for name, got, ref in zip(("dw1", "dw3", "dw2"), dws, refs):
+            check(got.dtype == dt and got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                  f"{name} not finite or of the wrong type")
+            a = (got.float() - ref).abs().max().item()
+            rel_dw.append(a / ref.abs().max().item())
+            err["moe_dw"] = max(err["moe_dw"], a)
+            check(empty is None or not got[empty].any(), f"{name} of the empty expert is not zero")
+        print(f"  dw rel err dw1/dw3/dw2 = {rel_dw[0]:.3e}/{rel_dw[1]:.3e}/{rel_dw[2]:.3e} (tol {tol:g})"
+              f"{'; the empty expert gets zeros' if empty is not None else ''}")
+        check(max(rel_dw) <= tol, "the dw kernel disagrees with its plain version")
+        del banks, xs, dy, dws, refs
         torch.cuda.empty_cache()
 
     # timing at the double-block shape
@@ -335,6 +397,9 @@ def moe_kernels_vs_plain() -> dict:
         return library()
 
     lib_out = library()
+    # the weight-gradient yardstick: the same product sequence's autograd for W1, W3 and W2
+    wr = [w.detach().requires_grad_() for w in banks]
+    lib_out_w = [(F.silu(xs[r0:r1] @ wr[0][g]) * (xs[r0:r1] @ wr[1][g])) @ wr[2][g] for g, r0, r1 in runs]
     res = {}
     for name, kern, plain, lib, flops, nbytes in (
         ("moe", lambda: moe_gmm.grouped_swiglu(xs, w1, w3, w2, tg),
@@ -344,6 +409,11 @@ def moe_kernels_vs_plain() -> dict:
          lambda: moe_gmm.grouped_swiglu_dx_plain(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M),
          lambda: torch.autograd.grad(lib_out, xr, [dy[r0:r1] for _, r0, r1 in runs], retain_graph=True),
          10 * n * d * h, 2 * (3 * e * d * h + 3 * n * d)),  # banks, x and dy in, dx out
+        # dw from x and dy: its first pass (h1, h3, dp) and the products, 12 N d h
+        ("moe_dw", lambda: moe_gmm.grouped_swiglu_dw(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M),
+         lambda: moe_gmm.grouped_swiglu_dw_plain(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M),
+         lambda: torch.autograd.grad(lib_out_w, wr, [dy[r0:r1] for _, r0, r1 in runs], retain_graph=True),
+         12 * n * d * h, 2 * (6 * e * d * h + 2 * n * d)),  # banks, x and dy in, dW1 dW3 dW2 out
     ):
         ms, plain_ms, reps = _in_turns(kern, plain)
         library_ms = statistics.median(_time_ms(lib, 20))
@@ -353,6 +423,14 @@ def moe_kernels_vs_plain() -> dict:
         print(f"double-block shape ({n_tok} tokens x top-2 = {n} rows, d {d}, h {h}, E {e}) bf16 {name}: "
               f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, median of "
               f"{reps}; library per-expert cuBLAS {library_ms:.4f} ms; bound {bound:.4f} ms ({by})")
+    # the dw products alone, as the backward runs them beside dx on the first pass's dh and act
+    dh, act = _rand((xs.shape[0], 2 * h), dt, gen), _rand((xs.shape[0], h), dt, gen)
+    prod_ms = statistics.median(_time_ms(lambda: moe_gmm._launch_dw_products(xs, dy, dh, act, tg, e), 20))
+    prod_bound, prod_by = _bound_ms(6 * n * d * h, 2 * (2 * n * d + 3 * n * h + 3 * e * d * h))
+    print(f"dw products alone ([dW1 | dW3] = x^T dh, dW2 = act^T dy on a given dh and act): "
+          f"{prod_ms:.4f} ms ({6 * n * d * h / prod_ms / 1e9:.1f} TFLOP/s), bound {prod_bound:.4f} ms "
+          f"({prod_by})")
+    del dh, act, wr, lib_out_w
     xt = _rand((n_tok, d), dt, gen)
     dense_ms = statistics.median(_time_ms(lambda: torch.einsum(
         "esh,ehd->esd", F.silu(torch.einsum("sd,edh->esh", xt, w1)) * torch.einsum("sd,edh->esh", xt, w3),
@@ -369,7 +447,7 @@ def _reset_launches() -> None:
     from ai_toolkit_tpu_torch.ops.kernels import moe_gmm
 
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
-    moe_gmm.launches = moe_gmm.dx_launches = 0
+    moe_gmm.launches = moe_gmm.dx_launches = moe_gmm.dw_launches = 0
 
 
 def _launches() -> dict[str, int]:
@@ -377,17 +455,20 @@ def _launches() -> dict[str, int]:
     from ai_toolkit_tpu_torch.ops.kernels import moe_gmm
 
     return {"fwd": fa.launches, "dq": fa.dq_launches, "dkv": fa.dkv_launches,
-            "moe": moe_gmm.launches, "moe_dx": moe_gmm.dx_launches}
+            "moe": moe_gmm.launches, "moe_dx": moe_gmm.dx_launches, "moe_dw": moe_gmm.dw_launches}
 
 
-def _counts(fwd=0, dq=0, dkv=0, moe=0, moe_dx=0) -> dict[str, int]:
-    return {"fwd": fwd, "dq": dq, "dkv": dkv, "moe": moe, "moe_dx": moe_dx}
+def _counts(fwd=0, dq=0, dkv=0, moe=0, moe_dx=0, moe_dw=0) -> dict[str, int]:
+    return {"fwd": fwd, "dq": dq, "dkv": dkv, "moe": moe, "moe_dx": moe_dx, "moe_dw": moe_dw}
 
 
-def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_launches: dict) -> None:
+def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_launches: dict,
+                  ft_launches: dict | None = None) -> None:
     """A full-width DiT cut to 1 double + 1 single block in f32, on the card
     against the same module on the CPU (which takes the kernels' plain
-    versions): the forward, and one LoRA training step's loss and gradients."""
+    versions): the forward, one LoRA training step's loss and gradients and,
+    with ``ft_launches``, one full fine-tune step of the double block's expert
+    banks (the dw kernel)."""
     phase(f"full-width {label} DiT (1 double + 1 single block, f32): card vs CPU")
     from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
     from ai_toolkit_tpu_torch.models.flux_dit import FluxDiT
@@ -395,7 +476,7 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
     from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
 
     cfg = dataclasses.replace(cfg, depth_double=1, depth_single=1, dtype=torch.float32)
-    # a frozen base, as in LoRA training (the MoE bank gradient is not ported)
+    # a frozen base, as in LoRA training
     gpu = init_parameters(FluxDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
     gpu.eval().requires_grad_(False)
     cpu = FluxDiT(cfg, device="cpu").eval().requires_grad_(False)
@@ -434,22 +515,35 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
     target = torch.randn(out.shape, generator=g)
     names = [f"{n}.{leaf}" for n in lg for leaf in ("a", "b", "scale")]
 
-    def loss_and_grads(model, lora, args, tgt):
-        params = [getattr(lora[n.rsplit(".", 1)[0]], n.rsplit(".", 1)[1]) for n in names]
+    def loss_and_grads(model, params, args, tgt):
         loss = (model(*args).float() - tgt).square().mean()
         return loss.item(), torch.autograd.grad(loss, params)
 
-    _reset_launches()
-    ref_loss, ref_grads = loss_and_grads(cpu, lc, [*inputs, pe, guidance], target)
-    loss, grads = loss_and_grads(gpu, lg, gpu_in, target.cuda())
-    launches = _launches()
-    worst = max(((gd.cpu() - gr).abs().max() / gr.abs().max().clamp_min(1e-30)).item()
-                for gd, gr in zip(grads, ref_grads))
-    # f32 both sides, TF32 off: summation order and the kernels' FMA order only
-    print(f"LoRA train step: loss card {loss:.6f} vs CPU {ref_loss:.6f}; {len(names)} LoRA tensors, "
-          f"worst max|dgrad|/max|grad| {worst:.3e} (tol 1e-3); kernel launches={launches}")
-    check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss) and worst <= 1e-3
-          and launches == step_launches, "LoRA training step on the card disagrees")
+    def compare(what, gpu_params, cpu_params, expected):
+        _reset_launches()
+        ref_loss, ref_grads = loss_and_grads(cpu, cpu_params, [*inputs, pe, guidance], target)
+        loss, grads = loss_and_grads(gpu, gpu_params, gpu_in, target.cuda())
+        launches = _launches()
+        worst = max(((gd.cpu() - gr).abs().max() / gr.abs().max().clamp_min(1e-30)).item()
+                    for gd, gr in zip(grads, ref_grads))
+        # f32 both sides, TF32 off: summation order and the kernels' FMA order only
+        print(f"{what}: loss card {loss:.6f} vs CPU {ref_loss:.6f}; {len(grads)} tensors, "
+              f"worst max|dgrad|/max|grad| {worst:.3e} (tol 1e-3); kernel launches={launches}")
+        check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss) and worst <= 1e-3
+              and launches == expected, f"{what} on the card disagrees")
+
+    def lora_params(lora):
+        return [getattr(lora[n.rsplit(".", 1)[0]], n.rsplit(".", 1)[1]) for n in names]
+
+    compare("LoRA train step", lora_params(lg), lora_params(lc), step_launches)
+    if ft_launches is not None:
+        from ai_toolkit_tpu_torch.jobs.train_process import select_trainable
+
+        # the LoRA overlays stay (equal on both sides) and freeze with the rest
+        banks = ["double_blocks.0.img_mlp.experts"]
+        gpu_banks, cpu_banks = (list(select_trainable(m, banks, None).values()) for m in (gpu, cpu))
+        compare("full fine-tune step of the double block's expert banks", gpu_banks, cpu_banks,
+                ft_launches)
 
 
 def _train_dataset(n: int = 4, size: int = 1024) -> str:
@@ -478,14 +572,14 @@ HIDREAM_MODEL = {"name_or_path": "", "arch": "hidream",
                  "model_kwargs": {"size": "full", "moe_dispatch": "grouped"}}
 
 
-def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None) -> dict:
-    """A LoRA ``sd_trainer`` job on the card (configs/examples/train_lora_flux_tpu.yaml,
-    train_lora_hidream_tpu.yaml) with seeded random weights, one 1024 bucket,
-    latents cached in memory, no sampling; ``per_step`` is the launches of each
-    kernel one step must make."""
+def _run_train_job(name: str, model: dict, network: dict, per_step: dict[str, int],
+                   profile_dir: str | None):
+    """An ``sd_trainer`` job on the card with seeded random weights, one 1024
+    bucket, latents cached in memory, no sampling; ``per_step`` is the
+    launches of each kernel one step must make. Returns (result, process,
+    report)."""
     import shutil
 
-    from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
     from ai_toolkit_tpu_torch.jobs import get_job
 
     steps = TRAIN_WARMUP + TRAIN_TIMED + (1 if profile_dir else 0)
@@ -493,7 +587,7 @@ def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str
     raw = {"job": "extension", "config": {"name": name, "process": [{
         "type": "sd_trainer", "training_folder": os.path.join(OUT_DIR, "train"),
         "trigger_word": "p3r5on",
-        "network": {"type": "lora", "linear": 16, "linear_alpha": 16},
+        "network": network,
         "save": {"dtype": "float16", "save_every": 250, "max_step_saves_to_keep": 4},
         "datasets": [{"folder_path": _train_dataset(), "caption_ext": "txt",
                       "caption_dropout_rate": 0.05, "shuffle_tokens": False, "cache_latents": True,
@@ -521,7 +615,8 @@ def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str
     losses, step_ms = result["losses"], result["step_ms"]
     timed = step_ms[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"LoRA: {result['lora_modules']} modules, {result['lora_params']:,} trainable params")
+    print(f"{result['trainable_params']:,} trainable params"
+          f"{' in ' + str(result['lora_modules']) + ' LoRA modules' if result['lora_modules'] else ''}")
     print(f"losses per step: {', '.join(f'{x:.5f}' for x in losses)}")
     print(f"step ms: {', '.join(f'{x:.1f}' for x in step_ms)}; median of steps "
           f"{TRAIN_WARMUP + 1}-{TRAIN_WARMUP + TRAIN_TIMED}: {statistics.median(timed):.1f} ms"
@@ -531,6 +626,18 @@ def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
     got = {k: v / steps for k, v in launches.items()}
     check(got == per_step, f"launches per step {got} != {per_step}")
+    return result, proc, {"launches": launches, "steps": steps, "median_step_ms": statistics.median(timed),
+                          "peak_gib": peak, "wall_s": wall}
+
+
+def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None) -> dict:
+    """A LoRA ``sd_trainer`` job on the card (configs/examples/train_lora_flux_tpu.yaml,
+    train_lora_hidream_tpu.yaml); the save is the EMA copy of the factors."""
+    from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
+
+    result, proc, report = _run_train_job(name, model, {"type": "lora", "linear": 16, "linear_alpha": 16},
+                                          per_step, profile_dir)
+    steps = report["steps"]
     tr, ema = proc.state.trainable, proc.state.ema
     b_keys = [k for k in tr if k.endswith(".b")]
     check(all(bool(tr[k].abs().max() > 0) for k in b_keys), "a LoRA b factor is still zero")
@@ -543,9 +650,52 @@ def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str
     saved_b = max(float(v["b"].abs().max()) for v in tree.values())
     print(f"saved {path}: {len(tree)} modules, max|b| {saved_b:.3e} (EMA copy, fp16)")
     check(saved_b > 0, "the saved LoRA has zero b factors")
-    del job, proc, tr, ema
-    return {"launches": launches, "steps": steps, "median_step_ms": statistics.median(timed),
-            "peak_gib": peak, "lora_path": path}
+    del proc, tr, ema
+    return {**report, "lora_path": path}
+
+
+def fullft_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None,
+               seed: int = 42) -> dict:
+    """The full fine-tune ``sd_trainer`` job on the card
+    (configs/examples/train_full_finetune_flux_tpu.yaml's branch, ``network:
+    {type: full}``) filtered by ``model.only_if_contains``: the trained
+    tensors moved, every other DiT tensor equals a fresh init from the job's
+    seed bit for bit, the EMA differs from the trained tensors, and the final
+    save holds exactly the trained tensors (not the EMA) in their dtype."""
+    from safetensors import safe_open
+
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxDiT
+    from ai_toolkit_tpu_torch.models.hidream_model import hidream_dit_config
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    result, proc, report = _run_train_job(name, model, {"type": "full"}, per_step, profile_dir)
+    tr, ema = proc.state.trainable, proc.state.ema
+    dit = proc.variables["dit"]
+    proc.variables = proc.state = None  # the text encoders and the VAE go
+    check(all(not torch.equal(ema[k], tr[k]) for k in tr), "the EMA equals a trained tensor")
+    with safe_open(result["save_path"], framework="pt", device="cpu") as f:
+        keys = sorted(f.keys())
+        check(keys == sorted(tr), f"the save holds {keys}, not the trained {sorted(tr)}")
+        for k in keys:
+            saved = f.get_tensor(k)
+            check(saved.dtype == tr[k].dtype == torch.bfloat16 and torch.equal(saved, tr[k].detach().cpu()),
+                  f"saved {k} is not the trained tensor in bf16")
+    print(f"saved {result['save_path']}: {len(keys)} tensors in bf16, equal to the trained ones "
+          f"(not the EMA)")
+    del ema
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the job's DiT is the first component built from its seed: rebuild it
+    fresh = init_parameters(FluxDiT(hidream_dit_config(model["model_kwargs"]["moe_dispatch"]), device="cuda"),
+                            torch.Generator("cuda").manual_seed(seed)).state_dict()
+    n_same = 0
+    for k, p in dit.named_parameters():
+        same = torch.equal(p, fresh[k])
+        check(same != (k in tr), f"{k}: {'trained but unchanged' if same else 'changed but not trained'}")
+        n_same += same
+    print(f"{len(tr)} trained tensors moved; the other {n_same} DiT tensors equal a fresh seeded init")
+    del fresh, dit, tr, proc
+    return report
 
 
 def generate_job(model: dict, width: int, height: int, steps: int, prompts: list[str],
@@ -593,7 +743,8 @@ def main(argv: list[str]) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--profile", default=None, help="write a torch.profiler split of one train step here")
+    parser.add_argument("--profile", default=None, help="write a torch.profiler split of one step of each "
+                                                        "train job here")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -609,8 +760,11 @@ def main(argv: list[str]) -> int:
     dit_reference("flux-dev", FluxConfig.dev(), flux_lora_targets(), _counts(fwd=2), _counts(2, 2, 2))
     # grouped MoE in f32: the kernels' CUDA-core path inside the model; with
     # checkpointing the MoE forward runs twice per block
+    # the full fine-tune step: the double block's attention and MoE input need no
+    # gradient, so only the single block runs dq, dk/dv and MoE dx; dw runs once
     dit_reference("hidream (grouped MoE)", hidream_dit_config("grouped"), hidream_lora_targets(),
-                  _counts(fwd=2, moe=2), _counts(2, 2, 2, moe=4, moe_dx=2))
+                  _counts(fwd=2, moe=2), _counts(2, 2, 2, moe=4, moe_dx=2),
+                  _counts(2, 1, 1, moe=4, moe_dx=1, moe_dw=1))
 
     phase("flux-dev LoRA sd_trainer job, 1024x1024, batch 1, rank 16, adamw8bit, EMA")
     flux_step = _counts(BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD)
@@ -638,6 +792,16 @@ def main(argv: list[str]) -> int:
     generate_job(HIDREAM_MODEL, 1024, 1024, 8, prompts, _counts(fwd=HIDREAM_BLOCKS, moe=HIDREAM_BLOCKS),
                  lora_path=hidream["lora_path"])
 
+    phase("main path of this slice: hidream full fine-tune sd_trainer job, 1024x1024, bf16 base, "
+          "grouped MoE, the expert banks of double_blocks.0 and single_blocks.0, adamw8bit, EMA")
+    # per step: nothing upstream of double_blocks.0's MoE needs a gradient, so that
+    # block's attention and MoE run no backward kernel: dq, dk/dv and MoE dx in the
+    # other 47 blocks; the two trained MoE layers each launch dw once
+    ft_step = _counts(HIDREAM_BLOCKS, HIDREAM_BLOCKS - 1, HIDREAM_BLOCKS - 1, 2 * HIDREAM_BLOCKS,
+                      HIDREAM_BLOCKS - 1, moe_dw=2)
+    fullft = fullft_job("smoke_hidream_fullft", {**HIDREAM_MODEL, "quantize": False,
+                                                 "only_if_contains": FT_BANKS}, ft_step, args.profile)
+
     banned = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ai_toolkit_tpu")]
     check(not banned, f"the port imported {banned[:5]}")
@@ -646,14 +810,15 @@ def main(argv: list[str]) -> int:
     pallas = "ai_toolkit_tpu/ops/pallas/flash_attention.py"
     gmm = "ai_toolkit_tpu/ops/pallas/moe_gmm.py"
     # launches: each kernel's count over its main path's run (flash: the flux
-    # train job; MoE: the hidream train job)
+    # train job; MoE forward and dx: the hidream LoRA job; dw: the full fine-tune)
     rows = [("flash_attention_fwd", src + "flash_attention_fwd.cu", f"{pallas}:31", train, "fwd", fwd),
             ("flash_attention_bwd_dq", src + "flash_attention_bwd.cu", f"{pallas}:152", train, "dq",
              bwd["dq"]),
             ("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu", f"{pallas}:174", train, "dkv",
              bwd["dkv"]),
             ("moe_gmm_fwd", src + "moe_gmm_fwd.cu", f"{gmm}:99", hidream, "moe", moe["moe"]),
-            ("moe_gmm_dx", src + "moe_gmm_bwd.cu", f"{gmm}:121", hidream, "moe_dx", moe["moe_dx"])]
+            ("moe_gmm_dx", src + "moe_gmm_bwd.cu", f"{gmm}:121", hidream, "moe_dx", moe["moe_dx"]),
+            ("moe_gmm_dw", src + "moe_gmm_dw.cu", f"{gmm}:149", fullft, "moe_dw", moe["moe_dw"])]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": run["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

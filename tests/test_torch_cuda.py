@@ -216,6 +216,107 @@ def test_moe_wrapper_raises_instead_of_falling_back(gen):
                            torch.zeros(1, dtype=torch.int32, device="cuda"), 64)
     with pytest.raises(ValueError):
         moe.grouped_swiglu(xs, w1.cpu(), w3, w2, tg)
+    # the bank gradient: dw or raise, no fallback
+    dy = torch.zeros_like(xs)
+    with pytest.raises(TypeError):
+        moe.grouped_swiglu_dw(xs.half(), dy.half(), w1.half(), w3.half(), w2.half(), tg, moe.BLOCK_M)
+    with pytest.raises(ValueError):  # N not a multiple of 128
+        moe.grouped_swiglu_dw(xs[:64], dy[:64], w1, w3, w2, tg, 64)
+    with pytest.raises(ValueError):
+        moe.grouped_swiglu_dw(xs, dy, w1, w3, w2.cpu(), tg, moe.BLOCK_M)
+    before = moe.dw_launches
     w1g = w1.detach().requires_grad_()
-    with pytest.raises(NotImplementedError):
-        moe.moe_dispatch_swiglu(x, topv, topi, w1g, w3, w2).float().sum().backward()
+    moe.moe_dispatch_swiglu(x, topv, topi, w1g, w3, w2).float().sum().backward()
+    assert moe.dw_launches == before + 1 and w1g.grad is not None
+
+
+def _routed(gen, moe, n_tok, d, e, dtype, empty=None):
+    """Expert-sorted rows (and their tile_group) of a top-2 routing."""
+    x = torch.randn((n_tok, d), generator=gen, device="cuda").to(dtype)
+    logits = torch.randn((n_tok, e), generator=gen, device="cuda")
+    if empty is not None:
+        logits[:, empty] = -30.0
+    xs, tg, _ = moe.dispatch_rows(x, torch.topk(logits, 2).indices, e)
+    return xs, tg
+
+
+# max|dW - ref| / max|ref| per bank against the f32 plain version: bf16 rounds
+# dh1/dh3 and the activation between the passes and the gradients on output;
+# f32 is summation order only
+@pytest.mark.parametrize("n_tok,d,h,e,dtype,tol,empty", [
+    (100, 64, 128, 3, torch.float32, 1e-4, None),  # d not a multiple of the 128-row output tile
+    (300, 256, 512, 4, torch.bfloat16, 2e-2, None),
+    (300, 256, 512, 4, torch.bfloat16, 2e-2, 1),  # expert 1 owns no tile: zeros
+    (257, 192, 320, 2, torch.bfloat16, 2e-2, None),  # ragged output rows and 64-wide column tiles
+    (19000, 64, 128, 4, torch.bfloat16, 2e-2, None),  # 300+ row tiles: the run scan takes two rounds
+])
+def test_dw_kernel_matches_plain(gen, n_tok, d, h, e, dtype, tol, empty):
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm as moe
+
+    xs, tg = _routed(gen, moe, n_tok, d, e, dtype, empty)
+    dy = torch.randn(xs.shape, generator=gen, device="cuda").to(dtype)
+    banks = [(torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5).to(dtype)
+             for s in ((e, d, h), (e, d, h), (e, h, d))]
+    before = moe.dw_launches
+    dws = moe.grouped_swiglu_dw(xs, dy, *banks, tg, moe.BLOCK_M)
+    torch.cuda.synchronize()
+    assert moe.dw_launches == before + 1
+    refs = moe.grouped_swiglu_dw_plain(xs.float(), dy.float(), *(b.float() for b in banks), tg, moe.BLOCK_M)
+    for name, got, ref in zip(("dw1", "dw3", "dw2"), dws, refs):
+        assert got.dtype == dtype and got.shape == ref.shape and bool(torch.isfinite(got).all()), name
+        assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item(), name
+        if empty is not None:
+            assert not got[empty].any(), name
+    # the custom op's backward: dx and dw from one first pass, as the plain versions give them
+    xt, bt = xs.detach().requires_grad_(), [b.detach().requires_grad_() for b in banks]
+    grads = torch.autograd.grad(moe.grouped_swiglu(xt, *bt, tg), [xt, *bt], dy)
+    ref_dx = moe.grouped_swiglu_dx_plain(xs.float(), dy.float(), *(b.float() for b in banks), tg, moe.BLOCK_M)
+    for got, ref in zip(grads, (ref_dx, *refs)):
+        assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_dw_kernel_is_deterministic(gen):
+    """One owner per gradient tile and no atomics: equal bits from run to run."""
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm as moe
+
+    xs, tg = _routed(gen, moe, 700, 256, 4, torch.bfloat16)
+    dy = torch.randn(xs.shape, generator=gen, device="cuda").bfloat16()
+    banks = [(torch.randn(s, generator=gen, device="cuda") * 0.05).bfloat16()
+             for s in ((4, 256, 512), (4, 256, 512), (4, 512, 256))]
+    first = moe.grouped_swiglu_dw(xs, dy, *banks, tg, moe.BLOCK_M)
+    for a, b in zip(first, moe.grouped_swiglu_dw(xs, dy, *banks, tg, moe.BLOCK_M)):
+        assert torch.equal(a, b)
+
+
+def test_checkpointed_moe_layer_with_trainable_banks_launches_dw_once(gen):
+    """A hidream-style DiT (grouped MoE, dots_flash checkpointing) whose first
+    double block trains its expert banks: one dw launch in the backward, no
+    MoE dx for that layer (its input needs no gradient), and the second
+    layer's dx."""
+    import dataclasses
+
+    from ai_toolkit_tpu_torch.jobs.train_process import select_trainable
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig, FluxDiT
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm as moe
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+    from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
+
+    cfg = dataclasses.replace(FluxConfig.tiny(), hidden_size=256, num_heads=2, head_dim=128,
+                              axes_dim=(16, 56, 56), depth_double=1, depth_single=1, guidance_embed=False,
+                              moe_experts=4, qk_norm_across_heads=True, moe_dispatch="grouped",
+                              dtype=torch.bfloat16)
+    dit = init_parameters(FluxDiT(cfg, device="cuda"), gen)
+    trainable = select_trainable(dit, ["double_blocks.0.img_mlp.experts"], None)
+    dit.gradient_checkpointing = True
+    n_txt, hh, ww = 8, 4, 6
+    pe = multi_axis_rope(torch.from_numpy(image_position_ids(hh, ww, text_len=n_txt))[None],
+                         list(cfg.axes_dim), cfg.theta).cuda()
+    args = [torch.randn((1, hh * ww, cfg.in_channels), generator=gen, device="cuda"),
+            torch.randn((1, n_txt, cfg.context_dim), generator=gen, device="cuda"),
+            torch.tensor([0.5], device="cuda"),
+            torch.randn((1, cfg.vec_dim), generator=gen, device="cuda"), pe]
+    moe.launches = moe.dx_launches = moe.dw_launches = 0
+    loss = dit(*args).float().square().mean()
+    grads = torch.autograd.grad(loss, list(trainable.values()))
+    assert (moe.launches, moe.dx_launches, moe.dw_launches) == (4, 1, 1)
+    assert all(bool(torch.isfinite(g).all()) and g.abs().max() > 0 for g in grads)
