@@ -4,9 +4,9 @@
 //
 // Replaces the TPU kernels of ai_toolkit_tpu/ops/pallas/flash_attention.py:
 //   `_bwd_dq_kernel`           -> flash_bwd_dq_kernel
-//   `_bwd_dkv_kernel`          -> flash_bwd_dkv_kernel
+//   `_bwd_dkv_kernel`          -> flash_bwd_dkv_sm90 (bf16), flash_bwd_dkv_kernel (f32)
 //   `_bwd_dq_kernel_streamed`  -> flash_bwd_dq_kernel (masked K/V tail)
-//   `_bwd_dkv_kernel_streamed` -> flash_bwd_dkv_kernel (masked K/V tail)
+//   `_bwd_dkv_kernel_streamed` -> the dk/dv kernels (masked Q tail)
 // Both kernels stream the other operand through shared memory tile by tile and
 // mask ragged tails themselves, so the resident and streamed TPU forms are one
 // kernel each and no padded copies are made.
@@ -19,21 +19,54 @@
 // [B,S,H,D] / [B,T,H,D] in the input type.
 //
 // Ownership: every output tile has one owner block (a 64-row Q tile for dq, a
-// 64-row K/V tile for dk/dv), so there are no atomics and the gradients are the
-// same from run to run.
+// K/V tile for dk/dv), so there are no atomics and the gradients are the same
+// from run to run.
 //
 // What bounds it: the five products of the function are 10*S*T*D*H FLOPs
-// against about 2*(2S+2T)*H*D bytes read and (S+2T)*H*D written; at the flux-dev
-// shape (S=T=4608, H=24, D=128, bf16) that is 6.52e11 FLOP against ~0.2 GB,
+// against about 2*(2S+2T)*H*D bytes read and (S+2T)*H*D written; at the
+// flux-dev shape (S=T=4608, H=24, D=128, bf16) that is 6.52e11 FLOP against ~0.2 GB,
 // far above the card's ~295 FLOP/byte ridge: compute-bound. The two-kernel
 // design recomputes q k^T and dO v^T in both passes (seven products in all) to
-// keep one owner per tile. All products run on the tensor cores as WMMA bf16
-// 16x16x16 tiles with f32 accumulation; the f32 accumulators of dq / dk / dv
-// live in shared memory. Where the second product takes a bf16 operand, ds
-// (dq kernel) and p and ds (dk/dv kernel) are rounded to bf16 after the f32
-// elementwise step. Loads are not overlapped with compute (no cp.async, TMA or
-// wgmma yet). f32 inputs take a CUDA-core FMA path with the same layout and a
-// 32-row inner tile, so that the f32 tiles fit in shared memory.
+// keep one owner per tile.
+//
+// dk/dv, bf16 (flash_bwd_dkv_sm90): wgmma on TMA-fed shared memory.
+//   - one block per 128 K/V rows and (b, h); 384 threads: consumer
+//     warpgroups 0 and 1 own 64 K/V rows each; in producer warpgroup 2 one
+//     thread issues the TMA loads and one warp stages lse and delta
+//     (setmaxnreg: 24 registers for the producer, 240 for the consumers;
+//     ptxas spills 28 bytes in the producer's lse/delta loop, off the
+//     products' path; a 32/232 split moves a 4-byte spill into the D = 128
+//     consumers instead);
+//   - the block's K and V tiles arrive once by TMA; Q and dO go through a
+//     2-stage ring of 64-row tiles, each stage with a full mbarrier (the TMA
+//     bytes and the 32 arrivals of the lse/delta warp) and an empty one;
+//   - per Q tile, everything is computed transposed, so the block's own rows
+//     are the M dimension and the elementwise results are A operands in
+//     registers: S^T = K Q^T and dP^T = V dO^T (SS wgmma m64n64k16, K-major
+//     B); P^T = exp2(S^T scale log2e - lse log2e), dS^T = P^T (dP^T - delta);
+//     dV += P^T dO and dK += dS^T Q (RS wgmma m64nDk16, P^T and dS^T packed to
+//     bf16 in registers, dO and Q as MN-major B);
+//   - dK and dV stay in registers for the whole sweep (D/2 + D/2 f32 a
+//     thread); the epilogue writes dK * scale and dV in bf16, rows past T not
+//     stored.
+// Traps met and what the code does about them:
+//   - lse and delta cannot arrive by a 1-D bulk copy: that needs a 16-byte
+//     aligned source, and the rows of one (b, h) start at bh*S floats, which
+//     is not a multiple of 4 for S = 4481. A producer warp loads the 64 values
+//     of a stage with plain loads (+inf / 0 past S, so those columns get
+//     p = 0) and arrives on the stage's full barrier;
+//   - ragged tails: the tensor maps are 4-D over (d, h, s, b), so Q/dO rows
+//     past S and K/V rows past T read as zeros, never another head's rows;
+//   - the 128-byte swizzle caps a box at 64 bf16 columns: a D = 128 tile is
+//     two boxes (descriptors as in hopper.cuh);
+//   - the accumulator-to-A reuse holds only for k16 slices (hopper.cuh);
+//   - tail wave: 36 x 24 = 864 blocks (flux) or 34 x 20 = 680 (hidream) over
+//     132 SMs, one block per SM; a persistent scheduler is later work.
+//
+// dq (all types) and dk/dv in f32 keep the first design: WMMA bf16 16x16x16
+// tiles (dq) or CUDA-core FMAs (f32) with f32 accumulators in shared memory,
+// loads not overlapped with compute; f32 tiles take a 32-row inner tile so
+// that they fit in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +75,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -323,6 +358,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int S, int kv_len, int H, Strides st, float scale, int vec) {
+  static_assert(std::is_same<T, float>::value, "bf16 dk/dv runs on flash_bwd_dkv_sm90");
   using L = Smem<T, D>;
   using M = Mma<T>;
   constexpr int BN = L::BN;
@@ -429,13 +465,234 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------- dk/dv, bf16, sm90
+
+namespace sm90 {
+
+constexpr int BM = 128;  // K/V rows per block (64 per consumer warpgroup)
+constexpr int BN = 64;   // Q/dO rows per stage
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;
+constexpr int CONSUMERS = 256;
+constexpr int STAT_ARRIVALS = 32;  // the lse/delta warp
+
+template <int D>
+struct SmemDkv {
+  static constexpr int own_tile = BM * D * 2;  // bytes: D/64 boxes of rows x 128 bytes
+  static constexpr int q_tile = BN * D * 2;
+  static constexpr int k = 0;
+  static constexpr int v = k + own_tile;
+  static constexpr int q = v + own_tile;
+  static constexpr int g = q + STAGES * q_tile;
+  static constexpr int lse = g + STAGES * q_tile;  // f32 [STAGES][BN], log2 units
+  static constexpr int delta = lse + STAGES * BN * 4;
+  static constexpr int bar = delta + STAGES * BN * 4;  // kv_full, full[STAGES], empty[STAGES]
+  static constexpr int bytes = bar + 64 + 1024;         // + slack to align the base to 1024
+  static_assert(bytes <= 232448, "shared memory of one block");
+};
+
+// Grid (ceil(T/BM), B*H); THREADS threads; SmemDkv<D>::bytes dynamic shared memory.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_sm90(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
+                   __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tg,
+                   const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int S, int T, int H, float scale) {
+  using L = SmemDkv<D>;
+  constexpr int BOXES = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
+  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int k0 = blockIdx.x * BM;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int n_tiles = (S + BN - 1) / BN;
+  const float scale_log2 = scale * LOG2E;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1 + STAT_ARRIVALS);
+      hopper::mbar_init(&empty[s], CONSUMERS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: thread 0 of the warpgroup loads tiles, warp 1 stages lse and delta ----
+    hopper::setmaxnreg_dec<24>();
+    const int ptid = threadIdx.x - 256;
+    if (ptid == 0) {
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * L::own_tile);
+      for (int x = 0; x < BOXES; ++x) {
+        hopper::tma_load_4d(smem + L::k + x * BM * 128, &tk, kv_full, x * 64, h, k0, b);
+        hopper::tma_load_4d(smem + L::v + x * BM * 128, &tv, kv_full, x * 64, h, k0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * L::q_tile);
+        for (int x = 0; x < BOXES; ++x) {
+          hopper::tma_load_4d(smem + L::q + s * L::q_tile + x * BN * 128, &tq, &full[s], x * 64, h, i * BN, b);
+          hopper::tma_load_4d(smem + L::g + s * L::q_tile + x * BN * 128, &tg, &full[s], x * 64, h, i * BN, b);
+        }
+      }
+    } else if (ptid >= 32 && ptid < 64) {
+      const int lane = ptid - 32;
+      const float* lrow = lse + (long long)bh * S;
+      const float* drow = delta + (long long)bh * S;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+#pragma unroll
+        for (int c = lane; c < BN; c += 32) {
+          const int qi = i * BN + c;
+          lse_s[s * BN + c] = qi < S ? lrow[qi] * LOG2E : INFINITY;  // p = 0 past S
+          delta_s[s * BN + c] = qi < S ? drow[qi] : 0.f;
+        }
+        hopper::mbar_arrive(&full[s]);  // release: the stores above are seen after the wait
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns K/V rows [64 wg, 64 wg + 64) of the block ----
+    hopper::setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int row = 16 * (tid / 32) + lane / 4;  // and row + 8, within the warpgroup's 64
+    const int col = 2 * (lane % 4);              // + 8j + {0, 1}
+    const unsigned char* ks = smem + L::k + wg * 64 * 128;
+    const unsigned char* vs = smem + L::v + wg * 64 * 128;
+
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES;
+      const unsigned char* qs = smem + L::q + s * L::q_tile;
+      const unsigned char* gs = smem + L::g + s * L::q_tile;
+      hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 x 64 f32 each, D/16 k16 slices
+      float st[BN / 2], dpt[BN / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int x = kk / 4, k16 = (kk % 4) * 32;
+        hopper::Wgmma<BN, 0>::ss(st, hopper::desc_sw128(ks + x * BM * 128 + k16, 16, 1024),
+                                 hopper::desc_sw128(qs + x * BN * 128 + k16, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int x = kk / 4, k16 = (kk % 4) * 32;
+        hopper::Wgmma<BN, 0>::ss(dpt, hopper::desc_sw128(vs + x * BM * 128 + k16, 16, 1024),
+                                 hopper::desc_sw128(gs + x * BN * 128 + k16, 16, 1024), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      // P^T and dS^T in f32 over the columns (query rows) this thread holds
+      const float* ls = lse_s + s * BN;
+      const float* dl = delta_s + s * BN;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lq = ls[8 * j + col + e], dlq = dl[8 * j + col + e];
+          const float p0 = exp2f(fmaf(st[4 * j + e], scale_log2, -lq));
+          const float p1 = exp2f(fmaf(st[4 * j + 2 + e], scale_log2, -lq));
+          st[4 * j + e] = p0;
+          st[4 * j + 2 + e] = p1;
+          dpt[4 * j + e] = p0 * (dpt[4 * j + e] - dlq);
+          dpt[4 * j + 2 + e] = p1 * (dpt[4 * j + 2 + e] - dlq);
+        }
+      uint32_t pa[BN / 16][4], dsa[BN / 16][4];
+      hopper::acc_to_a(st, pa);
+      hopper::acc_to_a(dpt, dsa);
+
+      // dV += P^T dO, dK += dS^T Q: A from registers, dO and Q [q][d] as MN-major B
+      hopper::fence_regs(pa);
+      hopper::fence_regs(dsa);
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(dk_acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        hopper::Wgmma<D, 1>::rs(dv_acc, pa[kk], hopper::desc_sw128(gs + kk * 16 * 128, BN * 128, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        hopper::Wgmma<D, 1>::rs(dk_acc, dsa[kk], hopper::desc_sw128(qs + kk * 16 * 128, BN * 128, 1024), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(dk_acc);
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: dK * scale and dV in bf16, rows past T not stored
+    const int r0 = k0 + wg * 64 + row, r1 = r0 + 8;
+    const long long o0 = ((long long)(b * T + r0) * H + h) * D + col;
+    const long long o1 = ((long long)(b * T + r1) * H + h) * D + col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (r0 < T) {
+        *reinterpret_cast<uint32_t*>(dk + o0 + 8 * j) =
+            hopper::pack_bf16(dk_acc[4 * j] * scale, dk_acc[4 * j + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + o0 + 8 * j) = hopper::pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
+      }
+      if (r1 < T) {
+        *reinterpret_cast<uint32_t*>(dk + o1 + 8 * j) =
+            hopper::pack_bf16(dk_acc[4 * j + 2] * scale, dk_acc[4 * j + 3] * scale);
+        *reinterpret_cast<uint32_t*>(dv + o1 + 8 * j) = hopper::pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int B, int S, int T_, int H, const Strides& st,
+                       float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  cudaError_t err = hopper::make_map_bshd(&tq, q, B, S, H, D, st.qb, st.qs, st.qh, BN);
+  if (err == cudaSuccess) err = hopper::make_map_bshd(&tg, dout, B, S, H, D, st.gb, st.gs, st.gh, BN);
+  if (err == cudaSuccess) err = hopper::make_map_bshd(&tk, k, B, T_, H, D, st.kb, st.ks, st.kh, BM);
+  if (err == cudaSuccess) err = hopper::make_map_bshd(&tv, v, B, T_, H, D, st.vb, st.vs, st.vh, BM);
+  if (err != cudaSuccess) return err;
+  auto kern = flash_bwd_dkv_sm90<D>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SmemDkv<D>::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T_ + BM - 1) / BM, B * H);
+  kern<<<grid, THREADS, SmemDkv<D>::bytes, stream>>>(tq, tk, tv, tg, lse, delta, static_cast<bf16*>(dk),
+                                                      static_cast<bf16*>(dv), S, T_, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides (q, k, v, dO; batch, seq, head)
 // are in elements; the last stride of every input is 1. `vec` = 1 when every
-// row start is 16-byte aligned. lse, delta: f32 [B,H,S] contiguous. Each
+// row start is 16-byte aligned (the WMMA dq kernel's vector loads). bf16 dk/dv
+// reads q, k, v, dO by TMA: 16-byte aligned bases and batch, sequence and head
+// strides that are multiples of 8 elements (the wrapper copies a tensor that
+// breaks that). lse, delta: f32 [B,H,S] contiguous. Each
 // returns the cudaError_t of its launch (0 on success).
 int ait_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq, int B, int S, int T,
@@ -467,13 +724,15 @@ int ait_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, con
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-#define AIT_DKV_CASE(TYPE, DIM)                                                             \
-  return static_cast<int>(                                                                  \
-      launch_dkv<TYPE, DIM>(q, k, v, dout, l, dl, dk, dv, B, S, T, H, st, scale, vec, cs))
-  if (dtype == 1 && D == 128) AIT_DKV_CASE(bf16, 128);
-  if (dtype == 1 && D == 64) AIT_DKV_CASE(bf16, 64);
-  if (dtype == 0 && D == 128) AIT_DKV_CASE(float, 128);
-  if (dtype == 0 && D == 64) AIT_DKV_CASE(float, 64);
+#define AIT_DKV_SM90(DIM) \
+  return static_cast<int>(sm90::launch_dkv<DIM>(q, k, v, dout, l, dl, dk, dv, B, S, T, H, st, scale, cs))
+  if (dtype == 1 && D == 128) AIT_DKV_SM90(128);
+  if (dtype == 1 && D == 64) AIT_DKV_SM90(64);
+#undef AIT_DKV_SM90
+#define AIT_DKV_CASE(DIM) \
+  return static_cast<int>(launch_dkv<float, DIM>(q, k, v, dout, l, dl, dk, dv, B, S, T, H, st, scale, vec, cs))
+  if (dtype == 0 && D == 128) AIT_DKV_CASE(128);
+  if (dtype == 0 && D == 64) AIT_DKV_CASE(64);
 #undef AIT_DKV_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -47,23 +47,37 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+def report_path(name: str) -> Path:
+    """Where the build of ``name``'s library keeps the compiler's ``-Xptxas
+    -v`` report (registers, shared memory and spills of each kernel)."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
+def report(name: str) -> str | None:
+    """The ``-Xptxas -v`` report of ``name``'s library as built, or None
+    where the library was built without one."""
+    path = report_path(name)
+    return path.read_text() if path.is_file() else None
+
+
 def build(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library exists; return the path.
 
-    ``verbose`` adds ``-Xptxas -v`` and prints what the compiler reports
-    (registers, shared memory and spills of each kernel)."""
+    Every build keeps the compiler's ``-Xptxas -v`` report beside the library
+    (:func:`report`); ``verbose`` also prints it."""
     out = library_path(name)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    text = proc.stdout + proc.stderr
+    report_path(name).write_text(text)
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        print(text, flush=True)
     os.replace(tmp, out)
     return out
 

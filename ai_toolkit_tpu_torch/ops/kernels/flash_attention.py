@@ -7,15 +7,17 @@ The forward replaces ``ai_toolkit_tpu/ops/pallas/flash_attention.py``
 ``flash_attention_any``) with one kernel, ``csrc/flash_attention_fwd.cu``. The
 backward replaces ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` and their streamed,
 masked forms with two kernels, ``csrc/flash_attention_bwd.cu``: dq (one block
-per 64-row Q tile) and dk/dv (one block per 64-row K/V tile). All of them
+per 64-row Q tile) and dk/dv (one block per 128-row K/V tile). All of them
 stream the other operand through shared memory and mask ragged tails
 themselves.
 
 What bounds them on the card: the forward does about 4*S*T*D*H FLOPs, the
 backward 10*S*T*D*H (five products), against O((S+T)*H*D) bytes, so at the
-flux shape (S=T=4608, H=24, D=128) both are compute-bound. The simple designs
-run every product on the tensor cores (WMMA bf16, f32 accumulation) and do not
-yet overlap loads with compute (see the source notes).
+flux shape (S=T=4608, H=24, D=128) both are compute-bound. In bf16 the
+forward and dk/dv run wgmma on shared-memory tiles that TMA loads through a
+ring of mbarrier-guarded stages, with the softmax and P (dk/dv: P^T and dS^T)
+in registers (``csrc/hopper.cuh``); dq and the f32 paths keep the first WMMA
+/ CUDA-core designs (see the source notes).
 
 ``flash_attention_fwd(q, k, v, scale) -> (out, lse)`` takes q ``[B,S,H,D]``,
 k/v ``[B,T,H,D]`` in bf16 or f32 with D in {64, 128}, through strides (only
@@ -24,6 +26,12 @@ It is the custom op ``ait::flash_attention_fwd``, so a selective-checkpoint
 policy can keep its outputs (``models/flux_dit.py``); its autograd formula is
 :func:`flash_attention_bwd`. lse is not differentiable. CPU tensors go to the
 plain versions; CUDA tensors launch the kernels or raise.
+
+TMA reads a bf16 tensor through a tensor map built from its strides
+(:func:`_tma_plan`); a tensor TMA cannot address (a base not 16-byte aligned,
+a batch, sequence or head stride that is not a multiple of 16 bytes) is
+copied to a contiguous one first, and ``tma_copies`` counts those copies. The
+kernel runs either way.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 launches = 0  # flash_attention_fwd
 dq_launches = 0  # flash_attention_bwd_dq
 dkv_launches = 0  # flash_attention_bwd_dkv
+tma_copies = 0  # bf16 inputs copied because TMA could not address them as they were
 
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -105,7 +114,7 @@ def _fwd_kernel():
         fn = lib.ait_flash_attention_fwd
         fn.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fwd_fn = (fn, _error_string(lib))
@@ -145,11 +154,47 @@ def _check(q, k, v):
         raise ValueError(f"B*H = {b * h} exceeds the kernel grid")
 
 
+def _tma_plan(x: torch.Tensor) -> tuple[tuple[int, ...], tuple[int, ...], bool]:
+    """How TMA reads ``x`` ``[B, S, H, D]``: the dims of its tensor map,
+    innermost first ``(D, H, S, B)`` (the sequence a dimension of its own, so
+    a box past its end reads zeros), the byte strides of H, S and B, and
+    whether ``x`` must first be copied. TMA needs a 16-byte aligned base, D
+    contiguous, and byte strides that are positive multiples of 16 below
+    2**40. A dimension of extent 1 is never stepped over, so its stride is
+    taken as the contiguous one."""
+    b, s, h, d = x.shape
+    es = x.element_size()
+    contiguous = (s * h * d, h * d, d)
+    sb, ss, sh = (st if n > 1 else c for st, n, c in zip(x.stride()[:3], (b, s, h), contiguous))
+    byte_strides = (sh * es, ss * es, sb * es)
+    needs_copy = (x.stride(-1) != 1 or x.data_ptr() % 16 != 0
+                  or any(st <= 0 or st % 16 or st >= 2**40 for st in byte_strides))
+    return (d, h, s, b), byte_strides, needs_copy
+
+
 def _aligned(tensors) -> bool:
-    """Every row start 16-byte aligned (the kernels' vector loads)."""
+    """Every row start 16-byte aligned (the dq kernel's vector loads)."""
     return all(x.data_ptr() % 16 == 0 and all(st * x.element_size() % 16 == 0
                                               for st in x.stride()[:3])
                for x in tensors)
+
+
+def _tma_inputs(tensors):
+    """bf16 inputs as TMA reads them, and their (batch, sequence, head)
+    element strides for the kernel: a tensor :func:`_tma_plan` cannot map is
+    replaced by a contiguous copy, counted in ``tma_copies``."""
+    global tma_copies
+    ready, strides = [], []
+    for x in tensors:
+        _, byte_strides, needs_copy = _tma_plan(x)
+        if needs_copy:
+            tma_copies += 1
+            x = x.clone(memory_format=torch.contiguous_format)
+            byte_strides = _tma_plan(x)[1]
+        sh, ss, sb = (st // x.element_size() for st in byte_strides)
+        ready.append(x)
+        strides.append((sb, ss, sh))
+    return ready, strides
 
 
 def _launch_fwd(q, k, v, scale: float):
@@ -157,27 +202,32 @@ def _launch_fwd(q, k, v, scale: float):
     fn, err_str = _fwd_kernel()
     b, s, h, d = q.shape
     t = k.shape[1]
+    strides = [x.stride()[:3] for x in (q, k, v)]
+    if q.dtype == torch.bfloat16:
+        (q, k, v), strides = _tma_inputs((q, k, v))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, s, t, h, d, _DTYPES[q.dtype],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(_aligned((q, k, v))), stream)
+            b, s, t, h, d, _DTYPES[q.dtype], *strides[0], *strides[1], *strides[2],
+            float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: {err_str(rc).decode()} ({rc})")
     launches += 1
     return out, lse
 
 
-def _bwd_args(q, k, v, g, lse, delta, scale: float):
-    """The launch arguments both backward kernels share."""
+def _bwd_args(q, k, v, g, lse, delta, scale: float, strides=None):
+    """The launch arguments both backward kernels share; ``strides``: the
+    (batch, sequence, head) element strides of q, k, v, g where they are not
+    the tensors' own (:func:`_tma_inputs`)."""
     if g.stride(-1) != 1:
         g = g.contiguous()
     lse, delta = lse.contiguous(), delta.contiguous()
     b, s, h, d = q.shape
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                                       *g.stride()[:3])
+    if strides is None:
+        strides = [x.stride()[:3] for x in (q, k, v, g)]
+    strides = (ctypes.c_longlong * 12)(*(st for xs in strides for st in xs))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (b, s, k.shape[1], h, d, _DTYPES[q.dtype], strides, float(scale),
             int(_aligned((q, k, v, g))), torch.cuda.current_stream(q.device).cuda_stream)
@@ -199,7 +249,10 @@ def _launch_bwd_dq(q, k, v, g, lse, delta, scale: float):
 def _launch_bwd_dkv(q, k, v, g, lse, delta, scale: float):
     global dkv_launches
     _, dkv_fn, err_str = _bwd_kernels()
-    ptrs, tail, _keep = _bwd_args(q, k, v, g, lse, delta, scale)
+    strides = None
+    if q.dtype == torch.bfloat16:
+        (q, k, v, g), strides = _tma_inputs((q, k, v, g))
+    ptrs, tail, _keep = _bwd_args(q, k, v, g, lse, delta, scale, strides)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     rc = dkv_fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *tail)

@@ -3,11 +3,15 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: versions, card name and power limit, TF32 off, the five
-     kernel libraries built in parallel (one nvcc each);
+     kernel libraries built in parallel (one nvcc each), the registers and
+     spills of the two wgmma kernels from ``-Xptxas -v``;
   2. the flash forward kernel against its plain version at the shapes the
-     paths give it, timed against it and against the library yardstick, at
-     1024^2 and at the ragged 1008^2;
-  3. the flash backward kernels (dq, dk/dv) the same way;
+     paths give it (ragged, S != T, smaller than a tile, D 64 and 128, the
+     fused-projection views, a view TMA cannot read, which is copied), timed
+     against it and against the library yardstick at the flux 1024^2, the
+     ragged 1008^2 and the hidream 1024^2 shapes;
+  3. the flash backward kernels (dq, dk/dv) the same way, dk/dv's bits
+     checked from run to run;
   4. the grouped SwiGLU MoE kernels (forward, dx, the bank gradients dw) the
      same way, at the hidream shapes with a real top-2 routing;
   5. full-width, reduced-depth flux and hidream DiTs on the card against the
@@ -16,8 +20,9 @@ Phases (any failure raises and the script exits non-zero):
      expert banks;
   6. the flux-dev LoRA ``sd_trainer`` job at 1024^2 through
      ``ai_toolkit_tpu_torch.jobs``, with the launches of every kernel per step
-     checked (``--profile DIR`` adds a ``torch.profiler`` split of its last
-     step, written to DIR);
+     checked, and no flash input copied for TMA, as in every job phase
+     (``--profile DIR`` adds a ``torch.profiler`` split of its last step,
+     written to DIR);
   7. the flux-dev ``generate`` job at 1024x1024, 8 steps, 2 prompts, loading
      the LoRA the train job saved, launch count checked;
   8. a ragged resolution (1008x1008, 4481 tokens), 1 prompt, 2 steps;
@@ -40,6 +45,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -51,17 +57,28 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-# (B, S, T, H, D), dtype, out tolerance vs the f32 plain version
+# (B, S, T, H, D), dtype, out tolerance vs the f32 plain version, a fraction of
+# max|ref| and never more than that absolute: at T ~ 4600 a typical |out| of
+# random inputs is ~0.02 (sqrt(e/T)), so an absolute 2e-2 would pass a wrong
+# P.V half; lse (QK^T and the softmax) is held to LSE_TOL absolute
 FLASH_CASES = [
     ((1, 4608, 4608, 24, 128), torch.bfloat16, 2e-2),  # flux-dev 1024^2: 512 text + 4096 image
     ((1, 4481, 4481, 24, 128), torch.bfloat16, 2e-2),  # 1008^2: ragged tails
     ((1, 4352, 4352, 20, 128), torch.bfloat16, 2e-2),  # hidream 1024^2: 256 text + 4096 image
+    ((2, 300, 190, 4, 64), torch.bfloat16, 2e-2),  # S != T, both ragged, D=64
+    ((2, 190, 300, 4, 128), torch.bfloat16, 2e-2),  # S < T
+    ((1, 16, 16, 2, 128), torch.bfloat16, 2e-2),  # smaller than one tile
+    ((1, 16, 16, 2, 64), torch.bfloat16, 2e-2),
     ((2, 300, 190, 4, 64), torch.float32, 1e-4),  # rect, ragged, D=64
     ((1, 16, 16, 2, 128), torch.float32, 1e-4),  # smaller than one tile
 ]
 LSE_TOL = 1e-3
 MAIN_SHAPE = (1, 4608, 24, 128)
 RAGGED_SHAPE = (1, 4481, 24, 128)  # flux-dev at 1008^2: 512 text + 3969 image tokens, masked tails
+HIDREAM_SHAPE = (1, 4352, 20, 128)  # hidream at 1024^2: 256 text + 4096 image tokens
+TIMED_SHAPES = [("main", MAIN_SHAPE), ("ragged", RAGGED_SHAPE), ("hidream", HIDREAM_SHAPE)]
+# the kernels redesigned for Hopper (wgmma, TMA): their compiler reports are printed
+SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dkv_sm90")
 BLOCKS_PER_FORWARD = 19 + 38  # flux-dev double + single blocks, one attention each
 # backward: (B, S, T, H, D), dtype, tolerance on max|dX - ref| / max|ref| for dq, dk, dv:
 # bf16 inputs with p and ds rounded to bf16 before the second products (f32
@@ -70,8 +87,19 @@ BWD_CASES = [
     ((1, 4608, 4608, 24, 128), torch.bfloat16, 2e-2),
     ((1, 4481, 4481, 24, 128), torch.bfloat16, 2e-2),
     ((1, 4352, 4352, 20, 128), torch.bfloat16, 2e-2),  # hidream
+    ((2, 300, 190, 4, 64), torch.bfloat16, 2e-2),
+    ((2, 190, 300, 4, 128), torch.bfloat16, 2e-2),
+    ((1, 16, 16, 2, 128), torch.bfloat16, 2e-2),
+    ((1, 16, 16, 2, 64), torch.bfloat16, 2e-2),
     ((2, 300, 190, 4, 64), torch.float32, 1e-4),
     ((1, 16, 16, 2, 128), torch.float32, 1e-4),
+]
+# q, k, v as views of a fused projection [B, S, 3*H*D + extra] from element
+# `start` on: ((B, S, H, D), extra, start, bf16 inputs TMA must copy)
+FUSED_VIEWS = [
+    ((2, 200, 4, 128), 0, 0, 0),  # the double blocks' fused qkv
+    ((1, 1100, 24, 128), 4 * 3072, 0, 0),  # the single blocks' linear1 output
+    ((2, 200, 4, 64), 1, 1, 3),  # no TMA view: q, k, v copied
 ]
 # grouped SwiGLU: (tokens, d, h, experts), dtype, tolerance on max|out - ref| / max|ref|
 # for the forward and dx against the f32 plain version, the expert that gets no
@@ -120,34 +148,61 @@ def environment() -> str:
         print(f"kernel build: {name} {times[name]:.2f} s"
               f"{' (library already built from these sources)' if cached[name] else ''}")
     print(f"kernel builds in parallel: {time.perf_counter() - t0:.2f} s wall")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        report = build.report(name)
+        if report is None:
+            print(f"ptxas -v: {name}: no report kept beside the library (built without one)")
+        for line in _ptxas_summary(report or ""):
+            print(f"ptxas -v: {line}")
     return smi.splitlines()[0]
+
+
+def _ptxas_summary(report: str) -> list[str]:
+    """Registers, shared memory and spills of the wgmma kernels (SM90_KERNELS)
+    from a ``-Xptxas -v`` report, one line per instantiation."""
+    out, kernel = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((k for k in SM90_KERNELS if k in line), None)
+            if kernel is not None:
+                d = re.search(r"ILi(\d+)E", line)
+                out.append(f"{kernel}<{d.group(1) if d else '?'}>:")
+        elif kernel is not None and ("registers" in line or "spill" in line):
+            out[-1] += " " + line.split(":", 1)[-1].strip().rstrip(",") + ";"
+    return out
 
 
 def _rand(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
 
-def _time_ms(fn, reps: int) -> list[float]:
+def _time_ms(fn, reps: int, inner: int = 10) -> list[float]:
+    """``reps`` samples of the device time of one call of ``fn``: CUDA events
+    around ``inner`` calls back to back, divided by ``inner``, so that the
+    host's time to launch a call hides behind the device's work on the
+    previous one (a sub-millisecond kernel timed alone also times its launch)."""
     out = []
     for _ in range(reps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        out.append(e0.elapsed_time(e1))
+        out.append(e0.elapsed_time(e1) / inner)
     return out
 
 
 def _in_turns(kern, plain, reps: int = 10) -> tuple[float, float, int]:
     """Medians (kernel ms, plain ms) over plain, kernel, kernel, plain runs of
-    ``reps`` each, after a warm-up of each."""
+    ``reps`` samples each, after a warm-up of each; the plain versions (10 ms
+    and more a call) are timed one call a sample."""
     for f in (kern, plain):
-        _time_ms(f, 2)
-    p = _time_ms(plain, reps)
+        _time_ms(f, 2, 1)
+    p = _time_ms(plain, reps, 1)
     kt = _time_ms(kern, reps)
     kt += _time_ms(kern, reps)
-    p += _time_ms(plain, reps)
+    p += _time_ms(plain, reps, 1)
     return statistics.median(kt), statistics.median(p), len(kt)
 
 
@@ -172,55 +227,58 @@ def _sdpa_bwd_ms(q, k, v, g) -> float:
     return statistics.median(_time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True), 20))
 
 
+def _fused_qkv(b, s, h, d, extra, start, gen):
+    """q, k, v as views of one fused bf16 projection ``[B, S, 3*H*D + extra]``."""
+    fused = _rand((b, s, 3 * h * d + extra), torch.bfloat16, gen)
+    return fused[..., start:start + 3 * h * d].unflatten(-1, (3, h, d)).unbind(2)
+
+
 def kernel_vs_plain() -> dict:
     phase("flash_attention_fwd kernel vs plain version")
     from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator("cuda").manual_seed(0)
     max_err = 0.0
-    cases = [(shape, dt, tol, None) for shape, dt, tol in FLASH_CASES]
-    # single-block split: q, k, v are strided views of the fused linear1 output
-    b, s, h, d, mlp = 1, 1100, 24, 128, 4 * 3072
-    lin1 = _rand((b, s, 3 * h * d + mlp), torch.bfloat16, gen)
-    cases.append(((b, s, s, h, d), torch.bfloat16, 2e-2,
-                  lin1[..., : 3 * h * d].unflatten(-1, (3, h, d)).unbind(2)))
-    for (b, s, t, h, d), dt, tol, qkv in cases:
+    cases = [(shape, dt, tol, None, 0) for shape, dt, tol in FLASH_CASES]
+    for (b, s, h, d), extra, start, copies in FUSED_VIEWS:
+        cases.append(((b, s, s, h, d), torch.bfloat16, 2e-2, _fused_qkv(b, s, h, d, extra, start, gen), copies))
+    for (b, s, t, h, d), dt, tol, qkv, copies in cases:
         q, k, v = qkv if qkv is not None else (
             _rand((b, s, h, d), dt, gen), _rand((b, t, h, d), dt, gen), _rand((b, t, h, d), dt, gen))
+        before = fa.tma_copies
         out, lse = fa.flash_attention_fwd(q, k, v)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float())
         err = (out.float() - ref_out).abs().max().item()
+        ref_max = ref_out.abs().max().item()
+        out_tol = tol * min(1.0, ref_max)
         lse_err = (lse - ref_lse).abs().max().item()
         finite = bool(torch.isfinite(out).all())
         print(f"(B,S,T,H,D)=({b},{s},{t},{h},{d}) {str(dt)[6:]} v_stride={tuple(v.stride())} "
-              f"out_err={err:.3e} (tol {tol:g}) lse_err={lse_err:.3e} (tol {LSE_TOL:g})")
-        check(finite and err <= tol and lse_err <= LSE_TOL, "kernel disagrees with its plain version")
+              f"out_err={err:.3e} (max|ref| {ref_max:.3e}, tol {out_tol:.3e}) lse_err={lse_err:.3e} "
+              f"(tol {LSE_TOL:g}) TMA copies {fa.tma_copies - before}")
+        check(finite and err <= out_tol and lse_err <= LSE_TOL, "kernel disagrees with its plain version")
+        check(fa.tma_copies - before == copies, f"{fa.tma_copies - before} TMA copies, expected {copies}")
         max_err = max(max_err, err)
 
-    q, k, v = (_rand(MAIN_SHAPE, torch.bfloat16, gen) for _ in range(3))
-    ms, plain_ms, n = _in_turns(lambda: fa.flash_attention_fwd(q, k, v),
-                                lambda: fa.flash_attention_fwd_plain(q, k, v))
-    qt, kt, vt = _sdpa_layout(q, k, v)
-    library_ms = statistics.median(_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20))
-    b, s, h, d = MAIN_SHAPE
-    flops = 4 * b * s * s * h * d
-    bound, by = _bound_ms(flops, 2 * 4 * b * s * h * d + 4 * b * h * s)
-    print(f"main shape {MAIN_SHAPE} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-          f"plain {plain_ms:.4f} ms ({flops / plain_ms / 1e9:.1f} TFLOP/s), median of {n}; "
-          f"library scaled_dot_product_attention {library_ms:.4f} ms; bound {bound:.4f} ms ({by})")
-    # the ragged shape: the same kernel over masked tails (the streamed Pallas kernels' work)
-    q, k, v = (_rand(RAGGED_SHAPE, torch.bfloat16, gen) for _ in range(3))
-    r_ms, r_plain, n = _in_turns(lambda: fa.flash_attention_fwd(q, k, v),
-                                 lambda: fa.flash_attention_fwd_plain(q, k, v))
-    qt, kt, vt = _sdpa_layout(q, k, v)
-    r_lib = statistics.median(_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20))
-    b, s, h, d = RAGGED_SHAPE
-    r_bound, r_by = _bound_ms(4 * b * s * s * h * d, 2 * 4 * b * s * h * d + 4 * b * h * s)
-    print(f"ragged shape {RAGGED_SHAPE} bf16: kernel {r_ms:.4f} ms, plain {r_plain:.4f} ms, median of "
-          f"{n}; library scaled_dot_product_attention {r_lib:.4f} ms; bound {r_bound:.4f} ms ({r_by})")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound, "bound_by": by}
+    res = {}
+    for label, shape in TIMED_SHAPES:
+        q, k, v = (_rand(shape, torch.bfloat16, gen) for _ in range(3))
+        ms, plain_ms, n = _in_turns(lambda: fa.flash_attention_fwd(q, k, v),
+                                    lambda: fa.flash_attention_fwd_plain(q, k, v))
+        qt, kt, vt = _sdpa_layout(q, k, v)
+        library_ms = statistics.median(_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20))
+        b, s, h, d = shape
+        flops = 4 * b * s * s * h * d  # two products; q, k, v in and out out in bf16, lse in f32
+        bound, by = _bound_ms(flops, 2 * 4 * b * s * h * d + 4 * b * h * s)
+        print(f"{label} shape {shape} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"plain {plain_ms:.4f} ms, median of {n}; library scaled_dot_product_attention "
+              f"{library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s); kernel / library "
+              f"{ms / library_ms:.2f}x; bound {bound:.4f} ms ({by})")
+        res[label] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound, "bound_by": by}
+        del q, k, v, qt, kt, vt
+    return res["main"]
 
 
 def bwd_kernels_vs_plain() -> dict:
@@ -228,17 +286,16 @@ def bwd_kernels_vs_plain() -> dict:
     from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator("cuda").manual_seed(1)
-    cases = [(shape, dt, tol, None) for shape, dt, tol in BWD_CASES]
-    b, s, h, d, mlp = 1, 1100, 24, 128, 4 * 3072
-    lin1 = _rand((b, s, 3 * h * d + mlp), torch.bfloat16, gen)
-    cases.append(((b, s, s, h, d), torch.bfloat16, 2e-2,
-                  lin1[..., : 3 * h * d].unflatten(-1, (3, h, d)).unbind(2)))
+    cases = [(shape, dt, tol, None, 0) for shape, dt, tol in BWD_CASES]
+    for (b, s, h, d), extra, start, copies in FUSED_VIEWS:
+        cases.append(((b, s, s, h, d), torch.bfloat16, 2e-2, _fused_qkv(b, s, h, d, extra, start, gen), copies))
     err = {"dq": 0.0, "dkv": 0.0}
-    for (b, s, t, h, d), dt, tol, qkv in cases:
+    for (b, s, t, h, d), dt, tol, qkv, copies in cases:
         q, k, v = qkv if qkv is not None else (
             _rand((b, s, h, d), dt, gen), _rand((b, t, h, d), dt, gen), _rand((b, t, h, d), dt, gen))
         g = _rand((b, s, h, d), dt, gen)
         out, lse = fa.flash_attention_fwd(q, k, v)
+        before = fa.tma_copies
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, g)
         torch.cuda.synchronize()
         refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, g.float())
@@ -250,66 +307,56 @@ def bwd_kernels_vs_plain() -> dict:
         finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
         print(f"(B,S,T,H,D)=({b},{s},{t},{h},{d}) {str(dt)[6:]} q_stride={tuple(q.stride())} "
               f"rel err dq/dk/dv = {rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} (tol {tol:g}); "
-              f"max abs {absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e}")
+              f"max abs {absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e}; TMA copies {fa.tma_copies - before}")
         check(finite and max(rel) <= tol, "backward kernels disagree with their plain versions")
+        check(fa.tma_copies - before == copies, f"{fa.tma_copies - before} TMA copies, expected {copies}")
         err["dq"] = max(err["dq"], absd[0])
         err["dkv"] = max(err["dkv"], absd[1], absd[2])
         del refs
         torch.cuda.empty_cache()
 
-    b, s, h, d = MAIN_SHAPE
-    q, k, v, g = (_rand(MAIN_SHAPE, torch.bfloat16, gen) for _ in range(4))
-    scale = d ** -0.5
-    out, lse = fa.flash_attention_fwd(q, k, v)
-    delta = fa.flash_attention_bwd_delta(out, g)
     res = {}
-    for name, kern, plain, flops, nbytes in (
-        ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale),
-         lambda: fa.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, scale),
-         6 * b * h * s * s * d, 2 * 5 * b * s * h * d + 8 * b * h * s),  # q k v dO in, dq out
-        ("dkv", lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale),
-         lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, scale),
-         8 * b * h * s * s * d, 2 * 6 * b * s * h * d + 8 * b * h * s),  # q k v dO in, dk dv out
-    ):
-        ms, plain_ms, n = _in_turns(kern, plain)
-        bound, by = _bound_ms(flops, nbytes)
-        res[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by}
-        print(f"main shape {MAIN_SHAPE} bf16 {name}: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, median of {n}; "
-              f"bound {bound:.4f} ms ({by})")
-    torch.cuda.empty_cache()
-    lib_bwd = _sdpa_bwd_ms(q, k, v, g)
-    # the ragged shape (the streamed Pallas kernels' work): both kernels and the library
-    rq, rk, rv, rg = (_rand(RAGGED_SHAPE, torch.bfloat16, gen) for _ in range(4))
-    r_out, r_lse = fa.flash_attention_fwd(rq, rk, rv)
-    r_delta = fa.flash_attention_bwd_delta(r_out, rg)
-    rb, rs, rh, rd = RAGGED_SHAPE
-    for name, kern, plain, flops, tensors in (  # operations per B*H*S*T*D; [B,S,H,D] tensors in and out
-        ("dq", lambda: fa.flash_attention_bwd_dq(rq, rk, rv, rg, r_lse, r_delta, scale),
-         lambda: fa.flash_attention_bwd_dq_plain(rq, rk, rv, rg, r_lse, r_delta, scale), 6, 5),
-        ("dkv", lambda: fa.flash_attention_bwd_dkv(rq, rk, rv, rg, r_lse, r_delta, scale),
-         lambda: fa.flash_attention_bwd_dkv_plain(rq, rk, rv, rg, r_lse, r_delta, scale), 8, 6),
-    ):
-        r_ms, r_plain, n = _in_turns(kern, plain)
-        r_bound, r_by = _bound_ms(flops * rb * rh * rs * rs * rd,
-                                  2 * tensors * rb * rs * rh * rd + 8 * rb * rh * rs)
-        print(f"ragged shape {RAGGED_SHAPE} bf16 {name}: kernel {r_ms:.4f} ms, plain {r_plain:.4f} ms, "
-              f"median of {n}; bound {r_bound:.4f} ms ({r_by})")
-    print(f"ragged shape: library scaled_dot_product_attention backward {_sdpa_bwd_ms(rq, rk, rv, rg):.4f} ms")
-    del rq, rk, rv, rg, r_out, r_lse, r_delta
-    torch.cuda.empty_cache()
-    # library yardstick at the main shape, forward and backward
-    qt, kt, vt, gt = _sdpa_layout(q, k, v, g)
-    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
-    lib_fb = statistics.median(_time_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), gt), 20))
-    total = res["dq"]["ms"] + res["dkv"]["ms"]
-    print(f"library scaled_dot_product_attention backward {lib_bwd:.4f} ms, forward+backward "
-          f"{lib_fb:.4f} ms; kernels dq+dkv {total:.4f} ms (bound of the whole backward, "
-          f"10*B*H*S*T*D FLOPs: {10 * b * h * s * s * d / PEAK_BF16_FLOPS * 1e3:.4f} ms)")
-    for name in res:
-        res[name]["library_ms"] = lib_bwd
+    for label, shape in TIMED_SHAPES:
+        b, s, h, d = shape
+        q, k, v, g = (_rand(shape, torch.bfloat16, gen) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        delta = fa.flash_attention_bwd_delta(out, g)
+        if label == "main":  # one owner per tile, no atomics: the same bits from run to run
+            first = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
+            again = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
+            check(all(torch.equal(a, b_) for a, b_ in zip(first, again)), "dk/dv differs from run to run")
+            del first, again
+        lib_bwd = _sdpa_bwd_ms(q, k, v, g)
+        for name, kern, plain, ops, tensors in (  # operations per B*H*S*T*D; [B,S,H,D] tensors in and out
+            ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale),
+             lambda: fa.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, scale), 6, 5),  # q k v dO in, dq out
+            ("dkv", lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale),
+             lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, scale), 8, 6),  # dk dv out
+        ):
+            ms, plain_ms, n = _in_turns(kern, plain)
+            flops = ops * b * h * s * s * d
+            bound, by = _bound_ms(flops, 2 * tensors * b * s * h * d + 8 * b * h * s)
+            print(f"{label} shape {shape} bf16 {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                  f"plain {plain_ms:.4f} ms, median of {n}; kernel / library backward {ms / lib_bwd:.2f}x; "
+                  f"bound {bound:.4f} ms ({by})")
+            if label == "main":
+                res[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                             "bound_by": by, "library_ms": lib_bwd}
+        flops = 10 * b * h * s * s * d
+        print(f"{label} shape: library scaled_dot_product_attention backward (dq, dk, dv) {lib_bwd:.4f} ms "
+              f"({flops / lib_bwd / 1e9:.1f} TFLOP/s of 10*B*H*S*T*D; bound "
+              f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms)")
+        if label == "main":
+            qt, kt, vt, gt = _sdpa_layout(q, k, v, g)
+            qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+            lib_fb = statistics.median(_time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), gt), 20))
+            print(f"main shape: library forward+backward {lib_fb:.4f} ms; kernels dq+dkv "
+                  f"{res['dq']['ms'] + res['dkv']['ms']:.4f} ms")
+            del qt, kt, vt, gt
+        del q, k, v, g, out, lse, delta
+        torch.cuda.empty_cache()
     return res
 
 
@@ -446,7 +493,7 @@ def _reset_launches() -> None:
     from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
     from ai_toolkit_tpu_torch.ops.kernels import moe_gmm
 
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.launches = fa.dq_launches = fa.dkv_launches = fa.tma_copies = 0
     moe_gmm.launches = moe_gmm.dx_launches = moe_gmm.dw_launches = 0
 
 
@@ -456,6 +503,14 @@ def _launches() -> dict[str, int]:
 
     return {"fwd": fa.launches, "dq": fa.dq_launches, "dkv": fa.dkv_launches,
             "moe": moe_gmm.launches, "moe_dx": moe_gmm.dx_launches, "moe_dw": moe_gmm.dw_launches}
+
+
+def _check_no_tma_copies(what: str) -> None:
+    """The job paths hand the flash kernels views TMA reads as they are."""
+    from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
+
+    print(f"TMA copies in {what}: {fa.tma_copies}")
+    check(fa.tma_copies == 0, f"{what} copied {fa.tma_copies} flash inputs for TMA")
 
 
 def _counts(fwd=0, dq=0, dkv=0, moe=0, moe_dx=0, moe_dw=0) -> dict[str, int]:
@@ -626,6 +681,7 @@ def _run_train_job(name: str, model: dict, network: dict, per_step: dict[str, in
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
     got = {k: v / steps for k, v in launches.items()}
     check(got == per_step, f"launches per step {got} != {per_step}")
+    _check_no_tma_copies(name)
     return result, proc, {"launches": launches, "steps": steps, "median_step_ms": statistics.median(timed),
                           "peak_gib": peak, "wall_s": wall}
 
@@ -736,6 +792,7 @@ def generate_job(model: dict, width: int, height: int, steps: int, prompts: list
           f"launches {launches}{' (LoRA ' + lora_path + ' overlaid)' if lora_path else ''}")
     expected = {k: v * len(prompts) * steps for k, v in per_step.items()}
     check(launches == expected, f"launches {launches} != {expected}")
+    _check_no_tma_copies(raw["config"]["name"])
     return launches
 
 

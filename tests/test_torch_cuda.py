@@ -114,6 +114,54 @@ def test_bwd_kernels_are_deterministic(gen):
         assert torch.equal(a, b)
 
 
+# The wgmma/TMA kernels (bf16 forward and dk/dv) against their f32 plain
+# versions: out within 2e-2 of max|ref| and never more than 2e-2 absolute (at
+# T ~ 4500 a typical |out| of random inputs is ~0.02, so an absolute 2e-2 would
+# not see a wrong P.V half), lse within 1e-3 absolute, dk/dv within 2e-2 of
+# max|ref| (p and ds rounded to bf16 before the second products). "qkv" and
+# "linear1" take q, k, v as strided views of a fused projection (the main
+# path's layouts), "unaligned" as views TMA cannot address (copied: the count
+# of copies rises by 3 in the forward and 3 in dk/dv).
+@pytest.mark.parametrize("shape,layout", [
+    ((1, 4481, 4481, 2, 128), "separate"),  # 1008^2: S = T not a multiple of 64 or 128
+    ((2, 300, 190, 4, 64), "separate"),  # S != T, both ragged, D = 64
+    ((2, 300, 190, 4, 128), "separate"),
+    ((2, 190, 300, 4, 128), "separate"),  # S < T
+    ((1, 16, 16, 2, 128), "separate"),  # smaller than one tile
+    ((1, 16, 16, 2, 64), "separate"),
+    ((2, 200, 200, 4, 128), "qkv"),
+    ((1, 1100, 1100, 24, 128), "linear1"),
+    ((2, 200, 200, 4, 64), "unaligned"),
+])
+def test_wgmma_kernels_match_plain(gen, shape, layout):
+    b, s, t, h, d = shape
+    if layout == "separate":
+        q, k, v = _qkv(gen, b, s, t, h, d, torch.bfloat16)
+    else:
+        extra, start = {"qkv": (0, 0), "linear1": (4 * 3072, 0), "unaligned": (1, 1)}[layout]
+        fused = torch.randn((b, s, 3 * h * d + extra), generator=gen, device="cuda").bfloat16()
+        q, k, v = fused[..., start:start + 3 * h * d].unflatten(-1, (3, h, d)).unbind(2)
+    copies = 3 if layout == "unaligned" else 0
+    g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    before = (fa.launches, fa.dkv_launches, fa.tma_copies)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.tma_copies) == (before[0] + 1, before[2] + copies)
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float())
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert (out.float() - ref_out).abs().max().item() <= 2e-2 * min(1.0, ref_out.abs().max().item())
+    assert (lse - ref_lse).abs().max().item() <= LSE_ATOL
+    delta = fa.flash_attention_bwd_delta(out, g)
+    scale = d ** -0.5
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.dkv_launches, fa.tma_copies) == (before[1] + 1, before[2] + 2 * copies)
+    refs = fa.flash_attention_bwd_dkv_plain(q.float(), k.float(), v.float(), g.float(), lse, delta, scale)
+    for name, x, r in zip(("dk", "dv"), (dk, dv), refs):
+        assert x.dtype == torch.bfloat16 and x.shape == r.shape and bool(torch.isfinite(x).all()), name
+        assert (x.float() - r).abs().max().item() <= 2e-2 * r.abs().max().item(), name
+
+
 def test_checkpointed_dit_runs_each_kernel_once_per_block(gen):
     """Under the dots_flash policy the recompute keeps the flash forward's
     outputs: one forward, one dq and one dk/dv launch per block per step."""
