@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels: raw PTX
-// for mbarriers, TMA tile loads, the wgmma shared-memory descriptor (128-byte
+// for mbarriers, TMA tile loads (2-, 3- and 4-D maps), the wgmma shared-memory descriptor (128-byte
 // swizzle), wgmma.mma_async m64nNk16 bf16 -> f32 in its SS and RS forms,
 // wgmma fences and groups, setmaxnreg; and, on the host, cuTensorMapEncodeTiled
 // fetched through cudaGetDriverEntryPoint, so a library needs no -lcuda.
@@ -91,9 +91,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA ----
 
-// Copy one box of a 4-D `map` at coordinates (c0 innermost, ...) to shared
-// `dst`; the bytes complete on `bar`. Coordinates past the tensor's extent
-// read as zeros (the map's OOB fill is NONE).
+// Copy one box of a `map` at coordinates (c0 innermost, ...) to shared `dst`;
+// the bytes complete on `bar`. Coordinates past the tensor's extent read as
+// zeros (the map's OOB fill is NONE).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
@@ -270,24 +287,52 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 4-D bf16 map over x[b][s][h][d] (element strides sb, ss, sh; d contiguous)
-// as dims (d, h, s, b), so the sequence is a dimension of its own and a box
-// reaching past its end reads zeros, never the next head's rows. Boxes of
-// 64 x 1 x `rows` x 1 with the 128-byte swizzle: one 64-column box of a
-// `rows`-row tile. TMA needs a 16-byte aligned base and byte strides that are
-// multiples of 16 (the wrapper copies a tensor that breaks either rule).
-inline cudaError_t make_map_bshd(CUtensorMap* map, const void* base, int B, int S, int H, int D, long long sb,
-                                 long long ss, long long sh, int rows) {
+// A bf16 map of `rank` dims (innermost first) with the 128-byte swizzle, boxes
+// of 64 (the swizzle's cap: 128 bytes) x box[1] x ... elements. TMA needs a
+// 16-byte aligned base and byte strides (of dims 1..rank-1) that are
+// multiples of 16 below 2^40; the wrappers check that.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                            const cuuint64_t* byte_strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, byte_strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 4-D map over x[b][s][h][d] (element strides sb, ss, sh; d contiguous) as
+// dims (d, h, s, b), so the sequence is a dimension of its own and a box
+// reaching past its end reads zeros, never the next head's rows. Boxes of
+// 64 x 1 x `rows` x 1: one 64-column box of a `rows`-row tile. The wrapper
+// copies a tensor whose base or strides TMA cannot take.
+inline cudaError_t make_map_bshd(CUtensorMap* map, const void* base, int B, int S, int H, int D, long long sb,
+                                 long long ss, long long sh, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_map(map, base, 4, dims, strides, box);
+}
+
+// A 2-D map over a contiguous row-major matrix [rows][cols] as dims (cols,
+// rows); boxes of 64 columns x `box_rows` rows.
+inline cudaError_t make_map_rows(CUtensorMap* map, const void* base, long long rows, long long cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return make_map(map, base, 2, dims, strides, box);
+}
+
+// A 3-D map over a contiguous bank of E matrices [E][rows][cols] as dims
+// (cols, rows, E), the expert a dimension of its own; boxes of 64 columns x
+// `box_rows` rows of one expert.
+inline cudaError_t make_map_bank(CUtensorMap* map, const void* base, int E, long long rows, long long cols,
+                                 int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)(rows * cols) * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return make_map(map, base, 3, dims, strides, box);
 }
 
 }  // namespace hopper

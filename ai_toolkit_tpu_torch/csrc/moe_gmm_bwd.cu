@@ -19,31 +19,36 @@
 // sequential hidden-axis grid does not carry over; two grouped GEMMs, each
 // block the one owner of its output tile, no atomics (so dx is the same bits
 // from run to run):
-//   1. DX_HIDDEN: h1, h3 and dp for a 128 x 64 tile of the hidden axis in one
-//      block (three products, two A operands), dh1 and dh3 in the epilogue,
-//      written in the input type;
-//   2. DX_OUT:    dx = [dh1 | dh3] [W1[g] | W3[g]]^T, one reduction over 2h.
+//   1. hidden (DX_HIDDEN / DW_HIDDEN): h1, h3 and dp for a 128 x 64 tile of
+//      the hidden axis in one block, dh1 and dh3 (and act) in the epilogue;
+//   2. out (DX_OUT): dx = [dh1 | dh3] [W1[g] | W3[g]]^T, one reduction over 2h.
 // What bounds it: 10 N d h operations against the three banks, x, dy, dh and
 // dx; compute-bound at the hidream shape (1.45 TFLOP at N = 8192, d = 2560,
-// h = 6912). The simple design: WMMA bf16 tiles, a two-stage cp.async
-// pipeline, and dh through device memory (4 N h bytes each way).
-//
-#include "moe_gmm_tile.cuh"
+// h = 6912). bf16 runs both passes on the wgmma/TMA engine of
+// moe_gmm_sm90.cuh (its note has the design, the block order and the traps);
+// f32 keeps moe_gmm_tile.cuh's CUDA-core path for the exact checks.
+
+#include "moe_gmm_sm90.cuh"
 
 using namespace ait_moe;
 
-extern "C" {
+namespace {
 
-// dtype: 0 = float32, 1 = bfloat16. Every tensor is contiguous; N % 128 == 0,
-// d % 64 == 0, h % 64 == 0; act and dx may be null. Returns the cudaError_t
-// of the launches.
-int ait_moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* w3, const void* w2,
-                   const void* tile_group, void* dh_buf, void* act, void* dx, int N, int d, int h,
-                   int dtype, void* stream) {
-  if (!shapes_ok(N, d, h) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* tg = static_cast<const int*>(tile_group);
+cudaError_t dx_bf16(const void* x, const void* dy, const void* w1, const void* w3, const void* w2, const int* tg,
+                    const int* order_hidden, const int* order_out, void* dh_buf, void* act, void* dx, int N, int d,
+                    int h, int E, int bn_out, cudaStream_t st) {
+  if (d % bn_out || (bn_out != 64 && bn_out != 128)) return cudaErrorInvalidValue;
+  cudaError_t err = act ? sm90::launch_hidden<DW_HIDDEN>(x, dy, w1, w3, w2, tg, order_hidden, dh_buf, act, N, d, h,
+                                                          E, st)
+                        : sm90::launch_hidden<DX_HIDDEN>(x, dy, w1, w3, w2, tg, order_hidden, dh_buf, nullptr, N,
+                                                          d, h, E, st);
+  if (err != cudaSuccess || !dx) return err;
+  return bn_out == 128 ? sm90::launch_out<128>(dh_buf, w1, w3, tg, order_out, dx, N, d, h, E, st)
+                       : sm90::launch_out<64>(dh_buf, w1, w3, tg, order_out, dx, N, d, h, E, st);
+}
 
+cudaError_t dx_f32(const void* x, const void* dy, const void* w1, const void* w3, const void* w2, const int* tg,
+                   void* dh_buf, void* act, void* dx, int N, int d, int h, cudaStream_t st) {
   Args hid{};
   hid.a[0] = x;
   hid.a[1] = dy;
@@ -75,14 +80,34 @@ int ait_moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* w3
   out.tile_group = tg;
   out.K = 2 * h;
 
-  cudaError_t err;
+  cudaError_t err = act ? launch<float, DW_HIDDEN, 64>(hid, N, h, st) : launch<float, DX_HIDDEN, 64>(hid, N, h, st);
+  if (err == cudaSuccess && dx) err = launch_wide<float, DX_OUT>(out, N, d, st);
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Every tensor is contiguous; N % 128 == 0,
+// d % 64 == 0, h % 64 == 0; act and dx may be null. bf16 reads x, dy, dh and
+// the banks by TMA (16-byte aligned bases; the wrapper checks) and takes the
+// width of the dx tiles of its second pass (bn_out divides d; 64 or 128; the
+// first pass takes 64 hidden columns) and the block orders of both passes:
+// order_hidden [(N/128) (h/64)] and order_out [(N/128) (d/bn_out)], the tile
+// index (row tile * column tiles + column tile) of each block. f32 ignores E,
+// the orders and bn_out.
+// Returns the cudaError_t of the launches.
+int ait_moe_gmm_dx(const void* x, const void* dy, const void* w1, const void* w3, const void* w2,
+                   const void* tile_group, const void* order_hidden, const void* order_out, void* dh_buf, void* act,
+                   void* dx, int N, int d, int h, int E, int bn_out, int dtype, void* stream) {
+  if (!shapes_ok(N, d, h) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* tg = static_cast<const int*>(tile_group);
   if (dtype == 1)
-    err = act ? launch<bf16, DW_HIDDEN, 64>(hid, N, h, st) : launch<bf16, DX_HIDDEN, 64>(hid, N, h, st);
-  else
-    err = act ? launch<float, DW_HIDDEN, 64>(hid, N, h, st) : launch<float, DX_HIDDEN, 64>(hid, N, h, st);
-  if (err == cudaSuccess && dx)
-    err = dtype == 1 ? launch_wide<bf16, DX_OUT>(out, N, d, st) : launch_wide<float, DX_OUT>(out, N, d, st);
-  return (int)err;
+    return (int)dx_bf16(x, dy, w1, w3, w2, tg, static_cast<const int*>(order_hidden),
+                        static_cast<const int*>(order_out), dh_buf, act, dx, N, d, h, E, bn_out, st);
+  return (int)dx_f32(x, dy, w1, w3, w2, tg, dh_buf, act, dx, N, d, h, st);
 }
 
 const char* ait_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

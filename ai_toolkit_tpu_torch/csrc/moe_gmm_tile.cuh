@@ -24,8 +24,10 @@
 // tiles in tile_group itself (tiles are expert-sorted, so the run is
 // contiguous) and reads its A operand transposed (col_major WMMA fragments of
 // a [BK][BM] shared tile). An expert with no tile writes zeros.
-// bf16 products run on the tensor cores (WMMA 16x16x16, f32 accumulation);
-// f32 takes a CUDA-core FMA path with the same tiles, for exact checks.
+// bf16 products run on the tensor cores (WMMA 16x16x16, f32 accumulation):
+// GATE_UP, DOWN and DW; bf16 DX_HIDDEN, DW_HIDDEN and DX_OUT run on the
+// wgmma/TMA engine of moe_gmm_sm90.cuh instead. f32 takes a CUDA-core FMA path
+// with the same tiles in every mode, for exact checks.
 
 #pragma once
 

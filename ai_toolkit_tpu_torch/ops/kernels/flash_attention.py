@@ -7,17 +7,18 @@ The forward replaces ``ai_toolkit_tpu/ops/pallas/flash_attention.py``
 ``flash_attention_any``) with one kernel, ``csrc/flash_attention_fwd.cu``. The
 backward replaces ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` and their streamed,
 masked forms with two kernels, ``csrc/flash_attention_bwd.cu``: dq (one block
-per 64-row Q tile) and dk/dv (one block per 128-row K/V tile). All of them
+per 128-row Q tile) and dk/dv (one block per 128-row K/V tile). All of them
 stream the other operand through shared memory and mask ragged tails
 themselves.
 
 What bounds them on the card: the forward does about 4*S*T*D*H FLOPs, the
 backward 10*S*T*D*H (five products), against O((S+T)*H*D) bytes, so at the
-flux shape (S=T=4608, H=24, D=128) both are compute-bound. In bf16 the
-forward and dk/dv run wgmma on shared-memory tiles that TMA loads through a
-ring of mbarrier-guarded stages, with the softmax and P (dk/dv: P^T and dS^T)
-in registers (``csrc/hopper.cuh``); dq and the f32 paths keep the first WMMA
-/ CUDA-core designs (see the source notes).
+flux shape (S=T=4608, H=24, D=128) both are compute-bound. In bf16 all
+three kernels run wgmma on shared-memory tiles that TMA loads through a ring
+of mbarrier-guarded stages, with the elementwise steps in registers (the
+softmax and P; dk/dv: P^T and dS^T; dq: dS) and the output accumulators in
+registers (``csrc/hopper.cuh``); the f32 paths keep the first CUDA-core
+design for the exact checks (see the source notes).
 
 ``flash_attention_fwd(q, k, v, scale) -> (out, lse)`` takes q ``[B,S,H,D]``,
 k/v ``[B,T,H,D]`` in bf16 or f32 with D in {64, 128}, through strides (only
@@ -127,7 +128,7 @@ def _bwd_kernels():
         from ai_toolkit_tpu_torch.ops.kernels.build import load
 
         lib = load("flash_attention_bwd")
-        tail = [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        tail = [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
         dq, dkv = lib.ait_flash_attention_bwd_dq, lib.ait_flash_attention_bwd_dkv
         dq.argtypes = [ctypes.c_void_p] * 7 + tail
         dkv.argtypes = [ctypes.c_void_p] * 8 + tail
@@ -170,13 +171,6 @@ def _tma_plan(x: torch.Tensor) -> tuple[tuple[int, ...], tuple[int, ...], bool]:
     needs_copy = (x.stride(-1) != 1 or x.data_ptr() % 16 != 0
                   or any(st <= 0 or st % 16 or st >= 2**40 for st in byte_strides))
     return (d, h, s, b), byte_strides, needs_copy
-
-
-def _aligned(tensors) -> bool:
-    """Every row start 16-byte aligned (the dq kernel's vector loads)."""
-    return all(x.data_ptr() % 16 == 0 and all(st * x.element_size() % 16 == 0
-                                              for st in x.stride()[:3])
-               for x in tensors)
 
 
 def _tma_inputs(tensors):
@@ -230,14 +224,17 @@ def _bwd_args(q, k, v, g, lse, delta, scale: float, strides=None):
     strides = (ctypes.c_longlong * 12)(*(st for xs in strides for st in xs))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (b, s, k.shape[1], h, d, _DTYPES[q.dtype], strides, float(scale),
-            int(_aligned((q, k, v, g))), torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream)
     return ptrs, tail, (g, lse, delta, strides)  # the last: buffers kept alive over the call
 
 
 def _launch_bwd_dq(q, k, v, g, lse, delta, scale: float):
     global dq_launches
     dq_fn, _, err_str = _bwd_kernels()
-    ptrs, tail, _keep = _bwd_args(q, k, v, g, lse, delta, scale)
+    strides = None
+    if q.dtype == torch.bfloat16:
+        (q, k, v, g), strides = _tma_inputs((q, k, v, g))
+    ptrs, tail, _keep = _bwd_args(q, k, v, g, lse, delta, scale, strides)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     rc = dq_fn(*ptrs, dq.data_ptr(), *tail)
     if rc != 0:

@@ -13,10 +13,14 @@ of row tiles. What bounds them at the hidream shape (8192 routed rows, d 2560,
 h 6912, 4 experts, bf16): 6·N·d·h (forward), 10·N·d·h (dx) and 12·N·d·h (dw
 from x and dy; 6·N·d·h beside a dx that shares its first pass) operations
 against well under a GB of weights and activations, so all are
-compute-bound; the simple designs run every product on the tensor cores
-(WMMA bf16, f32 accumulation) with a two-stage cp.async pipeline, and pass
-the SwiGLU activation (forward, dw) and ``[dh1 | dh3]`` (dx, dw) between
-their GEMMs through device memory in the input type.
+compute-bound. In bf16 the two passes of dx (and the first pass dw shares)
+run wgmma on shared-memory tiles that TMA loads through mbarrier-guarded
+rings, with the SwiGLU backward in registers and a grouped block order that
+the wrapper builds (``csrc/moe_gmm_sm90.cuh``, :func:`block_order`); the
+forward and the dw products keep the first design, WMMA bf16 tiles with a
+two-stage cp.async pipeline (``csrc/moe_gmm_tile.cuh``). The SwiGLU
+activation (forward, dw) and ``[dh1 | dh3]`` (dx, dw) go between their GEMMs
+through device memory in the input type.
 
 ``grouped_swiglu(x, w1, w3, w2, tile_group, block_m)`` keeps the JAX layout:
 x ``[N, d]`` expert-sorted with N a multiple of ``block_m``, w1/w3
@@ -26,12 +30,14 @@ runs dx where x needs a gradient and dw where a bank does. CPU tensors go to
 the plain versions; CUDA tensors launch the kernels or raise. The kernels
 take ``block_m`` = :data:`BLOCK_M` = 128 (the TPU's VMEM budgeting,
 ``default_blocks`` and ``_dw_block_h``, has no counterpart here) and d, h
-multiples of 64.
+multiples of 64. The bf16 dx reads x, dy and the banks through TMA tensor
+maps and refuses a tensor TMA cannot map (:func:`check_tma`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -42,8 +48,10 @@ dx_launches = 0  # moe_gmm_dx
 dw_launches = 0  # moe_gmm_dw
 
 BLOCK_M = 128  # rows per tile of the CUDA kernels (csrc/moe_gmm_tile.cuh BM)
+_BN_HIDDEN = 64  # hidden columns per tile of the bf16 dx's first pass (csrc/moe_gmm_sm90.cuh BN_HIDDEN)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns: dict[str, tuple] = {}
+_orders: dict[tuple, tuple[dict, torch.Tensor, torch.Tensor]] = {}
 
 
 def expert_runs(tile_group: torch.Tensor, block_m: int):
@@ -102,8 +110,88 @@ def grouped_swiglu_dw_plain(x, dy, w1, w3, w2, tile_group, block_m: int):
     return tuple(dw.to(w.dtype) for dw, w in zip(dws, (w1, w3, w2)))
 
 
+def grouped_swiglu_hidden_plain(x, dy, w1, w3, w2, tile_group, block_m: int):
+    """(dh ``[N, 2h]`` = ``[dh1 | dh3]``, act ``[N, h]``) per row tile in f32,
+    cast to x's dtype: the plain version of the hidden pass that dx and dw
+    share."""
+    h = w1.shape[-1]
+    dh = torch.empty((x.shape[0], 2 * h), dtype=torch.float32, device=x.device)
+    act = torch.empty((x.shape[0], h), dtype=torch.float32, device=x.device)
+    for g, r0, r1 in expert_runs(tile_group, block_m):
+        dh1, dh3, act[r0:r1] = _hidden_plain(x[r0:r1].float(), dy[r0:r1].float(), w1[g].float(),
+                                             w3[g].float(), w2[g].float())
+        dh[r0:r1, :h], dh[r0:r1, h:] = dh1, dh3
+    return dh.to(x.dtype), act.to(x.dtype)
+
+
+# ---- the launch plan of the bf16 dx kernel (csrc/moe_gmm_sm90.cuh), on the host ----
+
+def check_tma(t: torch.Tensor) -> None:
+    """Raises ValueError for a tensor the bf16 dx kernel's TMA cannot map as
+    it is (not a bf16 matrix ``[rows, cols]`` or bank ``[E, rows, cols]``, not
+    contiguous, a base not 16-byte aligned, a row that is not a whole number
+    of 64-column boxes, a byte stride past TMA's limit): the kernel takes no
+    fallback. The maps themselves are built in ``csrc/hopper.cuh``
+    (``make_map_rows``, ``make_map_bank``)."""
+    if t.dtype != torch.bfloat16 or t.dim() not in (2, 3):
+        raise ValueError(f"the bf16 dx kernel maps bf16 matrices and banks, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16 or t.shape[-1] % 64:
+        raise ValueError(f"TMA cannot map a tensor {tuple(t.shape)} with strides {t.stride()} at byte "
+                         f"offset {t.data_ptr() % 16} from a 16-byte boundary: it needs it contiguous, "
+                         f"16-byte aligned, with rows of whole 64-column boxes")
+    if any(st * t.element_size() >= 2**40 for st in t.stride()[:-1]):
+        raise ValueError(f"a byte stride of {tuple(t.shape)} is past TMA's 2**40")
+
+
+def patch_rows(row_tiles: int, row_bytes: int, col_bytes: int, wave: int) -> int:
+    """Row tiles in one patch of the grouped block order. A wave of ``wave``
+    blocks (one per SM) covers ``p`` row tiles and ``wave / p`` column tiles
+    and reads ``p * row_bytes + wave / p * col_bytes`` from device memory,
+    least at ``p = sqrt(wave * col_bytes / row_bytes)``."""
+    return max(1, min(row_tiles, round(math.sqrt(wave * col_bytes / row_bytes))))
+
+
+def block_order(row_tiles: int, col_tiles: int, patch: int) -> torch.Tensor:
+    """int32 ``[row_tiles * col_tiles]``: the tile index ``m * col_tiles +
+    n`` that block i computes. Row tiles go in patches of ``patch`` (the last
+    one shorter), and a patch is swept column tile by column tile, its row
+    tiles fastest, so the blocks in flight share both row tiles and weight
+    column tiles."""
+    order = []
+    for m0 in range(0, row_tiles, patch):
+        rows = range(m0, min(m0 + patch, row_tiles))
+        order += [m * col_tiles + n for n in range(col_tiles) for m in rows]
+    return torch.tensor(order, dtype=torch.int32)
+
+
+def dx_plan(n: int, d: int, h: int, wave: int) -> dict:
+    """The dx tile width, patches and block orders of the two bf16 dx passes
+    for ``n`` routed rows. Pass 1 takes 128 x :data:`_BN_HIDDEN` tiles of the
+    hidden axis and reads x and dy (``4 BM d`` bytes a row tile) and columns
+    of W1, W3, W2 (``6 BN d``); pass 2 takes 128 x 128 tiles of dx (64 wide
+    where d % 128 != 0) and reads dh (``4 BM h``) and rows of W1 and W3
+    (``4 BN h``)."""
+    rows = n // BLOCK_M
+    bn2 = 128 if d % 128 == 0 else 64
+    p1 = patch_rows(rows, 4 * BLOCK_M * d, 6 * _BN_HIDDEN * d, wave)
+    p2 = patch_rows(rows, 4 * BLOCK_M * h, 4 * bn2 * h, wave)
+    return {"bn_out": bn2, "patch_hidden": p1, "patch_out": p2,
+            "order_hidden": block_order(rows, h // _BN_HIDDEN, p1), "order_out": block_order(rows, d // bn2, p2)}
+
+
+def _dx_orders(n: int, d: int, h: int, device) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """The plan on ``device`` for these shapes, its block orders on the card
+    (built once per shape)."""
+    key = (device, n, d, h)
+    hit = _orders.get(key)
+    if hit is None:
+        plan = dx_plan(n, d, h, torch.cuda.get_device_properties(device).multi_processor_count)
+        hit = _orders[key] = (plan, plan["order_hidden"].to(device), plan["order_out"].to(device))
+    return hit
+
+
 # library -> (C entry, pointer arguments, int arguments); the stream comes last
-_ENTRIES = {"moe_gmm_fwd": ("ait_moe_gmm_fwd", 7, 4), "moe_gmm_bwd": ("ait_moe_gmm_dx", 9, 4),
+_ENTRIES = {"moe_gmm_fwd": ("ait_moe_gmm_fwd", 7, 4), "moe_gmm_bwd": ("ait_moe_gmm_dx", 11, 6),
             "moe_gmm_dw": ("ait_moe_gmm_dw", 8, 5)}
 
 
@@ -158,28 +246,42 @@ def _launch_fwd(x, w1, w3, w2, tile_group, block_m: int):
     return y
 
 
-def _launch_bwd(x, dy, w1, w3, w2, tile_group, block_m: int, need_dx: bool, need_dw: bool):
-    """(dx or None, (dW1, dW3, dW2) or None) on CUDA tensors: the first pass
-    of ``moe_gmm_bwd`` builds ``[dh1 | dh3]`` (and the activation when a
-    bank needs its gradient) once for both, then dx's second pass and the
-    dw products run as asked."""
+def _launch_dx(x, dy, w1, w3, w2, tile_group, block_m: int, need_dx: bool, need_act: bool):
+    """(dx or None, dh, act or None) on CUDA tensors: the first pass of
+    ``moe_gmm_bwd`` builds ``[dh1 | dh3]`` (and the activation ``act`` with
+    ``need_act``), the second dx from it (with ``need_dx``)."""
     global dx_launches
     dy = dy.contiguous()
     _check_cuda(x, w1, w3, w2, tile_group, block_m, dy)
     fn, err_str = _kernel("moe_gmm_bwd")
     n, d = x.shape
-    h = w1.shape[-1]
+    e, _, h = w1.shape
     dh = torch.empty((n, 2 * h), dtype=x.dtype, device=x.device)
-    act = torch.empty((n, h), dtype=x.dtype, device=x.device) if need_dw else None
+    act = torch.empty((n, h), dtype=x.dtype, device=x.device) if need_act else None
     dx = torch.empty_like(x) if need_dx else None
+    orders, bn_out = (None, None), 0
+    if x.dtype == torch.bfloat16:
+        for t in (x, dy, w1, w3, w2):
+            check_tma(t)
+        plan, *orders = _dx_orders(n, d, h, x.device)
+        bn_out = plan["bn_out"]
     rc = fn(x.data_ptr(), dy.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
-            tile_group.data_ptr(), dh.data_ptr(), _ptr(act), _ptr(dx), n, d, h, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            tile_group.data_ptr(), *(_ptr(o) for o in orders), dh.data_ptr(), _ptr(act), _ptr(dx),
+            n, d, h, e, bn_out, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"moe_gmm_bwd launch failed: {err_str(rc).decode()} ({rc})")
     if need_dx:
         dx_launches += 1
-    dws = _launch_dw_products(x, dy, dh, act, tile_group, w1.shape[0]) if need_dw else None
+    return dx, dh, act
+
+
+def _launch_bwd(x, dy, w1, w3, w2, tile_group, block_m: int, need_dx: bool, need_dw: bool):
+    """(dx or None, (dW1, dW3, dW2) or None) on CUDA tensors: the first pass
+    builds ``[dh1 | dh3]`` (and the activation when a bank needs its
+    gradient) once for both, then dx's second pass and the dw products run
+    as asked."""
+    dx, dh, act = _launch_dx(x, dy, w1, w3, w2, tile_group, block_m, need_dx, need_dw)
+    dws = _launch_dw_products(x, dy.contiguous(), dh, act, tile_group, w1.shape[0]) if need_dw else None
     return dx, dws
 
 
@@ -259,6 +361,16 @@ def grouped_swiglu_bwd(x, dy, w1, w3, w2, tile_group, block_m: int, need_dx: boo
     dx = grouped_swiglu_dx_plain(x, dy, w1, w3, w2, tile_group, block_m) if need_dx else None
     dws = grouped_swiglu_dw_plain(x, dy, w1, w3, w2, tile_group, block_m) if need_dw else None
     return dx, dws
+
+
+def grouped_swiglu_hidden(x, dy, w1, w3, w2, tile_group, block_m: int):
+    """(dh ``[N, 2h]``, act ``[N, h]``): the hidden pass that dx and dw share
+    (the DW_HIDDEN mode of the dx kernel) alone, or its plain version on CPU
+    tensors."""
+    if _device(x, dy, w1, w3, w2, tile_group) == "cpu":
+        return grouped_swiglu_hidden_plain(x, dy, w1, w3, w2, tile_group, block_m)
+    _, dh, act = _launch_dx(x, dy, w1, w3, w2, tile_group, block_m, need_dx=False, need_act=True)
+    return dh, act
 
 
 def grouped_swiglu_dx(x, dy, w1, w3, w2, tile_group, block_m: int):

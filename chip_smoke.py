@@ -4,16 +4,20 @@
 Phases (any failure raises and the script exits non-zero):
   1. environment: versions, card name and power limit, TF32 off, the five
      kernel libraries built in parallel (one nvcc each), the registers and
-     spills of the two wgmma kernels from ``-Xptxas -v``;
+     spills of the wgmma kernels (flash forward, dk/dv, dq; the two MoE dx
+     passes) from ``-Xptxas -v``;
   2. the flash forward kernel against its plain version at the shapes the
      paths give it (ragged, S != T, smaller than a tile, D 64 and 128, the
      fused-projection views, a view TMA cannot read, which is copied), timed
      against it and against the library yardstick at the flux 1024^2, the
      ragged 1008^2 and the hidream 1024^2 shapes;
-  3. the flash backward kernels (dq, dk/dv) the same way, dk/dv's bits
-     checked from run to run;
-  4. the grouped SwiGLU MoE kernels (forward, dx, the bank gradients dw) the
-     same way, at the hidream shapes with a real top-2 routing;
+  3. the flash backward kernels (dq, dk/dv) the same way, with a case of
+     strongly negative logits (an unmasked K/V tail would make dq NaN), their
+     bits checked from run to run;
+  4. the grouped SwiGLU MoE kernels (forward, dx and its hidden pass, the
+     bank gradients dw) the same way, at the hidream shapes with a real top-2
+     routing, dx and the hidden pass's dh and act bits checked from run to
+     run;
   5. full-width, reduced-depth flux and hidream DiTs on the card against the
      same modules on the CPU: the forward, one LoRA training step's loss and
      gradients, and (hidream) one full fine-tune step of the first block's
@@ -78,7 +82,9 @@ RAGGED_SHAPE = (1, 4481, 24, 128)  # flux-dev at 1008^2: 512 text + 3969 image t
 HIDREAM_SHAPE = (1, 4352, 20, 128)  # hidream at 1024^2: 256 text + 4096 image tokens
 TIMED_SHAPES = [("main", MAIN_SHAPE), ("ragged", RAGGED_SHAPE), ("hidream", HIDREAM_SHAPE)]
 # the kernels redesigned for Hopper (wgmma, TMA): their compiler reports are printed
-SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dkv_sm90")
+SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90", "moe_dx_hidden_sm90",
+                "moe_dx_out_sm90")
+SM90_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "moe_gmm_bwd")
 BLOCKS_PER_FORWARD = 19 + 38  # flux-dev double + single blocks, one attention each
 # backward: (B, S, T, H, D), dtype, tolerance on max|dX - ref| / max|ref| for dq, dk, dv:
 # bf16 inputs with p and ds rounded to bf16 before the second products (f32
@@ -94,6 +100,9 @@ BWD_CASES = [
     ((2, 300, 190, 4, 64), torch.float32, 1e-4),
     ((1, 16, 16, 2, 128), torch.float32, 1e-4),
 ]
+# logits near -116 (q shifted by +SHIFT, k by -SHIFT), so lse ~ -106: dq's p of a
+# zero-filled K row past T would be exp(-lse) = inf, a NaN unless masked (T = 190 ragged)
+NEGATIVE_CASE = ((2, 300, 190, 4, 128), 3.2)
 # q, k, v as views of a fused projection [B, S, 3*H*D + extra] from element
 # `start` on: ((B, S, H, D), extra, start, bf16 inputs TMA must copy)
 FUSED_VIEWS = [
@@ -148,7 +157,7 @@ def environment() -> str:
         print(f"kernel build: {name} {times[name]:.2f} s"
               f"{' (library already built from these sources)' if cached[name] else ''}")
     print(f"kernel builds in parallel: {time.perf_counter() - t0:.2f} s wall")
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    for name in SM90_LIBRARIES:
         report = build.report(name)
         if report is None:
             print(f"ptxas -v: {name}: no report kept beside the library (built without one)")
@@ -164,9 +173,9 @@ def _ptxas_summary(report: str) -> list[str]:
     for line in report.splitlines():
         if "Compiling entry function" in line:
             kernel = next((k for k in SM90_KERNELS if k in line), None)
-            if kernel is not None:
-                d = re.search(r"ILi(\d+)E", line)
-                out.append(f"{kernel}<{d.group(1) if d else '?'}>:")
+            if kernel is not None:  # the template arguments: D, or (mode, tile width)
+                args = re.findall(r"Li(\d+)E", line.split(kernel, 1)[1])
+                out.append(f"{kernel}<{', '.join(args) or '?'}>:")
         elif kernel is not None and ("registers" in line or "spill" in line):
             out[-1] += " " + line.split(":", 1)[-1].strip().rstrip(",") + ";"
     return out
@@ -287,6 +296,10 @@ def bwd_kernels_vs_plain() -> dict:
 
     gen = torch.Generator("cuda").manual_seed(1)
     cases = [(shape, dt, tol, None, 0) for shape, dt, tol in BWD_CASES]
+    (b, s, t, h, d), shift = NEGATIVE_CASE
+    qkv = [torch.randn((b, n, h, d), generator=gen, device="cuda") for n in (s, t, t)]
+    cases.append(((b, s, t, h, d), torch.bfloat16, 2e-2,
+                  ((qkv[0] + shift).bfloat16(), (qkv[1] - shift).bfloat16(), qkv[2].bfloat16()), 0))
     for (b, s, h, d), extra, start, copies in FUSED_VIEWS:
         cases.append(((b, s, s, h, d), torch.bfloat16, 2e-2, _fused_qkv(b, s, h, d, extra, start, gen), copies))
     err = {"dq": 0.0, "dkv": 0.0}
@@ -307,9 +320,11 @@ def bwd_kernels_vs_plain() -> dict:
         finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
         print(f"(B,S,T,H,D)=({b},{s},{t},{h},{d}) {str(dt)[6:]} q_stride={tuple(q.stride())} "
               f"rel err dq/dk/dv = {rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} (tol {tol:g}); "
-              f"max abs {absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e}; TMA copies {fa.tma_copies - before}")
+              f"max abs {absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e}; min lse {lse.min().item():.1f}; "
+              f"TMA copies {fa.tma_copies - before}")
         check(finite and max(rel) <= tol, "backward kernels disagree with their plain versions")
-        check(fa.tma_copies - before == copies, f"{fa.tma_copies - before} TMA copies, expected {copies}")
+        # dq and dk/dv each copy the q, k, v that TMA cannot read (dO is contiguous)
+        check(fa.tma_copies - before == 2 * copies, f"{fa.tma_copies - before} TMA copies, expected {2 * copies}")
         err["dq"] = max(err["dq"], absd[0])
         err["dkv"] = max(err["dkv"], absd[1], absd[2])
         del refs
@@ -323,10 +338,11 @@ def bwd_kernels_vs_plain() -> dict:
         out, lse = fa.flash_attention_fwd(q, k, v)
         delta = fa.flash_attention_bwd_delta(out, g)
         if label == "main":  # one owner per tile, no atomics: the same bits from run to run
-            first = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
-            again = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)
-            check(all(torch.equal(a, b_) for a, b_ in zip(first, again)), "dk/dv differs from run to run")
-            del first, again
+            runs = [(fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale),
+                     *fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale)) for _ in range(2)]
+            check(all(torch.equal(x, y) for x, y in zip(*runs)), "dq or dk/dv differs from run to run")
+            print("main shape: dq, dk and dv the same bits in two runs")
+            del runs
         lib_bwd = _sdpa_bwd_ms(q, k, v, g)
         for name, kern, plain, ops, tensors in (  # operations per B*H*S*T*D; [B,S,H,D] tensors in and out
             ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale),
@@ -337,15 +353,17 @@ def bwd_kernels_vs_plain() -> dict:
             ms, plain_ms, n = _in_turns(kern, plain)
             flops = ops * b * h * s * s * d
             bound, by = _bound_ms(flops, 2 * tensors * b * s * h * d + 8 * b * h * s)
-            print(f"{label} shape {shape} bf16 {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                  f"plain {plain_ms:.4f} ms, median of {n}; kernel / library backward {ms / lib_bwd:.2f}x; "
-                  f"bound {bound:.4f} ms ({by})")
+            print(f"{label} shape {shape} bf16 {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{ops}*B*H*S*T*D = {flops:.4e} operations), plain {plain_ms:.4f} ms, median of {n}; "
+                  f"kernel / library backward ({10 * b * h * s * s * d:.4e} operations) "
+                  f"{ms / lib_bwd:.2f}x; bound {bound:.4f} ms ({by}; the kernel at {100 * bound / ms:.1f} % "
+                  f"of its rate)")
             if label == "main":
                 res[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                              "bound_by": by, "library_ms": lib_bwd}
         flops = 10 * b * h * s * s * d
         print(f"{label} shape: library scaled_dot_product_attention backward (dq, dk, dv) {lib_bwd:.4f} ms "
-              f"({flops / lib_bwd / 1e9:.1f} TFLOP/s of 10*B*H*S*T*D; bound "
+              f"({flops / lib_bwd / 1e9:.1f} TFLOP/s of 10*B*H*S*T*D = {flops:.4e} operations; bound "
               f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms)")
         if label == "main":
             qt, kt, vt, gt = _sdpa_layout(q, k, v, g)
@@ -403,7 +421,23 @@ def moe_kernels_vs_plain() -> dict:
               f"(tiles per expert {groups}) rel err fwd/dx = {rel[0]:.3e}/{rel[1]:.3e} (tol {tol:g}); "
               f"max abs {absd[0]:.3e}/{absd[1]:.3e}")
         check(max(rel) <= tol, "the MoE kernels disagree with their plain versions")
-        del y, dx
+        # the hidden pass dw shares (DW_HIDDEN): dh = [dh1 | dh3] and act against the plain
+        # intermediates; dx, dh and act the same bits from run to run (one owner per tile)
+        dh, act = moe_gmm.grouped_swiglu_hidden(xs, dy, *banks, tg, moe_gmm.BLOCK_M)
+        again = (moe_gmm.grouped_swiglu_dx(xs, dy, *banks, tg, moe_gmm.BLOCK_M),
+                 *moe_gmm.grouped_swiglu_hidden(xs, dy, *banks, tg, moe_gmm.BLOCK_M))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((dx, dh, act), again)), "MoE dx, dh or act differs "
+                                                                            "from run to run")
+        rel_h = []
+        for name, got, ref in zip(("dh", "act"), (dh, act), moe_gmm.grouped_swiglu_hidden_plain(
+                xs.float(), dy.float(), *banks, tg, moe_gmm.BLOCK_M)):
+            check(got.dtype == dt and bool(torch.isfinite(got).all()), f"{name} not finite")
+            rel_h.append((got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item())
+        print(f"  hidden pass (DW_HIDDEN) rel err dh/act = {rel_h[0]:.3e}/{rel_h[1]:.3e} (tol {tol:g}); "
+              f"dx, dh and act the same bits in two runs")
+        check(max(rel_h) <= tol, "the hidden pass disagrees with its plain version")
+        del y, dx, dh, act, again
         # the bank gradients, each against the f32 plain version (f32 banks: an f32 result)
         dws = moe_gmm.grouped_swiglu_dw(xs, dy, *banks, tg, moe_gmm.BLOCK_M)
         torch.cuda.synchronize()
@@ -456,6 +490,10 @@ def moe_kernels_vs_plain() -> dict:
          lambda: moe_gmm.grouped_swiglu_dx_plain(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M),
          lambda: torch.autograd.grad(lib_out, xr, [dy[r0:r1] for _, r0, r1 in runs], retain_graph=True),
          10 * n * d * h, 2 * (3 * e * d * h + 3 * n * d)),  # banks, x and dy in, dx out
+        # the hidden pass alone (DW_HIDDEN: h1, h3, dp, then dh and act), dw's share of dx's first pass
+        ("moe_hidden", lambda: moe_gmm.grouped_swiglu_hidden(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M),
+         lambda: moe_gmm.grouped_swiglu_hidden_plain(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M), None,
+         6 * n * d * h, 2 * (3 * e * d * h + 2 * n * d + 3 * n * h)),  # banks, x, dy in; dh, act out
         # dw from x and dy: its first pass (h1, h3, dp) and the products, 12 N d h
         ("moe_dw", lambda: moe_gmm.grouped_swiglu_dw(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M),
          lambda: moe_gmm.grouped_swiglu_dw_plain(xs, dy, w1, w3, w2, tg, moe_gmm.BLOCK_M),
@@ -463,13 +501,20 @@ def moe_kernels_vs_plain() -> dict:
          12 * n * d * h, 2 * (6 * e * d * h + 2 * n * d)),  # banks, x and dy in, dW1 dW3 dW2 out
     ):
         ms, plain_ms, reps = _in_turns(kern, plain)
-        library_ms = statistics.median(_time_ms(lib, 20))
+        library_ms = statistics.median(_time_ms(lib, 20)) if lib else None
         bound, by = _bound_ms(flops, nbytes)
-        res[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        res[name] = {"max_abs_err": err.get(name), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound, "bound_by": by}
+        # what the library call computes: the forward's 6 N d h; its autograd keeps h1 and h3
+        # (no recompute): 6 N d h for x, 8 N d h for W1, W3 and W2
+        lib_ops = {"moe": (6, ""), "moe_dx": (6, ", h1 and h3 saved"), "moe_dw": (8, ", h1 and h3 saved")}
+        library = (f"library per-expert cuBLAS {library_ms:.4f} ms ({lib_ops[name][0]}*N*d*h = "
+                   f"{lib_ops[name][0] * n * d * h:.4e} operations{lib_ops[name][1]})" if lib else
+                   "no library call computes it alone")
         print(f"double-block shape ({n_tok} tokens x top-2 = {n} rows, d {d}, h {h}, E {e}) bf16 {name}: "
-              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, median of "
-              f"{reps}; library per-expert cuBLAS {library_ms:.4f} ms; bound {bound:.4f} ms ({by})")
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of {flops:.4e} operations), plain "
+              f"{plain_ms:.4f} ms, median of {reps}; {library}; bound {bound:.4f} ms ({by}; the kernel at "
+              f"{100 * bound / ms:.1f} % of its rate)")
     # the dw products alone, as the backward runs them beside dx on the first pass's dh and act
     dh, act = _rand((xs.shape[0], 2 * h), dt, gen), _rand((xs.shape[0], h), dt, gen)
     prod_ms = statistics.median(_time_ms(lambda: moe_gmm._launch_dw_products(xs, dy, dh, act, tg, e), 20))

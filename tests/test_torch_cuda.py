@@ -104,24 +104,31 @@ def test_bwd_kernels_match_plain(gen, shape, dtype, tol):
         assert (x.float() - r).abs().max().item() <= tol * r.abs().max().item(), name
 
 
-def test_bwd_kernels_are_deterministic(gen):
-    """One owner per output tile and no atomics: equal bits from run to run."""
-    q, k, v = _qkv(gen, 1, 333, 333, 4, 128, torch.bfloat16)
+@pytest.mark.parametrize("shape", [(1, 333, 333, 4, 128), (2, 300, 190, 4, 64)])
+def test_bwd_kernels_are_deterministic(gen, shape):
+    """One owner per output tile and no atomics: dq, dk and dv are equal bits
+    from run to run."""
+    q, k, v = _qkv(gen, *shape, torch.bfloat16)
     g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
     out, lse = fa.flash_attention_fwd(q, k, v)
+    before = fa.dq_launches
     first = fa.flash_attention_bwd(q, k, v, out, lse, g)
-    for a, b in zip(first, fa.flash_attention_bwd(q, k, v, out, lse, g)):
-        assert torch.equal(a, b)
+    for name, a, b in zip(("dq", "dk", "dv"), first, fa.flash_attention_bwd(q, k, v, out, lse, g)):
+        assert torch.equal(a, b), name
+    assert fa.dq_launches == before + 2
 
 
-# The wgmma/TMA kernels (bf16 forward and dk/dv) against their f32 plain
+# The wgmma/TMA kernels (bf16 forward, dk/dv and dq) against their f32 plain
 # versions: out within 2e-2 of max|ref| and never more than 2e-2 absolute (at
 # T ~ 4500 a typical |out| of random inputs is ~0.02, so an absolute 2e-2 would
-# not see a wrong P.V half), lse within 1e-3 absolute, dk/dv within 2e-2 of
-# max|ref| (p and ds rounded to bf16 before the second products). "qkv" and
-# "linear1" take q, k, v as strided views of a fused projection (the main
-# path's layouts), "unaligned" as views TMA cannot address (copied: the count
-# of copies rises by 3 in the forward and 3 in dk/dv).
+# not see a wrong P.V half), lse within 1e-3 absolute, dk/dv and dq within
+# 2e-2 of max|ref| (p and ds rounded to bf16 before the second products).
+# "qkv" and "linear1" take q, k, v as strided views of a fused projection (the
+# main path's layouts), "unaligned" as views TMA cannot address (copied: the
+# count of copies rises by 3 in the forward, 3 in dk/dv and 3 in dq).
+# "negative" shifts q by +3.2 and k by -3.2, so the logits sit near -116 and
+# lse near -106: a zero-filled K row past T would give dq's p = exp(-lse) =
+# inf and a NaN, unless the kernel masks the tail (T = 190 is ragged).
 @pytest.mark.parametrize("shape,layout", [
     ((1, 4481, 4481, 2, 128), "separate"),  # 1008^2: S = T not a multiple of 64 or 128
     ((2, 300, 190, 4, 64), "separate"),  # S != T, both ragged, D = 64
@@ -132,18 +139,22 @@ def test_bwd_kernels_are_deterministic(gen):
     ((2, 200, 200, 4, 128), "qkv"),
     ((1, 1100, 1100, 24, 128), "linear1"),
     ((2, 200, 200, 4, 64), "unaligned"),
+    ((2, 300, 190, 4, 128), "negative"),
 ])
 def test_wgmma_kernels_match_plain(gen, shape, layout):
     b, s, t, h, d = shape
     if layout == "separate":
         q, k, v = _qkv(gen, b, s, t, h, d, torch.bfloat16)
+    elif layout == "negative":
+        q, k, v = _qkv(gen, b, s, t, h, d, torch.float32)
+        q, k, v = (q + 3.2).bfloat16(), (k - 3.2).bfloat16(), v.bfloat16()
     else:
         extra, start = {"qkv": (0, 0), "linear1": (4 * 3072, 0), "unaligned": (1, 1)}[layout]
         fused = torch.randn((b, s, 3 * h * d + extra), generator=gen, device="cuda").bfloat16()
         q, k, v = fused[..., start:start + 3 * h * d].unflatten(-1, (3, h, d)).unbind(2)
     copies = 3 if layout == "unaligned" else 0
     g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
-    before = (fa.launches, fa.dkv_launches, fa.tma_copies)
+    before = (fa.launches, fa.dkv_launches, fa.tma_copies, fa.dq_launches)
     out, lse = fa.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert (fa.launches, fa.tma_copies) == (before[0] + 1, before[2] + copies)
@@ -157,7 +168,11 @@ def test_wgmma_kernels_match_plain(gen, shape, layout):
     torch.cuda.synchronize()
     assert (fa.dkv_launches, fa.tma_copies) == (before[1] + 1, before[2] + 2 * copies)
     refs = fa.flash_attention_bwd_dkv_plain(q.float(), k.float(), v.float(), g.float(), lse, delta, scale)
-    for name, x, r in zip(("dk", "dv"), (dk, dv), refs):
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.tma_copies) == (before[3] + 1, before[2] + 3 * copies)
+    refs = (*refs, fa.flash_attention_bwd_dq_plain(q.float(), k.float(), v.float(), g.float(), lse, delta, scale))
+    for name, x, r in zip(("dk", "dv", "dq"), (dk, dv, dq), refs):
         assert x.dtype == torch.bfloat16 and x.shape == r.shape and bool(torch.isfinite(x).all()), name
         assert (x.float() - r).abs().max().item() <= 2e-2 * r.abs().max().item(), name
 
@@ -334,6 +349,39 @@ def test_dw_kernel_is_deterministic(gen):
     first = moe.grouped_swiglu_dw(xs, dy, *banks, tg, moe.BLOCK_M)
     for a, b in zip(first, moe.grouped_swiglu_dw(xs, dy, *banks, tg, moe.BLOCK_M)):
         assert torch.equal(a, b)
+
+
+# The bf16 dx kernel (the wgmma/TMA passes of csrc/moe_gmm_sm90.cuh) at the
+# hidream shapes: dx, and the hidden pass's dh = [dh1 | dh3] and act (DW_HIDDEN,
+# which dw reads) against the f32 plain versions within 2e-2 of max|ref| (bf16
+# rounds dh between the passes), the same bits from run to run.
+@pytest.mark.parametrize("n_tok,empty", [
+    (4096, None),  # double block: 4096 image tokens x top-2
+    (4352, None),  # single block: 256 text + 4096 image tokens
+    (1000, 3),  # ragged, expert 3 gets no token
+])
+def test_moe_dx_kernel_matches_plain_at_hidream_shapes(gen, n_tok, empty):
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm as moe
+
+    d, h, e = 2560, 6912, 4
+    xs, tg = _routed(gen, moe, n_tok, d, e, torch.bfloat16, empty)
+    dy = torch.randn(xs.shape, generator=gen, device="cuda").bfloat16()
+    banks = [(torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5).bfloat16()
+             for s in ((e, d, h), (e, d, h), (e, h, d))]
+    before = moe.dx_launches
+    dx = moe.grouped_swiglu_dx(xs, dy, *banks, tg, moe.BLOCK_M)
+    dh, act = moe.grouped_swiglu_hidden(xs, dy, *banks, tg, moe.BLOCK_M)
+    again = (moe.grouped_swiglu_dx(xs, dy, *banks, tg, moe.BLOCK_M),
+             *moe.grouped_swiglu_hidden(xs, dy, *banks, tg, moe.BLOCK_M))
+    torch.cuda.synchronize()
+    assert moe.dx_launches == before + 2
+    refs = (moe.grouped_swiglu_dx_plain(xs.float(), dy.float(), *banks, tg, moe.BLOCK_M),
+            *(r.float() for r in moe.grouped_swiglu_hidden_plain(xs.float(), dy.float(), *banks, tg,
+                                                                 moe.BLOCK_M)))
+    for name, got, ref, rerun in zip(("dx", "dh", "act"), (dx, dh, act), refs, again):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape and bool(torch.isfinite(got).all()), name
+        assert (got.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item(), name
+        assert torch.equal(got, rerun), name
 
 
 def test_checkpointed_moe_layer_with_trainable_banks_launches_dw_once(gen):
