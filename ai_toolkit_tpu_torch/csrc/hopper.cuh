@@ -171,31 +171,35 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[R], uint32_t (&a)[R / 
     for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
-// m64nNk16, bf16 x bf16 -> f32, N in {64, 128}: Wgmma<N, TB>::ss (A and B
-// from shared descriptors, A K-major) and ::rs (A from registers). TB is the
-// transpose bit of B: 0 for a K-major B, 1 for an MN-major B. scale_d = 0
-// overwrites d, 1 accumulates.
-template <int N, int TB>
+// m64nNk16, bf16 x bf16 -> f32, N in {64, 128}: Wgmma<N, TB, TA>::ss (A and
+// B from shared descriptors) and ::rs (A from registers). TB is the transpose
+// bit of B: 0 for a K-major B, 1 for an MN-major B; TA the same for a shared
+// A (SS only: a register fragment cannot be transposed). An MN-major A is a
+// box of K rows x 64 M columns: the 64 rows of one m64 product are one
+// 128-byte swizzle row, and the k16 slice kk starts kk*16 rows in. scale_d =
+// 0 overwrites d, 1 accumulates.
+template <int N, int TB, int TA = 0>
 struct Wgmma;
 
-template <int TB>
-struct Wgmma<64, TB> {
-  // d[32] += A (shared, K-major) x B (shared; TB = 1: MN-major)
+template <int TB, int TA>
+struct Wgmma<64, TB, TA> {
+  // d[32] += A (shared; TA = 1: MN-major) x B (shared; TB = 1: MN-major)
   __device__ static void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   // d[32] += A (registers, the m64k16 bf16 fragment) x B (shared; TB = 1: MN-major)
   __device__ static void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    static_assert(TA == 0, "a register A fragment cannot be transposed");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -210,9 +214,9 @@ struct Wgmma<64, TB> {
   }
 };
 
-template <int TB>
-struct Wgmma<128, TB> {
-  // d[64] += A (shared, K-major) x B (shared; TB = 1: MN-major)
+template <int TB, int TA>
+struct Wgmma<128, TB, TA> {
+  // d[64] += A (shared; TA = 1: MN-major) x B (shared; TB = 1: MN-major)
   __device__ static void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -221,7 +225,7 @@ struct Wgmma<128, TB> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -230,10 +234,11 @@ struct Wgmma<128, TB> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   // d[64] += A (registers, the m64k16 bf16 fragment) x B (shared; TB = 1: MN-major)
   __device__ static void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+    static_assert(TA == 0, "a register A fragment cannot be transposed");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "

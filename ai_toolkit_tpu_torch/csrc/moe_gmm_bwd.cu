@@ -25,8 +25,9 @@
 // What bounds it: 10 N d h operations against the three banks, x, dy, dh and
 // dx; compute-bound at the hidream shape (1.45 TFLOP at N = 8192, d = 2560,
 // h = 6912). bf16 runs both passes on the wgmma/TMA engine of
-// moe_gmm_sm90.cuh (its note has the design, the block order and the traps);
-// f32 keeps moe_gmm_tile.cuh's CUDA-core path for the exact checks.
+// moe_gmm_sm90.cuh (moe_hidden_sm90, moe_out_sm90; its note has the design,
+// the block order and the traps); f32 keeps moe_gmm_tile.cuh's CUDA-core path
+// for the exact checks.
 
 #include "moe_gmm_sm90.cuh"
 
@@ -37,14 +38,15 @@ namespace {
 cudaError_t dx_bf16(const void* x, const void* dy, const void* w1, const void* w3, const void* w2, const int* tg,
                     const int* order_hidden, const int* order_out, void* dh_buf, void* act, void* dx, int N, int d,
                     int h, int E, int bn_out, cudaStream_t st) {
+  constexpr int BN = sm90::BN_DX_HIDDEN;
   if (d % bn_out || (bn_out != 64 && bn_out != 128)) return cudaErrorInvalidValue;
-  cudaError_t err = act ? sm90::launch_hidden<DW_HIDDEN>(x, dy, w1, w3, w2, tg, order_hidden, dh_buf, act, N, d, h,
-                                                          E, st)
-                        : sm90::launch_hidden<DX_HIDDEN>(x, dy, w1, w3, w2, tg, order_hidden, dh_buf, nullptr, N,
-                                                          d, h, E, st);
+  cudaError_t err = act ? sm90::launch_hidden<DW_HIDDEN, BN>(x, dy, w1, w3, w2, tg, order_hidden, dh_buf, act, N, d,
+                                                              h, E, st)
+                        : sm90::launch_hidden<DX_HIDDEN, BN>(x, dy, w1, w3, w2, tg, order_hidden, dh_buf, nullptr,
+                                                              N, d, h, E, st);
   if (err != cudaSuccess || !dx) return err;
-  return bn_out == 128 ? sm90::launch_out<128>(dh_buf, w1, w3, tg, order_out, dx, N, d, h, E, st)
-                       : sm90::launch_out<64>(dh_buf, w1, w3, tg, order_out, dx, N, d, h, E, st);
+  return bn_out == 128 ? sm90::launch_out<DX_OUT, 128>(dh_buf, w1, w3, tg, order_out, dx, N, d, h, E, st)
+                       : sm90::launch_out<DX_OUT, 64>(dh_buf, w1, w3, tg, order_out, dx, N, d, h, E, st);
 }
 
 cudaError_t dx_f32(const void* x, const void* dy, const void* w1, const void* w3, const void* w2, const int* tg,
@@ -80,8 +82,8 @@ cudaError_t dx_f32(const void* x, const void* dy, const void* w1, const void* w3
   out.tile_group = tg;
   out.K = 2 * h;
 
-  cudaError_t err = act ? launch<float, DW_HIDDEN, 64>(hid, N, h, st) : launch<float, DX_HIDDEN, 64>(hid, N, h, st);
-  if (err == cudaSuccess && dx) err = launch_wide<float, DX_OUT>(out, N, d, st);
+  cudaError_t err = act ? launch<DW_HIDDEN, 64>(hid, N, h, st) : launch<DX_HIDDEN, 64>(hid, N, h, st);
+  if (err == cudaSuccess && dx) err = launch_wide<DX_OUT>(out, N, d, st);
   return err;
 }
 

@@ -9,7 +9,7 @@
 // with f32 accumulation, written in the banks' type; an expert that owns no
 // tile gets zeros. dh = [dh1 | dh3] [N, 2h] and act = silu(h1) h3 [N, h] come
 // from the first pass of the dx kernel (moe_gmm_bwd.cu, mode DW_HIDDEN), run
-// once for both gradients, so this file is two grouped GEMMs:
+// once for both gradients, so this file is two GEMMs per expert:
 //   1. [dW1 | dW3][g] = x_g^T [dh1 | dh3]_g   (d x 2h per expert)
 //   2. dW2[g]         = act_g^T dy_g          (h x d per expert)
 //
@@ -20,42 +20,22 @@
 // block finds its expert's run in tile_group on the device (one scan of
 // N / 128 ids, no host sync), loops over the run's rows with an f32
 // accumulator and writes once. No atomics: the same bits from run to run.
-// The reduction runs over rows, so A is read transposed (moe_gmm_tile.cuh,
-// mode DW). What bounds it: 6 N d h operations against the bytes of x, dy,
-// dh, act and the three gradients; at the hidream shape (N = 8192 routed
-// rows, d = 2560, h = 6912, E = 4, bf16) 0.87 TFLOP against ~0.6 GB, so
-// compute-bound. The simple design: WMMA bf16 tiles and a two-stage cp.async
-// pipeline, as the other MoE kernels.
+// What bounds it: 6 N d h operations against the bytes of x, dy, dh, act and
+// the three gradients; at the hidream shape (N = 8192 routed rows, d = 2560,
+// h = 6912, E = 4, bf16) 0.87 TFLOP against ~0.6 GB, so compute-bound. bf16
+// runs both GEMMs in one launch of moe_gmm_sm90.cuh's moe_dw_sm90: 128 x 128
+// output tiles, both operands read MN-major (the reduction runs over rows),
+// A through the transpose bit of wgmma; f32 keeps moe_gmm_tile.cuh's
+// CUDA-core path (mode DW) for the exact checks.
 
-#include "moe_gmm_tile.cuh"
+#include "moe_gmm_sm90.cuh"
 
 using namespace ait_moe;
 
 namespace {
 
-template <typename T>
-cudaError_t dw_passes(const Args& p13, const Args& p2, int d, int h, int E, cudaStream_t st) {
-  // a BN-wide column tile of [dW1 | dW3] must not straddle the two banks
-  cudaError_t err = h % 128 == 0 ? launch<T, DW, 128>(p13, d, 2 * h, st, E)
-                                 : launch<T, DW, 64>(p13, d, 2 * h, st, E);
-  if (err != cudaSuccess) return err;
-  return d % 128 == 0 ? launch<T, DW, 128>(p2, h, d, st, E) : launch<T, DW, 64>(p2, h, d, st, E);
-}
-
-}  // namespace
-
-extern "C" {
-
-// dtype: 0 = float32, 1 = bfloat16. Every tensor is contiguous; x, dy [N, d],
-// dh [N, 2h], act [N, h]; dw1, dw3 [E, d, h], dw2 [E, h, d]; tile_group
-// [N / 128] int32, expert-sorted; N % 128 == 0, d % 64 == 0, h % 64 == 0.
-// Returns the cudaError_t of the launches.
-int ait_moe_gmm_dw(const void* x, const void* dy, const void* dh, const void* act,
-                   const void* tile_group, void* dw1, void* dw3, void* dw2, int N, int d, int h,
-                   int E, int dtype, void* stream) {
-  if (!shapes_ok(N, d, h) || E <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-
+cudaError_t dw_f32(const void* x, const void* dy, const void* dh, const void* act, const int* tg, void* dw1,
+                   void* dw3, void* dw2, int N, int d, int h, int E, cudaStream_t st) {
   Args p13{};
   p13.a[0] = x;  // A^T: the columns of x are the output rows
   p13.lda[0] = d;
@@ -66,7 +46,7 @@ int ait_moe_gmm_dw(const void* x, const void* dy, const void* dh, const void* ac
   p13.col_split = h;
   p13.ldo = h;
   p13.out_expert = (long long)d * h;
-  p13.tile_group = static_cast<const int*>(tile_group);
+  p13.tile_group = tg;
   p13.ntiles = N / BM;
   p13.M = d;
 
@@ -81,9 +61,36 @@ int ait_moe_gmm_dw(const void* x, const void* dy, const void* dh, const void* ac
   p2.out_expert = (long long)h * d;
   p2.M = h;
 
-  const cudaError_t err = dtype == 1 ? dw_passes<bf16>(p13, p2, d, h, E, st)
-                                     : dw_passes<float>(p13, p2, d, h, E, st);
-  return (int)err;
+  // a BN-wide column tile of [dW1 | dW3] must not straddle the two banks
+  cudaError_t err = h % 128 == 0 ? launch<DW, 128>(p13, d, 2 * h, st, E) : launch<DW, 64>(p13, d, 2 * h, st, E);
+  if (err != cudaSuccess) return err;
+  return d % 128 == 0 ? launch<DW, 128>(p2, h, d, st, E) : launch<DW, 64>(p2, h, d, st, E);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Every tensor is contiguous; x, dy [N, d],
+// dh [N, 2h], act [N, h]; dw1, dw3 [E, d, h], dw2 [E, h, d]; tile_group
+// [N / 128] int32, expert-sorted; N % 128 == 0, d % 64 == 0, h % 64 == 0.
+// bf16 reads x, dy, dh and act by TMA (16-byte aligned bases; the wrapper
+// checks) and takes the output tile width bn (64 or 128, dividing d and h, so
+// that no column tile of [dW1 | dW3] straddles the banks) and the block order
+// [E (ceil(d/128) (2h/bn) + ceil(h/128) (d/bn))]: a permutation of the tile
+// indices (moe_gmm_sm90.cuh DwParams). f32 ignores the order and bn.
+// Returns the cudaError_t of the launches.
+int ait_moe_gmm_dw(const void* x, const void* dy, const void* dh, const void* act, const void* tile_group,
+                   const void* order, void* dw1, void* dw3, void* dw2, int N, int d, int h, int E, int bn, int dtype,
+                   void* stream) {
+  if (!shapes_ok(N, d, h) || E <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* tg = static_cast<const int*>(tile_group);
+  if (dtype == 0) return (int)dw_f32(x, dy, dh, act, tg, dw1, dw3, dw2, N, d, h, E, st);
+  if ((bn != 64 && bn != 128) || d % bn || h % bn) return (int)cudaErrorInvalidValue;
+  const int* ord = static_cast<const int*>(order);
+  return (int)(bn == 128 ? sm90::launch_dw<128>(x, dy, dh, act, tg, ord, dw1, dw3, dw2, N, d, h, E, st)
+                         : sm90::launch_dw<64>(x, dy, dh, act, tg, ord, dw1, dw3, dw2, N, d, h, E, st));
 }
 
 const char* ait_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

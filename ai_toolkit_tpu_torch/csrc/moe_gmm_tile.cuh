@@ -1,5 +1,6 @@
-// Grouped (per-expert) tile GEMMs for the MoE SwiGLU kernels, shared by
-// moe_gmm_fwd.cu, moe_gmm_bwd.cu and moe_gmm_dw.cu.
+// Grouped (per-expert) f32 tile GEMMs for the MoE SwiGLU kernels, shared by
+// moe_gmm_fwd.cu, moe_gmm_bwd.cu and moe_gmm_dw.cu; and what the bf16 engine
+// (moe_gmm_sm90.cuh) takes from here: BM, the modes and their epilogues.
 //
 // The rows of every operand A are expert-sorted and grouped in tiles of BM
 // rows: tile t belongs to expert tile_group[t] (ai_toolkit_tpu/ops/pallas/
@@ -22,33 +23,26 @@
 // DW is the one mode whose reduction runs over rows: its grid is (output row
 // tiles, output column tiles, experts), each block finds its expert's run of
 // tiles in tile_group itself (tiles are expert-sorted, so the run is
-// contiguous) and reads its A operand transposed (col_major WMMA fragments of
-// a [BK][BM] shared tile). An expert with no tile writes zeros.
-// bf16 products run on the tensor cores (WMMA 16x16x16, f32 accumulation):
-// GATE_UP, DOWN and DW; bf16 DX_HIDDEN, DW_HIDDEN and DX_OUT run on the
-// wgmma/TMA engine of moe_gmm_sm90.cuh instead. f32 takes a CUDA-core FMA path
-// with the same tiles in every mode, for exact checks.
+// contiguous) and reads its A operand transposed (a [BK][BM] shared tile). An
+// expert with no tile writes zeros.
+// This is the f32 path: CUDA-core FMAs over the same tiles in every mode, for
+// the exact checks. Every bf16 mode runs on the wgmma/TMA engine of
+// moe_gmm_sm90.cuh.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace ait_moe {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int BM = 128;  // rows per tile: the dispatch's block_m
 constexpr int BK = 32;   // reduction depth of one pipeline stage
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int WARPS_M = 4, WARPS_N = 2;  // warp grid over a BM x BN tile (WMMA path)
+constexpr int THREADS = 256;
 
 enum Mode { GATE_UP = 0, DOWN = 1, DX_HIDDEN = 2, DX_OUT = 3, DW_HIDDEN = 4, DW = 5 };
 
@@ -95,43 +89,43 @@ __host__ __device__ constexpr size_t round128(size_t x) { return (x + 127) / 128
 
 // Shared memory of one block: two pipeline stages of A and weight tiles; after
 // the reduction the same bytes hold the f32 output tiles for the epilogue.
-// Rows are padded so that neighbouring rows fall in other banks; every WMMA
-// pointer stays 32-byte aligned and every cp.async destination 16-byte aligned.
-template <typename T, int BN>
+// Rows are padded so that neighbouring rows fall in other banks; every
+// cp.async destination stays 16-byte aligned.
+template <int BN>
 struct Dims {
-  static constexpr int PAD = std::is_same<T, bf16>::value ? 8 : 4;
+  static constexpr int PAD = 4;
   static constexpr int LDA = BK + PAD;   // A tile [BM][LDA]
   static constexpr int LDAT = BM + PAD;  // transposed A tile [BK][LDAT] (DW)
   static constexpr int LDBR = BN + PAD;  // row-major weight tile [BK][LDBR]
   static constexpr int LDBC = BK + PAD;  // transposed weight tile [BN][LDBC]
-  static constexpr int LDO = BN + 4;     // f32 output tile [BM][LDO]
-  static constexpr size_t a_bytes = round128(sizeof(T) * BM * LDA);
-  static constexpr size_t at_bytes = round128(sizeof(T) * BK * LDAT);
+  static constexpr int LDO = BN + 4;     // output tile [BM][LDO]
+  static constexpr size_t a_bytes = round128(sizeof(float) * BM * LDA);
+  static constexpr size_t at_bytes = round128(sizeof(float) * BK * LDAT);
   static constexpr size_t out_bytes = round128(sizeof(float) * BM * LDO);
 };
 
 // Bytes of one A tile of the mode within a stage.
-template <typename T, int MODE, int BN>
+template <int MODE, int BN>
 __host__ __device__ constexpr size_t a_tile_bytes() {
-  return MODE == DW ? Dims<T, BN>::at_bytes : Dims<T, BN>::a_bytes;
+  return MODE == DW ? Dims<BN>::at_bytes : Dims<BN>::a_bytes;
 }
 
 // Offset of weight tile i within a stage (the NA A tiles come first).
-template <typename T, int MODE, int BN>
+template <int MODE, int BN>
 __host__ __device__ constexpr size_t b_off(int i) {
-  using D = Dims<T, BN>;
-  size_t off = Cfg<MODE>::NA * a_tile_bytes<T, MODE, BN>();
+  using D = Dims<BN>;
+  size_t off = Cfg<MODE>::NA * a_tile_bytes<MODE, BN>();
   for (int j = 0; j < i; ++j)
-    off += round128(sizeof(T) * (Cfg<MODE>::colmajor(j) ? BN * D::LDBC : BK * D::LDBR));
+    off += round128(sizeof(float) * (Cfg<MODE>::colmajor(j) ? BN * D::LDBC : BK * D::LDBR));
   return off;
 }
 
-template <typename T, int MODE, int BN>
-struct Layout : Dims<T, BN> {
+template <int MODE, int BN>
+struct Layout : Dims<BN> {
   using C = Cfg<MODE>;
-  using D = Dims<T, BN>;
-  static constexpr size_t a_tile = a_tile_bytes<T, MODE, BN>();
-  static constexpr size_t stage_bytes = b_off<T, MODE, BN>(C::NB);
+  using D = Dims<BN>;
+  static constexpr size_t a_tile = a_tile_bytes<MODE, BN>();
+  static constexpr size_t stage_bytes = b_off<MODE, BN>(C::NB);
   static constexpr size_t bytes =
       2 * stage_bytes > C::NOUT * D::out_bytes ? 2 * stage_bytes : C::NOUT * D::out_bytes;
 };
@@ -168,12 +162,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage NROWS x NCOLS elements (global row stride ld) into shared rows of LD,
+// Stage NROWS x NCOLS floats (global row stride ld) into shared rows of LD,
 // 16 bytes per copy; columns from `cols` on are zero-filled, not read (the
 // ragged output-row edge of DW).
-template <typename T, int NROWS, int NCOLS, int LD>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int cols = NCOLS) {
-  constexpr int VEC = 16 / sizeof(T);
+template <int NROWS, int NCOLS, int LD>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, long long ld, int cols = NCOLS) {
+  constexpr int VEC = 4;
   constexpr int CPR = NCOLS / VEC;
   static_assert(NCOLS % VEC == 0, "tile rows are whole 16-byte chunks");
   for (int i = threadIdx.x; i < NROWS * CPR; i += THREADS) {
@@ -202,105 +196,12 @@ __device__ __forceinline__ void epilogue(float& o0, float& o1, float& o2) {
   }
 }
 
-__host__ __device__ constexpr bool has_epilogue(int mode) {
-  return mode == GATE_UP || mode == DX_HIDDEN || mode == DW_HIDDEN;
-}
-
-// Accumulators and products of one block tile.
-template <typename T, int MODE, int BN>
-struct Acc;
-
-// bf16: warp (wm, wn) of the 4 x 2 warp grid owns a (BM/4) x (BN/2) sub-tile,
-// FM x FN fragments of 16 x 16 per product.
+// Accumulators and products of one block tile: thread (ty, tx) of a 16 x 16
+// grid owns rows ty + 16 r and columns tx + 16 c of the tile.
 template <int MODE, int BN>
-struct Acc<bf16, MODE, BN> {
+struct Acc {
   using C = Cfg<MODE>;
-  using L = Layout<bf16, MODE, BN>;
-  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  static constexpr int FM = WM / 16, FN = WN / 16;
-  // DW reads its A tile transposed: A(m, k) at [k][m] of a [BK][LDAT] tile
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                               std::conditional_t<MODE == DW, wmma::col_major, wmma::row_major>>;
-  using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-  using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  FragC f[C::NB][FM][FN];
-  int wm0, wn0;
-
-  __device__ void init() {
-    const int warp = threadIdx.x / 32;
-    wm0 = (warp / WARPS_N) * WM;
-    wn0 = (warp % WARPS_N) * WN;
-#pragma unroll
-    for (int i = 0; i < C::NB; ++i)
-#pragma unroll
-      for (int m = 0; m < FM; ++m)
-#pragma unroll
-        for (int n = 0; n < FN; ++n) wmma::fill_fragment(f[i][m][n], 0.f);
-  }
-
-  __device__ void step(const unsigned char* base) {
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      FragA a[C::NA][FM];
-#pragma unroll
-      for (int j = 0; j < C::NA; ++j)
-#pragma unroll
-        for (int m = 0; m < FM; ++m) {
-          const bf16* as = reinterpret_cast<const bf16*>(base + j * L::a_tile);
-          if constexpr (MODE == DW)
-            wmma::load_matrix_sync(a[j][m], as + kk * 16 * L::LDAT + wm0 + m * 16, L::LDAT);
-          else
-            wmma::load_matrix_sync(a[j][m], as + (wm0 + m * 16) * L::LDA + kk * 16, L::LDA);
-        }
-#pragma unroll
-      for (int i = 0; i < C::NB; ++i) {
-        const bf16* bs = reinterpret_cast<const bf16*>(base + b_off<bf16, MODE, BN>(i));
-#pragma unroll
-        for (int n = 0; n < FN; ++n) {
-          if (C::colmajor(i)) {
-            FragBc b;
-            wmma::load_matrix_sync(b, bs + (wn0 + n * 16) * L::LDBC + kk * 16, L::LDBC);
-#pragma unroll
-            for (int m = 0; m < FM; ++m) wmma::mma_sync(f[i][m][n], a[C::a_of(i)][m], b, f[i][m][n]);
-          } else {
-            FragBr b;
-            wmma::load_matrix_sync(b, bs + kk * 16 * L::LDBR + wn0 + n * 16, L::LDBR);
-#pragma unroll
-            for (int m = 0; m < FM; ++m) wmma::mma_sync(f[i][m][n], a[C::a_of(i)][m], b, f[i][m][n]);
-          }
-        }
-      }
-    }
-  }
-
-  // Elements at one index of fragments of one type sit at the same place of
-  // the tile, so the epilogue runs on the fragments directly.
-  __device__ void finish(float* out) {
-#pragma unroll
-    for (int m = 0; m < FM; ++m)
-#pragma unroll
-      for (int n = 0; n < FN; ++n) {
-        if constexpr (has_epilogue(MODE)) {
-#pragma unroll
-          for (int e = 0; e < FragC::num_elements; ++e)
-            epilogue<MODE>(f[0][m][n].x[e], f[1][m][n].x[e], f[C::NB - 1][m][n].x[e]);
-        }
-#pragma unroll
-        for (int o = 0; o < C::NOUT; ++o)
-          wmma::store_matrix_sync(out + o * (L::out_bytes / sizeof(float)) + (wm0 + m * 16) * L::LDO +
-                                      wn0 + n * 16,
-                                  f[o][m][n], L::LDO, wmma::mem_row_major);
-      }
-  }
-};
-
-// f32: thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 r and columns
-// tx + 16 c of the tile.
-template <int MODE, int BN>
-struct Acc<float, MODE, BN> {
-  using C = Cfg<MODE>;
-  using L = Layout<float, MODE, BN>;
+  using L = Layout<MODE, BN>;
   static constexpr int TR = BM / 16, TC = BN / 16;
   float f[C::NB][TR][TC];
   int ty, tx;
@@ -328,7 +229,7 @@ struct Acc<float, MODE, BN> {
         }
 #pragma unroll
       for (int i = 0; i < C::NB; ++i) {
-        const float* bs = reinterpret_cast<const float*>(base + b_off<float, MODE, BN>(i));
+        const float* bs = reinterpret_cast<const float*>(base + b_off<MODE, BN>(i));
 #pragma unroll
         for (int c = 0; c < TC; ++c) {
           const int n = tx + 16 * c;
@@ -353,28 +254,14 @@ struct Acc<float, MODE, BN> {
   }
 };
 
-template <typename T>
-__device__ __forceinline__ void store_row(T* dst, const float* src);
-template <>
-__device__ __forceinline__ void store_row<float>(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
-}
-template <>
-__device__ __forceinline__ void store_row<bf16>(bf16* dst, const float* src) {
-  __align__(16) bf16 v[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = __float2bfloat16(src[i]);
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-}
-
 // Grid (rows / BM, columns / BN): the row tile is the fast index, so the blocks
 // in flight share the same columns of the weights and each weight tile is
 // read from device memory about once. DW: (output rows / BM, columns / BN,
 // experts), the reduction over the expert's run of row tiles.
-template <typename T, int MODE, int BN>
+template <int MODE, int BN>
 __global__ void __launch_bounds__(THREADS) moe_tile_kernel(const Args p) {
   using C = Cfg<MODE>;
-  using L = Layout<T, MODE, BN>;
+  using L = Layout<MODE, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int n0 = blockIdx.y * BN;
   long long row0, g;  // first row of the reduction's rows (DW) or of the tile; the expert
@@ -398,41 +285,41 @@ __global__ void __launch_bounds__(THREADS) moe_tile_kernel(const Args p) {
     K = p.K;
   }
 
-  const T* A[C::NA];
+  const float* A[C::NA];
 #pragma unroll
-  for (int j = 0; j < C::NA; ++j) A[j] = static_cast<const T*>(p.a[j]) + row0 * p.lda[j] + m0;
-  const T* B[C::NB];
+  for (int j = 0; j < C::NA; ++j) A[j] = static_cast<const float*>(p.a[j]) + row0 * p.lda[j] + m0;
+  const float* B[C::NB];
 #pragma unroll
   for (int i = 0; i < C::NB; ++i)
-    B[i] = MODE == DW ? static_cast<const T*>(p.b[i]) + row0 * p.ldb[i] + n0
-                      : static_cast<const T*>(p.b[i]) + g * p.b_expert[i] + (C::colmajor(i) ? n0 * p.ldb[i] : n0);
-  const T* Balt = MODE == DX_OUT ? static_cast<const T*>(p.b_alt) + g * p.b_expert[0] + n0 * p.ldb[0]
+    B[i] = MODE == DW ? static_cast<const float*>(p.b[i]) + row0 * p.ldb[i] + n0
+                      : static_cast<const float*>(p.b[i]) + g * p.b_expert[i] + (C::colmajor(i) ? n0 * p.ldb[i] : n0);
+  const float* Balt = MODE == DX_OUT ? static_cast<const float*>(p.b_alt) + g * p.b_expert[0] + n0 * p.ldb[0]
                                  : nullptr;
 
   auto load_stage = [&](int s, int k0) {
     unsigned char* base = smem + s * L::stage_bytes;
 #pragma unroll
     for (int j = 0; j < C::NA; ++j) {
-      T* dst = reinterpret_cast<T*>(base + j * L::a_tile);
+      float* dst = reinterpret_cast<float*>(base + j * L::a_tile);
       if constexpr (MODE == DW)  // rows k0.. of A, columns m0..m0+BM: the transposed tile
-        stage_tile<T, BK, BM, L::LDAT>(dst, A[j] + k0 * p.lda[j], p.lda[j], p.M - m0);
+        stage_tile<BK, BM, L::LDAT>(dst, A[j] + k0 * p.lda[j], p.lda[j], p.M - m0);
       else
-        stage_tile<T, BM, BK, L::LDA>(dst, A[j] + k0, p.lda[j]);
+        stage_tile<BM, BK, L::LDA>(dst, A[j] + k0, p.lda[j]);
     }
 #pragma unroll
     for (int i = 0; i < C::NB; ++i) {
-      T* dst = reinterpret_cast<T*>(base + b_off<T, MODE, BN>(i));
+      float* dst = reinterpret_cast<float*>(base + b_off<MODE, BN>(i));
       if (C::colmajor(i)) {
-        const T* src = B[i] + k0;
+        const float* src = B[i] + k0;
         if (MODE == DX_OUT && k0 >= p.k_split) src = Balt + (k0 - p.k_split);
-        stage_tile<T, BN, BK, L::LDBC>(dst, src, p.ldb[i]);
+        stage_tile<BN, BK, L::LDBC>(dst, src, p.ldb[i]);
       } else {
-        stage_tile<T, BK, BN, L::LDBR>(dst, B[i] + (long long)k0 * p.ldb[i], p.ldb[i]);
+        stage_tile<BK, BN, L::LDBR>(dst, B[i] + (long long)k0 * p.ldb[i], p.ldb[i]);
       }
     }
   };
 
-  Acc<T, MODE, BN> acc;
+  Acc<MODE, BN> acc;
   acc.init();
   const int KT = K / BK;  // 0 for an expert with no tile: its gradient is zero
   if (KT > 0) load_stage(0, 0);
@@ -449,37 +336,37 @@ __global__ void __launch_bounds__(THREADS) moe_tile_kernel(const Args p) {
   float* Os = reinterpret_cast<float*>(smem);
   acc.finish(Os);
   __syncthreads();
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 4;
 #pragma unroll
   for (int o = 0; o < C::NOUT; ++o) {
-    T* dst;
+    float* dst;
     long long ld = p.ldo;
     int rows = BM;
     if constexpr (MODE == DW) {
       const bool hi = n0 >= p.col_split;
-      dst = static_cast<T*>(hi ? p.out_hi : p.out) + g * p.out_expert + m0 * p.ldo +
+      dst = static_cast<float*>(hi ? p.out_hi : p.out) + g * p.out_expert + m0 * p.ldo +
             (hi ? n0 - p.col_split : n0);
       rows = min(BM, p.M - m0);
     } else if (o == 2) {
-      dst = static_cast<T*>(p.act) + row0 * p.ld_act + n0;
+      dst = static_cast<float*>(p.act) + row0 * p.ld_act + n0;
       ld = p.ld_act;
     } else {
-      dst = static_cast<T*>(p.out) + row0 * p.ldo + (o == 1 ? p.out2_col : 0) + n0;
+      dst = static_cast<float*>(p.out) + row0 * p.ldo + (o == 1 ? p.out2_col : 0) + n0;
     }
     const float* src = Os + o * (L::out_bytes / sizeof(float));
     for (int i = threadIdx.x; i < rows * BN / VEC; i += THREADS) {
       const int r = i / (BN / VEC), c = (i % (BN / VEC)) * VEC;
-      store_row<T>(dst + r * ld + c, src + r * L::LDO + c);
+      *reinterpret_cast<float4*>(dst + r * ld + c) = *reinterpret_cast<const float4*>(src + r * L::LDO + c);
     }
   }
 }
 
 // rows: the output rows (ragged last tile only in DW); experts: DW's grid depth.
-template <typename T, int MODE, int BN>
+template <int MODE, int BN>
 cudaError_t launch(const Args& p, int rows, int cols, cudaStream_t stream, int experts = 1) {
-  using L = Layout<T, MODE, BN>;
+  using L = Layout<MODE, BN>;
   static_assert(L::bytes <= 227 * 1024, "shared memory of one block");
-  auto kern = moe_tile_kernel<T, MODE, BN>;
+  auto kern = moe_tile_kernel<MODE, BN>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((rows + BM - 1) / BM, cols / BN, experts);
@@ -488,10 +375,10 @@ cudaError_t launch(const Args& p, int rows, int cols, cudaStream_t stream, int e
 }
 
 // The output width of DOWN / DX_OUT is d: 128-column tiles when d allows.
-template <typename T, int MODE>
+template <int MODE>
 cudaError_t launch_wide(const Args& p, int rows, int cols, cudaStream_t stream) {
-  if (cols % 128 == 0) return launch<T, MODE, 128>(p, rows, cols, stream);
-  return launch<T, MODE, 64>(p, rows, cols, stream);
+  if (cols % 128 == 0) return launch<MODE, 128>(p, rows, cols, stream);
+  return launch<MODE, 64>(p, rows, cols, stream);
 }
 
 // Shapes the kernels take: rows a multiple of BM, d and h multiples of 64.

@@ -7,18 +7,17 @@ the input gradient ``_dx_kernel`` with ``csrc/moe_gmm_bwd.cu``, the bank
 gradients ``_dw_kernel`` with the first pass of ``moe_gmm_bwd.cu`` (which
 then also writes the SwiGLU activation) and ``csrc/moe_gmm_dw.cu``. All are
 grouped GEMMs over expert-sorted 128-row tiles in which every block reads
-its expert itself and owns its output tile (``csrc/moe_gmm_tile.cuh``); dw's
-blocks own a tile of one expert's gradient and reduce over that expert's run
-of row tiles. What bounds them at the hidream shape (8192 routed rows, d 2560,
-h 6912, 4 experts, bf16): 6·N·d·h (forward), 10·N·d·h (dx) and 12·N·d·h (dw
-from x and dy; 6·N·d·h beside a dx that shares its first pass) operations
-against well under a GB of weights and activations, so all are
-compute-bound. In bf16 the two passes of dx (and the first pass dw shares)
-run wgmma on shared-memory tiles that TMA loads through mbarrier-guarded
-rings, with the SwiGLU backward in registers and a grouped block order that
-the wrapper builds (``csrc/moe_gmm_sm90.cuh``, :func:`block_order`); the
-forward and the dw products keep the first design, WMMA bf16 tiles with a
-two-stage cp.async pipeline (``csrc/moe_gmm_tile.cuh``). The SwiGLU
+its expert itself and owns its output tile; dw's blocks own a tile of one
+expert's gradient and reduce over that expert's run of row tiles. What
+bounds them at the hidream shape (8192 routed rows, d 2560, h 6912, 4
+experts, bf16): 6·N·d·h (forward), 10·N·d·h (dx) and 12·N·d·h (dw from x
+and dy; 6·N·d·h beside a dx that shares its first pass) operations against
+well under a GB of weights and activations, so all are compute-bound. In
+bf16 every pass runs wgmma on shared-memory tiles that TMA loads through
+mbarrier-guarded rings, with the SwiGLU (and its backward) in registers and
+a grouped block order that the wrapper builds (``csrc/moe_gmm_sm90.cuh``;
+:func:`fwd_plan`, :func:`dx_plan`, :func:`dw_plan`); f32 runs CUDA-core
+tiles (``csrc/moe_gmm_tile.cuh``) for the exact checks. The SwiGLU
 activation (forward, dw) and ``[dh1 | dh3]`` (dx, dw) go between their GEMMs
 through device memory in the input type.
 
@@ -30,7 +29,7 @@ runs dx where x needs a gradient and dw where a bank does. CPU tensors go to
 the plain versions; CUDA tensors launch the kernels or raise. The kernels
 take ``block_m`` = :data:`BLOCK_M` = 128 (the TPU's VMEM budgeting,
 ``default_blocks`` and ``_dw_block_h``, has no counterpart here) and d, h
-multiples of 64. The bf16 dx reads x, dy and the banks through TMA tensor
+multiples of 64. In bf16 every kernel reads its inputs through TMA tensor
 maps and refuses a tensor TMA cannot map (:func:`check_tma`).
 """
 
@@ -42,16 +41,17 @@ import math
 import torch
 import torch.nn.functional as F
 
-# kernel launches in this process, one count per kernel (each launch runs its two GEMM passes)
+# kernel launches in this process, one count per kernel (a launch runs its two GEMM passes, or
+# one of the forward's alone when it is timed)
 launches = 0  # moe_gmm_fwd
 dx_launches = 0  # moe_gmm_dx
 dw_launches = 0  # moe_gmm_dw
 
 BLOCK_M = 128  # rows per tile of the CUDA kernels (csrc/moe_gmm_tile.cuh BM)
-_BN_HIDDEN = 64  # hidden columns per tile of the bf16 dx's first pass (csrc/moe_gmm_sm90.cuh BN_HIDDEN)
+_BN_DX_HIDDEN = 64  # hidden columns per tile of the bf16 dx's first pass (csrc/moe_gmm_sm90.cuh)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns: dict[str, tuple] = {}
-_orders: dict[tuple, tuple[dict, torch.Tensor, torch.Tensor]] = {}
+_plans: dict[tuple, tuple] = {}
 
 
 def expert_runs(tile_group: torch.Tensor, block_m: int):
@@ -124,17 +124,17 @@ def grouped_swiglu_hidden_plain(x, dy, w1, w3, w2, tile_group, block_m: int):
     return dh.to(x.dtype), act.to(x.dtype)
 
 
-# ---- the launch plan of the bf16 dx kernel (csrc/moe_gmm_sm90.cuh), on the host ----
+# ---- the launch plans of the bf16 kernels (csrc/moe_gmm_sm90.cuh), on the host ----
 
 def check_tma(t: torch.Tensor) -> None:
-    """Raises ValueError for a tensor the bf16 dx kernel's TMA cannot map as
-    it is (not a bf16 matrix ``[rows, cols]`` or bank ``[E, rows, cols]``, not
+    """Raises ValueError for a tensor the bf16 kernels' TMA cannot map as it
+    is (not a bf16 matrix ``[rows, cols]`` or bank ``[E, rows, cols]``, not
     contiguous, a base not 16-byte aligned, a row that is not a whole number
-    of 64-column boxes, a byte stride past TMA's limit): the kernel takes no
+    of 64-column boxes, a byte stride past TMA's limit): the kernels take no
     fallback. The maps themselves are built in ``csrc/hopper.cuh``
     (``make_map_rows``, ``make_map_bank``)."""
     if t.dtype != torch.bfloat16 or t.dim() not in (2, 3):
-        raise ValueError(f"the bf16 dx kernel maps bf16 matrices and banks, got {t.dtype} {tuple(t.shape)}")
+        raise ValueError(f"the bf16 MoE kernels map bf16 matrices and banks, got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16 or t.shape[-1] % 64:
         raise ValueError(f"TMA cannot map a tensor {tuple(t.shape)} with strides {t.stride()} at byte "
                          f"offset {t.data_ptr() % 16} from a 16-byte boundary: it needs it contiguous, "
@@ -164,35 +164,75 @@ def block_order(row_tiles: int, col_tiles: int, patch: int) -> torch.Tensor:
     return torch.tensor(order, dtype=torch.int32)
 
 
+def fwd_plan(n: int, d: int, h: int, wave: int) -> dict:
+    """The tile widths, patches and block orders of the two bf16 forward
+    passes for ``n`` routed rows. GATE_UP takes 128 x 128 tiles of act (64
+    wide where h % 128 != 0) and reads x (``2 BM d`` bytes a row tile) and
+    columns of W1 and W3 (``4 BN d``); DOWN takes 128 x 128 tiles of y (64
+    wide where d % 128 != 0) and reads act (``2 BM h``) and columns of W2
+    (``2 BN h``)."""
+    rows = n // BLOCK_M
+    bn1 = 128 if h % 128 == 0 else 64
+    bn2 = 128 if d % 128 == 0 else 64
+    p1 = patch_rows(rows, 2 * BLOCK_M * d, 4 * bn1 * d, wave)
+    p2 = patch_rows(rows, 2 * BLOCK_M * h, 2 * bn2 * h, wave)
+    return {"bn_hidden": bn1, "bn_out": bn2, "patch_gate_up": p1, "patch_down": p2,
+            "order_gate_up": block_order(rows, h // bn1, p1), "order_down": block_order(rows, d // bn2, p2)}
+
+
 def dx_plan(n: int, d: int, h: int, wave: int) -> dict:
     """The dx tile width, patches and block orders of the two bf16 dx passes
-    for ``n`` routed rows. Pass 1 takes 128 x :data:`_BN_HIDDEN` tiles of the
-    hidden axis and reads x and dy (``4 BM d`` bytes a row tile) and columns
-    of W1, W3, W2 (``6 BN d``); pass 2 takes 128 x 128 tiles of dx (64 wide
-    where d % 128 != 0) and reads dh (``4 BM h``) and rows of W1 and W3
-    (``4 BN h``)."""
+    for ``n`` routed rows. Pass 1 takes 128 x :data:`_BN_DX_HIDDEN` tiles of
+    the hidden axis and reads x and dy (``4 BM d`` bytes a row tile) and
+    columns of W1, W3, W2 (``6 BN d``); pass 2 takes 128 x 128 tiles of dx
+    (64 wide where d % 128 != 0) and reads dh (``4 BM h``) and rows of W1
+    and W3 (``4 BN h``)."""
     rows = n // BLOCK_M
     bn2 = 128 if d % 128 == 0 else 64
-    p1 = patch_rows(rows, 4 * BLOCK_M * d, 6 * _BN_HIDDEN * d, wave)
+    p1 = patch_rows(rows, 4 * BLOCK_M * d, 6 * _BN_DX_HIDDEN * d, wave)
     p2 = patch_rows(rows, 4 * BLOCK_M * h, 4 * bn2 * h, wave)
     return {"bn_out": bn2, "patch_hidden": p1, "patch_out": p2,
-            "order_hidden": block_order(rows, h // _BN_HIDDEN, p1), "order_out": block_order(rows, d // bn2, p2)}
+            "order_hidden": block_order(rows, h // _BN_DX_HIDDEN, p1), "order_out": block_order(rows, d // bn2, p2)}
 
 
-def _dx_orders(n: int, d: int, h: int, device) -> tuple[dict, torch.Tensor, torch.Tensor]:
-    """The plan on ``device`` for these shapes, its block orders on the card
-    (built once per shape)."""
-    key = (device, n, d, h)
-    hit = _orders.get(key)
+def dw_plan(d: int, h: int, experts: int, wave: int) -> dict:
+    """The tile width, patches and block order of the bf16 dw products, one
+    launch over every expert's two gradients: ``[dW1 | dW3]`` in ceil(d /
+    128) x 2h / bn tiles of 128 x bn, then dW2 in ceil(h / 128) x d / bn;
+    bn = 128 where d and h both allow it (a column tile of ``[dW1 | dW3]``
+    must not straddle the banks), else 64. Tile index ``t``: ``[dW1 | dW3]``
+    tiles first, expert by expert, row-major within an expert, then dW2's
+    (``csrc/moe_gmm_sm90.cuh`` ``DwParams``). Per reduction row a block
+    reads ``2 BM`` bytes of x or act and ``2 bn`` of dh or dy, so each
+    expert's tiles go in patches of ``patch_rows`` on those."""
+    bn = 128 if d % 128 == 0 and h % 128 == 0 else 64
+    order, patches, base = [], [], 0
+    for rows, cols in ((-(-d // BLOCK_M), 2 * h // bn), (-(-h // BLOCK_M), d // bn)):
+        patch = patch_rows(rows, 2 * BLOCK_M, 2 * bn, wave)
+        tiles = block_order(rows, cols, patch)
+        order += [tiles + base + g * rows * cols for g in range(experts)]
+        patches.append(patch)
+        base += experts * rows * cols
+    return {"bn": bn, "patch_w13": patches[0], "patch_w2": patches[1], "order": torch.cat(order)}
+
+
+_PLANS = {"fwd": fwd_plan, "dx": dx_plan, "dw": dw_plan}
+
+
+def _plan(kind: str, device, *shape) -> tuple:
+    """(plan, its block orders on the card) of ``_PLANS[kind]`` for these
+    shapes on ``device``, built once per shape."""
+    key = (kind, device, *shape)
+    hit = _plans.get(key)
     if hit is None:
-        plan = dx_plan(n, d, h, torch.cuda.get_device_properties(device).multi_processor_count)
-        hit = _orders[key] = (plan, plan["order_hidden"].to(device), plan["order_out"].to(device))
+        plan = _PLANS[kind](*shape, torch.cuda.get_device_properties(device).multi_processor_count)
+        hit = _plans[key] = (plan, *(v.to(device) for k, v in plan.items() if k.startswith("order")))
     return hit
 
 
 # library -> (C entry, pointer arguments, int arguments); the stream comes last
-_ENTRIES = {"moe_gmm_fwd": ("ait_moe_gmm_fwd", 7, 4), "moe_gmm_bwd": ("ait_moe_gmm_dx", 11, 6),
-            "moe_gmm_dw": ("ait_moe_gmm_dw", 8, 5)}
+_ENTRIES = {"moe_gmm_fwd": ("ait_moe_gmm_fwd", 9, 7), "moe_gmm_bwd": ("ait_moe_gmm_dx", 11, 6),
+            "moe_gmm_dw": ("ait_moe_gmm_dw", 9, 6)}
 
 
 def _kernel(name: str):
@@ -229,21 +269,35 @@ def _check_cuda(x, w1, w3, w2, tile_group, block_m: int, dy=None) -> None:
         raise ValueError("grouped_swiglu kernels need contiguous tensors")
 
 
-def _launch_fwd(x, w1, w3, w2, tile_group, block_m: int):
+def _launch_fwd(x, w1, w3, w2, tile_group, block_m: int, act=None, down: bool = True):
+    """(act, y) on CUDA tensors: GATE_UP writes ``act = silu(x W1) * (x W3)``
+    ``[N, h]``, DOWN ``y = act W2``. Given ``act``, only DOWN runs, on it;
+    with ``down=False`` only GATE_UP, and y is None (a pass alone, to time it)."""
     global launches
     _check_cuda(x, w1, w3, w2, tile_group, block_m)
     fn, err_str = _kernel("moe_gmm_fwd")
     n, d = x.shape
-    h = w1.shape[-1]
-    act = torch.empty((n, h), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
-    rc = fn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(), tile_group.data_ptr(),
-            act.data_ptr(), y.data_ptr(), n, d, h, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+    e, _, h = w1.shape
+    gate_up = act is None
+    if gate_up:
+        act = torch.empty((n, h), dtype=x.dtype, device=x.device)
+    elif act.shape != (n, h) or act.dtype != x.dtype or not act.is_contiguous():
+        raise ValueError(f"act {tuple(act.shape)} {act.dtype} is not the contiguous [{n}, {h}] {x.dtype} "
+                         f"DOWN takes")
+    y = torch.empty_like(x) if down else None
+    orders, widths = (None, None), (0, 0)
+    if x.dtype == torch.bfloat16:
+        for t in (x, w1, w3, w2, act):
+            check_tma(t)
+        plan, *orders = _plan("fwd", x.device, n, d, h)
+        widths = plan["bn_hidden"], plan["bn_out"]
+    rc = fn(x.data_ptr() if gate_up else None, w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+            tile_group.data_ptr(), *(_ptr(o) for o in orders), act.data_ptr(), _ptr(y), n, d, h, e, *widths,
+            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"moe_gmm_fwd launch failed: {err_str(rc).decode()} ({rc})")
     launches += 1
-    return y
+    return act, y
 
 
 def _launch_dx(x, dy, w1, w3, w2, tile_group, block_m: int, need_dx: bool, need_act: bool):
@@ -263,7 +317,7 @@ def _launch_dx(x, dy, w1, w3, w2, tile_group, block_m: int, need_dx: bool, need_
     if x.dtype == torch.bfloat16:
         for t in (x, dy, w1, w3, w2):
             check_tma(t)
-        plan, *orders = _dx_orders(n, d, h, x.device)
+        plan, *orders = _plan("dx", x.device, n, d, h)
         bn_out = plan["bn_out"]
     rc = fn(x.data_ptr(), dy.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
             tile_group.data_ptr(), *(_ptr(o) for o in orders), dh.data_ptr(), _ptr(act), _ptr(dx),
@@ -305,8 +359,14 @@ def _launch_dw_products(x, dy, dh, act, tile_group, experts: int):
     fn, err_str = _kernel("moe_gmm_dw")
     dw1, dw3 = (torch.empty((experts, d, h), dtype=x.dtype, device=x.device) for _ in range(2))
     dw2 = torch.empty((experts, h, d), dtype=x.dtype, device=x.device)
-    rc = fn(x.data_ptr(), dy.data_ptr(), dh.data_ptr(), act.data_ptr(), tile_group.data_ptr(),
-            dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), n, d, h, experts, _DTYPES[x.dtype],
+    order, bn = None, 0
+    if x.dtype == torch.bfloat16:
+        for t in (x, dy, dh, act):
+            check_tma(t)
+        plan, order = _plan("dw", x.device, d, h, experts)
+        bn = plan["bn"]
+    rc = fn(x.data_ptr(), dy.data_ptr(), dh.data_ptr(), act.data_ptr(), tile_group.data_ptr(), _ptr(order),
+            dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), n, d, h, experts, bn, _DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"moe_gmm_dw launch failed: {err_str(rc).decode()} ({rc})")
@@ -343,7 +403,7 @@ def grouped_swiglu_op(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: t
     """The plain forward on CPU tensors, the kernel on CUDA tensors."""
     if _device(x, w1, w3, w2, tile_group) == "cpu":
         return grouped_swiglu_plain(x, w1, w3, w2, tile_group, block_m)
-    return _launch_fwd(x, w1, w3, w2, tile_group, block_m)
+    return _launch_fwd(x, w1, w3, w2, tile_group, block_m)[1]
 
 
 @grouped_swiglu_op.register_fake

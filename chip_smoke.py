@@ -4,8 +4,8 @@
 Phases (any failure raises and the script exits non-zero):
   1. environment: versions, card name and power limit, TF32 off, the five
      kernel libraries built in parallel (one nvcc each), the registers and
-     spills of the wgmma kernels (flash forward, dk/dv, dq; the two MoE dx
-     passes) from ``-Xptxas -v``;
+     spills of the wgmma kernels (flash forward, dk/dv, dq; the MoE hidden
+     and out passes of the forward and dx, the dw products) from ``-Xptxas -v``;
   2. the flash forward kernel against its plain version at the shapes the
      paths give it (ragged, S != T, smaller than a tile, D 64 and 128, the
      fused-projection views, a view TMA cannot read, which is copied), timed
@@ -16,8 +16,9 @@ Phases (any failure raises and the script exits non-zero):
      bits checked from run to run;
   4. the grouped SwiGLU MoE kernels (forward, dx and its hidden pass, the
      bank gradients dw) the same way, at the hidream shapes with a real top-2
-     routing, dx and the hidden pass's dh and act bits checked from run to
-     run;
+     routing, y, dx, the hidden pass's dh and act and the dw gradients bits
+     checked from run to run; the forward's two passes and the dw products
+     timed alone, each against its bound;
   5. full-width, reduced-depth flux and hidream DiTs on the card against the
      same modules on the CPU: the forward, one LoRA training step's loss and
      gradients, and (hidream) one full fine-tune step of the first block's
@@ -82,9 +83,11 @@ RAGGED_SHAPE = (1, 4481, 24, 128)  # flux-dev at 1008^2: 512 text + 3969 image t
 HIDREAM_SHAPE = (1, 4352, 20, 128)  # hidream at 1024^2: 256 text + 4096 image tokens
 TIMED_SHAPES = [("main", MAIN_SHAPE), ("ragged", RAGGED_SHAPE), ("hidream", HIDREAM_SHAPE)]
 # the kernels redesigned for Hopper (wgmma, TMA): their compiler reports are printed
-SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90", "moe_dx_hidden_sm90",
-                "moe_dx_out_sm90")
-SM90_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "moe_gmm_bwd")
+# (the MoE passes' first template argument is the mode of csrc/moe_gmm_tile.cuh:
+# 0 GATE_UP, 1 DOWN, 2 DX_HIDDEN, 3 DX_OUT, 4 DW_HIDDEN; the last, the tile width)
+SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90", "moe_hidden_sm90",
+                "moe_out_sm90", "moe_dw_sm90")
+SM90_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "moe_gmm_fwd", "moe_gmm_bwd", "moe_gmm_dw")
 BLOCKS_PER_FORWARD = 19 + 38  # flux-dev double + single blocks, one attention each
 # backward: (B, S, T, H, D), dtype, tolerance on max|dX - ref| / max|ref| for dq, dk, dv:
 # bf16 inputs with p and ds rounded to bf16 before the second products (f32
@@ -422,25 +425,29 @@ def moe_kernels_vs_plain() -> dict:
               f"max abs {absd[0]:.3e}/{absd[1]:.3e}")
         check(max(rel) <= tol, "the MoE kernels disagree with their plain versions")
         # the hidden pass dw shares (DW_HIDDEN): dh = [dh1 | dh3] and act against the plain
-        # intermediates; dx, dh and act the same bits from run to run (one owner per tile)
+        # intermediates; y, dx, dh and act the same bits from run to run (one owner per tile)
         dh, act = moe_gmm.grouped_swiglu_hidden(xs, dy, *banks, tg, moe_gmm.BLOCK_M)
-        again = (moe_gmm.grouped_swiglu_dx(xs, dy, *banks, tg, moe_gmm.BLOCK_M),
+        again = (moe_gmm.grouped_swiglu(xs, *banks, tg),
+                 moe_gmm.grouped_swiglu_dx(xs, dy, *banks, tg, moe_gmm.BLOCK_M),
                  *moe_gmm.grouped_swiglu_hidden(xs, dy, *banks, tg, moe_gmm.BLOCK_M))
         torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip((dx, dh, act), again)), "MoE dx, dh or act differs "
-                                                                            "from run to run")
+        check(all(torch.equal(a, b) for a, b in zip((y, dx, dh, act), again)), "MoE y, dx, dh or act differs "
+                                                                               "from run to run")
         rel_h = []
         for name, got, ref in zip(("dh", "act"), (dh, act), moe_gmm.grouped_swiglu_hidden_plain(
                 xs.float(), dy.float(), *banks, tg, moe_gmm.BLOCK_M)):
             check(got.dtype == dt and bool(torch.isfinite(got).all()), f"{name} not finite")
             rel_h.append((got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item())
         print(f"  hidden pass (DW_HIDDEN) rel err dh/act = {rel_h[0]:.3e}/{rel_h[1]:.3e} (tol {tol:g}); "
-              f"dx, dh and act the same bits in two runs")
+              f"y, dx, dh and act the same bits in two runs")
         check(max(rel_h) <= tol, "the hidden pass disagrees with its plain version")
         del y, dx, dh, act, again
         # the bank gradients, each against the f32 plain version (f32 banks: an f32 result)
         dws = moe_gmm.grouped_swiglu_dw(xs, dy, *banks, tg, moe_gmm.BLOCK_M)
+        again = moe_gmm.grouped_swiglu_dw(xs, dy, *banks, tg, moe_gmm.BLOCK_M)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(dws, again)), "MoE dW differs from run to run")
+        del again
         refs = moe_gmm.grouped_swiglu_dw_plain(xs.float(), dy.float(), *(b.float() for b in banks), tg,
                                                moe_gmm.BLOCK_M)
         rel_dw = []
@@ -451,8 +458,8 @@ def moe_kernels_vs_plain() -> dict:
             rel_dw.append(a / ref.abs().max().item())
             err["moe_dw"] = max(err["moe_dw"], a)
             check(empty is None or not got[empty].any(), f"{name} of the empty expert is not zero")
-        print(f"  dw rel err dw1/dw3/dw2 = {rel_dw[0]:.3e}/{rel_dw[1]:.3e}/{rel_dw[2]:.3e} (tol {tol:g})"
-              f"{'; the empty expert gets zeros' if empty is not None else ''}")
+        print(f"  dw rel err dw1/dw3/dw2 = {rel_dw[0]:.3e}/{rel_dw[1]:.3e}/{rel_dw[2]:.3e} (tol {tol:g}), "
+              f"the same bits in two runs{'; the empty expert gets zeros' if empty is not None else ''}")
         check(max(rel_dw) <= tol, "the dw kernel disagrees with its plain version")
         del banks, xs, dy, dws, refs
         torch.cuda.empty_cache()
@@ -515,20 +522,39 @@ def moe_kernels_vs_plain() -> dict:
               f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of {flops:.4e} operations), plain "
               f"{plain_ms:.4f} ms, median of {reps}; {library}; bound {bound:.4f} ms ({by}; the kernel at "
               f"{100 * bound / ms:.1f} % of its rate)")
-    # the dw products alone, as the backward runs them beside dx on the first pass's dh and act
-    dh, act = _rand((xs.shape[0], 2 * h), dt, gen), _rand((xs.shape[0], h), dt, gen)
+    # the forward's passes alone: GATE_UP (x -> act, 4 N d h) and DOWN (act -> y, 2 N d h)
+    act, _ = moe_gmm._launch_fwd(xs, w1, w3, w2, tg, moe_gmm.BLOCK_M, down=False)
+    for name, kern, flops, nbytes in (
+        ("GATE_UP", lambda: moe_gmm._launch_fwd(xs, w1, w3, w2, tg, moe_gmm.BLOCK_M, down=False),
+         4 * n * d * h, 2 * (2 * e * d * h + n * d + n * h)),  # W1, W3, x in; act out
+        ("DOWN", lambda: moe_gmm._launch_fwd(xs, w1, w3, w2, tg, moe_gmm.BLOCK_M, act=act),
+         2 * n * d * h, 2 * (e * d * h + n * h + n * d)),  # W2, act in; y out
+    ):
+        ms = statistics.median(_time_ms(kern, 20))
+        bound, by = _bound_ms(flops, nbytes)
+        print(f"forward pass {name} alone: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of {flops:.4e} "
+              f"operations), bound {bound:.4f} ms ({by}; the pass at {100 * bound / ms:.1f} % of its rate)")
+    # the dw products alone, as the backward runs them beside dx on the first pass's dh and act;
+    # their library yardstick: per expert, x_g^T dh_g and act_g^T dy_g, two cuBLAS calls over the
+    # same sorted rows
+    dh = _rand((xs.shape[0], 2 * h), dt, gen)
     prod_ms = statistics.median(_time_ms(lambda: moe_gmm._launch_dw_products(xs, dy, dh, act, tg, e), 20))
+    prod_lib_ms = statistics.median(_time_ms(
+        lambda: [(xs[r0:r1].t() @ dh[r0:r1], act[r0:r1].t() @ dy[r0:r1]) for _, r0, r1 in runs], 20))
     prod_bound, prod_by = _bound_ms(6 * n * d * h, 2 * (2 * n * d + 3 * n * h + 3 * e * d * h))
     print(f"dw products alone ([dW1 | dW3] = x^T dh, dW2 = act^T dy on a given dh and act): "
           f"{prod_ms:.4f} ms ({6 * n * d * h / prod_ms / 1e9:.1f} TFLOP/s), bound {prod_bound:.4f} ms "
-          f"({prod_by})")
+          f"({prod_by}; the products at {100 * prod_bound / prod_ms:.1f} % of their rate); library per-expert "
+          f"cuBLAS x^T dh, act^T dy {prod_lib_ms:.4f} ms ({6 * n * d * h / prod_lib_ms / 1e9:.1f} TFLOP/s); "
+          f"kernel / library {prod_ms / prod_lib_ms:.2f}x")
     del dh, act, wr, lib_out_w
     xt = _rand((n_tok, d), dt, gen)
     dense_ms = statistics.median(_time_ms(lambda: torch.einsum(
         "esh,ehd->esd", F.silu(torch.einsum("sd,edh->esh", xt, w1)) * torch.einsum("sd,edh->esh", xt, w3),
         w2), 10))
     print(f"for information: the dense dispatch (every expert on all {n_tok} tokens, cuBLAS) "
-          f"{dense_ms:.4f} ms")
+          f"{dense_ms:.4f} ms; the grouped forward kernel {res['moe']['ms']:.4f} ms "
+          f"({res['moe']['ms'] / dense_ms:.2f}x the dense dispatch)")
     del banks, w1, w3, w2, xs, dy, xr, parts, lib_out
     torch.cuda.empty_cache()
     return res

@@ -384,6 +384,67 @@ def test_moe_dx_kernel_matches_plain_at_hidream_shapes(gen, n_tok, empty):
         assert torch.equal(got, rerun), name
 
 
+# The bf16 forward (moe_hidden_sm90<GATE_UP> and moe_out_sm90<DOWN> on
+# csrc/moe_gmm_sm90.cuh) at the hidream shapes and where d or h is not a
+# multiple of 128 (the 64-wide variants), against the f32 plain version within
+# 2e-2 of max|ref| (bf16 rounds act between the passes), the same bits from
+# run to run.
+@pytest.mark.parametrize("n_tok,d,h,empty", [
+    (4096, 2560, 6912, None),  # double block: 4096 image tokens x top-2
+    (4352, 2560, 6912, None),  # single block: 256 text + 4096 image tokens
+    (1000, 2560, 6912, 3),  # ragged, expert 3 gets no token
+    (500, 2560, 6848, 1),  # h % 128 == 64: 64-wide GATE_UP tiles
+    (300, 192, 320, None),  # d and h % 128 == 64: both passes 64 wide
+])
+def test_moe_fwd_kernel_matches_plain_at_hidream_shapes(gen, n_tok, d, h, empty):
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm as moe
+
+    e = 4
+    xs, tg = _routed(gen, moe, n_tok, d, e, torch.bfloat16, empty)
+    banks = [(torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5).bfloat16()
+             for s in ((e, d, h), (e, d, h), (e, h, d))]
+    before = moe.launches
+    y = moe.grouped_swiglu(xs, *banks, tg)
+    again = moe.grouped_swiglu(xs, *banks, tg)
+    torch.cuda.synchronize()
+    assert moe.launches == before + 2
+    ref = moe.grouped_swiglu_plain(xs.float(), *banks, tg, moe.BLOCK_M)
+    assert y.dtype == torch.bfloat16 and y.shape == ref.shape and bool(torch.isfinite(y).all())
+    assert (y.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    assert torch.equal(y, again)
+
+
+# The bf16 dw products (moe_dw_sm90: both operands MN-major, A through the
+# transpose bit) after the shared hidden pass, against the f32 plain version
+# within 2e-2 of max|ref| per bank; an expert with no token gets zeros; the
+# same bits from run to run.
+@pytest.mark.parametrize("n_tok,d,h,empty", [
+    (4096, 2560, 6912, None),  # double block
+    (1000, 2560, 6912, 3),  # ragged, expert 3 gets no token
+    (300, 192, 320, 1),  # ragged output rows (d, h % 128 == 64), 64-wide tiles, expert 1 empty
+])
+def test_moe_dw_products_match_plain_at_hidream_shapes(gen, n_tok, d, h, empty):
+    from ai_toolkit_tpu_torch.ops.kernels import moe_gmm as moe
+
+    e = 4
+    xs, tg = _routed(gen, moe, n_tok, d, e, torch.bfloat16, empty)
+    dy = torch.randn(xs.shape, generator=gen, device="cuda").bfloat16()
+    banks = [(torch.randn(s, generator=gen, device="cuda") * s[1] ** -0.5).bfloat16()
+             for s in ((e, d, h), (e, d, h), (e, h, d))]
+    before = moe.dw_launches
+    dws = moe.grouped_swiglu_dw(xs, dy, *banks, tg, moe.BLOCK_M)
+    again = moe.grouped_swiglu_dw(xs, dy, *banks, tg, moe.BLOCK_M)
+    torch.cuda.synchronize()
+    assert moe.dw_launches == before + 2
+    refs = moe.grouped_swiglu_dw_plain(xs.float(), dy.float(), *(b.float() for b in banks), tg, moe.BLOCK_M)
+    for name, got, ref, rerun in zip(("dw1", "dw3", "dw2"), dws, refs, again):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape and bool(torch.isfinite(got).all()), name
+        assert (got.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item(), name
+        assert torch.equal(got, rerun), name
+        if empty is not None:
+            assert not got[empty].any(), name
+
+
 def test_checkpointed_moe_layer_with_trainable_banks_launches_dw_once(gen):
     """A hidream-style DiT (grouped MoE, dots_flash checkpointing) whose first
     double block trains its expert banks: one dw launch in the backward, no
