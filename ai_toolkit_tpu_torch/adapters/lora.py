@@ -4,8 +4,9 @@ The JAX package keeps a LoRA network as a ``lora`` variable tree beside the
 frozen params. Here each adapted ``ops.layers.Linear`` carries a
 :class:`~ai_toolkit_tpu_torch.ops.layers.LoRA` submodule in ``.lora``, and a
 network is addressed as ``{module name: LoRA}``: module names are the port's
-(BFL for the flux DiT, ``double_blocks.0.img_attn.qkv``), which are also the
-external names a LoRA file carries. Conv LoRA (``conv_rank``) is not ported.
+(BFL for the flux DiT, ``double_blocks.0.img_attn.qkv``; diffusers for the
+UNet, ``down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q``), which
+are also the external names a LoRA file carries. Conv LoRA (``conv_rank``) is not ported.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def build_lora(model: nn.Module, spec: LoRASpec, generator: torch.Generator) -> 
     order: ``a`` ~ normal(0, ``init_std``) drawn from ``generator``, ``b`` = 0,
     ``scale`` = alpha / rank. Returns ``{module name: LoRA}``."""
     if spec.conv_rank:
-        raise NotImplementedError("conv LoRA (network.conv) comes with the SD/UNet slice")
+        raise NotImplementedError("conv LoRA (network.conv) comes with a later slice (the UNet's conv layers)")
     lora: dict[str, LoRA] = {}
     for name, mod in model.named_modules():
         if isinstance(mod, Linear) and _matches(name, spec):

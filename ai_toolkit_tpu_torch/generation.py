@@ -1,17 +1,21 @@
 """Image generation (``ai_toolkit_tpu/generation.py`` in PyTorch): the plain
 flow-matching Euler loop of flux and hidream (hidream has no guidance embed
-and, as in the JAX ``generate_flux``, no CFG pass).
+and, as in the JAX ``generate_flux``, no CFG pass), and the DDIM loop of
+SDXL with classifier-free guidance as one batch of two (``generate_sd``).
 
 A LoRA (``{module name: {a, b, scale}}``, ``io/lora_file.load_lora_file``)
-is overlaid on the DiT for the call, as the JAX package passes its ``lora``
-collection. Unported branches of the JAX ``generate_flux`` (the unconditional
-LoRA, control/edit and IP-adapter conditioning, ``use_flux_cfg`` negative passes, x0-prediction
-and arch-specific schedules) and of ``generate`` (DDPM samplers, video,
-audio) raise ``NotImplementedError``.
+is overlaid on the model's DiT or UNet for the call, as the JAX package
+passes its ``lora`` collection. Unported branches of the JAX
+``generate_flux`` (the unconditional LoRA, control/edit and IP-adapter
+conditioning, ``use_flux_cfg`` negative passes, x0-prediction and
+arch-specific schedules), of ``generate_sd`` (the k-diffusion, LCM and PNDM
+samplers, the unconditional LoRA) and of ``generate`` (video, audio) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -20,6 +24,7 @@ import torch
 
 from ai_toolkit_tpu_torch.adapters.lora import attach_lora, detach_lora
 from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig
+from ai_toolkit_tpu_torch.samplers.ddpm import DDPMSchedule
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 
 
@@ -52,13 +57,21 @@ def generate_flux(
     device = model.device
     h, w, c = model.latent_shape(gen.height, gen.width)
     rec = stats if stats is not None else {}
-    if lora:
-        attach_lora(variables["dit"], {k: {n: x.to(device) for n, x in v.items()} for k, v in lora.items()})
-    try:
+    with _overlaid(model, variables, lora):
         return _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c)
+
+
+@contextlib.contextmanager
+def _overlaid(model, variables: dict, lora: dict | None):
+    """``lora`` attached to the model's main component for the block."""
+    net = variables[model.main_component]
+    if lora:
+        attach_lora(net, {k: {n: x.to(model.device) for n, x in v.items()} for k, v in lora.items()})
+    try:
+        yield
     finally:
         if lora:
-            detach_lora(variables["dit"])
+            detach_lora(net)
 
 
 def _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c) -> np.ndarray:
@@ -96,11 +109,73 @@ def _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c) -> np.n
     return out
 
 
+def generate_sd(
+    model,
+    variables: dict,
+    gen: GenerateImageConfig,
+    lora: dict | None = None,
+    schedule: DDPMSchedule | None = None,
+    noise: np.ndarray | None = None,
+    stats: dict | None = None,
+) -> np.ndarray:
+    """DDIM with classifier-free guidance (JAX ``generate_sd``'s ``ddim`` /
+    ``ddpm`` branch): the negative prompt and the prompt as one batch of two
+    when ``guidance_scale`` > 1. Returns a uint8 HWC image; ``noise`` and
+    ``stats`` as in :func:`generate_flux`."""
+    sampler = (gen.sampler or "ddim").lower()
+    if sampler not in ("ddim", "ddpm", "flowmatch"):  # flowmatch: the config default, DDIM in JAX too
+        raise NotImplementedError(f"sampler '{gen.sampler}' for a DDPM model is not ported yet "
+                                  f"(slice G: the k-diffusion, LCM and PNDM samplers; ported: ddim, ddpm)")
+    schedule = schedule or DDPMSchedule()
+    h, w, c = model.latent_shape(gen.height, gen.width)
+    with _overlaid(model, variables, lora):
+        return _generate_sd(model, variables, gen, schedule, noise,
+                            stats if stats is not None else {}, h, w, c)
+
+
+def _generate_sd(model, variables, gen, schedule, noise, rec, h, w, c) -> np.ndarray:
+    device = model.device
+    do_cfg = gen.guidance_scale > 1.0
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cond = model.encode_prompt(variables, [gen.negative_prompt, gen.prompt] if do_cfg else [gen.prompt])
+        cond = {"context": cond["context"],
+                "added_cond": model.added_cond(cond["pooled"], gen.height, gen.width)}
+        if noise is None:
+            g = torch.Generator(device=device).manual_seed(gen.seed)
+            x = torch.randn((1, h, w, c), generator=g, dtype=torch.float32, device=device)
+        else:
+            x = torch.from_numpy(np.array(noise, dtype=np.float32)).to(device)
+        ts = schedule.ddim_timesteps(gen.sample_steps)
+        _sync(device)
+        t1 = time.perf_counter()
+        rec["encode_ms"] = (t1 - t0) * 1e3
+        rec["step_ms"] = []
+        for i in range(len(ts)):
+            t_prev = int(ts[i + 1]) if i + 1 < len(ts) else -1
+            xin = torch.cat([x, x]) if do_cfg else x
+            pred = model.predict(variables, xin, torch.full((xin.shape[0],), float(ts[i]), device=device), cond)
+            if do_cfg:
+                uncond, text = pred.chunk(2)
+                pred = uncond + gen.guidance_scale * (text - uncond)
+            x = schedule.ddim_step(x, pred, torch.full((1,), int(ts[i]), device=device),
+                                   torch.full((1,), t_prev, device=device))
+            _sync(device)
+            t2 = time.perf_counter()
+            rec["step_ms"].append((t2 - t1) * 1e3)
+            t1 = t2
+        rec["latents_finite"] = bool(torch.isfinite(x).all())
+        out = _to_uint8(model.decode_latents(variables, x))
+        rec["decode_ms"] = (time.perf_counter() - t1) * 1e3
+        rec["total_s"] = time.perf_counter() - t0
+    return out
+
+
 def generate(model, variables, gen: GenerateImageConfig, lora=None, schedule=None, stats=None):
     if hasattr(model, "frame_count_snapper") or hasattr(model, "latent_shape_audio"):
         raise NotImplementedError("video / audio generation is not ported yet")
     if not model.is_flow_matching:
-        raise NotImplementedError("DDPM-family samplers (generate_sd) are not ported yet")
+        return generate_sd(model, variables, gen, lora, schedule, stats=stats)
     return generate_flux(model, variables, gen, lora, schedule, stats=stats)
 
 

@@ -1,7 +1,8 @@
 """LoRA checkpoint saves and rotation (``ai_toolkit_tpu/io/checkpoint.py``
 ``CheckpointManager`` in PyTorch): ``<name>_<step:09d>.safetensors`` every
 ``save_every`` steps, keeping the newest ``max_step_saves_to_keep``, and a
-final ``<name>.safetensors``; the step rides in the metadata. The optimizer
+final ``<name>.safetensors``, in the ``peft`` or ``kohya`` layout
+(``io/lora_file.py``); the step rides in the metadata. The optimizer
 state file and resume come with a later slice (``latest_save_path`` lets the
 job refuse a folder it would have resumed from).
 """
@@ -22,11 +23,12 @@ SOFTWARE_META = {"software": "ai_toolkit_tpu", "format": "lora"}
 
 class CheckpointManager:
     def __init__(self, save_root: str, name: str, max_step_saves_to_keep: int = 4,
-                 dtype=np.float16):
+                 dtype=np.float16, fmt: str = "peft"):
         self.save_root = save_root
         self.name = name
         self.max_keep = max_step_saves_to_keep
         self.dtype = dtype
+        self.fmt = fmt
         os.makedirs(save_root, exist_ok=True)
 
     def path_for_step(self, step: int) -> str:
@@ -55,7 +57,7 @@ class CheckpointManager:
         meta = {**SOFTWARE_META, "ss_training_comment": self.name, "step": str(int(step)),
                 "timestamp": str(int(time.time()))}
         path = self.final_path() if final else self.path_for_step(step)
-        save_lora_file(lora, path, metadata=meta, dtype=self.dtype)
+        save_lora_file(lora, path, metadata=meta, dtype=self.dtype, fmt=self.fmt)
         if not final:
             self.clean_up_saves()
         return path

@@ -12,7 +12,11 @@ CLIP and T5, diffusers for the VAE).
 - Scanned ``[L, ...]`` stacks (``double_blocks/block/...``) split per block.
 - Norm scales and embeddings keep their values and dtypes.
 - A flux ``lora`` collection maps onto the port's module names
-  (:func:`flux_lora_tree`).
+  (:func:`flux_lora_tree`), and so does a UNet's (:func:`unet_lora_tree`).
+- The UNet (``down_1_attn_0/block_0/attn1_q``, ``up_2_res_0``, ``mid_attn``)
+  maps onto diffusers names (``down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q``,
+  ``up_blocks.0.resnets.0``, ``mid_block.attentions.0``): the JAX up level
+  ``i`` is diffusers ``up_blocks.{n-1-i}``.
 - A partial DiT tree (a full fine-tune's filtered trainable tree) converts
   like a whole one; the JAX full fine-tune's flat file, keyed by
   ``_flatten_params`` (``double_0.img_mlp_moe.experts.w1.kernel``), through
@@ -257,6 +261,76 @@ def vae_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _convert(tree, module)
 
 
+# ---- UNet (diffusers names) ----
+
+_UNET_LEAF = {
+    "attn1_q": "attn1.to_q", "attn1_k": "attn1.to_k", "attn1_v": "attn1.to_v", "attn1_out": "attn1.to_out.0",
+    "attn2_q": "attn2.to_q", "attn2_k": "attn2.to_k", "attn2_v": "attn2.to_v", "attn2_out": "attn2.to_out.0",
+    "ff_in": "ff.net.0.proj", "ff_out": "ff.net.2",
+}
+_UNET_TOP = {
+    "conv_in": "conv_in", "conv_out": "conv_out", "norm_out": "conv_norm_out",
+    "time_fc1": "time_embedding.linear_1", "time_fc2": "time_embedding.linear_2",
+    "add_fc1": "add_embedding.linear_1", "add_fc2": "add_embedding.linear_2",
+}
+
+
+def _unet_module(path: str, n: int) -> str:
+    """A JAX UNet module path -> its diffusers module name (``n`` levels)."""
+    m = re.fullmatch(r"(down|up)_(\d+)_res_(\d+)/(\w+)", path)
+    if m:
+        kind, i, j, leaf = m.groups()
+        idx = int(i) if kind == "down" else n - 1 - int(i)
+        return f"{kind}_blocks.{idx}.resnets.{j}.{leaf}"
+    m = re.fullmatch(r"(?:(down|up)_(\d+)_attn_(\d+)|mid_attn)/(?:block_(\d+)/)?(\w+)", path)
+    if m:
+        kind, i, j, k, leaf = m.groups()
+        if kind is None:
+            base = "mid_block.attentions.0"
+        else:
+            base = f"{kind}_blocks.{int(i) if kind == 'down' else n - 1 - int(i)}.attentions.{j}"
+        return f"{base}.{leaf}" if k is None else f"{base}.transformer_blocks.{k}.{_UNET_LEAF.get(leaf, leaf)}"
+    m = re.fullmatch(r"mid_res_(\d+)/(\w+)", path)
+    if m:
+        return f"mid_block.resnets.{m.group(1)}.{m.group(2)}"
+    m = re.fullmatch(r"down_(\d+)_downsample", path)
+    if m:
+        return f"down_blocks.{m.group(1)}.downsamplers.0.conv"
+    m = re.fullmatch(r"up_(\d+)_upsample", path)
+    if m:
+        return f"up_blocks.{n - 1 - int(m.group(1))}.upsamplers.0.conv"
+    if path in _UNET_TOP:
+        return _UNET_TOP[path]
+    raise KeyError(f"unet: no port module for JAX path '{path}'")
+
+
+def _unet_levels(paths) -> int:
+    return 1 + max(int(m.group(1)) for p in paths for m in [re.match(r"down_(\d+)_", p)] if m)
+
+
+def unet_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``UNet2DCondition`` params -> the port's (diffusers-named) state dict."""
+    n = _unet_levels(tree)
+    return _convert(tree, lambda p: _unet_module(p, n))
+
+
+def unet_lora_tree(tree: dict, num_levels: int) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX UNet ``lora`` collection ``{path: {a, b, scale}}`` -> ``{port
+    module name: {a, b, scale}}`` for ``adapters.lora.attach_lora``."""
+    groups: dict[str, dict[str, np.ndarray]] = {}
+    for path, v in _flatten(tree).items():
+        mod, leaf = path.rsplit("/", 1)
+        groups.setdefault(mod, {})[leaf] = v
+    return {_unet_module(mod, num_levels): _lora_entry(leaf["a"], leaf["b"], np.reshape(leaf["scale"], -1)[0])
+            for mod, leaf in groups.items()}
+
+
+def _lora_entry(a, b, scale) -> dict[str, torch.Tensor]:
+    return {"a": torch.from_numpy(np.array(a, np.float32)),
+            "b": torch.from_numpy(np.array(b, np.float32)),
+            "scale": torch.tensor(float(scale), dtype=torch.float32)}
+
+
 def flux_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
     """JAX flux ``lora`` collection ``{path: {a [in,r], b [r,out], scale}}``,
     unrolled (``double_0/img_qkv``) or scanned (``double_blocks/block/img_qkv``
@@ -267,12 +341,6 @@ def flux_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
     for path, v in _flatten(tree).items():
         mod, leaf = path.rsplit("/", 1)
         groups.setdefault(mod, {})[leaf] = v
-
-    def entry(a, b, scale):
-        return {"a": torch.from_numpy(np.array(a, np.float32)),
-                "b": torch.from_numpy(np.array(b, np.float32)),
-                "scale": torch.tensor(float(scale), dtype=torch.float32)}
-
     out: dict[str, dict[str, torch.Tensor]] = {}
     for mod, leaf in groups.items():
         m = re.fullmatch(r"(double|single)_blocks/block/(.+)", mod)
@@ -280,10 +348,10 @@ def flux_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
             kind, rest = m.groups()
             scales = np.reshape(leaf["scale"], -1)
             for i in range(leaf["a"].shape[0]):
-                out[_flux_module(f"{kind}_{i}/{rest}")] = entry(
+                out[_flux_module(f"{kind}_{i}/{rest}")] = _lora_entry(
                     leaf["a"][i], leaf["b"][i], scales[i if scales.size > 1 else 0])
         else:
-            out[_flux_module(mod)] = entry(leaf["a"], leaf["b"], np.reshape(leaf["scale"], -1)[0])
+            out[_flux_module(mod)] = _lora_entry(leaf["a"], leaf["b"], np.reshape(leaf["scale"], -1)[0])
     return out
 
 
@@ -308,4 +376,15 @@ def flux_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
         "vae": vae_state_dict(variables["vae"]),
         "clip": clip_state_dict(variables["clip"]),
         "t5": t5_state_dict(variables["t5"]),
+    }
+
+
+def sdxl_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``SDXLModel`` variables ``{unet, vae, clip, clip2}`` -> per-component
+    state dicts for ``SDXLModel.load_state_dicts``."""
+    return {
+        "unet": unet_state_dict(variables["unet"]),
+        "vae": vae_state_dict(variables["vae"]),
+        "clip": clip_state_dict(variables["clip"]),
+        "clip2": clip_state_dict(variables["clip2"]),
     }

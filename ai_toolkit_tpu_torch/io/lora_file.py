@@ -1,38 +1,76 @@
 """LoRA safetensors export and import (``ai_toolkit_tpu/io/lora_file.py`` in PyTorch).
 
 A LoRA here is ``{module name: {a [in, r], b [r, out], scale}}`` keyed by the
-port's module names, which are the external (BFL) names the JAX package's key
-map produces, so no key map is needed. The file layout is PEFT's:
-``transformer.<module>.lora_A.weight`` = a^T ``[r, in]`` and
-``.lora_B.weight`` = b^T ``[out, r]``, no alpha (the layout the JAX job writes
-for flow-matching DiTs, ``jobs/train_process.py:2015-2017``). A missing alpha
-means alpha = rank (scale 1), as in the JAX ``unflatten_lora``. The kohya and
-ComfyUI layouts and LyCORIS files come with a later slice.
+port's module names, which are the external names the JAX package's key maps
+produce (BFL for the flux DiT, diffusers for the UNet), so no key map is
+needed. Two file layouts, as the JAX job writes them
+(``jobs/train_process.py:1332-1337``):
+
+- ``peft`` (flow-matching DiTs): ``transformer.<module>.lora_A.weight`` =
+  a^T ``[r, in]`` and ``.lora_B.weight`` = b^T ``[out, r]``, no alpha;
+- ``kohya`` (the UNet): ``lora_unet_<module with '.' -> '_'>.lora_down.weight``
+  = a^T, ``.lora_up.weight`` = b^T and ``.alpha`` = scale * rank.
+
+A missing alpha means alpha = rank (scale 1), as in the JAX
+``unflatten_lora``. Kohya keys are ambiguous on ``_`` (``attn1_to_q``), so
+loading them needs the model's module names. Conv factors, the ComfyUI layout,
+the text-encoder prefixes (``lora_te*``) and LyCORIS files come with a later
+slice.
 """
 
 from __future__ import annotations
+
+from collections.abc import Iterable
 
 import numpy as np
 import torch
 
 ROOT = "transformer"
-_SUFFIXES = {".lora_A.weight": "down", ".lora_B.weight": "up", ".alpha": "alpha"}
+_SUFFIXES = {".lora_A.weight": "down", ".lora_B.weight": "up", ".lora_down.weight": "down",
+             ".lora_up.weight": "up", ".alpha": "alpha"}
+KOHYA_PREFIX = "lora_unet"
 
 
-def flatten_lora(lora: dict[str, dict[str, torch.Tensor]], dtype=np.float16) -> dict[str, np.ndarray]:
+def flatten_lora(lora: dict[str, dict[str, torch.Tensor]], dtype=np.float16,
+                 fmt: str = "peft") -> dict[str, np.ndarray]:
     """LoRA tree -> flat ``{external key: array}`` (JAX ``flatten_lora``)."""
     out: dict[str, np.ndarray] = {}
     for name, leaf in lora.items():
         a = leaf["a"].detach().float().cpu().numpy()
         b = leaf["b"].detach().float().cpu().numpy()
         # safetensors writes the raw buffer: make the transposes C-contiguous
-        out[f"{ROOT}.{name}.lora_A.weight"] = np.ascontiguousarray(a.T.astype(dtype))
-        out[f"{ROOT}.{name}.lora_B.weight"] = np.ascontiguousarray(b.T.astype(dtype))
+        down, up = np.ascontiguousarray(a.T.astype(dtype)), np.ascontiguousarray(b.T.astype(dtype))
+        if fmt == "peft":
+            out[f"{ROOT}.{name}.lora_A.weight"] = down
+            out[f"{ROOT}.{name}.lora_B.weight"] = up
+        elif fmt == "kohya":
+            key = f"{KOHYA_PREFIX}_{name.replace('.', '_')}"
+            out[f"{key}.lora_down.weight"] = down
+            out[f"{key}.lora_up.weight"] = up
+            out[f"{key}.alpha"] = np.asarray(float(leaf["scale"]) * a.shape[1], dtype)
+        else:
+            raise NotImplementedError(f"LoRA layout '{fmt}' (ported: peft, kohya)")
     return out
 
 
-def unflatten_lora(flat: dict[str, np.ndarray]) -> dict[str, dict[str, torch.Tensor]]:
-    """Flat external dict -> LoRA tree (inverse of :func:`flatten_lora`)."""
+def _module_name(key: str, kohya_names: dict[str, str] | None) -> str:
+    if key.startswith(ROOT + "."):
+        return key[len(ROOT) + 1:]
+    if key.startswith(KOHYA_PREFIX + "_"):
+        if kohya_names is None:
+            raise ValueError(f"LoRA key '{key}': a kohya key needs the model's module names")
+        name = kohya_names.get(key[len(KOHYA_PREFIX) + 1:])
+        if name is None:
+            raise KeyError(f"LoRA key '{key}' names no module of this model")
+        return name
+    raise NotImplementedError(f"LoRA key '{key}': only the PEFT and the UNet's kohya layouts are ported")
+
+
+def unflatten_lora(flat: dict[str, np.ndarray],
+                   module_names: Iterable[str] | None = None) -> dict[str, dict[str, torch.Tensor]]:
+    """Flat external dict -> LoRA tree (inverse of :func:`flatten_lora`);
+    ``module_names``: the model's module names, which resolve kohya keys."""
+    kohya_names = None if module_names is None else {n.replace(".", "_"): n for n in module_names}
     groups: dict[str, dict[str, np.ndarray]] = {}
     for key, v in flat.items():
         for suffix, part in _SUFFIXES.items():
@@ -43,9 +81,7 @@ def unflatten_lora(flat: dict[str, np.ndarray]) -> dict[str, dict[str, torch.Ten
     for mod, parts in groups.items():
         if "down" not in parts or "up" not in parts:
             continue
-        if not mod.startswith(ROOT + "."):
-            raise NotImplementedError(f"LoRA key '{mod}': only the PEFT layout is ported")
-        name = mod[len(ROOT) + 1:]
+        name = _module_name(mod, kohya_names)
         down = parts["down"].astype(np.float32)
         if down.ndim != 2:
             raise NotImplementedError(f"LoRA '{name}': conv factors are not ported")
@@ -57,19 +93,21 @@ def unflatten_lora(flat: dict[str, np.ndarray]) -> dict[str, dict[str, torch.Ten
     return lora
 
 
-def save_lora_file(lora: dict[str, dict[str, torch.Tensor]], path: str,
-                   metadata: dict | None = None, dtype=np.float16) -> None:
+def save_lora_file(lora: dict[str, dict[str, torch.Tensor]], path: str, metadata: dict | None = None,
+                   dtype=np.float16, fmt: str = "peft") -> None:
     from safetensors.numpy import save_file
 
     meta = {str(k): str(v) for k, v in (metadata or {}).items()}
-    save_file(flatten_lora(lora, dtype), path, metadata=meta)
+    save_file(flatten_lora(lora, dtype, fmt), path, metadata=meta)
 
 
-def load_lora_file(path: str) -> tuple[dict[str, dict[str, torch.Tensor]], dict]:
-    """Returns (LoRA tree on the CPU, metadata)."""
+def load_lora_file(path: str, module_names: Iterable[str] | None = None
+                   ) -> tuple[dict[str, dict[str, torch.Tensor]], dict]:
+    """Returns (LoRA tree on the CPU, metadata); ``module_names`` as in
+    :func:`unflatten_lora`."""
     from safetensors import safe_open
 
     with safe_open(path, framework="numpy") as f:
         meta = dict(f.metadata() or {})
         flat = {k: f.get_tensor(k) for k in f.keys()}
-    return unflatten_lora(flat), meta
+    return unflatten_lora(flat, module_names), meta

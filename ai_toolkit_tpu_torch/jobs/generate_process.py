@@ -1,6 +1,7 @@
 """Batch generation job (``ai_toolkit_tpu/jobs/generate_process.py`` in PyTorch).
-A process-level ``lora_path`` (a PEFT-layout LoRA file, as the train job
-saves it) is overlaid on the DiT while the prompts are generated."""
+A process-level ``lora_path`` (a LoRA file as the train job saves it: PEFT
+for a DiT, kohya for the UNet) is overlaid on the model's DiT or UNet while
+the prompts are generated."""
 
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ class GenerateProcess:
         variables = model.load_variables(torch.Generator(device=self.device).manual_seed(0))
         lora = None
         if cfg.extras.get("lora_path"):
-            lora, _ = load_lora_file(cfg.extras["lora_path"])
+            names = [n for n, _ in variables[model.main_component].named_modules()]
+            lora, _ = load_lora_file(cfg.extras["lora_path"], module_names=names)
         outputs, timings = [], []
         for i, item in enumerate(cfg.sample.prompts):
             seed = cfg.sample.seed + (i if cfg.sample.walk_seed else 0)

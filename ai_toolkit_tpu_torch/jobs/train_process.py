@@ -4,13 +4,15 @@ fine-tune:
 
 model (seeded random weights) -> optional weight-only quantization of the DiT
 (``model.quantize``, fp8 or int8: ``adapters/quantize.py``) -> LoRA on the
-DiT (the model's targets) -> AdamW(8bit)
--> folder dataset with in-memory latent and text-embedding caches -> train
-loop (``train/step.py``) with the save cadence -> final save of the LoRA (the
-EMA copy when EMA is on) in the PEFT layout.
+model's main component, the DiT or the UNet (the model's targets) ->
+AdamW(8bit) -> the schedule (``samplers/factory.get_schedule``: flow matching,
+or DDPM for SDXL) -> folder dataset with in-memory latent and text-embedding
+caches -> train loop (``train/step.py``) with the save cadence -> final save
+of the LoRA (the EMA copy when EMA is on) in the PEFT layout for a
+flow-matching DiT, the kohya layout (``lora_unet_...``) for the UNet.
 
-A full fine-tune (``network`` absent or of type ``full`` / ``fine_tune``)
-trains the DiT's own parameters in place, those its ``only_if_contains`` /
+A full fine-tune (``network`` absent or of type ``full`` / ``fine_tune``,
+flow-matching DiTs only) trains the DiT's own parameters in place, those its ``only_if_contains`` /
 ``ignore_if_contains`` patterns select (:func:`filter_param_names`, JAX
 ``_filter_param_tree``), and saves them as they are: the trained tensors
 (not the EMA) in their own dtype, keyed by the port's parameter names, in
@@ -45,7 +47,7 @@ from ai_toolkit_tpu_torch.data.caching import TextEmbedCache, cache_latents
 from ai_toolkit_tpu_torch.data.loader import build_dataloader
 from ai_toolkit_tpu_torch.io.checkpoint import CheckpointManager
 from ai_toolkit_tpu_torch.models.registry import get_model_class
-from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
+from ai_toolkit_tpu_torch.samplers.factory import DDPM_NAMES, get_schedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
 from ai_toolkit_tpu_torch.train.state import TrainState
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, make_train_step
@@ -157,8 +159,13 @@ class SDTrainProcess:
             raise NotImplementedError("model.quantize_kwargs come with slice G")
         if not tc.train_unet:
             raise NotImplementedError("train_unet: false trains nothing the port has")
-        if (tc.noise_scheduler or "flowmatch").lower() not in ("flowmatch", "flowmatch_euler"):
-            raise NotImplementedError(f"noise_scheduler '{tc.noise_scheduler}' (flowmatch only)")
+        flow = get_model_class(cfg.model.arch).is_flow_matching
+        scheduler = (tc.noise_scheduler or "flowmatch").lower()
+        if scheduler not in (("flowmatch", "flowmatch_euler") if flow else DDPM_NAMES):
+            raise NotImplementedError(f"noise_scheduler '{tc.noise_scheduler}' for arch "
+                                      f"'{cfg.model.arch}' (ported: flowmatch for the DiTs, ddpm for SDXL)")
+        if not flow and (self.full_finetune or cfg.model.quantize):
+            raise NotImplementedError("the UNet's full fine-tune and quantized base come with a later slice")
         if tc.extras.get("scheduler_params"):
             raise NotImplementedError("train.scheduler_params overrides come with a later slice")
         if (tc.lr_scheduler or "constant").lower() != "constant":
@@ -184,37 +191,41 @@ class SDTrainProcess:
         cfg, tc, dev = self.cfg, self.cfg.train, self.device
         self._refuse_unported()
         seed = tc.seed if tc.seed is not None else int(os.environ.get("SEED", 42))
+        # the JAX job's layouts: PEFT for flow-matching DiTs, kohya for the UNet
+        flow = get_model_class(cfg.model.arch).is_flow_matching
         ckpt = CheckpointManager(self.save_root, self.job_name,
                                  max_step_saves_to_keep=cfg.save.max_step_saves_to_keep,
-                                 dtype=np.float16 if cfg.save.dtype in ("float16", "fp16") else np.float32)
+                                 dtype=np.float16 if cfg.save.dtype in ("float16", "fp16") else np.float32,
+                                 fmt="peft" if flow else "kohya")
         if ckpt.latest_save_path() is not None:
             raise NotImplementedError(
                 f"{self.save_root} holds a save to resume from: resume comes with a later slice "
                 f"(use another training_folder or name)")
 
-        # 1. model (1b. quantized DiT), 2. LoRA on the DiT or the full fine-tune's selection
+        # 1. model (1b. quantized DiT), 2. LoRA on the DiT / UNet or the full fine-tune's selection
         model = get_model_class(cfg.model.arch)(cfg.model, dev)
         variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed))
-        dit = variables["dit"]
+        net = variables[model.main_component]
         if cfg.model.quantize:
-            names = quantize_params(dit, qtype=cfg.model.qtype)
-            print(f"quantized base: {len(names)} weights, {quantized_bytes(dit) / 1e9:.2f} GB "
+            names = quantize_params(net, qtype=cfg.model.qtype)
+            print(f"quantized base: {len(names)} weights, {quantized_bytes(net) / 1e9:.2f} GB "
                   f"({cfg.model.qtype})")
         if self.full_finetune:
-            net = cfg.network
-            inc = cfg.model.only_if_contains or (net.only_if_contains if net else None)
-            exc = cfg.model.ignore_if_contains or (net.ignore_if_contains if net else None)
-            trainable, lora = select_trainable(dit, inc, exc), None
+            ncfg = cfg.network
+            inc = cfg.model.only_if_contains or (ncfg.only_if_contains if ncfg else None)
+            exc = cfg.model.ignore_if_contains or (ncfg.ignore_if_contains if ncfg else None)
+            trainable, lora = select_trainable(net, inc, exc), None
             n_params = sum(p.numel() for p in trainable.values())
             if inc or exc:
                 print(f"full fine-tune (filtered to {n_params:,} params)")
         else:
             spec = LoRASpec.from_network_config(cfg.network, target_patterns=model.lora_targets())
-            lora = build_lora(dit, spec, torch.Generator(device=dev).manual_seed(seed))
+            lora = build_lora(net, spec, torch.Generator(device=dev).manual_seed(seed))
             n_params = count_lora_params(lora)
             print(f"LoRA: {len(lora)} modules, {n_params:,} trainable params (rank {spec.rank})")
             trainable = {f"{name}.{leaf}": p for name, m in lora.items() for leaf, p in m.named_parameters()}
-        dit.gradient_checkpointing = tc.gradient_checkpointing
+        if hasattr(net, "gradient_checkpointing"):  # the DiT; the UNet follows model.remat_policy
+            net.gradient_checkpointing = tc.gradient_checkpointing
 
         # 3. optimizer + state
         tx = get_optimizer(tc.optimizer, list(trainable.values()), tc.lr, tc.optimizer_params,
@@ -224,8 +235,9 @@ class SDTrainProcess:
         # 4. data, 5. step
         loader, text_cache = self._build_data(model, variables)
         step_cfg = TrainStepConfig.from_train_config(tc)
-        train_step = make_train_step(lambda noisy, t, cond: model.predict(variables, noisy, t, cond),
-                                     FlowMatchSchedule(), step_cfg)
+        predict = getattr(model, "predict_train", model.predict)  # as the JAX job picks it
+        train_step = make_train_step(lambda noisy, t, cond: predict(variables, noisy, t, cond),
+                                     self._schedule(), step_cfg)
 
         # 6. the loop
         generator = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -257,6 +269,16 @@ class SDTrainProcess:
                 "median_step_ms": statistics.median(step_ms) if step_ms else None,
                 "trainable_params": n_params, "lora_modules": len(lora) if lora is not None else 0,
                 "save_path": path}
+
+    def _schedule(self):
+        """The schedule with the job's overrides (JAX ``run``, step 3)."""
+        tc = self.cfg.train
+        overrides = {}
+        if tc.num_train_timesteps != 1000:
+            overrides["num_train_timesteps"] = tc.num_train_timesteps
+        if self.cfg.model.is_v_pred:
+            overrides["prediction_type"] = "v_prediction"
+        return get_schedule(tc.noise_scheduler, self.cfg.model.arch, **overrides)
 
     @staticmethod
     def _save(ckpt: CheckpointManager, state: TrainState, lora: dict | None, step: int,
@@ -306,8 +328,13 @@ class SDTrainProcess:
         cond = dict(text_cache.get(raw["captions"]))
         latents = torch.from_numpy(raw["latents"]).to(dev)
         b, h, w, _ = latents.shape
-        cond["pe"] = model.rope_table(h, w, int(cond["txt"].shape[1]))
-        cond["guidance"] = torch.full((b,), 1.0, dtype=torch.float32, device=dev)
-        return {"latents": latents, "cond": cond,
-                "loss_multiplier": torch.from_numpy(raw["loss_multiplier"]).to(dev),
-                "image_seq_len": (h // 2) * (w // 2)}
+        batch = {"latents": latents, "cond": cond,
+                 "loss_multiplier": torch.from_numpy(raw["loss_multiplier"]).to(dev)}
+        if model.is_flow_matching:
+            cond["pe"] = model.rope_table(h, w, int(cond["txt"].shape[1]))
+            cond["guidance"] = torch.full((b,), 1.0, dtype=torch.float32, device=dev)
+            batch["image_seq_len"] = (h // 2) * (w // 2)
+        else:  # SDXL: the added condition from the bucket's pixel size
+            d = model.vae_config.downscale
+            cond["added_cond"] = model.added_cond(cond.pop("pooled"), h * d, w * d)
+        return batch

@@ -19,6 +19,7 @@ class BaseModel:
     archs: list[str] = []
     is_flow_matching: bool = True
     bucket_divisibility: int = 16
+    main_component: str = "dit"  # the variables entry that is trained and sampled
 
     def __init__(self, config: ModelConfig, device: torch.device | str):
         self.config = config

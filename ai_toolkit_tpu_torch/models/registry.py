@@ -19,6 +19,7 @@ def register_model(cls):
 def get_model_class(arch: str):
     import ai_toolkit_tpu_torch.models.flux_model  # noqa: F401  (registers flux, flux_schnell)
     import ai_toolkit_tpu_torch.models.hidream_model  # noqa: F401  (registers hidream)
+    import ai_toolkit_tpu_torch.models.sd_model  # noqa: F401  (registers sdxl)
 
     if arch not in MODEL_REGISTRY:
         raise NotImplementedError(

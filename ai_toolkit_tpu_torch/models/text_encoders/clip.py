@@ -3,7 +3,10 @@
 Module names follow transformers' ``CLIPTextModelWithProjection``
 (``text_model.encoder.layers.{i}.self_attn.q_proj``, ``text_projection``), so
 its state dict loads as it is. Causal self-attention goes to the plain
-attention path, as the JAX package sends it to XLA.
+attention path, as the JAX package sends it to XLA. ``clip_skip`` n > 0
+returns the n-th-from-last layer's states, un-normalized (SDXL takes the
+penultimate, ``clip_skip=1``); the pooled output always comes from the final
+states.
 """
 
 from __future__ import annotations
@@ -124,19 +127,25 @@ class CLIPTextModel(nn.Module):
             Linear(cfg.hidden_size, cfg.projection_dim, bias=False, device=device, dtype=cfg.dtype)
             if cfg.projection_dim else None)
 
-    def forward(self, input_ids: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, input_ids: torch.Tensor, clip_skip: int = 0) -> dict[str, torch.Tensor]:
         """input_ids ``[B, S]`` -> last_hidden_state and pooled_output (the
-        first EOS token of the final states, projected)."""
+        first EOS token of the final states, projected). last_hidden_state is
+        the final layer norm's output for ``clip_skip`` 0, else the output of
+        the layer ``clip_skip`` places before the last (1: the penultimate),
+        un-normalized."""
         cfg = self.cfg
         tm = self.text_model
         s = input_ids.shape[1]
         emb = tm.embeddings.token_embedding(input_ids.clamp(0, cfg.vocab_size - 1))
         x = (emb + tm.embeddings.position_embedding.weight[None, :s]).to(cfg.dtype)
+        hidden_states = []
         for layer in tm.encoder.layers:
             x = layer(x)
+            hidden_states.append(x)
         final = tm.final_layer_norm(x)
         eos_pos = (input_ids == cfg.eos_token_id).int().argmax(dim=-1)
         pooled = final[torch.arange(final.shape[0], device=final.device), eos_pos]
         if self.text_projection is not None:
             pooled = self.text_projection(pooled)
-        return {"last_hidden_state": final, "pooled_output": pooled}
+        out = final if clip_skip == 0 else hidden_states[-1 - clip_skip]
+        return {"last_hidden_state": out, "pooled_output": pooled}

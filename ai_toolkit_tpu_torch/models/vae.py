@@ -4,8 +4,9 @@ Module names follow diffusers' ``AutoencoderKL`` (``encoder.down_blocks.{i}``,
 ``decoder.up_blocks.{i}`` with ``i = 0`` the deepest level,
 ``mid_block.attentions.0.to_q``, ``conv_norm_out``), so its state dict loads
 as it is. Tensors are NHWC at every public function, as in the JAX package;
-the convs hand cuDNN channels-last NCHW views. The flux VAE has no quant
-convs, and neither does this port (the SD/SDXL VAEs come with a later slice).
+the convs hand cuDNN channels-last NCHW views. The SD and SDXL VAEs
+(``use_quant_conv``) have diffusers' 1x1 ``quant_conv`` after the encoder and
+``post_quant_conv`` before the decoder; the flux VAE has neither.
 """
 
 from __future__ import annotations
@@ -29,16 +30,26 @@ class VAEConfig:
     layers_per_block: int = 2
     scaling_factor: float = 0.18215
     shift_factor: float = 0.0
+    use_quant_conv: bool = True
     dtype: torch.dtype = torch.bfloat16
 
     @classmethod
-    def flux(cls) -> "VAEConfig":
-        return cls(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159)
+    def sd(cls) -> "VAEConfig":
+        return cls()
 
     @classmethod
-    def tiny(cls) -> "VAEConfig":
-        return cls(base_channels=16, channel_multipliers=(1, 2), layers_per_block=1,
-                   dtype=torch.float32)
+    def sdxl(cls) -> "VAEConfig":
+        return cls(scaling_factor=0.13025)
+
+    @classmethod
+    def flux(cls) -> "VAEConfig":
+        return cls(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159, use_quant_conv=False)
+
+    @classmethod
+    def tiny(cls, **kw) -> "VAEConfig":
+        base = dict(base_channels=16, channel_multipliers=(1, 2), layers_per_block=1,
+                    use_quant_conv=False, dtype=torch.float32)
+        return cls(**{**base, **kw})
 
     @property
     def downscale(self) -> int:
@@ -210,11 +221,18 @@ class AutoencoderKL(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg, device=device)
         self.decoder = Decoder(cfg, device=device)
+        if cfg.use_quant_conv:
+            c = cfg.latent_channels
+            self.quant_conv = Conv(2 * c, 2 * c, 1, device=device, dtype=cfg.dtype)
+            self.post_quant_conv = Conv(c, c, 1, device=device, dtype=cfg.dtype)
 
     def encode(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """Image ``[B, H, W, 3]`` in [-1, 1] -> scaled latent ``[B, h, w, C]``:
         the posterior mode, or a sample when ``generator`` is given."""
-        mean, logvar = self.encoder(x).chunk(2, dim=-1)
+        moments = self.encoder(x)
+        if self.cfg.use_quant_conv:
+            moments = self.quant_conv(moments)
+        mean, logvar = moments.chunk(2, dim=-1)
         if generator is not None:
             std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
             mean = mean + std * torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
@@ -223,4 +241,7 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latent ``[B, h, w, C]`` -> image ``[B, H, W, 3]`` in [-1, 1]."""
-        return self.decoder(z / self.cfg.scaling_factor + self.cfg.shift_factor)
+        z = z / self.cfg.scaling_factor + self.cfg.shift_factor
+        if self.cfg.use_quant_conv:
+            z = self.post_quant_conv(z)
+        return self.decoder(z)

@@ -31,16 +31,30 @@ Phases (any failure raises and the script exits non-zero):
   7. the flux-dev ``generate`` job at 1024x1024, 8 steps, 2 prompts, loading
      the LoRA the train job saved, launch count checked;
   8. a ragged resolution (1008x1008, 4481 tokens), 1 prompt, 2 steps;
-  9. the main path of this slice: the hidream LoRA ``sd_trainer`` job at
+  9. the hidream LoRA ``sd_trainer`` job at
      1024^2 on an fp8 base with the grouped MoE dispatch, launches per step
      checked (``--profile DIR`` profiles its last step too);
   10. the hidream ``generate`` job at 1024x1024, 8 steps, 2 prompts, with
      the LoRA it saved;
-  11. the main path of this slice: the hidream full fine-tune ``sd_trainer``
-     job (bf16 base, grouped MoE, the expert banks of the first double and
-     single block trained), launches per step checked, the untrained weights
-     held against a fresh seeded init and the save reloaded.
-The line before the last is the kernel table; the last line is the result.
+  11. the hidream full fine-tune ``sd_trainer`` job (bf16 base, grouped MoE,
+     the expert banks of the first double and single block trained), launches
+     per step checked, the untrained weights held against a fresh seeded init
+     and the save reloaded;
+  12. the flash kernels at the SDXL UNet's shapes (head_dim 64, cross-attention
+     over 77 tokens; the cases of phases 2 and 3 include them, with strongly
+     negative logits at T = 77), each timed against its plain version and the
+     library call, forward and backward;
+  13. a full-width SDXL UNet cut to one transformer layer per level, in f32,
+     on the card against the same module on the CPU: the forward and one
+     checkpointed LoRA training step's loss and gradients;
+  14. the main path of this slice: the SDXL LoRA ``sd_trainer`` job at
+     1024^2 from a job file written from configs/examples/train_lora_sdxl_tpu.yaml
+     (ddpm, min_snr_gamma, adamw8bit, EMA, no checkpointing), launches per
+     step checked (``--profile DIR`` profiles its last step too);
+  15. the SDXL ``generate`` job at 1024x1024, DDIM 8 steps, guidance 7 as a
+     batch of two, 2 prompts, with the kohya LoRA it saved.
+The line before the last is the kernel table; the SDXL launches are printed
+on a line of their own before it; the last line is the result.
 """
 
 from __future__ import annotations
@@ -77,6 +91,18 @@ FLASH_CASES = [
     ((2, 300, 190, 4, 64), torch.float32, 1e-4),  # rect, ragged, D=64
     ((1, 16, 16, 2, 128), torch.float32, 1e-4),  # smaller than one tile
 ]
+# the SDXL UNet's attention at 1024^2 (head_dim 64): level-1 (4096 tokens, 10
+# heads) and level-2 (1024 tokens, 20 heads) self-attention, their
+# cross-attention over the 77 text tokens (fewer than one 128-column tile),
+# and the level-1 cross-attention of the CFG batch of two
+SDXL_SHAPES = [
+    ((1, 4096, 4096, 10, 64), "level-1 self"),
+    ((1, 4096, 77, 10, 64), "level-1 cross"),
+    ((1, 1024, 1024, 20, 64), "level-2 self"),
+    ((1, 1024, 77, 20, 64), "level-2 cross"),
+    ((2, 4096, 77, 10, 64), "level-1 cross, CFG batch"),
+]
+FLASH_CASES += [(shape, torch.bfloat16, 2e-2) for shape, _ in SDXL_SHAPES]
 LSE_TOL = 1e-3
 MAIN_SHAPE = (1, 4608, 24, 128)
 RAGGED_SHAPE = (1, 4481, 24, 128)  # flux-dev at 1008^2: 512 text + 3969 image tokens, masked tails
@@ -103,9 +129,11 @@ BWD_CASES = [
     ((2, 300, 190, 4, 64), torch.float32, 1e-4),
     ((1, 16, 16, 2, 128), torch.float32, 1e-4),
 ]
-# logits near -116 (q shifted by +SHIFT, k by -SHIFT), so lse ~ -106: dq's p of a
-# zero-filled K row past T would be exp(-lse) = inf, a NaN unless masked (T = 190 ragged)
-NEGATIVE_CASE = ((2, 300, 190, 4, 128), 3.2)
+BWD_CASES += [(shape, torch.bfloat16, 2e-2) for shape, _ in SDXL_SHAPES]
+# logits near -116 (q shifted by +SHIFT, k by -SHIFT: -SHIFT^2 * sqrt(D)), so lse
+# ~ -106: dq's p of a zero-filled K row past T would be exp(-lse) = inf, a NaN
+# unless masked (T = 190 ragged; T = 77, the SDXL cross-attention, inside one tile)
+NEGATIVE_CASES = [((2, 300, 190, 4, 128), 3.2), ((2, 1024, 77, 20, 64), 3.8)]
 # q, k, v as views of a fused projection [B, S, 3*H*D + extra] from element
 # `start` on: ((B, S, H, D), extra, start, bf16 inputs TMA must copy)
 FUSED_VIEWS = [
@@ -126,6 +154,9 @@ MOE_CASES = [
 ]
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "moe_gmm_fwd", "moe_gmm_bwd", "moe_gmm_dw")
 HIDREAM_BLOCKS = 16 + 32  # double + single blocks: one attention and one MoE FFN each
+# the SDXL UNet's transformer blocks, two attentions each: down 2 x 2 + 2 x 10, mid 10, up 3 x 10 + 3 x 2
+SDXL_ATTENTIONS = 2 * (2 * 2 + 2 * 10 + 10 + 3 * 10 + 3 * 2)
+SDXL_CUT_BLOCKS = 1 + 1 + 1 + 2 + 2  # unet_reference's cut: one layer per level, one block per attention
 # the full fine-tune's filter: the expert banks of the first double and single block
 FT_BANKS = ["double_blocks.0.img_mlp.experts", "single_blocks.0.mlp.experts"]
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
@@ -205,6 +236,27 @@ def _time_ms(fn, reps: int, inner: int = 10) -> list[float]:
     return out
 
 
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` with the host out of the way: a sleep
+    kernel holds the stream while the host enqueues ``reps`` calls, so the
+    events around them time the calls back to back on the card, where a
+    call's host work (the wrapper, the tensor maps) outlasts its kernels and
+    :func:`_time_ms` times the host. Median of 5."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(5):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clock: longer than enqueueing the calls
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(out)
+
+
 def _in_turns(kern, plain, reps: int = 10) -> tuple[float, float, int]:
     """Medians (kernel ms, plain ms) over plain, kernel, kernel, plain runs of
     ``reps`` samples each, after a warm-up of each; the plain versions (10 ms
@@ -230,13 +282,31 @@ def _sdpa_layout(*xs):
     return [x.transpose(1, 2).contiguous() for x in xs]
 
 
-def _sdpa_bwd_ms(q, k, v, g) -> float:
+def _sdpa_bwd_ms(q, k, v, g, device_only: bool = False) -> float:
     """The library yardstick of the backward kernels: one scaled_dot_product_attention
-    backward, which gives dq, dk and dv."""
+    backward, which gives dq, dk and dv (``device_only``: timed by :func:`_device_ms`)."""
     qt, kt, vt, gt = _sdpa_layout(q, k, v, g)
     qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
     ot = F.scaled_dot_product_attention(qt, kt, vt)
-    return statistics.median(_time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True), 20))
+    call = lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)  # noqa: E731
+    if device_only:
+        return _device_ms(call)
+    return statistics.median(_time_ms(call, 20))
+
+
+def _negative_qkv(shape, shift, gen):
+    """bf16 q + shift, k - shift, v: logits near -shift^2 sqrt(D)."""
+    b, s, t, h, d = shape
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda") for n in (s, t, t))
+    return (q + shift).bfloat16(), (k - shift).bfloat16(), v.bfloat16()
+
+
+def _check_negative(j: int, lse: torch.Tensor) -> None:
+    """The ``j``-th of NEGATIVE_CASES (if ``j`` is one) really has strongly
+    negative logits: most rows' lse below -88, where exp(-lse) overflows f32."""
+    if 0 <= j < len(NEGATIVE_CASES):
+        check(lse.median().item() < -88.0, f"negative case {NEGATIVE_CASES[j]}: median lse "
+                                           f"{lse.median().item():.1f} is not below -88")
 
 
 def _fused_qkv(b, s, h, d, extra, start, gen):
@@ -252,9 +322,10 @@ def kernel_vs_plain() -> dict:
     gen = torch.Generator("cuda").manual_seed(0)
     max_err = 0.0
     cases = [(shape, dt, tol, None, 0) for shape, dt, tol in FLASH_CASES]
+    cases += [(shape, torch.bfloat16, 2e-2, _negative_qkv(shape, shift, gen), 0) for shape, shift in NEGATIVE_CASES]
     for (b, s, h, d), extra, start, copies in FUSED_VIEWS:
         cases.append(((b, s, s, h, d), torch.bfloat16, 2e-2, _fused_qkv(b, s, h, d, extra, start, gen), copies))
-    for (b, s, t, h, d), dt, tol, qkv, copies in cases:
+    for i, ((b, s, t, h, d), dt, tol, qkv, copies) in enumerate(cases):
         q, k, v = qkv if qkv is not None else (
             _rand((b, s, h, d), dt, gen), _rand((b, t, h, d), dt, gen), _rand((b, t, h, d), dt, gen))
         before = fa.tma_copies
@@ -268,9 +339,10 @@ def kernel_vs_plain() -> dict:
         finite = bool(torch.isfinite(out).all())
         print(f"(B,S,T,H,D)=({b},{s},{t},{h},{d}) {str(dt)[6:]} v_stride={tuple(v.stride())} "
               f"out_err={err:.3e} (max|ref| {ref_max:.3e}, tol {out_tol:.3e}) lse_err={lse_err:.3e} "
-              f"(tol {LSE_TOL:g}) TMA copies {fa.tma_copies - before}")
+              f"(tol {LSE_TOL:g}) min lse {ref_lse.min().item():.1f} TMA copies {fa.tma_copies - before}")
         check(finite and err <= out_tol and lse_err <= LSE_TOL, "kernel disagrees with its plain version")
         check(fa.tma_copies - before == copies, f"{fa.tma_copies - before} TMA copies, expected {copies}")
+        _check_negative(i - len(FLASH_CASES), ref_lse)
         max_err = max(max_err, err)
 
     res = {}
@@ -299,14 +371,11 @@ def bwd_kernels_vs_plain() -> dict:
 
     gen = torch.Generator("cuda").manual_seed(1)
     cases = [(shape, dt, tol, None, 0) for shape, dt, tol in BWD_CASES]
-    (b, s, t, h, d), shift = NEGATIVE_CASE
-    qkv = [torch.randn((b, n, h, d), generator=gen, device="cuda") for n in (s, t, t)]
-    cases.append(((b, s, t, h, d), torch.bfloat16, 2e-2,
-                  ((qkv[0] + shift).bfloat16(), (qkv[1] - shift).bfloat16(), qkv[2].bfloat16()), 0))
+    cases += [(shape, torch.bfloat16, 2e-2, _negative_qkv(shape, shift, gen), 0) for shape, shift in NEGATIVE_CASES]
     for (b, s, h, d), extra, start, copies in FUSED_VIEWS:
         cases.append(((b, s, s, h, d), torch.bfloat16, 2e-2, _fused_qkv(b, s, h, d, extra, start, gen), copies))
     err = {"dq": 0.0, "dkv": 0.0}
-    for (b, s, t, h, d), dt, tol, qkv, copies in cases:
+    for i, ((b, s, t, h, d), dt, tol, qkv, copies) in enumerate(cases):
         q, k, v = qkv if qkv is not None else (
             _rand((b, s, h, d), dt, gen), _rand((b, t, h, d), dt, gen), _rand((b, t, h, d), dt, gen))
         g = _rand((b, s, h, d), dt, gen)
@@ -326,6 +395,7 @@ def bwd_kernels_vs_plain() -> dict:
               f"max abs {absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e}; min lse {lse.min().item():.1f}; "
               f"TMA copies {fa.tma_copies - before}")
         check(finite and max(rel) <= tol, "backward kernels disagree with their plain versions")
+        _check_negative(i - len(BWD_CASES), lse)
         # dq and dk/dv each copy the q, k, v that TMA cannot read (dO is contiguous)
         check(fa.tma_copies - before == 2 * copies, f"{fa.tma_copies - before} TMA copies, expected {2 * copies}")
         err["dq"] = max(err["dq"], absd[0])
@@ -694,8 +764,13 @@ def _train_dataset(n: int = 4, size: int = 1024) -> str:
 
 
 FLUX_MODEL = {"name_or_path": "", "arch": "flux", "model_kwargs": {"size": "dev"}}
+SDXL_MODEL = {"name_or_path": "", "arch": "sdxl", "model_kwargs": {"size": "full"}, "remat_policy": "none"}
 HIDREAM_MODEL = {"name_or_path": "", "arch": "hidream",
                  "model_kwargs": {"size": "full", "moe_dispatch": "grouped"}}
+
+
+def _train_steps(profile_dir: str | None) -> int:
+    return TRAIN_WARMUP + TRAIN_TIMED + (1 if profile_dir else 0)
 
 
 def _run_train_job(name: str, model: dict, network: dict, per_step: dict[str, int],
@@ -704,12 +779,7 @@ def _run_train_job(name: str, model: dict, network: dict, per_step: dict[str, in
     bucket, latents cached in memory, no sampling; ``per_step`` is the
     launches of each kernel one step must make. Returns (result, process,
     report)."""
-    import shutil
-
-    from ai_toolkit_tpu_torch.jobs import get_job
-
-    steps = TRAIN_WARMUP + TRAIN_TIMED + (1 if profile_dir else 0)
-    shutil.rmtree(os.path.join(OUT_DIR, "train", name), ignore_errors=True)
+    steps = _train_steps(profile_dir)
     raw = {"job": "extension", "config": {"name": name, "process": [{
         "type": "sd_trainer", "training_folder": os.path.join(OUT_DIR, "train"),
         "trigger_word": "p3r5on",
@@ -725,6 +795,20 @@ def _run_train_job(name: str, model: dict, network: dict, per_step: dict[str, in
                   "dtype": "bf16", "seed": 42},
         "model": model,
         "logging": {"log_every": 1}}]}}
+    return _run_job(raw, per_step, profile_dir)
+
+
+def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None):
+    """Run the train job ``raw`` on the card from an empty output folder and
+    check its losses, launches per step and TMA copies."""
+    import shutil
+
+    from ai_toolkit_tpu_torch.jobs import get_job
+
+    name = raw["config"]["name"]
+    proc_cfg = raw["config"]["process"][0]
+    steps = proc_cfg["train"]["steps"]
+    shutil.rmtree(os.path.join(proc_cfg["training_folder"], name), ignore_errors=True)
     gc.collect()  # the previous job's model is unreachable; free it before the next
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -757,13 +841,18 @@ def _run_train_job(name: str, model: dict, network: dict, per_step: dict[str, in
                           "peak_gib": peak, "wall_s": wall}
 
 
-def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None) -> dict:
+def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None,
+              raw: dict | None = None) -> dict:
     """A LoRA ``sd_trainer`` job on the card (configs/examples/train_lora_flux_tpu.yaml,
-    train_lora_hidream_tpu.yaml); the save is the EMA copy of the factors."""
+    train_lora_hidream_tpu.yaml, or the job ``raw``); the save is the EMA copy
+    of the factors."""
     from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
 
-    result, proc, report = _run_train_job(name, model, {"type": "lora", "linear": 16, "linear_alpha": 16},
-                                          per_step, profile_dir)
+    if raw is None:
+        result, proc, report = _run_train_job(name, model, {"type": "lora", "linear": 16, "linear_alpha": 16},
+                                              per_step, profile_dir)
+    else:
+        result, proc, report = _run_job(raw, per_step, profile_dir)
     steps = report["steps"]
     tr, ema = proc.state.trainable, proc.state.ema
     b_keys = [k for k in tr if k.endswith(".b")]
@@ -771,7 +860,7 @@ def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str
     check(any(not torch.equal(ema[k], tr[k]) for k in tr), "the EMA equals the trainable parameters")
     path = result["save_path"]
     check(os.path.isfile(path), f"no LoRA file at {path}")
-    tree, meta = load_lora_file(path)
+    tree, meta = load_lora_file(path, module_names=list(proc.lora))  # the names resolve kohya keys
     check(len(tree) == result["lora_modules"] and meta.get("step") == str(steps),
           f"LoRA file reloads with {len(tree)} modules, metadata {meta}")
     saved_b = max(float(v["b"].abs().max()) for v in tree.values())
@@ -826,7 +915,8 @@ def fullft_job(name: str, model: dict, per_step: dict[str, int], profile_dir: st
 
 
 def generate_job(model: dict, width: int, height: int, steps: int, prompts: list[str],
-                 per_step: dict[str, int], lora_path: str | None = None) -> dict[str, int]:
+                 per_step: dict[str, int], lora_path: str | None = None,
+                 sampler: str = "flowmatch", guidance_scale: float = 4) -> dict[str, int]:
     """A ``generate`` job on the card; ``per_step`` is the launches of each
     kernel one denoise step must make."""
     from PIL import Image
@@ -834,7 +924,7 @@ def generate_job(model: dict, width: int, height: int, steps: int, prompts: list
     from ai_toolkit_tpu_torch.jobs import run_job
 
     proc = {"type": "generate", "training_folder": OUT_DIR, "model": model,
-            "sample": {"sampler": "flowmatch", "width": width, "height": height, "guidance_scale": 4,
+            "sample": {"sampler": sampler, "width": width, "height": height, "guidance_scale": guidance_scale,
                        "sample_steps": steps, "seed": 42, "walk_seed": True, "prompts": prompts}}
     if lora_path:
         proc["lora_path"] = lora_path
@@ -865,6 +955,172 @@ def generate_job(model: dict, width: int, height: int, steps: int, prompts: list
     check(launches == expected, f"launches {launches} != {expected}")
     _check_no_tma_copies(raw["config"]["name"])
     return launches
+
+
+def sdxl_attention_times() -> dict:
+    """The flash kernels at the SDXL UNet's shapes (their agreement with the
+    plain versions is checked among the cases of phases 2 and 3): forward, dq
+    and dk/dv each timed against its plain version, the forward against
+    scaled_dot_product_attention, dq and dk/dv against its backward, each
+    beside its bound. Returns ``{label: {fwd|dq|dkv: {...}}}``."""
+    phase("flash kernels at the SDXL UNet's shapes (head_dim 64), bf16")
+    from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    res = {}
+    for (b, s, t, h, d), label in SDXL_SHAPES:
+        q, g = (_rand((b, s, h, d), torch.bfloat16, gen) for _ in range(2))
+        k, v = (_rand((b, t, h, d), torch.bfloat16, gen) for _ in range(2))
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        delta = fa.flash_attention_bwd_delta(out, g)
+        qt, kt, vt = _sdpa_layout(q, k, v)
+        lib_fwd = statistics.median(_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20))
+        lib_bwd = _sdpa_bwd_ms(q, k, v, g)
+        lib_dev = {"fwd": _device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                   "bwd": _sdpa_bwd_ms(q, k, v, g, device_only=True)}
+        sq, st = b * s * h * d, b * t * h * d  # elements of one [B,S,H,D] and one [B,T,H,D] tensor
+        row = {}
+        for name, kern, plain, ops, nbytes, lib in (  # operations per B*H*S*T*D
+            ("fwd", lambda: fa.flash_attention_fwd(q, k, v), lambda: fa.flash_attention_fwd_plain(q, k, v),
+             4, 2 * (2 * sq + 2 * st) + 4 * b * h * s, lib_fwd),  # q, k, v in, out out, lse out
+            ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale),
+             lambda: fa.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, scale),
+             6, 2 * (3 * sq + 2 * st) + 8 * b * h * s, lib_bwd),  # q, dO, k, v in, dq out; lse, delta
+            ("dkv", lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale),
+             lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, scale),
+             8, 2 * (2 * sq + 4 * st) + 8 * b * h * s, lib_bwd),  # q, dO, k, v in, dk, dv out
+        ):
+            ms, plain_ms, n = _in_turns(kern, plain)
+            dev_ms = _device_ms(kern)
+            flops = ops * b * h * s * t * d
+            bound, by = _bound_ms(flops, nbytes)
+            what = "scaled_dot_product_attention" if name == "fwd" else "its backward (dq, dk, dv)"
+            lib_d = lib_dev["fwd" if name == "fwd" else "bwd"]
+            print(f"SDXL {label} (B,S,T,H,D)=({b},{s},{t},{h},{d}) {name}: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s of {flops:.4e} operations; back to back on the device "
+                  f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, median of {n}; library {what} "
+                  f"{lib:.4f} ms (back to back on the device {lib_d:.4f} ms); kernel / library {ms / lib:.2f}x, "
+                  f"on the device {dev_ms / lib_d:.2f}x; bound {bound:.4f} ms ({by}; the kernel at "
+                  f"{100 * bound / ms:.1f} % of its rate, {100 * bound / dev_ms:.1f} % on the device)")
+            row[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib,
+                         "library_device_ms": lib_d, "bound_ms": bound, "bound_by": by}
+        res[label] = row
+        del q, k, v, g, out, lse, delta, qt, kt, vt
+        torch.cuda.empty_cache()
+    return res
+
+
+def unet_reference(fwd_launches: dict, step_launches: dict) -> None:
+    """A full-width SDXL UNet (320/640/1280 channels, 10 and 20 heads of 64,
+    cross dim 2048, the added condition) cut to one layer per level and one
+    transformer block per attention, in f32, on the card against the same
+    module on the CPU (which takes the flash kernels' plain versions): the
+    forward, and one LoRA training step's loss and gradients with per-block
+    checkpointing."""
+    phase("full-width SDXL UNet (one layer per level, one transformer block per attention, f32): card vs CPU")
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
+    from ai_toolkit_tpu_torch.models.unet import UNet2DCondition, UNetConfig, unet_lora_targets
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    cfg = dataclasses.replace(UNetConfig.sdxl(), transformer_layers=(0, 1, 1), layers_per_block=1,
+                              dtype=torch.float32, remat=False)
+    gpu = init_parameters(UNet2DCondition(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
+    gpu.eval().requires_grad_(False)
+    cpu = UNet2DCondition(cfg, device="cpu").eval().requires_grad_(False)
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    b, hh, ww = 2, 32, 32  # level 1 at 16 x 16 = 256 tokens, level 2 at 64
+    inputs = [torch.randn((b, hh, ww, cfg.in_channels), generator=g), torch.tensor([37, 811]),
+              torch.randn((b, 77, cfg.cross_attention_dim), generator=g),
+              {"time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]]).repeat(b, 1),
+               "text_embeds": torch.randn((b, 1280), generator=g)}]
+
+    def to_gpu(x):
+        return {k: to_gpu(v) for k, v in x.items()} if isinstance(x, dict) else x.cuda()
+
+    gpu_in = [to_gpu(x) for x in inputs]
+    _reset_launches()
+    with torch.inference_mode():
+        ref = cpu(*inputs)
+        out = gpu(*gpu_in).cpu()
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    tol = 1e-3 * max(1.0, scale)  # f32 both sides, TF32 off; summation order only
+    print(f"forward: out {tuple(out.shape)} max|ref|={scale:.3f} max_abs_err={err:.3e} "
+          f"(tol {tol:.3e}) kernel launches={_launches()}")
+    check(_launches() == fwd_launches and bool(torch.isfinite(out).all()) and err <= tol,
+          "the UNet on the card disagrees with the CPU")
+
+    spec = LoRASpec(rank=16, alpha=16.0, target_patterns=unet_lora_targets())
+    lg = build_lora(gpu, spec, torch.Generator("cuda").manual_seed(2))
+    gb = torch.Generator("cuda").manual_seed(3)
+    with torch.no_grad():
+        for m in lg.values():  # b non-zero, else the gradient of a is zero
+            m.b.normal_(0.0, 0.01, generator=gb)
+    lc = build_lora(cpu, spec, torch.Generator().manual_seed(2))
+    cpu.load_state_dict(gpu.state_dict())
+    for m in (gpu, cpu):  # per-block checkpointing, as the default remat policy
+        m.cfg = dataclasses.replace(cfg, remat=True)
+    target = torch.randn(out.shape, generator=g)
+    names = [(n, leaf) for n in lg for leaf in ("a", "b", "scale")]
+
+    def loss_and_grads(model, lora, args, tgt):
+        loss = (model(*args).float() - tgt).square().mean()
+        return loss.item(), torch.autograd.grad(loss, [getattr(lora[n], leaf) for n, leaf in names])
+
+    _reset_launches()
+    ref_loss, ref_grads = loss_and_grads(cpu, lc, inputs, target)
+    loss, grads = loss_and_grads(gpu, lg, gpu_in, target.cuda())
+    launches = _launches()
+    # a and b: max|dgrad| / max|grad| per tensor. A scale's gradient is one sum
+    # over its layer's whole output, which can cancel to ~1e-3 of its terms (6.6e-7
+    # against ~1e-4 for a and b), so each is held to the largest scale gradient
+    worst = 0.0
+    for kind in ("a", "b", "scale"):
+        pairs = [(f"{n}.{leaf}", gd.cpu(), gr) for gd, gr, (n, leaf) in zip(grads, ref_grads, names) if leaf == kind]
+        kind_max = max(gr.abs().max().item() for _, _, gr in pairs)
+        errs = sorted(((gd - gr).abs().max().item() / (kind_max if kind == "scale" else
+                                                       max(gr.abs().max().item(), 1e-30)), name)
+                      for name, gd, gr in pairs)
+        worst = max(worst, errs[-1][0])
+        print(f"  {kind}: worst max|dgrad| / max|grad|{' (of every scale)' if kind == 'scale' else ''} "
+              f"{errs[-1][0]:.3e} ({errs[-1][1]}), median {errs[len(errs) // 2][0]:.3e}")
+    print(f"LoRA train step ({len(lg)} modules, checkpointed blocks): loss card {loss:.6f} vs CPU "
+          f"{ref_loss:.6f}; {len(grads)} tensors, worst {worst:.3e} (tol 1e-3); kernel launches={launches}")
+    check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss) and worst <= 1e-3 and launches == step_launches,
+          "the UNet's LoRA train step on the card disagrees")
+    del gpu, cpu, lg, lc, grads, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _sdxl_job(name: str, profile_dir: str | None) -> dict:
+    """The SDXL LoRA job: configs/examples/train_lora_sdxl_tpu.yaml cut to this
+    run (seeded random weights, the seeded PNGs, latents cached in memory,
+    no sampling, a few steps), written to a job file and read back through
+    the port's config loader. It keeps ddpm, min_snr_gamma 5, adamw8bit, EMA
+    and remat_policy none."""
+    import yaml
+
+    from ai_toolkit_tpu_torch.config import get_config
+
+    raw = get_config(os.path.join(ROOT, "configs", "examples", "train_lora_sdxl_tpu.yaml"))
+    raw["config"]["name"] = name
+    proc = raw["config"]["process"][0]
+    proc["training_folder"] = os.path.join(OUT_DIR, "train")
+    proc["datasets"][0].update(folder_path=_train_dataset(), cache_latents=True, cache_latents_to_disk=False)
+    proc["train"].update(steps=_train_steps(profile_dir), seed=42, disable_sampling=True)
+    proc["model"]["name_or_path"] = ""
+    proc["logging"] = {"log_every": 1}
+    path = os.path.join(OUT_DIR, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f, sort_keys=False)
+    job = get_config(path)
+    t = job["config"]["process"][0]["train"]
+    check(t["noise_scheduler"] == "ddpm" and t["min_snr_gamma"] == 5.0 and t["optimizer"] == "adamw8bit"
+          and job["config"]["process"][0]["model"]["remat_policy"] == "none", f"{path} lost the job's settings")
+    print(f"job file {path} (from configs/examples/train_lora_sdxl_tpu.yaml)")
+    return job
 
 
 def main(argv: list[str]) -> int:
@@ -906,8 +1162,7 @@ def main(argv: list[str]) -> int:
     phase("ragged resolution: flux-dev 1008x1008 (4481 tokens), 2 steps, 1 prompt")
     generate_job(FLUX_MODEL, 1008, 1008, 2, prompts[:1], _counts(fwd=BLOCKS_PER_FORWARD))
 
-    phase("main path of this slice: hidream LoRA sd_trainer job, 1024x1024, fp8 base, grouped MoE, "
-          "batch 1, rank 16, adamw8bit, EMA")
+    phase("hidream LoRA sd_trainer job, 1024x1024, fp8 base, grouped MoE, batch 1, rank 16, adamw8bit, EMA")
     # per step: the attention forward once per block (its outputs are kept by the
     # checkpoint policy), the grouped MoE forward twice (forward and recompute), one dq,
     # dk/dv and MoE dx per block
@@ -920,8 +1175,8 @@ def main(argv: list[str]) -> int:
     generate_job(HIDREAM_MODEL, 1024, 1024, 8, prompts, _counts(fwd=HIDREAM_BLOCKS, moe=HIDREAM_BLOCKS),
                  lora_path=hidream["lora_path"])
 
-    phase("main path of this slice: hidream full fine-tune sd_trainer job, 1024x1024, bf16 base, "
-          "grouped MoE, the expert banks of double_blocks.0 and single_blocks.0, adamw8bit, EMA")
+    phase("hidream full fine-tune sd_trainer job, 1024x1024, bf16 base, grouped MoE, the expert banks of "
+          "double_blocks.0 and single_blocks.0, adamw8bit, EMA")
     # per step: nothing upstream of double_blocks.0's MoE needs a gradient, so that
     # block's attention and MoE run no backward kernel: dq, dk/dv and MoE dx in the
     # other 47 blocks; the two trained MoE layers each launch dw once
@@ -929,6 +1184,28 @@ def main(argv: list[str]) -> int:
                       HIDREAM_BLOCKS - 1, moe_dw=2)
     fullft = fullft_job("smoke_hidream_fullft", {**HIDREAM_MODEL, "quantize": False,
                                                  "only_if_contains": FT_BANKS}, ft_step, args.profile)
+
+    sdxl_times = sdxl_attention_times()
+    # the cut UNet: transformer blocks down 1 + 1, mid 1, up 2 + 2; two attentions each
+    unet_reference(_counts(fwd=2 * SDXL_CUT_BLOCKS), _counts(4 * SDXL_CUT_BLOCKS, 2 * SDXL_CUT_BLOCKS,
+                                                             2 * SDXL_CUT_BLOCKS))
+
+    phase("main path of this slice: SDXL LoRA sd_trainer job, 1024x1024, ddpm, min_snr_gamma 5, batch 1, "
+          "rank 16, adamw8bit, EMA, no checkpointing")
+    # per step: every attention's forward, dq and dk/dv once: the LoRA on every
+    # q, k and v projection makes each input need a gradient (no recompute)
+    sdxl_step = _counts(SDXL_ATTENTIONS, SDXL_ATTENTIONS, SDXL_ATTENTIONS)
+    sdxl = train_job("smoke_sdxl_lora", {}, sdxl_step, args.profile,
+                     raw=_sdxl_job("smoke_sdxl_lora", args.profile))
+
+    phase("SDXL generate job, 1024x1024, DDIM 8 steps, guidance 7 (CFG batch of two), 2 prompts, "
+          "with the trained kohya LoRA")
+    sdxl_gen = generate_job(SDXL_MODEL, 1024, 1024, 8, prompts, _counts(fwd=SDXL_ATTENTIONS),
+                            lora_path=sdxl["lora_path"], sampler="ddim", guidance_scale=7.0)
+    print(json.dumps({"sdxl_launches": {
+        "train_per_step": {k: v / sdxl["steps"] for k, v in sdxl["launches"].items()},
+        "denoise_per_step": {k: v / (8 * len(prompts)) for k, v in sdxl_gen.items()},
+        "ms": {label: {k: row[k]["ms"] for k in row} for label, row in sdxl_times.items()}}}))
 
     banned = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ai_toolkit_tpu")]

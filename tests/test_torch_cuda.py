@@ -477,3 +477,93 @@ def test_checkpointed_moe_layer_with_trainable_banks_launches_dw_once(gen):
     grads = torch.autograd.grad(loss, list(trainable.values()))
     assert (moe.launches, moe.dx_launches, moe.dw_launches) == (4, 1, 1)
     assert all(bool(torch.isfinite(g).all()) and g.abs().max() > 0 for g in grads)
+
+
+# The SDXL UNet's attention: head_dim 64, cross-attention over T = 77 text
+# tokens (fewer than one 128-column K/V tile, so the kernels mask columns
+# 77-127 themselves: zero fill is not a mask), in bf16 and f32. The forward
+# out within 2e-2 of max|ref| (bf16) or 1e-4 (f32), lse within 1e-3; dq,
+# dk and dv within 2e-2 (bf16) or 1e-4 (f32) of max|ref|. "negative" shifts
+# q by +3.8 and k by -3.8, so the logits sit near -116 and the median lse
+# below -88, where a zero-filled K row would give exp(-lse) = inf.
+@pytest.mark.parametrize("shape,dtype,negative", [
+    ((1, 1024, 77, 20, 64), torch.bfloat16, False),  # level-2 cross-attention
+    ((2, 4096, 77, 10, 64), torch.bfloat16, False),  # level-1 cross-attention, CFG batch
+    ((1, 1024, 1024, 20, 64), torch.bfloat16, False),  # level-2 self-attention
+    ((2, 1024, 77, 20, 64), torch.bfloat16, True),
+    ((2, 300, 77, 4, 64), torch.float32, False),
+    ((2, 300, 77, 4, 64), torch.float32, True),
+])
+def test_kernels_at_sdxl_shapes_match_plain(gen, shape, dtype, negative):
+    b, s, t, h, d = shape
+    q, k, v = _qkv(gen, b, s, t, h, d, torch.float32)
+    if negative:
+        q, k = q + 3.8, k - 3.8
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == tuple(x + 1 for x in before)
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float())
+    if negative:
+        assert ref_lse.median().item() < -88.0
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert (out.float() - ref_out).abs().max().item() <= tol * min(1.0, ref_out.abs().max().item())
+    assert (lse - ref_lse).abs().max().item() <= LSE_ATOL
+    refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, g.float())
+    for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert x.dtype == dtype and x.shape == r.shape and bool(torch.isfinite(x).all()), name
+        assert (x.float() - r).abs().max().item() <= tol * r.abs().max().item(), name
+
+
+def test_sdxl_unet_on_the_card_matches_the_cpu(gen):
+    """The SDXL UNet module (head_dim 64 at every level, the added condition)
+    at a tiny depth in f32, on the card against the CPU: the forward, and
+    one checkpointed LoRA step's loss and gradients; each attention launches
+    the forward twice (forward and recompute), dq and dk/dv once."""
+    import dataclasses
+
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
+    from ai_toolkit_tpu_torch.models.unet import UNet2DCondition, UNetConfig, unet_lora_targets
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(UNetConfig.tiny(), block_out_channels=(64, 64, 128), transformer_layers=(0, 1, 1),
+                              head_dim=64, cross_attention_dim=128, addition_time_embed_dim=32,
+                              projection_class_embeddings_dim=64 + 6 * 32, remat=True)
+    gpu = init_parameters(UNet2DCondition(cfg, device="cuda"), gen).requires_grad_(False)
+    cpu = UNet2DCondition(cfg).requires_grad_(False)
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    args = [torch.randn((2, 16, 16, 4), generator=g), torch.tensor([37, 811]),
+            torch.randn((2, 77, 128), generator=g),
+            {"time_ids": torch.tensor([[64.0, 64, 0, 0, 64, 64]]).repeat(2, 1),
+             "text_embeds": torch.randn((2, 64), generator=g)}]
+    gpu_args = [{k: v.cuda() for k, v in a.items()} if isinstance(a, dict) else a.cuda() for a in args]
+    blocks = 1 + 1 + 1 + 2 + 2  # down, down, mid, up, up
+    before = fa.launches
+    with torch.inference_mode():
+        ref, out = cpu(*args), gpu(*gpu_args).cpu()
+    assert fa.launches == before + 2 * blocks
+    assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+    spec = LoRASpec(rank=4, alpha=4.0, target_patterns=unet_lora_targets())
+    lg, lc = build_lora(gpu, spec, gen), build_lora(cpu, spec, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in lg.values():
+            m.b.normal_(0.0, 0.05, generator=gen)
+    cpu.load_state_dict(gpu.state_dict())
+    names = [(n, leaf) for n in lg for leaf in ("a", "b", "scale")]
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    results = []
+    for model, lora, inputs in ((gpu, lg, gpu_args), (cpu, lc, args)):
+        loss = model(*inputs).float().square().mean()
+        results.append((loss.item(), torch.autograd.grad(loss, [getattr(lora[n], leaf) for n, leaf in names])))
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == (before[0] + 4 * blocks, before[1] + 2 * blocks,
+                                                              before[2] + 2 * blocks)
+    (loss, grads), (ref_loss, ref_grads) = results
+    assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
+    for (name, leaf), x, r in zip(names, grads, ref_grads):
+        assert (x.cpu() - r).abs().max().item() <= 1e-3 * r.abs().max().item(), f"{name}.{leaf}"

@@ -79,7 +79,7 @@ def test_unported_branches_raise(tmp_path):
             "sample": {"width": 32, "height": 32, "sample_steps": 1, "prompts": ["x"]}}
     for proc in ({**base, "model": {**TINY, "lora_path": "/nowhere/lora.safetensors"}},
                  {**base, "type": "sd_trainer"},  # no network: full fine-tune
-                 {**base, "model": {**TINY, "arch": "sdxl"}},
+                 {**base, "model": {**TINY, "arch": "sd1"}},
                  {**base, "model": {**TINY, "name_or_path": "/nowhere/flux"}},
                  {**base, "sample": {**base["sample"], "sampler": "ddim"}}):
         with pytest.raises(NotImplementedError):
@@ -108,6 +108,8 @@ print("imported", len(names))
 # the modules of the hidream slice, named so that a rename cannot drop them from the check
 _HIDREAM_MODULES = ("ai_toolkit_tpu_torch.ops.kernels.moe_gmm", "ai_toolkit_tpu_torch.models.hidream_model",
                     "ai_toolkit_tpu_torch.models.text_encoders.llm", "ai_toolkit_tpu_torch.adapters.quantize")
+_SDXL_MODULES = ("ai_toolkit_tpu_torch.models.unet", "ai_toolkit_tpu_torch.models.sd_model",
+                 "ai_toolkit_tpu_torch.samplers.ddpm", "ai_toolkit_tpu_torch.samplers.factory")
 
 
 def test_port_imports_without_jax():
@@ -120,6 +122,7 @@ def test_port_imports_without_jax():
     assert int(proc.stdout.split()[-1]) >= 39
     imported = set(proc.stdout.splitlines()[-2].split())
     assert imported.issuperset(_HIDREAM_MODULES), sorted(set(_HIDREAM_MODULES) - imported)
+    assert imported.issuperset(_SDXL_MODULES), sorted(set(_SDXL_MODULES) - imported)
 
 
 def test_chip_smoke_fails_without_cuda():
