@@ -1,7 +1,9 @@
 """Latent and text-embedding caches (``ai_toolkit_tpu/data/caching.py`` in the
-port): every item is VAE-encoded once, one encode call per bucket chunk, and
-kept in memory; prompts are encoded once per distinct caption. The disk
-latent cache (``cache_latents_to_disk``) comes with a later slice."""
+port): every item is VAE-encoded once, one encode call per chunk of one
+bucket, kind and frame count, and kept in memory (an image latent ``[h, w,
+C]``, a video latent ``[T, h, w, C]``); prompts are encoded once per
+distinct caption. The disk latent cache (``cache_latents_to_disk``) comes
+with a later slice."""
 
 from __future__ import annotations
 
@@ -14,18 +16,19 @@ from ai_toolkit_tpu_torch.data.dataset import FileItem, load_pixels
 
 
 def latent_key(item: FileItem) -> tuple:
-    return (item.path, item.bucket, item.flip, item.flip_y)
+    return (item.path, item.bucket, item.flip, item.flip_y, item.num_frames)
 
 
 def cache_latents(items: Iterable[FileItem], encode_fn: Callable[[np.ndarray], np.ndarray],
                   batch_size: int = 8) -> dict[tuple, np.ndarray]:
-    """Encode every item; returns ``{latent_key(item): latent [h, w, C] f32}``.
-    Items are grouped by bucket so every ``encode_fn`` call has one shape."""
+    """Encode every item; returns ``{latent_key(item): latent f32}``. Items are
+    grouped by (bucket, kind, frame count) so every ``encode_fn`` call has one
+    shape."""
     memory: dict[tuple, np.ndarray] = {}
-    by_bucket: dict[tuple[int, int], list[FileItem]] = {}
+    by_bucket: dict[tuple, list[FileItem]] = {}
     for it in items:
         if latent_key(it) not in memory:
-            by_bucket.setdefault(it.bucket, []).append(it)
+            by_bucket.setdefault((it.bucket, it.kind, it.num_frames), []).append(it)
     for _, bucket_items in sorted(by_bucket.items()):
         pending = list({latent_key(it): it for it in bucket_items}.values())
         for i in range(0, len(pending), batch_size):

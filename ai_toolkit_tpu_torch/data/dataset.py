@@ -1,11 +1,13 @@
 """Folder dataset: scan, bucket, batch (``ai_toolkit_tpu/data/dataset.py`` in
-the port, the image path). Every image of the folder is assigned an aspect
-bucket at the dataset's resolution; batches are built per bucket, so each
-batch has one latent shape.
+the port, the image and video paths). Every image and video of the folder is
+assigned an aspect bucket at the dataset's resolution; batches are built per
+(bucket, kind, frame count), so each batch has one latent shape. A video is
+``num_frames`` frames sampled uniformly over the clip, decoded with OpenCV
+(``cv2``, imported where it is used, as in the JAX package).
 
-Video, audio, masks, control / inpaint / unconditional images, augmentations,
-random crops and several resolutions per dataset raise
-``NotImplementedError`` naming their slice.
+Audio (and a video's sidecar audio), masks, control / inpaint /
+unconditional images, augmentations, random crops and several resolutions
+per dataset raise ``NotImplementedError`` naming their slice.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from ai_toolkit_tpu_torch.data.captions import load_caption_pair, process_captio
 from ai_toolkit_tpu_torch.utils.unported import refuse_unported
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".webp", ".bmp")
+VIDEO_EXTS = (".mp4", ".webm", ".avi", ".mov")
+AUDIO_EXTS = (".wav", ".flac", ".mp3", ".ogg")
 
 # DatasetConfig options of the JAX dataset this port does not take yet
 _UNPORTED_OPTIONS = ("augmentations", "clip_image_path", "clip_image_augmentations", "mask_path",
@@ -42,6 +46,8 @@ class FileItem:
     is_reg: bool = False
     flip: bool = False
     flip_y: bool = False
+    kind: str = "image"  # image | video
+    num_frames: int = 1
 
 
 class FolderDataset:
@@ -50,8 +56,6 @@ class FolderDataset:
     def __init__(self, cfg: DatasetConfig, bucket_divisibility: int = 16,
                  trigger_word: str | None = None, seed: int = 42):
         refuse_unported(cfg, _UNPORTED_OPTIONS, DatasetConfig(), f"dataset {cfg.folder_path}")
-        if cfg.num_frames > 1:
-            raise NotImplementedError("video datasets come with the video slice")
         if len(cfg.resolution) != 1:
             raise NotImplementedError(
                 f"dataset resolution {cfg.resolution}: several resolutions (multi-bucket "
@@ -70,25 +74,36 @@ class FolderDataset:
         folder = self.cfg.folder_path
         if not os.path.isdir(folder):
             raise FileNotFoundError(f"dataset folder not found: {folder}")
-        paths: list[str] = []
+        paths: list[tuple[str, str]] = []
         for root, dirs, files in os.walk(folder):
             dirs[:] = sorted(d for d in dirs if d != "_controls")
             for f in sorted(files):
                 lf = f.lower()
                 if lf.endswith(IMAGE_EXTS):
-                    paths.append(os.path.join(root, f))
-                elif lf.endswith((".mp4", ".webm", ".avi", ".mov", ".wav", ".flac", ".mp3", ".ogg")):
-                    raise NotImplementedError(f"{f}: video / audio datasets come with later slices")
-        for p in paths:
+                    paths.append((os.path.join(root, f), "image"))
+                elif lf.endswith(VIDEO_EXTS):
+                    paths.append((os.path.join(root, f), "video"))
+                elif lf.endswith(AUDIO_EXTS):
+                    raise NotImplementedError(f"{f}: audio datasets (and a video's sidecar audio) come with a "
+                                              f"later slice")
+        for p, kind in paths:
             try:
-                with Image.open(p) as im:
-                    w, h = im.size
+                if kind == "image":
+                    with Image.open(p) as im:
+                        w, h = im.size
+                else:
+                    import cv2
+
+                    cap = cv2.VideoCapture(p)
+                    w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+                    h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+                    cap.release()
             except OSError:
                 continue
             caption, caption_short = load_caption_pair(p, self.cfg.caption_ext, self.cfg.default_caption)
             for res in self.cfg.resolution:
                 for _ in range(max(1, self.cfg.num_repeats)):
-                    if self.cfg.enable_bucketing and self.cfg.buckets:
+                    if self.cfg.enable_bucketing and self.cfg.buckets and w and h:
                         bucket = get_bucket_for_image_size(w, h, res, self.divisibility)
                     else:
                         bucket = (res, res)
@@ -97,7 +112,7 @@ class FolderDataset:
                     self.items.append(FileItem(
                         path=p, caption=caption, caption_short=caption_short, width=w, height=h,
                         bucket=bucket, resolution=res, is_reg=self.cfg.is_reg, flip=flip,
-                        flip_y=flip_y))
+                        flip_y=flip_y, kind=kind, num_frames=self.cfg.num_frames if kind == "video" else 1))
 
     def processed_caption(self, item: FileItem) -> str:
         return process_caption(
@@ -111,11 +126,11 @@ class FolderDataset:
         )
 
     def build_batches(self, batch_size: int, shuffle: bool = True) -> list[list[FileItem]]:
-        """Group by bucket, batch within buckets, pad the last partial batch by
-        repeating items."""
-        by_bucket: dict[tuple[int, int], list[FileItem]] = {}
+        """Group by (bucket, kind, frame count), batch within groups, pad the
+        last partial batch by repeating items."""
+        by_bucket: dict[tuple, list[FileItem]] = {}
         for it in self.items:
-            by_bucket.setdefault(it.bucket, []).append(it)
+            by_bucket.setdefault((it.bucket, it.kind, it.num_frames), []).append(it)
         batches = []
         for _, items in sorted(by_bucket.items()):
             if shuffle:
@@ -131,8 +146,10 @@ class FolderDataset:
 
 
 def load_pixels(item: FileItem) -> np.ndarray:
-    """The item's image decoded, cover-resized and center-cropped to its
-    bucket: ``[H, W, 3]`` f32 in [-1, 1]."""
+    """The item's image ``[H, W, 3]`` or video ``[T, H, W, 3]``, decoded,
+    cover-resized and center-cropped to its bucket, f32 in [-1, 1]."""
+    if item.kind == "video":
+        return load_video(item)
     from PIL import Image
 
     with Image.open(item.path) as im:
@@ -145,4 +162,42 @@ def load_pixels(item: FileItem) -> np.ndarray:
         arr = arr[:, ::-1]
     if item.flip_y:
         arr = arr[::-1]
+    return np.ascontiguousarray(arr)
+
+
+def load_video(item: FileItem) -> np.ndarray:
+    """``item.num_frames`` frames sampled uniformly over the clip (the last
+    decoded frame repeated when the clip runs short), each cover-resized with
+    bicubic and center-cropped to the bucket: ``[T, H, W, 3]`` f32 in [-1, 1]
+    (JAX ``FileItem.load_video``)."""
+    import cv2
+
+    cap = cv2.VideoCapture(item.path)
+    total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) or 1
+    want = item.num_frames
+    counts: dict[int, int] = {}
+    for i in np.linspace(0, max(total - 1, 0), want).round().astype(int):
+        counts[int(i)] = counts.get(int(i), 0) + 1
+    frames, last, i = [], None, 0
+    ok, frame = cap.read()
+    while ok and len(frames) < want:
+        frames += [frame] * counts.get(i, 0)
+        last = frame
+        i += 1
+        ok, frame = cap.read()
+    cap.release()
+    while len(frames) < want:
+        frames.append(last if last is not None else np.zeros((8, 8, 3), np.uint8))
+    bw, bh = item.bucket
+    out = []
+    for f in frames:
+        f = cv2.cvtColor(f, cv2.COLOR_BGR2RGB)
+        fh, fw = f.shape[:2]
+        rw, rh, x0, y0 = resize_and_crop_size(fw, fh, bw, bh)
+        out.append(cv2.resize(f, (rw, rh), interpolation=cv2.INTER_CUBIC)[y0:y0 + bh, x0:x0 + bw])
+    arr = np.stack(out).astype(np.float32) / 127.5 - 1.0
+    if item.flip:
+        arr = arr[:, :, ::-1]
+    if item.flip_y:
+        arr = arr[:, ::-1]
     return np.ascontiguousarray(arr)

@@ -1,9 +1,11 @@
 """Data loader (``ai_toolkit_tpu/data/loader.py`` in the port): an endless
 stream of bucket batches over epochs, each epoch re-shuffled and re-batched.
-Batches are host numpy: latents from the in-memory latent cache or, without
-one, encoded on the fly with ``encode_fn``, plus processed captions and the
-per-example loss multiplier. The JAX loader's prefetch thread is not needed:
-with cached latents a batch is a dictionary lookup.
+Batches are host numpy: latents (an image's ``[h, w, C]``, a video's ``[T,
+h, w, C]``; one bucket, kind and frame count a batch) from the in-memory
+latent cache or, without one, encoded on the fly with ``encode_fn``, plus
+processed captions and the per-example loss multiplier. The JAX loader's
+prefetch thread is not needed: with cached latents a batch is a dictionary
+lookup.
 """
 
 from __future__ import annotations

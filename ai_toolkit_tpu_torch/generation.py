@@ -1,7 +1,11 @@
-"""Image generation (``ai_toolkit_tpu/generation.py`` in PyTorch): the plain
-flow-matching Euler loop of flux and hidream (hidream has no guidance embed
-and, as in the JAX ``generate_flux``, no CFG pass), and the DDIM loop of
-SDXL with classifier-free guidance as one batch of two (``generate_sd``).
+"""Image and video generation (``ai_toolkit_tpu/generation.py`` in PyTorch):
+the plain flow-matching Euler loop of flux and hidream (hidream has no
+guidance embed and, as in the JAX ``generate_flux``, no CFG pass), the DDIM
+loop of SDXL with classifier-free guidance as one batch of two
+(``generate_sd``), and Wan's text-to-video Euler loop (``generate_video``:
+frames snapped to the VAE's grid, the (t, y, x) rope table, sigmas shifted
+for the clip's token count, one decode of every frame, uint8 frames written
+as an animated webp by :func:`save_video_atomic`).
 
 A LoRA (``{module name: {a, b, scale}}``, ``io/lora_file.load_lora_file``)
 is overlaid on the model's DiT or UNet for the call, as the JAX package
@@ -9,8 +13,8 @@ passes its ``lora`` collection. Unported branches of the JAX
 ``generate_flux`` (the unconditional LoRA, control/edit and IP-adapter
 conditioning, ``use_flux_cfg`` negative passes, x0-prediction and
 arch-specific schedules), of ``generate_sd`` (the k-diffusion, LCM and PNDM
-samplers, the unconditional LoRA) and of ``generate`` (video, audio) raise
-``NotImplementedError``.
+samplers, the unconditional LoRA), of ``generate_video`` (i2v's ``ctrl_img``)
+and of ``generate`` (audio) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -171,9 +175,65 @@ def _generate_sd(model, variables, gen, schedule, noise, rec, h, w, c) -> np.nda
     return out
 
 
+def generate_video(
+    model,
+    variables: dict,
+    gen: GenerateImageConfig,
+    lora: dict | None = None,
+    schedule: FlowMatchSchedule | None = None,
+    noise: np.ndarray | None = None,
+    stats: dict | None = None,
+) -> np.ndarray:
+    """Text-to-video (JAX ``generate_video``, wan): returns uint8 frames
+    ``[T, H, W, 3]``, T the snapped ``gen.num_frames``. ``noise`` ``[1, t, h, w,
+    C]`` and ``stats`` as in :func:`generate_flux`."""
+    if getattr(gen, "ctrl_img", None):
+        raise NotImplementedError("i2v first-frame conditioning (ctrl_img) comes with slice E's wan21_i2v item")
+    schedule = schedule or FlowMatchSchedule()
+    nf = model.frame_count_snapper(max(gen.num_frames, 1))
+    shape = model.latent_shape(gen.height, gen.width, nf)
+    with _overlaid(model, variables, lora):
+        return _generate_video(model, variables, gen, schedule, noise, stats if stats is not None else {}, shape)
+
+
+def _generate_video(model, variables, gen, schedule, noise, rec, shape) -> np.ndarray:
+    device = model.device
+    t_lat, h, w, _ = shape
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cond = model.encode_prompt(variables, [gen.prompt])
+        _sync(device)
+        t1 = time.perf_counter()
+        rec["encode_ms"] = (t1 - t0) * 1e3
+        cond["pe"] = model.rope_table(t_lat, h, w)
+        pt, ph, pw = model.dit_config.patch_size
+        rec["tokens"] = (t_lat // pt) * (h // ph) * (w // pw)
+        if noise is None:
+            g = torch.Generator(device=device).manual_seed(gen.seed)
+            x = torch.randn((1, *shape), generator=g, dtype=torch.float32, device=device)
+        else:
+            x = torch.from_numpy(np.array(noise, dtype=np.float32)).to(device)
+        sigmas = schedule.inference_sigmas(gen.sample_steps, image_seq_len=rec["tokens"])
+        rec["step_ms"] = []
+        for i in range(gen.sample_steps):
+            v = model.predict(variables, x, torch.full((1,), float(sigmas[i]), device=device), cond)
+            x = schedule.euler_step(x, v, sigmas[i], sigmas[i + 1])
+            _sync(device)
+            t2 = time.perf_counter()
+            rec["step_ms"].append((t2 - t1) * 1e3)
+            t1 = t2
+        rec["latents_finite"] = bool(torch.isfinite(x).all())
+        frames = _to_uint8(model.decode_latents(variables, x))
+        rec["decode_ms"] = (time.perf_counter() - t1) * 1e3
+        rec["total_s"] = time.perf_counter() - t0
+    return frames
+
+
 def generate(model, variables, gen: GenerateImageConfig, lora=None, schedule=None, stats=None):
-    if hasattr(model, "frame_count_snapper") or hasattr(model, "latent_shape_audio"):
-        raise NotImplementedError("video / audio generation is not ported yet")
+    if hasattr(model, "frame_count_snapper"):
+        return generate_video(model, variables, gen, lora, schedule, stats=stats)
+    if hasattr(model, "latent_shape_audio"):
+        raise NotImplementedError("audio generation is not ported yet")
     if not model.is_flow_matching:
         return generate_sd(model, variables, gen, lora, schedule, stats=stats)
     return generate_flux(model, variables, gen, lora, schedule, stats=stats)
@@ -191,4 +251,20 @@ def save_image_atomic(img: np.ndarray, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp.png"
     Image.fromarray(img).save(tmp)
+    os.replace(tmp, path)
+
+
+def save_video_atomic(frames: np.ndarray, path: str, fps: int = 16) -> None:
+    """Write-then-rename ``[T, H, W, 3]`` uint8 frames as an animated webp
+    (T > 1) or a still image (JAX ``save_video_atomic``)."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    ims = [Image.fromarray(f) for f in frames]
+    tmp = path + ".tmp" + os.path.splitext(path)[1]
+    if len(ims) == 1:
+        ims[0].save(tmp)
+    else:
+        ims[0].save(tmp, save_all=True, append_images=ims[1:], duration=max(1, int(round(1000 / max(fps, 1)))),
+                    loop=0)
     os.replace(tmp, path)

@@ -23,12 +23,13 @@ SOFTWARE_META = {"software": "ai_toolkit_tpu", "format": "lora"}
 
 class CheckpointManager:
     def __init__(self, save_root: str, name: str, max_step_saves_to_keep: int = 4,
-                 dtype=np.float16, fmt: str = "peft"):
+                 dtype=np.float16, fmt: str = "peft", key_map=None):
         self.save_root = save_root
         self.name = name
         self.max_keep = max_step_saves_to_keep
         self.dtype = dtype
         self.fmt = fmt
+        self.key_map = key_map  # port module name -> the file's (io/lora_file.flatten_lora)
         os.makedirs(save_root, exist_ok=True)
 
     def path_for_step(self, step: int) -> str:
@@ -57,7 +58,7 @@ class CheckpointManager:
         meta = {**SOFTWARE_META, "ss_training_comment": self.name, "step": str(int(step)),
                 "timestamp": str(int(time.time()))}
         path = self.final_path() if final else self.path_for_step(step)
-        save_lora_file(lora, path, metadata=meta, dtype=self.dtype, fmt=self.fmt)
+        save_lora_file(lora, path, metadata=meta, dtype=self.dtype, fmt=self.fmt, key_map=self.key_map)
         if not final:
             self.clean_up_saves()
         return path

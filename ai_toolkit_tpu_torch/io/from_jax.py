@@ -17,6 +17,13 @@ CLIP and T5, diffusers for the VAE).
   maps onto diffusers names (``down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q``,
   ``up_blocks.0.resnets.0``, ``mid_block.attentions.0``): the JAX up level
   ``i`` is diffusers ``up_blocks.{n-1-i}``.
+- The Wan DiT (``block_{i}/self_q``, or scanned ``blocks/block/...``) maps onto
+  diffusers ``WanTransformer3DModel`` names (``blocks.{i}.attn1.to_q``), its
+  modulation tables onto ``scale_shift_table`` ``[1, n, dim]``; the Wan VAE
+  (``encoder/down_blocks_3/resample_conv``) onto diffusers
+  ``AutoencoderKLWan`` names (``encoder.down_blocks.3.resample.1``), its 3-D
+  kernels ``(kt, kh, kw, in, out)`` -> ``[out, in, kt, kh, kw]``; UMT5's
+  per-layer bias tables onto each block's ``relative_attention_bias``.
 - A partial DiT tree (a full fine-tune's filtered trainable tree) converts
   like a whole one; the JAX full fine-tune's flat file, keyed by
   ``_flatten_params`` (``double_0.img_mlp_moe.experts.w1.kernel``), through
@@ -43,6 +50,18 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def _unflatten(flat: dict[str, np.ndarray], sep: str = "/") -> dict:
+    """Inverse of :func:`_flatten` over ``sep``-joined paths."""
+    tree: dict = {}
+    for key, v in flat.items():
+        *mods, leaf = key.split(sep)
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = v
+    return tree
+
+
 def _tensor(v: np.ndarray) -> torch.Tensor:
     v = np.ascontiguousarray(v)
     if v.dtype.name == "bfloat16":  # ml_dtypes, which torch.from_numpy does not take
@@ -59,9 +78,13 @@ def _leaf(v: np.ndarray, leaf: str, norm_name: str) -> tuple[str, np.ndarray]:
             return "weight", v
         if v.ndim == 4:
             return "weight", v.transpose(3, 2, 0, 1)
+        if v.ndim == 5:
+            return "weight", v.transpose(4, 3, 0, 1, 2)
         raise ValueError(f"kernel of rank {v.ndim}")
     if leaf == "scale":
         return norm_name, v
+    if leaf == "gamma":
+        return "gamma", v
     if leaf == "bias":
         return "bias", v
     raise KeyError(leaf)
@@ -129,17 +152,16 @@ def _flux_module(path: str) -> str:
     return _lookup(_FLUX_TOP, path, "flux dit")
 
 
-def _unscan(tree: dict) -> dict:
-    """Scanned layout ``{double,single}_blocks/block/<mod>/<leaf>`` with a
-    leading layer axis -> unrolled ``{double,single}_<i>/<mod>/<leaf>``."""
-    out = {k: v for k, v in tree.items() if k not in ("double_blocks", "single_blocks")}
-    for kind in ("double", "single"):
-        stacked = tree.get(f"{kind}_blocks")
-        if stacked is None:
+def _unscan(tree: dict, stacks=(("double_blocks", "double_"), ("single_blocks", "single_"))) -> dict:
+    """Scanned layout ``<stack>/block/<mod>/<leaf>`` with a leading layer axis
+    -> unrolled ``<prefix><i>/<mod>/<leaf>``, for each ``(stack, prefix)``."""
+    out = {k: v for k, v in tree.items() if k not in dict(stacks)}
+    for stack, prefix in stacks:
+        if stack not in tree:
             continue
-        for path, v in _flatten(stacked["block"]).items():
+        for path, v in _flatten(tree[stack]["block"]).items():
             for i in range(v.shape[0]):
-                node = out.setdefault(f"{kind}_{i}", {})
+                node = out.setdefault(f"{prefix}{i}", {})
                 *mods, leaf = path.split("/")
                 for mname in mods:
                     node = node.setdefault(mname, {})
@@ -156,14 +178,7 @@ def flux_dit_state_dict(tree: dict) -> dict[str, torch.Tensor]:
 def flux_dit_flat_state_dict(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """The JAX full fine-tune's save, ``{'.'-joined param path: array}``
     (``_flatten_params``), -> ``FluxDiT`` state dict entries."""
-    tree: dict = {}
-    for key, v in flat.items():
-        *mods, leaf = key.split(".")
-        node = tree
-        for m in mods:
-            node = node.setdefault(m, {})
-        node[leaf] = v
-    return flux_dit_state_dict(tree)
+    return flux_dit_state_dict(_unflatten(flat, "."))
 
 
 # ---- CLIP (transformers names) ----
@@ -213,10 +228,16 @@ _T5 = [
 
 
 def t5_state_dict(tree: dict) -> dict[str, torch.Tensor]:
-    return _convert(tree, lambda p: _lookup(_T5, p, "t5"), extra={
+    """T5, or UMT5 with a ``relative_attention_bias`` table in every layer."""
+    extra = {
         "token_embedding": ["shared.weight", "encoder.embed_tokens.weight"],
         "relative_attention_bias": ["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"],
-    })
+    }
+    for path in _flatten(tree):
+        m = re.fullmatch(r"layer_(\d+)/relative_attention_bias", path)
+        if m:
+            extra[path] = [f"encoder.block.{m.group(1)}.layer.0.SelfAttention.relative_attention_bias.weight"]
+    return _convert(tree, lambda p: _lookup(_T5, p, "t5"), extra=extra)
 
 
 # ---- VAE (diffusers names) ----
@@ -377,6 +398,86 @@ def flux_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
         "clip": clip_state_dict(variables["clip"]),
         "t5": t5_state_dict(variables["t5"]),
     }
+
+
+# ---- Wan (diffusers WanTransformer3DModel and AutoencoderKLWan names) ----
+
+_WAN_BLOCK = [
+    (r"self_(q|k|v)", "attn1.to_{0}"), ("self_o", "attn1.to_out.0"),
+    (r"cross_(q|k|v)", "attn2.to_{0}"), ("cross_o", "attn2.to_out.0"),
+    (r"self_(q|k)_norm", "attn1.norm_{0}"), (r"cross_(q|k)_norm", "attn2.norm_{0}"),
+    ("norm2", "norm2"), ("ffn_in", "ffn.net.0.proj"), ("ffn_out", "ffn.net.2"),
+]
+_WAN_TOP = [
+    ("patch_embedding", "patch_embedding"), ("head_out", "proj_out"),
+    ("text_embedding_in", "condition_embedder.text_embedder.linear_1"),
+    ("text_embedding_out", "condition_embedder.text_embedder.linear_2"),
+    ("time_fc1", "condition_embedder.time_embedder.linear_1"),
+    ("time_fc2", "condition_embedder.time_embedder.linear_2"),
+    ("time_projection", "condition_embedder.time_proj"),
+]
+
+
+def _wan_module(path: str) -> str:
+    m = re.fullmatch(r"block_(\d+)/(.+)", path)
+    if m:
+        return f"blocks.{m.group(1)}." + _lookup(_WAN_BLOCK, m.group(2), "wan dit")
+    return _lookup(_WAN_TOP, path, "wan dit")
+
+
+def wan_dit_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``WanDiT`` params (unrolled or scanned) -> ``WanDiT`` state dict."""
+    tree = _unscan(tree, (("blocks", "block_"),))
+    tables, rest = {}, {}
+    for path, v in _flatten(tree).items():
+        m = re.fullmatch(r"block_(\d+)/modulation", path)
+        if m:  # the modulation tables [n, dim] -> scale_shift_table [1, n, dim]
+            tables[f"blocks.{m.group(1)}.scale_shift_table"] = _tensor(v[None])
+        elif path == "head_modulation":
+            tables["scale_shift_table"] = _tensor(v[None])
+        else:
+            rest[path] = v
+    return {**_convert(_unflatten(rest), _wan_module), **tables}
+
+
+def wan_vae_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``WanVAE`` params -> the port's (diffusers-named) state dict."""
+    def module(path: str) -> str:
+        path = path.replace("resample_conv", "resample/1")
+        return re.sub(r"_(\d+)(?=/|$)", r".\1", path).replace("/", ".")
+
+    return _convert(tree, module)
+
+
+def wan_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``WanModel`` variables ``{dit, vae, t5}`` -> per-component state
+    dicts for ``WanModel.load_state_dicts``."""
+    return {
+        "dit": wan_dit_state_dict(variables["dit"]),
+        "vae": wan_vae_state_dict(variables["vae"]),
+        "t5": t5_state_dict(variables["t5"]),
+    }
+
+
+def wan_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX Wan ``lora`` collection, unrolled (``block_3/self_q``) or scanned
+    (``blocks/block/self_q`` with ``[L, in, r]`` / ``[L, r, out]``) -> ``{port
+    module name: {a, b, scale}}``."""
+    groups: dict[str, dict[str, np.ndarray]] = {}
+    for path, v in _flatten(tree).items():
+        mod, leaf = path.rsplit("/", 1)
+        groups.setdefault(mod, {})[leaf] = v
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for mod, leaf in groups.items():
+        m = re.fullmatch(r"blocks/block/(.+)", mod)
+        if m:
+            scales = np.reshape(leaf["scale"], -1)
+            for i in range(leaf["a"].shape[0]):
+                out[_wan_module(f"block_{i}/{m.group(1)}")] = _lora_entry(
+                    leaf["a"][i], leaf["b"][i], scales[i if scales.size > 1 else 0])
+        else:
+            out[_wan_module(mod)] = _lora_entry(leaf["a"], leaf["b"], np.reshape(leaf["scale"], -1)[0])
+    return out
 
 
 def sdxl_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:

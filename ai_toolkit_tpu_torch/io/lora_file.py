@@ -11,16 +11,19 @@ needed. Two file layouts, as the JAX job writes them
 - ``kohya`` (the UNet): ``lora_unet_<module with '.' -> '_'>.lora_down.weight``
   = a^T, ``.lora_up.weight`` = b^T and ``.alpha`` = scale * rank.
 
-A missing alpha means alpha = rank (scale 1), as in the JAX
-``unflatten_lora``. Kohya keys are ambiguous on ``_`` (``attn1_to_q``), so
-loading them needs the model's module names. Conv factors, the ComfyUI layout,
+A model whose JAX files carry other module names than the port's (Wan: the
+JAX job writes its own module paths, ``block_3.self_q``) gives ``key_map``
+on the way out and ``module_name`` on the way back. A missing alpha means
+alpha = rank (scale 1), as in the JAX ``unflatten_lora``. Kohya keys are
+ambiguous on ``_`` (``attn1_to_q``), so loading them needs the model's
+module names. Conv factors, the ComfyUI layout,
 the text-encoder prefixes (``lora_te*``) and LyCORIS files come with a later
 slice.
 """
 
 from __future__ import annotations
 
-from collections.abc import Iterable
+from collections.abc import Callable, Iterable
 
 import numpy as np
 import torch
@@ -32,10 +35,12 @@ KOHYA_PREFIX = "lora_unet"
 
 
 def flatten_lora(lora: dict[str, dict[str, torch.Tensor]], dtype=np.float16,
-                 fmt: str = "peft") -> dict[str, np.ndarray]:
-    """LoRA tree -> flat ``{external key: array}`` (JAX ``flatten_lora``)."""
+                 fmt: str = "peft", key_map: Callable[[str], str] | None = None) -> dict[str, np.ndarray]:
+    """LoRA tree -> flat ``{external key: array}`` (JAX ``flatten_lora``);
+    ``key_map``: port module name -> the file's module name."""
     out: dict[str, np.ndarray] = {}
-    for name, leaf in lora.items():
+    for module, leaf in lora.items():
+        name = key_map(module) if key_map is not None else module
         a = leaf["a"].detach().float().cpu().numpy()
         b = leaf["b"].detach().float().cpu().numpy()
         # safetensors writes the raw buffer: make the transposes C-contiguous
@@ -53,9 +58,11 @@ def flatten_lora(lora: dict[str, dict[str, torch.Tensor]], dtype=np.float16,
     return out
 
 
-def _module_name(key: str, kohya_names: dict[str, str] | None) -> str:
+def _module_name(key: str, kohya_names: dict[str, str] | None,
+                 module_name: Callable[[str], str] | None = None) -> str:
     if key.startswith(ROOT + "."):
-        return key[len(ROOT) + 1:]
+        name = key[len(ROOT) + 1:]
+        return module_name(name) if module_name is not None else name
     if key.startswith(KOHYA_PREFIX + "_"):
         if kohya_names is None:
             raise ValueError(f"LoRA key '{key}': a kohya key needs the model's module names")
@@ -66,10 +73,11 @@ def _module_name(key: str, kohya_names: dict[str, str] | None) -> str:
     raise NotImplementedError(f"LoRA key '{key}': only the PEFT and the UNet's kohya layouts are ported")
 
 
-def unflatten_lora(flat: dict[str, np.ndarray],
-                   module_names: Iterable[str] | None = None) -> dict[str, dict[str, torch.Tensor]]:
+def unflatten_lora(flat: dict[str, np.ndarray], module_names: Iterable[str] | None = None,
+                   module_name: Callable[[str], str] | None = None) -> dict[str, dict[str, torch.Tensor]]:
     """Flat external dict -> LoRA tree (inverse of :func:`flatten_lora`);
-    ``module_names``: the model's module names, which resolve kohya keys."""
+    ``module_names``: the model's module names, which resolve kohya keys;
+    ``module_name``: the inverse of a ``key_map``."""
     kohya_names = None if module_names is None else {n.replace(".", "_"): n for n in module_names}
     groups: dict[str, dict[str, np.ndarray]] = {}
     for key, v in flat.items():
@@ -81,7 +89,7 @@ def unflatten_lora(flat: dict[str, np.ndarray],
     for mod, parts in groups.items():
         if "down" not in parts or "up" not in parts:
             continue
-        name = _module_name(mod, kohya_names)
+        name = _module_name(mod, kohya_names, module_name)
         down = parts["down"].astype(np.float32)
         if down.ndim != 2:
             raise NotImplementedError(f"LoRA '{name}': conv factors are not ported")
@@ -94,20 +102,21 @@ def unflatten_lora(flat: dict[str, np.ndarray],
 
 
 def save_lora_file(lora: dict[str, dict[str, torch.Tensor]], path: str, metadata: dict | None = None,
-                   dtype=np.float16, fmt: str = "peft") -> None:
+                   dtype=np.float16, fmt: str = "peft", key_map: Callable[[str], str] | None = None) -> None:
     from safetensors.numpy import save_file
 
     meta = {str(k): str(v) for k, v in (metadata or {}).items()}
-    save_file(flatten_lora(lora, dtype, fmt), path, metadata=meta)
+    save_file(flatten_lora(lora, dtype, fmt, key_map), path, metadata=meta)
 
 
-def load_lora_file(path: str, module_names: Iterable[str] | None = None
+def load_lora_file(path: str, module_names: Iterable[str] | None = None,
+                   module_name: Callable[[str], str] | None = None
                    ) -> tuple[dict[str, dict[str, torch.Tensor]], dict]:
-    """Returns (LoRA tree on the CPU, metadata); ``module_names`` as in
-    :func:`unflatten_lora`."""
+    """Returns (LoRA tree on the CPU, metadata); ``module_names`` and
+    ``module_name`` as in :func:`unflatten_lora`."""
     from safetensors import safe_open
 
     with safe_open(path, framework="numpy") as f:
         meta = dict(f.metadata() or {})
         flat = {k: f.get_tensor(k) for k in f.keys()}
-    return unflatten_lora(flat, module_names), meta
+    return unflatten_lora(flat, module_names, module_name), meta

@@ -1,7 +1,8 @@
 """Batch generation job (``ai_toolkit_tpu/jobs/generate_process.py`` in PyTorch).
 A process-level ``lora_path`` (a LoRA file as the train job saves it: PEFT
-for a DiT, kohya for the UNet) is overlaid on the model's DiT or UNet while
-the prompts are generated."""
+for a DiT, under Wan's JAX module names for Wan, kohya for the UNet) is
+overlaid on the model's DiT or UNet while the prompts are generated. A video
+model writes each clip as an animated webp (a one-frame clip as an image)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import os
 import torch
 
 from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig, ProcessConfig
-from ai_toolkit_tpu_torch.generation import generate, save_image_atomic
+from ai_toolkit_tpu_torch.generation import generate, save_image_atomic, save_video_atomic
 from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
 from ai_toolkit_tpu_torch.models.registry import get_model_class
 
@@ -32,14 +33,21 @@ class GenerateProcess:
         lora = None
         if cfg.extras.get("lora_path"):
             names = [n for n, _ in variables[model.main_component].named_modules()]
-            lora, _ = load_lora_file(cfg.extras["lora_path"], module_names=names)
+            lora, _ = load_lora_file(cfg.extras["lora_path"], module_names=names,
+                                     module_name=getattr(model, "lora_module_name", None))
         outputs, timings = [], []
         for i, item in enumerate(cfg.sample.prompts):
             seed = cfg.sample.seed + (i if cfg.sample.walk_seed else 0)
             gen = GenerateImageConfig.from_sample(cfg.sample, item, seed)
             timings.append({"width": gen.width, "height": gen.height})
             out = generate(model, variables, gen, lora=lora, stats=timings[-1])
-            path = os.path.join(self.output_dir, f"{self.job_name}_{i:04d}.{gen.output_ext}")
-            save_image_atomic(out, path)
+            if hasattr(model, "frame_count_snapper"):  # video
+                ext = "webp" if out.shape[0] > 1 else gen.output_ext
+                path = os.path.join(self.output_dir, f"{self.job_name}_{i:04d}.{ext}")
+                timings[-1]["frames"] = out.shape[0]
+                save_video_atomic(out, path, fps=gen.fps)
+            else:
+                path = os.path.join(self.output_dir, f"{self.job_name}_{i:04d}.{gen.output_ext}")
+                save_image_atomic(out, path)
             outputs.append(path)
         return {"images": outputs, "timings": timings}

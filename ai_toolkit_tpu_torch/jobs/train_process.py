@@ -9,7 +9,10 @@ AdamW(8bit) -> the schedule (``samplers/factory.get_schedule``: flow matching,
 or DDPM for SDXL) -> folder dataset with in-memory latent and text-embedding
 caches -> train loop (``train/step.py``) with the save cadence -> final save
 of the LoRA (the EMA copy when EMA is on) in the PEFT layout for a
-flow-matching DiT, the kohya layout (``lora_unet_...``) for the UNet.
+flow-matching DiT, under the module names the JAX job writes (the model's
+``lora_key``, Wan's JAX paths), the kohya layout (``lora_unet_...``) for the
+UNet. A video model (Wan) snaps each dataset's ``num_frames`` to its VAE's
+frame grid and trains on 5-D latents ``[B, T, h, w, C]``.
 
 A full fine-tune (``network`` absent or of type ``full`` / ``fine_tune``,
 flow-matching DiTs only) trains the DiT's own parameters in place, those its ``only_if_contains`` /
@@ -178,6 +181,10 @@ class SDTrainProcess:
         if cfg.save.push_to_hub:
             raise NotImplementedError("push_to_hub is not ported")
         sizes = [n for n in cfg.mesh.axes.values() if n not in (1, -1)]
+        if cfg.mesh.axes.get("sp", 1) not in (1, -1) and cfg.model.arch.startswith("wan"):
+            from ai_toolkit_tpu_torch.models.wan_model import SEQUENCE_PARALLEL
+
+            raise NotImplementedError(f"mesh {cfg.mesh.axes}: {SEQUENCE_PARALLEL}")
         if sizes:
             raise NotImplementedError(f"mesh {cfg.mesh.axes}: multi-GPU comes with a later slice")
         if not cfg.datasets:
@@ -204,6 +211,7 @@ class SDTrainProcess:
 
         # 1. model (1b. quantized DiT), 2. LoRA on the DiT / UNet or the full fine-tune's selection
         model = get_model_class(cfg.model.arch)(cfg.model, dev)
+        ckpt.key_map = getattr(model, "lora_key", None)
         variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed))
         net = variables[model.main_component]
         if cfg.model.quantize:
@@ -299,6 +307,15 @@ class SDTrainProcess:
 
     def _build_data(self, model, variables):
         cfg = self.cfg
+        # a video model snaps each dataset's frame count onto its VAE's grid (wan: 4k+1)
+        if hasattr(model, "frame_count_snapper"):
+            for d in cfg.datasets:
+                if d.num_frames > 1:
+                    snapped = model.frame_count_snapper(d.num_frames)
+                    if snapped != d.num_frames:
+                        print(f"dataset {d.folder_path}: num_frames {d.num_frames} -> {snapped} "
+                              f"(VAE temporal grid)")
+                        d.num_frames = snapped
         loader = build_dataloader(cfg.datasets, cfg.train.batch_size, model.bucket_divisibility,
                                   trigger_word=cfg.trigger_word, encode_fn=None, latent_cache={})
 
@@ -327,9 +344,15 @@ class SDTrainProcess:
         dev = self.device
         cond = dict(text_cache.get(raw["captions"]))
         latents = torch.from_numpy(raw["latents"]).to(dev)
-        b, h, w, _ = latents.shape
         batch = {"latents": latents, "cond": cond,
                  "loss_multiplier": torch.from_numpy(raw["loss_multiplier"]).to(dev)}
+        if latents.dim() == 5:  # video latents [B, T, h, w, C]: rope over (t, y, x)
+            tt, h, w = latents.shape[1:4]
+            cond["pe"] = model.rope_table(tt, h, w)
+            pt, ph, pw = model.dit_config.patch_size
+            batch["image_seq_len"] = (tt // pt) * (h // ph) * (w // pw)
+            return batch
+        b, h, w, _ = latents.shape
         if model.is_flow_matching:
             cond["pe"] = model.rope_table(h, w, int(cond["txt"].shape[1]))
             cond["guidance"] = torch.full((b,), 1.0, dtype=torch.float32, device=dev)

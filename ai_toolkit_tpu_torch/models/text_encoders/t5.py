@@ -3,8 +3,9 @@
 Module names follow transformers' ``T5EncoderModel``
 (``encoder.block.{i}.layer.0.SelfAttention.q``, ``shared`` tied to
 ``encoder.embed_tokens``), so its state dict loads as it is. The relative
-position bias of block 0 is shared by every layer; UMT5's per-layer tables
-are not ported yet.
+position bias of block 0 is shared by every layer; with ``per_layer_bias``
+(UMT5, wan's text encoder: transformers ``UMT5EncoderModel``) every block
+owns its table.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ class T5Config:
     num_heads: int = 64
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
+    # UMT5: every layer has its own relative-bias table instead of sharing layer 0's
+    per_layer_bias: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @classmethod
@@ -125,7 +128,7 @@ class T5Encoder(nn.Module):
         self.shared = Embedding(cfg.vocab_size, cfg.d_model, 1.0, device=device)
         self.encoder = nn.Module()
         self.encoder.embed_tokens = self.shared  # tied, as in transformers
-        self.encoder.block = nn.ModuleList(T5Block(cfg, i == 0, device=device)
+        self.encoder.block = nn.ModuleList(T5Block(cfg, i == 0 or cfg.per_layer_bias, device=device)
                                            for i in range(cfg.num_layers))
         self.encoder.final_layer_norm = RMSNorm(cfg.d_model, device=device)
 
@@ -136,8 +139,10 @@ class T5Encoder(nn.Module):
         buckets = relative_position_bucket(pos[None, :] - pos[:, None],
                                            cfg.relative_attention_num_buckets,
                                            cfg.relative_attention_max_distance)
-        table = self.encoder.block[0].layer[0].SelfAttention.relative_attention_bias.weight
-        pos_bias = table[buckets].permute(2, 0, 1)[None]  # [1, H, S, S]
+        pos_bias = None
         for blk in self.encoder.block:
+            if pos_bias is None or cfg.per_layer_bias:
+                table = blk.layer[0].SelfAttention.relative_attention_bias.weight
+                pos_bias = table[buckets].permute(2, 0, 1)[None]  # [1, H, S, S]
             x = blk(x, pos_bias)
         return self.encoder.final_layer_norm(x)

@@ -105,7 +105,7 @@ def train_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dic
 
 def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig):
     """``train_step(state, batches, generator) -> metrics`` over ``grad_accum``
-    micro-batches. Each holds ``latents`` ``[B, h, w, C]``, ``cond``,
+    micro-batches. Each holds ``latents`` ``[B, h, w, C]`` (video: ``[B, T, h, w, C]``), ``cond``,
     ``loss_multiplier`` and (flow matching) ``image_seq_len``; t and the noise are drawn from
     ``generator`` on the latents' device."""
 

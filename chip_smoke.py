@@ -47,14 +47,33 @@ Phases (any failure raises and the script exits non-zero):
   13. a full-width SDXL UNet cut to one transformer layer per level, in f32,
      on the card against the same module on the CPU: the forward and one
      checkpointed LoRA training step's loss and gradients;
-  14. the main path of this slice: the SDXL LoRA ``sd_trainer`` job at
-     1024^2 from a job file written from configs/examples/train_lora_sdxl_tpu.yaml
-     (ddpm, min_snr_gamma, adamw8bit, EMA, no checkpointing), launches per
-     step checked (``--profile DIR`` profiles its last step too);
+  14. the SDXL LoRA ``sd_trainer`` job at 1024^2 from a job file written from
+     configs/examples/train_lora_sdxl_tpu.yaml (ddpm, min_snr_gamma,
+     adamw8bit, EMA, no checkpointing), launches per step checked
+     (``--profile DIR`` profiles its last step too);
   15. the SDXL ``generate`` job at 1024x1024, DDIM 8 steps, guidance 7 as a
-     batch of two, 2 prompts, with the kohya LoRA it saved.
-The line before the last is the kernel table; the SDXL launches are printed
-on a line of their own before it; the last line is the result.
+     batch of two, 2 prompts, with the kohya LoRA it saved;
+  16. the flash kernels at Wan 2.1's shapes (12 heads of 128, bf16): the
+     forward, dq and dk/dv at the train clip's 8,100 tokens, self and across
+     to the 512 text tokens (with a ragged tail tile whose lse is below -88),
+     the forward at the 81-frame clip's 32,760 tokens, self and cross (its
+     first and ragged last Q tiles against the plain version over every key),
+     each timed against its plain version (where its f32 logits fit), the
+     library call and its bound;
+  17. a full-width Wan 2.1 1.3B DiT cut to one block, in f32, on the card
+     against the same module on the CPU at a ragged token count: the forward
+     and one checkpointed LoRA training step's loss and gradients;
+  18. the main path of this slice: the Wan 2.1 1.3B LoRA ``sd_trainer`` job
+     from a job file written from configs/examples/train_lora_wan21_tpu.yaml
+     (rank 32, adamw, flowmatch with shift timesteps, bf16, 33 frames at 480^2
+     = 8,100 tokens, per-block checkpointing) over four seeded MJPG clips
+     written with OpenCV, launches per step checked (``--profile DIR``
+     profiles its last step too);
+  19. the Wan 2.1 1.3B ``generate`` job at 480x832, 81 frames (32,760
+     tokens), 8 Euler steps, 1 prompt, with the LoRA it saved, all 81 frames
+     decoded at once and written as an animated webp.
+The line before the last is the kernel table; the SDXL and Wan launches are
+printed on lines of their own before it; the last line is the result.
 """
 
 from __future__ import annotations
@@ -103,6 +122,20 @@ SDXL_SHAPES = [
     ((2, 4096, 77, 10, 64), "level-1 cross, CFG batch"),
 ]
 FLASH_CASES += [(shape, torch.bfloat16, 2e-2) for shape, _ in SDXL_SHAPES]
+# Wan 2.1 1.3B (12 heads of 128): 33 frames at 480^2 train on 9 x 30 x 30 = 8,100
+# tokens (63 * 128 + 36); the 81-frame 480x832 clip samples 21 x 30 x 52 = 32,760
+# (255 * 128 + 120); cross-attention over the 512 UMT5 tokens. (shape, label,
+# backward and plain version timed: the plain version's f32 logits at 32,760 x
+# 32,760 x 12 heads would take 51 GB)
+WAN_SHAPES = [
+    ((1, 8100, 8100, 12, 128), "train self", True),
+    ((1, 8100, 512, 12, 128), "train cross", True),
+    ((1, 32760, 32760, 12, 128), "generate self", False),
+    ((1, 32760, 512, 12, 128), "generate cross", False),
+]
+WAN_BLOCKS = 30  # one self- and one cross-attention each
+WAN_CLIPS, WAN_FRAMES, WAN_RES = 4, 33, 480
+WAN_GEN = (832, 480, 81, 8)  # width, height, frames, Euler steps
 LSE_TOL = 1e-3
 MAIN_SHAPE = (1, 4608, 24, 128)
 RAGGED_SHAPE = (1, 4481, 24, 128)  # flux-dev at 1008^2: 512 text + 3969 image tokens, masked tails
@@ -845,8 +878,9 @@ def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str
               raw: dict | None = None) -> dict:
     """A LoRA ``sd_trainer`` job on the card (configs/examples/train_lora_flux_tpu.yaml,
     train_lora_hidream_tpu.yaml, or the job ``raw``); the save is the EMA copy
-    of the factors."""
+    of the factors when EMA is on."""
     from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
+    from ai_toolkit_tpu_torch.models.registry import get_model_class
 
     if raw is None:
         result, proc, report = _run_train_job(name, model, {"type": "lora", "linear": 16, "linear_alpha": 16},
@@ -857,14 +891,19 @@ def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str
     tr, ema = proc.state.trainable, proc.state.ema
     b_keys = [k for k in tr if k.endswith(".b")]
     check(all(bool(tr[k].abs().max() > 0) for k in b_keys), "a LoRA b factor is still zero")
-    check(any(not torch.equal(ema[k], tr[k]) for k in tr), "the EMA equals the trainable parameters")
+    check(ema is None or any(not torch.equal(ema[k], tr[k]) for k in tr),
+          "the EMA equals the trainable parameters")
     path = result["save_path"]
     check(os.path.isfile(path), f"no LoRA file at {path}")
-    tree, meta = load_lora_file(path, module_names=list(proc.lora))  # the names resolve kohya keys
+    arch = proc.cfg.model.arch  # the names resolve kohya keys, the model's inverse key map Wan's JAX keys
+    tree, meta = load_lora_file(path, module_names=list(proc.lora),
+                                module_name=getattr(get_model_class(arch), "lora_module_name", None))
+    check(sorted(tree) == sorted(proc.lora), "the LoRA file reloads under other module names")
     check(len(tree) == result["lora_modules"] and meta.get("step") == str(steps),
           f"LoRA file reloads with {len(tree)} modules, metadata {meta}")
     saved_b = max(float(v["b"].abs().max()) for v in tree.values())
-    print(f"saved {path}: {len(tree)} modules, max|b| {saved_b:.3e} (EMA copy, fp16)")
+    print(f"saved {path}: {len(tree)} modules, max|b| {saved_b:.3e} ({'EMA copy' if ema is not None else 'trained'}"
+          f", fp16)")
     check(saved_b > 0, "the saved LoRA has zero b factors")
     del proc, tr, ema
     return {**report, "lora_path": path}
@@ -916,16 +955,18 @@ def fullft_job(name: str, model: dict, per_step: dict[str, int], profile_dir: st
 
 def generate_job(model: dict, width: int, height: int, steps: int, prompts: list[str],
                  per_step: dict[str, int], lora_path: str | None = None,
-                 sampler: str = "flowmatch", guidance_scale: float = 4) -> dict[str, int]:
+                 sampler: str = "flowmatch", guidance_scale: float = 4, num_frames: int = 1) -> dict[str, int]:
     """A ``generate`` job on the card; ``per_step`` is the launches of each
-    kernel one denoise step must make."""
+    kernel one denoise step must make; ``num_frames`` > 1: a video model's
+    clips, each an animated webp of that many frames."""
     from PIL import Image
 
     from ai_toolkit_tpu_torch.jobs import run_job
 
     proc = {"type": "generate", "training_folder": OUT_DIR, "model": model,
             "sample": {"sampler": sampler, "width": width, "height": height, "guidance_scale": guidance_scale,
-                       "sample_steps": steps, "seed": 42, "walk_seed": True, "prompts": prompts}}
+                       "sample_steps": steps, "seed": 42, "walk_seed": True, "prompts": prompts,
+                       "num_frames": num_frames, "fps": 16}}
     if lora_path:
         proc["lora_path"] = lora_path
     raw = {"job": "generate", "config": {"name": f"smoke_{model['arch']}_{width}x{height}",
@@ -939,13 +980,17 @@ def generate_job(model: dict, width: int, height: int, steps: int, prompts: list
     launches = _launches()
     wall = time.perf_counter() - t0
     for path in result["images"]:
-        check(os.path.isfile(path) and Image.open(path).size == (width, height), f"bad image {path}")
+        check(os.path.isfile(path), f"no output at {path}")
+        with Image.open(path) as im:
+            check(im.size == (width, height) and getattr(im, "n_frames", 1) == num_frames,
+                  f"bad output {path}: {im.size}, {getattr(im, 'n_frames', 1)} frames")
     recs = result["timings"]
     check(len(recs) == len(prompts) and all(r["latents_finite"] for r in recs),
           f"non-finite latents: {recs}")
     for r in recs:
         steps_ms = r["step_ms"]
-        print(f"image {r['width']}x{r['height']}: encode {r['encode_ms']:.1f} ms, denoise steps "
+        what = f"{num_frames} frames ({r['tokens']} tokens)" if num_frames > 1 else "image"
+        print(f"{what} {r['width']}x{r['height']}: encode {r['encode_ms']:.1f} ms, denoise steps "
               f"{', '.join(f'{x:.1f}' for x in steps_ms)} ms (median {statistics.median(steps_ms):.1f}), "
               f"VAE decode {r['decode_ms']:.1f} ms, total {r['total_s']:.3f} s")
     print(f"job wall {wall:.1f} s (model build + seeded init included), "
@@ -957,18 +1002,20 @@ def generate_job(model: dict, width: int, height: int, steps: int, prompts: list
     return launches
 
 
-def sdxl_attention_times() -> dict:
-    """The flash kernels at the SDXL UNet's shapes (their agreement with the
-    plain versions is checked among the cases of phases 2 and 3): forward, dq
-    and dk/dv each timed against its plain version, the forward against
-    scaled_dot_product_attention, dq and dk/dv against its backward, each
-    beside its bound. Returns ``{label: {fwd|dq|dkv: {...}}}``."""
-    phase("flash kernels at the SDXL UNet's shapes (head_dim 64), bf16")
+def attention_times(title: str, prefix: str, cases, seed: int) -> dict:
+    """The flash kernels at a model's shapes: the forward and, where ``full``,
+    dq and dk/dv, each timed with events (back to back, the host's launch
+    hidden behind the card's work) and with the card alone (:func:`_device_ms`),
+    against its plain version (where ``full``: its f32 logits must fit), the
+    forward against scaled_dot_product_attention, dq and dk/dv against its
+    backward, each beside its bound. ``cases``: ``[(shape, label, full)]``.
+    Returns ``{label: {fwd|dq|dkv: {...}}}``."""
+    phase(title)
     from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 
-    gen = torch.Generator("cuda").manual_seed(4)
+    gen = torch.Generator("cuda").manual_seed(seed)
     res = {}
-    for (b, s, t, h, d), label in SDXL_SHAPES:
+    for (b, s, t, h, d), label, full in cases:
         q, g = (_rand((b, s, h, d), torch.bfloat16, gen) for _ in range(2))
         k, v = (_rand((b, t, h, d), torch.bfloat16, gen) for _ in range(2))
         scale = d ** -0.5
@@ -976,30 +1023,39 @@ def sdxl_attention_times() -> dict:
         delta = fa.flash_attention_bwd_delta(out, g)
         qt, kt, vt = _sdpa_layout(q, k, v)
         lib_fwd = statistics.median(_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20))
-        lib_bwd = _sdpa_bwd_ms(q, k, v, g)
-        lib_dev = {"fwd": _device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-                   "bwd": _sdpa_bwd_ms(q, k, v, g, device_only=True)}
+        lib_dev = {"fwd": _device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))}
+        if full:
+            lib_bwd = _sdpa_bwd_ms(q, k, v, g)
+            lib_dev["bwd"] = _sdpa_bwd_ms(q, k, v, g, device_only=True)
         sq, st = b * s * h * d, b * t * h * d  # elements of one [B,S,H,D] and one [B,T,H,D] tensor
         row = {}
-        for name, kern, plain, ops, nbytes, lib in (  # operations per B*H*S*T*D
+        for name, kern, plain, ops, nbytes in (  # operations per B*H*S*T*D
             ("fwd", lambda: fa.flash_attention_fwd(q, k, v), lambda: fa.flash_attention_fwd_plain(q, k, v),
-             4, 2 * (2 * sq + 2 * st) + 4 * b * h * s, lib_fwd),  # q, k, v in, out out, lse out
+             4, 2 * (2 * sq + 2 * st) + 4 * b * h * s),  # q, k, v in, out out, lse out
             ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, scale),
              lambda: fa.flash_attention_bwd_dq_plain(q, k, v, g, lse, delta, scale),
-             6, 2 * (3 * sq + 2 * st) + 8 * b * h * s, lib_bwd),  # q, dO, k, v in, dq out; lse, delta
+             6, 2 * (3 * sq + 2 * st) + 8 * b * h * s),  # q, dO, k, v in, dq out; lse, delta
             ("dkv", lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale),
              lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, g, lse, delta, scale),
-             8, 2 * (2 * sq + 4 * st) + 8 * b * h * s, lib_bwd),  # q, dO, k, v in, dk, dv out
+             8, 2 * (2 * sq + 4 * st) + 8 * b * h * s),  # q, dO, k, v in, dk, dv out
         ):
-            ms, plain_ms, n = _in_turns(kern, plain)
+            if name != "fwd" and not full:
+                continue
+            if full:
+                ms, plain_ms, n = _in_turns(kern, plain)
+            else:
+                ms, plain_ms, n = statistics.median(_time_ms(kern, 20)), None, 20
             dev_ms = _device_ms(kern)
             flops = ops * b * h * s * t * d
             bound, by = _bound_ms(flops, nbytes)
             what = "scaled_dot_product_attention" if name == "fwd" else "its backward (dq, dk, dv)"
+            lib = lib_fwd if name == "fwd" else lib_bwd
             lib_d = lib_dev["fwd" if name == "fwd" else "bwd"]
-            print(f"SDXL {label} (B,S,T,H,D)=({b},{s},{t},{h},{d}) {name}: kernel {ms:.4f} ms "
+            plain_txt = (f"plain {plain_ms:.4f} ms" if plain_ms is not None else
+                         f"plain not measured (its f32 logits: {4 * b * h * s * t / 2**30:.1f} GiB)")
+            print(f"{prefix} {label} (B,S,T,H,D)=({b},{s},{t},{h},{d}) {name}: kernel {ms:.4f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s of {flops:.4e} operations; back to back on the device "
-                  f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, median of {n}; library {what} "
+                  f"{dev_ms:.4f} ms), {plain_txt}, median of {n}; library {what} "
                   f"{lib:.4f} ms (back to back on the device {lib_d:.4f} ms); kernel / library {ms / lib:.2f}x, "
                   f"on the device {dev_ms / lib_d:.2f}x; bound {bound:.4f} ms ({by}; the kernel at "
                   f"{100 * bound / ms:.1f} % of its rate, {100 * bound / dev_ms:.1f} % on the device)")
@@ -1009,6 +1065,67 @@ def sdxl_attention_times() -> dict:
         del q, k, v, g, out, lse, delta, qt, kt, vt
         torch.cuda.empty_cache()
     return res
+
+
+def wan_kernel_checks() -> dict[str, float]:
+    """The flash kernels against their plain versions at Wan 2.1's shapes
+    (WAN_SHAPES), bf16: out within 2e-2 of max|ref| (capped at 2e-2), lse
+    within LSE_TOL, dq, dk and dv within 2e-2 of max|ref|. At 32,760 tokens
+    the rows of the first Q tile and of the ragged last one are held against
+    the plain version on those rows and every key (rows are independent, so
+    that is exact). A cross-attention case with q + 3.2 and k - 3.2 puts every
+    lse, the ragged tail tile's too, near -106. Returns the largest absolute
+    errors of the forward, dq and dk/dv."""
+    phase("flash kernels vs plain versions at Wan 2.1's shapes (head_dim 128), bf16")
+    from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    cases = [(shape, label, full, None) for shape, label, full in WAN_SHAPES]
+    cases.append(((1, 8100, 512, 12, 128), "train cross, negative logits", True,
+                  _negative_qkv((1, 8100, 512, 12, 128), 3.2, gen)))
+    for (b, s, t, h, d), label, full, qkv in cases:
+        q, k, v = qkv if qkv is not None else (
+            _rand((b, s, h, d), torch.bfloat16, gen), *(_rand((b, t, h, d), torch.bfloat16, gen) for _ in range(2)))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        # full: every row; else the first Q tile and the ragged last one
+        tail = s - (s % 128 or 128)
+        rows = slice(None) if full else torch.cat([torch.arange(128), torch.arange(tail, s)]).cuda()
+        ref_out, ref_lse = fa.flash_attention_fwd_plain(q[:, rows].float(), k.float(), v.float())
+        got_out, got_lse = out[:, rows].float(), lse[:, :, rows]
+        e_out = (got_out - ref_out).abs().max().item()
+        out_tol = 2e-2 * min(1.0, ref_out.abs().max().item())
+        e_lse = (got_lse - ref_lse).abs().max().item()
+        tail_lse = lse[:, :, tail:].max().item()
+        msg = (f"Wan {label} (B,S,T,H,D)=({b},{s},{t},{h},{d}): {'all' if full else 'first and last tile'} "
+               f"rows; out_err {e_out:.3e} (tol {out_tol:.3e}), lse_err {e_lse:.3e} (tol {LSE_TOL:g}); "
+               f"largest lse of the ragged last tile ({s - tail} rows) {tail_lse:.1f}")
+        check(bool(torch.isfinite(out).all()) and e_out <= out_tol and e_lse <= LSE_TOL,
+              f"{msg}: the forward disagrees with its plain version")
+        if qkv is not None:
+            check(tail_lse < -88.0, f"{msg}: the negative case's tail lse is not below -88")
+        err["fwd"] = max(err["fwd"], e_out)
+        del ref_out, ref_lse, got_out
+        if full:
+            g = _rand((b, s, h, d), torch.bfloat16, gen)
+            dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, g)
+            torch.cuda.synchronize()
+            refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, g.float())
+            rel = []
+            for name, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                check(bool(torch.isfinite(x).all()), f"{msg}: {name} not finite")
+                a = (x.float() - r).abs().max().item()
+                rel.append(a / r.abs().max().item())
+                key = "dq" if name == "dq" else "dkv"
+                err[key] = max(err[key], a)
+            msg += f"; rel err dq/dk/dv {rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} (tol 2e-2)"
+            check(max(rel) <= 2e-2, f"{msg}: the backward kernels disagree with their plain versions")
+            del g, dq, dk, dv, refs
+        print(msg)
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return err
 
 
 def unet_reference(fwd_launches: dict, step_launches: dict) -> None:
@@ -1123,6 +1240,134 @@ def _sdxl_job(name: str, profile_dir: str | None) -> dict:
     return job
 
 
+def wan_reference(fwd_launches: dict, step_launches: dict) -> None:
+    """The Wan 2.1 1.3B DiT at full width (dim 1536, 12 heads of 128, FFN 8960,
+    text dim 4096) cut to one block, in f32, on the card against the same
+    module on the CPU (which takes the flash kernels' plain versions), over a
+    ragged 3 x 10 x 14 latent grid (105 tokens) and 512 text tokens: the
+    forward, and one LoRA training step's loss and a / b gradients with the
+    block checkpointed, as in training."""
+    phase("full-width Wan 2.1 1.3B DiT (one block, f32, 105 tokens): card vs CPU")
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
+    from ai_toolkit_tpu_torch.models.wan_dit import WanConfig, WanDiT, wan_lora_targets, wan_patchify, wan_position_ids
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+    from ai_toolkit_tpu_torch.ops.rope import multi_axis_rope
+
+    cfg = dataclasses.replace(WanConfig.wan21_1_3b(), num_layers=1, dtype=torch.float32, remat=False)
+    gpu = init_parameters(WanDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
+    gpu.eval().requires_grad_(False)
+    cpu = WanDiT(cfg, device="cpu").eval().requires_grad_(False)
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    tt, hh, ww = 3, 10, 14
+    lat = torch.randn((1, tt, hh, ww, cfg.in_channels), generator=g)
+    inputs = [wan_patchify(lat, cfg.patch_size), torch.randn((1, 512, cfg.text_dim), generator=g),
+              torch.tensor([0.7]),
+              multi_axis_rope(torch.from_numpy(wan_position_ids(tt, hh // 2, ww // 2)), list(cfg.axes_dim))]
+    gpu_in = [x.cuda() for x in inputs]
+    _reset_launches()
+    with torch.inference_mode():
+        ref = cpu(*inputs)
+        out = gpu(*gpu_in).cpu()
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    tol = 1e-3 * max(1.0, scale)  # f32 both sides, TF32 off; summation order only
+    print(f"forward: out {tuple(out.shape)} max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {tol:.3e}) "
+          f"kernel launches={_launches()}")
+    check(_launches() == fwd_launches and bool(torch.isfinite(out).all()) and err <= tol,
+          "the Wan DiT on the card disagrees with the CPU")
+
+    spec = LoRASpec(rank=32, alpha=32.0, target_patterns=wan_lora_targets())
+    lg = build_lora(gpu, spec, torch.Generator("cuda").manual_seed(2))
+    gb = torch.Generator("cuda").manual_seed(3)
+    with torch.no_grad():
+        for m in lg.values():  # b non-zero, else the gradient of a is zero
+            m.b.normal_(0.0, 0.01, generator=gb)
+    lc = build_lora(cpu, spec, torch.Generator().manual_seed(2))
+    cpu.load_state_dict(gpu.state_dict())
+    gpu.gradient_checkpointing = cpu.gradient_checkpointing = True
+    target = torch.randn(out.shape, generator=g)
+    names = [(n, leaf) for n in lg for leaf in ("a", "b")]
+
+    def loss_and_grads(model, lora, args, tgt):
+        loss = (model(*args).float() - tgt).square().mean()
+        return loss.item(), torch.autograd.grad(loss, [getattr(lora[n], leaf) for n, leaf in names])
+
+    _reset_launches()
+    ref_loss, ref_grads = loss_and_grads(cpu, lc, inputs, target)
+    loss, grads = loss_and_grads(gpu, lg, gpu_in, target.cuda())
+    launches = _launches()
+    worst = max(((gd.cpu() - gr).abs().max() / gr.abs().max().clamp_min(1e-30)).item()
+                for gd, gr in zip(grads, ref_grads))
+    print(f"LoRA train step ({len(lg)} modules, checkpointed block): loss card {loss:.6f} vs CPU {ref_loss:.6f}; "
+          f"{len(grads)} a / b tensors, worst max|dgrad|/max|grad| {worst:.3e} (tol 1e-3); kernel launches={launches}")
+    check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss) and worst <= 1e-3 and launches == step_launches,
+          "the Wan LoRA train step on the card disagrees")
+    del gpu, cpu, lg, lc, grads, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _wan_clips() -> str:
+    """WAN_CLIPS seeded WAN_FRAMES-frame clips at WAN_RES^2 (moving colour
+    fields plus noise), written with OpenCV as MJPG .avi, with captions; at
+    the bucket's size, so the loader's cover-resize keeps their size."""
+    import cv2
+    import numpy as np
+
+    folder = os.path.join(OUT_DIR, "wan_clips")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(0)
+    n = WAN_RES
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) / n
+    subjects = ["a red fox running", "waves on a beach", "a candle flame", "clouds over a mountain lake"]
+    for i in range(WAN_CLIPS):
+        f, ph = rng.uniform(1, 6, 3), rng.uniform(0, 6.3, 3)
+        wr = cv2.VideoWriter(os.path.join(folder, f"clip_{i}.avi"), cv2.VideoWriter_fourcc(*"MJPG"), 16, (n, n))
+        check(wr.isOpened(), "cv2.VideoWriter cannot write MJPG")
+        for j in range(WAN_FRAMES):
+            img = np.stack([np.sin(f[c] * 6.3 * (xx + yy * (c + 1) / 3 + 0.02 * j) + ph[c]) for c in range(3)], -1)
+            img = 127.5 * (img + 1) + rng.normal(0, 8, img.shape)
+            wr.write(np.clip(img, 0, 255).astype(np.uint8))
+        wr.release()
+        with open(os.path.join(folder, f"clip_{i}.txt"), "w") as fh:
+            fh.write(f"a video of {subjects[i % len(subjects)]}")
+    return folder
+
+
+def _wan_job(name: str, profile_dir: str | None) -> dict:
+    """The Wan 2.1 LoRA job: configs/examples/train_lora_wan21_tpu.yaml cut to
+    this run (seeded random weights, the seeded clips, latents cached in
+    memory, no sample section, a few steps), written to a job file and read
+    back through the port's config loader. It keeps rank 32 / alpha 32, adamw
+    at lr 1e-4, flowmatch with shift timesteps, bf16, batch 1, 33 frames at
+    resolution 480 and the fp16 save."""
+    import yaml
+
+    from ai_toolkit_tpu_torch.config import get_config
+
+    raw = get_config(os.path.join(ROOT, "configs", "examples", "train_lora_wan21_tpu.yaml"))
+    raw["config"]["name"] = name
+    proc = raw["config"]["process"][0]
+    proc["training_folder"] = os.path.join(OUT_DIR, "train")
+    proc["datasets"][0].update(folder_path=_wan_clips(), cache_latents=True, cache_latents_to_disk=False)
+    proc["train"].update(steps=_train_steps(profile_dir), seed=42)
+    proc["model"]["name_or_path"] = ""
+    proc.pop("sample")
+    proc["logging"] = {"log_every": 1}
+    path = os.path.join(OUT_DIR, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f, sort_keys=False)
+    job = get_config(path)
+    p = job["config"]["process"][0]
+    t, d, net = p["train"], p["datasets"][0], p["network"]
+    check(p["model"]["arch"] == "wan21" and t["timestep_type"] == "shift" and t["optimizer"] == "adamw"
+          and t["dtype"] == "bf16" and d["num_frames"] == WAN_FRAMES and d["resolution"] == [WAN_RES]
+          and net["linear"] == net["linear_alpha"] == 32 and p["save"]["dtype"] == "float16",
+          f"{path} lost the job's settings")
+    print(f"job file {path} (from configs/examples/train_lora_wan21_tpu.yaml)")
+    return job
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -1185,13 +1430,14 @@ def main(argv: list[str]) -> int:
     fullft = fullft_job("smoke_hidream_fullft", {**HIDREAM_MODEL, "quantize": False,
                                                  "only_if_contains": FT_BANKS}, ft_step, args.profile)
 
-    sdxl_times = sdxl_attention_times()
+    sdxl_times = attention_times("flash kernels at the SDXL UNet's shapes (head_dim 64), bf16", "SDXL",
+                                 [(shape, label, True) for shape, label in SDXL_SHAPES], 4)
     # the cut UNet: transformer blocks down 1 + 1, mid 1, up 2 + 2; two attentions each
     unet_reference(_counts(fwd=2 * SDXL_CUT_BLOCKS), _counts(4 * SDXL_CUT_BLOCKS, 2 * SDXL_CUT_BLOCKS,
                                                              2 * SDXL_CUT_BLOCKS))
 
-    phase("main path of this slice: SDXL LoRA sd_trainer job, 1024x1024, ddpm, min_snr_gamma 5, batch 1, "
-          "rank 16, adamw8bit, EMA, no checkpointing")
+    phase("SDXL LoRA sd_trainer job, 1024x1024, ddpm, min_snr_gamma 5, batch 1, rank 16, adamw8bit, EMA, "
+          "no checkpointing")
     # per step: every attention's forward, dq and dk/dv once: the LoRA on every
     # q, k and v projection makes each input need a gradient (no recompute)
     sdxl_step = _counts(SDXL_ATTENTIONS, SDXL_ATTENTIONS, SDXL_ATTENTIONS)
@@ -1206,6 +1452,29 @@ def main(argv: list[str]) -> int:
         "train_per_step": {k: v / sdxl["steps"] for k, v in sdxl["launches"].items()},
         "denoise_per_step": {k: v / (8 * len(prompts)) for k, v in sdxl_gen.items()},
         "ms": {label: {k: row[k]["ms"] for k in row} for label, row in sdxl_times.items()}}}))
+
+    wan_err = wan_kernel_checks()
+    wan_times = attention_times("flash kernels at Wan 2.1's shapes (head_dim 128), bf16", "Wan", WAN_SHAPES, 6)
+    # one block: its self- and cross-attention; the checkpointed step runs both forwards again
+    wan_reference(_counts(fwd=2), _counts(4, 2, 2))
+
+    phase("main path of this slice: Wan 2.1 1.3B LoRA sd_trainer job, 33 frames at 480x480 (8,100 tokens), "
+          "batch 1, rank 32, adamw, flowmatch shift, bf16, per-block checkpointing")
+    # per step: both attentions of every block run their forward twice (the
+    # block is recomputed in the backward, as WanConfig.remat does), dq and dk/dv once
+    wan_step = _counts(4 * WAN_BLOCKS, 2 * WAN_BLOCKS, 2 * WAN_BLOCKS)
+    wan = train_job("smoke_wan21_lora", {}, wan_step, args.profile, raw=_wan_job("smoke_wan21_lora", args.profile))
+
+    width, height, frames, steps = WAN_GEN
+    phase(f"Wan 2.1 1.3B generate job, {height}x{width}, {frames} frames (32,760 tokens), {steps} Euler steps, "
+          f"1 prompt, with the trained LoRA, every frame decoded at once")
+    wan_gen = generate_job({"name_or_path": "", "arch": "wan21", "model_kwargs": {"size": "1.3b"}}, width, height,
+                           steps, ["a video of a red fox running through tall grass"],
+                           _counts(fwd=2 * WAN_BLOCKS), lora_path=wan["lora_path"], num_frames=frames)
+    print(json.dumps({"wan_launches": {
+        "train_per_step": {k: v / wan["steps"] for k, v in wan["launches"].items()},
+        "denoise_per_step": {k: v / steps for k, v in wan_gen.items()},
+        "ms": {label: {k: row[k]["ms"] for k in row} for label, row in wan_times.items()}}}))
 
     banned = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ai_toolkit_tpu")]
@@ -1224,6 +1493,14 @@ def main(argv: list[str]) -> int:
             ("moe_gmm_fwd", src + "moe_gmm_fwd.cu", f"{gmm}:99", hidream, "moe", moe["moe"]),
             ("moe_gmm_dx", src + "moe_gmm_bwd.cu", f"{gmm}:121", hidream, "moe_dx", moe["moe_dx"]),
             ("moe_gmm_dw", src + "moe_gmm_dw.cu", f"{gmm}:149", fullft, "moe_dw", moe["moe_dw"])]
+    # the streamed, tail-masked Pallas variants: the same kernels on the Wan job's
+    # ragged 8,100 tokens (launches from the Wan train job, times at its self-attention)
+    wan_self = wan_times["train self"]
+    rows += [(f"{name}_streamed", src + f, f"{pallas}:{line}", wan, key,
+              {**wan_self[key], "max_abs_err": wan_err[key]})
+             for name, f, line, key in (("flash_attention_fwd", "flash_attention_fwd.cu", 293, "fwd"),
+                                        ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 357, "dq"),
+                                        ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 383, "dkv"))]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": run["launches"][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -140,6 +140,12 @@ def test_bwd_kernels_are_deterministic(gen, shape):
     ((1, 1100, 1100, 24, 128), "linear1"),
     ((2, 200, 200, 4, 64), "unaligned"),
     ((2, 300, 190, 4, 128), "negative"),
+    # Wan 2.1 at 33 frames, 480^2: 8,100 tokens (63 * 128 + 36), 12 heads, and
+    # the cross-attention to the 512 UMT5 tokens, with a ragged tail tile whose
+    # lse sits near -106 in the negative case
+    ((1, 8100, 8100, 12, 128), "separate"),
+    ((1, 8100, 512, 12, 128), "separate"),
+    ((1, 8100, 512, 12, 128), "negative"),
 ])
 def test_wgmma_kernels_match_plain(gen, shape, layout):
     b, s, t, h, d = shape

@@ -110,6 +110,9 @@ _HIDREAM_MODULES = ("ai_toolkit_tpu_torch.ops.kernels.moe_gmm", "ai_toolkit_tpu_
                     "ai_toolkit_tpu_torch.models.text_encoders.llm", "ai_toolkit_tpu_torch.adapters.quantize")
 _SDXL_MODULES = ("ai_toolkit_tpu_torch.models.unet", "ai_toolkit_tpu_torch.models.sd_model",
                  "ai_toolkit_tpu_torch.samplers.ddpm", "ai_toolkit_tpu_torch.samplers.factory")
+_WAN_MODULES = ("ai_toolkit_tpu_torch.models.wan_dit", "ai_toolkit_tpu_torch.models.wan_vae",
+                "ai_toolkit_tpu_torch.models.wan_model", "ai_toolkit_tpu_torch.data.dataset",
+                "ai_toolkit_tpu_torch.generation")
 
 
 def test_port_imports_without_jax():
@@ -119,10 +122,11 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _BLOCK_JAX], cwd=REPO, capture_output=True,
                           text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 39
+    assert int(proc.stdout.split()[-1]) >= 42
     imported = set(proc.stdout.splitlines()[-2].split())
     assert imported.issuperset(_HIDREAM_MODULES), sorted(set(_HIDREAM_MODULES) - imported)
     assert imported.issuperset(_SDXL_MODULES), sorted(set(_SDXL_MODULES) - imported)
+    assert imported.issuperset(_WAN_MODULES), sorted(set(_WAN_MODULES) - imported)
 
 
 def test_chip_smoke_fails_without_cuda():
