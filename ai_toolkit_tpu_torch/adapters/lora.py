@@ -101,6 +101,18 @@ def attach_lora(model: nn.Module, tree: dict[str, dict[str, torch.Tensor]]) -> d
     return lora
 
 
+def share_lora(model: nn.Module, lora: dict[str, LoRA]) -> None:
+    """Attach the ``LoRA`` modules of ``lora`` themselves (one set of
+    parameters) to the same-named ``Linear`` modules of ``model``: a
+    multistage model's other expert under the first expert's network."""
+    modules = dict(model.named_modules())
+    for name, adapter in lora.items():
+        mod = modules.get(name)
+        if not isinstance(mod, Linear):
+            raise KeyError(f"LoRA module '{name}' is not a Linear of this model")
+        mod.lora = adapter
+
+
 def detach_lora(model: nn.Module) -> None:
     """Remove every LoRA overlay from ``model``."""
     for mod in model.modules():

@@ -79,6 +79,11 @@ def quantize_params(module: nn.Module, exclude_patterns: list[str] | None = None
     return done
 
 
+def quantized_count(module: nn.Module) -> int:
+    """The weights of ``module`` held quantized."""
+    return sum(isinstance(m, QuantizedWeight) and m.qvalue is not None for m in module.modules())
+
+
 def quantized_bytes(module: nn.Module) -> int:
     """Bytes of the quantized values and scales held by ``module``."""
     return sum(t.numel() * t.element_size() for m in module.modules()

@@ -30,7 +30,7 @@ AUDIO_EXTS = (".wav", ".flac", ".mp3", ".ogg")
 # DatasetConfig options of the JAX dataset this port does not take yet
 _UNPORTED_OPTIONS = ("augmentations", "clip_image_path", "clip_image_augmentations", "mask_path",
                      "inpaint_path", "unconditional_path", "control_path", "controls",
-                     "random_crop", "random_scale", "alpha_mask", "do_i2v", "do_audio",
+                     "random_crop", "random_scale", "alpha_mask", "do_audio",
                      "use_short_captions")
 
 

@@ -3,7 +3,9 @@ stream of bucket batches over epochs, each epoch re-shuffled and re-batched.
 Batches are host numpy: latents (an image's ``[h, w, C]``, a video's ``[T,
 h, w, C]``; one bucket, kind and frame count a batch) from the in-memory
 latent cache or, without one, encoded on the fly with ``encode_fn``, plus
-processed captions and the per-example loss multiplier. The JAX loader's
+processed captions and the per-example loss multiplier; with the dataset's
+``do_i2v``, a video batch also carries each clip's ``first_frame`` ``[B,
+H, W, 3]`` (the clip decoded again, as the JAX loader does). The JAX loader's
 prefetch thread is not needed: with cached latents a batch is a dictionary
 lookup.
 """
@@ -16,7 +18,7 @@ import numpy as np
 
 from ai_toolkit_tpu_torch.config.modules import DatasetConfig
 from ai_toolkit_tpu_torch.data.caching import latent_key
-from ai_toolkit_tpu_torch.data.dataset import FileItem, FolderDataset, load_pixels
+from ai_toolkit_tpu_torch.data.dataset import FileItem, FolderDataset, load_pixels, load_video
 
 
 class DataLoader:
@@ -38,13 +40,16 @@ class DataLoader:
             lat = np.asarray(self.encode_fn(np.stack([load_pixels(it) for it in batch])))
         cfg = ds.cfg
         mult = cfg.loss_multiplier * (cfg.network_weight if cfg.is_reg else 1.0)
-        return {
+        out = {
             "bucket": batch[0].bucket,
             "latents": lat.astype(np.float32),
             "captions": [ds.processed_caption(it) for it in batch],
             "loss_multiplier": np.full((len(batch),), mult, np.float32),
             "is_reg": batch[0].is_reg,
         }
+        if cfg.do_i2v and batch[0].kind == "video":
+            out["first_frame"] = np.stack([load_video(it)[0] for it in batch])
+        return out
 
     def _epoch_plan(self) -> list[tuple[FolderDataset, list[FileItem]]]:
         plan = [(ds, b) for ds in self.datasets for b in ds.build_batches(self.batch_size)]

@@ -2,19 +2,22 @@
 the plain flow-matching Euler loop of flux and hidream (hidream has no
 guidance embed and, as in the JAX ``generate_flux``, no CFG pass), the DDIM
 loop of SDXL with classifier-free guidance as one batch of two
-(``generate_sd``), and Wan's text-to-video Euler loop (``generate_video``:
-frames snapped to the VAE's grid, the (t, y, x) rope table, sigmas shifted
-for the clip's token count, one decode of every frame, uint8 frames written
-as an animated webp by :func:`save_video_atomic`).
+(``generate_sd``), and Wan's video Euler loop (``generate_video``: frames
+snapped to the VAE's grid, the (t, y, x) rope table, an i2v arch's first
+frame ``ctrl_img`` through its vision tower, sigmas shifted for the clip's
+token count, each step routed to a multistage pair's expert by its sigma
+through ``predict``, one decode of every frame, uint8 frames written as an
+animated webp by :func:`save_video_atomic`).
 
 A LoRA (``{module name: {a, b, scale}}``, ``io/lora_file.load_lora_file``)
-is overlaid on the model's DiT or UNet for the call, as the JAX package
-passes its ``lora`` collection. Unported branches of the JAX
-``generate_flux`` (the unconditional LoRA, control/edit and IP-adapter
-conditioning, ``use_flux_cfg`` negative passes, x0-prediction and
-arch-specific schedules), of ``generate_sd`` (the k-diffusion, LCM and PNDM
-samplers, the unconditional LoRA), of ``generate_video`` (i2v's ``ctrl_img``)
-and of ``generate`` (audio) raise ``NotImplementedError``.
+is overlaid on the model's DiT or UNet for the call (one network on both
+experts of a multistage pair), as the JAX package passes its ``lora``
+collection. Unported branches of the JAX ``generate_flux`` (the
+unconditional LoRA, control/edit and IP-adapter conditioning,
+``use_flux_cfg`` negative passes, x0-prediction and arch-specific
+schedules), of ``generate_sd`` (the k-diffusion, LCM and PNDM samplers, the
+unconditional LoRA) and of ``generate`` (audio) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from ai_toolkit_tpu_torch.adapters.lora import attach_lora, detach_lora
+from ai_toolkit_tpu_torch.adapters.lora import attach_lora, detach_lora, share_lora
 from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig
 from ai_toolkit_tpu_torch.samplers.ddpm import DDPMSchedule
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
@@ -67,15 +70,19 @@ def generate_flux(
 
 @contextlib.contextmanager
 def _overlaid(model, variables: dict, lora: dict | None):
-    """``lora`` attached to the model's main component for the block."""
-    net = variables[model.main_component]
+    """``lora`` attached to the model's main component (one network on every
+    expert of a multistage pair) for the block."""
+    nets = [variables[name] for name in model.experts]
     if lora:
-        attach_lora(net, {k: {n: x.to(model.device) for n, x in v.items()} for k, v in lora.items()})
+        modules = attach_lora(nets[0], {k: {n: x.to(model.device) for n, x in v.items()} for k, v in lora.items()})
+        for net in nets[1:]:
+            share_lora(net, modules)
     try:
         yield
     finally:
         if lora:
-            detach_lora(net)
+            for net in nets:
+                detach_lora(net)
 
 
 def _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c) -> np.ndarray:
@@ -183,28 +190,47 @@ def generate_video(
     schedule: FlowMatchSchedule | None = None,
     noise: np.ndarray | None = None,
     stats: dict | None = None,
+    cond: dict | None = None,
 ) -> np.ndarray:
-    """Text-to-video (JAX ``generate_video``, wan): returns uint8 frames
-    ``[T, H, W, 3]``, T the snapped ``gen.num_frames``. ``noise`` ``[1, t, h, w,
-    C]`` and ``stats`` as in :func:`generate_flux`."""
-    if getattr(gen, "ctrl_img", None):
-        raise NotImplementedError("i2v first-frame conditioning (ctrl_img) comes with slice E's wan21_i2v item")
+    """Text- or image-to-video (JAX ``generate_video``, wan): returns uint8
+    frames ``[T, H, W, 3]``, T the snapped ``gen.num_frames``. ``noise`` ``[1,
+    t, h, w, C]`` and ``stats`` as in :func:`generate_flux`; ``cond``, the
+    prompt's (and first frame's) conditioning from :func:`encode_video_cond`,
+    spares the call the text encoder and the vision tower."""
     schedule = schedule or FlowMatchSchedule()
     nf = model.frame_count_snapper(max(gen.num_frames, 1))
     shape = model.latent_shape(gen.height, gen.width, nf)
     with _overlaid(model, variables, lora):
-        return _generate_video(model, variables, gen, schedule, noise, stats if stats is not None else {}, shape)
+        return _generate_video(model, variables, gen, schedule, noise, stats if stats is not None else {}, shape,
+                               cond)
 
 
-def _generate_video(model, variables, gen, schedule, noise, rec, shape) -> np.ndarray:
+def encode_video_cond(model, variables: dict, gen: GenerateImageConfig) -> dict:
+    """A video prompt's conditioning: the UMT5 states ``txt`` and, with
+    ``gen.ctrl_img``, the i2v first frame's CLIP-vision tokens ``img_cond``
+    (the image resized to the clip's size by PIL, as in JAX)."""
+    with torch.inference_mode():
+        cond = model.encode_prompt(variables, [gen.prompt])
+        if getattr(gen, "ctrl_img", None):
+            from PIL import Image
+
+            with Image.open(gen.ctrl_img) as im:
+                px = np.asarray(im.convert("RGB").resize((gen.width, gen.height)), np.float32) / 127.5 - 1.0
+            cond["img_cond"] = model.encode_image_cond(variables, torch.from_numpy(px)[None])
+    return cond
+
+
+def _generate_video(model, variables, gen, schedule, noise, rec, shape, cond) -> np.ndarray:
     device = model.device
     t_lat, h, w, _ = shape
     with torch.inference_mode():
         t0 = time.perf_counter()
-        cond = model.encode_prompt(variables, [gen.prompt])
-        _sync(device)
+        if cond is None:
+            cond = encode_video_cond(model, variables, gen)
+            _sync(device)
+            rec["encode_ms"] = (time.perf_counter() - t0) * 1e3
+        cond = dict(cond)
         t1 = time.perf_counter()
-        rec["encode_ms"] = (t1 - t0) * 1e3
         cond["pe"] = model.rope_table(t_lat, h, w)
         pt, ph, pw = model.dit_config.patch_size
         rec["tokens"] = (t_lat // pt) * (h // ph) * (w // pw)
@@ -214,9 +240,10 @@ def _generate_video(model, variables, gen, schedule, noise, rec, shape) -> np.nd
         else:
             x = torch.from_numpy(np.array(noise, dtype=np.float32)).to(device)
         sigmas = schedule.inference_sigmas(gen.sample_steps, image_seq_len=rec["tokens"])
-        rec["step_ms"] = []
+        rec["step_ms"], rec["experts"] = [], []
         for i in range(gen.sample_steps):
             v = model.predict(variables, x, torch.full((1,), float(sigmas[i]), device=device), cond)
+            rec["experts"].append(model.last_expert)
             x = schedule.euler_step(x, v, sigmas[i], sigmas[i + 1])
             _sync(device)
             t2 = time.perf_counter()
@@ -229,9 +256,9 @@ def _generate_video(model, variables, gen, schedule, noise, rec, shape) -> np.nd
     return frames
 
 
-def generate(model, variables, gen: GenerateImageConfig, lora=None, schedule=None, stats=None):
+def generate(model, variables, gen: GenerateImageConfig, lora=None, schedule=None, stats=None, cond=None):
     if hasattr(model, "frame_count_snapper"):
-        return generate_video(model, variables, gen, lora, schedule, stats=stats)
+        return generate_video(model, variables, gen, lora, schedule, stats=stats, cond=cond)
     if hasattr(model, "latent_shape_audio"):
         raise NotImplementedError("audio generation is not ported yet")
     if not model.is_flow_matching:

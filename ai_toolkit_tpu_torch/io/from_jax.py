@@ -18,8 +18,10 @@ CLIP and T5, diffusers for the VAE).
   ``up_blocks.0.resnets.0``, ``mid_block.attentions.0``): the JAX up level
   ``i`` is diffusers ``up_blocks.{n-1-i}``.
 - The Wan DiT (``block_{i}/self_q``, or scanned ``blocks/block/...``) maps onto
-  diffusers ``WanTransformer3DModel`` names (``blocks.{i}.attn1.to_q``), its
-  modulation tables onto ``scale_shift_table`` ``[1, n, dim]``; the Wan VAE
+  diffusers ``WanTransformer3DModel`` names (``blocks.{i}.attn1.to_q``, the
+  i2v ``attn2.add_k_proj`` and ``condition_embedder.image_embedder``), its
+  modulation tables onto ``scale_shift_table`` ``[1, n, dim]``; the CLIP
+  vision tower onto transformers' ``vision_model.*`` names; the Wan VAE
   (``encoder/down_blocks_3/resample_conv``) onto diffusers
   ``AutoencoderKLWan`` names (``encoder.down_blocks.3.resample.1``), its 3-D
   kernels ``(kt, kh, kw, in, out)`` -> ``[out, in, kt, kh, kw]``; UMT5's
@@ -197,6 +199,28 @@ def clip_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _convert(tree, lambda p: _lookup(_CLIP, p, "clip"), extra={
         "token_embedding": ["text_model.embeddings.token_embedding.weight"],
         "position_embedding": ["text_model.embeddings.position_embedding.weight"],
+    })
+
+
+# ---- the CLIP vision tower (transformers names) ----
+
+_CLIP_VISION = [
+    (r"layer_(\d+)/(q|k|v)", "vision_model.encoder.layers.{0}.self_attn.{1}_proj"),
+    (r"layer_(\d+)/out", "vision_model.encoder.layers.{0}.self_attn.out_proj"),
+    (r"layer_(\d+)/ln(1|2)", "vision_model.encoder.layers.{0}.layer_norm{1}"),
+    (r"layer_(\d+)/(fc1|fc2)", "vision_model.encoder.layers.{0}.mlp.{1}"),
+    (r"patch_embedding", "vision_model.embeddings.patch_embedding"),
+    (r"pre_ln", "vision_model.pre_layrnorm"), (r"post_ln", "vision_model.post_layernorm"),
+    (r"visual_projection", "visual_projection"),
+]
+
+
+def clip_vision_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``CLIPVisionModel`` params -> transformers
+    ``CLIPVisionModelWithProjection`` names (JAX ``clip_vision_rules``)."""
+    return _convert(tree, lambda p: _lookup(_CLIP_VISION, p, "clip vision"), extra={
+        "class_embedding": ["vision_model.embeddings.class_embedding"],
+        "position_embedding": ["vision_model.embeddings.position_embedding.weight"],
     })
 
 
@@ -407,6 +431,8 @@ _WAN_BLOCK = [
     (r"cross_(q|k|v)", "attn2.to_{0}"), ("cross_o", "attn2.to_out.0"),
     (r"self_(q|k)_norm", "attn1.norm_{0}"), (r"cross_(q|k)_norm", "attn2.norm_{0}"),
     ("norm2", "norm2"), ("ffn_in", "ffn.net.0.proj"), ("ffn_out", "ffn.net.2"),
+    ("cross_k_img", "attn2.add_k_proj"), ("cross_v_img", "attn2.add_v_proj"),
+    ("cross_k_img_norm", "attn2.norm_added_k"),
 ]
 _WAN_TOP = [
     ("patch_embedding", "patch_embedding"), ("head_out", "proj_out"),
@@ -415,6 +441,9 @@ _WAN_TOP = [
     ("time_fc1", "condition_embedder.time_embedder.linear_1"),
     ("time_fc2", "condition_embedder.time_embedder.linear_2"),
     ("time_projection", "condition_embedder.time_proj"),
+    (r"img_emb_norm(1|2)", "condition_embedder.image_embedder.norm{0}"),
+    ("img_emb_in", "condition_embedder.image_embedder.ff.net.0.proj"),
+    ("img_emb_out", "condition_embedder.image_embedder.ff.net.2"),
 ]
 
 
@@ -450,19 +479,26 @@ def wan_vae_state_dict(tree: dict) -> dict[str, torch.Tensor]:
 
 
 def wan_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
-    """JAX ``WanModel`` variables ``{dit, vae, t5}`` -> per-component state
-    dicts for ``WanModel.load_state_dicts``."""
-    return {
+    """JAX ``WanModel`` variables ``{dit, vae, t5}``, with ``dit_low`` (a
+    multistage pair) and ``clip_vision`` (an i2v arch) where present ->
+    per-component state dicts for ``WanModel.load_state_dicts``."""
+    out = {
         "dit": wan_dit_state_dict(variables["dit"]),
         "vae": wan_vae_state_dict(variables["vae"]),
         "t5": t5_state_dict(variables["t5"]),
     }
+    if "dit_low" in variables:
+        out["dit_low"] = wan_dit_state_dict(variables["dit_low"])
+    if "clip_vision" in variables:
+        out["clip_vision"] = clip_vision_state_dict(variables["clip_vision"])
+    return out
 
 
 def wan_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
     """JAX Wan ``lora`` collection, unrolled (``block_3/self_q``) or scanned
     (``blocks/block/self_q`` with ``[L, in, r]`` / ``[L, r, out]``) -> ``{port
-    module name: {a, b, scale}}``."""
+    module name: {a, b, scale}}``; the i2v image K/V (``cross_k_img``,
+    ``cross_v_img``) map onto ``attn2.add_k_proj`` / ``add_v_proj``."""
     groups: dict[str, dict[str, np.ndarray]] = {}
     for path, v in _flatten(tree).items():
         mod, leaf = path.rsplit("/", 1)

@@ -2,16 +2,21 @@
 A process-level ``lora_path`` (a LoRA file as the train job saves it: PEFT
 for a DiT, under Wan's JAX module names for Wan, kohya for the UNet) is
 overlaid on the model's DiT or UNet while the prompts are generated. A video
-model writes each clip as an animated webp (a one-frame clip as an image)."""
+model encodes every prompt (and an i2v arch every first frame, ``ctrl_img``)
+first and then releases its text encoder and vision tower from the device,
+which the denoising and the decode do not use; it writes each clip as an
+animated webp (a one-frame clip as an image)."""
 
 from __future__ import annotations
 
+import gc
 import os
+import time
 
 import torch
 
 from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig, ProcessConfig
-from ai_toolkit_tpu_torch.generation import generate, save_image_atomic, save_video_atomic
+from ai_toolkit_tpu_torch.generation import encode_video_cond, generate, save_image_atomic, save_video_atomic
 from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
 from ai_toolkit_tpu_torch.models.registry import get_model_class
 
@@ -35,16 +40,30 @@ class GenerateProcess:
             names = [n for n, _ in variables[model.main_component].named_modules()]
             lora, _ = load_lora_file(cfg.extras["lora_path"], module_names=names,
                                      module_name=getattr(model, "lora_module_name", None))
-        outputs, timings = [], []
-        for i, item in enumerate(cfg.sample.prompts):
-            seed = cfg.sample.seed + (i if cfg.sample.walk_seed else 0)
-            gen = GenerateImageConfig.from_sample(cfg.sample, item, seed)
-            timings.append({"width": gen.width, "height": gen.height})
-            out = generate(model, variables, gen, lora=lora, stats=timings[-1])
-            if hasattr(model, "frame_count_snapper"):  # video
+        video = hasattr(model, "frame_count_snapper")
+        gens = [GenerateImageConfig.from_sample(cfg.sample, item, cfg.sample.seed + (i if cfg.sample.walk_seed else 0))
+                for i, item in enumerate(cfg.sample.prompts)]
+        timings = [{"width": gen.width, "height": gen.height} for gen in gens]
+        conds = [None] * len(gens)
+        if video:  # every prompt's conditioning, then the encoders leave the device
+            for i, gen in enumerate(gens):
+                t0 = time.perf_counter()
+                conds[i] = encode_video_cond(model, variables, gen)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                timings[i]["encode_ms"] = (time.perf_counter() - t0) * 1e3
+            for name in ("t5", "clip_vision"):
+                variables.pop(name, None)
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        outputs = []
+        for i, (gen, cond) in enumerate(zip(gens, conds)):
+            out = generate(model, variables, gen, lora=lora, stats=timings[i], cond=cond)
+            if video:
                 ext = "webp" if out.shape[0] > 1 else gen.output_ext
                 path = os.path.join(self.output_dir, f"{self.job_name}_{i:04d}.{ext}")
-                timings[-1]["frames"] = out.shape[0]
+                timings[i]["frames"] = out.shape[0]
                 save_video_atomic(out, path, fps=gen.fps)
             else:
                 path = os.path.join(self.output_dir, f"{self.job_name}_{i:04d}.{gen.output_ext}")

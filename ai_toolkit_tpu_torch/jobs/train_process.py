@@ -3,8 +3,10 @@
 fine-tune:
 
 model (seeded random weights) -> optional weight-only quantization of the DiT
-(``model.quantize``, fp8 or int8: ``adapters/quantize.py``) -> LoRA on the
-model's main component, the DiT or the UNet (the model's targets) ->
+(``model.quantize``, fp8 or int8: ``adapters/quantize.py``; each expert of a
+multistage pair from its own weights, as it is built) -> LoRA on the
+model's main component, the DiT or the UNet (the model's targets), one
+network shared by a multistage pair's two experts ->
 AdamW(8bit) -> the schedule (``samplers/factory.get_schedule``: flow matching,
 or DDPM for SDXL) -> folder dataset with in-memory latent and text-embedding
 caches -> train loop (``train/step.py``) with the save cadence -> final save
@@ -12,7 +14,12 @@ of the LoRA (the EMA copy when EMA is on) in the PEFT layout for a
 flow-matching DiT, under the module names the JAX job writes (the model's
 ``lora_key``, Wan's JAX paths), the kohya layout (``lora_unet_...``) for the
 UNet. A video model (Wan) snaps each dataset's ``num_frames`` to its VAE's
-frame grid and trains on 5-D latents ``[B, T, h, w, C]``.
+frame grid and trains on 5-D latents ``[B, T, h, w, C]``; with a dataset's
+``do_i2v`` the first frame of each clip goes through an i2v arch's vision
+tower into ``img_cond``. A multistage pair with ``switch_boundary_every > 1``
+alternates the trained expert every that many steps, high-noise first (the
+sampled t squeezed into ``[boundary, 1]``, then ``[0, boundary]``), and each
+step logs the expert that ran.
 
 A full fine-tune (``network`` absent or of type ``full`` / ``fine_tune``,
 flow-matching DiTs only) trains the DiT's own parameters in place, those its ``only_if_contains`` /
@@ -36,6 +43,7 @@ last step runs under ``torch.profiler``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import statistics
 import time
@@ -43,8 +51,8 @@ import time
 import numpy as np
 import torch
 
-from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora, count_lora_params
-from ai_toolkit_tpu_torch.adapters.quantize import quantize_params, quantized_bytes
+from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora, count_lora_params, share_lora
+from ai_toolkit_tpu_torch.adapters.quantize import quantized_bytes, quantized_count
 from ai_toolkit_tpu_torch.config.modules import ModelConfig, ProcessConfig, TrainConfig
 from ai_toolkit_tpu_torch.data.caching import TextEmbedCache, cache_latents
 from ai_toolkit_tpu_torch.data.loader import build_dataloader
@@ -211,13 +219,16 @@ class SDTrainProcess:
 
         # 1. model (1b. quantized DiT), 2. LoRA on the DiT / UNet or the full fine-tune's selection
         model = get_model_class(cfg.model.arch)(cfg.model, dev)
+        if self.full_finetune and len(model.experts) > 1:
+            raise NotImplementedError("the full fine-tune of a multistage pair comes with a later slice")
         ckpt.key_map = getattr(model, "lora_key", None)
-        variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed))
+        variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed),
+                                         qtype=cfg.model.qtype if cfg.model.quantize else None)
         net = variables[model.main_component]
+        experts = [variables[name] for name in model.experts]
         if cfg.model.quantize:
-            names = quantize_params(net, qtype=cfg.model.qtype)
-            print(f"quantized base: {len(names)} weights, {quantized_bytes(net) / 1e9:.2f} GB "
-                  f"({cfg.model.qtype})")
+            print(f"quantized base: {sum(quantized_count(m) for m in experts)} weights, "
+                  f"{sum(quantized_bytes(m) for m in experts) / 1e9:.2f} GB ({cfg.model.qtype})")
         if self.full_finetune:
             ncfg = cfg.network
             inc = cfg.model.only_if_contains or (ncfg.only_if_contains if ncfg else None)
@@ -229,11 +240,14 @@ class SDTrainProcess:
         else:
             spec = LoRASpec.from_network_config(cfg.network, target_patterns=model.lora_targets())
             lora = build_lora(net, spec, torch.Generator(device=dev).manual_seed(seed))
+            for other in experts[1:]:
+                share_lora(other, lora)
             n_params = count_lora_params(lora)
             print(f"LoRA: {len(lora)} modules, {n_params:,} trainable params (rank {spec.rank})")
             trainable = {f"{name}.{leaf}": p for name, m in lora.items() for leaf, p in m.named_parameters()}
-        if hasattr(net, "gradient_checkpointing"):  # the DiT; the UNet follows model.remat_policy
-            net.gradient_checkpointing = tc.gradient_checkpointing
+        for m in experts:
+            if hasattr(m, "gradient_checkpointing"):  # the DiT; the UNet follows model.remat_policy
+                m.gradient_checkpointing = tc.gradient_checkpointing
 
         # 3. optimizer + state
         tx = get_optimizer(tc.optimizer, list(trainable.values()), tc.lr, tc.optimizer_params,
@@ -243,6 +257,9 @@ class SDTrainProcess:
         # 4. data, 5. step
         loader, text_cache = self._build_data(model, variables)
         step_cfg = TrainStepConfig.from_train_config(tc)
+        if getattr(model, "multistage", False) and tc.switch_boundary_every > 1:
+            step_cfg = dataclasses.replace(step_cfg, stage_boundary=model.stage_boundary,
+                                           switch_every=tc.switch_boundary_every)
         predict = getattr(model, "predict_train", model.predict)  # as the JAX job picks it
         train_step = make_train_step(lambda noisy, t, cond: predict(variables, noisy, t, cond),
                                      self._schedule(), step_cfg)
@@ -252,9 +269,10 @@ class SDTrainProcess:
         data_iter = iter(loader)
         losses: list[float] = []
         step_ms: list[float] = []
+        experts_run: list[str] = []  # a multistage pair's expert at each step
         profile_dir = os.environ.get("AIT_PROFILE_DIR")
         for step in range(tc.steps):
-            batches = [self._prepare_batch(model, next(data_iter), text_cache)
+            batches = [self._prepare_batch(model, variables, next(data_iter), text_cache)
                        for _ in range(step_cfg.grad_accum)]
             _sync(dev)
             profile = profile_dir is not None and step == tc.steps - 1
@@ -264,19 +282,22 @@ class SDTrainProcess:
                 loss = float(metrics["loss"])  # waits for the step
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss)
+            if len(experts) > 1:
+                experts_run.append(model.last_expert)
             if (step + 1) % cfg.logging.log_every == 0 or step == 0:
+                expert = f" expert={model.last_expert}" if len(experts) > 1 else ""
                 print(f"step {step + 1}/{tc.steps} loss={loss:.4f} "
-                      f"grad_norm={float(metrics['grad_norm']):.4f} ({step_ms[-1]:.1f} ms)")
+                      f"grad_norm={float(metrics['grad_norm']):.4f}{expert} ({step_ms[-1]:.1f} ms)")
             if cfg.save.save_every and (step + 1) % cfg.save.save_every == 0 and step + 1 < tc.steps:
                 print(f"saved: {self._save(ckpt, state, lora, step + 1)}")
         path = self._save(ckpt, state, lora, tc.steps, final=True)
         print(f"saved: {path}")
-        self.state, self.lora, self.variables = state, lora, variables  # introspection
+        self.state, self.lora, self.variables, self.model = state, lora, variables, model  # introspection
         return {"final_loss": losses[-1] if losses else None, "steps": tc.steps,
                 "losses": losses, "step_ms": step_ms,
                 "median_step_ms": statistics.median(step_ms) if step_ms else None,
                 "trainable_params": n_params, "lora_modules": len(lora) if lora is not None else 0,
-                "save_path": path}
+                "experts": experts_run, "save_path": path}
 
     def _schedule(self):
         """The schedule with the job's overrides (JAX ``run``, step 3)."""
@@ -340,9 +361,12 @@ class SDTrainProcess:
 
         return loader, TextEmbedCache(encode_prompt)
 
-    def _prepare_batch(self, model, raw: dict, text_cache: TextEmbedCache) -> dict:
+    def _prepare_batch(self, model, variables: dict, raw: dict, text_cache: TextEmbedCache) -> dict:
         dev = self.device
         cond = dict(text_cache.get(raw["captions"]))
+        if raw.get("first_frame") is not None:  # i2v: the clip's first frame through the vision tower
+            with torch.no_grad():
+                cond["img_cond"] = model.encode_image_cond(variables, torch.from_numpy(raw["first_frame"]))
         latents = torch.from_numpy(raw["latents"]).to(dev)
         batch = {"latents": latents, "cond": cond,
                  "loss_multiplier": torch.from_numpy(raw["loss_multiplier"]).to(dev)}

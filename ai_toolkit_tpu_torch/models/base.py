@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ai_toolkit_tpu_torch.adapters.quantize import quantize_params
 from ai_toolkit_tpu_torch.config.modules import ModelConfig
 
 
@@ -20,10 +21,17 @@ class BaseModel:
     is_flow_matching: bool = True
     bucket_divisibility: int = 16
     main_component: str = "dit"  # the variables entry that is trained and sampled
+    quantize_exclude: list[str] | None = None  # module-name patterns a quantized base keeps (None: the default list)
 
     def __init__(self, config: ModelConfig, device: torch.device | str):
         self.config = config
         self.device = torch.device(device)
+
+    @property
+    def experts(self) -> tuple[str, ...]:
+        """The denoiser entries of ``variables``: the main component, or a
+        multistage model's experts, which share one adapter network."""
+        return (self.main_component,)
 
     # ---- construction ----
 
@@ -31,8 +39,16 @@ class BaseModel:
         """Seeded random init of every component, on ``self.device``."""
         raise NotImplementedError
 
-    def load_variables(self, generator: torch.Generator) -> dict[str, nn.Module]:
-        raise NotImplementedError
+    def load_variables(self, generator: torch.Generator, qtype: str | None = None) -> dict[str, nn.Module]:
+        """The model's variables (:meth:`refuse_or_init`); with ``qtype`` the
+        experts' weights are quantized (``adapters/quantize.py``, the
+        model's ``quantize_exclude``), as the train job's ``model.quantize``
+        asks."""
+        variables = self.refuse_or_init(generator)
+        if qtype is not None:
+            for name in self.experts:
+                quantize_params(variables[name], exclude_patterns=self.quantize_exclude, qtype=qtype)
+        return variables
 
     def load_state_dicts(self, variables: dict[str, nn.Module], states: dict[str, dict]) -> None:
         """Load per-component state dicts (``io/from_jax.*_model_state``)."""

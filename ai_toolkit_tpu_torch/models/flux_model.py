@@ -81,9 +81,6 @@ class FluxModel(BaseModel):
             init_parameters(m, generator).eval().requires_grad_(False)
         return variables
 
-    def load_variables(self, generator: torch.Generator) -> dict[str, nn.Module]:
-        return self.refuse_or_init(generator)
-
     # ---- conditioning ----
 
     def encode_prompt(self, variables: dict, prompts: list[str]) -> dict:

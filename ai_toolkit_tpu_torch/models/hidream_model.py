@@ -120,9 +120,6 @@ class HiDreamModel(BaseModel):
         return {name: init_parameters(build(), generator).eval().requires_grad_(False)
                 for name, build in builders.items()}
 
-    def load_variables(self, generator: torch.Generator) -> dict[str, nn.Module]:
-        return self.refuse_or_init(generator)
-
     # ---- conditioning ----
 
     def _ids(self, tokenizer, prompts: list[str]) -> torch.Tensor:

@@ -83,9 +83,6 @@ class SDXLModel(BaseModel):
         return {name: init_parameters(build(), generator).eval().requires_grad_(False)
                 for name, build in builders.items()}
 
-    def load_variables(self, generator: torch.Generator) -> dict[str, nn.Module]:
-        return self.refuse_or_init(generator)
-
     # ---- conditioning ----
 
     def encode_prompt(self, variables: dict, prompts: list[str]) -> dict:

@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ai_toolkit_tpu_torch.ops.attention import dot_product_attention
+from ai_toolkit_tpu_torch.ops.attention import dot_product_attention, reference_attention
 from ai_toolkit_tpu_torch.ops.layers import Embedding, LayerNorm, Linear
 
 
@@ -59,10 +59,15 @@ def _act(name: str):
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig, *, device=None):
+    """Causal self-attention (the text model), or full self-attention over
+    every token (``causal=False``, the vision tower: the JAX package passes an
+    all-ones mask, which takes its XLA path, so this one stays plain torch)."""
+
+    def __init__(self, cfg: CLIPTextConfig, *, causal: bool = True, device=None):
         super().__init__()
         d, dt = cfg.hidden_size, cfg.dtype
         self.num_heads = cfg.num_heads
+        self.causal = causal
         self.q_proj = Linear(d, d, device=device, dtype=dt)
         self.k_proj = Linear(d, d, device=device, dtype=dt)
         self.v_proj = Linear(d, d, device=device, dtype=dt)
@@ -73,7 +78,8 @@ class CLIPAttention(nn.Module):
         q = self.q_proj(x).unflatten(-1, heads)
         k = self.k_proj(x).unflatten(-1, heads)
         v = self.v_proj(x).unflatten(-1, heads)
-        return self.out_proj(dot_product_attention(q, k, v, is_causal=True).flatten(2))
+        attn = dot_product_attention(q, k, v, is_causal=True) if self.causal else reference_attention(q, k, v)
+        return self.out_proj(attn.flatten(2))
 
 
 class CLIPMLP(nn.Module):
@@ -88,9 +94,9 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig, *, device=None):
+    def __init__(self, cfg: CLIPTextConfig, *, causal: bool = True, device=None):
         super().__init__()
-        self.self_attn = CLIPAttention(cfg, device=device)
+        self.self_attn = CLIPAttention(cfg, causal=causal, device=device)
         self.layer_norm1 = LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
         self.mlp = CLIPMLP(cfg, device=device)
         self.layer_norm2 = LayerNorm(cfg.hidden_size, eps=1e-5, device=device)

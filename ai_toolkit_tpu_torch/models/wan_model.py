@@ -1,14 +1,27 @@
-"""Wan 2.1 text-to-video model wrapper (``ai_toolkit_tpu/models/wan_model.py``
-``WanModel`` in PyTorch, arch ``wan21`` at sizes ``1.3b``, ``14b`` and
-``tiny``): the flow-matching video DiT (``models/wan_dit.py``), UMT5 text
-conditioning (T5-XXL with a relative-bias table per layer), the causal 3-D
-VAE (``models/wan_vae.py``) and the frame-count grid of the VAE (4k+1
-frames). Latents are 5-D, ``[B, T, h, w, C]``; a lone image is a one-frame
-video.
+"""Wan video model wrapper (``ai_toolkit_tpu/models/wan_model.py``
+``WanModel`` in PyTorch): archs ``wan21`` and ``wan21_i2v`` (Wan 2.1 t2v and
+i2v at sizes ``1.3b``, ``14b`` and ``tiny``), ``wan22_5b`` (the Wan 2.2
+TI2V-5B with its residual, patchified VAE) and ``wan22_14b`` /
+``wan22_14b_i2v`` (the Wan 2.2 two-expert pair). The flow-matching video DiT
+(``models/wan_dit.py``), UMT5 text conditioning (T5-XXL with a relative-bias
+table per layer), the causal 3-D VAE (``models/wan_vae.py``), the CLIP
+vision tower of the i2v archs (``text_encoders/clip_vision.py``: the first
+frame's penultimate hidden states) and the frame-count grid of the VAE
+(4k+1 frames). Latents are 5-D, ``[B, T, h, w, C]``; a lone image is a
+one-frame video.
 
-The other archs of the JAX class (``wan21_i2v``, ``wan22_5b``, ``wan22_14b``,
-``wan22_14b_i2v``), its two-expert ``multistage`` routing, control latents and
-sequence parallelism raise ``NotImplementedError`` naming their slice.
+Sizes are chosen as the JAX class chooses them: ``size`` defaults to
+``1.3b`` for every arch (so a ``wan22_14b`` job without ``model_kwargs.size``
+builds its pair at 1.3B widths, as in JAX), ``wan22_5b`` is forced to ``5b``
+unless ``tiny``, and ``5b`` buckets by 32. A multistage model
+(``wan22_14b*``, or ``model_kwargs.multistage``) holds two DiTs: ``dit``, the
+high-noise expert, and ``dit_low``; :meth:`predict` routes the whole batch
+by ``mean(t) >= stage_boundary`` (default 0.875). One LoRA network serves
+both experts. A quantized base (``init_variables(qtype=...)``, the train
+job's ``model.quantize``) quantizes each expert from its own weights as it
+is built, so the bf16 pair never sits on the device at once. Control
+latents (the i2v adapter) and sequence parallelism raise
+``NotImplementedError`` naming their slice.
 """
 
 from __future__ import annotations
@@ -17,11 +30,14 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ai_toolkit_tpu_torch.adapters.quantize import quantize_params
 from ai_toolkit_tpu_torch.config.modules import ModelConfig
 from ai_toolkit_tpu_torch.models.base import BaseModel
 from ai_toolkit_tpu_torch.models.registry import register_model
+from ai_toolkit_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
 from ai_toolkit_tpu_torch.models.text_encoders.t5 import T5Config, T5Encoder
 from ai_toolkit_tpu_torch.models.wan_dit import (
     WanConfig,
@@ -38,62 +54,87 @@ from ai_toolkit_tpu_torch.ops.layers import init_parameters
 from ai_toolkit_tpu_torch.ops.rope import multi_axis_rope
 from ai_toolkit_tpu_torch.utils.tokenizer import load_tokenizer
 
-# what the rest of slice E brings, in ROADMAP order
-UNPORTED_ARCHS = {
-    "wan21_i2v": "wan21_i2v (image-to-video, clip_vision.py) comes with slice E's first remaining item",
-    "wan22_5b": "wan22_5b (the Wan 2.2 VAE's residual parts) comes with slice E's second remaining item",
-    "wan22_14b": "wan22_14b (the multistage expert pair) comes with slice E's third remaining item",
-    "wan22_14b_i2v": "wan22_14b_i2v (the multistage i2v pair) comes with slice E's third remaining item",
-}
 SEQUENCE_PARALLEL = "sequence parallelism (ring attention, multi-GPU) comes with slice E's last remaining item"
+CONTROL_LATENTS = "control latents (the i2v adapter's first-frame latents) come with the adapters of slice G"
+# the JAX DEFAULT_EXCLUDE over the JAX DiT's paths leaves out only its
+# ``*embedding*`` kernels: the patch embedding and the text MLP
+QUANTIZE_EXCLUDE = [r"^patch_embedding$", r"^condition_embedder\.text_embedder\."]
 
 
 @register_model
 class WanModel(BaseModel):
     arch = "wan21"
-    archs = ["wan21", *UNPORTED_ARCHS]
+    archs = ["wan21", "wan21_i2v", "wan22_5b", "wan22_14b", "wan22_14b_i2v"]
     is_flow_matching = True
     bucket_divisibility = 16
     max_txt_len = 512
+    quantize_exclude = QUANTIZE_EXCLUDE
 
     def __init__(self, config: ModelConfig, device: torch.device | str):
         super().__init__(config, device)
-        if config.arch in UNPORTED_ARCHS:
-            raise NotImplementedError(UNPORTED_ARCHS[config.arch])
         kw = config.model_kwargs
-        if kw.get("multistage"):
-            raise NotImplementedError(UNPORTED_ARCHS["wan22_14b"])
         size = kw.get("size", "1.3b")
+        if config.arch == "wan22_5b" and size not in ("tiny", "5b"):
+            size = "5b"
+        self.size = size
+        i2v = config.arch.endswith("i2v")
+        # the Wan 2.2 14B pair: high- and low-noise experts switched at a timestep boundary
+        self.multistage = config.arch.startswith("wan22_14b") or bool(kw.get("multistage"))
+        self.stage_boundary = float(kw.get("stage_boundary", 0.875))
+        self.last_expert: str | None = None  # the expert the last predict ran (multistage)
         umt5 = dataclasses.replace(T5Config.xxl(), per_layer_bias=True)
+        vision = CLIPVisionConfig.vit_h() if i2v else None
         if size == "tiny":
-            self.dit_config = WanConfig.tiny()
-            self.vae_config = WanVAEConfig.tiny()
+            vision = CLIPVisionConfig.tiny() if i2v else None
+            dit = dataclasses.replace(WanConfig.tiny(), i2v=i2v, img_cond_dim=64)
+            # wan22_5b runs the residual, patchified Wan 2.2 VAE end to end
+            vae = WanVAEConfig.tiny22() if config.arch == "wan22_5b" else WanVAEConfig.tiny()
             umt5 = dataclasses.replace(T5Config.tiny(), per_layer_bias=True)
             self.max_txt_len = 16
+        elif size == "5b":
+            vision = None
+            dit, vae = WanConfig.wan22_5b(), WanVAEConfig.wan22_5b()
+            self.bucket_divisibility = 32  # the 16x VAE times the DiT's 2x2 patch
         elif size in ("14b", "14B"):
-            self.dit_config = WanConfig.wan21_14b()
-            self.vae_config = WanVAEConfig.wan21()
+            dit, vae = dataclasses.replace(WanConfig.wan21_14b(), i2v=i2v), WanVAEConfig.wan21()
         elif size == "1.3b":
-            self.dit_config = WanConfig.wan21_1_3b()
-            self.vae_config = WanVAEConfig.wan21()
+            dit, vae = dataclasses.replace(WanConfig.wan21_1_3b(), i2v=i2v), WanVAEConfig.wan21()
         else:
-            raise NotImplementedError(f"wan21 size '{size}' (ported: 1.3b, 14b, tiny)")
-        self.t5_config = umt5
+            raise NotImplementedError(f"wan size '{size}' (ported: 1.3b, 14b, 5b, tiny)")
+        self.dit_config, self.vae_config, self.vision_config, self.t5_config = dit, vae, vision, umt5
         self.tokenizer = load_tokenizer(config.name_or_path, "tokenizer", vocab_size=umt5.vocab_size,
                                         eos_id=1, max_len=self.max_txt_len)
 
+    @property
+    def experts(self) -> tuple[str, ...]:
+        return ("dit", "dit_low") if self.multistage else ("dit",)
+
     # ---- construction ----
 
-    def init_variables(self, generator: torch.Generator) -> dict[str, nn.Module]:
+    def init_variables(self, generator: torch.Generator, qtype: str | None = None) -> dict[str, nn.Module]:
+        """Seeded init of ``dit`` (``dit_low``), ``vae``, ``t5`` (and
+        ``clip_vision``) in that order; with ``qtype`` each expert is
+        quantized from its own weights right after it is built."""
         dev = self.device
-        variables = {"dit": WanDiT(self.dit_config, device=dev), "vae": WanVAE(self.vae_config, device=dev),
-                     "t5": T5Encoder(self.t5_config, device=dev)}
-        for m in variables.values():
-            init_parameters(m, generator).eval().requires_grad_(False)
+
+        def build(module: nn.Module) -> nn.Module:
+            return init_parameters(module, generator).eval().requires_grad_(False)
+
+        variables = {}
+        for name in self.experts:
+            variables[name] = build(WanDiT(self.dit_config, device=dev))
+            if qtype is not None:
+                quantize_params(variables[name], exclude_patterns=QUANTIZE_EXCLUDE, qtype=qtype)
+        variables["vae"] = build(WanVAE(self.vae_config, device=dev))
+        variables["t5"] = build(T5Encoder(self.t5_config, device=dev))
+        if self.vision_config is not None:
+            variables["clip_vision"] = build(CLIPVisionModel(self.vision_config, device=dev))
         return variables
 
-    def load_variables(self, generator: torch.Generator) -> dict[str, nn.Module]:
-        return self.refuse_or_init(generator)
+    def load_variables(self, generator: torch.Generator, qtype: str | None = None) -> dict[str, nn.Module]:
+        if self.config.name_or_path:
+            return self.refuse_or_init(generator)
+        return self.init_variables(generator, qtype)
 
     def enable_sequence_parallel(self, *args, **kwargs) -> None:
         raise NotImplementedError(SEQUENCE_PARALLEL)
@@ -104,6 +145,20 @@ class WanModel(BaseModel):
         ids = np.stack([self.tokenizer.encode(p) for p in prompts])
         return {"txt": variables["t5"](torch.from_numpy(ids).long().to(self.device))}
 
+    def encode_image_cond(self, variables: dict, first_frame: torch.Tensor) -> torch.Tensor:
+        """i2v conditioning: the first frame ``[B, H, W, 3]`` in [-1, 1] ->
+        CLIP-vision tokens ``[B, N, img_cond_dim]``, the penultimate hidden
+        states. The frame is resized to the tower's size by antialiased
+        bilinear interpolation, as ``jax.image.resize(..., "bilinear")``
+        antialiases when it downsamples."""
+        if self.vision_config is None:
+            raise ValueError(f"arch '{self.config.arch}' has no vision tower: first-frame conditioning "
+                             f"(datasets[].do_i2v, ctrl_img) needs an i2v arch")
+        sz = self.vision_config.image_size
+        px = F.interpolate(first_frame.to(self.device).float().permute(0, 3, 1, 2), size=(sz, sz),
+                           mode="bilinear", antialias=True, align_corners=False)
+        return variables["clip_vision"](px.permute(0, 2, 3, 1))["penultimate_hidden_state"]
+
     def rope_table(self, t: int, h: int, w: int) -> torch.Tensor:
         """The (t, y, x) rope table of a ``t x h x w`` latent grid, ``[1, N, head_dim/2, 2, 2]``."""
         pt, ph, pw = self.dit_config.patch_size
@@ -112,13 +167,23 @@ class WanModel(BaseModel):
 
     # ---- forward ----
 
+    def expert(self, t: torch.Tensor) -> str:
+        """The variables entry that denoises at ``t``: the whole batch goes to
+        the high-noise expert when ``mean(t) >= stage_boundary``."""
+        if not self.multistage:
+            return "dit"
+        return "dit" if float(t.float().mean()) >= self.stage_boundary else "dit_low"
+
     def predict(self, variables: dict, noisy_latents: torch.Tensor, t: torch.Tensor, cond: dict) -> torch.Tensor:
-        """noisy_latents ``[B, T, h, w, C]``; cond: txt, pe. Differentiable."""
-        if cond.get("control_latents") is not None or cond.get("img_cond") is not None:
-            raise NotImplementedError("control latents / i2v image conditioning: " + UNPORTED_ARCHS["wan21_i2v"])
+        """noisy_latents ``[B, T, h, w, C]``; cond: txt, pe, and img_cond
+        (i2v). Differentiable."""
+        if cond.get("control_latents") is not None:
+            raise NotImplementedError(CONTROL_LATENTS)
         _, tt, hh, ww, c = noisy_latents.shape
         patch = self.dit_config.patch_size
-        out = variables["dit"](wan_patchify(noisy_latents, patch), cond["txt"], t, cond["pe"])
+        self.last_expert = self.expert(t) if "dit_low" in variables else "dit"
+        out = variables[self.last_expert](wan_patchify(noisy_latents, patch), cond["txt"], t, cond["pe"],
+                                          cond.get("img_cond"))
         return wan_unpatchify(out, tt, hh, ww, patch, c)
 
     def encode_images(self, variables: dict, images: torch.Tensor,
@@ -139,7 +204,7 @@ class WanModel(BaseModel):
         """The module name the JAX job's LoRA file carries for ``name``
         (:func:`~ai_toolkit_tpu_torch.models.wan_dit.wan_lora_key`): the
         scanned layout at every size but ``tiny``."""
-        return wan_lora_key(name, scanned=self.config.model_kwargs.get("size", "1.3b") != "tiny")
+        return wan_lora_key(name, scanned=self.size != "tiny")
 
     @staticmethod
     def lora_module_name(key: str) -> str:

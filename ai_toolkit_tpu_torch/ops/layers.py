@@ -131,17 +131,18 @@ class Conv(nn.Module):
     so no copy is made for an NHWC-contiguous input."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, *,
-                 stride: int = 1, padding: int | None = None, device=None, dtype=None):
+                 stride: int = 1, padding: int | None = None, bias: bool = True, device=None, dtype=None):
         super().__init__()
         self.stride = stride
         self.padding = kernel_size // 2 if padding is None else padding  # default: "SAME" at stride 1
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size,
                                                device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.empty(out_channels, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device, dtype=dtype)) if bias else None
 
     def init_weights(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight, self.weight[0].numel(), generator)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.to(self.weight.dtype).permute(0, 3, 1, 2), self.weight, self.bias,

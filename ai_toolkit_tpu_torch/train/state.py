@@ -16,6 +16,7 @@ class TrainState:
     def __init__(self, trainable: dict[str, torch.Tensor], optimizer: AdamW, use_ema: bool = False):
         self.trainable = trainable
         self.optimizer = optimizer
+        self.step = 0  # optimizer steps taken (JAX ``TrainState.step``)
         self.ema = ({k: v.detach().clone() for k, v in trainable.items()} if use_ema else None)
 
     @torch.no_grad()
@@ -24,6 +25,7 @@ class TrainState:
         ema <- ema * decay + p * (1 - decay) in the EMA's dtype, the scalars
         rounded to it as JAX rounds them (0.99 is 0.98828125 in bf16)."""
         self.optimizer.step(grads)
+        self.step += 1
         if self.ema is not None and ema_decay is not None:
             for k, p in self.trainable.items():
                 e = self.ema[k]

@@ -10,7 +10,11 @@ PyTorch), the core path the flux and SDXL LoRA jobs take:
     grads of the trainable tensors only; clip, AdamW(8bit), EMA
 
 with metrics ``loss``, ``loss_raw`` and ``grad_norm`` (the global norm of the
-unclipped gradients). The two halves run in ``torch.profiler`` ranges
+unclipped gradients). A multistage pair (``stage_boundary`` with
+``switch_every`` > 0) trains one expert's noise range at a time: steps
+alternate every ``switch_every`` between ``[boundary, 1]`` and ``[0,
+boundary]``, high first, and the sampled flow t is squeezed into the range
+(``lo + t (hi - lo)``). The two halves run in ``torch.profiler`` ranges
 (``train_step: forward and backward``, ``train_step: clip, optimizer and
 EMA``) that split a profiled step's host and device time. ``grad_accum > 1`` sums the gradients of that many
 micro-batches and divides, as the JAX ``lax.scan`` over micro-batches does. Every other knob of
@@ -63,6 +67,9 @@ class TrainStepConfig:
     content_or_style: str = "balanced"
     min_denoising_steps: int = 0
     max_denoising_steps: int | None = None
+    # multistage: the trained expert alternates every switch_every steps, t drawn from its noise range
+    stage_boundary: float | None = None
+    switch_every: int = 0
 
     @classmethod
     def from_train_config(cls, tc: TrainConfig) -> "TrainStepConfig":
@@ -103,18 +110,33 @@ def train_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dic
                         loss_multiplier=batch.get("loss_multiplier"))
 
 
+def stage_range(cfg: TrainStepConfig, step: int) -> tuple[float, float] | None:
+    """The noise range ``(lo, hi)`` step ``step`` trains (JAX ``train_step``'s
+    ``t_range``): the high-noise expert's ``[boundary, 1]`` in even phases of
+    ``switch_every`` steps, the low-noise one's ``[0, boundary]`` in odd ones;
+    None when the model is not a switched multistage pair."""
+    if cfg.switch_every <= 0 or cfg.stage_boundary is None:
+        return None
+    if (step // cfg.switch_every) % 2 == 0:
+        return cfg.stage_boundary, 1.0
+    return 0.0, cfg.stage_boundary
+
+
 def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig):
     """``train_step(state, batches, generator) -> metrics`` over ``grad_accum``
     micro-batches. Each holds ``latents`` ``[B, h, w, C]`` (video: ``[B, T, h, w, C]``), ``cond``,
     ``loss_multiplier`` and (flow matching) ``image_seq_len``; t and the noise are drawn from
     ``generator`` on the latents' device."""
 
-    def micro(batch, generator):
+    def micro(batch, generator, t_range):
         latents = batch["latents"]
         if isinstance(schedule, FlowMatchSchedule):
             t = schedule.sample_timesteps(generator, latents.shape[0], cfg.timestep_type,
                                           batch.get("image_seq_len"), cfg.timestep_bias,
                                           device=latents.device)
+            if t_range is not None:
+                lo, hi = t_range
+                t = lo + t * (hi - lo)
         else:
             tt = cfg.timestep_type if cfg.timestep_type in _DDPM_TIMESTEP_TYPES else None
             t = schedule.sample_timesteps(generator, latents.shape[0], cfg.min_denoising_steps,
@@ -129,9 +151,10 @@ def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig):
             raise ValueError(f"train_step got {len(batches)} micro-batches, grad_accum is {cfg.grad_accum}")
         params = list(state.trainable.values())
         grads, loss, aux = None, 0.0, {}
+        t_range = stage_range(cfg, state.step)
         with record_function("train_step: forward and backward"):
             for batch in batches:
-                l_i, a_i = micro(batch, generator)
+                l_i, a_i = micro(batch, generator, t_range)
                 g_i = torch.autograd.grad(l_i, params)
                 grads = g_i if grads is None else [g + x for g, x in zip(grads, g_i)]
                 loss = loss + l_i.detach()

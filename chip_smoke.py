@@ -71,7 +71,32 @@ Phases (any failure raises and the script exits non-zero):
      profiles its last step too);
   19. the Wan 2.1 1.3B ``generate`` job at 480x832, 81 frames (32,760
      tokens), 8 Euler steps, 1 prompt, with the LoRA it saved, all 81 frames
-     decoded at once and written as an animated webp.
+     decoded at once and written as an animated webp;
+  20. the flash kernels against their plain versions at the Wan 2.2 shapes:
+     the 14B pair's 40 heads (self at 8,100 tokens, cross to the 512 text
+     tokens and to the 257 ViT-H tokens, whose last K/V tile holds one
+     valid row) and the TI2V-5B's 24 heads (4,356, 11,440 and 27,280
+     tokens), forward, dq and dk/dv where the path trains, with strongly
+     negative logits in the tails (lse below -88);
+  21. the same shapes timed against the plain version (where its f32 tensors
+     fit), the library call and the bound;
+  22. a full-width Wan 2.2 14B i2v DiT cut to one block (the image MLP and
+     the image K/V), ViT-H cut to 2 layers, and the TI2V-5B VAE on a short
+     clip (encode and decode), each in f32 on the card against the CPU;
+  23. the main path of this slice: the Wan 2.2 14B i2v LoRA ``sd_trainer``
+     job from a job file written from
+     configs/examples/train_lora_wan22_14b_tpu.yaml (the expert pair on a
+     qfloat8 base, each expert quantized from its own weights, one LoRA on
+     both, rank 16, adamw8bit, EMA, flowmatch shift, bf16, 33 frames at
+     480^2 with ``do_i2v`` and ``switch_boundary_every: 2``), launches per
+     step and the expert of every step checked;
+  24. its ``generate`` job at 480^2, 33 frames, 8 Euler steps, a seeded
+     first frame (``ctrl_img``), the bf16 pair with the saved LoRA, both
+     experts run;
+  25. the TI2V-5B LoRA ``sd_trainer`` job from
+     configs/examples/train_lora_wan21_tpu.yaml (``arch: wan22_5b``, 33
+     frames at 704^2) and 26. its ``generate`` job at 1280x704, 49 frames,
+     8 Euler steps, all frames decoded at once.
 The line before the last is the kernel table; the SDXL and Wan launches are
 printed on lines of their own before it; the last line is the result.
 """
@@ -136,6 +161,31 @@ WAN_SHAPES = [
 WAN_BLOCKS = 30  # one self- and one cross-attention each
 WAN_CLIPS, WAN_FRAMES, WAN_RES = 4, 33, 480
 WAN_GEN = (832, 480, 81, 8)  # width, height, frames, Euler steps
+# the rest of slice E: the Wan 2.2 14B i2v pair (40 heads of 128) trains 33 frames
+# at 480^2, 9 x 30 x 30 = 8,100 tokens, with cross-attention to the 512 UMT5 tokens
+# and to the 257 ViT-H tokens (2 * 128 + 1: a K/V tail tile of one valid row); the
+# TI2V-5B (24 heads) trains 33 frames at 704^2, 9 x 22 x 22 = 4,356 (34 * 128 + 4),
+# samples 49 frames at 1280x704, 13 x 22 x 40 = 11,440 (89 * 128 + 48), and its
+# published 121-frame clip would be 31 x 22 x 40 = 27,280 (213 * 128 + 16).
+# (shape, label, backward checked and timed)
+WAN22_SHAPES = [
+    ((1, 8100, 8100, 40, 128), "14B train self", True),
+    ((1, 8100, 512, 40, 128), "14B train text cross", True),
+    ((1, 8100, 257, 40, 128), "14B train image cross", True),
+    ((1, 4356, 4356, 24, 128), "5B train self", True),
+    ((1, 4356, 512, 24, 128), "5B train cross", True),
+    ((1, 11440, 11440, 24, 128), "5B generate self", False),
+    ((1, 11440, 512, 24, 128), "5B generate cross", False),
+    ((1, 27280, 27280, 24, 128), "5B 121-frame self", False),
+]
+# q + shift, k - shift: every lse near -106, the ragged tails' too (the T = 257 one-row tile)
+WAN22_NEGATIVE = [((1, 8100, 257, 40, 128), "14B image cross, negative logits"),
+                  ((1, 4356, 4356, 24, 128), "5B self, negative logits")]
+WAN14_BLOCKS, WAN5_BLOCKS = 40, 30  # three attentions each (self, text, image), two (self, text)
+WAN5_RES = 704
+WAN5_GEN = (1280, 704, 49, 8)  # width, height, frames, Euler steps
+PLAIN_BUDGET = 48 * 2**30  # bytes of f32 [B, H, S, T] tensors a plain version may hold at once
+HEAD_CHUNK = 8  # heads per plain-version call in the checks
 LSE_TOL = 1e-3
 MAIN_SHAPE = (1, 4608, 24, 128)
 RAGGED_SHAPE = (1, 4481, 24, 128)  # flux-dev at 1008^2: 512 text + 3969 image tokens, masked tails
@@ -870,8 +920,10 @@ def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None):
     got = {k: v / steps for k, v in launches.items()}
     check(got == per_step, f"launches per step {got} != {per_step}")
     _check_no_tma_copies(name)
+    if result["experts"]:
+        print(f"experts by step: {', '.join(result['experts'])}")
     return result, proc, {"launches": launches, "steps": steps, "median_step_ms": statistics.median(timed),
-                          "peak_gib": peak, "wall_s": wall}
+                          "peak_gib": peak, "wall_s": wall, "experts": result["experts"]}
 
 
 def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None,
@@ -953,12 +1005,13 @@ def fullft_job(name: str, model: dict, per_step: dict[str, int], profile_dir: st
     return report
 
 
-def generate_job(model: dict, width: int, height: int, steps: int, prompts: list[str],
+def generate_job(model: dict, width: int, height: int, steps: int, prompts: list,
                  per_step: dict[str, int], lora_path: str | None = None,
                  sampler: str = "flowmatch", guidance_scale: float = 4, num_frames: int = 1) -> dict[str, int]:
-    """A ``generate`` job on the card; ``per_step`` is the launches of each
-    kernel one denoise step must make; ``num_frames`` > 1: a video model's
-    clips, each an animated webp of that many frames."""
+    """A ``generate`` job on the card; ``prompts``: strings, or items with a
+    ``ctrl_img``; ``per_step`` is the launches of each kernel one denoise step
+    must make; ``num_frames`` > 1: a video model's clips, each an animated
+    webp of that many frames. A multistage pair must run both experts."""
     from PIL import Image
 
     from ai_toolkit_tpu_torch.jobs import run_job
@@ -990,9 +1043,13 @@ def generate_job(model: dict, width: int, height: int, steps: int, prompts: list
     for r in recs:
         steps_ms = r["step_ms"]
         what = f"{num_frames} frames ({r['tokens']} tokens)" if num_frames > 1 else "image"
+        pair = model["arch"].startswith("wan22_14b")
         print(f"{what} {r['width']}x{r['height']}: encode {r['encode_ms']:.1f} ms, denoise steps "
               f"{', '.join(f'{x:.1f}' for x in steps_ms)} ms (median {statistics.median(steps_ms):.1f}), "
-              f"VAE decode {r['decode_ms']:.1f} ms, total {r['total_s']:.3f} s")
+              f"VAE decode {r['decode_ms']:.1f} ms, total {r['total_s']:.3f} s"
+              f"{'; experts by step ' + ', '.join(r['experts']) if pair else ''}")
+        if pair:
+            check({"dit", "dit_low"} <= set(r["experts"]), f"a denoise run of the pair used only {set(r['experts'])}")
     print(f"job wall {wall:.1f} s (model build + seeded init included), "
           f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"launches {launches}{' (LoRA ' + lora_path + ' overlaid)' if lora_path else ''}")
@@ -1006,10 +1063,10 @@ def attention_times(title: str, prefix: str, cases, seed: int) -> dict:
     """The flash kernels at a model's shapes: the forward and, where ``full``,
     dq and dk/dv, each timed with events (back to back, the host's launch
     hidden behind the card's work) and with the card alone (:func:`_device_ms`),
-    against its plain version (where ``full``: its f32 logits must fit), the
-    forward against scaled_dot_product_attention, dq and dk/dv against its
-    backward, each beside its bound. ``cases``: ``[(shape, label, full)]``.
-    Returns ``{label: {fwd|dq|dkv: {...}}}``."""
+    against its plain version (where its f32 [B, H, S, T] tensors fit in
+    PLAIN_BUDGET), the forward against scaled_dot_product_attention, dq and
+    dk/dv against its backward, each beside its bound. ``cases``:
+    ``[(shape, label, full)]``. Returns ``{label: {fwd|dq|dkv: {...}}}``."""
     phase(title)
     from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -1041,7 +1098,8 @@ def attention_times(title: str, prefix: str, cases, seed: int) -> dict:
         ):
             if name != "fwd" and not full:
                 continue
-            if full:
+            # the plain forward holds ~3 f32 [B, H, S, T] tensors at once, the backward ~4
+            if b * h * s * t * 4 * (3 if name == "fwd" else 4) <= PLAIN_BUDGET:
                 ms, plain_ms, n = _in_turns(kern, plain)
             else:
                 ms, plain_ms, n = statistics.median(_time_ms(kern, 20)), None, 20
@@ -1067,61 +1125,66 @@ def attention_times(title: str, prefix: str, cases, seed: int) -> dict:
     return res
 
 
-def wan_kernel_checks() -> dict[str, float]:
-    """The flash kernels against their plain versions at Wan 2.1's shapes
-    (WAN_SHAPES), bf16: out within 2e-2 of max|ref| (capped at 2e-2), lse
-    within LSE_TOL, dq, dk and dv within 2e-2 of max|ref|. At 32,760 tokens
-    the rows of the first Q tile and of the ragged last one are held against
-    the plain version on those rows and every key (rows are independent, so
-    that is exact). A cross-attention case with q + 3.2 and k - 3.2 puts every
-    lse, the ragged tail tile's too, near -106. Returns the largest absolute
-    errors of the forward, dq and dk/dv."""
-    phase("flash kernels vs plain versions at Wan 2.1's shapes (head_dim 128), bf16")
+def flash_checks(title: str, cases, seed: int) -> dict[str, float]:
+    """The flash kernels against their plain versions at a model's shapes,
+    bf16: out within 2e-2 of max|ref| (capped at 2e-2), lse within LSE_TOL,
+    dq, dk and dv within 2e-2 of max|ref|, the plain version run over
+    HEAD_CHUNK heads at a time (heads are independent, so that is exact).
+    ``cases``: ``[(shape, label, backward, qkv or None)]``; a case without
+    its backward holds the rows of its first Q tile and of its ragged last
+    one against the plain version over every key (rows are independent too).
+    A case with q + 3.2 and k - 3.2 puts every lse, the ragged tail tile's
+    too, near -106. Returns the largest absolute errors of the forward, dq
+    and dk/dv."""
+    phase(title)
     from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 
-    gen = torch.Generator("cuda").manual_seed(5)
+    gen = torch.Generator("cuda").manual_seed(seed)
     err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    cases = [(shape, label, full, None) for shape, label, full in WAN_SHAPES]
-    cases.append(((1, 8100, 512, 12, 128), "train cross, negative logits", True,
-                  _negative_qkv((1, 8100, 512, 12, 128), 3.2, gen)))
     for (b, s, t, h, d), label, full, qkv in cases:
         q, k, v = qkv if qkv is not None else (
             _rand((b, s, h, d), torch.bfloat16, gen), *(_rand((b, t, h, d), torch.bfloat16, gen) for _ in range(2)))
         out, lse = fa.flash_attention_fwd(q, k, v)
+        if full:
+            g = _rand((b, s, h, d), torch.bfloat16, gen)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, g)
         torch.cuda.synchronize()
-        # full: every row; else the first Q tile and the ragged last one
         tail = s - (s % 128 or 128)
         rows = slice(None) if full else torch.cat([torch.arange(128), torch.arange(tail, s)]).cuda()
-        ref_out, ref_lse = fa.flash_attention_fwd_plain(q[:, rows].float(), k.float(), v.float())
-        got_out, got_lse = out[:, rows].float(), lse[:, :, rows]
-        e_out = (got_out - ref_out).abs().max().item()
-        out_tol = 2e-2 * min(1.0, ref_out.abs().max().item())
-        e_lse = (got_lse - ref_lse).abs().max().item()
+        e = {"out": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+        ref_max = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+        for h0 in range(0, h, HEAD_CHUNK):
+            hs = slice(h0, h0 + HEAD_CHUNK)
+            ref_out, ref_lse = fa.flash_attention_fwd_plain(q[:, rows, hs].float(), k[:, :, hs].float(),
+                                                            v[:, :, hs].float())
+            e["out"] = max(e["out"], (out[:, rows, hs].float() - ref_out).abs().max().item())
+            e["lse"] = max(e["lse"], (lse[:, hs][:, :, rows] - ref_lse).abs().max().item())
+            ref_max["out"] = max(ref_max["out"], ref_out.abs().max().item())
+            del ref_out, ref_lse
+            if full:
+                refs = fa.flash_attention_bwd_plain(q[:, :, hs].float(), k[:, :, hs].float(), v[:, :, hs].float(),
+                                                    out[:, :, hs].float(), lse[:, hs], g[:, :, hs].float())
+                for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
+                    e[name] = max(e[name], (x[:, :, hs].float() - r).abs().max().item())
+                    ref_max[name] = max(ref_max[name], r.abs().max().item())
+                del refs
+        out_tol = 2e-2 * min(1.0, ref_max["out"])
         tail_lse = lse[:, :, tail:].max().item()
-        msg = (f"Wan {label} (B,S,T,H,D)=({b},{s},{t},{h},{d}): {'all' if full else 'first and last tile'} "
-               f"rows; out_err {e_out:.3e} (tol {out_tol:.3e}), lse_err {e_lse:.3e} (tol {LSE_TOL:g}); "
+        msg = (f"{label} (B,S,T,H,D)=({b},{s},{t},{h},{d}): {'all' if full else 'first and last tile'} rows; "
+               f"out_err {e['out']:.3e} (tol {out_tol:.3e}), lse_err {e['lse']:.3e} (tol {LSE_TOL:g}); "
                f"largest lse of the ragged last tile ({s - tail} rows) {tail_lse:.1f}")
-        check(bool(torch.isfinite(out).all()) and e_out <= out_tol and e_lse <= LSE_TOL,
+        check(bool(torch.isfinite(out).all()) and e["out"] <= out_tol and e["lse"] <= LSE_TOL,
               f"{msg}: the forward disagrees with its plain version")
         if qkv is not None:
             check(tail_lse < -88.0, f"{msg}: the negative case's tail lse is not below -88")
-        err["fwd"] = max(err["fwd"], e_out)
-        del ref_out, ref_lse, got_out
+        err["fwd"] = max(err["fwd"], e["out"])
         if full:
-            g = _rand((b, s, h, d), torch.bfloat16, gen)
-            dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, g)
-            torch.cuda.synchronize()
-            refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, g.float())
-            rel = []
-            for name, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-                check(bool(torch.isfinite(x).all()), f"{msg}: {name} not finite")
-                a = (x.float() - r).abs().max().item()
-                rel.append(a / r.abs().max().item())
-                key = "dq" if name == "dq" else "dkv"
-                err[key] = max(err[key], a)
+            rel = [e[n] / ref_max[n] for n in ("dq", "dk", "dv")]
+            check(all(bool(torch.isfinite(x).all()) for x in grads), f"{msg}: a gradient is not finite")
             msg += f"; rel err dq/dk/dv {rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} (tol 2e-2)"
             check(max(rel) <= 2e-2, f"{msg}: the backward kernels disagree with their plain versions")
-            del g, dq, dk, dv, refs
+            err["dq"], err["dkv"] = max(err["dq"], e["dq"]), max(err["dkv"], e["dk"], e["dv"])
+            del g, grads
         print(msg)
         del q, k, v, out, lse
         torch.cuda.empty_cache()
@@ -1240,20 +1303,20 @@ def _sdxl_job(name: str, profile_dir: str | None) -> dict:
     return job
 
 
-def wan_reference(fwd_launches: dict, step_launches: dict) -> None:
-    """The Wan 2.1 1.3B DiT at full width (dim 1536, 12 heads of 128, FFN 8960,
-    text dim 4096) cut to one block, in f32, on the card against the same
-    module on the CPU (which takes the flash kernels' plain versions), over a
-    ragged 3 x 10 x 14 latent grid (105 tokens) and 512 text tokens: the
-    forward, and one LoRA training step's loss and a / b gradients with the
-    block checkpointed, as in training."""
-    phase("full-width Wan 2.1 1.3B DiT (one block, f32, 105 tokens): card vs CPU")
+def wan_reference(label: str, cfg, fwd_launches: dict, step_launches: dict, img_tokens: int = 0) -> None:
+    """A full-width Wan DiT (``cfg``) cut to one block, in f32, on the card
+    against the same module on the CPU (which takes the flash kernels' plain
+    versions), over a ragged 3 x 10 x 14 latent grid (105 tokens), 512 text
+    tokens and, for an i2v DiT, ``img_tokens`` CLIP-vision tokens through
+    ``img_emb``: the forward, and one LoRA training step's loss and a / b
+    gradients with the block checkpointed, as in training."""
+    phase(f"full-width {label} DiT (one block, f32, 105 tokens): card vs CPU")
     from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
-    from ai_toolkit_tpu_torch.models.wan_dit import WanConfig, WanDiT, wan_lora_targets, wan_patchify, wan_position_ids
+    from ai_toolkit_tpu_torch.models.wan_dit import WanDiT, wan_lora_targets, wan_patchify, wan_position_ids
     from ai_toolkit_tpu_torch.ops.layers import init_parameters
     from ai_toolkit_tpu_torch.ops.rope import multi_axis_rope
 
-    cfg = dataclasses.replace(WanConfig.wan21_1_3b(), num_layers=1, dtype=torch.float32, remat=False)
+    cfg = dataclasses.replace(cfg, num_layers=1, dtype=torch.float32, remat=False)
     gpu = init_parameters(WanDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
     gpu.eval().requires_grad_(False)
     cpu = WanDiT(cfg, device="cpu").eval().requires_grad_(False)
@@ -1264,6 +1327,8 @@ def wan_reference(fwd_launches: dict, step_launches: dict) -> None:
     inputs = [wan_patchify(lat, cfg.patch_size), torch.randn((1, 512, cfg.text_dim), generator=g),
               torch.tensor([0.7]),
               multi_axis_rope(torch.from_numpy(wan_position_ids(tt, hh // 2, ww // 2)), list(cfg.axes_dim))]
+    if img_tokens:
+        inputs.append(torch.randn((1, img_tokens, cfg.img_cond_dim), generator=g))
     gpu_in = [x.cuda() for x in inputs]
     _reset_launches()
     with torch.inference_mode():
@@ -1274,7 +1339,7 @@ def wan_reference(fwd_launches: dict, step_launches: dict) -> None:
     print(f"forward: out {tuple(out.shape)} max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {tol:.3e}) "
           f"kernel launches={_launches()}")
     check(_launches() == fwd_launches and bool(torch.isfinite(out).all()) and err <= tol,
-          "the Wan DiT on the card disagrees with the CPU")
+          f"the {label} DiT on the card disagrees with the CPU")
 
     spec = LoRASpec(rank=32, alpha=32.0, target_patterns=wan_lora_targets())
     lg = build_lora(gpu, spec, torch.Generator("cuda").manual_seed(2))
@@ -1301,23 +1366,80 @@ def wan_reference(fwd_launches: dict, step_launches: dict) -> None:
     print(f"LoRA train step ({len(lg)} modules, checkpointed block): loss card {loss:.6f} vs CPU {ref_loss:.6f}; "
           f"{len(grads)} a / b tensors, worst max|dgrad|/max|grad| {worst:.3e} (tol 1e-3); kernel launches={launches}")
     check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss) and worst <= 1e-3 and launches == step_launches,
-          "the Wan LoRA train step on the card disagrees")
+          f"the {label} LoRA train step on the card disagrees")
     del gpu, cpu, lg, lc, grads, ref_grads
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def _wan_clips() -> str:
-    """WAN_CLIPS seeded WAN_FRAMES-frame clips at WAN_RES^2 (moving colour
-    fields plus noise), written with OpenCV as MJPG .avi, with captions; at
-    the bucket's size, so the loader's cover-resize keeps their size."""
+def vit_reference(layers: int = 2) -> None:
+    """ViT-H (1280 wide, 16 heads of 80, 257 tokens at 224^2) cut to
+    ``layers`` layers, in f32, on the card against the same module on the
+    CPU: pooled_output, last_hidden_state and penultimate_hidden_state. Its
+    attention is plain torch (head_dim 80), so no kernel launches."""
+    phase(f"ViT-H cut to {layers} layers (f32, 224^2, 257 tokens): card vs CPU")
+    from ai_toolkit_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    cfg = dataclasses.replace(CLIPVisionConfig.vit_h(), num_layers=layers, dtype=torch.float32)
+    gpu = init_parameters(CLIPVisionModel(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0)).eval()
+    cpu = CLIPVisionModel(cfg, device="cpu").eval()
+    cpu.load_state_dict(gpu.state_dict())
+    px = torch.rand((2, 224, 224, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    _reset_launches()
+    with torch.inference_mode():
+        ref, out = cpu(px), gpu(px.cuda())
+    for key in ("pooled_output", "last_hidden_state", "penultimate_hidden_state"):
+        err, scale = (out[key].cpu() - ref[key]).abs().max().item(), ref[key].abs().max().item()
+        print(f"{key} {tuple(out[key].shape)}: max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {1e-3 * max(1.0, scale):.3e})")
+        check(bool(torch.isfinite(out[key]).all()) and err <= 1e-3 * max(1.0, scale),
+              f"ViT-H {key} on the card disagrees with the CPU")
+    check(_launches() == _counts(), f"ViT-H launched flash kernels: {_launches()}")
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vae22_reference(frames: int = 5, size: int = 64) -> None:
+    """The TI2V-5B VAE (``WanVAEConfig.wan22_5b``: base 160, decoder base 256,
+    48 latent channels, 2x2 patchify, residual blocks) at full width in f32,
+    on the card against the same module on the CPU over a short seeded clip:
+    the raw encoder moments and the decode of the latents."""
+    phase(f"full-width TI2V-5B VAE (f32, {frames} frames at {size}^2): card vs CPU, encode and decode")
+    from ai_toolkit_tpu_torch.models.wan_vae import WanVAE, WanVAEConfig
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    cfg = dataclasses.replace(WanVAEConfig.wan22_5b(), dtype=torch.float32)
+    gpu = init_parameters(WanVAE(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0)).eval()
+    cpu = WanVAE(cfg, device="cpu").eval()
+    cpu.load_state_dict(gpu.state_dict())
+    vid = torch.rand((1, frames, size, size, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    with torch.inference_mode():
+        ref_mom, mom = cpu.raw_moments(vid), gpu.raw_moments(vid.cuda()).cpu()
+        lat = ref_mom[..., :cfg.z_dim].contiguous()
+        ref_img, img = cpu.decode(lat), gpu.decode(lat.cuda()).cpu()
+    check(mom.shape == (1, (frames - 1) // 4 + 1, size // 16, size // 16, 2 * cfg.z_dim) and img.shape == vid.shape,
+          f"TI2V-5B VAE shapes {tuple(mom.shape)}, {tuple(img.shape)}")
+    for what, got, want in (("encoder moments", mom, ref_mom), ("decode", img, ref_img)):
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        print(f"{what} {tuple(got.shape)}: max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {1e-3 * max(1.0, scale):.3e})")
+        check(bool(torch.isfinite(got).all()) and err <= 1e-3 * max(1.0, scale),
+              f"the TI2V-5B VAE's {what} on the card disagree with the CPU")
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _wan_clips(n: int = WAN_RES) -> str:
+    """WAN_CLIPS seeded WAN_FRAMES-frame clips at n^2 (moving colour fields
+    plus noise), written with OpenCV as MJPG .avi, with captions; at the
+    bucket's size, so the loader's cover-resize keeps their size."""
     import cv2
     import numpy as np
 
-    folder = os.path.join(OUT_DIR, "wan_clips")
+    folder = os.path.join(OUT_DIR, f"wan_clips_{n}")
     os.makedirs(folder, exist_ok=True)
     rng = np.random.default_rng(0)
-    n = WAN_RES
     yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) / n
     subjects = ["a red fox running", "waves on a beach", "a candle flame", "clouds over a mountain lake"]
     for i in range(WAN_CLIPS):
@@ -1334,38 +1456,149 @@ def _wan_clips() -> str:
     return folder
 
 
-def _wan_job(name: str, profile_dir: str | None) -> dict:
-    """The Wan 2.1 LoRA job: configs/examples/train_lora_wan21_tpu.yaml cut to
-    this run (seeded random weights, the seeded clips, latents cached in
-    memory, no sample section, a few steps), written to a job file and read
-    back through the port's config loader. It keeps rank 32 / alpha 32, adamw
-    at lr 1e-4, flowmatch with shift timesteps, bf16, batch 1, 33 frames at
-    resolution 480 and the fp16 save."""
-    import yaml
-
+def _job_file(example: str, name: str, profile_dir: str | None, clips: str, **dataset) -> tuple[dict, str]:
+    """An example job file cut to this run (seeded random weights, the seeded
+    clips, latents cached in memory, no sample section, a few steps),
+    returned with the path to write it to."""
     from ai_toolkit_tpu_torch.config import get_config
 
-    raw = get_config(os.path.join(ROOT, "configs", "examples", "train_lora_wan21_tpu.yaml"))
+    raw = get_config(os.path.join(ROOT, "configs", "examples", example))
     raw["config"]["name"] = name
     proc = raw["config"]["process"][0]
     proc["training_folder"] = os.path.join(OUT_DIR, "train")
-    proc["datasets"][0].update(folder_path=_wan_clips(), cache_latents=True, cache_latents_to_disk=False)
+    proc["datasets"][0].update(folder_path=clips, cache_latents=True, cache_latents_to_disk=False, **dataset)
     proc["train"].update(steps=_train_steps(profile_dir), seed=42)
     proc["model"]["name_or_path"] = ""
     proc.pop("sample")
     proc["logging"] = {"log_every": 1}
-    path = os.path.join(OUT_DIR, f"{name}.yaml")
+    return raw, os.path.join(OUT_DIR, f"{name}.yaml")
+
+
+def _read_back(raw: dict, path: str, example: str) -> dict:
+    """Write the job file and read it back through the port's config loader."""
+    import yaml
+
+    from ai_toolkit_tpu_torch.config import get_config
+
     with open(path, "w") as f:
         yaml.safe_dump(raw, f, sort_keys=False)
-    job = get_config(path)
+    print(f"job file {path} (from configs/examples/{example})")
+    return get_config(path)
+
+
+def _wan_job(name: str, profile_dir: str | None, arch: str = "wan21", res: int = WAN_RES) -> dict:
+    """A Wan LoRA job: configs/examples/train_lora_wan21_tpu.yaml cut to this
+    run. It keeps rank 32 / alpha 32, adamw at lr 1e-4, flowmatch with shift
+    timesteps, bf16, batch 1, 33 frames and the fp16 save; ``arch`` and
+    ``res`` (the TI2V-5B: ``wan22_5b`` at 704) replace its own."""
+    example = "train_lora_wan21_tpu.yaml"
+    raw, path = _job_file(example, name, profile_dir, _wan_clips(res), resolution=[res])
+    raw["config"]["process"][0]["model"]["arch"] = arch
+    job = _read_back(raw, path, example)
     p = job["config"]["process"][0]
     t, d, net = p["train"], p["datasets"][0], p["network"]
-    check(p["model"]["arch"] == "wan21" and t["timestep_type"] == "shift" and t["optimizer"] == "adamw"
-          and t["dtype"] == "bf16" and d["num_frames"] == WAN_FRAMES and d["resolution"] == [WAN_RES]
+    check(p["model"]["arch"] == arch and t["timestep_type"] == "shift" and t["optimizer"] == "adamw"
+          and t["dtype"] == "bf16" and d["num_frames"] == WAN_FRAMES and d["resolution"] == [res]
           and net["linear"] == net["linear_alpha"] == 32 and p["save"]["dtype"] == "float16",
           f"{path} lost the job's settings")
-    print(f"job file {path} (from configs/examples/train_lora_wan21_tpu.yaml)")
     return job
+
+
+def _wan14_job(name: str, profile_dir: str | None) -> dict:
+    """The Wan 2.2 14B i2v LoRA job: configs/examples/train_lora_wan22_14b_tpu.yaml
+    cut to this run, with ``arch: wan22_14b_i2v``, ``model_kwargs: {size: 14b}``
+    (the file leaves size to its 1.3b default), ``do_i2v`` and
+    ``switch_boundary_every: 2`` (steps high, high, low, low, high). It keeps
+    the qfloat8 base, rank 16 / alpha 16, adamw8bit at lr 1e-4, EMA 0.99,
+    flowmatch with shift timesteps, bf16, batch 1, 33 frames at 480,
+    per-block recompute and the fp16 save."""
+    example = "train_lora_wan22_14b_tpu.yaml"
+    raw, path = _job_file(example, name, profile_dir, _wan_clips(WAN_RES), do_i2v=True)
+    proc = raw["config"]["process"][0]
+    proc["model"].update(arch="wan22_14b_i2v", model_kwargs={"size": "14b"})
+    proc["train"]["switch_boundary_every"] = 2
+    job = _read_back(raw, path, example)
+    p = job["config"]["process"][0]
+    t, d, net, m = p["train"], p["datasets"][0], p["network"], p["model"]
+    check(m["quantize"] and m.get("qtype", "qfloat8") == "qfloat8" and t["optimizer"] == "adamw8bit"
+          and t["ema_config"] == {"use_ema": True, "ema_decay": 0.99} and t["timestep_type"] == "shift"
+          and t["dtype"] == "bf16" and t["gradient_checkpointing"] and d["num_frames"] == WAN_FRAMES
+          and d["resolution"] == [WAN_RES] and d["do_i2v"] and net["linear"] == net["linear_alpha"] == 16
+          and p["save"]["dtype"] == "float16", f"{path} lost the job's settings")
+    return job
+
+
+def _ctrl_image(width: int, height: int) -> str:
+    """A seeded first frame for i2v generation (a smooth colour field plus noise)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32) / max(width, height)
+    img = np.stack([np.sin(6.3 * (c + 1) * (xx + 0.5 * yy)) for c in range(3)], -1) * 127.5 + 127.5
+    path = os.path.join(OUT_DIR, f"ctrl_{width}x{height}.png")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    Image.fromarray(np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)).save(path)
+    return path
+
+
+def wan22_phases(profile_dir: str | None) -> tuple[dict, dict, dict]:
+    """The phases of the rest of slice E (the Wan 2.2 14B i2v pair and the
+    TI2V-5B): the flash kernels at their shapes, the full-width cuts, both
+    train jobs and both generate jobs. Returns the flash errors, the flash
+    times and the 14B train job's report."""
+    from ai_toolkit_tpu_torch.models.wan_dit import WanConfig
+
+    neg = torch.Generator("cuda").manual_seed(10)
+    wan22_err = flash_checks(
+        "flash kernels vs plain versions at the Wan 2.2 14B (40 heads) and TI2V-5B (24 heads) shapes, bf16",
+        [(shape, label, full, None) for shape, label, full in WAN22_SHAPES]
+        + [(shape, label, True, _negative_qkv(shape, 3.2, neg)) for shape, label in WAN22_NEGATIVE], 7)
+    wan22_times = attention_times("flash kernels at the Wan 2.2 shapes (head_dim 128), bf16", "Wan 2.2",
+                                  WAN22_SHAPES, 9)
+    # one i2v block: self, text and image cross-attention; the checkpointed step runs all three again
+    wan_reference("Wan 2.2 14B i2v (img_emb, the image K/V)", dataclasses.replace(WanConfig.wan21_14b(), i2v=True),
+                  _counts(fwd=3), _counts(6, 3, 3), img_tokens=257)
+    vit_reference()
+    vae22_reference()
+
+    phase("main path of this slice: Wan 2.2 14B i2v LoRA sd_trainer job (the expert pair, qfloat8), 33 frames at "
+          "480x480 (8,100 tokens), do_i2v, switch_boundary_every 2, batch 1, rank 16, adamw8bit, EMA, flowmatch "
+          "shift, bf16, per-block checkpointing")
+    # per step: the three attentions of every block run their forward twice (the
+    # recompute), dq and dk/dv once; the expert of the step's noise range runs
+    wan14_step = _counts(6 * WAN14_BLOCKS, 3 * WAN14_BLOCKS, 3 * WAN14_BLOCKS)
+    wan14 = train_job("smoke_wan22_14b_i2v_lora", {}, wan14_step, profile_dir,
+                      raw=_wan14_job("smoke_wan22_14b_i2v_lora", profile_dir))
+    want = ["dit" if (i // 2) % 2 == 0 else "dit_low" for i in range(wan14["steps"])]
+    check(wan14["experts"] == want, f"experts by step {wan14['experts']} != {want}")
+
+    phase(f"Wan 2.2 14B i2v generate job, 480x480, {WAN_FRAMES} frames (8,100 tokens), 8 Euler steps, 1 prompt "
+          f"with a seeded first frame, bf16 pair, with the trained LoRA")
+    wan14_gen = generate_job({"name_or_path": "", "arch": "wan22_14b_i2v", "model_kwargs": {"size": "14b"}},
+                             WAN_RES, WAN_RES, 8, [{"prompt": "a video of a red fox running through tall grass",
+                                                    "ctrl_img": _ctrl_image(WAN_RES, WAN_RES)}],
+                             _counts(fwd=3 * WAN14_BLOCKS), lora_path=wan14["lora_path"], num_frames=WAN_FRAMES)
+
+    phase(f"Wan 2.2 TI2V-5B LoRA sd_trainer job, 33 frames at {WAN5_RES}x{WAN5_RES} (4,356 tokens), batch 1, "
+          f"rank 32, adamw, flowmatch shift, bf16, per-block checkpointing")
+    wan5_step = _counts(4 * WAN5_BLOCKS, 2 * WAN5_BLOCKS, 2 * WAN5_BLOCKS)
+    wan5 = train_job("smoke_wan22_5b_lora", {}, wan5_step, profile_dir,
+                     raw=_wan_job("smoke_wan22_5b_lora", profile_dir, "wan22_5b", WAN5_RES))
+
+    width, height, frames, steps5 = WAN5_GEN
+    phase(f"Wan 2.2 TI2V-5B generate job, {width}x{height}, {frames} frames (11,440 tokens), {steps5} Euler steps, "
+          f"1 prompt, with the trained LoRA, every frame decoded at once")
+    wan5_gen = generate_job({"name_or_path": "", "arch": "wan22_5b"}, width, height, steps5,
+                            ["a video of waves breaking on a beach at sunset"], _counts(fwd=2 * WAN5_BLOCKS),
+                            lora_path=wan5["lora_path"], num_frames=frames)
+    print(json.dumps({"wan22_launches": {
+        "14b_train_per_step": {k: v / wan14["steps"] for k, v in wan14["launches"].items()},
+        "14b_denoise_per_step": {k: v / 8 for k, v in wan14_gen.items()},
+        "5b_train_per_step": {k: v / wan5["steps"] for k, v in wan5["launches"].items()},
+        "5b_denoise_per_step": {k: v / steps5 for k, v in wan5_gen.items()},
+        "ms": {label: {k: row[k]["ms"] for k in row} for label, row in wan22_times.items()}}}))
+    return wan22_err, wan22_times, wan14
 
 
 def main(argv: list[str]) -> int:
@@ -1453,10 +1686,16 @@ def main(argv: list[str]) -> int:
         "denoise_per_step": {k: v / (8 * len(prompts)) for k, v in sdxl_gen.items()},
         "ms": {label: {k: row[k]["ms"] for k in row} for label, row in sdxl_times.items()}}}))
 
-    wan_err = wan_kernel_checks()
+    neg = torch.Generator("cuda").manual_seed(8)
+    wan_err = flash_checks("flash kernels vs plain versions at Wan 2.1's shapes (head_dim 128), bf16",
+                           [(shape, label, full, None) for shape, label, full in WAN_SHAPES]
+                           + [((1, 8100, 512, 12, 128), "train cross, negative logits", True,
+                               _negative_qkv((1, 8100, 512, 12, 128), 3.2, neg))], 5)
     wan_times = attention_times("flash kernels at Wan 2.1's shapes (head_dim 128), bf16", "Wan", WAN_SHAPES, 6)
     # one block: its self- and cross-attention; the checkpointed step runs both forwards again
-    wan_reference(_counts(fwd=2), _counts(4, 2, 2))
+    from ai_toolkit_tpu_torch.models.wan_dit import WanConfig
+
+    wan_reference("Wan 2.1 1.3B", WanConfig.wan21_1_3b(), _counts(fwd=2), _counts(4, 2, 2))
 
     phase("main path of this slice: Wan 2.1 1.3B LoRA sd_trainer job, 33 frames at 480x480 (8,100 tokens), "
           "batch 1, rank 32, adamw, flowmatch shift, bf16, per-block checkpointing")
@@ -1476,6 +1715,8 @@ def main(argv: list[str]) -> int:
         "denoise_per_step": {k: v / steps for k, v in wan_gen.items()},
         "ms": {label: {k: row[k]["ms"] for k in row} for label, row in wan_times.items()}}}))
 
+    wan22_err, wan22_times, wan14 = wan22_phases(args.profile)
+
     banned = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ai_toolkit_tpu")]
     check(not banned, f"the port imported {banned[:5]}")
@@ -1493,11 +1734,13 @@ def main(argv: list[str]) -> int:
             ("moe_gmm_fwd", src + "moe_gmm_fwd.cu", f"{gmm}:99", hidream, "moe", moe["moe"]),
             ("moe_gmm_dx", src + "moe_gmm_bwd.cu", f"{gmm}:121", hidream, "moe_dx", moe["moe_dx"]),
             ("moe_gmm_dw", src + "moe_gmm_dw.cu", f"{gmm}:149", fullft, "moe_dw", moe["moe_dw"])]
-    # the streamed, tail-masked Pallas variants: the same kernels on the Wan job's
-    # ragged 8,100 tokens (launches from the Wan train job, times at its self-attention)
-    wan_self = wan_times["train self"]
-    rows += [(f"{name}_streamed", src + f, f"{pallas}:{line}", wan, key,
-              {**wan_self[key], "max_abs_err": wan_err[key]})
+    # the streamed, tail-masked Pallas variants: the same kernels on the ragged
+    # tails of this slice's main path, the 14B i2v job (8,100 tokens, T = 257 and
+    # 512; launches from its train job, times at its self-attention), errors over
+    # every Wan case
+    wan_self = wan22_times["14B train self"]
+    rows += [(f"{name}_streamed", src + f, f"{pallas}:{line}", wan14, key,
+              {**wan_self[key], "max_abs_err": max(wan_err[key], wan22_err[key])})
              for name, f, line, key in (("flash_attention_fwd", "flash_attention_fwd.cu", 293, "fwd"),
                                         ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 357, "dq"),
                                         ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 383, "dkv"))]

@@ -501,10 +501,30 @@ def test_checkpointed_moe_layer_with_trainable_banks_launches_dw_once(gen):
     ((2, 300, 77, 4, 64), torch.float32, True),
 ])
 def test_kernels_at_sdxl_shapes_match_plain(gen, shape, dtype, negative):
+    _match_plain_with_tails(gen, shape, dtype, 3.8 if negative else 0.0)
+
+
+# the ragged tails of the Wan 2.2 shapes at fewer heads: the 257 ViT-H tokens
+# (2 * 128 + 1, a K/V tail tile of one valid row), the TI2V-5B's 4,356 tokens
+# (a 4-row Q tail) and a 16-row tail (its 121-frame 27,280); "negative" shifts
+# q by +3.2 and k by -3.2 (logits near -116 at head_dim 128)
+@pytest.mark.parametrize("shape,dtype,negative", [
+    ((1, 8100, 257, 4, 128), torch.bfloat16, False),
+    ((1, 8100, 257, 4, 128), torch.bfloat16, True),
+    ((1, 4356, 4356, 2, 128), torch.bfloat16, True),
+    ((1, 1040, 1040, 2, 128), torch.bfloat16, False),
+    ((1, 300, 257, 4, 128), torch.float32, True),
+])
+def test_kernels_at_wan22_tails_match_plain(gen, shape, dtype, negative):
+    _match_plain_with_tails(gen, shape, dtype, 3.2 if negative else 0.0)
+
+
+def _match_plain_with_tails(gen, shape, dtype, shift):
     b, s, t, h, d = shape
     q, k, v = _qkv(gen, b, s, t, h, d, torch.float32)
+    negative = shift != 0.0
     if negative:
-        q, k = q + 3.8, k - 3.8
+        q, k = q + shift, k - shift
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
