@@ -1,13 +1,14 @@
 """Folder dataset: scan, bucket, batch (``ai_toolkit_tpu/data/dataset.py`` in
-the port, the image and video paths). Every image and video of the folder is
-assigned an aspect bucket at the dataset's resolution; batches are built per
-(bucket, kind, frame count), so each batch has one latent shape. A video is
+the port, the image and video paths). Every image and video of the folder
+gives one item per resolution of the dataset (and per repeat), each assigned
+an aspect bucket at its resolution; batches are built per (bucket, kind,
+frame count), so each batch has one latent shape. A video is
 ``num_frames`` frames sampled uniformly over the clip, decoded with OpenCV
 (``cv2``, imported where it is used, as in the JAX package).
 
 Audio (and a video's sidecar audio), masks, control / inpaint /
-unconditional images, augmentations, random crops and several resolutions
-per dataset raise ``NotImplementedError`` naming their slice.
+unconditional images, augmentations and random crops raise
+``NotImplementedError`` naming their slice.
 """
 
 from __future__ import annotations
@@ -56,10 +57,6 @@ class FolderDataset:
     def __init__(self, cfg: DatasetConfig, bucket_divisibility: int = 16,
                  trigger_word: str | None = None, seed: int = 42):
         refuse_unported(cfg, _UNPORTED_OPTIONS, DatasetConfig(), f"dataset {cfg.folder_path}")
-        if len(cfg.resolution) != 1:
-            raise NotImplementedError(
-                f"dataset resolution {cfg.resolution}: several resolutions (multi-bucket "
-                f"training) come with a later slice; give one")
         self.cfg = cfg
         self.divisibility = max(bucket_divisibility,
                                 cfg.bucket_tolerance if not cfg.buckets else bucket_divisibility)

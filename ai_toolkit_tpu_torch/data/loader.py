@@ -2,12 +2,15 @@
 stream of bucket batches over epochs, each epoch re-shuffled and re-batched.
 Batches are host numpy: latents (an image's ``[h, w, C]``, a video's ``[T,
 h, w, C]``; one bucket, kind and frame count a batch) from the in-memory
-latent cache or, without one, encoded on the fly with ``encode_fn``, plus
+latent cache, from the disk cache's files (``latent_cache_dir``) or,
+without either, encoded on the fly with ``encode_fn``, plus
 processed captions and the per-example loss multiplier; with the dataset's
 ``do_i2v``, a video batch also carries each clip's ``first_frame`` ``[B,
 H, W, 3]`` (the clip decoded again, as the JAX loader does). The JAX loader's
 prefetch thread is not needed: with cached latents a batch is a dictionary
-lookup.
+lookup. ``iter_from(n)`` starts the stream after its first ``n`` batches,
+drawing their captions' random numbers but loading no latent, so a resumed
+job sees the batches the uninterrupted one would have.
 """
 
 from __future__ import annotations
@@ -17,24 +20,28 @@ from typing import Callable, Iterator
 import numpy as np
 
 from ai_toolkit_tpu_torch.config.modules import DatasetConfig
-from ai_toolkit_tpu_torch.data.caching import latent_key
+from ai_toolkit_tpu_torch.data.caching import latent_key, load_cached_latent
 from ai_toolkit_tpu_torch.data.dataset import FileItem, FolderDataset, load_pixels, load_video
 
 
 class DataLoader:
     def __init__(self, datasets: list[FolderDataset], batch_size: int,
                  latent_cache: dict[tuple, np.ndarray] | None = None,
-                 encode_fn: Callable[[np.ndarray], np.ndarray] | None = None):
-        if latent_cache is None and encode_fn is None:
-            raise ValueError("need a latent cache or encode_fn (on-the-fly encoding)")
+                 encode_fn: Callable[[np.ndarray], np.ndarray] | None = None,
+                 latent_cache_dir: str | None = None):
+        if latent_cache is None and encode_fn is None and latent_cache_dir is None:
+            raise ValueError("need a latent cache, latent_cache_dir or encode_fn (on-the-fly encoding)")
         self.datasets = datasets
         self.batch_size = batch_size
         self.latent_cache = latent_cache
+        self.latent_cache_dir = latent_cache_dir
         self.encode_fn = encode_fn
         self.epoch = 0
 
     def _load_batch(self, ds: FolderDataset, batch: list[FileItem]) -> dict:
-        if self.latent_cache is not None:
+        if self.latent_cache_dir is not None:
+            lat = np.stack([load_cached_latent(it, self.latent_cache_dir) for it in batch])
+        elif self.latent_cache is not None:
             lat = np.stack([self.latent_cache[latent_key(it)] for it in batch])
         else:
             lat = np.asarray(self.encode_fn(np.stack([load_pixels(it) for it in batch])))
@@ -58,16 +65,28 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[dict]:
         """Endless stream over epochs (the train loop counts steps)."""
+        return self.iter_from(0)
+
+    def iter_from(self, skip: int) -> Iterator[dict]:
+        """The stream without its first ``skip`` batches; a skipped batch
+        draws its captions (their random numbers) but loads nothing."""
         while True:
             plan = self._epoch_plan()
             self.epoch += 1
             for ds, batch in plan:
+                if skip > 0:
+                    skip -= 1
+                    for it in batch:
+                        ds.processed_caption(it)
+                    continue
                 yield self._load_batch(ds, batch)
 
 
 def build_dataloader(dataset_configs: list[DatasetConfig], batch_size: int,
                      bucket_divisibility: int, trigger_word: str | None = None,
-                     latent_cache: dict | None = None, encode_fn=None, seed: int = 42) -> DataLoader:
+                     latent_cache: dict | None = None, encode_fn=None, seed: int = 42,
+                     latent_cache_dir: str | None = None) -> DataLoader:
     datasets = [FolderDataset(cfg, bucket_divisibility, trigger_word, seed=seed + i)
                 for i, cfg in enumerate(dataset_configs)]
-    return DataLoader(datasets, batch_size, latent_cache=latent_cache, encode_fn=encode_fn)
+    return DataLoader(datasets, batch_size, latent_cache=latent_cache, encode_fn=encode_fn,
+                      latent_cache_dir=latent_cache_dir)

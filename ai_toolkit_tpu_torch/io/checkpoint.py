@@ -2,9 +2,16 @@
 ``CheckpointManager`` in PyTorch): ``<name>_<step:09d>.safetensors`` every
 ``save_every`` steps, keeping the newest ``max_step_saves_to_keep``, and a
 final ``<name>.safetensors``, in the ``peft`` or ``kohya`` layout
-(``io/lora_file.py``); the step rides in the metadata. The optimizer
-state file and resume come with a later slice (``latest_save_path`` lets the
-job refuse a folder it would have resumed from).
+(``io/lora_file.py``); the step rides in the metadata.
+
+Resume (JAX ``load_latest`` / ``_save_opt_state`` / ``load_opt_state``):
+:meth:`CheckpointManager.load_latest` reads the newest save back, and
+``training_state.safetensors`` beside the saves, written with every save,
+holds what else the run needs to go on exactly as it would have: the
+trainable tensors as trained (the save holds the EMA copy, in the save
+dtype), the optimizer's moments and count, the EMA, the step and the state
+of the job's random generator (``TrainState.state_dict``). It takes the
+place of the JAX package's ``optimizer.msgpack``.
 """
 
 from __future__ import annotations
@@ -15,8 +22,9 @@ import re
 import time
 
 import numpy as np
+import torch
 
-from ai_toolkit_tpu_torch.io.lora_file import save_lora_file
+from ai_toolkit_tpu_torch.io.lora_file import load_lora_file, save_lora_file
 
 SOFTWARE_META = {"software": "ai_toolkit_tpu", "format": "lora"}
 
@@ -37,6 +45,37 @@ class CheckpointManager:
 
     def final_path(self) -> str:
         return os.path.join(self.save_root, f"{self.name}.safetensors")
+
+    def state_path(self) -> str:
+        return os.path.join(self.save_root, "training_state.safetensors")
+
+    def save_state(self, state: dict[str, torch.Tensor], step: int) -> None:
+        """Write ``state`` (``TrainState.state_dict`` and the generator) for
+        the save at ``step``, through a temporary file."""
+        from safetensors.torch import save_file
+
+        tmp = self.state_path() + ".tmp"
+        save_file({k: v.detach().contiguous().cpu() for k, v in state.items()}, tmp, metadata={"step": str(int(step))})
+        os.replace(tmp, self.state_path())
+
+    def load_state(self) -> tuple[dict[str, torch.Tensor] | None, int]:
+        """(the state file's tensors, its step), or (None, 0) without one."""
+        from safetensors import safe_open
+
+        if not os.path.isfile(self.state_path()):
+            return None, 0
+        with safe_open(self.state_path(), framework="pt") as f:
+            return {k: f.get_tensor(k) for k in f.keys()}, int(f.metadata().get("step", 0))
+
+    def load_latest(self, **kwargs) -> tuple[dict | None, int]:
+        """(the newest save's LoRA tree ``{module: {a, b, scale}}``, its
+        step), or (None, 0) without a save; ``kwargs`` go to
+        ``io/lora_file.load_lora_file``."""
+        path = self.latest_save_path()
+        if path is None:
+            return None, 0
+        tree, meta = load_lora_file(path, **kwargs)
+        return tree, int(meta.get("step", 0))
 
     def _step_files(self) -> list[tuple[int, str]]:
         out = []

@@ -2,21 +2,26 @@
 ``SDTrainProcess`` in PyTorch), on the paths of the LoRA job and of the full
 fine-tune:
 
-model (seeded random weights) -> optional weight-only quantization of the DiT
+model (seeded random weights, or the local checkpoint of ``name_or_path``,
+``models/base.py``) -> optional weight-only quantization of the DiT
 (``model.quantize``, fp8 or int8: ``adapters/quantize.py``; each expert of a
 multistage pair from its own weights, as it is built) -> LoRA on the
 model's main component, the DiT or the UNet (the model's targets), one
 network shared by a multistage pair's two experts ->
-AdamW(8bit) -> the schedule (``samplers/factory.get_schedule``: flow matching,
-or DDPM for SDXL) -> folder dataset with in-memory latent and text-embedding
-caches -> train loop (``train/step.py``) with the save cadence -> final save
-of the LoRA (the EMA copy when EMA is on) in the PEFT layout for a
-flow-matching DiT, under the module names the JAX job writes (the model's
-``lora_key``, Wan's JAX paths), the kohya layout (``lora_unet_...``) for the
-UNet. A video model (Wan) snaps each dataset's ``num_frames`` to its VAE's
-frame grid and trains on 5-D latents ``[B, T, h, w, C]``; with a dataset's
-``do_i2v`` the first frame of each clip goes through an i2v arch's vision
-tower into ``img_cond``. A multistage pair with ``switch_boundary_every > 1``
+AdamW(8bit) with the lr schedule (``train/optimizers.lr_schedule``) -> resume
+from the newest save in the output folder -> the schedule
+(``samplers/factory.get_schedule``: flow matching, or DDPM for SDXL) ->
+folder datasets (one item per file and resolution) with the latent cache in
+memory or on disk (``<save_root>/latent_cache``) and the text-embedding
+cache -> a first sample -> train loop (``train/step.py``) with the save and
+sample cadences -> final save of the LoRA (the EMA copy when EMA is on) in
+the PEFT layout for a flow-matching DiT, under the module names the JAX job
+writes (the model's ``lora_key``, Wan's JAX paths), the kohya layout
+(``lora_unet_...``) for the UNet -> a final sample. A video model (Wan)
+snaps each dataset's ``num_frames`` to its VAE's frame grid and trains on
+5-D latents ``[B, T, h, w, C]``; with a dataset's ``do_i2v`` the first
+frame of each clip goes through an i2v arch's vision tower into
+``img_cond``. A multistage pair with ``switch_boundary_every > 1``
 alternates the trained expert every that many steps, high-noise first (the
 sampled t squeezed into ``[boundary, 1]``, then ``[0, boundary]``), and each
 step logs the expert that ran.
@@ -31,11 +36,27 @@ flow-matching DiTs only) trains the DiT's own parameters in place, those its ``o
 branch). The JAX job's HF-layout export of the final save
 (``_export_interop``) is not ported (ROADMAP: ``io/full_export.py``).
 
-Every branch of the JAX process that these paths do not take raises
-``NotImplementedError`` naming its slice: resume, sampling during training,
-validation, other networks and adapters, quantized text encoders
-(``quantize_te``), text-encoder training, several resolutions, the disk
-latent cache, lr schedules and the train-step knobs
+Resume (JAX ``run``'s step 6): a run whose output folder holds a save goes
+on from it. The trainable tensors come from the newest save, and from
+``training_state.safetensors`` (``io/checkpoint.py``) the optimizer state,
+the EMA, the exact trained tensors and the random generator, so a resumed
+run computes what the uninterrupted one would have; the data stream skips
+the batches already trained on. A network whose shape changed starts fresh.
+The JAX job resumes a LoRA only, from the save's EMA copy in the save
+dtype, and restarts its data; the port resumes the full fine-tune too.
+
+Sampling (JAX ``_sample``): the sample prompts through
+``generation.generate`` with the EMA copy of the LoRA when EMA is on (a full
+fine-tune's trained tensors), written to
+``<save_root>/samples/<name>_<step:09d>_<i>.<ext>`` (an animated webp for a
+clip): first unless ``skip_first_sample``, every ``sample_every`` steps and
+at the end. A sample that fails raises, where the JAX job prints and goes on.
+
+Every other branch of the JAX process raises ``NotImplementedError`` naming
+its slice: validation, other networks and adapters, quantized text encoders
+(``quantize_te``), text-encoder training, the feature-extractor losses
+(``diffusion_feature_extractor_*``, ``latent_feature_*``), the schedule's
+``scheduler_params`` overrides and the train-step knobs
 (``TrainStepConfig.from_train_config``). With ``AIT_PROFILE_DIR`` set, the
 last step runs under ``torch.profiler``.
 """
@@ -53,13 +74,13 @@ import torch
 
 from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora, count_lora_params, share_lora
 from ai_toolkit_tpu_torch.adapters.quantize import quantized_bytes, quantized_count
-from ai_toolkit_tpu_torch.config.modules import ModelConfig, ProcessConfig, TrainConfig
-from ai_toolkit_tpu_torch.data.caching import TextEmbedCache, cache_latents
+from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig, ModelConfig, ProcessConfig, TrainConfig
+from ai_toolkit_tpu_torch.data.caching import TextEmbedCache, cache_latents, cache_latents_to_disk
 from ai_toolkit_tpu_torch.data.loader import build_dataloader
 from ai_toolkit_tpu_torch.io.checkpoint import CheckpointManager
 from ai_toolkit_tpu_torch.models.registry import get_model_class
 from ai_toolkit_tpu_torch.samplers.factory import DDPM_NAMES, get_schedule
-from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
+from ai_toolkit_tpu_torch.train.optimizers import get_optimizer, lr_schedule
 from ai_toolkit_tpu_torch.train.state import TrainState
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, make_train_step
 from ai_toolkit_tpu_torch.utils.unported import refuse_unported
@@ -71,6 +92,9 @@ _UNPORTED_TRAIN = (
     "short_and_long_captions", "short_and_long_captions_encoder_split", "prompt_dropout_prob",
     "reg_weight", "img_multiplier", "latent_multiplier", "standardize_images",
     "merge_network_on_save", "learnable_snr_gos",
+    # the feature-extractor losses (ROADMAP Queue 1 item 6)
+    "diffusion_feature_extractor_path", "diffusion_feature_extractor_weight",
+    "latent_feature_extractor_path", "latent_feature_loss_weight",
 )
 _UNPORTED_MODEL = ("quantize_te", "lora_path", "assistant_lora_path",
                    "inference_lora_path", "unconditional_lora_path", "accuracy_recovery_adapter")
@@ -179,11 +203,7 @@ class SDTrainProcess:
             raise NotImplementedError("the UNet's full fine-tune and quantized base come with a later slice")
         if tc.extras.get("scheduler_params"):
             raise NotImplementedError("train.scheduler_params overrides come with a later slice")
-        if (tc.lr_scheduler or "constant").lower() != "constant":
-            raise NotImplementedError(f"lr_scheduler '{tc.lr_scheduler}' comes with a later slice")
-        if not tc.disable_sampling and cfg.sample.prompts:
-            raise NotImplementedError("sampling during training comes with a later slice: set "
-                                      "train.disable_sampling or give no sample prompts")
+        lr_schedule(tc.lr_scheduler, tc.lr, tc.steps, tc.lr_scheduler_params)  # raises for an unported one
         if cfg.validation.validate_every > 0:
             raise NotImplementedError("validation comes with a later slice")
         if cfg.save.push_to_hub:
@@ -197,10 +217,6 @@ class SDTrainProcess:
             raise NotImplementedError(f"mesh {cfg.mesh.axes}: multi-GPU comes with a later slice")
         if not cfg.datasets:
             raise ValueError("no datasets configured")
-        for d in cfg.datasets:
-            if d.cache_latents_to_disk:
-                raise NotImplementedError("cache_latents_to_disk comes with a later slice; set it "
-                                          "false (cache_latents keeps latents in memory)")
 
     def run(self) -> dict:
         cfg, tc, dev = self.cfg, self.cfg.train, self.device
@@ -212,18 +228,19 @@ class SDTrainProcess:
                                  max_step_saves_to_keep=cfg.save.max_step_saves_to_keep,
                                  dtype=np.float16 if cfg.save.dtype in ("float16", "fp16") else np.float32,
                                  fmt="peft" if flow else "kohya")
-        if ckpt.latest_save_path() is not None:
-            raise NotImplementedError(
-                f"{self.save_root} holds a save to resume from: resume comes with a later slice "
-                f"(use another training_folder or name)")
 
         # 1. model (1b. quantized DiT), 2. LoRA on the DiT / UNet or the full fine-tune's selection
         model = get_model_class(cfg.model.arch)(cfg.model, dev)
         if self.full_finetune and len(model.experts) > 1:
             raise NotImplementedError("the full fine-tune of a multistage pair comes with a later slice")
         ckpt.key_map = getattr(model, "lora_key", None)
+        t0 = time.perf_counter()
         variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed),
                                          qtype=cfg.model.qtype if cfg.model.quantize else None)
+        _sync(dev)
+        load_s = time.perf_counter() - t0
+        print(f"model: {'loaded ' + cfg.model.name_or_path if cfg.model.name_or_path else 'seeded init'} "
+              f"in {load_s:.2f} s")
         net = variables[model.main_component]
         experts = [variables[name] for name in model.experts]
         if cfg.model.quantize:
@@ -249,10 +266,14 @@ class SDTrainProcess:
             if hasattr(m, "gradient_checkpointing"):  # the DiT; the UNet follows model.remat_policy
                 m.gradient_checkpointing = tc.gradient_checkpointing
 
-        # 3. optimizer + state
-        tx = get_optimizer(tc.optimizer, list(trainable.values()), tc.lr, tc.optimizer_params,
-                           tc.max_grad_norm)
+        # 3. optimizer + state, the generator of t and the noise; resume
+        tx = get_optimizer(tc.optimizer, list(trainable.values()),
+                           lr_schedule(tc.lr_scheduler, tc.lr, tc.steps, tc.lr_scheduler_params),
+                           tc.optimizer_params, tc.max_grad_norm)
         state = TrainState(trainable, tx, use_ema=tc.ema_config.use_ema)
+        generator = torch.Generator(device=dev).manual_seed(seed + 1)
+        self.model, self.variables, self.state, self.lora = model, variables, state, lora  # introspection
+        start_step = self._resume(ckpt, model, state, lora, generator)
 
         # 4. data, 5. step
         loader, text_cache = self._build_data(model, variables)
@@ -264,16 +285,21 @@ class SDTrainProcess:
         train_step = make_train_step(lambda noisy, t, cond: predict(variables, noisy, t, cond),
                                      self._schedule(), step_cfg)
 
-        # 6. the loop
-        generator = torch.Generator(device=dev).manual_seed(seed + 1)
-        data_iter = iter(loader)
+        # 6. first sample, the loop, final save and sample
+        sampling = not tc.disable_sampling and bool(cfg.sample.prompts)
+        self.samples: list[dict] = []
+        if sampling and not tc.skip_first_sample:
+            self._sample(model, variables, state, lora, start_step)
+        data_iter = loader.iter_from(start_step * step_cfg.grad_accum)
         losses: list[float] = []
         step_ms: list[float] = []
         experts_run: list[str] = []  # a multistage pair's expert at each step
+        buckets: list[tuple[int, int]] = []  # the (w, h) pixel bucket of each step
         profile_dir = os.environ.get("AIT_PROFILE_DIR")
-        for step in range(tc.steps):
-            batches = [self._prepare_batch(model, variables, next(data_iter), text_cache)
-                       for _ in range(step_cfg.grad_accum)]
+        for step in range(start_step, tc.steps):
+            raws = [next(data_iter) for _ in range(step_cfg.grad_accum)]
+            buckets.append(tuple(raws[0]["bucket"]))
+            batches = [self._prepare_batch(model, variables, raw, text_cache) for raw in raws]
             _sync(dev)
             profile = profile_dir is not None and step == tc.steps - 1
             t0 = time.perf_counter()
@@ -284,20 +310,62 @@ class SDTrainProcess:
             losses.append(loss)
             if len(experts) > 1:
                 experts_run.append(model.last_expert)
-            if (step + 1) % cfg.logging.log_every == 0 or step == 0:
+            if (step + 1) % cfg.logging.log_every == 0 or step == start_step:
                 expert = f" expert={model.last_expert}" if len(experts) > 1 else ""
                 print(f"step {step + 1}/{tc.steps} loss={loss:.4f} "
                       f"grad_norm={float(metrics['grad_norm']):.4f}{expert} ({step_ms[-1]:.1f} ms)")
             if cfg.save.save_every and (step + 1) % cfg.save.save_every == 0 and step + 1 < tc.steps:
-                print(f"saved: {self._save(ckpt, state, lora, step + 1)}")
-        path = self._save(ckpt, state, lora, tc.steps, final=True)
+                print(f"saved: {self._save(ckpt, state, lora, generator, step + 1)}")
+            if sampling and cfg.sample.sample_every and (step + 1) % cfg.sample.sample_every == 0 \
+                    and step + 1 < tc.steps:
+                self._sample(model, variables, state, lora, step + 1)
+        path = self._save(ckpt, state, lora, generator, tc.steps, final=True)
         print(f"saved: {path}")
-        self.state, self.lora, self.variables, self.model = state, lora, variables, model  # introspection
-        return {"final_loss": losses[-1] if losses else None, "steps": tc.steps,
+        if sampling:
+            self._sample(model, variables, state, lora, tc.steps)
+        return {"final_loss": losses[-1] if losses else None, "steps": tc.steps, "start_step": start_step,
                 "losses": losses, "step_ms": step_ms,
                 "median_step_ms": statistics.median(step_ms) if step_ms else None,
                 "trainable_params": n_params, "lora_modules": len(lora) if lora is not None else 0,
-                "experts": experts_run, "save_path": path}
+                "experts": experts_run, "buckets": buckets, "save_path": path, "load_s": load_s,
+                "latent_cache": self.latent_cache_report, "samples": self.samples}
+
+    def _resume(self, ckpt: CheckpointManager, model, state: TrainState, lora: dict | None,
+                generator: torch.Generator) -> int:
+        """Restore the newest save and its training state; the step to go on
+        from (0: a fresh run)."""
+        from safetensors import safe_open
+
+        path = ckpt.latest_save_path()
+        if path is None:
+            return 0
+        if lora is not None:
+            tree, step = ckpt.load_latest(module_names=list(lora),
+                                          module_name=getattr(model, "lora_module_name", None))
+            saved = {f"{n}.{leaf}": t for n, leaves in tree.items() for leaf, t in leaves.items()}
+        else:
+            with safe_open(path, framework="pt") as f:
+                saved = {k: f.get_tensor(k) for k in f.keys()}
+                step = int((f.metadata() or {}).get("step", 0))
+        cur = {k: tuple(p.shape) for k, p in state.trainable.items()}
+        if {k: tuple(t.shape) for k, t in saved.items()} != cur:
+            print("resume checkpoint has different network shape — starting fresh "
+                  "(reference skips the optimizer in this case too)")
+            return 0
+        with torch.no_grad():
+            for k, p in state.trainable.items():
+                p.copy_(saved[k])
+        extra, state_step = ckpt.load_state()
+        restored = False
+        if extra is not None and state_step == step:
+            rng = extra.pop("rng", None)
+            restored = state.load_state_dict(extra)
+            if restored and rng is not None:
+                generator.set_state(rng)
+        state.step = step
+        print(f"resumed from step {step} ({path}; "
+              f"{'optimizer state, EMA and generator restored' if restored else 'fresh optimizer state'})")
+        return step
 
     def _schedule(self):
         """The schedule with the job's overrides (JAX ``run``, step 3)."""
@@ -310,21 +378,60 @@ class SDTrainProcess:
         return get_schedule(tc.noise_scheduler, self.cfg.model.arch, **overrides)
 
     @staticmethod
-    def _save(ckpt: CheckpointManager, state: TrainState, lora: dict | None, step: int,
-              final: bool = False) -> str:
+    def _save(ckpt: CheckpointManager, state: TrainState, lora: dict | None, generator: torch.Generator,
+              step: int, final: bool = False) -> str:
         """A LoRA save: the EMA copy when EMA is on, in the PEFT layout, with
         rotation. A full fine-tune's: the trained tensors themselves in their
-        own dtype, keyed by parameter name, no rotation (JAX ``_save``)."""
+        own dtype, keyed by parameter name, no rotation (JAX ``_save``). Both
+        write the training state a resume restores."""
         if lora is not None:
             src = state.ema if state.ema is not None else state.trainable
             tree = {name: {leaf: src[f"{name}.{leaf}"] for leaf in ("a", "b", "scale")} for name in lora}
-            return ckpt.save(tree, step, final=final)
-        from safetensors.torch import save_file
+            path = ckpt.save(tree, step, final=final)
+        else:
+            from safetensors.torch import save_file
 
-        path = ckpt.final_path() if final else ckpt.path_for_step(step)
-        save_file({k: t.detach().contiguous().cpu() for k, t in state.trainable.items()}, path,
-                  metadata={"step": str(step), "software": "ai_toolkit_tpu"})
+            path = ckpt.final_path() if final else ckpt.path_for_step(step)
+            save_file({k: t.detach().contiguous().cpu() for k, t in state.trainable.items()}, path,
+                      metadata={"step": str(step), "software": "ai_toolkit_tpu"})
+        ckpt.save_state({**state.state_dict(), "rng": generator.get_state()}, step)
         return path
+
+    def _sample(self, model, variables: dict, state: TrainState, lora: dict | None, step: int) -> None:
+        """Every sample prompt through ``generation.generate`` (JAX
+        ``_sample``), with the EMA copy of the LoRA when EMA is on, to
+        ``<save_root>/samples/<name>_<step:09d>_<i>.<ext>``. Raises when a
+        sample fails."""
+        from ai_toolkit_tpu_torch.generation import generate, save_image_atomic, save_video_atomic
+
+        cfg = self.cfg
+        sample_dir = os.path.join(self.save_root, "samples")
+        swap = lora is not None and state.ema is not None
+        raw = {k: p.detach().clone() for k, p in state.trainable.items()} if swap else {}
+        with torch.no_grad():
+            for k in raw:
+                state.trainable[k].copy_(state.ema[k])
+        try:
+            for i, item in enumerate(cfg.sample.prompts):
+                seed = cfg.sample.seed + (i if cfg.sample.walk_seed else 0)
+                gen = GenerateImageConfig.from_sample(cfg.sample, item, seed)
+                _sync(self.device)
+                t0 = time.perf_counter()
+                out = generate(model, variables, gen)
+                if hasattr(model, "frame_count_snapper"):
+                    ext = "webp" if out.shape[0] > 1 else gen.output_ext
+                    path = os.path.join(sample_dir, f"{self.job_name}_{step:09d}_{i}.{ext}")
+                    save_video_atomic(out, path, fps=gen.fps)
+                else:
+                    path = os.path.join(sample_dir, f"{self.job_name}_{step:09d}_{i}.{gen.output_ext}")
+                    save_image_atomic(out, path)
+                secs = time.perf_counter() - t0
+                self.samples.append({"step": step, "index": i, "path": path, "seconds": secs})
+                print(f"sample: {path} ({secs:.2f} s)")
+        finally:
+            with torch.no_grad():
+                for k, t in raw.items():
+                    state.trainable[k].copy_(t)
 
     def _build_data(self, model, variables):
         cfg = self.cfg
@@ -337,23 +444,37 @@ class SDTrainProcess:
                         print(f"dataset {d.folder_path}: num_frames {d.num_frames} -> {snapped} "
                               f"(VAE temporal grid)")
                         d.num_frames = snapped
-        loader = build_dataloader(cfg.datasets, cfg.train.batch_size, model.bucket_divisibility,
-                                  trigger_word=cfg.trigger_word, encode_fn=None, latent_cache={})
 
         @torch.no_grad()
         def encode_fn(imgs: np.ndarray) -> np.ndarray:
+            self.latent_cache_report["encode_calls"] += 1
             lat = model.encode_images(variables, torch.from_numpy(imgs))
             return lat.float().cpu().numpy()
 
-        if all(d.cache_latents for d in cfg.datasets):
-            t0 = time.perf_counter()
+        self.latent_cache_report = {"encode_calls": 0}
+        to_disk = any(d.cache_latents_to_disk for d in cfg.datasets)
+        if all(d.cache_latents or d.cache_latents_to_disk for d in cfg.datasets):
+            # JAX _build_data: the disk cache when any dataset asks for it, else in memory
+            cache_dir = os.path.join(self.save_root, "latent_cache") if to_disk else None
+            loader = build_dataloader(cfg.datasets, cfg.train.batch_size, model.bucket_divisibility,
+                                      trigger_word=cfg.trigger_word, latent_cache={} if cache_dir is None else None,
+                                      latent_cache_dir=cache_dir)
             items = [it for ds in loader.datasets for it in ds.items]
-            loader.latent_cache = cache_latents(items, encode_fn, batch_size=cfg.train.batch_size)
+            t0 = time.perf_counter()
+            if cache_dir is not None:
+                encoded, hits = cache_latents_to_disk(items, encode_fn, cache_dir, batch_size=cfg.train.batch_size)
+                where = f"{cache_dir}: {encoded} encoded, {hits} read from disk"
+                self.latent_cache_report.update(encoded=encoded, hits=hits, dir=cache_dir)
+            else:
+                loader.latent_cache = cache_latents(items, encode_fn, batch_size=cfg.train.batch_size)
+                where = "in memory"
             _sync(self.device)
-            print(f"latent cache: {len(loader.latent_cache)} latents in "
-                  f"{time.perf_counter() - t0:.2f} s (in memory)")
+            secs = time.perf_counter() - t0
+            self.latent_cache_report.update(items=len(items), seconds=secs)
+            print(f"latent cache: {len(items)} items in {secs:.2f} s ({where})")
         else:
-            loader.latent_cache, loader.encode_fn = None, encode_fn
+            loader = build_dataloader(cfg.datasets, cfg.train.batch_size, model.bucket_divisibility,
+                                      trigger_word=cfg.trigger_word, encode_fn=encode_fn)
 
         @torch.no_grad()
         def encode_prompt(prompts: list[str]) -> dict:

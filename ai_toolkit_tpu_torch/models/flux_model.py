@@ -1,16 +1,30 @@
 """FLUX model wrapper: DiT + VAE + CLIP/T5 conditioning
 (``ai_toolkit_tpu/models/flux_model.py`` in PyTorch, the plain flux and
-flux_schnell archs at sizes ``dev`` and ``tiny``)."""
+flux_schnell archs at sizes ``dev`` and ``tiny``).
+
+A local checkpoint directory (JAX ``io/flux_import.load_flux_checkpoint``)
+holds the DiT in the BFL layout, as ``transformer/`` or a
+``flux1-dev.safetensors`` / ``flux1-schnell.safetensors`` file, or as the
+directory's own top-level shards, and the HF companions ``vae/``,
+``text_encoder/`` (CLIP-L) and ``text_encoder_2/`` (T5); the port's modules
+carry those names. The first BFL source wins, so FLUX.1-dev's own layout (a
+diffusers ``transformer/`` beside ``flux1-dev.safetensors``) loads the
+single file, as in JAX. A diffusers-layout ``transformer/`` (no
+``double_blocks.*`` keys) with no BFL source beside it raises, where the JAX
+loader skips it and trains a random DiT.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 from torch import nn
 
 from ai_toolkit_tpu_torch.config.modules import ModelConfig
+from ai_toolkit_tpu_torch.io.safetensors_dir import SafetensorsIndex, safetensors_files
 from ai_toolkit_tpu_torch.utils.tokenizer import load_tokenizer
 from ai_toolkit_tpu_torch.models.base import BaseModel
 from ai_toolkit_tpu_torch.models.flux_dit import (
@@ -21,11 +35,15 @@ from ai_toolkit_tpu_torch.models.flux_dit import (
     unpack_latents_cmajor,
 )
 from ai_toolkit_tpu_torch.models.registry import register_model
-from ai_toolkit_tpu_torch.models.text_encoders.clip import CLIPTextConfig, CLIPTextModel
+from ai_toolkit_tpu_torch.models.text_encoders.clip import CLIPTextConfig, CLIPTextModel, drop_absent_projection
 from ai_toolkit_tpu_torch.models.text_encoders.t5 import T5Config, T5Encoder
 from ai_toolkit_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from ai_toolkit_tpu_torch.ops.layers import init_parameters
 from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
+
+
+_LAYOUT = ("a directory with transformer/ or flux1-dev.safetensors (BFL keys) and the HF vae/, "
+           "text_encoder/, text_encoder_2/")
 
 
 @register_model
@@ -79,6 +97,38 @@ class FluxModel(BaseModel):
         }
         for m in variables.values():
             init_parameters(m, generator).eval().requires_grad_(False)
+        return variables
+
+    def load_checkpoint(self, path: str, generator: torch.Generator) -> dict[str, nn.Module]:
+        if not os.path.isdir(path):
+            self.refuse_bad_layout(_LAYOUT)
+        variables = self.init_variables(generator)
+        loaded, diffusers = 0, None
+        # the first BFL source wins, as in JAX; FLUX.1-dev's own repo holds a
+        # diffusers transformer/ beside the BFL flux1-dev.safetensors
+        for sub in ("transformer", "flux1-dev.safetensors", "flux1-schnell.safetensors", "."):
+            src = path if sub == "." else os.path.join(path, sub)
+            if not os.path.exists(src) or not safetensors_files(src):
+                continue
+            with SafetensorsIndex(src) as index:
+                bfl = any(k.startswith("double_blocks.") for k in index.keys())
+            if bfl:
+                loaded += self.load_component(variables, "dit", src, "flux dit")
+                break
+            if sub == "transformer":
+                diffusers = src
+        else:
+            if diffusers is not None:
+                raise NotImplementedError(
+                    f"{diffusers}: a diffusers-layout flux transformer (no double_blocks.* keys) and no BFL "
+                    f"source beside it; the port loads the BFL layout (transformer/ or flux1-dev.safetensors "
+                    f"with double_blocks.* keys)")
+            print(f"flux dit: no BFL transformer under {path}; 'dit' keeps its seeded init")
+        for sub, name in (("vae", "vae"), ("text_encoder", "clip"), ("text_encoder_2", "t5")):
+            loaded += self.load_component(variables, name, os.path.join(path, sub), f"flux {name}",
+                                          prepare=drop_absent_projection if name == "clip" else None)
+        if not loaded:
+            self.refuse_bad_layout(_LAYOUT)
         return variables
 
     # ---- conditioning ----

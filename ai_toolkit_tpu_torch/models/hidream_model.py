@@ -12,17 +12,25 @@ feeds a different Llama layer to each block. ``model_kwargs``: ``size``
 (``full`` | ``tiny``) and ``moe_dispatch`` (``dense`` | ``grouped``, the CUDA
 grouped SwiGLU kernels; the JAX tiny size is always dense, the port's takes
 either). The edit archs ``hidream_e1`` / ``hidream_o1`` raise.
+
+A local checkpoint (JAX ``io/dit_importers.load_hidream_checkpoint``) is the
+reference transformer, ``transformer/`` or a single file, read through
+``io/hidream_layout.py``. As in the JAX package only the transformer is
+loaded: the VAE and the four text encoders keep their seeded init, and one
+line names each directory not read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 from torch import nn
 
 from ai_toolkit_tpu_torch.config.modules import ModelConfig
+from ai_toolkit_tpu_torch.io.hidream_layout import KEEP, hidream_sources
 from ai_toolkit_tpu_torch.models.base import BaseModel
 from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig, FluxDiT, pack_latents, unpack_latents
 from ai_toolkit_tpu_torch.models.registry import register_model
@@ -119,6 +127,22 @@ class HiDreamModel(BaseModel):
         }
         return {name: init_parameters(build(), generator).eval().requires_grad_(False)
                 for name, build in builders.items()}
+
+    def load_checkpoint(self, path: str, generator: torch.Generator) -> dict[str, nn.Module]:
+        tdir = os.path.join(path, "transformer")
+        src = tdir if os.path.isdir(tdir) else (path if os.path.isfile(path) else None)
+        if src is None:
+            self.refuse_bad_layout("transformer/ or a single .safetensors file of the reference HiDream transformer")
+        variables = self.init_variables(generator)
+        self.load_component(variables, "dit", src, "hidream dit", sources=hidream_sources(self.dit_config),
+                            keep=lambda k: k.startswith(KEEP))
+        print(f"hidream dit: {', '.join(KEEP)}* keep their seeded init (the reference projects the text per "
+              f"block, caption_projection.*, which is not read)")
+        for name, sub in (("vae", "vae"), ("clip", "text_encoder"), ("clip2", "text_encoder_2"),
+                          ("t5", "text_encoder_3"), ("llm", "text_encoder_4")):
+            print(f"hidream {name}: keeps its seeded init; the loader reads the transformer only, as the "
+                  f"JAX package's does ({sub}/ is not read)")
+        return variables
 
     # ---- conditioning ----
 

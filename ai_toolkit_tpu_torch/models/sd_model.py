@@ -10,11 +10,19 @@ schedules (``is_flow_matching`` false).
 none`` turns the UNet's per-block checkpointing off, as in the JAX package.
 The archs ``sd1`` / ``sd2`` and the refiner (``sdxl_refiner``,
 ``refiner_name_or_path``) raise ``NotImplementedError``.
+
+A local checkpoint is an HF-layout directory (JAX
+``io/sd_import.load_sd_checkpoint``): ``unet/``, ``vae/``, ``text_encoder/``
+and ``text_encoder_2/``, each of which ``unet_path``, ``vae_path`` and
+``text_encoder_path`` may point elsewhere; the port's modules carry the
+diffusers and transformers names. The LDM single file raises
+``NotImplementedError`` (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -23,7 +31,7 @@ from torch import nn
 from ai_toolkit_tpu_torch.config.modules import ModelConfig
 from ai_toolkit_tpu_torch.models.base import BaseModel
 from ai_toolkit_tpu_torch.models.registry import register_model
-from ai_toolkit_tpu_torch.models.text_encoders.clip import CLIPTextConfig, CLIPTextModel
+from ai_toolkit_tpu_torch.models.text_encoders.clip import CLIPTextConfig, CLIPTextModel, drop_absent_projection
 from ai_toolkit_tpu_torch.models.unet import UNet2DCondition, UNetConfig, unet_lora_targets
 from ai_toolkit_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from ai_toolkit_tpu_torch.ops.layers import init_parameters
@@ -82,6 +90,28 @@ class SDXLModel(BaseModel):
         }
         return {name: init_parameters(build(), generator).eval().requires_grad_(False)
                 for name, build in builders.items()}
+
+    def load_checkpoint(self, path: str, generator: torch.Generator) -> dict[str, nn.Module]:
+        if os.path.isfile(path):
+            raise NotImplementedError(f"{path}: the LDM / SGM single file (sd_xl_base_1.0.safetensors) {_LATER}; "
+                                      f"give the HF-layout directory (unet/, vae/, text_encoder/, text_encoder_2/)")
+        if not os.path.isdir(path):
+            self.refuse_bad_layout("an HF-layout directory: unet/, vae/, text_encoder/, text_encoder_2/")
+        variables = self.init_variables(generator)
+        overrides = {"unet": self.config.unet_path, "vae": self.config.vae_path, "clip": self.config.text_encoder_path}
+        loaded = 0
+        for subdir, name in (("unet", "unet"), ("vae", "vae"), ("text_encoder", "clip"), ("text_encoder_2", "clip2")):
+            root, ov = path, overrides.get(name)
+            if ov:  # a whole HF directory (its matching subdir), or the component's own directory or file
+                if os.path.isdir(os.path.join(ov, subdir)):
+                    root = ov
+                else:
+                    root, subdir = os.path.split(ov.rstrip("/"))
+            loaded += self.load_component(variables, name, os.path.join(root, subdir), f"sdxl {name}",
+                                          prepare=drop_absent_projection if name == "clip" else None)
+        if not loaded:
+            self.refuse_bad_layout("an HF-layout directory: unet/, vae/, text_encoder/, text_encoder_2/")
+        return variables
 
     # ---- conditioning ----
 

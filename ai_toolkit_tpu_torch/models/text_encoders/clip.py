@@ -155,3 +155,14 @@ class CLIPTextModel(nn.Module):
             pooled = self.text_projection(pooled)
         out = final if clip_skip == 0 else hidden_states[-1 - clip_skip]
         return {"last_hidden_state": out, "pooled_output": pooled}
+
+
+def drop_absent_projection(clip: CLIPTextModel, checkpoint, what: str) -> None:
+    """Before loading ``clip`` from ``checkpoint`` (a container of tensor
+    names): a CLIP text checkpoint without ``text_projection.weight`` is
+    transformers' ``CLIPTextModel`` (flux's and SDXL's ``text_encoder/``), whose
+    pooled output is not projected, so the module's projection goes. The JAX
+    package keeps its random projection there."""
+    if clip.text_projection is not None and "text_projection.weight" not in checkpoint:
+        clip.text_projection = None
+        print(f"{what}: no text_projection.weight (a CLIPTextModel): the pooled output is not projected")

@@ -22,11 +22,24 @@ job's ``model.quantize``) quantizes each expert from its own weights as it
 is built, so the bf16 pair never sits on the device at once. Control
 latents (the i2v adapter) and sequence parallelism raise
 ``NotImplementedError`` naming their slice.
+
+A local checkpoint (JAX ``io/dit_importers.load_wan_checkpoint``) is an
+HF-layout directory, ``transformer/`` (and ``transformer_2/``, a pair's
+low-noise expert ``dit_low``), ``text_encoder/`` (UMT5) and ``vae/``, whose
+``config.json`` rebuilds the VAE (:func:`wan_vae_config_from_json`: the
+TI2V-5B's Wan 2.2 VAE), or a single DiT file. The port's modules carry the
+diffusers ``WanTransformer3DModel`` and ``AutoencoderKLWan`` names; the
+conv3d patch embedding is read into the DiT's patch Linear, and the
+singleton axes of the VAE's RMS gammas and 1x1 attention convs are dropped.
+Each expert is loaded as it is built, before it is quantized. As in the
+JAX package, an i2v arch's vision tower is not loaded (``image_encoder/``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -35,6 +48,7 @@ from torch import nn
 
 from ai_toolkit_tpu_torch.adapters.quantize import quantize_params
 from ai_toolkit_tpu_torch.config.modules import ModelConfig
+from ai_toolkit_tpu_torch.io.safetensors_dir import squeeze_to
 from ai_toolkit_tpu_torch.models.base import BaseModel
 from ai_toolkit_tpu_torch.models.registry import register_model
 from ai_toolkit_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
@@ -111,30 +125,56 @@ class WanModel(BaseModel):
 
     # ---- construction ----
 
-    def init_variables(self, generator: torch.Generator, qtype: str | None = None) -> dict[str, nn.Module]:
+    def init_variables(self, generator: torch.Generator, qtype: str | None = None,
+                       fill=None) -> dict[str, nn.Module]:
         """Seeded init of ``dit`` (``dit_low``), ``vae``, ``t5`` (and
-        ``clip_vision``) in that order; with ``qtype`` each expert is
-        quantized from its own weights right after it is built."""
+        ``clip_vision``) in that order; ``fill(name, module)``, when given,
+        loads each right after its init; with ``qtype`` each expert is then
+        quantized from its own weights."""
         dev = self.device
 
-        def build(module: nn.Module) -> nn.Module:
-            return init_parameters(module, generator).eval().requires_grad_(False)
+        def build(name: str, module: nn.Module) -> nn.Module:
+            module = init_parameters(module, generator).eval().requires_grad_(False)
+            if fill is not None:
+                fill(name, module)
+            return module
 
         variables = {}
         for name in self.experts:
-            variables[name] = build(WanDiT(self.dit_config, device=dev))
+            variables[name] = build(name, WanDiT(self.dit_config, device=dev))
             if qtype is not None:
                 quantize_params(variables[name], exclude_patterns=QUANTIZE_EXCLUDE, qtype=qtype)
-        variables["vae"] = build(WanVAE(self.vae_config, device=dev))
-        variables["t5"] = build(T5Encoder(self.t5_config, device=dev))
+        variables["vae"] = build("vae", WanVAE(self.vae_config, device=dev))
+        variables["t5"] = build("t5", T5Encoder(self.t5_config, device=dev))
         if self.vision_config is not None:
-            variables["clip_vision"] = build(CLIPVisionModel(self.vision_config, device=dev))
+            variables["clip_vision"] = build("clip_vision", CLIPVisionModel(self.vision_config, device=dev))
         return variables
 
     def load_variables(self, generator: torch.Generator, qtype: str | None = None) -> dict[str, nn.Module]:
-        if self.config.name_or_path:
-            return self.refuse_or_init(generator)
-        return self.init_variables(generator, qtype)
+        path = self.config.name_or_path
+        if not path:
+            return self.init_variables(generator, qtype)
+        if not (os.path.isdir(os.path.join(path, "transformer")) or os.path.isfile(path)):
+            self.refuse_bad_layout("transformer/ [transformer_2/, text_encoder/, vae/] or a single .safetensors "
+                                   "file of the diffusers WanTransformer3DModel")
+        srcs = {"dit": path}
+        if os.path.isdir(path):
+            srcs = {"dit": os.path.join(path, "transformer"), "dit_low": os.path.join(path, "transformer_2"),
+                    "t5": os.path.join(path, "text_encoder"), "vae": os.path.join(path, "vae")}
+            if os.path.isdir(srcs["vae"]):
+                self.vae_config = wan_vae_config_from_json(srcs["vae"], self.vae_config.dtype)
+
+        def fill(name: str, module: nn.Module) -> None:
+            if name == "clip_vision":
+                print("wan clip_vision: keeps its seeded init; the loader does not read image_encoder/, as the "
+                      "JAX package's does not")
+            elif name not in srcs:
+                print(f"wan {name}: {path} is a single DiT file; '{name}' keeps its seeded init")
+            else:
+                strip = ("model.diffusion_model.", "transformer.") if name.startswith("dit") else ()
+                self.load_component({name: module}, name, srcs[name], f"wan {name}", strip=strip, adapt=_adapt)
+
+        return self.init_variables(generator, qtype, fill=fill)
 
     def enable_sequence_parallel(self, *args, **kwargs) -> None:
         raise NotImplementedError(SEQUENCE_PARALLEL)
@@ -225,3 +265,37 @@ class WanModel(BaseModel):
         """Snap to the causal VAE's temporal grid: td*k+1 frames."""
         td = self.vae_config.temporal_downscale
         return max(1, ((frames - 1) // td) * td + 1)
+
+
+def _adapt(name: str, t: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """A diffusers Wan tensor in the port's layout: the conv3d patch
+    embedding ``[out, in, kt, kh, kw]`` as the patch Linear ``[out, kt*kh*kw*in]``
+    (``wan_patchify``'s (t, y, x, c) order), and singleton axes dropped or
+    added (RMS gammas, 1x1 convs, modulation tables)."""
+    if name == "patch_embedding.weight" and t.dim() == 5:
+        return t.permute(0, 2, 3, 4, 1).reshape(t.shape[0], -1)
+    return squeeze_to(t, target.shape)
+
+
+def wan_vae_config_from_json(vae_dir: str, dtype: torch.dtype = torch.bfloat16) -> WanVAEConfig:
+    """The VAE of a checkpoint's ``vae/config.json`` (JAX
+    ``io/video_vae_import.wan_vae_config_from_json``): dims and latent
+    statistics from the file, Wan 2.1's where it is silent; no file is Wan
+    2.1's VAE. Wan 2.2 configs give the patchified ``in_channels`` (12 = 3*2*2)."""
+    base = WanVAEConfig.wan21()
+    path = os.path.join(vae_dir, "config.json")
+    if not os.path.isfile(path):
+        return dataclasses.replace(base, dtype=dtype)
+    with open(path) as f:
+        c = json.load(f)
+    patch = int(c.get("patch_size") or 1)
+    return WanVAEConfig(
+        base_dim=c.get("base_dim", base.base_dim), z_dim=c.get("z_dim", base.z_dim),
+        dim_mult=tuple(c.get("dim_mult", base.dim_mult)), num_res_blocks=c.get("num_res_blocks", base.num_res_blocks),
+        attn_scales=tuple(c.get("attn_scales", base.attn_scales)),
+        temperal_downsample=tuple(c.get("temperal_downsample", base.temperal_downsample)),
+        latents_mean=tuple(c.get("latents_mean", base.latents_mean)),
+        latents_std=tuple(c.get("latents_std", base.latents_std)),
+        in_channels=c.get("in_channels", 3 * patch * patch) // (patch * patch), dtype=dtype, patch_size=patch,
+        is_residual=bool(c.get("is_residual", False)), decoder_base_dim=c.get("decoder_base_dim"),
+        clip_output=bool(c.get("clip_output", True)))

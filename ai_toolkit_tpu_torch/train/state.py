@@ -3,7 +3,9 @@ parameters, the optimizer and its state (its step count), and an EMA of the
 trainable parameters updated after each optimizer step (JAX
 ``TrainState.apply_gradients``). The frozen model lives in the model's
 ``variables``; the trainable parameters are tensors of those modules (the
-LoRA factors), updated in place."""
+LoRA factors), updated in place. :meth:`TrainState.state_dict` is what a
+resume restores: the trainable tensors, the optimizer's moments and count,
+the EMA and the step."""
 
 from __future__ import annotations
 
@@ -30,3 +32,29 @@ class TrainState:
             for k, p in self.trainable.items():
                 e = self.ema[k]
                 e.copy_(e * weak(ema_decay, e.dtype) + p.to(e.dtype) * weak(1.0 - ema_decay, e.dtype))
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        names = list(self.trainable)
+        out = {"step": torch.tensor(self.step, dtype=torch.int64)}
+        out.update({f"trainable.{k}": v.detach() for k, v in self.trainable.items()})
+        out.update({f"opt.{k}": v for k, v in self.optimizer.state_dict(names).items()})
+        if self.ema is not None:
+            out.update({f"ema.{k}": v for k, v in self.ema.items()})
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict[str, torch.Tensor]) -> bool:
+        """Restore :meth:`state_dict` in place; False, with nothing changed,
+        when its names, shapes or dtypes are not this state's."""
+        mine = self.state_dict()
+        if set(mine) != set(state) or any(mine[k].shape != state[k].shape or mine[k].dtype != state[k].dtype
+                                          for k in mine):
+            return False
+        for k, p in self.trainable.items():
+            p.copy_(state[f"trainable.{k}"])
+        for k, e in (self.ema or {}).items():
+            e.copy_(state[f"ema.{k}"])
+        self.optimizer.load_state_dict(list(self.trainable), {k[4:]: v for k, v in state.items()
+                                                              if k.startswith("opt.")})
+        self.step = int(state["step"])
+        return True

@@ -31,6 +31,12 @@ Phases (any failure raises and the script exits non-zero):
   7. the flux-dev ``generate`` job at 1024x1024, 8 steps, 2 prompts, loading
      the LoRA the train job saved, launch count checked;
   8. a ragged resolution (1008x1008, 4481 tokens), 1 prompt, 2 steps;
+  8b. configs/examples/train_lora_flux_tpu.yaml as written but for its
+     paths, its steps (12) and seeded weights: the qfloat8 base, resolutions
+     512, 768 and 1024 over the four seeded images (12 items in three
+     buckets), the disk latent cache, the file's two prompts at 20 steps
+     first and final; each step's flash launches checked, the step time
+     printed per bucket;
   9. the hidream LoRA ``sd_trainer`` job at
      1024^2 on an fp8 base with the grouped MoE dispatch, launches per step
      checked (``--profile DIR`` profiles its last step too);
@@ -47,10 +53,16 @@ Phases (any failure raises and the script exits non-zero):
   13. a full-width SDXL UNet cut to one transformer layer per level, in f32,
      on the card against the same module on the CPU: the forward and one
      checkpointed LoRA training step's loss and gradients;
-  14. the SDXL LoRA ``sd_trainer`` job at 1024^2 from a job file written from
-     configs/examples/train_lora_sdxl_tpu.yaml (ddpm, min_snr_gamma,
-     adamw8bit, EMA, no checkpointing), launches per step checked
-     (``--profile DIR`` profiles its last step too);
+  14. a full-width SDXL checkpoint written in the HF layout from seeded
+     modules (unet/, vae/, text_encoder/, text_encoder_2/), then
+     configs/examples/train_lora_sdxl_tpu.yaml as written but for its paths,
+     its steps (5) and that checkpoint (ddpm, min_snr_gamma, adamw8bit, EMA,
+     no checkpointing, the disk latent cache, a first and a final sample of
+     DDIM 25 steps): every loaded tensor's checksum against the written
+     one, the cache's files, the samples, the launches of every step and of
+     every denoise step (``--profile DIR`` profiles its last step too); then
+     the same file to 7 steps, which resumes from step 5 (the optimizer
+     state as saved, no latent encoded) and saves at step 7;
   15. the SDXL ``generate`` job at 1024x1024, DDIM 8 steps, guidance 7 as a
      batch of two, 2 prompts, with the kohya LoRA it saved;
   16. the flash kernels at Wan 2.1's shapes (12 heads of 128, bf16): the
@@ -826,7 +838,8 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
 
 
 def _train_dataset(n: int = 4, size: int = 1024) -> str:
-    """A handful of seeded 1024^2 PNGs with captions (smooth colour fields plus noise)."""
+    """A handful of seeded 1024^2 PNGs with captions (smooth colour fields plus
+    noise), written once: the disk latent cache keys its files by mtime."""
     import numpy as np
     from PIL import Image
 
@@ -835,6 +848,8 @@ def _train_dataset(n: int = 4, size: int = 1024) -> str:
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
     subjects = ["a red fox", "a lighthouse", "a bowl of fruit", "a mountain lake"]
+    if all(os.path.isfile(os.path.join(folder, f"img_{i}.txt")) for i in range(n)):
+        return folder
     for i in range(n):
         f = rng.uniform(1, 6, 3)
         ph = rng.uniform(0, 6.3, 3)
@@ -881,17 +896,48 @@ def _run_train_job(name: str, model: dict, network: dict, per_step: dict[str, in
     return _run_job(raw, per_step, profile_dir)
 
 
-def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None):
-    """Run the train job ``raw`` on the card from an empty output folder and
-    check its losses, launches per step and TMA copies."""
+class _StepLaunches:
+    """The kernel launches of each train step of a job run (the train job's
+    ``make_train_step`` wrapped for the block): what is launched outside the
+    steps (the samples) is the rest of the run's count."""
+
+    def __enter__(self) -> list[dict[str, int]]:
+        import ai_toolkit_tpu_torch.jobs.train_process as tp
+
+        self.module, self.real, self.steps = tp, tp.make_train_step, []
+
+        def counted(*args, **kwargs):
+            train_step = self.real(*args, **kwargs)
+
+            def step(*a, **k):
+                before = _launches()
+                out = train_step(*a, **k)
+                after = _launches()
+                self.steps.append({key: after[key] - before[key] for key in after})
+                return out
+            return step
+
+        tp.make_train_step = counted
+        return self.steps
+
+    def __exit__(self, *exc) -> None:
+        self.module.make_train_step = self.real
+
+
+def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None, denoise: dict[str, int] | None = None,
+             fresh: bool = True):
+    """Run the train job ``raw`` on the card (from an empty output folder
+    unless ``fresh`` is false: a resume) and check its losses, the launches
+    of every step (``per_step``), those of its samples (``denoise`` a denoise
+    step) and its TMA copies."""
     import shutil
 
     from ai_toolkit_tpu_torch.jobs import get_job
 
     name = raw["config"]["name"]
     proc_cfg = raw["config"]["process"][0]
-    steps = proc_cfg["train"]["steps"]
-    shutil.rmtree(os.path.join(proc_cfg["training_folder"], name), ignore_errors=True)
+    if fresh:
+        shutil.rmtree(os.path.join(proc_cfg["training_folder"], name), ignore_errors=True)
     gc.collect()  # the previous job's model is unreachable; free it before the next
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -900,13 +946,15 @@ def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None):
     t0 = time.perf_counter()
     job = get_job(raw, device="cuda")
     _reset_launches()  # count only the launches of this run of the path
-    (result,) = job.run()
+    with _StepLaunches() as step_launches:
+        (result,) = job.run()
     launches = _launches()
     wall = time.perf_counter() - t0
     os.environ.pop("AIT_PROFILE_DIR", None)
     proc = job.processes[0]
     losses, step_ms = result["losses"], result["step_ms"]
-    timed = step_ms[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]
+    steps = len(losses)
+    timed = step_ms[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED] or step_ms
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{result['trainable_params']:,} trainable params"
           f"{' in ' + str(result['lora_modules']) + ' LoRA modules' if result['lora_modules'] else ''}")
@@ -914,32 +962,47 @@ def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None):
     print(f"step ms: {', '.join(f'{x:.1f}' for x in step_ms)}; median of steps "
           f"{TRAIN_WARMUP + 1}-{TRAIN_WARMUP + TRAIN_TIMED}: {statistics.median(timed):.1f} ms"
           f"{' (the last step ran under the profiler)' if profile_dir else ''}")
-    print(f"job wall {wall:.1f} s (model build, seeded init and latent/text caching included), "
+    print(f"job wall {wall:.1f} s (model build or load, latent/text caching and samples included), "
           f"peak allocated {peak:.2f} GiB, launches {launches}")
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
-    got = {k: v / steps for k, v in launches.items()}
-    check(got == per_step, f"launches per step {got} != {per_step}")
+    check(len(step_launches) == steps and all(s == per_step for s in step_launches),
+          f"launches per step {step_launches} != {per_step}")
+    sampled = {k: launches[k] - sum(s[k] for s in step_launches) for k in launches}
+    n_denoise = len(result["samples"]) * proc_cfg.get("sample", {}).get("sample_steps", 0)
+    want = {k: n_denoise * (denoise or {}).get(k, 0) for k in launches}
+    check(sampled == want, f"launches of {n_denoise} denoise steps in the samples {sampled} != {want}")
     _check_no_tma_copies(name)
     if result["experts"]:
         print(f"experts by step: {', '.join(result['experts'])}")
     return result, proc, {"launches": launches, "steps": steps, "median_step_ms": statistics.median(timed),
-                          "peak_gib": peak, "wall_s": wall, "experts": result["experts"]}
+                          "peak_gib": peak, "wall_s": wall, "experts": result["experts"],
+                          "per_step": per_step, "denoise_steps": n_denoise}
 
 
 def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None,
               raw: dict | None = None) -> dict:
     """A LoRA ``sd_trainer`` job on the card (configs/examples/train_lora_flux_tpu.yaml,
-    train_lora_hidream_tpu.yaml, or the job ``raw``); the save is the EMA copy
-    of the factors when EMA is on."""
-    from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
-    from ai_toolkit_tpu_torch.models.registry import get_model_class
-
+    train_lora_hidream_tpu.yaml, or the job ``raw``), its LoRA checked
+    (:func:`check_lora_job`)."""
     if raw is None:
         result, proc, report = _run_train_job(name, model, {"type": "lora", "linear": 16, "linear_alpha": 16},
                                               per_step, profile_dir)
     else:
         result, proc, report = _run_job(raw, per_step, profile_dir)
-    steps = report["steps"]
+    path = check_lora_job(result, proc)
+    del proc
+    return {**report, "lora_path": path}
+
+
+def check_lora_job(result: dict, proc) -> str:
+    """A LoRA job's run really trained: no b factor is still zero, the EMA
+    differs from the trained factors, and the final save (the EMA copy when
+    EMA is on) reloads under the LoRA's module names with its step in the
+    metadata and non-zero b factors. Returns the save's path."""
+    from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
+    from ai_toolkit_tpu_torch.models.registry import get_model_class
+
+    steps = result["steps"]  # the final save's step (a resume runs fewer)
     tr, ema = proc.state.trainable, proc.state.ema
     b_keys = [k for k in tr if k.endswith(".b")]
     check(all(bool(tr[k].abs().max() > 0) for k in b_keys), "a LoRA b factor is still zero")
@@ -957,8 +1020,7 @@ def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str
     print(f"saved {path}: {len(tree)} modules, max|b| {saved_b:.3e} ({'EMA copy' if ema is not None else 'trained'}"
           f", fp16)")
     check(saved_b > 0, "the saved LoRA has zero b factors")
-    del proc, tr, ema
-    return {**report, "lora_path": path}
+    return path
 
 
 def fullft_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None,
@@ -1274,33 +1336,191 @@ def unet_reference(fwd_launches: dict, step_launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _sdxl_job(name: str, profile_dir: str | None) -> dict:
-    """The SDXL LoRA job: configs/examples/train_lora_sdxl_tpu.yaml cut to this
-    run (seeded random weights, the seeded PNGs, latents cached in memory,
-    no sampling, a few steps), written to a job file and read back through
-    the port's config loader. It keeps ddpm, min_snr_gamma 5, adamw8bit, EMA
-    and remat_policy none."""
-    import yaml
-
+def _shipped_job(example: str, name: str, steps: int, name_or_path: str) -> dict:
+    """The shipped job file ``configs/examples/<example>`` as it is written,
+    but for these cuts: the job's name, ``training_folder``, the dataset's
+    ``folder_path`` (the seeded PNGs), ``train.steps`` and
+    ``model.name_or_path``; written to a job file and read back through the
+    port's config loader."""
     from ai_toolkit_tpu_torch.config import get_config
 
-    raw = get_config(os.path.join(ROOT, "configs", "examples", "train_lora_sdxl_tpu.yaml"))
+    raw = get_config(os.path.join(ROOT, "configs", "examples", example))
     raw["config"]["name"] = name
     proc = raw["config"]["process"][0]
     proc["training_folder"] = os.path.join(OUT_DIR, "train")
-    proc["datasets"][0].update(folder_path=_train_dataset(), cache_latents=True, cache_latents_to_disk=False)
-    proc["train"].update(steps=_train_steps(profile_dir), seed=42, disable_sampling=True)
-    proc["model"]["name_or_path"] = ""
-    proc["logging"] = {"log_every": 1}
-    path = os.path.join(OUT_DIR, f"{name}.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump(raw, f, sort_keys=False)
-    job = get_config(path)
-    t = job["config"]["process"][0]["train"]
-    check(t["noise_scheduler"] == "ddpm" and t["min_snr_gamma"] == 5.0 and t["optimizer"] == "adamw8bit"
-          and job["config"]["process"][0]["model"]["remat_policy"] == "none", f"{path} lost the job's settings")
-    print(f"job file {path} (from configs/examples/train_lora_sdxl_tpu.yaml)")
+    proc["datasets"][0]["folder_path"] = _train_dataset()
+    proc["train"]["steps"] = steps
+    proc["model"]["name_or_path"] = name_or_path
+    job = _read_back(raw, os.path.join(OUT_DIR, f"{name}.yaml"), example)
+    check(job["config"]["process"][0]["datasets"][0].get("cache_latents_to_disk", True)
+          and job["config"]["process"][0].get("sample"), f"{example} lost its disk cache or its samples")
     return job
+
+
+def _checksum(t: torch.Tensor) -> int:
+    """A positional checksum of a tensor's bits (on its device): equal bits
+    give equal sums, a moved or changed element another."""
+    flat = t.detach().contiguous().view(-1)
+    bits = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[flat.element_size()]).to(torch.int64)
+    return int((bits * (torch.arange(1, bits.numel() + 1, device=bits.device) % 1000003)).sum())
+
+
+SDXL_PARTS = (("unet", "unet", "diffusion_pytorch_model.safetensors"),
+              ("vae", "vae", "diffusion_pytorch_model.safetensors"),
+              ("text_encoder", "clip", "model.safetensors"), ("text_encoder_2", "clip2", "model.safetensors"))
+
+
+def write_sdxl_checkpoint(seed: int = 1234) -> tuple[str, dict]:
+    """A full-width SDXL checkpoint in the HF layout (unet/, vae/,
+    text_encoder/, text_encoder_2/) written from the port's own modules,
+    seeded with another seed than the job's, so a load that did not happen
+    shows; returns its directory and each tensor's checksum."""
+    from safetensors.torch import save_file
+
+    from ai_toolkit_tpu_torch.config.modules import ModelConfig
+    from ai_toolkit_tpu_torch.models.sd_model import SDXLModel
+
+    root = os.path.join(OUT_DIR, "sdxl_checkpoint")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = SDXLModel(ModelConfig.from_dict(dict(SDXL_MODEL)), device="cuda")
+    variables = model.init_variables(torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    sums, nbytes = {}, 0
+    for sub, name, fname in SDXL_PARTS:
+        sd = variables.pop(name).state_dict()
+        sums[name] = {k: _checksum(v) for k, v in sd.items()}
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        host = {k: v.contiguous().cpu() for k, v in sd.items()}
+        nbytes += sum(v.numel() * v.element_size() for v in host.values())
+        save_file(host, os.path.join(root, sub, fname))
+        del sd, host
+    write_s = time.perf_counter() - t0
+    print(f"SDXL checkpoint {root}: {sum(len(v) for v in sums.values())} tensors, {nbytes / 2**30:.2f} GiB, "
+          f"seeded init {init_s:.2f} s, written in {write_s:.2f} s ({nbytes / 2**30 / write_s:.2f} GiB/s)")
+    return root, {"sums": sums, "write_s": write_s, "gib": nbytes / 2**30}
+
+
+def _check_loaded(variables: dict, sums: dict) -> None:
+    for name, want in sums.items():
+        sd = variables[name].state_dict()
+        bad = [k for k, v in want.items() if k not in sd or _checksum(sd[k]) != v]
+        check(not bad, f"sdxl {name}: {len(bad)} loaded tensors differ from the written ones, e.g. {bad[:3]}")
+    print(f"every loaded tensor equals the written one ({sum(len(v) for v in sums.values())} checksums)")
+
+
+def _check_samples(result: dict, steps: list[int], n_prompts: int, size: int) -> None:
+    import numpy as np
+    from PIL import Image
+
+    got = [(r["step"], r["index"]) for r in result["samples"]]
+    check(got == [(s, i) for s in steps for i in range(n_prompts)], f"samples at {got}")
+    for r in result["samples"]:
+        check(os.path.isfile(r["path"]), f"no sample at {r['path']}")
+        px = np.asarray(Image.open(r["path"]))
+        check(px.shape == (size, size, 3) and px.std() > 0, f"sample {r['path']}: {px.shape}, std {px.std()}")
+        print(f"sample {r['path']}: {r['seconds']:.2f} s")
+
+
+def sdxl_shipped_phases(card: str, profile_dir: str | None) -> dict:
+    """configs/examples/train_lora_sdxl_tpu.yaml as written on a full-width
+    checkpoint it loads (its disk cache, its first and final samples), then
+    the same job to 7 steps, which resumes from step 5. Returns the resumed
+    run's report with the LoRA it saved."""
+    import ai_toolkit_tpu_torch.jobs.train_process as tp
+
+    phase("SDXL checkpoint in the HF layout, written from seeded full-width modules")
+    root, written = write_sdxl_checkpoint()
+    print(f"{card}: checkpoint written in {written['write_s']:.2f} s")
+
+    phase("SDXL LoRA sd_trainer job, configs/examples/train_lora_sdxl_tpu.yaml as written on that checkpoint "
+          "(1024x1024, ddpm, min_snr_gamma 5, adamw8bit, EMA, remat none, the disk latent cache, a first and a "
+          "final sample: 1 prompt, DDIM 25 steps, guidance 7), 5 steps")
+    name = "smoke_sdxl_shipped"
+    sdxl_step = _counts(SDXL_ATTENTIONS, SDXL_ATTENTIONS, SDXL_ATTENTIONS)
+    denoise = _counts(fwd=SDXL_ATTENTIONS)  # the CFG pair is one batch of two
+    result, proc, report = _run_job(_shipped_job("train_lora_sdxl_tpu.yaml", name, 5, root), sdxl_step,
+                                    profile_dir, denoise)
+    check_lora_job(result, proc)
+    _check_loaded(proc.variables, written["sums"])
+    cache = result["latent_cache"]
+    files = os.listdir(cache["dir"])
+    check(cache["items"] == len(files) == 4 and cache["encoded"] == 4, f"latent cache {cache}, {len(files)} files")
+    _check_samples(result, [0, 5], 1, 1024)
+    saved = {k[4:]: v.detach().cpu().clone() for k, v in proc.state.state_dict().items() if k.startswith("opt.")}
+    print(f"{card}: checkpoint load {result['load_s']:.2f} s ({written['gib']:.2f} GiB), disk cache "
+          f"{cache['seconds']:.2f} s for {cache['items']} items ({cache['encoded']} encoded), samples "
+          f"{', '.join('%.2f' % r['seconds'] for r in result['samples'])} s each, peak {report['peak_gib']:.2f} GiB")
+    del proc
+
+    phase("the same job to 7 steps: resumed from step 5 (its LoRA, optimizer state, EMA and generator), every "
+          "latent from the disk cache, samples at steps 5 and 7")
+    restored = {}
+    real_resume = tp.SDTrainProcess._resume
+
+    def resume(self, *args):
+        step = real_resume(self, *args)
+        restored.update({k[4:]: v.detach().cpu().clone() for k, v in self.state.state_dict().items()
+                         if k.startswith("opt.")})
+        return step
+
+    tp.SDTrainProcess._resume = resume
+    try:
+        result2, proc2, report2 = _run_job(_shipped_job("train_lora_sdxl_tpu.yaml", name, 7, root), sdxl_step,
+                                           profile_dir, denoise, fresh=False)
+    finally:
+        tp.SDTrainProcess._resume = real_resume
+    check(result2["start_step"] == 5 and len(result2["losses"]) == 2, f"resumed at {result2['start_step']}")
+    cache2 = result2["latent_cache"]
+    check(cache2["encode_calls"] == 0 and cache2["hits"] == 4, f"the rerun encoded: {cache2}")
+    check(sorted(restored) == sorted(saved) and all(torch.equal(restored[k], saved[k]) for k in saved),
+          "the optimizer state after the load is not the one saved")
+    check(result2["steps"] == 7, f"the resumed job's final step is {result2['steps']}")
+    check_lora_job(result2, proc2)  # its final save's metadata says step 7
+    _check_samples(result2, [5, 7], 1, 1024)
+    print(f"resumed from step 5: {len(saved)} optimizer tensors equal those saved; disk cache {cache2['hits']} hits, "
+          f"{cache2['encode_calls']} encode calls; final save at step 7")
+    print(f"{card}: resumed job wall {report2['wall_s']:.1f} s, checkpoint load {result2['load_s']:.2f} s, peak "
+          f"{report2['peak_gib']:.2f} GiB")
+    del proc2
+    return {**report, "resumed": report2, "lora_path": result2["save_path"], "write_s": written["write_s"],
+            "load_s": result["load_s"]}
+
+
+def flux_shipped_phase(card: str, profile_dir: str | None) -> dict:
+    """configs/examples/train_lora_flux_tpu.yaml as written but with seeded
+    weights (a flux-dev checkpoint with T5-XXL is ~34 GB of disk): the
+    quantized base (``quantize: true`` at the default qtype, qfloat8, in
+    both packages, though the file's comment says int8), resolutions 512,
+    768 and 1024 over the four seeded 1024^2 images (12 items, three buckets), the disk latent cache and the file's two
+    prompts at 20 steps, first and final; 12 steps, one epoch, so every
+    bucket trains, each step checked for its 57 launches of each flash kernel."""
+    phase("flux-dev LoRA sd_trainer job, configs/examples/train_lora_flux_tpu.yaml as written with seeded "
+          "weights: qfloat8 base, resolutions [512, 768, 1024] (12 items, 3 buckets), the disk latent cache, "
+          "2 prompts at 1024x1024 and 20 steps first and final, 12 steps")
+    flux_step = _counts(BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD)
+    result, proc, report = _run_job(_shipped_job("train_lora_flux_tpu.yaml", "smoke_flux_shipped", 12, ""),
+                                    flux_step, profile_dir, _counts(fwd=BLOCKS_PER_FORWARD))
+    check(proc.cfg.model.quantize and proc.cfg.datasets[0].resolution == [512, 768, 1024],
+          "the flux file lost its quantized base or its resolutions")
+    cache = result["latent_cache"]
+    check(cache["items"] == len(os.listdir(cache["dir"])) == cache["encoded"] == 12, f"latent cache {cache}")
+    by_bucket: dict[tuple, list[float]] = {}
+    for bucket, ms in zip(result["buckets"], result["step_ms"]):
+        by_bucket.setdefault(tuple(bucket), []).append(ms)
+    check(sorted(by_bucket) == [(512, 512), (768, 768), (1024, 1024)], f"buckets trained {sorted(by_bucket)}")
+    for bucket, ms in sorted(by_bucket.items()):  # each bucket's first step is its cold one
+        print(f"{card}: bucket {bucket[0]}x{bucket[1]}: step ms {', '.join(f'{x:.1f}' for x in ms)} "
+              f"(median of all but the first {statistics.median(ms[1:]):.1f}), {BLOCKS_PER_FORWARD} launches of "
+              f"each flash kernel a step")
+    _check_samples(result, [0, 12], 2, 1024)
+    print(f"{card}: disk cache {cache['seconds']:.2f} s for {cache['items']} items, samples "
+          f"{', '.join('%.2f' % r['seconds'] for r in result['samples'])} s each (20 steps at 1024x1024), "
+          f"job wall {report['wall_s']:.1f} s, peak {report['peak_gib']:.2f} GiB")
+    del proc
+    return {**report, "by_bucket_ms": {f"{b[0]}": statistics.median(v[1:]) for b, v in by_bucket.items()}}
 
 
 def wan_reference(label: str, cfg, fwd_launches: dict, step_launches: dict, img_tokens: int = 0) -> None:
@@ -1640,6 +1860,8 @@ def main(argv: list[str]) -> int:
     phase("ragged resolution: flux-dev 1008x1008 (4481 tokens), 2 steps, 1 prompt")
     generate_job(FLUX_MODEL, 1008, 1008, 2, prompts[:1], _counts(fwd=BLOCKS_PER_FORWARD))
 
+    flux_shipped = flux_shipped_phase(card, args.profile)
+
     phase("hidream LoRA sd_trainer job, 1024x1024, fp8 base, grouped MoE, batch 1, rank 16, adamw8bit, EMA")
     # per step: the attention forward once per block (its outputs are kept by the
     # checkpoint policy), the grouped MoE forward twice (forward and recompute), one dq,
@@ -1669,22 +1891,22 @@ def main(argv: list[str]) -> int:
     unet_reference(_counts(fwd=2 * SDXL_CUT_BLOCKS), _counts(4 * SDXL_CUT_BLOCKS, 2 * SDXL_CUT_BLOCKS,
                                                              2 * SDXL_CUT_BLOCKS))
 
-    phase("SDXL LoRA sd_trainer job, 1024x1024, ddpm, min_snr_gamma 5, batch 1, rank 16, adamw8bit, EMA, "
-          "no checkpointing")
-    # per step: every attention's forward, dq and dk/dv once: the LoRA on every
-    # q, k and v projection makes each input need a gradient (no recompute)
-    sdxl_step = _counts(SDXL_ATTENTIONS, SDXL_ATTENTIONS, SDXL_ATTENTIONS)
-    sdxl = train_job("smoke_sdxl_lora", {}, sdxl_step, args.profile,
-                     raw=_sdxl_job("smoke_sdxl_lora", args.profile))
+    sdxl = sdxl_shipped_phases(card, args.profile)
 
     phase("SDXL generate job, 1024x1024, DDIM 8 steps, guidance 7 (CFG batch of two), 2 prompts, "
           "with the trained kohya LoRA")
     sdxl_gen = generate_job(SDXL_MODEL, 1024, 1024, 8, prompts, _counts(fwd=SDXL_ATTENTIONS),
                             lora_path=sdxl["lora_path"], sampler="ddim", guidance_scale=7.0)
     print(json.dumps({"sdxl_launches": {
-        "train_per_step": {k: v / sdxl["steps"] for k, v in sdxl["launches"].items()},
+        "train_per_step": sdxl["per_step"],
         "denoise_per_step": {k: v / (8 * len(prompts)) for k, v in sdxl_gen.items()},
         "ms": {label: {k: row[k]["ms"] for k in row} for label, row in sdxl_times.items()}}}))
+    print(json.dumps({"shipped_files": {
+        "sdxl": {"checkpoint_write_s": sdxl["write_s"], "checkpoint_load_s": sdxl["load_s"],
+                 "median_step_ms": sdxl["median_step_ms"], "peak_gib": sdxl["peak_gib"],
+                 "resumed_wall_s": sdxl["resumed"]["wall_s"]},
+        "flux_qfloat8": {"median_step_ms_by_bucket": flux_shipped["by_bucket_ms"], "peak_gib": flux_shipped["peak_gib"],
+                      "wall_s": flux_shipped["wall_s"]}}}))
 
     neg = torch.Generator("cuda").manual_seed(8)
     wan_err = flash_checks("flash kernels vs plain versions at Wan 2.1's shapes (head_dim 128), bf16",

@@ -357,8 +357,9 @@ def test_full_finetune_job_trains_the_banks_and_saves_what_jax_saves(tmp_path, h
     assert f"full fine-tune (filtered to {n_params:,} params)" in capsys.readouterr().out
 
     root = tmp_path / "out" / "ft_tiny"
-    assert sorted(p.name for p in root.iterdir()) == [
-        "ft_tiny.safetensors", "ft_tiny_000000001.safetensors", "ft_tiny_000000002.safetensors"]
+    assert sorted(p.name for p in root.iterdir()) == [  # and the state a resume restores
+        "ft_tiny.safetensors", "ft_tiny_000000001.safetensors", "ft_tiny_000000002.safetensors",
+        "training_state.safetensors"]
     trained = proc.state.trainable
     fresh = HiDreamModel(ModelConfig.from_dict(model), device="cpu").init_variables(
         torch.Generator().manual_seed(42))["dit"].state_dict()

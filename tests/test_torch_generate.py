@@ -78,12 +78,15 @@ def test_unported_branches_raise(tmp_path):
     base = {"type": "generate", "training_folder": str(tmp_path), "model": dict(TINY),
             "sample": {"width": 32, "height": 32, "sample_steps": 1, "prompts": ["x"]}}
     for proc in ({**base, "model": {**TINY, "lora_path": "/nowhere/lora.safetensors"}},
-                 {**base, "type": "sd_trainer"},  # no network: full fine-tune
+                 {**base, "type": "sd_trainer", "model": {**TINY, "quantize": True}},  # full fine-tune, fp8 base
                  {**base, "model": {**TINY, "arch": "sd1"}},
-                 {**base, "model": {**TINY, "name_or_path": "/nowhere/flux"}},
                  {**base, "sample": {**base["sample"], "sampler": "ddim"}}):
         with pytest.raises(NotImplementedError):
             run_job({"job": "generate", "config": {"name": "x", "process": [proc]}}, device="cpu")
+    # a name_or_path that is no local checkpoint raises, never a silent random init
+    proc = {**base, "model": {**TINY, "name_or_path": "/nowhere/flux"}}
+    with pytest.raises(FileNotFoundError, match="not an importable local layout"):
+        run_job({"job": "generate", "config": {"name": "x", "process": [proc]}}, device="cpu")
 
 
 _BANNED = ("jax", "jaxlib", "flax", "optax", "ai_toolkit_tpu")
