@@ -1,8 +1,10 @@
 """Image and video generation (``ai_toolkit_tpu/generation.py`` in PyTorch):
 the plain flow-matching Euler loop of flux and hidream (hidream has no
 guidance embed and, as in the JAX ``generate_flux``, no CFG pass), the DDIM
-loop of SDXL with classifier-free guidance as one batch of two
-(``generate_sd``), and Wan's video Euler loop (``generate_video``: frames
+loop of SD 1.x / 2.x and SDXL with classifier-free guidance as one batch of
+two (``generate_sd``; SD 1.x / 2.x take the one CLIP's context and no added
+condition, and a textual-inversion bank in ``variables["emb"]`` gives the
+trigger its vectors), and Wan's video Euler loop (``generate_video``: frames
 snapped to the VAE's grid, the (t, y, x) rope table, an i2v arch's first
 frame ``ctrl_img`` through its vision tower, sigmas shifted for the clip's
 token count, each step routed to a multistage pair's expert by its sigma
@@ -150,8 +152,9 @@ def _generate_sd(model, variables, gen, schedule, noise, rec, h, w, c) -> np.nda
     with torch.inference_mode():
         t0 = time.perf_counter()
         cond = model.encode_prompt(variables, [gen.negative_prompt, gen.prompt] if do_cfg else [gen.prompt])
-        cond = {"context": cond["context"],
-                "added_cond": model.added_cond(cond["pooled"], gen.height, gen.width)}
+        if "pooled" in cond:  # SDXL's added condition; SD 1.x / 2.x have none
+            cond = {"context": cond["context"],
+                    "added_cond": model.added_cond(cond["pooled"], gen.height, gen.width)}
         if noise is None:
             g = torch.Generator(device=device).manual_seed(gen.seed)
             x = torch.randn((1, h, w, c), generator=g, dtype=torch.float32, device=device)

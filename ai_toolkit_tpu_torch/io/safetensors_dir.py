@@ -97,6 +97,12 @@ def squeeze_to(t: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     return t
 
 
+def squeeze_adapt(name: str, t: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """:func:`squeeze_to` as ``load_module``'s ``adapt`` (SD 1.x's 1x1-conv
+    ``proj_in`` / ``proj_out``, the LDM VAE's 1x1-conv attention)."""
+    return squeeze_to(t, target.shape)
+
+
 @torch.no_grad()
 def load_module(module: nn.Module, index: SafetensorsIndex, what: str,
                 sources: dict[str, Source] | None = None, keep: Callable[[str], bool] | None = None,

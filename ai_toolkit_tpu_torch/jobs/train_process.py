@@ -10,11 +10,13 @@ model's main component, the DiT or the UNet (the model's targets), one
 network shared by a multistage pair's two experts ->
 AdamW(8bit) with the lr schedule (``train/optimizers.lr_schedule``) -> resume
 from the newest save in the output folder -> the schedule
-(``samplers/factory.get_schedule``: flow matching, or DDPM for SDXL) ->
-folder datasets (one item per file and resolution) with the latent cache in
-memory or on disk (``<save_root>/latent_cache``) and the text-embedding
-cache -> a first sample -> train loop (``train/step.py``) with the save and
-sample cadences -> final save of the LoRA (the EMA copy when EMA is on) in
+(``samplers/factory.get_schedule``: flow matching, or DDPM for the UNets,
+under ``train.scheduler_params``) -> folder datasets (one item per file and
+resolution) with the latent cache in memory or on disk
+(``<save_root>/latent_cache``) and the text-embedding cache -> the
+validation batch -> a first sample -> train loop (``train/step.py``) with
+the validation, save and sample cadences -> final save of the LoRA (the EMA
+copy when EMA is on) in
 the PEFT layout for a flow-matching DiT, under the module names the JAX job
 writes (the model's ``lora_key``, Wan's JAX paths), the kohya layout
 (``lora_unet_...``) for the UNet -> a final sample. A video model (Wan)
@@ -25,6 +27,21 @@ frame of each clip goes through an i2v arch's vision tower into
 alternates the trained expert every that many steps, high-noise first (the
 sampled t squeezed into ``[boundary, 1]``, then ``[0, boundary]``), and each
 step logs the expert that ran.
+
+Textual inversion (``embedding:`` with no ``network``, SD 1.x / 2.x only;
+JAX ``_build_trainable``'s embedding branch): a ``[vectors, hidden]`` f32
+bank, initialised from ``init_words``' token embeddings, is the one
+trainable tensor (``variables["emb"]``, at ``train.embedding_lr`` when it is
+set); the trigger maps to its virtual ids (``adapters/embedding.py``), the
+batches carry raw token ids, so CLIP runs inside the step, the samples use
+the bank as it is, and each save is the a1111 file ``{"emb_params": [n,
+hidden]}`` in f32 (the EMA copy when EMA is on), ``<name>_<step:09d>`` and
+``<name>.safetensors``, without rotation.
+
+Validation (JAX step 9 and the loop's check): with ``validate_every`` the
+first batch of dataset 0, unshuffled, is prepared once, and every that many
+steps ``train/step.eval_loss`` takes its loss at t and noise drawn from
+``validation.seed``; ``val_loss`` is printed and returned.
 
 A full fine-tune (``network`` absent or of type ``full`` / ``fine_tune``,
 flow-matching DiTs only) trains the DiT's own parameters in place, those its ``only_if_contains`` /
@@ -53,10 +70,9 @@ clip): first unless ``skip_first_sample``, every ``sample_every`` steps and
 at the end. A sample that fails raises, where the JAX job prints and goes on.
 
 Every other branch of the JAX process raises ``NotImplementedError`` naming
-its slice: validation, other networks and adapters, quantized text encoders
+its slice: other networks and adapters, quantized text encoders
 (``quantize_te``), text-encoder training, the feature-extractor losses
-(``diffusion_feature_extractor_*``, ``latent_feature_*``), the schedule's
-``scheduler_params`` overrides and the train-step knobs
+(``diffusion_feature_extractor_*``, ``latent_feature_*``) and the train-step knobs
 (``TrainStepConfig.from_train_config``). With ``AIT_PROFILE_DIR`` set, the
 last step runs under ``torch.profiler``.
 """
@@ -72,6 +88,8 @@ import time
 import numpy as np
 import torch
 
+from ai_toolkit_tpu_torch.adapters.embedding import (EMBEDDING_KEYS, TriggerTokenizer, init_embedding_bank,
+                                                     load_embedding, save_embedding)
 from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora, count_lora_params, share_lora
 from ai_toolkit_tpu_torch.adapters.quantize import quantized_bytes, quantized_count
 from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig, ModelConfig, ProcessConfig, TrainConfig
@@ -82,12 +100,12 @@ from ai_toolkit_tpu_torch.models.registry import get_model_class
 from ai_toolkit_tpu_torch.samplers.factory import DDPM_NAMES, get_schedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer, lr_schedule
 from ai_toolkit_tpu_torch.train.state import TrainState
-from ai_toolkit_tpu_torch.train.step import TrainStepConfig, make_train_step
+from ai_toolkit_tpu_torch.train.step import TrainStepConfig, eval_loss, make_train_step
 from ai_toolkit_tpu_torch.utils.unported import refuse_unported
 
 # TrainConfig knobs read by the JAX process (not its step) that this path does not take
 _UNPORTED_TRAIN = (
-    "train_text_encoder", "free_u", "refiner_lr", "adapter_lr", "embedding_lr", "unet_lr",
+    "train_text_encoder", "free_u", "refiner_lr", "adapter_lr", "unet_lr",
     "text_encoder_lr", "do_blank_stabilization", "prompt_saturation_chance",
     "short_and_long_captions", "short_and_long_captions_encoder_split", "prompt_dropout_prob",
     "reg_weight", "img_multiplier", "latent_multiplier", "standardize_images",
@@ -174,20 +192,38 @@ class SDTrainProcess:
         self.save_root = os.path.join(cfg.training_folder, job_name)
 
     @property
+    def textual_inversion(self) -> bool:
+        return bool(self.cfg.embedding)
+
+    @property
     def full_finetune(self) -> bool:
+        if self.textual_inversion:
+            return False
         return self.cfg.network is None or self.cfg.network.type in ("full", "fine_tune")
 
     def _refuse_unported(self) -> None:
         cfg, tc = self.cfg, self.cfg.train
-        if not self.full_finetune and cfg.network.type not in ("lora", "locon"):
+        if self.textual_inversion:
+            from ai_toolkit_tpu_torch.models.sd_model import SDModel
+
+            if get_model_class(cfg.model.arch) is not SDModel:
+                raise NotImplementedError(f"textual inversion (embedding) on arch '{cfg.model.arch}' comes with a "
+                                          f"later slice (ported: {SDModel.archs})")
+            if cfg.network is not None:
+                raise NotImplementedError("embedding together with a network: the JAX job trains the bank alone "
+                                          "and drops the network; give one of them")
+            unknown = sorted(set(cfg.embedding) - set(EMBEDDING_KEYS))
+            if unknown:
+                raise NotImplementedError(f"embedding keys {unknown} are not read (read: {list(EMBEDDING_KEYS)})")
+        elif not self.full_finetune and cfg.network.type not in ("lora", "locon"):
             raise NotImplementedError(f"network '{cfg.network.type}': only LoRA and the full fine-tune "
                                       f"are ported (other networks: later slices)")
         if self.full_finetune and cfg.model.quantize:
             raise NotImplementedError(
                 "model.quantize with a full fine-tune comes with slice G (the JAX job trains only the "
                 "weights that quantization leaves unquantized)")
-        if cfg.adapter or cfg.embedding or cfg.slider:
-            raise NotImplementedError("adapters / embeddings / sliders come with later slices")
+        if cfg.adapter or cfg.slider:
+            raise NotImplementedError("adapters / sliders come with later slices")
         refuse_unported(tc, _UNPORTED_TRAIN, TrainConfig(), "train")
         refuse_unported(cfg.model, _UNPORTED_MODEL, ModelConfig(), "model")
         if cfg.model.quantize_kwargs:
@@ -198,14 +234,11 @@ class SDTrainProcess:
         scheduler = (tc.noise_scheduler or "flowmatch").lower()
         if scheduler not in (("flowmatch", "flowmatch_euler") if flow else DDPM_NAMES):
             raise NotImplementedError(f"noise_scheduler '{tc.noise_scheduler}' for arch "
-                                      f"'{cfg.model.arch}' (ported: flowmatch for the DiTs, ddpm for SDXL)")
+                                      f"'{cfg.model.arch}' (ported: flowmatch for the DiTs, ddpm for the UNets)")
         if not flow and (self.full_finetune or cfg.model.quantize):
             raise NotImplementedError("the UNet's full fine-tune and quantized base come with a later slice")
-        if tc.extras.get("scheduler_params"):
-            raise NotImplementedError("train.scheduler_params overrides come with a later slice")
         lr_schedule(tc.lr_scheduler, tc.lr, tc.steps, tc.lr_scheduler_params)  # raises for an unported one
-        if cfg.validation.validate_every > 0:
-            raise NotImplementedError("validation comes with a later slice")
+        self._schedule()  # raises for a scheduler_params field the schedule has not
         if cfg.save.push_to_hub:
             raise NotImplementedError("push_to_hub is not ported")
         sizes = [n for n in cfg.mesh.axes.values() if n not in (1, -1)]
@@ -246,7 +279,10 @@ class SDTrainProcess:
         if cfg.model.quantize:
             print(f"quantized base: {sum(quantized_count(m) for m in experts)} weights, "
                   f"{sum(quantized_bytes(m) for m in experts) / 1e9:.2f} GB ({cfg.model.qtype})")
-        if self.full_finetune:
+        if self.textual_inversion:
+            trainable, lora = self._build_embedding(model, variables), None
+            n_params = trainable["emb"].numel()
+        elif self.full_finetune:
             ncfg = cfg.network
             inc = cfg.model.only_if_contains or (ncfg.only_if_contains if ncfg else None)
             exc = cfg.model.ignore_if_contains or (ncfg.ignore_if_contains if ncfg else None)
@@ -267,8 +303,10 @@ class SDTrainProcess:
                 m.gradient_checkpointing = tc.gradient_checkpointing
 
         # 3. optimizer + state, the generator of t and the noise; resume
+        # the bank alone trains at embedding_lr when it is set (the JAX job's "emb" optimizer group)
+        base_lr = tc.embedding_lr if self.textual_inversion and tc.embedding_lr else tc.lr
         tx = get_optimizer(tc.optimizer, list(trainable.values()),
-                           lr_schedule(tc.lr_scheduler, tc.lr, tc.steps, tc.lr_scheduler_params),
+                           lr_schedule(tc.lr_scheduler, base_lr, tc.steps, tc.lr_scheduler_params),
                            tc.optimizer_params, tc.max_grad_norm)
         state = TrainState(trainable, tx, use_ema=tc.ema_config.use_ema)
         generator = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -282,8 +320,18 @@ class SDTrainProcess:
             step_cfg = dataclasses.replace(step_cfg, stage_boundary=model.stage_boundary,
                                            switch_every=tc.switch_boundary_every)
         predict = getattr(model, "predict_train", model.predict)  # as the JAX job picks it
-        train_step = make_train_step(lambda noisy, t, cond: predict(variables, noisy, t, cond),
-                                     self._schedule(), step_cfg)
+
+        def predict_fn(noisy, t, cond):
+            return predict(variables, noisy, t, cond)
+
+        schedule = self._schedule()
+        train_step = make_train_step(predict_fn, schedule, step_cfg)
+        val_batch = None
+        if cfg.validation.validate_every > 0:  # JAX step 9: the first batch of dataset 0, unshuffled
+            ds0 = loader.datasets[0]
+            val_batch = self._prepare_batch(model, variables, loader._load_batch(
+                ds0, ds0.build_batches(tc.batch_size, shuffle=False)[0]), text_cache)
+        val_losses: list[tuple[int, float]] = []
 
         # 6. first sample, the loop, final save and sample
         sampling = not tc.disable_sampling and bool(cfg.sample.prompts)
@@ -314,6 +362,11 @@ class SDTrainProcess:
                 expert = f" expert={model.last_expert}" if len(experts) > 1 else ""
                 print(f"step {step + 1}/{tc.steps} loss={loss:.4f} "
                       f"grad_norm={float(metrics['grad_norm']):.4f}{expert} ({step_ms[-1]:.1f} ms)")
+            if val_batch is not None and (step + 1) % cfg.validation.validate_every == 0:
+                val = float(eval_loss(predict_fn, schedule, step_cfg, val_batch,
+                                      torch.Generator(device=dev).manual_seed(cfg.validation.seed)))
+                val_losses.append((step + 1, val))
+                print(f"  val_loss={val:.4f}")
             if cfg.save.save_every and (step + 1) % cfg.save.save_every == 0 and step + 1 < tc.steps:
                 print(f"saved: {self._save(ckpt, state, lora, generator, step + 1)}")
             if sampling and cfg.sample.sample_every and (step + 1) % cfg.sample.sample_every == 0 \
@@ -328,7 +381,29 @@ class SDTrainProcess:
                 "median_step_ms": statistics.median(step_ms) if step_ms else None,
                 "trainable_params": n_params, "lora_modules": len(lora) if lora is not None else 0,
                 "experts": experts_run, "buckets": buckets, "save_path": path, "load_s": load_s,
+                "val_losses": val_losses,
                 "latent_cache": self.latent_cache_report, "samples": self.samples}
+
+    def _build_embedding(self, model, variables: dict) -> dict[str, torch.Tensor]:
+        """The textual-inversion bank (JAX ``_build_trainable``'s embedding
+        branch): ``vectors`` rows, each the token embedding of ``init_words``
+        in turn (else normal(0, 0.02)), f32, as ``variables["emb"]``; the
+        model's tokenizer then maps the trigger to the bank's virtual ids."""
+        emb_cfg, clip_cfg = self.cfg.embedding, model.clip_config
+        self.ti_trigger = emb_cfg.get("trigger", self.cfg.trigger_word or "sks")
+        n_vec = int(emb_cfg.get("vectors", 4))
+        init_from = None
+        if emb_cfg.get("init_words"):
+            ids = model.tokenizer.encode(emb_cfg["init_words"])
+            valid = [int(i) for i in ids if i != model.tokenizer.eos_id]
+            if valid:
+                table = variables["clip"].text_model.embeddings.token_embedding.weight
+                init_from = table[valid].detach().float().cpu().numpy()
+        bank = init_embedding_bank(n_vec, clip_cfg.hidden_size, init_from=init_from)
+        model.tokenizer = TriggerTokenizer(model.tokenizer, self.ti_trigger, clip_cfg.vocab_size, n_vec)
+        variables["emb"] = torch.nn.Parameter(torch.from_numpy(bank).to(self.device))
+        print(f"textual inversion: trigger '{self.ti_trigger}' -> {n_vec} vectors")
+        return {"emb": variables["emb"]}
 
     def _resume(self, ckpt: CheckpointManager, model, state: TrainState, lora: dict | None,
                 generator: torch.Generator) -> int:
@@ -343,6 +418,10 @@ class SDTrainProcess:
             tree, step = ckpt.load_latest(module_names=list(lora),
                                           module_name=getattr(model, "lora_module_name", None))
             saved = {f"{n}.{leaf}": t for n, leaves in tree.items() for leaf, t in leaves.items()}
+        elif self.textual_inversion:
+            saved = {"emb": torch.from_numpy(load_embedding(path))}
+            with safe_open(path, framework="pt") as f:
+                step = int((f.metadata() or {}).get("step", 0))
         else:
             with safe_open(path, framework="pt") as f:
                 saved = {k: f.get_tensor(k) for k in f.keys()}
@@ -368,23 +447,29 @@ class SDTrainProcess:
         return step
 
     def _schedule(self):
-        """The schedule with the job's overrides (JAX ``run``, step 3)."""
+        """The schedule with the job's overrides (JAX ``run``, step 3):
+        ``train.scheduler_params``, then ``num_train_timesteps`` and
+        ``model.is_v_pred`` where those leave them unset."""
         tc = self.cfg.train
-        overrides = {}
+        overrides = dict(tc.extras.get("scheduler_params") or {})
         if tc.num_train_timesteps != 1000:
-            overrides["num_train_timesteps"] = tc.num_train_timesteps
+            overrides.setdefault("num_train_timesteps", tc.num_train_timesteps)
         if self.cfg.model.is_v_pred:
-            overrides["prediction_type"] = "v_prediction"
+            overrides.setdefault("prediction_type", "v_prediction")
         return get_schedule(tc.noise_scheduler, self.cfg.model.arch, **overrides)
 
-    @staticmethod
-    def _save(ckpt: CheckpointManager, state: TrainState, lora: dict | None, generator: torch.Generator,
+    def _save(self, ckpt: CheckpointManager, state: TrainState, lora: dict | None, generator: torch.Generator,
               step: int, final: bool = False) -> str:
         """A LoRA save: the EMA copy when EMA is on, in the PEFT layout, with
-        rotation. A full fine-tune's: the trained tensors themselves in their
-        own dtype, keyed by parameter name, no rotation (JAX ``_save``). Both
-        write the training state a resume restores."""
-        if lora is not None:
+        rotation. A textual inversion's: the bank (its EMA copy when EMA is
+        on) in the a1111 layout, f32. A full fine-tune's: the trained tensors
+        themselves in their own dtype, keyed by parameter name, no rotation
+        (JAX ``_save``). Each writes the training state a resume restores."""
+        if self.textual_inversion:
+            path = ckpt.final_path() if final else ckpt.path_for_step(step)
+            src = state.ema if state.ema is not None else state.trainable
+            save_embedding(src["emb"].detach().float().cpu().numpy(), path, name=self.ti_trigger, step=step)
+        elif lora is not None:
             src = state.ema if state.ema is not None else state.trainable
             tree = {name: {leaf: src[f"{name}.{leaf}"] for leaf in ("a", "b", "scale")} for name in lora}
             path = ckpt.save(tree, step, final=final)
@@ -399,7 +484,8 @@ class SDTrainProcess:
 
     def _sample(self, model, variables: dict, state: TrainState, lora: dict | None, step: int) -> None:
         """Every sample prompt through ``generation.generate`` (JAX
-        ``_sample``), with the EMA copy of the LoRA when EMA is on, to
+        ``_sample``), with the EMA copy of the LoRA when EMA is on (a
+        textual inversion's bank as it is trained, as in JAX), to
         ``<save_root>/samples/<name>_<step:09d>_<i>.<ext>``. Raises when a
         sample fails."""
         from ai_toolkit_tpu_torch.generation import generate, save_image_atomic, save_video_atomic
@@ -484,7 +570,11 @@ class SDTrainProcess:
 
     def _prepare_batch(self, model, variables: dict, raw: dict, text_cache: TextEmbedCache) -> dict:
         dev = self.device
-        cond = dict(text_cache.get(raw["captions"]))
+        if self.textual_inversion:  # raw token ids: CLIP runs inside the step, so the bank trains
+            ids = np.stack([model.tokenizer.encode(c) for c in raw["captions"]])
+            cond = {"input_ids": torch.from_numpy(ids).long().to(dev)}
+        else:
+            cond = dict(text_cache.get(raw["captions"]))
         if raw.get("first_frame") is not None:  # i2v: the clip's first frame through the vision tower
             with torch.no_grad():
                 cond["img_cond"] = model.encode_image_cond(variables, torch.from_numpy(raw["first_frame"]))
@@ -502,7 +592,7 @@ class SDTrainProcess:
             cond["pe"] = model.rope_table(h, w, int(cond["txt"].shape[1]))
             cond["guidance"] = torch.full((b,), 1.0, dtype=torch.float32, device=dev)
             batch["image_seq_len"] = (h // 2) * (w // 2)
-        else:  # SDXL: the added condition from the bucket's pixel size
+        elif "pooled" in cond:  # SDXL: the added condition from the bucket's pixel size
             d = model.vae_config.downscale
             cond["added_cond"] = model.added_cond(cond.pop("pooled"), h * d, w * d)
         return batch

@@ -19,7 +19,7 @@ def register_model(cls):
 def get_model_class(arch: str):
     import ai_toolkit_tpu_torch.models.flux_model  # noqa: F401  (registers flux, flux_schnell)
     import ai_toolkit_tpu_torch.models.hidream_model  # noqa: F401  (registers hidream)
-    import ai_toolkit_tpu_torch.models.sd_model  # noqa: F401  (registers sdxl)
+    import ai_toolkit_tpu_torch.models.sd_model  # noqa: F401  (registers sd1, sd15, sd2, ssd, vega, sdxl)
     import ai_toolkit_tpu_torch.models.wan_model  # noqa: F401  (registers wan21, wan21_i2v, wan22_5b, wan22_14b*)
 
     if arch not in MODEL_REGISTRY:

@@ -6,7 +6,9 @@ its state dict loads as it is. Causal self-attention goes to the plain
 attention path, as the JAX package sends it to XLA. ``clip_skip`` n > 0
 returns the n-th-from-last layer's states, un-normalized (SDXL takes the
 penultimate, ``clip_skip=1``); the pooled output always comes from the final
-states.
+states. A textual-inversion ``bank`` ``[n_vectors, hidden]`` gives the
+embeddings of the virtual ids at or above ``vocab_size``
+(``adapters/embedding.py``).
 """
 
 from __future__ import annotations
@@ -133,17 +135,31 @@ class CLIPTextModel(nn.Module):
             Linear(cfg.hidden_size, cfg.projection_dim, bias=False, device=device, dtype=cfg.dtype)
             if cfg.projection_dim else None)
 
-    def forward(self, input_ids: torch.Tensor, clip_skip: int = 0) -> dict[str, torch.Tensor]:
+    def embed(self, input_ids: torch.Tensor, bank: torch.Tensor | None = None) -> torch.Tensor:
+        """The first layer's input: token plus position embeddings in the
+        model's dtype. With ``bank``, ids at or above ``vocab_size`` take
+        their row of the bank (JAX ``jnp.where``): the f32 table and the bank
+        meet in their promoted dtype (f32 for the f32 bank the train job
+        makes), and the sum with the f32 positions is rounded once, to the
+        model's dtype."""
+        cfg = self.cfg
+        tm = self.text_model
+        emb = tm.embeddings.token_embedding(input_ids.clamp(0, cfg.vocab_size - 1))
+        if bank is not None:
+            virt = (input_ids - cfg.vocab_size).clamp(0, bank.shape[0] - 1)
+            emb = torch.where((input_ids >= cfg.vocab_size)[..., None], bank[virt], emb)
+        return (emb + tm.embeddings.position_embedding.weight[None, :input_ids.shape[1]]).to(cfg.dtype)
+
+    def forward(self, input_ids: torch.Tensor, clip_skip: int = 0,
+                bank: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         """input_ids ``[B, S]`` -> last_hidden_state and pooled_output (the
         first EOS token of the final states, projected). last_hidden_state is
         the final layer norm's output for ``clip_skip`` 0, else the output of
         the layer ``clip_skip`` places before the last (1: the penultimate),
-        un-normalized."""
+        un-normalized. ``bank``: the textual-inversion vectors (:meth:`embed`)."""
         cfg = self.cfg
         tm = self.text_model
-        s = input_ids.shape[1]
-        emb = tm.embeddings.token_embedding(input_ids.clamp(0, cfg.vocab_size - 1))
-        x = (emb + tm.embeddings.position_embedding.weight[None, :s]).to(cfg.dtype)
+        x = self.embed(input_ids, bank)
         hidden_states = []
         for layer in tm.encoder.layers:
             x = layer(x)

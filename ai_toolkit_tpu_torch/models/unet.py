@@ -20,7 +20,10 @@ The details the JAX package pins are kept:
 - skips are concatenated after the backbone's channels, in the JAX order.
 
 Attention goes through ``ops.attention.dot_product_attention``: at head_dim
-64 that is the flash kernel on a CUDA tensor. With ``UNetConfig.remat`` each
+64 (SD 2.x, SDXL) that is the flash kernel on a CUDA tensor; SD 1.x's global
+8 heads are 40, 80 and 160 wide, which take the plain attention, as the JAX
+package sends them to XLA. SD 1.x files hold ``proj_in`` / ``proj_out`` as
+1x1 convs, read into the Linears by ``io/safetensors_dir.squeeze_to``. With ``UNetConfig.remat`` each
 ``ResnetBlock`` and ``SpatialTransformer`` is checkpointed while gradients are
 recorded (JAX ``nn.remat`` per block). IP-adapter context and T2I adapter
 residuals raise ``NotImplementedError``; FreeU (``train.free_u``) is refused
@@ -55,6 +58,15 @@ class UNetConfig:
     projection_class_embeddings_dim: int | None = None  # SDXL: 2816
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
+
+    @classmethod
+    def sd15(cls) -> "UNetConfig":
+        """SD 1.x: global 8 heads, so 40, 80 and 160 wide by level."""
+        return cls()
+
+    @classmethod
+    def sd21(cls) -> "UNetConfig":
+        return cls(cross_attention_dim=1024, head_dim=64)
 
     @classmethod
     def sdxl(cls) -> "UNetConfig":

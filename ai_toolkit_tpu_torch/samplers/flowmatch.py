@@ -44,6 +44,9 @@ class FlowMatchSchedule:
     base_shift: float = 0.5
     max_shift: float = 1.16
     time_shift_type: str = "exp"
+    # a per-timestep loss-weight table of num_train_timesteps floats, read by
+    # the 'weighted' timesteps (which raise: the train-step knobs slice)
+    weighting_table: tuple | None = None
 
     # ---- training ----
 

@@ -16,7 +16,9 @@ alternate every ``switch_every`` between ``[boundary, 1]`` and ``[0,
 boundary]``, high first, and the sampled flow t is squeezed into the range
 (``lo + t (hi - lo)``). The two halves run in ``torch.profiler`` ranges
 (``train_step: forward and backward``, ``train_step: clip, optimizer and
-EMA``) that split a profiled step's host and device time. ``grad_accum > 1`` sums the gradients of that many
+EMA``) that split a profiled step's host and device time. :func:`eval_loss`
+is the validation loss (JAX ``make_eval_step``): the same loss of a fixed
+batch at draws from a seeded generator, unweighted, with no update. ``grad_accum > 1`` sums the gradients of that many
 micro-batches and divides, as the JAX ``lax.scan`` over micro-batches does. Every other knob of
 the JAX ``TrainStepConfig`` raises ``NotImplementedError`` when it is set away
 from its default (:meth:`TrainStepConfig.from_train_config`).
@@ -24,7 +26,7 @@ from its default (:meth:`TrainStepConfig.from_train_config`).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable
 
 import torch
@@ -108,6 +110,27 @@ def train_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dic
         tw = schedule.min_snr_weight(t, cfg.min_snr_gamma)
     return compute_loss(pred, target, loss_type=cfg.loss_type, timestep_weights=tw,
                         loss_multiplier=batch.get("loss_multiplier"))
+
+
+@torch.no_grad()
+def eval_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dict,
+              generator: torch.Generator) -> torch.Tensor:
+    """The validation loss of ``batch`` (JAX ``make_eval_step`` /
+    ``_eval_loss``): t and then the noise drawn from ``generator`` (the job
+    seeds it with ``validation.seed`` for every evaluation), flow t at the
+    step's ``timestep_type`` without its bias, DDPM t from the full balanced
+    range, and :func:`train_loss` without per-sample weights (no min-SNR, no
+    loss multiplier), as JAX's eval loss has none. No gradient; the optimizer
+    and the EMA are not touched."""
+    latents = batch["latents"]
+    if isinstance(schedule, FlowMatchSchedule):
+        t = schedule.sample_timesteps(generator, latents.shape[0], cfg.timestep_type,
+                                      batch.get("image_seq_len"), device=latents.device)
+    else:
+        t = schedule.sample_timesteps(generator, latents.shape[0], device=latents.device)
+    noise = torch.randn(latents.shape, generator=generator, dtype=latents.dtype, device=latents.device)
+    unweighted = {k: v for k, v in batch.items() if k != "loss_multiplier"}
+    return train_loss(predict_fn, schedule, replace(cfg, min_snr_gamma=None), unweighted, noise, t)[0]
 
 
 def stage_range(cfg: TrainStepConfig, step: int) -> tuple[float, float] | None:

@@ -27,7 +27,9 @@ Phases (any failure raises and the script exits non-zero):
      ``ai_toolkit_tpu_torch.jobs``, with the launches of every kernel per step
      checked, and no flash input copied for TMA, as in every job phase
      (``--profile DIR`` adds a ``torch.profiler`` split of its last step,
-     written to DIR);
+     written to DIR), and ``validate_every: 2``: each ``val_loss`` finite and
+     equal to a second evaluation of the same state, one flash forward per
+     block an evaluation;
   7. the flux-dev ``generate`` job at 1024x1024, 8 steps, 2 prompts, loading
      the LoRA the train job saved, launch count checked;
   8. a ragged resolution (1008x1008, 4481 tokens), 1 prompt, 2 steps;
@@ -65,6 +67,15 @@ Phases (any failure raises and the script exits non-zero):
      state as saved, no latent encoded) and saves at step 7;
   15. the SDXL ``generate`` job at 1024x1024, DDIM 8 steps, guidance 7 as a
      batch of two, 2 prompts, with the kohya LoRA it saved;
+  15b. a full-width SD 1.5 checkpoint written as one LDM single file in fp16
+     (``v1-5-pruned.safetensors``'s layout), then
+     configs/examples/train_textual_inversion_sd15.yaml as written but for its
+     paths, its steps (5) and that file: the 4-vector bank trained through
+     CLIP inside the step at 512^2, batch 2, the first and final DDIM-25
+     samples with it; every loaded tensor against the written one after the
+     run, the bank moved, the a1111 file reloaded as [4, 768], 0 flash
+     launches every step and denoise step (SD 1.5's 40/80/160-wide heads take
+     the plain attention, as in the JAX package);
   16. the flash kernels at Wan 2.1's shapes (12 heads of 128, bf16): the
      forward, dq and dk/dv at the train clip's 8,100 tokens, self and across
      to the 512 text tokens (with a ragged tail tile whose lse is below -88),
@@ -837,13 +848,14 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
                 ft_launches)
 
 
-def _train_dataset(n: int = 4, size: int = 1024) -> str:
-    """A handful of seeded 1024^2 PNGs with captions (smooth colour fields plus
+def _train_dataset(n: int = 4, size: int = 1024, name: str = "train_data",
+                   caption: str = "[trigger] photo of {}") -> str:
+    """A handful of seeded size^2 PNGs with captions (smooth colour fields plus
     noise), written once: the disk latent cache keys its files by mtime."""
     import numpy as np
     from PIL import Image
 
-    folder = os.path.join(OUT_DIR, "train_data")
+    folder = os.path.join(OUT_DIR, name)
     os.makedirs(folder, exist_ok=True)
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
@@ -857,7 +869,7 @@ def _train_dataset(n: int = 4, size: int = 1024) -> str:
         img = 127.5 * (img + 1) + rng.normal(0, 8, img.shape)
         Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(os.path.join(folder, f"img_{i}.png"))
         with open(os.path.join(folder, f"img_{i}.txt"), "w") as fh:
-            fh.write(f"[trigger] photo of {subjects[i % len(subjects)]}")
+            fh.write(caption.format(subjects[i % len(subjects)]))
     return folder
 
 
@@ -872,11 +884,12 @@ def _train_steps(profile_dir: str | None) -> int:
 
 
 def _run_train_job(name: str, model: dict, network: dict, per_step: dict[str, int],
-                   profile_dir: str | None):
+                   profile_dir: str | None, validate: dict[str, int] | None = None):
     """An ``sd_trainer`` job on the card with seeded random weights, one 1024
     bucket, latents cached in memory, no sampling; ``per_step`` is the
-    launches of each kernel one step must make. Returns (result, process,
-    report)."""
+    launches of each kernel one step must make; with ``validate`` (the
+    launches of one evaluation) a ``val_loss`` every 2 steps. Returns
+    (result, process, report)."""
     steps = _train_steps(profile_dir)
     raw = {"job": "extension", "config": {"name": name, "process": [{
         "type": "sd_trainer", "training_folder": os.path.join(OUT_DIR, "train"),
@@ -893,7 +906,9 @@ def _run_train_job(name: str, model: dict, network: dict, per_step: dict[str, in
                   "dtype": "bf16", "seed": 42},
         "model": model,
         "logging": {"log_every": 1}}]}}
-    return _run_job(raw, per_step, profile_dir)
+    if validate:
+        raw["config"]["process"][0]["validation"] = {"validate_every": 2}
+    return _run_job(raw, per_step, profile_dir, validate=validate)
 
 
 class _StepLaunches:
@@ -924,12 +939,40 @@ class _StepLaunches:
         self.module.make_train_step = self.real
 
 
+class _Validations:
+    """Each validation of a train job's run (``train_process.eval_loss``
+    wrapped for the block): its ``val_loss``, the same state evaluated again
+    right after from the same seed, and the kernel launches of both."""
+
+    def __enter__(self) -> list[dict]:
+        import ai_toolkit_tpu_torch.jobs.train_process as tp
+
+        self.module, self.real, self.checks = tp, tp.eval_loss, []
+
+        def twice(predict_fn, schedule, cfg, batch, generator):
+            seed = generator.initial_seed()
+            before = _launches()
+            first = self.real(predict_fn, schedule, cfg, batch, generator)
+            again = self.real(predict_fn, schedule, cfg, batch, torch.Generator(generator.device).manual_seed(seed))
+            after = _launches()
+            self.checks.append({"val_loss": float(first), "again": float(again),
+                                "launches": {k: after[k] - before[k] for k in after}})
+            return first
+
+        tp.eval_loss = twice
+        return self.checks
+
+    def __exit__(self, *exc) -> None:
+        self.module.eval_loss = self.real
+
+
 def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None, denoise: dict[str, int] | None = None,
-             fresh: bool = True):
+             fresh: bool = True, validate: dict[str, int] | None = None):
     """Run the train job ``raw`` on the card (from an empty output folder
     unless ``fresh`` is false: a resume) and check its losses, the launches
     of every step (``per_step``), those of its samples (``denoise`` a denoise
-    step) and its TMA copies."""
+    step), its validations (``validate`` an evaluation; each is evaluated
+    twice, and the second must equal the first) and its TMA copies."""
     import shutil
 
     from ai_toolkit_tpu_torch.jobs import get_job
@@ -946,7 +989,7 @@ def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None, denoi
     t0 = time.perf_counter()
     job = get_job(raw, device="cuda")
     _reset_launches()  # count only the launches of this run of the path
-    with _StepLaunches() as step_launches:
+    with _StepLaunches() as step_launches, _Validations() as validations:
         (result,) = job.run()
     launches = _launches()
     wall = time.perf_counter() - t0
@@ -967,7 +1010,18 @@ def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None, denoi
     check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
     check(len(step_launches) == steps and all(s == per_step for s in step_launches),
           f"launches per step {step_launches} != {per_step}")
-    sampled = {k: launches[k] - sum(s[k] for s in step_launches) for k in launches}
+    every = proc_cfg.get("validation", {}).get("validate_every", 0)
+    n_val = sum(1 for at in range(result["start_step"] + 1, result["steps"] + 1) if every and at % every == 0)
+    check(len(validations) == n_val == len(result["val_losses"]),
+          f"{len(validations)} validations in {steps} steps, validate_every {every}")
+    for (at, val), v in zip(result["val_losses"], validations):
+        print(f"val_loss at step {at}: {val:.6f}, evaluated again {v['again']:.6f}, launches {v['launches']}")
+        check(math.isfinite(val) and v["val_loss"] == v["again"] == val,
+              f"val_loss {val} at step {at} is not finite or not repeatable ({v['again']})")
+        check(v["launches"] == {k: 2 * (validate or {}).get(k, 0) for k in launches},
+              f"launches of two evaluations {v['launches']} != 2 x {validate}")
+    sampled = {k: launches[k] - sum(s[k] for s in step_launches) - sum(v["launches"][k] for v in validations)
+               for k in launches}
     n_denoise = len(result["samples"]) * proc_cfg.get("sample", {}).get("sample_steps", 0)
     want = {k: n_denoise * (denoise or {}).get(k, 0) for k in launches}
     check(sampled == want, f"launches of {n_denoise} denoise steps in the samples {sampled} != {want}")
@@ -980,18 +1034,18 @@ def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None, denoi
 
 
 def train_job(name: str, model: dict, per_step: dict[str, int], profile_dir: str | None,
-              raw: dict | None = None) -> dict:
+              raw: dict | None = None, validate: dict[str, int] | None = None) -> dict:
     """A LoRA ``sd_trainer`` job on the card (configs/examples/train_lora_flux_tpu.yaml,
     train_lora_hidream_tpu.yaml, or the job ``raw``), its LoRA checked
-    (:func:`check_lora_job`)."""
+    (:func:`check_lora_job`); ``validate``: see :func:`_run_train_job`."""
     if raw is None:
         result, proc, report = _run_train_job(name, model, {"type": "lora", "linear": 16, "linear_alpha": 16},
-                                              per_step, profile_dir)
+                                              per_step, profile_dir, validate)
     else:
         result, proc, report = _run_job(raw, per_step, profile_dir)
     path = check_lora_job(result, proc)
     del proc
-    return {**report, "lora_path": path}
+    return {**report, "lora_path": path, "val_losses": result["val_losses"]}
 
 
 def check_lora_job(result: dict, proc) -> str:
@@ -1336,19 +1390,19 @@ def unet_reference(fwd_launches: dict, step_launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _shipped_job(example: str, name: str, steps: int, name_or_path: str) -> dict:
+def _shipped_job(example: str, name: str, steps: int, name_or_path: str, folder: str | None = None) -> dict:
     """The shipped job file ``configs/examples/<example>`` as it is written,
     but for these cuts: the job's name, ``training_folder``, the dataset's
     ``folder_path`` (the seeded PNGs), ``train.steps`` and
-    ``model.name_or_path``; written to a job file and read back through the
-    port's config loader."""
+    ``model.name_or_path`` (``folder``: another seeded folder); written to a
+    job file and read back through the port's config loader."""
     from ai_toolkit_tpu_torch.config import get_config
 
     raw = get_config(os.path.join(ROOT, "configs", "examples", example))
     raw["config"]["name"] = name
     proc = raw["config"]["process"][0]
     proc["training_folder"] = os.path.join(OUT_DIR, "train")
-    proc["datasets"][0]["folder_path"] = _train_dataset()
+    proc["datasets"][0]["folder_path"] = folder or _train_dataset()
     proc["train"]["steps"] = steps
     proc["model"]["name_or_path"] = name_or_path
     job = _read_back(raw, os.path.join(OUT_DIR, f"{name}.yaml"), example)
@@ -1403,11 +1457,11 @@ def write_sdxl_checkpoint(seed: int = 1234) -> tuple[str, dict]:
     return root, {"sums": sums, "write_s": write_s, "gib": nbytes / 2**30}
 
 
-def _check_loaded(variables: dict, sums: dict) -> None:
+def _check_loaded(variables: dict, sums: dict, label: str = "sdxl") -> None:
     for name, want in sums.items():
         sd = variables[name].state_dict()
         bad = [k for k, v in want.items() if k not in sd or _checksum(sd[k]) != v]
-        check(not bad, f"sdxl {name}: {len(bad)} loaded tensors differ from the written ones, e.g. {bad[:3]}")
+        check(not bad, f"{label} {name}: {len(bad)} loaded tensors differ from the written ones, e.g. {bad[:3]}")
     print(f"every loaded tensor equals the written one ({sum(len(v) for v in sums.values())} checksums)")
 
 
@@ -1521,6 +1575,214 @@ def flux_shipped_phase(card: str, profile_dir: str | None) -> dict:
           f"job wall {report['wall_s']:.1f} s, peak {report['peak_gib']:.2f} GiB")
     del proc
     return {**report, "by_bucket_ms": {f"{b[0]}": statistics.median(v[1:]) for b, v in by_bucket.items()}}
+
+
+# diffusers -> LDM names, to write the SD 1.5 file in the layout real files have
+_LDM_RES = (("norm1.", "in_layers.0."), ("conv1.", "in_layers.2."), ("time_emb_proj.", "emb_layers.1."),
+            ("norm2.", "out_layers.0."), ("conv2.", "out_layers.3."), ("conv_shortcut.", "skip_connection."))
+_LDM_TOP = (("time_embedding.linear_1.", "time_embed.0."), ("time_embedding.linear_2.", "time_embed.2."),
+            ("conv_in.", "input_blocks.0.0."), ("conv_norm_out.", "out.0."), ("conv_out.", "out.2."))
+_LDM_VAE_ATTN = {"to_q": "q", "to_k": "k", "to_v": "v", "to_out.0": "proj_out", "group_norm": "norm"}
+
+
+def _ldm_unet_key(name: str, attn_levels: tuple[int, ...], layers_per_block: int = 2) -> str:
+    """A diffusers UNet name -> its ``model.diffusion_model.`` key (``attn_levels``:
+    the up blocks with attention, whose upsampler is module 2, not 1)."""
+    n = layers_per_block + 1
+
+    def res(rest):
+        dif, ldm = next(p for p in _LDM_RES if rest.startswith(p[0]))
+        return ldm + rest[len(dif):]
+
+    for dif, ldm in _LDM_TOP:
+        if name.startswith(dif):
+            return ldm + name[len(dif):]
+    m = re.match(r"(down|up)_blocks\.(\d+)\.(resnets|attentions|downsamplers|upsamplers)\.(\d+)\.(.+)", name)
+    if m:
+        side, blk, kind, layer, rest = m.group(1), int(m.group(2)), m.group(3), int(m.group(4)), m.group(5)
+        if kind == "downsamplers":
+            return f"input_blocks.{blk * n + n}.0.op.{rest[len('conv.'):]}"
+        if kind == "upsamplers":
+            return f"output_blocks.{blk * n + n - 1}.{2 if blk in attn_levels else 1}.{rest}"
+        blocks, i = ("input_blocks", 1 + blk * n + layer) if side == "down" else ("output_blocks", blk * n + layer)
+        return f"{blocks}.{i}.0.{res(rest)}" if kind == "resnets" else f"{blocks}.{i}.1.{rest}"
+    kind, idx, rest = re.match(r"mid_block\.(resnets|attentions)\.(\d+)\.(.+)", name).groups()
+    return f"middle_block.1.{rest}" if kind == "attentions" else f"middle_block.{2 * int(idx)}.{res(rest)}"
+
+
+def _ldm_vae_key(name: str, n_up: int = 4) -> str:
+    """A diffusers VAE name -> its ``first_stage_model.`` key."""
+    if name.startswith(("quant_conv.", "post_quant_conv.")):
+        return name
+    side, rest = name.split(".", 1)
+    rest = rest.replace("conv_shortcut.", "nin_shortcut.")
+    for pattern, ldm in ((r"conv_norm_out\.(.+)", lambda g: f"norm_out.{g[0]}"),
+                         (r"mid_block\.attentions\.0\.(to_q|to_k|to_v|to_out\.0|group_norm)\.(.+)",
+                          lambda g: f"mid.attn_1.{_LDM_VAE_ATTN[g[0]]}.{g[1]}"),
+                         (r"mid_block\.resnets\.(\d)\.(.+)", lambda g: f"mid.block_{int(g[0]) + 1}.{g[1]}"),
+                         (r"down_blocks\.(\d+)\.resnets\.(\d+)\.(.+)", lambda g: f"down.{g[0]}.block.{g[1]}.{g[2]}"),
+                         (r"down_blocks\.(\d+)\.downsamplers\.0\.(.+)", lambda g: f"down.{g[0]}.downsample.{g[1]}"),
+                         (r"up_blocks\.(\d+)\.resnets\.(\d+)\.(.+)",
+                          lambda g: f"up.{n_up - 1 - int(g[0])}.block.{g[1]}.{g[2]}"),
+                         (r"up_blocks\.(\d+)\.upsamplers\.0\.(.+)", lambda g: f"up.{n_up - 1 - int(g[0])}.upsample.{g[1]}")):
+        m = re.match(pattern, rest)
+        if m:
+            return f"{side}.{ldm(m.groups())}"
+    return f"{side}.{rest}"
+
+
+SD15_MODEL = {"name_or_path": "", "arch": "sd1", "model_kwargs": {"size": "full"}}
+TI_TRIGGER = "sks_concept"  # configs/examples/train_textual_inversion_sd15.yaml's embedding.trigger
+
+
+def write_sd15_checkpoint(seed: int = 1234) -> tuple[str, dict]:
+    """A full-width SD 1.5 checkpoint as one LDM file in fp16, written from the
+    port's own seeded modules (seeded with another seed than the job's, so a
+    load that did not happen shows) in the layout real files have:
+    ``model.diffusion_model.`` with 1x1-conv ``proj_in`` / ``proj_out``,
+    ``first_stage_model.`` with 1x1-conv attention, ``cond_stage_model.transformer.``
+    without ``text_projection``, and what real files carry beside the weights
+    (``position_ids``, the schedule buffers, ``model_ema.decay``). Returns its
+    path and each loaded tensor's checksum as the module will hold it (the
+    fp16 value in the module's dtype)."""
+    from safetensors.torch import save_file
+
+    from ai_toolkit_tpu_torch.config.modules import ModelConfig
+    from ai_toolkit_tpu_torch.models.sd_model import SDModel
+    from ai_toolkit_tpu_torch.samplers.ddpm import DDPMSchedule
+
+    root = os.path.join(OUT_DIR, "sd15_checkpoint")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "v1-5-pruned.safetensors")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = SDModel(ModelConfig.from_dict(dict(SD15_MODEL)), device="cuda")
+    variables = model.init_variables(torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    ucfg = model.unet_config
+    levels = len(ucfg.block_out_channels)
+    attn_levels = tuple(b for b in range(levels) if ucfg.transformer_layers[levels - 1 - b] > 0)
+    n_up = len(model.vae_config.channel_multipliers)
+    flat, sums = {}, {}
+    for name, key_of, prefix in (("unet", lambda k: _ldm_unet_key(k, attn_levels, ucfg.layers_per_block),
+                                  "model.diffusion_model."),
+                                 ("vae", lambda k: _ldm_vae_key(k, n_up), "first_stage_model."),
+                                 ("clip", lambda k: k, "cond_stage_model.transformer.")):
+        sd = variables.pop(name).state_dict()
+        sd.pop("text_projection.weight", None)  # SD 1.x's CLIPTextModel has none
+        sums[name] = {k: _checksum(v.to(torch.float16).to(v.dtype)) for k, v in sd.items()}
+        for k, v in sd.items():
+            t = v.to(torch.float16)
+            if re.search(r"(proj_in|proj_out|attentions\.0\.to_[qkv]|attentions\.0\.to_out\.0)\.weight$", k) \
+                    and t.dim() == 2:
+                t = t[:, :, None, None]  # a 1x1 conv, as LDM files hold them
+            flat[prefix + key_of(k)] = t.contiguous().cpu()
+        del sd
+    sched = DDPMSchedule()
+    flat["cond_stage_model.transformer.text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    flat["betas"] = torch.from_numpy(sched.betas.copy())
+    flat["alphas_cumprod"] = torch.from_numpy(sched.alphas_cumprod.copy())
+    flat["model_ema.decay"] = torch.tensor(0.9999)
+    nbytes = sum(v.numel() * v.element_size() for v in flat.values())
+    save_file(flat, path)
+    write_s = time.perf_counter() - t0
+    del flat, variables
+    print(f"SD 1.5 LDM file {path}: {sum(len(v) for v in sums.values())} weights, {nbytes / 2**30:.2f} GiB, "
+          f"seeded init {init_s:.2f} s, written in {write_s:.2f} s ({nbytes / 2**30 / write_s:.2f} GiB/s)")
+    return path, {"sums": sums, "write_s": write_s, "gib": nbytes / 2**30}
+
+
+SD15_ATTENTION = (2, 4096, 8, 40)  # the UNet's level 1 at 512^2, batch 2: 64 x 64 tokens, 8 heads of 40
+
+
+def sd15_attention_times(card: str) -> dict:
+    """The SD 1.5 path's largest attention (``SD15_ATTENTION``, bf16): the
+    plain version it runs (f32 logits, ``ops.attention.reference_attention``)
+    against ``scaled_dot_product_attention``, forward and forward with
+    backward, CUDA events, in turns; the size of the lever a kernel at head
+    dims 40 / 80 / 160 would pull."""
+    from ai_toolkit_tpu_torch.ops.attention import reference_attention
+
+    phase(f"SD 1.5's level-1 attention {SD15_ATTENTION} bf16: the plain version against SDPA")
+    gen = torch.Generator("cuda").manual_seed(15)
+    q, k, v, g = (_rand(SD15_ATTENTION, torch.bfloat16, gen) for _ in range(4))
+    qt, kt, vt, gt = _sdpa_layout(q, k, v, g)
+
+    def plain_fb():
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        torch.autograd.grad(reference_attention(qq, kk, vv), (qq, kk, vv), g)
+
+    def sdpa_fb():
+        qq, kk, vv = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        torch.autograd.grad(F.scaled_dot_product_attention(qq, kk, vv), (qq, kk, vv), gt)
+
+    ref = reference_attention(q, k, v).float()
+    err = (F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2).float() - ref).abs().max().item()
+    out = {}
+    for label, plain, lib in (("forward", lambda: reference_attention(q, k, v),
+                               lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                              ("forward and backward", plain_fb, sdpa_fb)):
+        lib_ms, plain_ms, n = _in_turns(lib, plain)
+        out[label] = {"plain_ms": plain_ms, "sdpa_ms": lib_ms}
+        print(f"{card}: {label}: plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({plain_ms / lib_ms:.2f}x; medians "
+              f"of {n})")
+    b, s_, h, d = SD15_ATTENTION
+    bound, by = _bound_ms(4 * b * h * s_ * s_ * d, 4 * b * s_ * h * d * 2)
+    print(f"forward bound {bound:.4f} ms ({by}); SDPA max|out - plain| {err:.3e}")
+    return {**out, "bound_ms": bound, "bound_by": by}
+
+
+def sd15_ti_phase(card: str, profile_dir: str | None) -> dict:
+    """configs/examples/train_textual_inversion_sd15.yaml as written on a
+    full-width SD 1.5 LDM single file it loads: the 4-vector bank trains in
+    CLIP inside each step (adamw at 5e-4, batch 2 at 512^2, ddpm), the first
+    and final samples (DDIM 25, guidance 7.5) use it, and the a1111 file
+    holds it. SD 1.5's global 8 heads are 40, 80 and 160 wide, so no flash
+    kernel runs on this path, as the JAX package sends them to XLA."""
+    import numpy as np
+
+    from ai_toolkit_tpu_torch.adapters.embedding import load_embedding
+
+    phase("SD 1.5 checkpoint as one LDM single file (fp16), written from seeded full-width modules")
+    path, written = write_sd15_checkpoint()
+    print(f"{card}: SD 1.5 LDM file written in {written['write_s']:.2f} s ({written['gib']:.2f} GiB)")
+
+    phase("SD 1.5 textual inversion sd_trainer job, configs/examples/train_textual_inversion_sd15.yaml as written "
+          "on that file (arch sd1, embedding 'sks_concept' x 4 vectors from 'person', ddpm, adamw 5e-4, bf16, "
+          "batch 2 at 512x512, the disk latent cache, a first and a final sample: DDIM 25 steps, guidance 7.5), "
+          f"{TRAIN_WARMUP + TRAIN_TIMED} steps")
+    print("flash kernel launches a step and a denoise step: 0 (SD 1.5's 8 heads are 40, 80 and 160 wide: the plain "
+          "attention, as the JAX package's XLA path; CLIP's causal attention and the VAE's are plain too)")
+    folder = _train_dataset(n=4, size=512, name="ti_data", caption=f"a photo of {TI_TRIGGER}, {{}}")
+    raw = _shipped_job("train_textual_inversion_sd15.yaml", "smoke_sd15_ti", TRAIN_WARMUP + TRAIN_TIMED, path,
+                       folder=folder)
+    result, proc, report = _run_job(raw, _counts(), profile_dir, _counts())
+    _check_loaded(proc.variables, written["sums"], "sd15")  # after training: nothing but the bank moved
+    check(sorted(proc.state.trainable) == ["emb"] and result["trainable_params"] == 4 * 768,
+          f"trainable {sorted(proc.state.trainable)}, {result['trainable_params']} params")
+    tok = proc.model.tokenizer
+    person = [int(i) for i in tok.base.encode("person") if i != tok.eos_id]
+    table = proc.variables["clip"].text_model.embeddings.token_embedding.weight
+    init = table[person].repeat(4 // len(person) + 1, 1)[:4]
+    bank = proc.variables["emb"].detach()
+    moved = (bank - init).abs().max().item()
+    check(moved > 0, "the bank did not move")
+    saved = load_embedding(result["save_path"])
+    check(saved.shape == (4, 768) and saved.dtype == np.float32 and np.array_equal(saved, bank.cpu().numpy()),
+          f"the saved embedding {saved.shape} {saved.dtype} is not the bank")
+    _check_samples(result, [0, TRAIN_WARMUP + TRAIN_TIMED], 1, 512)
+    samples = [r["seconds"] for r in result["samples"]]
+    print(f"bank moved by up to {moved:.3e} from the 'person' init; {result['save_path']}: emb_params "
+          f"{tuple(saved.shape)} {saved.dtype}; every UNet, CLIP and VAE tensor equals the written one")
+    print(f"{card}: SD 1.5 load {result['load_s']:.2f} s ({written['gib']:.2f} GiB), median step "
+          f"{report['median_step_ms']:.1f} ms (steps {TRAIN_WARMUP + 1}-{TRAIN_WARMUP + TRAIN_TIMED}), peak "
+          f"{report['peak_gib']:.2f} GiB, samples {', '.join('%.2f' % x for x in samples)} s each")
+    del proc
+    return {"checkpoint_write_s": written["write_s"], "checkpoint_gib": written["gib"], "load_s": result["load_s"],
+            "median_step_ms": report["median_step_ms"], "peak_gib": report["peak_gib"], "sample_s": samples,
+            "flash_launches_per_step": 0, "attention": sd15_attention_times(card)}
 
 
 def wan_reference(label: str, cfg, fwd_launches: dict, step_launches: dict, img_tokens: int = 0) -> None:
@@ -1848,9 +2110,11 @@ def main(argv: list[str]) -> int:
                   _counts(fwd=2, moe=2), _counts(2, 2, 2, moe=4, moe_dx=2),
                   _counts(2, 1, 1, moe=4, moe_dx=1, moe_dw=1))
 
-    phase("flux-dev LoRA sd_trainer job, 1024x1024, batch 1, rank 16, adamw8bit, EMA")
+    phase("flux-dev LoRA sd_trainer job, 1024x1024, batch 1, rank 16, adamw8bit, EMA, validate_every 2")
     flux_step = _counts(BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD)
-    train = train_job("smoke_flux_lora", {**FLUX_MODEL, "quantize": False}, flux_step, args.profile)
+    # a validation is one forward without gradients: one flash forward per block
+    train = train_job("smoke_flux_lora", {**FLUX_MODEL, "quantize": False}, flux_step, args.profile,
+                      validate=_counts(fwd=BLOCKS_PER_FORWARD))
 
     phase("flux-dev generate job, 1024x1024, 8 steps, 2 prompts, with the trained LoRA")
     prompts = ["p3r5on photo of a red fox", "macro photo of a dew drop on a leaf"]
@@ -1901,7 +2165,10 @@ def main(argv: list[str]) -> int:
         "train_per_step": sdxl["per_step"],
         "denoise_per_step": {k: v / (8 * len(prompts)) for k, v in sdxl_gen.items()},
         "ms": {label: {k: row[k]["ms"] for k in row} for label, row in sdxl_times.items()}}}))
+    sd15 = sd15_ti_phase(card, args.profile)
     print(json.dumps({"shipped_files": {
+        "sd15_textual_inversion": sd15,
+        "flux_lora_val_losses": train["val_losses"],
         "sdxl": {"checkpoint_write_s": sdxl["write_s"], "checkpoint_load_s": sdxl["load_s"],
                  "median_step_ms": sdxl["median_step_ms"], "peak_gib": sdxl["peak_gib"],
                  "resumed_wall_s": sdxl["resumed"]["wall_s"]},

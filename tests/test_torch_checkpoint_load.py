@@ -10,9 +10,10 @@ equal ``from_jax`` of the JAX-loaded tree bit for bit, and one ``predict``
 must agree at 1e-4. FLUX.1-dev's own layout (a diffusers ``transformer/``
 beside ``flux1-dev.safetensors``) loads the single file in both. Then the
 refusals: a diffusers-layout flux transformer with no BFL source, a path
-that is no local checkpoint, the SDXL single file and a missing key. The Wan
-archs' loads are in ``test_torch_checkpoint_load_wan.py``, so the two files'
-JAX compiles run on two workers."""
+that is no local checkpoint, a single file that is no LDM checkpoint and a
+missing key (the LDM single file itself: ``test_torch_ldm_single_file.py``).
+The Wan archs' loads are in ``test_torch_checkpoint_load_wan.py``, so the two
+files' JAX compiles run on two workers."""
 
 import json
 import os
@@ -269,10 +270,10 @@ def test_refusals_name_what_they_found(tmp_path, capsys):
     os.makedirs(tmp_path / "empty")
     with pytest.raises(FileNotFoundError, match="not an importable local layout"):
         _load("flux", str(tmp_path / "empty"))
-    # the SDXL single file
+    # a single file that is no LDM / SGM checkpoint
     single = str(tmp_path / "sd_xl_base_1.0.safetensors")
     save_file({"x": torch.zeros(1)}, single)
-    with pytest.raises(NotImplementedError, match="single file"):
+    with pytest.raises(ValueError, match="not an LDM single-file checkpoint"):
         _load("sdxl", single)
     # a present component with a missing key, named
     sd = variables["vae"].state_dict()

@@ -79,7 +79,7 @@ def test_unported_branches_raise(tmp_path):
             "sample": {"width": 32, "height": 32, "sample_steps": 1, "prompts": ["x"]}}
     for proc in ({**base, "model": {**TINY, "lora_path": "/nowhere/lora.safetensors"}},
                  {**base, "type": "sd_trainer", "model": {**TINY, "quantize": True}},  # full fine-tune, fp8 base
-                 {**base, "model": {**TINY, "arch": "sd1"}},
+                 {**base, "model": {**TINY, "arch": "chroma"}},
                  {**base, "sample": {**base["sample"], "sampler": "ddim"}}):
         with pytest.raises(NotImplementedError):
             run_job({"job": "generate", "config": {"name": "x", "process": [proc]}}, device="cpu")

@@ -258,7 +258,8 @@ def test_resume_of_another_network_shape_starts_fresh(tmp_path, capsys):
 # ---- the shipped files ----
 
 SHIPPED = ["train_lora_flux_tpu", "train_full_finetune_flux_tpu", "train_lora_hidream_tpu",
-           "train_lora_sdxl_tpu", "train_lora_wan21_tpu", "train_lora_wan22_14b_tpu"]
+           "train_lora_sdxl_tpu", "train_lora_wan21_tpu", "train_lora_wan22_14b_tpu",
+           "train_textual_inversion_sd15"]
 
 
 @pytest.mark.parametrize("name", SHIPPED)
