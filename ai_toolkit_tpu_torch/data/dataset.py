@@ -6,7 +6,15 @@ frame count), so each batch has one latent shape. A video is
 ``num_frames`` frames sampled uniformly over the clip, decoded with OpenCV
 (``cv2``, imported where it is used, as in the JAX package).
 
-Audio (and a video's sidecar audio), masks, control / inpaint /
+An image's control image (``control_path``: a folder or a list of folders,
+matched by the image's file name) and inpaint image (``inpaint_path``:
+matched by stem, its alpha or its inverted grey the keep mask) are loaded
+per batch as JAX ``FileItem.load_control`` / ``load_inpaint_mask`` load
+them: bicubic cover-resize to the bucket, center crop, the item's flips.
+Only the first control of an item is read: the control archs of the port
+(flex2, flux_kontext) take one, as in JAX.
+
+Audio (and a video's sidecar audio), masks, generated controls,
 unconditional images, augmentations and random crops raise
 ``NotImplementedError`` naming their slice.
 """
@@ -30,9 +38,8 @@ AUDIO_EXTS = (".wav", ".flac", ".mp3", ".ogg")
 
 # DatasetConfig options of the JAX dataset this port does not take yet
 _UNPORTED_OPTIONS = ("augmentations", "clip_image_path", "clip_image_augmentations", "mask_path",
-                     "inpaint_path", "unconditional_path", "control_path", "controls",
-                     "random_crop", "random_scale", "alpha_mask", "do_audio",
-                     "use_short_captions")
+                     "unconditional_path", "controls", "random_crop", "random_scale", "alpha_mask",
+                     "do_audio", "use_short_captions")
 
 
 @dataclass
@@ -49,6 +56,8 @@ class FileItem:
     flip_y: bool = False
     kind: str = "image"  # image | video
     num_frames: int = 1
+    control_paths: tuple[str, ...] = ()  # the image's control images, one per control_path folder that has it
+    inpaint_path: str | None = None  # the dataset's inpaint folder
 
 
 class FolderDataset:
@@ -98,6 +107,9 @@ class FolderDataset:
             except OSError:
                 continue
             caption, caption_short = load_caption_pair(p, self.cfg.caption_ext, self.cfg.default_caption)
+            ctrl = self.cfg.control_path
+            controls = tuple(cp for root in (ctrl if isinstance(ctrl, list) else [ctrl] if ctrl else [])
+                             if os.path.isfile(cp := os.path.join(root, os.path.basename(p))))
             for res in self.cfg.resolution:
                 for _ in range(max(1, self.cfg.num_repeats)):
                     if self.cfg.enable_bucketing and self.cfg.buckets and w and h:
@@ -109,7 +121,8 @@ class FolderDataset:
                     self.items.append(FileItem(
                         path=p, caption=caption, caption_short=caption_short, width=w, height=h,
                         bucket=bucket, resolution=res, is_reg=self.cfg.is_reg, flip=flip,
-                        flip_y=flip_y, kind=kind, num_frames=self.cfg.num_frames if kind == "video" else 1))
+                        flip_y=flip_y, kind=kind, num_frames=self.cfg.num_frames if kind == "video" else 1,
+                        control_paths=controls, inpaint_path=self.cfg.inpaint_path))
 
     def processed_caption(self, item: FileItem) -> str:
         return process_caption(
@@ -142,24 +155,67 @@ class FolderDataset:
         return batches
 
 
-def load_pixels(item: FileItem) -> np.ndarray:
-    """The item's image ``[H, W, 3]`` or video ``[T, H, W, 3]``, decoded,
-    cover-resized and center-cropped to its bucket, f32 in [-1, 1]."""
-    if item.kind == "video":
-        return load_video(item)
+def _fit_to_bucket(item: FileItem, img):
+    """A PIL image cover-resized (bicubic, in its own mode) and center-cropped
+    to the item's bucket (JAX ``FileItem.load_image``)."""
     from PIL import Image
 
-    with Image.open(item.path) as im:
-        img = im.convert("RGB")
     bw, bh = item.bucket
     rw, rh, x0, y0 = resize_and_crop_size(img.width, img.height, bw, bh)
-    img = img.resize((rw, rh), Image.BICUBIC).crop((x0, y0, x0 + bw, y0 + bh))
-    arr = np.asarray(img, np.float32) / 127.5 - 1.0
+    return img.resize((rw, rh), Image.BICUBIC).crop((x0, y0, x0 + bw, y0 + bh))
+
+
+def _flipped(item: FileItem, arr: np.ndarray) -> np.ndarray:
     if item.flip:
         arr = arr[:, ::-1]
     if item.flip_y:
         arr = arr[::-1]
     return np.ascontiguousarray(arr)
+
+
+def _rgb(item: FileItem, path: str) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        img = im.convert("RGB")
+    return _flipped(item, np.asarray(_fit_to_bucket(item, img), np.float32) / 127.5 - 1.0)
+
+
+def load_pixels(item: FileItem) -> np.ndarray:
+    """The item's image ``[H, W, 3]`` or video ``[T, H, W, 3]``, decoded,
+    cover-resized and center-cropped to its bucket, f32 in [-1, 1]."""
+    return load_video(item) if item.kind == "video" else _rgb(item, item.path)
+
+
+def load_control(item: FileItem) -> np.ndarray | None:
+    """The item's first control image at its bucket, f32 ``[H, W, 3]`` in
+    [-1, 1] (JAX ``FileItem.load_control``), or None without one."""
+    return _rgb(item, item.control_paths[0]) if item.control_paths else None
+
+
+def load_inpaint_keep(item: FileItem) -> np.ndarray | None:
+    """The keep mask ``[H, W, 1]`` in [0, 1] (1 = keep) from the inpaint
+    folder's image with the item's stem (JAX ``FileItem.load_inpaint_mask``):
+    resized in its own mode, then an RGBA image's alpha, else 1 - its grey
+    (white marks the region to inpaint); None without one."""
+    if not item.inpaint_path:
+        return None
+    import glob
+
+    from PIL import Image
+
+    stem = os.path.splitext(os.path.basename(item.path))[0]
+    cands = [c for c in sorted(glob.glob(os.path.join(item.inpaint_path, stem + ".*")))
+             if os.path.splitext(c)[1].lower() in IMAGE_EXTS]
+    if not cands:
+        return None
+    with Image.open(cands[0]) as im:
+        img = _fit_to_bucket(item, im)
+    if img.mode == "RGBA":
+        keep = np.asarray(img.split()[-1], np.float32) / 255.0
+    else:
+        keep = 1.0 - np.asarray(img.convert("L"), np.float32) / 255.0
+    return _flipped(item, keep)[..., None]
 
 
 def load_video(item: FileItem) -> np.ndarray:

@@ -6,7 +6,12 @@ latent cache, from the disk cache's files (``latent_cache_dir``) or,
 without either, encoded on the fly with ``encode_fn``, plus
 processed captions and the per-example loss multiplier; with the dataset's
 ``do_i2v``, a video batch also carries each clip's ``first_frame`` ``[B,
-H, W, 3]`` (the clip decoded again, as the JAX loader does). The JAX loader's
+H, W, 3]`` (the clip decoded again, as the JAX loader does). When an item of
+the batch has a control image, the batch carries ``control_pixels`` ``[B, H,
+W, 3]`` (zeros for an item without one), and with an inpaint image
+``inpaint_keep`` ``[B, H, W, 1]`` (ones for an item without one), loaded
+from their files with every batch, under either latent cache too (JAX
+``loader.py:132-145``). The JAX loader's
 prefetch thread is not needed: with cached latents a batch is a dictionary
 lookup. ``iter_from(n)`` starts the stream after its first ``n`` batches,
 drawing their captions' random numbers but loading no latent, so a resumed
@@ -21,7 +26,8 @@ import numpy as np
 
 from ai_toolkit_tpu_torch.config.modules import DatasetConfig
 from ai_toolkit_tpu_torch.data.caching import latent_key, load_cached_latent
-from ai_toolkit_tpu_torch.data.dataset import FileItem, FolderDataset, load_pixels, load_video
+from ai_toolkit_tpu_torch.data.dataset import (FileItem, FolderDataset, load_control, load_inpaint_keep,
+                                               load_pixels, load_video)
 
 
 class DataLoader:
@@ -56,6 +62,15 @@ class DataLoader:
         }
         if cfg.do_i2v and batch[0].kind == "video":
             out["first_frame"] = np.stack([load_video(it)[0] for it in batch])
+        bw, bh = batch[0].bucket
+        controls = [load_control(it) for it in batch]
+        if any(c is not None for c in controls):
+            blank = np.zeros((bh, bw, 3), np.float32)
+            out["control_pixels"] = np.stack([blank if c is None else c for c in controls])
+        keeps = [load_inpaint_keep(it) for it in batch]
+        if any(k is not None for k in keeps):
+            keep_all = np.ones((bh, bw, 1), np.float32)  # no file: keep everything
+            out["inpaint_keep"] = np.stack([keep_all if k is None else k for k in keeps])
         return out
 
     def _epoch_plan(self) -> list[tuple[FolderDataset, list[FileItem]]]:

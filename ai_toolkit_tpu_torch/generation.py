@@ -14,10 +14,14 @@ animated webp by :func:`save_video_atomic`).
 A LoRA (``{module name: {a, b, scale}}``, ``io/lora_file.load_lora_file``)
 is overlaid on the model's DiT or UNet for the call (one network on both
 experts of a multistage pair), as the JAX package passes its ``lora``
-collection. Unported branches of the JAX ``generate_flux`` (the
-unconditional LoRA, control/edit and IP-adapter conditioning,
-``use_flux_cfg`` negative passes, x0-prediction and arch-specific
-schedules), of ``generate_sd`` (the k-diffusion, LCM and PNDM samplers, the
+collection. A control arch (flex2, flux_kontext) samples with the control
+latents of ``FluxModel.sampling_control_latents`` (the encoded ``ctrl_img``,
+or the blank layout without one), and chroma's Approximator takes the
+sample's ``guidance_scale`` as its guidance, as in JAX. Unported branches of
+the JAX ``generate_flux`` (the unconditional LoRA, the sequence-concat edit
+archs' reference images and ``ctrl_img_2`` / ``ctrl_img_3``, IP-adapter
+conditioning, ``use_flux_cfg`` negative passes, x0-prediction and
+arch-specific schedules), of ``generate_sd`` (the k-diffusion, LCM and PNDM samplers, the
 unconditional LoRA) and of ``generate`` (audio) raise
 ``NotImplementedError``.
 """
@@ -58,8 +62,11 @@ def generate_flux(
     device) and whether the final latents were finite."""
     if getattr(model.config, "use_flux_cfg", False):
         raise NotImplementedError("use_flux_cfg (negative-prompt CFG pass) is not ported yet")
-    if any(getattr(gen, a, None) for a in ("ctrl_img", "ctrl_img_2", "ctrl_img_3")):
-        raise NotImplementedError("control / edit images come with a later slice")
+    if getattr(gen, "ctrl_img_2", None) or getattr(gen, "ctrl_img_3", None):
+        raise NotImplementedError("ctrl_img_2 / ctrl_img_3 (multi-reference edit archs) come with a later slice")
+    if getattr(gen, "ctrl_img", None) and not model.takes_control:
+        raise NotImplementedError(f"ctrl_img on arch '{model.config.arch}', which takes no control latents "
+                                  f"(ported: flex2, flux_kontext, model_kwargs.control)")
     if gen.sampler not in (None, "flowmatch"):
         raise NotImplementedError(f"sampler '{gen.sampler}' is not ported (flowmatch only)")
     schedule = schedule or FlowMatchSchedule()
@@ -95,6 +102,9 @@ def _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c) -> np.n
         pe = model.rope_table(h, w, cond["txt"].shape[1])
         cond = {**cond, "pe": pe,
                 "guidance": torch.full((1,), gen.guidance_scale, dtype=torch.float32, device=device)}
+        if model.takes_control:
+            cond["control_latents"] = model.sampling_control_latents(variables, h, w, gen.ctrl_img, gen.width,
+                                                                     gen.height)
         if noise is None:
             g = torch.Generator(device=device).manual_seed(gen.seed)
             x = torch.randn((1, h, w, c), generator=g, dtype=torch.float32, device=device)

@@ -11,6 +11,9 @@ CLIP and T5, diffusers for the VAE).
 - Conv kernels HWIO -> OIHW.
 - Scanned ``[L, ...]`` stacks (``double_blocks/block/...``) split per block.
 - Norm scales and embeddings keep their values and dtypes.
+- Chroma's ``distilled_guidance/{in_proj, layer_{i}, norm_{i}, out_proj}``
+  maps onto BFL ``distilled_guidance_layer.*``; the control archs' wider
+  ``img_in`` and ``final_proj`` convert like flux's.
 - A flux ``lora`` collection maps onto the port's module names
   (:func:`flux_lora_tree`), and so does a UNet's (:func:`unet_lora_tree`).
 - The UNet (``down_1_attn_0/block_0/attn1_q``, ``up_2_res_0``, ``mid_attn``)
@@ -142,6 +145,10 @@ _FLUX_TOP = [
     ("img_in", "img_in"), ("txt_in", "txt_in"),
     ("(time_in|vector_in|guidance_in)/(in_layer|out_layer)", "{0}.{1}"),
     ("final_proj", "final_layer.linear"), ("final_mod", "final_layer.adaLN_modulation.1"),
+    # chroma's Approximator (JAX io/flux_import.chroma_approximator_rules)
+    ("distilled_guidance/(in_proj|out_proj)", "distilled_guidance_layer.{0}"),
+    (r"distilled_guidance/layer_(\d+)/(in_layer|out_layer)", "distilled_guidance_layer.layers.{0}.{1}"),
+    (r"distilled_guidance/norm_(\d+)", "distilled_guidance_layer.norms.{0}"),
 ]
 
 

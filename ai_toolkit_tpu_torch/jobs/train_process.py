@@ -23,7 +23,14 @@ writes (the model's ``lora_key``, Wan's JAX paths), the kohya layout
 snaps each dataset's ``num_frames`` to its VAE's frame grid and trains on
 5-D latents ``[B, T, h, w, C]``; with a dataset's ``do_i2v`` the first
 frame of each clip goes through an i2v arch's vision tower into
-``img_cond``. A multistage pair with ``switch_boundary_every > 1``
+``img_cond``. A control arch (flux_kontext, ``model_kwargs.control``)
+encodes each batch's ``control_pixels`` through the VAE into
+``control_latents``; flex2 assembles its ``[inpaint, mask, control]``
+tensor on the host from the clean latents, the batch's ``inpaint_keep``
+and the encoded controls, with the job's ``np.random.default_rng(1234)``
+drawn in the JAX job's order (JAX ``_prepare_batch``), and that
+generator's state rides in ``training_state.safetensors``, so a resume
+draws what the uninterrupted run would. A multistage pair with ``switch_boundary_every > 1``
 alternates the trained expert every that many steps, high-noise first (the
 sampled t squeezed into ``[boundary, 1]``, then ``[0, boundary]``), and each
 step logs the expert that ran.
@@ -81,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import statistics
 import time
@@ -251,6 +259,20 @@ class SDTrainProcess:
         if not cfg.datasets:
             raise ValueError("no datasets configured")
 
+    def _refuse_control_options(self, model) -> None:
+        """Control images only for an arch that takes control latents, the
+        inpaint folder only for flex2 (in JAX it also feeds the control-LoRA
+        adapter, a later slice)."""
+        arch = self.cfg.model.arch
+        for d in self.cfg.datasets:
+            if d.control_path and not model.takes_control:
+                raise NotImplementedError(
+                    f"dataset {d.folder_path}: control_path on arch '{arch}', which takes no control latents "
+                    f"(ported: flex2, flux_kontext, model_kwargs.control; the control adapters: later slices)")
+            if d.inpaint_path and arch != "flex2":
+                raise NotImplementedError(f"dataset {d.folder_path}: inpaint_path feeds flex2's inpaint channels; "
+                                          f"on arch '{arch}' it belongs to the control-LoRA adapter (later slice)")
+
     def run(self) -> dict:
         cfg, tc, dev = self.cfg, self.cfg.train, self.device
         self._refuse_unported()
@@ -267,6 +289,7 @@ class SDTrainProcess:
         if self.full_finetune and len(model.experts) > 1:
             raise NotImplementedError("the full fine-tune of a multistage pair comes with a later slice")
         ckpt.key_map = getattr(model, "lora_key", None)
+        self._refuse_control_options(model)
         t0 = time.perf_counter()
         variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed),
                                          qtype=cfg.model.qtype if cfg.model.quantize else None)
@@ -438,9 +461,13 @@ class SDTrainProcess:
         restored = False
         if extra is not None and state_step == step:
             rng = extra.pop("rng", None)
+            host_rng = extra.pop("flex2_rng", None)
             restored = state.load_state_dict(extra)
             if restored and rng is not None:
                 generator.set_state(rng)
+            if restored and host_rng is not None:
+                self._flex2_rng = np.random.default_rng()
+                self._flex2_rng.bit_generator.state = json.loads(bytes(host_rng.numpy()).decode())
         state.step = step
         print(f"resumed from step {step} ({path}; "
               f"{'optimizer state, EMA and generator restored' if restored else 'fresh optimizer state'})")
@@ -479,7 +506,11 @@ class SDTrainProcess:
             path = ckpt.final_path() if final else ckpt.path_for_step(step)
             save_file({k: t.detach().contiguous().cpu() for k, t in state.trainable.items()}, path,
                       metadata={"step": str(step), "software": "ai_toolkit_tpu"})
-        ckpt.save_state({**state.state_dict(), "rng": generator.get_state()}, step)
+        host = {}
+        if getattr(self, "_flex2_rng", None) is not None:
+            host["flex2_rng"] = torch.frombuffer(bytearray(json.dumps(self._flex2_rng.bit_generator.state).encode()),
+                                                 dtype=torch.uint8)
+        ckpt.save_state({**state.state_dict(), "rng": generator.get_state(), **host}, step)
         return path
 
     def _sample(self, model, variables: dict, state: TrainState, lora: dict | None, step: int) -> None:
@@ -595,4 +626,24 @@ class SDTrainProcess:
         elif "pooled" in cond:  # SDXL: the added condition from the bucket's pixel size
             d = model.vae_config.downscale
             cond["added_cond"] = model.added_cond(cond.pop("pooled"), h * d, w * d)
+        if self.cfg.model.arch == "flex2":
+            # [inpaint latents, inpaint mask, control latents] with the per-batch dropouts, on the host
+            if getattr(self, "_flex2_rng", None) is None:
+                self._flex2_rng = np.random.default_rng(1234)
+            ctrl = raw.get("control_pixels")
+            ctrl_lat = None if ctrl is None else self._encode_control(model, variables, ctrl).float().cpu().numpy()
+            cond["control_latents"] = torch.from_numpy(model.assemble_flex2_control(
+                raw["latents"], raw.get("inpaint_keep"), ctrl_lat, self._flex2_rng)).to(dev)
+        elif model.takes_control:
+            if "control_pixels" not in raw:
+                raise ValueError(f"arch '{self.cfg.model.arch}' takes a control image and no item of this "
+                                 f"{raw['bucket']} batch has one (give each image one in the dataset's control_path)")
+            cond["control_latents"] = self._encode_control(model, variables, raw["control_pixels"])
         return batch
+
+    @staticmethod
+    @torch.no_grad()
+    def _encode_control(model, variables: dict, pixels: np.ndarray) -> torch.Tensor:
+        """Control images ``[B, H, W, 3]`` through the VAE (its posterior
+        mode), every batch, as JAX ``_encode_control`` does."""
+        return model.encode_images(variables, torch.from_numpy(pixels))

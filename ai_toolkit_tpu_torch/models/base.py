@@ -35,6 +35,7 @@ class BaseModel:
     bucket_divisibility: int = 16
     main_component: str = "dit"  # the variables entry that is trained and sampled
     quantize_exclude: list[str] | None = None  # module-name patterns a quantized base keeps (None: the default list)
+    takes_control: bool = False  # the denoiser reads control latents (cond["control_latents"]) beside the noisy ones
 
     def __init__(self, config: ModelConfig, device: torch.device | str):
         self.config = config

@@ -9,8 +9,15 @@ JAX config (``moe_experts``, ``moe_top_k``, ``moe_dispatch``,
 ``moe_shared_hidden``, ``qk_norm_across_heads``): a routed SwiGLU
 :class:`MoEFFN` in the image stream of every block, a dense
 :class:`SwiGLU` in the text stream of a double block, the single block with
-separate attention and FFN sublayers. The chroma, NeRF and SD3 flags belong
-to later slices and have no field here.
+separate attention and FFN sublayers. The control archs widen ``img_in``
+(``in_channels``: the noisy latents and the channel-concatenated control
+latents, ``control_channels`` of them) and keep ``out_channels`` at the
+latent width. Chroma (``chroma_mod``) drops ``time_in``, ``vector_in``,
+``guidance_in`` and every block's modulation projection: one
+:class:`Approximator` (BFL ``distilled_guidance_layer``) maps the timestep,
+the guidance and a sinusoidal index of each modulation vector to all of
+them (JAX ``flux_dit.py:656-679``). The NeRF head of chroma_radiance and the
+SD3 flags belong to later slices and have no field here.
 
 Gradient checkpointing (``FluxDiT.gradient_checkpointing``) wraps every block
 in ``torch.utils.checkpoint`` with the JAX ``dots_flash`` remat policy
@@ -34,7 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ai_toolkit_tpu_torch.ops.attention import dot_product_attention
-from ai_toolkit_tpu_torch.ops.embeddings import TimestepEmbedder
+from ai_toolkit_tpu_torch.ops.embeddings import TimestepEmbedder, timestep_embedding
 from ai_toolkit_tpu_torch.ops.kernels.moe_gmm import moe_dispatch_swiglu
 from ai_toolkit_tpu_torch.ops.layers import (
     AdaLayerNormZero,
@@ -50,7 +57,8 @@ from ai_toolkit_tpu_torch.ops.rope import apply_rope
 
 @dataclass(frozen=True)
 class FluxConfig:
-    in_channels: int = 64  # 16 latent ch * 2*2 packing
+    in_channels: int = 64  # 16 latent ch * 2*2 packing (+ control_channels)
+    out_channels: int | None = None  # None -> in_channels (control models differ)
     hidden_size: int = 3072
     num_heads: int = 24
     head_dim: int = 128
@@ -68,6 +76,12 @@ class FluxConfig:
     moe_dispatch: str = "dense"  # dense | grouped (the CUDA grouped SwiGLU kernels)
     moe_shared_hidden: int = 0  # 0 -> mlp width // 2
     qk_norm_across_heads: bool = False  # QK RMSNorm over the full inner dim
+    # packed control latents concatenated to the image tokens' channels (flex2, kontext)
+    control_channels: int = 0
+    # chroma: every modulation vector from one Approximator; no time_in / vector_in / guidance_in
+    chroma_mod: bool = False
+    approximator_hidden: int = 5120
+    approximator_depth: int = 5
     dtype: torch.dtype = torch.bfloat16
 
     @classmethod
@@ -99,6 +113,51 @@ class MLPEmbedder(nn.Module):
 
     def forward(self, x):
         return self.out_layer(F.silu(self.in_layer(x)))
+
+
+class Approximator(nn.Module):
+    """Chroma's distilled-guidance layer (JAX ``flux_dit.Approximator``, BFL
+    ``distilled_guidance_layer``): ``in_proj`` (64 -> hidden), then
+    ``depth`` x ``x + layers[i](norms[i](x))``, then ``out_proj`` (hidden ->
+    the model width)."""
+
+    in_dim = 64  # timestep(16) | guidance(16) | modulation index(32)
+
+    def __init__(self, cfg: FluxConfig, *, device=None):
+        super().__init__()
+        hh, dt = cfg.approximator_hidden, cfg.dtype
+        self.in_proj = Linear(self.in_dim, hh, device=device, dtype=dt)
+        self.layers = nn.ModuleList(MLPEmbedder(hh, hh, device=device, dtype=dt)
+                                    for _ in range(cfg.approximator_depth))
+        self.norms = nn.ModuleList(RMSNorm(hh, weight_name="scale", device=device)
+                                   for _ in range(cfg.approximator_depth))
+        self.out_proj = Linear(hh, cfg.hidden_size, device=device, dtype=dt)
+
+    def forward(self, x):
+        x = self.in_proj(x)
+        for layer, norm in zip(self.layers, self.norms):
+            x = x + layer(norm(x))
+        return self.out_proj(x)
+
+
+def chroma_mod_count(cfg: FluxConfig) -> int:
+    """The Approximator's rows: 3 per single block, 2 x 6 per double block
+    (image and text), 2 for the final layer (344 at flux-dev's depth)."""
+    return 3 * cfg.depth_single + 12 * cfg.depth_double + 2
+
+
+def chroma_approximator_input(cfg: FluxConfig, t: torch.Tensor, guidance: torch.Tensor | None) -> torch.Tensor:
+    """The Approximator's input ``[B, rows, 64]`` (JAX ``flux_dit.py:666-674``):
+    ``[timestep_embedding(t, 16) | timestep_embedding(g, 16)]`` beside
+    ``timestep_embedding(i, 32)`` of each row index ``i``, both with the time
+    factor 1000 and cast to the model dtype before the concat; ``g`` is 0
+    without guidance."""
+    n_mod, b = chroma_mod_count(cfg), t.shape[0]
+    g = guidance if guidance is not None else torch.zeros_like(t)
+    tg = torch.cat([timestep_embedding(t, 16), timestep_embedding(g, 16)], dim=-1)
+    idx = timestep_embedding(torch.arange(n_mod, dtype=torch.float32, device=t.device), 32)
+    return torch.cat([tg[:, None].expand(b, n_mod, 32).to(cfg.dtype),
+                      idx[None].expand(b, n_mod, 32).to(cfg.dtype)], dim=-1)
 
 
 class QKNorm(nn.Module):
@@ -238,21 +297,33 @@ def _mlp(cfg: FluxConfig, device, moe: bool = True) -> nn.Module:
 
 
 class DoubleBlock(nn.Module):
+    """With ``chroma_mod`` the block has no ``img_mod`` / ``txt_mod``: it takes
+    ``mod`` = (image, text) vectors ``[B, 2, 3, h]`` (two sets of shift,
+    scale, gate) from the Approximator."""
+
     def __init__(self, cfg: FluxConfig, *, device=None):
         super().__init__()
         h = cfg.hidden_size
-        self.img_mod = AdaLayerNormZero(h, 6, device=device, dtype=cfg.dtype)
+        # registered in this order, so a seeded init draws flux's weights as before
+        if not cfg.chroma_mod:
+            self.img_mod = AdaLayerNormZero(h, 6, device=device, dtype=cfg.dtype)
         self.img_norm1, self.img_norm2 = _norm(cfg), _norm(cfg)
         self.img_attn = SelfAttention(cfg, device=device)
         self.img_mlp = _mlp(cfg, device)
-        self.txt_mod = AdaLayerNormZero(h, 6, device=device, dtype=cfg.dtype)
+        if not cfg.chroma_mod:
+            self.txt_mod = AdaLayerNormZero(h, 6, device=device, dtype=cfg.dtype)
         self.txt_norm1, self.txt_norm2 = _norm(cfg), _norm(cfg)
         self.txt_attn = SelfAttention(cfg, device=device)
         self.txt_mlp = _mlp(cfg, device, moe=False)
 
-    def forward(self, img, txt, vec, pe, mask=None):
-        i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = self.img_mod(vec)
-        t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = self.txt_mod(vec)
+    def forward(self, img, txt, vec, pe, mask=None, mod=None):
+        if mod is not None:
+            im, tm = mod
+            i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = im.flatten(1, 2).unbind(1)
+            t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = tm.flatten(1, 2).unbind(1)
+        else:
+            i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = self.img_mod(vec)
+            t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = self.txt_mod(vec)
         iq, ik, iv = self.img_attn.qkv_heads(modulate(self.img_norm1(img), i_shift1, i_scale1))
         tq, tk, tv = self.txt_attn.qkv_heads(modulate(self.txt_norm1(txt), t_shift1, t_scale1))
         # joint attention over [txt | img]
@@ -269,6 +340,9 @@ class DoubleBlock(nn.Module):
 
 
 class SingleBlock(nn.Module):
+    """With ``chroma_mod``: no ``modulation``; ``mod`` ``[B, 3, h]`` is the
+    block's shift, scale and gate from the Approximator."""
+
     def __init__(self, cfg: FluxConfig, *, device=None):
         super().__init__()
         h = cfg.hidden_size
@@ -279,10 +353,11 @@ class SingleBlock(nn.Module):
         self.linear2 = Linear(h + mlp, h, device=device, dtype=cfg.dtype)
         self.norm = QKNorm(cfg.head_dim, device=device)
         self.pre_norm = _norm(cfg)
-        self.modulation = AdaLayerNormZero(h, 3, device=device, dtype=cfg.dtype)
+        if not cfg.chroma_mod:
+            self.modulation = AdaLayerNormZero(h, 3, device=device, dtype=cfg.dtype)
 
-    def forward(self, x, vec, pe, mask=None):
-        shift, scale, gate = self.modulation(vec)
+    def forward(self, x, vec, pe, mask=None, mod=None):
+        shift, scale, gate = mod.unbind(1) if mod is not None else self.modulation(vec)
         lin1 = self.linear1(modulate(self.pre_norm(x), shift, scale))
         qkv, mlp = lin1[..., : 3 * self.hidden], lin1[..., 3 * self.hidden:]
         # q, k, v stay strided views of lin1; the attention reads them through strides
@@ -317,17 +392,20 @@ class MoESingleBlock(nn.Module):
 
 
 class LastLayer(nn.Module):
-    """BFL ``final_layer``: adaLN (shift, scale) then the output projection."""
+    """BFL ``final_layer``: adaLN (shift, scale) then the output projection to
+    ``out_channels``; with ``chroma_mod`` no ``adaLN_modulation``: ``mod``
+    ``[B, 2, h]`` is the shift and scale from the Approximator."""
 
     def __init__(self, cfg: FluxConfig, *, device=None):
         super().__init__()
         h = cfg.hidden_size
         self.norm_final = _norm(cfg)
-        self.linear = Linear(h, cfg.in_channels, device=device, dtype=cfg.dtype)
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(h, 2 * h, device=device, dtype=cfg.dtype))
+        self.linear = Linear(h, cfg.out_channels or cfg.in_channels, device=device, dtype=cfg.dtype)
+        if not cfg.chroma_mod:
+            self.adaLN_modulation = nn.Sequential(nn.SiLU(), Linear(h, 2 * h, device=device, dtype=cfg.dtype))
 
-    def forward(self, x, vec):
-        shift, scale = self.adaLN_modulation(vec).chunk(2, dim=-1)
+    def forward(self, x, vec, mod=None):
+        shift, scale = mod.unbind(1) if mod is not None else self.adaLN_modulation(vec).chunk(2, dim=-1)
         return self.linear(modulate(self.norm_final(x), shift, scale))
 
 
@@ -351,10 +429,13 @@ class FluxDiT(nn.Module):
         h, dt = cfg.hidden_size, cfg.dtype
         self.img_in = Linear(cfg.in_channels, h, device=device, dtype=dt)
         self.txt_in = Linear(cfg.context_dim, h, device=device, dtype=dt)
-        self.time_in = TimestepEmbedder(h, device=device, dtype=dt)
-        self.vector_in = MLPEmbedder(cfg.vec_dim, h, device=device, dtype=dt)
-        if cfg.guidance_embed:
-            self.guidance_in = TimestepEmbedder(h, device=device, dtype=dt)
+        if cfg.chroma_mod:
+            self.distilled_guidance_layer = Approximator(cfg, device=device)
+        else:
+            self.time_in = TimestepEmbedder(h, device=device, dtype=dt)
+            self.vector_in = MLPEmbedder(cfg.vec_dim, h, device=device, dtype=dt)
+            if cfg.guidance_embed:
+                self.guidance_in = TimestepEmbedder(h, device=device, dtype=dt)
         self.double_blocks = nn.ModuleList(DoubleBlock(cfg, device=device) for _ in range(cfg.depth_double))
         single = MoESingleBlock if cfg.moe_experts else SingleBlock
         self.single_blocks = nn.ModuleList(single(cfg, device=device) for _ in range(cfg.depth_single))
@@ -373,11 +454,15 @@ class FluxDiT(nn.Module):
         cfg = self.cfg
         img = self.img_in(img)
         txt = self.txt_in(txt)
-        vec = self.time_in(t)
-        if cfg.guidance_embed:
-            g = guidance if guidance is not None else torch.full(t.shape, 4.0, dtype=t.dtype, device=t.device)
-            vec = vec + self.guidance_in(g)
-        vec = vec + self.vector_in(y.to(cfg.dtype))
+        vec = sing_mod = img_mod = txt_mod = fin_mod = None
+        if cfg.chroma_mod:
+            sing_mod, img_mod, txt_mod, fin_mod = self.chroma_mods(t, guidance)
+        else:
+            vec = self.time_in(t)
+            if cfg.guidance_embed:
+                g = guidance if guidance is not None else torch.full(t.shape, 4.0, dtype=t.dtype, device=t.device)
+                vec = vec + self.guidance_in(g)
+            vec = vec + self.vector_in(y.to(cfg.dtype))
 
         mask = None
         if txt_mask is not None:
@@ -387,12 +472,25 @@ class FluxDiT(nn.Module):
                                                             device=img.device)], dim=1)
             mask = key_ok[:, None, None, :]
 
-        for blk in self.double_blocks:
-            img, txt = self._block(blk, img, txt, vec, pe, mask)
+        for i, blk in enumerate(self.double_blocks):
+            mod = ((img_mod[:, i], txt_mod[:, i]),) if cfg.chroma_mod else ()
+            img, txt = self._block(blk, img, txt, vec, pe, mask, *mod)
         x = torch.cat([txt, img], dim=1)
-        for blk in self.single_blocks:
-            x = self._block(blk, x, vec, pe, mask)
-        return self.final_layer(x[:, txt.shape[1]:], vec)
+        for i, blk in enumerate(self.single_blocks):
+            x = self._block(blk, x, vec, pe, mask, *((sing_mod[:, i],) if cfg.chroma_mod else ()))
+        return self.final_layer(x[:, txt.shape[1]:], vec, fin_mod)
+
+    def chroma_mods(self, t: torch.Tensor, guidance: torch.Tensor | None):
+        """Every modulation vector of a chroma forward from the Approximator
+        (JAX ``flux_dit.py:656-679``, input :func:`chroma_approximator_input`):
+        the singles' ``[B, ds, 3, h]``, the doubles' image and text ``[B, dd,
+        2, 3, h]`` and the final layer's ``[B, 2, h]``."""
+        dd, ds = self.cfg.depth_double, self.cfg.depth_single
+        mods = self.distilled_guidance_layer(chroma_approximator_input(self.cfg, t, guidance))
+        return (mods[:, :3 * ds].unflatten(1, (ds, 3)),
+                mods[:, 3 * ds:3 * ds + 6 * dd].unflatten(1, (dd, 2, 3)),
+                mods[:, 3 * ds + 6 * dd:3 * ds + 12 * dd].unflatten(1, (dd, 2, 3)),
+                mods[:, -2:])
 
     def _block(self, blk: nn.Module, *args):
         if self.gradient_checkpointing and torch.is_grad_enabled():

@@ -7,6 +7,9 @@ JAX package raises ``NotImplementedError`` instead of being guessed at.
 from __future__ import annotations
 
 MODEL_REGISTRY: dict[str, type] = {}
+# archs of a ported family that still wait for their slice
+_LATER = {"chroma_radiance": "chroma_radiance (pixel-space chroma with the NeRF head, JAX ChromaRadianceModel) "
+                             "comes with a later slice (ROADMAP Queue 1 item 6)"}
 
 
 def register_model(cls):
@@ -17,11 +20,13 @@ def register_model(cls):
 
 
 def get_model_class(arch: str):
-    import ai_toolkit_tpu_torch.models.flux_model  # noqa: F401  (registers flux, flux_schnell)
+    import ai_toolkit_tpu_torch.models.flux_model  # noqa: F401  (registers flux, flux_schnell, flex*, kontext, chroma)
     import ai_toolkit_tpu_torch.models.hidream_model  # noqa: F401  (registers hidream)
     import ai_toolkit_tpu_torch.models.sd_model  # noqa: F401  (registers sd1, sd15, sd2, ssd, vega, sdxl)
     import ai_toolkit_tpu_torch.models.wan_model  # noqa: F401  (registers wan21, wan21_i2v, wan22_5b, wan22_14b*)
 
+    if arch in _LATER:
+        raise NotImplementedError(_LATER[arch])
     if arch not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"arch '{arch}' is not ported to ai_toolkit_tpu_torch yet; ported: "

@@ -39,6 +39,18 @@ Phases (any failure raises and the script exits non-zero):
      buckets), the disk latent cache, the file's two prompts at 20 steps
      first and final; each step's flash launches checked, the step time
      printed per bucket;
+  8c. the flux family: full-width chroma (the 5120 x 5 Approximator, its
+     344 rows at flux-dev's depth) and flex2 (the 196-input img_in) DiTs cut
+     to 1 double + 1 single block, in f32, on the card against the CPU; then
+     configs/examples/train_lora_{chroma,flex,flex2,flux_kontext}_tpu.yaml as
+     written but for their paths and steps (12) on seeded weights, as 8b
+     (the flex2 and kontext files over seeded control images beside the
+     training images, flex2 with one seeded inpaint image): 57 launches of
+     each flash kernel every step and denoise step, each batch's control
+     latents against the VAE encode of its control images, flex2's
+     [inpaint | mask | control] layout, a LoRA that moved and reloads, the
+     samples; and the flex2 generate job at 1024^2, 8 steps, with a seeded
+     ctrl_img and the LoRA it saved;
   9. the hidream LoRA ``sd_trainer`` job at
      1024^2 on an fp8 base with the grouped MoE dispatch, launches per step
      checked (``--profile DIR`` profiles its last step too);
@@ -126,6 +138,7 @@ printed on lines of their own before it; the last line is the result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -777,6 +790,7 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
     from ai_toolkit_tpu_torch.ops.layers import init_parameters
     from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
 
+    rows_cfg = dataclasses.replace(cfg, dtype=torch.float32)  # chroma: the Approximator's rows at full depth
     cfg = dataclasses.replace(cfg, depth_double=1, depth_single=1, dtype=torch.float32)
     # a frozen base, as in LoRA training
     gpu = init_parameters(FluxDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
@@ -802,6 +816,17 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
           f"(tol {tol:.3e}) kernel launches={_launches()}")
     check(_launches() == fwd_launches and bool(torch.isfinite(out).all())
           and err <= tol, "DiT on the card disagrees with the CPU")
+    if cfg.chroma_mod:
+        from ai_toolkit_tpu_torch.models.flux_dit import chroma_approximator_input
+
+        rows = chroma_approximator_input(rows_cfg, inputs[2], guidance)
+        with torch.inference_mode():
+            rows_ref = cpu.distilled_guidance_layer(rows)
+            rows_out = gpu.distilled_guidance_layer(rows.cuda()).cpu()
+        err, scale = (rows_out - rows_ref).abs().max().item(), rows_ref.abs().max().item()
+        print(f"Approximator ({cfg.approximator_hidden} x {cfg.approximator_depth}): {tuple(rows_out.shape)} rows "
+              f"of flux-dev's depth, max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {1e-3 * max(1.0, scale):.3e})")
+        check(rows_out.shape[1] == 344 and err <= 1e-3 * max(1.0, scale), "the Approximator on the card disagrees")
 
     # one LoRA training step's loss and gradients; b is made non-zero, else the
     # gradient of a is zero and the check proves nothing about it
@@ -1390,10 +1415,12 @@ def unet_reference(fwd_launches: dict, step_launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _shipped_job(example: str, name: str, steps: int, name_or_path: str, folder: str | None = None) -> dict:
+def _shipped_job(example: str, name: str, steps: int, name_or_path: str, folder: str | None = None,
+                 **paths) -> dict:
     """The shipped job file ``configs/examples/<example>`` as it is written,
     but for these cuts: the job's name, ``training_folder``, the dataset's
-    ``folder_path`` (the seeded PNGs), ``train.steps`` and
+    ``folder_path`` (the seeded PNGs) and its other folders (``paths``:
+    ``control_path``, ``inpaint_path``), ``train.steps`` and
     ``model.name_or_path`` (``folder``: another seeded folder); written to a
     job file and read back through the port's config loader."""
     from ai_toolkit_tpu_torch.config import get_config
@@ -1403,6 +1430,7 @@ def _shipped_job(example: str, name: str, steps: int, name_or_path: str, folder:
     proc = raw["config"]["process"][0]
     proc["training_folder"] = os.path.join(OUT_DIR, "train")
     proc["datasets"][0]["folder_path"] = folder or _train_dataset()
+    proc["datasets"][0].update(paths)
     proc["train"]["steps"] = steps
     proc["model"]["name_or_path"] = name_or_path
     job = _read_back(raw, os.path.join(OUT_DIR, f"{name}.yaml"), example)
@@ -1554,11 +1582,24 @@ def flux_shipped_phase(card: str, profile_dir: str | None) -> dict:
     phase("flux-dev LoRA sd_trainer job, configs/examples/train_lora_flux_tpu.yaml as written with seeded "
           "weights: qfloat8 base, resolutions [512, 768, 1024] (12 items, 3 buckets), the disk latent cache, "
           "2 prompts at 1024x1024 and 20 steps first and final, 12 steps")
+    return _shipped_flux_job(card, profile_dir, "train_lora_flux_tpu.yaml", "smoke_flux_shipped", 2)
+
+
+def _shipped_flux_job(card: str, profile_dir: str | None, example: str, name: str, n_prompts: int,
+                      watch=None, **paths) -> dict:
+    """A shipped flux-family file as written but for its paths (``paths``:
+    the control folders) and 12 steps (one epoch over the 12 items, so every
+    bucket trains), on seeded weights: 57 launches of each flash kernel a
+    step and a denoise step, the quantized base, the three buckets, the disk
+    cache, the first and final samples, a LoRA that moved and reloads;
+    ``watch``: a context manager over the run (the control batches' check).
+    Prints the step ms per bucket, the peak and the sample s beside the card."""
     flux_step = _counts(BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD)
-    result, proc, report = _run_job(_shipped_job("train_lora_flux_tpu.yaml", "smoke_flux_shipped", 12, ""),
-                                    flux_step, profile_dir, _counts(fwd=BLOCKS_PER_FORWARD))
+    with (watch or contextlib.nullcontext()):
+        result, proc, report = _run_job(_shipped_job(example, name, 12, "", **paths), flux_step, profile_dir,
+                                        _counts(fwd=BLOCKS_PER_FORWARD))
     check(proc.cfg.model.quantize and proc.cfg.datasets[0].resolution == [512, 768, 1024],
-          "the flux file lost its quantized base or its resolutions")
+          f"{example} lost its quantized base or its resolutions")
     cache = result["latent_cache"]
     check(cache["items"] == len(os.listdir(cache["dir"])) == cache["encoded"] == 12, f"latent cache {cache}")
     by_bucket: dict[tuple, list[float]] = {}
@@ -1569,12 +1610,72 @@ def flux_shipped_phase(card: str, profile_dir: str | None) -> dict:
         print(f"{card}: bucket {bucket[0]}x{bucket[1]}: step ms {', '.join(f'{x:.1f}' for x in ms)} "
               f"(median of all but the first {statistics.median(ms[1:]):.1f}), {BLOCKS_PER_FORWARD} launches of "
               f"each flash kernel a step")
-    _check_samples(result, [0, 12], 2, 1024)
+    _check_samples(result, [0, 12], n_prompts, 1024)
+    lora_path = check_lora_job(result, proc)
     print(f"{card}: disk cache {cache['seconds']:.2f} s for {cache['items']} items, samples "
           f"{', '.join('%.2f' % r['seconds'] for r in result['samples'])} s each (20 steps at 1024x1024), "
           f"job wall {report['wall_s']:.1f} s, peak {report['peak_gib']:.2f} GiB")
     del proc
-    return {**report, "by_bucket_ms": {f"{b[0]}": statistics.median(v[1:]) for b, v in by_bucket.items()}}
+    return {**report, "by_bucket_ms": {f"{b[0]}": statistics.median(v[1:]) for b, v in by_bucket.items()},
+            "sample_s": [r["seconds"] for r in result["samples"]], "lora_path": lora_path}
+
+
+class _ControlBatches:
+    """Each control batch of a train job's run checked as the job prepares it
+    (``SDTrainProcess._prepare_batch`` wrapped for the block): the control
+    slot of ``control_latents`` against the VAE's encode of the batch's
+    control images and, for flex2, the ``[inpaint | mask | control]`` layout:
+    a batch with no inpaint image has an all-ones mask and a zero inpaint
+    slot, one with an inpaint image a mask that is not."""
+
+    def __init__(self, arch: str):
+        self.arch = arch
+
+    def __enter__(self) -> list[dict]:
+        import ai_toolkit_tpu_torch.jobs.train_process as tp
+
+        self.cls, self.real, self.seen = tp.SDTrainProcess, tp.SDTrainProcess._prepare_batch, []
+        real, seen, arch = self.real, self.seen, self.arch
+
+        def prepare(proc, model, variables, raw, text_cache):
+            batch = real(proc, model, variables, raw, text_cache)
+            ctrl = batch["cond"]["control_latents"].float()
+            with torch.no_grad():
+                enc = model.encode_images(variables, torch.from_numpy(raw["control_pixels"])).float()
+            c = enc.shape[-1]
+            slot = ctrl[..., c + 1:] if arch == "flex2" else ctrl
+            rec = {"bucket": tuple(raw["bucket"]), "inpaint": "inpaint_keep" in raw,
+                   "err": (slot - enc).abs().max().item(), "scale": enc.abs().max().item(),
+                   "channels": ctrl.shape[-1]}
+            if arch == "flex2":
+                rec["mask_mean"] = ctrl[..., c].mean().item()
+                rec["inpaint_zero"] = bool((ctrl[..., :c] == 0).all())
+            seen.append(rec)
+            return batch
+
+        tp.SDTrainProcess._prepare_batch = prepare
+        return self.seen
+
+    def __exit__(self, *exc) -> None:
+        self.cls._prepare_batch = self.real
+
+
+def _check_control_batches(seen: list[dict], arch: str, latent_channels: int = 16) -> None:
+    want_c = 2 * latent_channels + 1 if arch == "flex2" else latent_channels
+    check(len(seen) == 12, f"{len(seen)} control batches prepared, not 12")
+    for rec in seen:
+        # the same encode of the same pixels: equal up to the VAE's own run-to-run order
+        check(rec["channels"] == want_c and rec["err"] <= 1e-2 * max(1.0, rec["scale"]),
+              f"{arch} control batch {rec}: the control slot is not the VAE encode of the control image")
+        if arch == "flex2":
+            check((rec["mask_mean"] == 1.0 and rec["inpaint_zero"]) != rec["inpaint"],
+                  f"flex2 batch {rec}: the mask or the inpaint slot is not what its inpaint image asks")
+    n_inp = sum(rec["inpaint"] for rec in seen)
+    print(f"{arch}: {len(seen)} control batches, [{'inpaint | mask | ' if arch == 'flex2' else ''}control] "
+          f"{want_c} channels; control slot vs the VAE encode max_abs_err "
+          f"{max(r['err'] for r in seen):.3e}; {n_inp} batches with the inpaint image"
+          + (f" (mask mean {', '.join('%.3f' % r['mask_mean'] for r in seen if r['inpaint'])})" if n_inp else ""))
+    check(arch != "flex2" or n_inp == 3, f"flex2: {n_inp} batches with the inpaint image, not 3")
 
 
 # diffusers -> LDM names, to write the SD 1.5 file in the layout real files have
@@ -2083,6 +2184,79 @@ def wan22_phases(profile_dir: str | None) -> tuple[dict, dict, dict]:
     return wan22_err, wan22_times, wan14
 
 
+def _control_folders() -> tuple[str, str]:
+    """Seeded control images for the four training images (same file names,
+    1152x896, so each is cover-resized and cropped to every bucket), and one
+    seeded inpaint image for img_0: an RGBA whose alpha keeps an ellipse and
+    marks the rest for inpainting. Written once."""
+    import numpy as np
+    from PIL import Image
+
+    ctrl, inp = os.path.join(OUT_DIR, "train_control"), os.path.join(OUT_DIR, "train_inpaint")
+    if os.path.isfile(os.path.join(inp, "img_0.png")):
+        return ctrl, inp
+    os.makedirs(ctrl, exist_ok=True)
+    os.makedirs(inp, exist_ok=True)
+    rng = np.random.default_rng(11)
+    w, h = 1152, 896
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(4):  # edge-map-like control: bright lines on dark, plus noise
+        lines = (np.sin(xx / (9 + 3 * i)) * np.cos(yy / (13 + 2 * i)) > 0.8).astype(np.float32)
+        img = np.repeat(lines[..., None] * 220.0, 3, axis=-1) + rng.normal(0, 6, (h, w, 3))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(os.path.join(ctrl, f"img_{i}.png"))
+    keep = (((xx - w / 2) / (0.3 * w)) ** 2 + ((yy - h / 2) / (0.35 * h)) ** 2 <= 1.0).astype(np.uint8) * 255
+    rgba = np.concatenate([rng.integers(0, 255, (h, w, 3), dtype=np.uint8), keep[..., None]], axis=-1)
+    Image.fromarray(rgba, "RGBA").save(os.path.join(inp, "img_0.png"))
+    return ctrl, inp
+
+
+# the flux family's shipped files: (arch, file, the folders chip_smoke adds to its dataset)
+FLUX_FAMILY = [("chroma", "train_lora_chroma_tpu.yaml", ()), ("flex1", "train_lora_flex_tpu.yaml", ()),
+               ("flex2", "train_lora_flex2_tpu.yaml", ("control_path", "inpaint_path")),
+               ("flux_kontext", "train_lora_flux_kontext_tpu.yaml", ("control_path",))]
+
+
+def flux_family_phases(card: str, profile_dir: str | None) -> dict:
+    """This slice's phases: the chroma and flex2 DiTs card vs CPU at full
+    width, the four shipped flux-family files as written (but for their
+    paths and steps) on seeded weights, and the flex2 generate job with a
+    ctrl_img. Returns each job's numbers."""
+    from ai_toolkit_tpu_torch.config.modules import ModelConfig
+    from ai_toolkit_tpu_torch.models.flux_dit import flux_lora_targets
+    from ai_toolkit_tpu_torch.models.flux_model import FluxModel
+
+    def dev_config(arch):
+        return FluxModel(ModelConfig.from_dict({"name_or_path": "", "arch": arch}), device="meta").dit_config
+
+    # the Approximator's rows run outside the blocks: the launches are flux-dev's
+    dit_reference("chroma (the 5120 x 5 Approximator, no modulation projections)", dev_config("chroma"),
+                  flux_lora_targets(), _counts(fwd=2), _counts(2, 2, 2))
+    dit_reference("flex2 (the 196-input img_in, 64 outputs)", dev_config("flex2"), flux_lora_targets(),
+                  _counts(fwd=2), _counts(2, 2, 2))
+    ctrl, inp = _control_folders()
+    folders = {"control_path": ctrl, "inpaint_path": inp}
+    out = {}
+    for arch, example, extra in FLUX_FAMILY:
+        phase(f"{arch} LoRA sd_trainer job, configs/examples/{example} as written with seeded weights"
+              + (f" and the seeded {' and '.join(extra)}" if extra else "")
+              + ": qfloat8 base, resolutions [512, 768, 1024] (12 items, 3 buckets), the disk latent cache, "
+                "its prompt at 1024x1024 and 20 steps first and final, 12 steps")
+        watch = _ControlBatches(arch) if extra else None
+        out[arch] = _shipped_flux_job(card, profile_dir, example, f"smoke_{arch}_shipped", 1, watch,
+                                      **{k: folders[k] for k in extra})
+        if watch is not None:
+            _check_control_batches(watch.seen, arch)
+    phase("flex2 generate job, 1024x1024, 8 steps, 1 prompt with a seeded ctrl_img, bf16 base, with the LoRA "
+          "of the shipped flex2 job")
+    t0 = time.perf_counter()
+    gen = generate_job({"name_or_path": "", "arch": "flex2"}, 1024, 1024, 8,
+                       [{"prompt": "a photo of a lighthouse on a cliff", "ctrl_img": os.path.join(ctrl, "img_1.png")}],
+                       _counts(fwd=BLOCKS_PER_FORWARD), lora_path=out["flex2"]["lora_path"])
+    print(f"{card}: flex2 generate job {time.perf_counter() - t0:.1f} s wall, launches {gen}")
+    return {arch: {"median_step_ms_by_bucket": r["by_bucket_ms"], "peak_gib": r["peak_gib"],
+                   "sample_s": r["sample_s"], "wall_s": r["wall_s"]} for arch, r in out.items()}
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2125,6 +2299,7 @@ def main(argv: list[str]) -> int:
     generate_job(FLUX_MODEL, 1008, 1008, 2, prompts[:1], _counts(fwd=BLOCKS_PER_FORWARD))
 
     flux_shipped = flux_shipped_phase(card, args.profile)
+    flux_family = flux_family_phases(card, args.profile)
 
     phase("hidream LoRA sd_trainer job, 1024x1024, fp8 base, grouped MoE, batch 1, rank 16, adamw8bit, EMA")
     # per step: the attention forward once per block (its outputs are kept by the
@@ -2173,7 +2348,8 @@ def main(argv: list[str]) -> int:
                  "median_step_ms": sdxl["median_step_ms"], "peak_gib": sdxl["peak_gib"],
                  "resumed_wall_s": sdxl["resumed"]["wall_s"]},
         "flux_qfloat8": {"median_step_ms_by_bucket": flux_shipped["by_bucket_ms"], "peak_gib": flux_shipped["peak_gib"],
-                      "wall_s": flux_shipped["wall_s"]}}}))
+                      "wall_s": flux_shipped["wall_s"]},
+        "flux_family_qfloat8": flux_family}}))
 
     neg = torch.Generator("cuda").manual_seed(8)
     wan_err = flash_checks("flash kernels vs plain versions at Wan 2.1's shapes (head_dim 128), bf16",

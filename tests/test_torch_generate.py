@@ -79,7 +79,7 @@ def test_unported_branches_raise(tmp_path):
             "sample": {"width": 32, "height": 32, "sample_steps": 1, "prompts": ["x"]}}
     for proc in ({**base, "model": {**TINY, "lora_path": "/nowhere/lora.safetensors"}},
                  {**base, "type": "sd_trainer", "model": {**TINY, "quantize": True}},  # full fine-tune, fp8 base
-                 {**base, "model": {**TINY, "arch": "chroma"}},
+                 {**base, "model": {**TINY, "arch": "chroma_radiance"}},
                  {**base, "sample": {**base["sample"], "sampler": "ddim"}}):
         with pytest.raises(NotImplementedError):
             run_job({"job": "generate", "config": {"name": "x", "process": [proc]}}, device="cpu")
@@ -116,6 +116,10 @@ _SDXL_MODULES = ("ai_toolkit_tpu_torch.models.unet", "ai_toolkit_tpu_torch.model
 _WAN_MODULES = ("ai_toolkit_tpu_torch.models.wan_dit", "ai_toolkit_tpu_torch.models.wan_vae",
                 "ai_toolkit_tpu_torch.models.wan_model", "ai_toolkit_tpu_torch.data.dataset",
                 "ai_toolkit_tpu_torch.generation")
+# the flux family's modules (chroma, flex1, flex2, flux_kontext and their control images)
+_FLUX_FAMILY_MODULES = ("ai_toolkit_tpu_torch.models.flux_dit", "ai_toolkit_tpu_torch.models.flux_model",
+                        "ai_toolkit_tpu_torch.data.loader", "ai_toolkit_tpu_torch.io.from_jax",
+                        "ai_toolkit_tpu_torch.jobs.train_process", "ai_toolkit_tpu_torch.models.registry")
 
 
 def test_port_imports_without_jax():
@@ -130,6 +134,7 @@ def test_port_imports_without_jax():
     assert imported.issuperset(_HIDREAM_MODULES), sorted(set(_HIDREAM_MODULES) - imported)
     assert imported.issuperset(_SDXL_MODULES), sorted(set(_SDXL_MODULES) - imported)
     assert imported.issuperset(_WAN_MODULES), sorted(set(_WAN_MODULES) - imported)
+    assert imported.issuperset(_FLUX_FAMILY_MODULES), sorted(set(_FLUX_FAMILY_MODULES) - imported)
 
 
 def test_chip_smoke_fails_without_cuda():

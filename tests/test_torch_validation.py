@@ -140,6 +140,7 @@ def test_job_logs_val_loss_at_validate_every(tmp_path, capsys, monkeypatch):
     ("flowmatch", "flux", {"shift": 2.0, "use_dynamic_shifting": False, "weighting_table": "list"}),
     ("flowmatch", "sd3", {"weighting_table": "npy", "base_shift": 0.3}),
     ("flowmatch", "wan21", {"weighting_table": "json", "time_shift_type": "linear"}),
+    *(("flowmatch", arch, {}) for arch in ("chroma", "flex1", "flex2", "flux_kontext")),  # the flux family's defaults
 ])
 def test_scheduler_params_match_jax(tmp_path, name, arch, params):
     """``get_schedule`` with the overrides: every field equal to JAX's (the
