@@ -14,12 +14,17 @@ animated webp by :func:`save_video_atomic`).
 A LoRA (``{module name: {a, b, scale}}``, ``io/lora_file.load_lora_file``)
 is overlaid on the model's DiT or UNet for the call (one network on both
 experts of a multistage pair), as the JAX package passes its ``lora``
-collection. A control arch (flex2, flux_kontext) samples with the control
-latents of ``FluxModel.sampling_control_latents`` (the encoded ``ctrl_img``,
-or the blank layout without one), and chroma's Approximator takes the
-sample's ``guidance_scale`` as its guidance, as in JAX. Unported branches of
-the JAX ``generate_flux`` (the unconditional LoRA, the sequence-concat edit
-archs' reference images and ``ctrl_img_2`` / ``ctrl_img_3``, IP-adapter
+collection. A control arch (flex2, flux_kontext, qwen_image_edit) samples
+with the control latents of the model's ``sampling_control_latents`` (the
+encoded ``ctrl_img``, or the blank layout without one: zeros for
+qwen_image_edit, whose rope table always holds the control tokens, JAX's
+``is_edit`` branch), and chroma's Approximator takes the sample's
+``guidance_scale`` as its guidance, as in JAX. SD3 and Qwen-Image sample
+with no CFG pass: the JAX ``generate_flux`` gives them none, and their
+``guidance_scale`` reaches only a ``guidance`` their DiTs do not read
+(ROADMAP Queue 3). Unported branches of the JAX ``generate_flux`` (the
+unconditional LoRA, the multi-reference edit archs' ``ctrl_img_2`` /
+``ctrl_img_3``, IP-adapter
 conditioning, ``use_flux_cfg`` negative passes, x0-prediction and
 arch-specific schedules), of ``generate_sd`` (the k-diffusion, LCM and PNDM samplers, the
 unconditional LoRA) and of ``generate`` (audio) raise
@@ -66,7 +71,7 @@ def generate_flux(
         raise NotImplementedError("ctrl_img_2 / ctrl_img_3 (multi-reference edit archs) come with a later slice")
     if getattr(gen, "ctrl_img", None) and not model.takes_control:
         raise NotImplementedError(f"ctrl_img on arch '{model.config.arch}', which takes no control latents "
-                                  f"(ported: flex2, flux_kontext, model_kwargs.control)")
+                                  f"(ported: flex2, flux_kontext, model_kwargs.control, qwen_image_edit)")
     if gen.sampler not in (None, "flowmatch"):
         raise NotImplementedError(f"sampler '{gen.sampler}' is not ported (flowmatch only)")
     schedule = schedule or FlowMatchSchedule()

@@ -10,6 +10,8 @@ CLIP and T5, diffusers for the VAE).
 - MoE expert banks ``[E, in, out]`` keep the JAX layout (``flux_dit.Bank``).
 - Conv kernels HWIO -> OIHW.
 - Scanned ``[L, ...]`` stacks (``double_blocks/block/...``) split per block.
+- SD3's ``dual_blocks`` (with ``img2_*``), ``final_block`` (its ``txt_mod`` a
+  plain Linear) and ``pos_embed`` table keep their JAX names in the port.
 - Norm scales and embeddings keep their values and dtypes.
 - Chroma's ``distilled_guidance/{in_proj, layer_{i}, norm_{i}, out_proj}``
   maps onto BFL ``distilled_guidance_layer.*``; the control archs' wider
@@ -134,7 +136,11 @@ _DOUBLE = [
     ("img_mod/mod", "img_mod.lin"), ("txt_mod/mod", "txt_mod.lin"),
     *((f"img_mlp_moe/{pat}", f"img_mlp.{tmpl}") for pat, tmpl in _MOE),
     ("txt_mlp_swiglu/(w1|w3|w2)", "txt_mlp.{0}"),
+    # sd3.5-medium's image-only attention (dual blocks)
+    ("img2_qkv", "img2_attn.qkv"), ("img2_proj", "img2_attn.proj"),
+    ("img2_qknorm/(query_norm|key_norm)", "img2_attn.norm.{0}"),
 ]
+_FINAL = [("txt_mod", "txt_mod"), *_DOUBLE]  # sd3's context_pre_only block: txt_mod is a plain Linear
 _SINGLE = [
     ("linear1", "linear1"), ("linear2", "linear2"), ("mod/mod", "modulation.lin"),
     ("qknorm/(query_norm|key_norm)", "norm.{0}"),
@@ -153,15 +159,20 @@ _FLUX_TOP = [
 
 
 def _flux_module(path: str) -> str:
-    m = re.fullmatch(r"(double|single)_(\d+)/(.+)", path)
+    m = re.fullmatch(r"(double|single|dual)_(\d+)/(.+)", path)
     if m:
         kind, i, rest = m.groups()
-        table = _DOUBLE if kind == "double" else _SINGLE
+        table = _SINGLE if kind == "single" else _DOUBLE
         return f"{kind}_blocks.{i}." + _lookup(table, rest, "flux dit")
+    if path.startswith("final_block/"):
+        return "final_block." + _lookup(_FINAL, path[len("final_block/"):], "flux dit")
     return _lookup(_FLUX_TOP, path, "flux dit")
 
 
-def _unscan(tree: dict, stacks=(("double_blocks", "double_"), ("single_blocks", "single_"))) -> dict:
+_FLUX_STACKS = (("double_blocks", "double_"), ("single_blocks", "single_"), ("dual_blocks", "dual_"))
+
+
+def _unscan(tree: dict, stacks=_FLUX_STACKS) -> dict:
     """Scanned layout ``<stack>/block/<mod>/<leaf>`` with a leading layer axis
     -> unrolled ``<prefix><i>/<mod>/<leaf>``, for each ``(stack, prefix)``."""
     out = {k: v for k, v in tree.items() if k not in dict(stacks)}
@@ -180,8 +191,9 @@ def _unscan(tree: dict, stacks=(("double_blocks", "double_"), ("single_blocks", 
 
 def flux_dit_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     """JAX ``FluxDiT`` params (unrolled or scanned, whole or a subtree of
-    leaves) -> ``FluxDiT`` state dict entries."""
-    return _convert(_unscan(tree), _flux_module, norm_name="scale")
+    leaves) -> ``FluxDiT`` state dict entries; sd3's learned table
+    ``pos_embed`` -> ``pos_embed.pos_embed``."""
+    return _convert(_unscan(tree), _flux_module, norm_name="scale", extra={"pos_embed": ["pos_embed.pos_embed"]})
 
 
 def flux_dit_flat_state_dict(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -395,7 +407,7 @@ def flux_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
         groups.setdefault(mod, {})[leaf] = v
     out: dict[str, dict[str, torch.Tensor]] = {}
     for mod, leaf in groups.items():
-        m = re.fullmatch(r"(double|single)_blocks/block/(.+)", mod)
+        m = re.fullmatch(r"(double|single|dual)_blocks/block/(.+)", mod)
         if m:
             kind, rest = m.groups()
             scales = np.reshape(leaf["scale"], -1)
@@ -417,6 +429,28 @@ def hidream_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
         "clip2": clip_state_dict(variables["clip2"]),
         "t5": t5_state_dict(variables["t5"]),
         "llm": llm_state_dict(variables["llm"]),
+    }
+
+
+def sd3_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``SD3Model`` variables ``{dit, vae, clip, clip2, t5}`` -> per-component
+    state dicts for ``SD3Model.load_state_dicts``."""
+    return {
+        "dit": flux_dit_state_dict(variables["dit"]),
+        "vae": vae_state_dict(variables["vae"]),
+        "clip": clip_state_dict(variables["clip"]),
+        "clip2": clip_state_dict(variables["clip2"]),
+        "t5": t5_state_dict(variables["t5"]),
+    }
+
+
+def qwen_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``QwenImageModel`` variables ``{dit, vae, te}`` at ``size: tiny``
+    (the KL VAE) -> per-component state dicts."""
+    return {
+        "dit": flux_dit_state_dict(variables["dit"]),
+        "vae": vae_state_dict(variables["vae"]),
+        "te": llm_state_dict(variables["te"]),
     }
 
 

@@ -3,11 +3,13 @@
 A LoRA here is ``{module name: {a [in, r], b [r, out], scale}}`` keyed by the
 port's module names, which are the external names the JAX package's key maps
 produce (BFL for the flux DiT, diffusers for the UNet), so no key map is
-needed. Two file layouts, as the JAX job writes them
+needed. Three file layouts, as the JAX job writes them
 (``jobs/train_process.py:1332-1337``):
 
 - ``peft`` (flow-matching DiTs): ``transformer.<module>.lora_A.weight`` =
   a^T ``[r, in]`` and ``.lora_B.weight`` = b^T ``[out, r]``, no alpha;
+- ``comfy`` (a model whose ``lora_key_layout()`` says so, Qwen-Image): the
+  same under the root ``diffusion_model.``;
 - ``kohya`` (the UNet): ``lora_unet_<module with '.' -> '_'>.lora_down.weight``
   = a^T, ``.lora_up.weight`` = b^T and ``.alpha`` = scale * rank.
 
@@ -16,7 +18,7 @@ JAX job writes its own module paths, ``block_3.self_q``) gives ``key_map``
 on the way out and ``module_name`` on the way back. A missing alpha means
 alpha = rank (scale 1), as in the JAX ``unflatten_lora``. Kohya keys are
 ambiguous on ``_`` (``attn1_to_q``), so loading them needs the model's
-module names. Conv factors, the ComfyUI layout,
+module names. Conv factors,
 the text-encoder prefixes (``lora_te*``) and LyCORIS files come with a later
 slice.
 """
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 ROOT = "transformer"
+ROOTS = {"peft": ROOT, "comfy": "diffusion_model"}
 _SUFFIXES = {".lora_A.weight": "down", ".lora_B.weight": "up", ".lora_down.weight": "down",
              ".lora_up.weight": "up", ".alpha": "alpha"}
 KOHYA_PREFIX = "lora_unet"
@@ -45,24 +48,25 @@ def flatten_lora(lora: dict[str, dict[str, torch.Tensor]], dtype=np.float16,
         b = leaf["b"].detach().float().cpu().numpy()
         # safetensors writes the raw buffer: make the transposes C-contiguous
         down, up = np.ascontiguousarray(a.T.astype(dtype)), np.ascontiguousarray(b.T.astype(dtype))
-        if fmt == "peft":
-            out[f"{ROOT}.{name}.lora_A.weight"] = down
-            out[f"{ROOT}.{name}.lora_B.weight"] = up
+        if fmt in ROOTS:
+            out[f"{ROOTS[fmt]}.{name}.lora_A.weight"] = down
+            out[f"{ROOTS[fmt]}.{name}.lora_B.weight"] = up
         elif fmt == "kohya":
             key = f"{KOHYA_PREFIX}_{name.replace('.', '_')}"
             out[f"{key}.lora_down.weight"] = down
             out[f"{key}.lora_up.weight"] = up
             out[f"{key}.alpha"] = np.asarray(float(leaf["scale"]) * a.shape[1], dtype)
         else:
-            raise NotImplementedError(f"LoRA layout '{fmt}' (ported: peft, kohya)")
+            raise NotImplementedError(f"LoRA layout '{fmt}' (ported: peft, comfy, kohya)")
     return out
 
 
 def _module_name(key: str, kohya_names: dict[str, str] | None,
                  module_name: Callable[[str], str] | None = None) -> str:
-    if key.startswith(ROOT + "."):
-        name = key[len(ROOT) + 1:]
-        return module_name(name) if module_name is not None else name
+    for root in ROOTS.values():
+        if key.startswith(root + "."):
+            name = key[len(root) + 1:]
+            return module_name(name) if module_name is not None else name
     if key.startswith(KOHYA_PREFIX + "_"):
         if kohya_names is None:
             raise ValueError(f"LoRA key '{key}': a kohya key needs the model's module names")
@@ -70,7 +74,7 @@ def _module_name(key: str, kohya_names: dict[str, str] | None,
         if name is None:
             raise KeyError(f"LoRA key '{key}' names no module of this model")
         return name
-    raise NotImplementedError(f"LoRA key '{key}': only the PEFT and the UNet's kohya layouts are ported")
+    raise NotImplementedError(f"LoRA key '{key}': only the PEFT, ComfyUI and the UNet's kohya layouts are ported")
 
 
 def unflatten_lora(flat: dict[str, np.ndarray], module_names: Iterable[str] | None = None,

@@ -17,13 +17,15 @@ resolution) with the latent cache in memory or on disk
 validation batch -> a first sample -> train loop (``train/step.py``) with
 the validation, save and sample cadences -> final save of the LoRA (the EMA
 copy when EMA is on) in
-the PEFT layout for a flow-matching DiT, under the module names the JAX job
-writes (the model's ``lora_key``, Wan's JAX paths), the kohya layout
-(``lora_unet_...``) for the UNet -> a final sample. A video model (Wan)
+the PEFT layout for a flow-matching DiT (the ComfyUI one where the model's
+``lora_key_layout`` asks for it: Qwen-Image), under the module names the
+JAX job writes (the model's ``lora_key``: Wan's and sd3's JAX paths), the
+kohya layout (``lora_unet_...``) for the UNet -> a final sample. A video model (Wan)
 snaps each dataset's ``num_frames`` to its VAE's frame grid and trains on
 5-D latents ``[B, T, h, w, C]``; with a dataset's ``do_i2v`` the first
 frame of each clip goes through an i2v arch's vision tower into
-``img_cond``. A control arch (flux_kontext, ``model_kwargs.control``)
+``img_cond``. A control arch (flux_kontext, ``model_kwargs.control``, and
+qwen_image_edit, which joins them to the image tokens along the sequence)
 encodes each batch's ``control_pixels`` through the VAE into
 ``control_latents``; flex2 assembles its ``[inpaint, mask, control]``
 tensor on the host from the clean latents, the batch's ``inpaint_keep``
@@ -268,7 +270,8 @@ class SDTrainProcess:
             if d.control_path and not model.takes_control:
                 raise NotImplementedError(
                     f"dataset {d.folder_path}: control_path on arch '{arch}', which takes no control latents "
-                    f"(ported: flex2, flux_kontext, model_kwargs.control; the control adapters: later slices)")
+                    f"(ported: flex2, flux_kontext, model_kwargs.control, qwen_image_edit; the control adapters: "
+                    f"later slices)")
             if d.inpaint_path and arch != "flex2":
                 raise NotImplementedError(f"dataset {d.folder_path}: inpaint_path feeds flex2's inpaint channels; "
                                           f"on arch '{arch}' it belongs to the control-LoRA adapter (later slice)")
@@ -289,6 +292,8 @@ class SDTrainProcess:
         if self.full_finetune and len(model.experts) > 1:
             raise NotImplementedError("the full fine-tune of a multistage pair comes with a later slice")
         ckpt.key_map = getattr(model, "lora_key", None)
+        if hasattr(model, "lora_key_layout"):  # the JAX job's per-arch layout (Qwen-Image: comfy)
+            ckpt.fmt = model.lora_key_layout()
         self._refuse_control_options(model)
         t0 = time.perf_counter()
         variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed),

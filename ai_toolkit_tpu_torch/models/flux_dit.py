@@ -16,8 +16,16 @@ latent width. Chroma (``chroma_mod``) drops ``time_in``, ``vector_in``,
 ``guidance_in`` and every block's modulation projection: one
 :class:`Approximator` (BFL ``distilled_guidance_layer``) maps the timestep,
 the guidance and a sinusoidal index of each modulation vector to all of
-them (JAX ``flux_dit.py:656-679``). The NeRF head of chroma_radiance and the
-SD3 flags belong to later slices and have no field here.
+them (JAX ``flux_dit.py:656-679``). The SD3 (diffusers MMDiT) flags of
+the JAX config: ``qk_norm`` off (sd3-medium has no QK RMSNorm), a learned
+absolute ``pos_embed`` table added after ``img_in`` and read at the
+centre-cropped rows ``pos_ids`` (``pos_embed_max_size``), a last
+``final_block`` that is context_pre_only (:class:`FinalDoubleBlock`) and
+``dual_attention_layers`` leading ``dual_blocks`` whose image stream adds an
+image-only attention ``img2_attn`` (sd3.5-medium); the blocks run
+``dual_blocks`` -> ``double_blocks`` -> ``final_block`` -> ``single_blocks``,
+each stack indexed from 0 as the JAX stacks are. The NeRF head of
+chroma_radiance belongs to a later slice and has no field here.
 
 Gradient checkpointing (``FluxDiT.gradient_checkpointing``) wraps every block
 in ``torch.utils.checkpoint`` with the JAX ``dots_flash`` remat policy
@@ -25,6 +33,9 @@ in ``torch.utils.checkpoint`` with the JAX ``dots_flash`` remat policy
 products without batch dims (``aten.mm`` / ``aten.addmm``) and of the flash
 forward (``ait::flash_attention_fwd``: out and lse) are kept, everything else
 is recomputed, so the backward never re-runs the attention forward kernel.
+``FluxConfig.checkpoint_policy = "full"`` keeps only each block's inputs and
+recomputes the whole block (JAX ``remat_policy: "full"``), for a DiT whose
+saved products would not fit (Qwen-Image's 60 blocks).
 The grouped MoE op (``ait::grouped_swiglu``) is recomputed, as JAX's
 ``dots_with_no_batch_dims_saveable`` recomputes the Pallas call: a
 checkpointed step launches its forward kernel twice per MoE layer.
@@ -82,6 +93,17 @@ class FluxConfig:
     chroma_mod: bool = False
     approximator_hidden: int = 5120
     approximator_depth: int = 5
+    # SD3 / MMDiT: QK RMSNorm (off in sd3-medium), the learned absolute position
+    # table [1, m*m, h] (0: none), the context_pre_only last block, the leading
+    # blocks with a second image-only attention (sd3.5-medium)
+    qk_norm: bool = True
+    pos_embed_max_size: int = 0
+    final_context_pre_only: bool = False
+    dual_attention_layers: int = 0
+    # what a checkpointed block keeps: "dots_flash" (the products and the flash
+    # forward's out / lse) or "full" (only the block inputs); JAX's field is
+    # remat_policy, whose default is "full"
+    checkpoint_policy: str = "dots_flash"
     dtype: torch.dtype = torch.bfloat16
 
     @classmethod
@@ -170,31 +192,36 @@ class QKNorm(nn.Module):
         return self.query_norm(q), self.key_norm(k)
 
 
-def _qkv_heads(cfg: FluxConfig, qkv: torch.Tensor, norm: QKNorm):
+def _qkv_heads(cfg: FluxConfig, qkv: torch.Tensor, norm: QKNorm | None):
     """Fused qkv output -> QK-normed q, k and v ``[B, S, H, D]``; the norm runs
-    per head, or over the full inner dim (hidream)."""
+    per head, or over the full inner dim (hidream), or not at all (``norm``
+    None: sd3-medium)."""
     if cfg.qk_norm_across_heads:
         q, k, v = qkv.chunk(3, dim=-1)
         q, k = norm(q, k)
         return tuple(t.unflatten(-1, (cfg.num_heads, cfg.head_dim)) for t in (q, k, v))
     q, k, v = qkv.unflatten(-1, (3, cfg.num_heads, cfg.head_dim)).unbind(2)
-    return (*norm(q, k), v)
+    return (q, k, v) if norm is None else (*norm(q, k), v)
 
 
-def _qk_norm(cfg: FluxConfig, device) -> QKNorm:
+def _qk_norm(cfg: FluxConfig, device) -> QKNorm | None:
+    if not cfg.qk_norm:
+        return None
     return QKNorm(cfg.hidden_size if cfg.qk_norm_across_heads else cfg.head_dim, device=device)
 
 
 class SelfAttention(nn.Module):
-    """BFL ``img_attn``/``txt_attn``: fused qkv, QK norm, out proj."""
+    """BFL ``img_attn``/``txt_attn``: fused qkv, QK norm, out proj (none for
+    the text stream of a context_pre_only block, ``proj=False``)."""
 
-    def __init__(self, cfg: FluxConfig, *, device=None):
+    def __init__(self, cfg: FluxConfig, *, proj: bool = True, device=None):
         super().__init__()
         h = cfg.hidden_size
         self.cfg = cfg
         self.qkv = Linear(h, 3 * h, device=device, dtype=cfg.dtype)
         self.norm = _qk_norm(cfg, device)
-        self.proj = Linear(h, h, device=device, dtype=cfg.dtype)
+        if proj:
+            self.proj = Linear(h, h, device=device, dtype=cfg.dtype)
 
     def qkv_heads(self, x):
         return _qkv_heads(self.cfg, self.qkv(x), self.norm)
@@ -299,16 +326,22 @@ def _mlp(cfg: FluxConfig, device, moe: bool = True) -> nn.Module:
 class DoubleBlock(nn.Module):
     """With ``chroma_mod`` the block has no ``img_mod`` / ``txt_mod``: it takes
     ``mod`` = (image, text) vectors ``[B, 2, 3, h]`` (two sets of shift,
-    scale, gate) from the Approximator."""
+    scale, gate) from the Approximator. A ``dual`` block (sd3.5-medium's
+    SD35AdaLayerNormZeroX) has a 9-way ``img_mod`` whose last three chunks
+    drive ``img2_attn``, an image-only attention off the same pre-attention
+    norm, over the image rows of the rope table (JAX ``flux_dit.py:408-463``)."""
 
-    def __init__(self, cfg: FluxConfig, *, device=None):
+    def __init__(self, cfg: FluxConfig, *, dual: bool = False, device=None):
         super().__init__()
         h = cfg.hidden_size
+        self.dual = dual
         # registered in this order, so a seeded init draws flux's weights as before
         if not cfg.chroma_mod:
-            self.img_mod = AdaLayerNormZero(h, 6, device=device, dtype=cfg.dtype)
+            self.img_mod = AdaLayerNormZero(h, 9 if dual else 6, device=device, dtype=cfg.dtype)
         self.img_norm1, self.img_norm2 = _norm(cfg), _norm(cfg)
         self.img_attn = SelfAttention(cfg, device=device)
+        if dual:
+            self.img2_attn = SelfAttention(cfg, device=device)
         self.img_mlp = _mlp(cfg, device)
         if not cfg.chroma_mod:
             self.txt_mod = AdaLayerNormZero(h, 6, device=device, dtype=cfg.dtype)
@@ -322,9 +355,10 @@ class DoubleBlock(nn.Module):
             i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = im.flatten(1, 2).unbind(1)
             t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = tm.flatten(1, 2).unbind(1)
         else:
-            i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = self.img_mod(vec)
+            i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2, *i_dual = self.img_mod(vec)
             t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2 = self.txt_mod(vec)
-        iq, ik, iv = self.img_attn.qkv_heads(modulate(self.img_norm1(img), i_shift1, i_scale1))
+        img_ln = self.img_norm1(img)
+        iq, ik, iv = self.img_attn.qkv_heads(modulate(img_ln, i_shift1, i_scale1))
         tq, tk, tv = self.txt_attn.qkv_heads(modulate(self.txt_norm1(txt), t_shift1, t_scale1))
         # joint attention over [txt | img]
         attn = _attend(torch.cat([tq, iq], dim=1), torch.cat([tk, ik], dim=1),
@@ -333,10 +367,63 @@ class DoubleBlock(nn.Module):
         t_attn, i_attn = attn[:, :s_txt].flatten(2), attn[:, s_txt:].flatten(2)
 
         img = img + i_gate1[:, None] * self.img_attn.proj(i_attn)
+        if self.dual:
+            i_shift3, i_scale3, i_gate3 = i_dual
+            q2, k2, v2 = self.img2_attn.qkv_heads(modulate(img_ln, i_shift3, i_scale3))
+            img = img + i_gate3[:, None] * self.img2_attn.proj(_attend(q2, k2, v2, pe[:, s_txt:]).flatten(2))
         img = img + i_gate2[:, None] * self.img_mlp(modulate(self.img_norm2(img), i_shift2, i_scale2))
         txt = txt + t_gate1[:, None] * self.txt_attn.proj(t_attn)
         txt = txt + t_gate2[:, None] * self.txt_mlp(modulate(self.txt_norm2(txt), t_shift2, t_scale2))
         return img, txt
+
+
+class FinalDoubleBlock(nn.Module):
+    """SD3's last joint block (diffusers JointTransformerBlock with
+    context_pre_only, JAX ``FinalDoubleBlock``): the text stream is normed by
+    a continuous AdaLN, ``txt_mod`` (a plain Linear on ``silu(vec)``, chunks in
+    diffusers' (scale, shift) order), and feeds q, k and v to the joint
+    attention; it has no output projection or FFN, and only the image
+    stream comes out."""
+
+    def __init__(self, cfg: FluxConfig, *, device=None):
+        super().__init__()
+        h = cfg.hidden_size
+        self.img_mod = AdaLayerNormZero(h, 6, device=device, dtype=cfg.dtype)
+        self.img_norm1, self.img_norm2 = _norm(cfg), _norm(cfg)
+        self.img_attn = SelfAttention(cfg, device=device)
+        self.img_mlp = _mlp(cfg, device)
+        self.txt_mod = Linear(h, 2 * h, device=device, dtype=cfg.dtype)
+        self.txt_norm1 = _norm(cfg)
+        self.txt_attn = SelfAttention(cfg, proj=False, device=device)
+
+    def forward(self, img, txt, vec, pe, mask=None):
+        i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = self.img_mod(vec)
+        t_scale, t_shift = self.txt_mod(F.silu(vec.to(self.txt_mod.compute_dtype))).chunk(2, dim=-1)
+        iq, ik, iv = self.img_attn.qkv_heads(modulate(self.img_norm1(img), i_shift1, i_scale1))
+        tq, tk, tv = self.txt_attn.qkv_heads(modulate(self.txt_norm1(txt), t_shift, t_scale))
+        attn = _attend(torch.cat([tq, iq], dim=1), torch.cat([tk, ik], dim=1),
+                       torch.cat([tv, iv], dim=1), pe, mask)
+        img = img + i_gate1[:, None] * self.img_attn.proj(attn[:, txt.shape[1]:].flatten(2))
+        return img + i_gate2[:, None] * self.img_mlp(modulate(self.img_norm2(img), i_shift2, i_scale2))
+
+
+class PosEmbed(nn.Module):
+    """SD3's learned absolute position table ``pos_embed`` ``[1, m*m, h]``
+    (diffusers ``pos_embed.pos_embed``), normal(0.02) init."""
+
+    def __init__(self, cfg: FluxConfig, *, device=None):
+        super().__init__()
+        m = cfg.pos_embed_max_size
+        self.pos_embed = nn.Parameter(torch.empty(1, m * m, cfg.hidden_size, device=device, dtype=cfg.dtype))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        tmp = torch.empty(self.pos_embed.shape, dtype=torch.float32, device=self.pos_embed.device)
+        self.pos_embed.copy_(tmp.normal_(0.0, 0.02, generator=generator))
+
+    def forward(self, img: torch.Tensor, pos_ids: torch.Tensor | None) -> torch.Tensor:
+        if pos_ids is None:
+            pos_ids = torch.arange(img.shape[1], device=img.device)
+        return img + self.pos_embed[:, pos_ids].to(img.dtype)
 
 
 class SingleBlock(nn.Module):
@@ -428,6 +515,8 @@ class FluxDiT(nn.Module):
         self.gradient_checkpointing = False
         h, dt = cfg.hidden_size, cfg.dtype
         self.img_in = Linear(cfg.in_channels, h, device=device, dtype=dt)
+        if cfg.pos_embed_max_size:
+            self.pos_embed = PosEmbed(cfg, device=device)
         self.txt_in = Linear(cfg.context_dim, h, device=device, dtype=dt)
         if cfg.chroma_mod:
             self.distilled_guidance_layer = Approximator(cfg, device=device)
@@ -436,7 +525,14 @@ class FluxDiT(nn.Module):
             self.vector_in = MLPEmbedder(cfg.vec_dim, h, device=device, dtype=dt)
             if cfg.guidance_embed:
                 self.guidance_in = TimestepEmbedder(h, device=device, dtype=dt)
-        self.double_blocks = nn.ModuleList(DoubleBlock(cfg, device=device) for _ in range(cfg.depth_double))
+        n_dual = 0 if cfg.chroma_mod else cfg.dual_attention_layers
+        n_final = int(cfg.final_context_pre_only)
+        if n_dual:
+            self.dual_blocks = nn.ModuleList(DoubleBlock(cfg, dual=True, device=device) for _ in range(n_dual))
+        self.double_blocks = nn.ModuleList(DoubleBlock(cfg, device=device)
+                                           for _ in range(cfg.depth_double - n_dual - n_final))
+        if n_final:
+            self.final_block = FinalDoubleBlock(cfg, device=device)
         single = MoESingleBlock if cfg.moe_experts else SingleBlock
         self.single_blocks = nn.ModuleList(single(cfg, device=device) for _ in range(cfg.depth_single))
         self.final_layer = LastLayer(cfg, device=device)
@@ -450,9 +546,12 @@ class FluxDiT(nn.Module):
         pe: torch.Tensor,  # [B|1, N_txt+N_img, head_dim/2, 2, 2] rope table
         guidance: torch.Tensor | None = None,  # [B]
         txt_mask: torch.Tensor | None = None,  # [B, N_txt] bool (attn_masking)
+        pos_ids: torch.Tensor | None = None,  # [N_img] rows of pos_embed (sd3)
     ) -> torch.Tensor:
         cfg = self.cfg
         img = self.img_in(img)
+        if cfg.pos_embed_max_size:
+            img = self.pos_embed(img, pos_ids)
         txt = self.txt_in(txt)
         vec = sing_mod = img_mod = txt_mod = fin_mod = None
         if cfg.chroma_mod:
@@ -472,9 +571,13 @@ class FluxDiT(nn.Module):
                                                             device=img.device)], dim=1)
             mask = key_ok[:, None, None, :]
 
+        for blk in getattr(self, "dual_blocks", ()):
+            img, txt = self._block(blk, img, txt, vec, pe, mask)
         for i, blk in enumerate(self.double_blocks):
             mod = ((img_mod[:, i], txt_mod[:, i]),) if cfg.chroma_mod else ()
             img, txt = self._block(blk, img, txt, vec, pe, mask, *mod)
+        if cfg.final_context_pre_only:
+            img = self._block(self.final_block, img, txt, vec, pe, mask)
         x = torch.cat([txt, img], dim=1)
         for i, blk in enumerate(self.single_blocks):
             x = self._block(blk, x, vec, pe, mask, *((sing_mod[:, i],) if cfg.chroma_mod else ()))
@@ -494,14 +597,17 @@ class FluxDiT(nn.Module):
 
     def _block(self, blk: nn.Module, *args):
         if self.gradient_checkpointing and torch.is_grad_enabled():
+            if self.cfg.checkpoint_policy == "full":
+                return checkpoint(blk, *args, use_reentrant=False)
             return checkpoint(blk, *args, use_reentrant=False, context_fn=_dots_flash_context)
         return blk(*args)
 
 
 def flux_lora_targets() -> list[str]:
     """Default LoRA targeting: every Linear of the transformer blocks (JAX
-    ``flux_lora_targets``, over the port's BFL module names)."""
-    return [r"^double_blocks\.", r"^single_blocks\."]
+    ``flux_lora_targets``, over the port's BFL module names; sd3's
+    ``dual_blocks`` and ``final_block`` too)."""
+    return [r"^double_blocks\.", r"^single_blocks\.", r"^dual_blocks\.", r"^final_block\."]
 
 
 def pack_latents(latents: torch.Tensor) -> torch.Tensor:

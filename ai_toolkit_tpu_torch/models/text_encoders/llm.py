@@ -1,5 +1,6 @@
 """Decoder-LLM text encoder (``ai_toolkit_tpu/models/text_encoders/llm.py`` in
-PyTorch), the Llama family that hidream conditions on.
+PyTorch), the Llama family that hidream conditions on and Qwen2.5-VL's text
+tower that Qwen-Image conditions on (``qkv_bias``: Qwen2's q/k/v biases).
 
 Module names follow transformers' ``LlamaModel`` (``embed_tokens``,
 ``layers.{i}.self_attn.q_proj``, ``layers.{i}.mlp.gate_proj``, ``norm``), so
@@ -8,8 +9,9 @@ layers (GQA attention with the half-split RoPE, KV heads repeated; SwiGLU
 MLP) -> final RMSNorm; the hidden states are returned, no LM head. The
 causal (and padding) mask sends attention to the plain path, as the JAX
 package sends masked calls to XLA. The other families' flags of the JAX
-``LLMConfig`` (Qwen2 biases, Gemma2 norms and softcap, interleaved or partial
-RoPE, per-head QK norms, collected layers) raise ``NotImplementedError``.
+``LLMConfig`` (Gemma2 norms and softcap, interleaved or partial RoPE,
+per-head QK norms, biases on every Linear, collected layers) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,6 +56,12 @@ class LLMConfig:
         return cls()
 
     @classmethod
+    def qwen25_7b(cls) -> "LLMConfig":
+        """Qwen2.5-VL-7B's text tower: GQA 28 / 4, q/k/v biases, theta 1e6."""
+        return cls(vocab_size=152_064, d_model=3584, n_layers=28, n_heads=28, n_kv_heads=4, head_dim=128,
+                   d_ff=18944, rope_theta=1_000_000.0, qkv_bias=True, rms_eps=1e-6)
+
+    @classmethod
     def tiny(cls, **kw) -> "LLMConfig":
         base = dict(vocab_size=1000, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16,
                     d_ff=128, dtype=torch.float32)
@@ -61,7 +69,7 @@ class LLMConfig:
         return cls(**base)
 
 
-_OTHER_FAMILIES = ("qkv_bias", "post_norms", "gemma_gelu", "scale_embeddings", "collect_layers",
+_OTHER_FAMILIES = ("post_norms", "gemma_gelu", "scale_embeddings", "collect_layers",
                    "attn_softcap", "query_scale", "qk_head_norm", "all_bias", "rope_interleaved",
                    "partial_rotary")
 
@@ -81,9 +89,10 @@ class LlamaAttention(nn.Module):
         super().__init__()
         d, dt = cfg.d_model, cfg.dtype
         self.cfg = cfg
-        self.q_proj = Linear(d, cfg.n_heads * cfg.head_dim, bias=False, device=device, dtype=dt)
-        self.k_proj = Linear(d, cfg.n_kv_heads * cfg.head_dim, bias=False, device=device, dtype=dt)
-        self.v_proj = Linear(d, cfg.n_kv_heads * cfg.head_dim, bias=False, device=device, dtype=dt)
+        bias = cfg.qkv_bias
+        self.q_proj = Linear(d, cfg.n_heads * cfg.head_dim, bias=bias, device=device, dtype=dt)
+        self.k_proj = Linear(d, cfg.n_kv_heads * cfg.head_dim, bias=bias, device=device, dtype=dt)
+        self.v_proj = Linear(d, cfg.n_kv_heads * cfg.head_dim, bias=bias, device=device, dtype=dt)
         self.o_proj = Linear(cfg.n_heads * cfg.head_dim, d, bias=False, device=device, dtype=dt)
 
     def forward(self, x, mask):
@@ -130,8 +139,8 @@ class LLMEncoder(nn.Module):
         super().__init__()
         changed = [n for n in _OTHER_FAMILIES if getattr(cfg, n) != getattr(LLMConfig, n)]
         if changed:
-            raise NotImplementedError(f"LLMConfig {changed}: the other LLM families (Qwen2, Gemma2, "
-                                      f"Qwen3, Ernie4.5, GLM-4) come with slice G")
+            raise NotImplementedError(f"LLMConfig {changed}: the other LLM families (Gemma2, Qwen3, "
+                                      f"Ernie4.5, GLM-4) come with slice G")
         self.cfg = cfg
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.d_model, 0.02, device=device)
         self.layers = nn.ModuleList(LLMLayer(cfg, device=device) for _ in range(cfg.n_layers))

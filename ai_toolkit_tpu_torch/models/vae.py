@@ -6,7 +6,7 @@ Module names follow diffusers' ``AutoencoderKL`` (``encoder.down_blocks.{i}``,
 as it is. Tensors are NHWC at every public function, as in the JAX package;
 the convs hand cuDNN channels-last NCHW views. The SD and SDXL VAEs
 (``use_quant_conv``) have diffusers' 1x1 ``quant_conv`` after the encoder and
-``post_quant_conv`` before the decoder; the flux VAE has neither.
+``post_quant_conv`` before the decoder; the flux and SD3 VAEs have neither.
 """
 
 from __future__ import annotations
@@ -44,6 +44,11 @@ class VAEConfig:
     @classmethod
     def flux(cls) -> "VAEConfig":
         return cls(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159, use_quant_conv=False)
+
+    @classmethod
+    def sd3(cls) -> "VAEConfig":
+        """SD3 / SD3.5's 16-channel VAE (diffusers ``vae/config.json``)."""
+        return cls(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609, use_quant_conv=False)
 
     @classmethod
     def tiny(cls, **kw) -> "VAEConfig":

@@ -266,8 +266,10 @@ class WanResample(nn.Module):
         x = _conv2d_per_frame(conv, F.pad(x, (0, 0, 0, 1, 0, 1)))  # ZeroPad2d (0, 1, 0, 1)
         if self.mode == "downsample3d":
             # frame 0 passes through; a stride-2 temporal conv over the whole
-            # stream gives frames 1..
-            x = torch.cat([x[:, :1], self.time_conv(x)], dim=1)
+            # stream gives frames 1.. (none for fewer frames than its kernel:
+            # one image, as Qwen-Image encodes, is frame 0 alone)
+            kt = self.time_conv.weight.shape[2]
+            x = torch.cat([x[:, :1], self.time_conv(x)], dim=1) if x.shape[1] >= kt else x[:, :1]
         return x
 
 

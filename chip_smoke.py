@@ -51,6 +51,21 @@ Phases (any failure raises and the script exits non-zero):
      [inpaint | mask | control] layout, a LoRA that moved and reloads, the
      samples; and the flex2 generate job at 1024^2, 8 steps, with a seeded
      ctrl_img and the LoRA it saved;
+  8d. the MMDiT archs: a full-width SD3.5-Large joint block with the
+     context_pre_only block (38 x 64 heads, the learned position table), a
+     sd3.5-medium dual-attention block, a Qwen-Image joint block (a padded
+     text mask, a control segment; its attention on the plain path) and a
+     Qwen2.5-VL layer with its q/k/v biases, in f32, on the card against the
+     CPU; the flash kernels against their plain versions and timed at SD3.5
+     Large's shapes (1,255 / 2,535 / 4,327 tokens, ragged tails, a case of
+     strongly negative logits); configs/examples/train_lora_{sd35_large,
+     qwen_image,qwen_image_edit}_tpu.yaml as written but for their paths
+     and steps (12) on seeded weights, as 8b (the edit file over the seeded
+     control images): 38 launches of each flash kernel every SD3.5-Large
+     step and denoise step, 0 for Qwen-Image, each edit batch's control
+     latents against the VAE encode of its control images; and the
+     qwen_image_edit generate job at 1024^2, 8 steps, with a seeded ctrl_img
+     and the LoRA it saved;
   9. the hidream LoRA ``sd_trainer`` job at
      1024^2 on an fp8 base with the grouped MoE dispatch, launches per step
      checked (``--profile DIR`` profiles its last step too);
@@ -284,8 +299,11 @@ TRAIN_WARMUP = 2
 TRAIN_TIMED = 3
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} [{time.perf_counter() - _T0:.1f} s into the script]", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -778,20 +796,27 @@ def _counts(fwd=0, dq=0, dkv=0, moe=0, moe_dx=0, moe_dw=0) -> dict[str, int]:
 
 
 def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_launches: dict,
-                  ft_launches: dict | None = None) -> None:
-    """A full-width DiT cut to 1 double + 1 single block in f32, on the card
-    against the same module on the CPU (which takes the kernels' plain
-    versions): the forward, one LoRA training step's loss and gradients and,
-    with ``ft_launches``, one full fine-tune step of the double block's expert
-    banks (the dw kernel)."""
-    phase(f"full-width {label} DiT (1 double + 1 single block, f32): card vs CPU")
+                  ft_launches: dict | None = None, cut: dict | None = None,
+                  blocks: str = "1 double + 1 single block", txt_valid: int | None = None,
+                  ctrl: bool = False) -> None:
+    """A full-width DiT cut to ``cut`` (1 double + 1 single block) in f32, on
+    the card against the same module on the CPU (which takes the kernels'
+    plain versions): the forward, one LoRA training step's loss and
+    gradients (the blocks checkpointed under the config's policy) and, with
+    ``ft_launches``, one full fine-tune step of the double block's expert
+    banks (the dw kernel). ``txt_valid``: a key-padding mask keeps that many
+    of the 32 text tokens; ``ctrl``: a control segment as long as the image
+    joins the image tokens on the rope grid's frame 1 (Qwen-Image-Edit)."""
+    phase(f"full-width {label} DiT ({blocks}, f32): card vs CPU")
+    import numpy as np
+
     from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
     from ai_toolkit_tpu_torch.models.flux_dit import FluxDiT
     from ai_toolkit_tpu_torch.ops.layers import init_parameters
     from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
 
     rows_cfg = dataclasses.replace(cfg, dtype=torch.float32)  # chroma: the Approximator's rows at full depth
-    cfg = dataclasses.replace(cfg, depth_double=1, depth_single=1, dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, **(cut or {"depth_double": 1, "depth_single": 1}), dtype=torch.float32)
     # a frozen base, as in LoRA training
     gpu = init_parameters(FluxDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
     gpu.eval().requires_grad_(False)
@@ -799,16 +824,21 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
     cpu.load_state_dict(gpu.state_dict())
     g = torch.Generator().manual_seed(1)
     n_txt, hh, ww = 32, 8, 12
-    inputs = [torch.randn((1, hh * ww, cfg.in_channels), generator=g),
+    inputs = [torch.randn((1, hh * ww * (2 if ctrl else 1), cfg.in_channels), generator=g),
               torch.randn((1, n_txt, cfg.context_dim), generator=g),
               torch.tensor([0.7]), torch.randn((1, cfg.vec_dim), generator=g)]
-    pe = multi_axis_rope(torch.from_numpy(image_position_ids(hh, ww, text_len=n_txt))[None],
-                         list(cfg.axes_dim), cfg.theta)
+    ids = [image_position_ids(hh, ww, text_len=n_txt)]
+    if ctrl:
+        ids.append(image_position_ids(hh, ww).copy())
+        ids[-1][:, 0] = 1
+    pe = multi_axis_rope(torch.from_numpy(np.concatenate(ids))[None], list(cfg.axes_dim), cfg.theta)
     guidance = torch.tensor([4.0])
-    gpu_in = [*(x.cuda() for x in inputs), pe.cuda(), guidance.cuda()]
+    txt_mask = None if txt_valid is None else (torch.arange(n_txt) < txt_valid)[None]
+    inputs_all = [*inputs, pe, guidance, txt_mask]
+    gpu_in = [None if x is None else x.cuda() for x in inputs_all]
     _reset_launches()
     with torch.inference_mode():
-        ref = cpu(*inputs, pe, guidance)
+        ref = cpu(*inputs_all)
         out = gpu(*gpu_in).cpu()
     err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
     tol = 1e-3 * max(1.0, scale)  # f32 both sides, TF32 off; summation order only
@@ -838,7 +868,7 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
             m.b.normal_(0.0, 0.01, generator=gb)
     lc = build_lora(cpu, spec, torch.Generator().manual_seed(2))
     cpu.load_state_dict(gpu.state_dict())
-    gpu.gradient_checkpointing = True  # the dots_flash policy, as in training
+    gpu.gradient_checkpointing = True  # the config's policy, as in training
     target = torch.randn(out.shape, generator=g)
     names = [f"{n}.{leaf}" for n in lg for leaf in ("a", "b", "scale")]
 
@@ -848,7 +878,7 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
 
     def compare(what, gpu_params, cpu_params, expected):
         _reset_launches()
-        ref_loss, ref_grads = loss_and_grads(cpu, cpu_params, [*inputs, pe, guidance], target)
+        ref_loss, ref_grads = loss_and_grads(cpu, cpu_params, inputs_all, target)
         loss, grads = loss_and_grads(gpu, gpu_params, gpu_in, target.cuda())
         launches = _launches()
         worst = max(((gd.cpu() - gr).abs().max() / gr.abs().max().clamp_min(1e-30)).item()
@@ -1083,8 +1113,19 @@ def check_lora_job(result: dict, proc) -> str:
 
     steps = result["steps"]  # the final save's step (a resume runs fewer)
     tr, ema = proc.state.trainable, proc.state.ema
+    # a DiT that ends on a joint block (Qwen-Image) returns only its image
+    # tokens: the last block's text-stream projections reach no loss, their
+    # gradients are zero (in the JAX step too) and their b factors stay zero
+    cfg = getattr(proc.model, "dit_config", None)
+    dead = set()
+    if cfg is not None and getattr(cfg, "depth_single", 1) == 0 and not getattr(cfg, "final_context_pre_only", 1):
+        last = f"double_blocks.{len(proc.variables['dit'].double_blocks) - 1}."
+        dead = {f"{last}{m}.b" for m in ("txt_attn.proj", "txt_mlp.0", "txt_mlp.2")}
     b_keys = [k for k in tr if k.endswith(".b")]
-    check(all(bool(tr[k].abs().max() > 0) for k in b_keys), "a LoRA b factor is still zero")
+    check(all(bool(tr[k].abs().max() > 0) != (k in dead) for k in b_keys),
+          f"a LoRA b factor is still zero, or one of {sorted(dead)} that no loss reaches moved")
+    if dead:
+        print(f"{len(dead)} b factors stay zero as they should (no loss reaches them): {sorted(dead)}")
     check(ema is None or any(not torch.equal(ema[k], tr[k]) for k in tr),
           "the EMA equals the trainable parameters")
     path = result["save_path"]
@@ -1586,18 +1627,18 @@ def flux_shipped_phase(card: str, profile_dir: str | None) -> dict:
 
 
 def _shipped_flux_job(card: str, profile_dir: str | None, example: str, name: str, n_prompts: int,
-                      watch=None, **paths) -> dict:
-    """A shipped flux-family file as written but for its paths (``paths``:
-    the control folders) and 12 steps (one epoch over the 12 items, so every
-    bucket trains), on seeded weights: 57 launches of each flash kernel a
-    step and a denoise step, the quantized base, the three buckets, the disk
-    cache, the first and final samples, a LoRA that moved and reloads;
-    ``watch``: a context manager over the run (the control batches' check).
-    Prints the step ms per bucket, the peak and the sample s beside the card."""
-    flux_step = _counts(BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD, BLOCKS_PER_FORWARD)
+                      watch=None, blocks: int = BLOCKS_PER_FORWARD, **paths) -> dict:
+    """A shipped flux-family (or MMDiT) file as written but for its paths
+    (``paths``: the control folders) and 12 steps (one epoch over the 12
+    items, so every bucket trains), on seeded weights: ``blocks`` launches of
+    each flash kernel a step and a denoise step (flux: 57), the quantized
+    base, the three buckets, the disk cache, the first and final samples, a
+    LoRA that moved and reloads; ``watch``: a context manager over the run
+    (the control batches' check). Prints the step ms per bucket, the peak
+    and the sample s beside the card."""
     with (watch or contextlib.nullcontext()):
-        result, proc, report = _run_job(_shipped_job(example, name, 12, "", **paths), flux_step, profile_dir,
-                                        _counts(fwd=BLOCKS_PER_FORWARD))
+        result, proc, report = _run_job(_shipped_job(example, name, 12, "", **paths),
+                                        _counts(blocks, blocks, blocks), profile_dir, _counts(fwd=blocks))
     check(proc.cfg.model.quantize and proc.cfg.datasets[0].resolution == [512, 768, 1024],
           f"{example} lost its quantized base or its resolutions")
     cache = result["latent_cache"]
@@ -1608,7 +1649,7 @@ def _shipped_flux_job(card: str, profile_dir: str | None, example: str, name: st
     check(sorted(by_bucket) == [(512, 512), (768, 768), (1024, 1024)], f"buckets trained {sorted(by_bucket)}")
     for bucket, ms in sorted(by_bucket.items()):  # each bucket's first step is its cold one
         print(f"{card}: bucket {bucket[0]}x{bucket[1]}: step ms {', '.join(f'{x:.1f}' for x in ms)} "
-              f"(median of all but the first {statistics.median(ms[1:]):.1f}), {BLOCKS_PER_FORWARD} launches of "
+              f"(median of all but the first {statistics.median(ms[1:]):.1f}), {blocks} launches of "
               f"each flash kernel a step")
     _check_samples(result, [0, 12], n_prompts, 1024)
     lora_path = check_lora_job(result, proc)
@@ -2217,7 +2258,7 @@ FLUX_FAMILY = [("chroma", "train_lora_chroma_tpu.yaml", ()), ("flex1", "train_lo
 
 
 def flux_family_phases(card: str, profile_dir: str | None) -> dict:
-    """This slice's phases: the chroma and flex2 DiTs card vs CPU at full
+    """The flux family's phases: the chroma and flex2 DiTs card vs CPU at full
     width, the four shipped flux-family files as written (but for their
     paths and steps) on seeded weights, and the flex2 generate job with a
     ctrl_img. Returns each job's numbers."""
@@ -2255,6 +2296,158 @@ def flux_family_phases(card: str, profile_dir: str | None) -> dict:
     print(f"{card}: flex2 generate job {time.perf_counter() - t0:.1f} s wall, launches {gen}")
     return {arch: {"median_step_ms_by_bucket": r["by_bucket_ms"], "peak_gib": r["peak_gib"],
                    "sample_s": r["sample_s"], "wall_s": r["wall_s"]} for arch, r in out.items()}
+
+
+# SD3.5 Large (38 heads of 64) joins 231 text tokens (77 CLIP + 154 T5) to the image's:
+# 1,255 / 2,535 / 4,327 tokens at 512^2 / 768^2 / 1024^2, each with a ragged tail tile
+# (9 * 128 + 103, 19 * 128 + 103, 33 * 128 + 103)
+SD35L_SHAPES = [((1, 4327, 4327, 38, 64), "1024^2 joint"), ((1, 2535, 2535, 38, 64), "768^2 joint"),
+                ((1, 1255, 1255, 38, 64), "512^2 joint")]
+SD35L_BLOCKS = 38  # 37 joint blocks and the context_pre_only one, one attention each
+# the shipped MMDiT files: (arch, file, the folders chip_smoke adds, flash launches a step)
+MMDIT_FILES = [("sd35_large", "train_lora_sd35_large_tpu.yaml", (), SD35L_BLOCKS),
+               ("qwen_image", "train_lora_qwen_image_tpu.yaml", (), 0),
+               ("qwen_image_edit", "train_lora_qwen_image_edit_tpu.yaml", ("control_path",), 0)]
+
+
+def llm_reference() -> None:
+    """Qwen2.5-VL-7B's text tower at full width cut to one layer, f32, q/k/v
+    biases drawn non-zero, under the eos mask of 40 valid tokens of 256: the
+    card against the CPU (causal, masked: the plain attention, no kernel)."""
+    phase("full-width Qwen2.5-VL-7B text tower (1 layer, q/k/v biases, eos mask), f32: card vs CPU")
+    from ai_toolkit_tpu_torch.models.text_encoders.llm import LLMConfig, LLMEncoder
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    cfg = dataclasses.replace(LLMConfig.qwen25_7b(), n_layers=1, dtype=torch.float32)
+    gpu = init_parameters(LLMEncoder(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0)).eval()
+    attn = gpu.layers[0].self_attn
+    with torch.no_grad():
+        for lin in (attn.q_proj, attn.k_proj, attn.v_proj):
+            lin.bias.normal_(0.0, 0.5, generator=torch.Generator("cuda").manual_seed(1))
+    cpu = LLMEncoder(cfg, device="cpu").eval()
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(3, cfg.vocab_size, (1, 256), generator=g)
+    mask = (torch.arange(256) < 40)[None]
+    _reset_launches()
+    with torch.inference_mode():
+        ref = cpu(ids, mask)
+        out = gpu(ids.cuda(), mask.cuda()).cpu()
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    tol = 1e-3 * max(1.0, scale)
+    print(f"Qwen2.5 layer: out {tuple(out.shape)} max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {tol:.3e}) "
+          f"kernel launches={_launches()}")
+    check(bool(torch.isfinite(out).all()) and err <= tol and _launches() == _counts(),
+          "the Qwen2.5 layer on the card disagrees with the CPU")
+    del gpu, cpu
+
+
+QWEN_EDIT_ATTENTION = (1, 8448, 24, 128)  # 256 text + 4,096 image + 4,096 control tokens at 1024^2
+
+
+def masked_attention_times(card: str, valid: int = 20) -> dict:
+    """Qwen-Image-Edit's joint attention at 1024^2 (bf16, a key-padding mask
+    keeping ``valid`` of the 256 text tokens): the plain version it runs
+    (f32 logits, 6.85 GB, ``ops.attention.reference_attention``) against
+    ``scaled_dot_product_attention`` with the same boolean mask, forward and
+    forward with backward, CUDA events, in turns; the lever a key-padding
+    flash kernel would pull (ROADMAP "Beside the queue")."""
+    from ai_toolkit_tpu_torch.ops.attention import reference_attention
+
+    phase(f"Qwen-Image-Edit's masked joint attention {QWEN_EDIT_ATTENTION} bf16 ({valid} of 256 text tokens "
+          f"valid): the plain version against SDPA")
+    b, s_, h, d = QWEN_EDIT_ATTENTION
+    gen = torch.Generator("cuda").manual_seed(16)
+    q, k, v, g = (_rand(QWEN_EDIT_ATTENTION, torch.bfloat16, gen) for _ in range(4))
+    key_ok = torch.ones((b, s_), dtype=torch.bool, device="cuda")
+    key_ok[:, valid:256] = False
+    mask = key_ok[:, None, None, :]
+    qt, kt, vt, gt = _sdpa_layout(q, k, v, g)
+
+    def plain_fb():
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        torch.autograd.grad(reference_attention(qq, kk, vv, mask=mask), (qq, kk, vv), g)
+
+    def sdpa_fb():
+        qq, kk, vv = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        torch.autograd.grad(F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask), (qq, kk, vv), gt)
+
+    ref = reference_attention(q, k, v, mask=mask).float()
+    err = (F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2).float() - ref).abs().max()
+    del ref
+    out = {}
+    for label, plain, lib in (("forward", lambda: reference_attention(q, k, v, mask=mask),
+                               lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
+                              ("forward and backward", plain_fb, sdpa_fb)):
+        lib_ms, plain_ms, n = _in_turns(lib, plain, reps=5)
+        out[label] = {"plain_ms": plain_ms, "sdpa_ms": lib_ms}
+        print(f"{card}: {label}: plain {plain_ms:.4f} ms, SDPA with the mask {lib_ms:.4f} ms "
+              f"({plain_ms / lib_ms:.2f}x; medians of {n})")
+    t = s_ - (256 - valid)  # the keys the mask keeps
+    bound, by = _bound_ms(4 * b * h * s_ * t * d, 2 * (2 * b * s_ * h * d + 2 * b * t * h * d))
+    print(f"forward bound over the {t} kept keys {bound:.4f} ms ({by}); SDPA max|out - plain| {err.item():.3e}")
+    check(err.item() <= 2e-2, "SDPA with the mask disagrees with the plain masked attention")
+    del q, k, v, g, qt, kt, vt, gt
+    torch.cuda.empty_cache()
+    return {**out, "bound_ms": bound, "bound_by": by}
+
+
+def mmdit_phases(card: str, profile_dir: str | None) -> dict:
+    """The MMDiT slice: SD3.5-Large, sd3.5-medium and Qwen-Image DiT blocks and
+    a Qwen2.5 layer card vs CPU, the flash kernels at SD3.5 Large's shapes, the
+    three shipped files as written (but for their paths and steps) on seeded
+    weights, and the qwen_image_edit generate job with a ctrl_img and the
+    LoRA it saved. Returns each job's numbers and the flash times."""
+    from ai_toolkit_tpu_torch.models.flux_dit import flux_lora_targets
+    from ai_toolkit_tpu_torch.models.qwen_model import QWEN_DIT
+    from ai_toolkit_tpu_torch.models.sd3_model import sd3_dit_config
+
+    dit_reference("SD3.5-Large (38 x 64 heads, the learned position table)", sd3_dit_config("sd35_large", "large"),
+                  flux_lora_targets(), _counts(fwd=2), _counts(2, 2, 2),
+                  cut={"depth_double": 2}, blocks="1 joint block + the context_pre_only block")
+    dit_reference("sd3.5-medium (24 x 64 heads)", sd3_dit_config("sd35", "medium"), flux_lora_targets(),
+                  _counts(fwd=2), _counts(2, 2, 2),
+                  cut={"depth_double": 1, "dual_attention_layers": 1, "final_context_pre_only": False},
+                  blocks="1 dual-attention block: the joint and the image-only attention")
+    # the padded mask sends the joint attention to the plain path, as JAX sends it to XLA
+    dit_reference("Qwen-Image (24 x 128 heads)", QWEN_DIT, flux_lora_targets(), _counts(), _counts(),
+                  cut={"depth_double": 1}, blocks="1 joint block, 20 of 32 text tokens, a control segment",
+                  txt_valid=20, ctrl=True)
+    llm_reference()
+    neg = torch.Generator("cuda").manual_seed(12)
+    shape = (1, 1255, 1255, 38, 64)
+    err = flash_checks("flash kernels vs plain versions at SD3.5 Large's shapes (38 x 64 heads), bf16",
+                       [(s, label, True, None) for s, label in SD35L_SHAPES]
+                       + [(shape, "512^2 joint, negative logits", True, _negative_qkv(shape, 3.8, neg))], 13)
+    times = attention_times("flash kernels at SD3.5 Large's shapes (38 x 64 heads), bf16", "SD3.5-L",
+                            [(s, label, True) for s, label in SD35L_SHAPES], 14)
+    masked = masked_attention_times(card)
+    ctrl, _ = _control_folders()
+    out = {}
+    for arch, example, extra, blocks in MMDIT_FILES:
+        phase(f"{arch} LoRA sd_trainer job, configs/examples/{example} as written with seeded weights"
+              + (f" and the seeded {' and '.join(extra)}" if extra else "")
+              + f": qfloat8 base, resolutions [512, 768, 1024] (12 items, 3 buckets), the disk latent cache, "
+                f"its prompt at 1024x1024 and 20 steps first and final, 12 steps, {blocks} flash launches a step")
+        watch = _ControlBatches(arch) if extra else None
+        out[arch] = _shipped_flux_job(card, profile_dir, example, f"smoke_{arch}_shipped", 1, watch, blocks,
+                                      **{k: ctrl for k in extra})
+        if watch is not None:
+            _check_control_batches(watch.seen, arch)
+    phase("qwen_image_edit generate job, 1024x1024, 8 steps, 1 prompt with a seeded ctrl_img, bf16 base, with the "
+          "LoRA of the shipped qwen_image_edit job (8,448 tokens, the plain masked attention)")
+    t0 = time.perf_counter()
+    gen = generate_job({"name_or_path": "", "arch": "qwen_image_edit"}, 1024, 1024, 8,
+                       [{"prompt": "a photo of a lighthouse on a cliff", "ctrl_img": os.path.join(ctrl, "img_1.png")}],
+                       _counts(), lora_path=out["qwen_image_edit"]["lora_path"])
+    print(f"{card}: qwen_image_edit generate job {time.perf_counter() - t0:.1f} s wall, launches {gen}")
+    return {"jobs": {arch: {"median_step_ms_by_bucket": r["by_bucket_ms"], "peak_gib": r["peak_gib"],
+                            "sample_s": r["sample_s"], "wall_s": r["wall_s"]} for arch, r in out.items()},
+            "flash_max_abs_err": err, "qwen_edit_masked_attention": masked,
+            "flash_ms": {label: {k: row[k]["ms"] for k in row} for label, row in times.items()},
+            "flash_device_ms": {label: {k: row[k]["device_ms"] for k in row} for label, row in times.items()},
+            "sdpa_ms": {label: {"fwd": row["fwd"]["library_ms"], "bwd": row["dq"]["library_ms"]}
+                        for label, row in times.items()}}
 
 
 def main(argv: list[str]) -> int:
@@ -2300,6 +2493,7 @@ def main(argv: list[str]) -> int:
 
     flux_shipped = flux_shipped_phase(card, args.profile)
     flux_family = flux_family_phases(card, args.profile)
+    mmdit = mmdit_phases(card, args.profile)
 
     phase("hidream LoRA sd_trainer job, 1024x1024, fp8 base, grouped MoE, batch 1, rank 16, adamw8bit, EMA")
     # per step: the attention forward once per block (its outputs are kept by the
@@ -2349,7 +2543,8 @@ def main(argv: list[str]) -> int:
                  "resumed_wall_s": sdxl["resumed"]["wall_s"]},
         "flux_qfloat8": {"median_step_ms_by_bucket": flux_shipped["by_bucket_ms"], "peak_gib": flux_shipped["peak_gib"],
                       "wall_s": flux_shipped["wall_s"]},
-        "flux_family_qfloat8": flux_family}}))
+        "flux_family_qfloat8": flux_family,
+        "mmdit_qfloat8": mmdit}}))
 
     neg = torch.Generator("cuda").manual_seed(8)
     wan_err = flash_checks("flash kernels vs plain versions at Wan 2.1's shapes (head_dim 128), bf16",

@@ -146,8 +146,10 @@ def test_archs_build_the_jax_configs(arch, size):
     19 double blocks (the JAX fault, pinned in test_flex_double_blocks)."""
     ours = FluxModel(ModelConfig.from_dict(_cfg(arch, size)), device="meta").dit_config
     ref = JFluxModel(JModelConfig.from_dict(_cfg(arch, size))).dit_config
-    shared = [f.name for f in dataclasses.fields(ours) if f.name != "dtype"]
+    # checkpoint_policy is the port's own field (JAX's is remat_policy): flux keeps dots_flash
+    shared = [f.name for f in dataclasses.fields(ours) if f.name not in ("dtype", "checkpoint_policy")]
     assert {f: getattr(ours, f) for f in shared} == {f: getattr(ref, f) for f in shared}
+    assert ours.checkpoint_policy == "dots_flash"
     if size == "dev":
         expect = {"chroma": (64, None, 0, 5120), "flex2": (196, 64, 132, 5120), "flux_kontext": (128, 64, 64, 5120)}
         got = (ours.in_channels, ours.out_channels, ours.control_channels, ours.approximator_hidden)

@@ -120,6 +120,9 @@ _WAN_MODULES = ("ai_toolkit_tpu_torch.models.wan_dit", "ai_toolkit_tpu_torch.mod
 _FLUX_FAMILY_MODULES = ("ai_toolkit_tpu_torch.models.flux_dit", "ai_toolkit_tpu_torch.models.flux_model",
                         "ai_toolkit_tpu_torch.data.loader", "ai_toolkit_tpu_torch.io.from_jax",
                         "ai_toolkit_tpu_torch.jobs.train_process", "ai_toolkit_tpu_torch.models.registry")
+# the MMDiT archs' modules (sd3, sd35, sd35_large, qwen_image, qwen_image_edit)
+_MMDIT_MODULES = ("ai_toolkit_tpu_torch.models.sd3_model", "ai_toolkit_tpu_torch.models.qwen_model",
+                  "ai_toolkit_tpu_torch.io.sd3_layout", "ai_toolkit_tpu_torch.io.lora_file")
 
 
 def test_port_imports_without_jax():
@@ -135,6 +138,7 @@ def test_port_imports_without_jax():
     assert imported.issuperset(_SDXL_MODULES), sorted(set(_SDXL_MODULES) - imported)
     assert imported.issuperset(_WAN_MODULES), sorted(set(_WAN_MODULES) - imported)
     assert imported.issuperset(_FLUX_FAMILY_MODULES), sorted(set(_FLUX_FAMILY_MODULES) - imported)
+    assert imported.issuperset(_MMDIT_MODULES), sorted(set(_MMDIT_MODULES) - imported)
 
 
 def test_chip_smoke_fails_without_cuda():
