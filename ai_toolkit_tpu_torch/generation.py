@@ -19,10 +19,11 @@ with the control latents of the model's ``sampling_control_latents`` (the
 encoded ``ctrl_img``, or the blank layout without one: zeros for
 qwen_image_edit, whose rope table always holds the control tokens, JAX's
 ``is_edit`` branch), and chroma's Approximator takes the sample's
-``guidance_scale`` as its guidance, as in JAX. SD3 and Qwen-Image sample
-with no CFG pass: the JAX ``generate_flux`` gives them none, and their
-``guidance_scale`` reaches only a ``guidance`` their DiTs do not read
-(ROADMAP Queue 3). Unported branches of the JAX ``generate_flux`` (the
+``guidance_scale`` as its guidance, as in JAX. SD3, Qwen-Image, Lumina2
+and OmniGen2 sample with no CFG pass: the JAX ``generate_flux`` gives them
+none, and their ``guidance_scale`` reaches only a ``guidance`` their DiTs
+do not read (ROADMAP Queue 3); OmniGen2 samples without references, as
+JAX gives it none (its ``sampling_control_latents`` is ``None``). Unported branches of the JAX ``generate_flux`` (the
 unconditional LoRA, the multi-reference edit archs' ``ctrl_img_2`` /
 ``ctrl_img_3``, IP-adapter
 conditioning, ``use_flux_cfg`` negative passes, x0-prediction and

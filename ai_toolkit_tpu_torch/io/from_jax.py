@@ -254,9 +254,27 @@ _LLM = [
 ]
 
 
-def llm_state_dict(tree: dict) -> dict[str, torch.Tensor]:
-    return _convert(tree, lambda p: _lookup(_LLM, p, "llm"),
-                    extra={"token_embedding": ["embed_tokens.weight"]})
+# Gemma2: post_attention_layernorm is the norm after attention (JAX llm_rules(gemma=True))
+_GEMMA = [
+    (r"layer_(\d+)/(q|k|v|o)", "layers.{0}.self_attn.{1}_proj"),
+    (r"layer_(\d+)/input_norm", "layers.{0}.input_layernorm"),
+    (r"layer_(\d+)/post_attn_norm", "layers.{0}.post_attention_layernorm"),
+    (r"layer_(\d+)/pre_mlp_norm", "layers.{0}.pre_feedforward_layernorm"),
+    (r"layer_(\d+)/post_mlp_norm", "layers.{0}.post_feedforward_layernorm"),
+    (r"layer_(\d+)/(gate|up|down)", "layers.{0}.mlp.{1}_proj"),
+    (r"final_norm", "norm"),
+]
+
+
+def llm_state_dict(tree: dict, gemma: bool = False) -> dict[str, torch.Tensor]:
+    """JAX ``LLMEncoder`` params -> transformers names. ``gemma``: Gemma2's
+    names, and each norm's f32 scale ``1 + w`` back to the stored ``w``
+    (``models/text_encoders/llm.GemmaRMSNorm``)."""
+    sd = _convert(tree, lambda p: _lookup(_GEMMA if gemma else _LLM, p, "llm"),
+                  extra={"token_embedding": ["embed_tokens.weight"]})
+    if gemma:
+        sd = {k: v - 1.0 if k.endswith("norm.weight") else v for k, v in sd.items()}
+    return sd
 
 
 # ---- T5 (transformers names) ----
@@ -554,6 +572,70 @@ def wan_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
                     leaf["a"][i], leaf["b"][i], scales[i if scales.size > 1 else 0])
         else:
             out[_wan_module(mod)] = _lora_entry(leaf["a"], leaf["b"], np.reshape(leaf["scale"], -1)[0])
+    return out
+
+
+# ---- Lumina2 / OmniGen2 NextDiT (diffusers names) ----
+
+_NEXTDIT_BLOCK = [
+    ("norm1_lin", "norm1.linear"), (r"attn/to_(q|k|v)", "attn.to_{0}"), ("attn/to_out", "attn.to_out.0"),
+    (r"attn/(q|k)_norm", "attn.norm_{0}"), (r"ffn_w(1|2|3)", "feed_forward.linear_{0}"),
+    (r"(norm2|ffn_norm1|ffn_norm2)", "{0}"),
+]
+_NEXTDIT_TOP = [
+    ("x_embedder", "x_embedder"), ("ref_embedder", "ref_image_patch_embedder"),
+    ("time_in/in_layer", "time_caption_embed.timestep_embedder.linear_1"),
+    ("time_in/out_layer", "time_caption_embed.timestep_embedder.linear_2"),
+    ("cap_norm", "time_caption_embed.caption_embedder.0"), ("cap_proj", "time_caption_embed.caption_embedder.1"),
+    ("final_mod", "norm_out.linear_1"), ("final_proj", "norm_out.linear_2"),
+]
+_NEXTDIT_STACKS = {"layer_": "layers", "noise_refiner_": "noise_refiner", "context_refiner_": "context_refiner",
+                   "ref_refiner_": "ref_image_refiner"}
+
+
+def _nextdit_module(path: str) -> str:
+    m = re.fullmatch(r"(layer_|noise_refiner_|context_refiner_|ref_refiner_)(\d+)/(.+)", path)
+    if not m:
+        return _lookup(_NEXTDIT_TOP, path, "nextdit")
+    prefix, i, rest = m.groups()
+    stack = _NEXTDIT_STACKS[prefix]
+    if rest == "norm1_norm":  # the caption refiner's norm1 is the plain RMSNorm
+        return f"{stack}.{i}.norm1" + ("" if stack == "context_refiner" else ".norm")
+    return f"{stack}.{i}." + _lookup(_NEXTDIT_BLOCK, rest, "nextdit")
+
+
+def nextdit_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``Lumina2DiT`` / ``OmniGen2DiT`` params (the joint stack unrolled,
+    ``layer_{i}``, or scanned, ``layers/block``) -> the port's diffusers-named
+    state dict; ``image_index_emb`` -> ``image_index_embedding``."""
+    tree = _unscan(tree, (("layers", "layer_"),))
+    return _convert(tree, _nextdit_module, extra={"image_index_emb": ["image_index_embedding"]})
+
+
+def nextdit_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``Lumina2Model`` / ``OmniGen2Model`` variables ``{dit, vae, te}`` at
+    ``size: tiny`` (the Llama text tower) -> per-component state dicts."""
+    return {"dit": nextdit_state_dict(variables["dit"]), "vae": vae_state_dict(variables["vae"]),
+            "te": llm_state_dict(variables["te"])}
+
+
+def nextdit_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX NextDiT ``lora`` collection, the joint stack unrolled or scanned
+    (``layers/block/attn/to_q`` with ``[L, in, r]`` / ``[L, r, out]``) ->
+    ``{port module name: {a, b, scale}}``."""
+    groups: dict[str, dict[str, np.ndarray]] = {}
+    for path, v in _flatten(tree).items():
+        mod, leaf = path.rsplit("/", 1)
+        groups.setdefault(mod, {})[leaf] = v
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for mod, leaf in groups.items():
+        if mod.startswith("layers/block/"):
+            scales = np.reshape(leaf["scale"], -1)
+            for i in range(leaf["a"].shape[0]):
+                out[_nextdit_module(f"layer_{i}/{mod[len('layers/block/'):]}")] = _lora_entry(
+                    leaf["a"][i], leaf["b"][i], scales[i if scales.size > 1 else 0])
+        else:
+            out[_nextdit_module(mod)] = _lora_entry(leaf["a"], leaf["b"], np.reshape(leaf["scale"], -1)[0])
     return out
 
 

@@ -27,7 +27,8 @@ frame of each clip goes through an i2v arch's vision tower into
 ``img_cond``. A control arch (flux_kontext, ``model_kwargs.control``, and
 qwen_image_edit, which joins them to the image tokens along the sequence)
 encodes each batch's ``control_pixels`` through the VAE into
-``control_latents``; flex2 assembles its ``[inpaint, mask, control]``
+``control_latents`` (omnigen2's references, which a batch without
+control images goes without); flex2 assembles its ``[inpaint, mask, control]``
 tensor on the host from the clean latents, the batch's ``inpaint_keep``
 and the encoded controls, with the job's ``np.random.default_rng(1234)``
 drawn in the JAX job's order (JAX ``_prepare_batch``), and that
@@ -270,8 +271,8 @@ class SDTrainProcess:
             if d.control_path and not model.takes_control:
                 raise NotImplementedError(
                     f"dataset {d.folder_path}: control_path on arch '{arch}', which takes no control latents "
-                    f"(ported: flex2, flux_kontext, model_kwargs.control, qwen_image_edit; the control adapters: "
-                    f"later slices)")
+                    f"(ported: flex2, flux_kontext, model_kwargs.control, qwen_image_edit, omnigen2; the control "
+                    f"adapters: later slices)")
             if d.inpaint_path and arch != "flex2":
                 raise NotImplementedError(f"dataset {d.folder_path}: inpaint_path feeds flex2's inpaint channels; "
                                           f"on arch '{arch}' it belongs to the control-LoRA adapter (later slice)")
@@ -641,6 +642,8 @@ class SDTrainProcess:
                 raw["latents"], raw.get("inpaint_keep"), ctrl_lat, self._flex2_rng)).to(dev)
         elif model.takes_control:
             if "control_pixels" not in raw:
+                if model.control_optional:  # OmniGen2: no references in this batch
+                    return batch
                 raise ValueError(f"arch '{self.cfg.model.arch}' takes a control image and no item of this "
                                  f"{raw['bucket']} batch has one (give each image one in the dataset's control_path)")
             cond["control_latents"] = self._encode_control(model, variables, raw["control_pixels"])

@@ -36,6 +36,7 @@ class BaseModel:
     main_component: str = "dit"  # the variables entry that is trained and sampled
     quantize_exclude: list[str] | None = None  # module-name patterns a quantized base keeps (None: the default list)
     takes_control: bool = False  # the denoiser reads control latents (cond["control_latents"]) beside the noisy ones
+    control_optional: bool = False  # a batch without control images trains without them (OmniGen2's references)
 
     def __init__(self, config: ModelConfig, device: torch.device | str):
         self.config = config

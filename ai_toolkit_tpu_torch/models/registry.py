@@ -28,6 +28,8 @@ def register_model(cls):
 def get_model_class(arch: str):
     import ai_toolkit_tpu_torch.models.flux_model  # noqa: F401  (registers flux, flux_schnell, flex*, kontext, chroma)
     import ai_toolkit_tpu_torch.models.hidream_model  # noqa: F401  (registers hidream)
+    import ai_toolkit_tpu_torch.models.lumina2_model  # noqa: F401  (registers lumina2)
+    import ai_toolkit_tpu_torch.models.omnigen2_model  # noqa: F401  (registers omnigen2)
     import ai_toolkit_tpu_torch.models.qwen_model  # noqa: F401  (registers qwen_image, qwen_image_edit)
     import ai_toolkit_tpu_torch.models.sd3_model  # noqa: F401  (registers sd3, sd35, sd35_large)
     import ai_toolkit_tpu_torch.models.sd_model  # noqa: F401  (registers sd1, sd15, sd2, ssd, vega, sdxl)

@@ -65,7 +65,23 @@ Phases (any failure raises and the script exits non-zero):
      step and denoise step, 0 for Qwen-Image, each edit batch's control
      latents against the VAE encode of its control images; and the
      qwen_image_edit generate job at 1024^2, 8 steps, with a seeded ctrl_img
-     and the LoRA it saved;
+     and the LoRA it saved; the two Qwen files and that job run at
+     QWEN_CUT_BLOCKS of the 60 joint blocks, widths unchanged (they launch no
+     kernel; the cut keeps the script within its time limit);
+  8e. the NextDiT archs: full-width Lumina-Image-2.0 and OmniGen2 (one
+     reference image) DiTs cut to 1 joint layer and 1 refiner of each kind,
+     20 of 32 caption tokens valid, and a Gemma2-2B layer (the softcap, the
+     (1 + w) norms, eos mask 40 of 256), in f32, on the card against the
+     CPU, 0 flash launches; their plain joint attention at 1024^2, (1, 4352,
+     24, 96) and (1, 4352, 21, 120) bf16 with the caption mask, timed
+     against SDPA; configs/examples/train_lora_{lumina2,omnigen2}_tpu.yaml
+     as written but for their paths, steps (12) and OmniGen2's transformer
+     config (model_kwargs.transformer_config, which a checkpoint's
+     transformer/config.json would hold), on seeded weights (Lumina2's bf16
+     base, OmniGen2's qfloat8): 0 flash launches every step and denoise step
+     (head dims 96 / 120 and the caption mask take the plain attention, as
+     in the JAX package); and the omnigen2 generate job at 1024^2, 8 steps,
+     with the LoRA it saved;
   9. the hidream LoRA ``sd_trainer`` job at
      1024^2 on an fp8 base with the grouped MoE dispatch, launches per step
      checked (``--profile DIR`` profiles its last step too);
@@ -1457,13 +1473,15 @@ def unet_reference(fwd_launches: dict, step_launches: dict) -> None:
 
 
 def _shipped_job(example: str, name: str, steps: int, name_or_path: str, folder: str | None = None,
-                 **paths) -> dict:
+                 model_kwargs: dict | None = None, **paths) -> dict:
     """The shipped job file ``configs/examples/<example>`` as it is written,
     but for these cuts: the job's name, ``training_folder``, the dataset's
     ``folder_path`` (the seeded PNGs) and its other folders (``paths``:
     ``control_path``, ``inpaint_path``), ``train.steps`` and
-    ``model.name_or_path`` (``folder``: another seeded folder); written to a
-    job file and read back through the port's config loader."""
+    ``model.name_or_path`` (``folder``: another seeded folder), and
+    ``model_kwargs`` added to the model's (OmniGen2's transformer config,
+    which a checkpoint would hold); written to a job file and read back
+    through the port's config loader."""
     from ai_toolkit_tpu_torch.config import get_config
 
     raw = get_config(os.path.join(ROOT, "configs", "examples", example))
@@ -1474,6 +1492,8 @@ def _shipped_job(example: str, name: str, steps: int, name_or_path: str, folder:
     proc["datasets"][0].update(paths)
     proc["train"]["steps"] = steps
     proc["model"]["name_or_path"] = name_or_path
+    if model_kwargs:
+        proc["model"]["model_kwargs"] = {**proc["model"].get("model_kwargs", {}), **model_kwargs}
     job = _read_back(raw, os.path.join(OUT_DIR, f"{name}.yaml"), example)
     check(job["config"]["process"][0]["datasets"][0].get("cache_latents_to_disk", True)
           and job["config"]["process"][0].get("sample"), f"{example} lost its disk cache or its samples")
@@ -1627,19 +1647,21 @@ def flux_shipped_phase(card: str, profile_dir: str | None) -> dict:
 
 
 def _shipped_flux_job(card: str, profile_dir: str | None, example: str, name: str, n_prompts: int,
-                      watch=None, blocks: int = BLOCKS_PER_FORWARD, **paths) -> dict:
-    """A shipped flux-family (or MMDiT) file as written but for its paths
-    (``paths``: the control folders) and 12 steps (one epoch over the 12
-    items, so every bucket trains), on seeded weights: ``blocks`` launches of
-    each flash kernel a step and a denoise step (flux: 57), the quantized
-    base, the three buckets, the disk cache, the first and final samples, a
-    LoRA that moved and reloads; ``watch``: a context manager over the run
-    (the control batches' check). Prints the step ms per bucket, the peak
-    and the sample s beside the card."""
+                      watch=None, blocks: int = BLOCKS_PER_FORWARD, quantized: bool = True,
+                      model_kwargs: dict | None = None, **paths) -> dict:
+    """A shipped flux-family (MMDiT, NextDiT) file as written but for its
+    paths (``paths``: the control folders), 12 steps (one epoch over the 12
+    items, so every bucket trains) and ``model_kwargs``, on seeded weights:
+    ``blocks`` launches of each flash kernel a step and a denoise step
+    (flux: 57), the base quantized as the file says (``quantized``), the
+    three buckets, the disk cache, the first and final samples, a LoRA that
+    moved and reloads; ``watch``: a context manager over the run (the
+    control batches' check). Prints the step ms per bucket, the peak and
+    the sample s beside the card."""
     with (watch or contextlib.nullcontext()):
-        result, proc, report = _run_job(_shipped_job(example, name, 12, "", **paths),
+        result, proc, report = _run_job(_shipped_job(example, name, 12, "", model_kwargs=model_kwargs, **paths),
                                         _counts(blocks, blocks, blocks), profile_dir, _counts(fwd=blocks))
-    check(proc.cfg.model.quantize and proc.cfg.datasets[0].resolution == [512, 768, 1024],
+    check(proc.cfg.model.quantize == quantized and proc.cfg.datasets[0].resolution == [512, 768, 1024],
           f"{example} lost its quantized base or its resolutions")
     cache = result["latent_cache"]
     check(cache["items"] == len(os.listdir(cache["dir"])) == cache["encoded"] == 12, f"latent cache {cache}")
@@ -2308,6 +2330,24 @@ SD35L_BLOCKS = 38  # 37 joint blocks and the context_pre_only one, one attention
 MMDIT_FILES = [("sd35_large", "train_lora_sd35_large_tpu.yaml", (), SD35L_BLOCKS),
                ("qwen_image", "train_lora_qwen_image_tpu.yaml", (), 0),
                ("qwen_image_edit", "train_lora_qwen_image_edit_tpu.yaml", ("control_path",), 0)]
+# the Qwen-Image files and the edit generate job run at this many of the 60 joint blocks,
+# widths unchanged: they launch no flash kernel (their masked attention is plain), so the
+# cut drops no kernel check, and it makes room for the NextDiT phases in the time limit
+QWEN_CUT_BLOCKS = 6
+
+
+@contextlib.contextmanager
+def qwen_cut_depth(blocks: int = QWEN_CUT_BLOCKS):
+    """Qwen-Image's DiT at ``blocks`` joint blocks for the block (the model
+    module's ``QWEN_DIT`` replaced; nothing in the package changes)."""
+    import ai_toolkit_tpu_torch.models.qwen_model as qm
+
+    full = qm.QWEN_DIT
+    qm.QWEN_DIT = dataclasses.replace(full, depth_double=blocks)
+    try:
+        yield
+    finally:
+        qm.QWEN_DIT = full
 
 
 def llm_reference() -> None:
@@ -2345,22 +2385,23 @@ def llm_reference() -> None:
 QWEN_EDIT_ATTENTION = (1, 8448, 24, 128)  # 256 text + 4,096 image + 4,096 control tokens at 1024^2
 
 
-def masked_attention_times(card: str, valid: int = 20) -> dict:
-    """Qwen-Image-Edit's joint attention at 1024^2 (bf16, a key-padding mask
-    keeping ``valid`` of the 256 text tokens): the plain version it runs
-    (f32 logits, 6.85 GB, ``ops.attention.reference_attention``) against
-    ``scaled_dot_product_attention`` with the same boolean mask, forward and
-    forward with backward, CUDA events, in turns; the lever a key-padding
-    flash kernel would pull (ROADMAP "Beside the queue")."""
+def masked_attention_times(card: str, valid: int = 20, shape: tuple = QWEN_EDIT_ATTENTION,
+                           label: str = "Qwen-Image-Edit's masked joint attention", n_txt: int = 256) -> dict:
+    """A joint attention ``shape`` (default Qwen-Image-Edit's at 1024^2) in
+    bf16 under a key-padding mask keeping ``valid`` of the ``n_txt`` text
+    tokens: the plain version it runs (f32 logits,
+    ``ops.attention.reference_attention``; 6.85 GB for Qwen-Image-Edit)
+    against ``scaled_dot_product_attention`` with the same boolean mask,
+    forward and forward with backward, CUDA events, in turns; the lever a
+    key-padding flash kernel would pull (ROADMAP "Beside the queue")."""
     from ai_toolkit_tpu_torch.ops.attention import reference_attention
 
-    phase(f"Qwen-Image-Edit's masked joint attention {QWEN_EDIT_ATTENTION} bf16 ({valid} of 256 text tokens "
-          f"valid): the plain version against SDPA")
-    b, s_, h, d = QWEN_EDIT_ATTENTION
+    phase(f"{label} {shape} bf16 ({valid} of {n_txt} text tokens valid): the plain version against SDPA")
+    b, s_, h, d = shape
     gen = torch.Generator("cuda").manual_seed(16)
-    q, k, v, g = (_rand(QWEN_EDIT_ATTENTION, torch.bfloat16, gen) for _ in range(4))
+    q, k, v, g = (_rand(shape, torch.bfloat16, gen) for _ in range(4))
     key_ok = torch.ones((b, s_), dtype=torch.bool, device="cuda")
-    key_ok[:, valid:256] = False
+    key_ok[:, valid:n_txt] = False
     mask = key_ok[:, None, None, :]
     qt, kt, vt, gt = _sdpa_layout(q, k, v, g)
 
@@ -2383,7 +2424,7 @@ def masked_attention_times(card: str, valid: int = 20) -> dict:
         out[label] = {"plain_ms": plain_ms, "sdpa_ms": lib_ms}
         print(f"{card}: {label}: plain {plain_ms:.4f} ms, SDPA with the mask {lib_ms:.4f} ms "
               f"({plain_ms / lib_ms:.2f}x; medians of {n})")
-    t = s_ - (256 - valid)  # the keys the mask keeps
+    t = s_ - (n_txt - valid)  # the keys the mask keeps
     bound, by = _bound_ms(4 * b * h * s_ * t * d, 2 * (2 * b * s_ * h * d + 2 * b * t * h * d))
     print(f"forward bound over the {t} kept keys {bound:.4f} ms ({by}); SDPA max|out - plain| {err.item():.3e}")
     check(err.item() <= 2e-2, "SDPA with the mask disagrees with the plain masked attention")
@@ -2425,21 +2466,27 @@ def mmdit_phases(card: str, profile_dir: str | None) -> dict:
     ctrl, _ = _control_folders()
     out = {}
     for arch, example, extra, blocks in MMDIT_FILES:
+        qwen = arch.startswith("qwen")
         phase(f"{arch} LoRA sd_trainer job, configs/examples/{example} as written with seeded weights"
               + (f" and the seeded {' and '.join(extra)}" if extra else "")
               + f": qfloat8 base, resolutions [512, 768, 1024] (12 items, 3 buckets), the disk latent cache, "
-                f"its prompt at 1024x1024 and 20 steps first and final, 12 steps, {blocks} flash launches a step")
+                f"its prompt at 1024x1024 and 20 steps first and final, 12 steps, {blocks} flash launches a step"
+              + (f"; the DiT cut to {QWEN_CUT_BLOCKS} of its 60 joint blocks, widths unchanged" if qwen else ""))
         watch = _ControlBatches(arch) if extra else None
-        out[arch] = _shipped_flux_job(card, profile_dir, example, f"smoke_{arch}_shipped", 1, watch, blocks,
-                                      **{k: ctrl for k in extra})
+        with qwen_cut_depth() if qwen else contextlib.nullcontext():
+            out[arch] = _shipped_flux_job(card, profile_dir, example, f"smoke_{arch}_shipped", 1, watch, blocks,
+                                          **{k: ctrl for k in extra})
         if watch is not None:
             _check_control_batches(watch.seen, arch)
-    phase("qwen_image_edit generate job, 1024x1024, 8 steps, 1 prompt with a seeded ctrl_img, bf16 base, with the "
-          "LoRA of the shipped qwen_image_edit job (8,448 tokens, the plain masked attention)")
+    phase(f"qwen_image_edit generate job, 1024x1024, 8 steps, 1 prompt with a seeded ctrl_img, bf16 base, with the "
+          f"LoRA of the shipped qwen_image_edit job (8,448 tokens, the plain masked attention; {QWEN_CUT_BLOCKS} "
+          f"joint blocks)")
     t0 = time.perf_counter()
-    gen = generate_job({"name_or_path": "", "arch": "qwen_image_edit"}, 1024, 1024, 8,
-                       [{"prompt": "a photo of a lighthouse on a cliff", "ctrl_img": os.path.join(ctrl, "img_1.png")}],
-                       _counts(), lora_path=out["qwen_image_edit"]["lora_path"])
+    with qwen_cut_depth():
+        gen = generate_job({"name_or_path": "", "arch": "qwen_image_edit"}, 1024, 1024, 8,
+                           [{"prompt": "a photo of a lighthouse on a cliff",
+                             "ctrl_img": os.path.join(ctrl, "img_1.png")}],
+                           _counts(), lora_path=out["qwen_image_edit"]["lora_path"])
     print(f"{card}: qwen_image_edit generate job {time.perf_counter() - t0:.1f} s wall, launches {gen}")
     return {"jobs": {arch: {"median_step_ms_by_bucket": r["by_bucket_ms"], "peak_gib": r["peak_gib"],
                             "sample_s": r["sample_s"], "wall_s": r["wall_s"]} for arch, r in out.items()},
@@ -2448,6 +2495,178 @@ def mmdit_phases(card: str, profile_dir: str | None) -> dict:
             "flash_device_ms": {label: {k: row[k]["device_ms"] for k in row} for label, row in times.items()},
             "sdpa_ms": {label: {"fwd": row["fwd"]["library_ms"], "bwd": row["dq"]["library_ms"]}
                         for label, row in times.items()}}
+
+
+def nextdit_reference(label: str, cfg, targets: list[str], refs: int = 0) -> None:
+    """A full-width NextDiT (Lumina2, or OmniGen2 with ``refs`` reference
+    images) cut to 1 joint layer and 1 refiner of each kind, in f32, its RMS
+    scales drawn away from 1, on the card against the same module on the
+    CPU: the forward and one checkpointed LoRA step's loss and gradients
+    (``targets``), over 32 caption tokens of which 20 are valid and an
+    8 x 12 patch grid (references 6 x 8). Every attention is masked or at
+    head dim 96 / 120: the plain path, 0 flash launches."""
+    phase(f"full-width {label} DiT (1 joint layer, 1 refiner of each kind, 20 of 32 caption tokens valid"
+          + (f", {refs} reference image" if refs else "") + ", f32): card vs CPU")
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
+    from ai_toolkit_tpu_torch.models.lumina2_dit import Lumina2DiT, lumina2_pos_angles
+    from ai_toolkit_tpu_torch.models.omnigen2_dit import OmniGen2DiT, omnigen2_pos_angles
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    cfg = dataclasses.replace(cfg, n_layers=1, n_refiner_layers=1, dtype=torch.float32)
+    cls = OmniGen2DiT if refs else Lumina2DiT
+    gpu = init_parameters(cls(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
+    gpu.eval().requires_grad_(False)
+    with torch.no_grad():
+        gn = torch.Generator("cuda").manual_seed(5)
+        for name, prm in gpu.named_parameters():
+            if prm.dim() == 1 and "norm" in name and name.endswith("weight"):
+                prm.normal_(1.0, 0.2, generator=gn)
+    cpu = cls(cfg, device="cpu").eval().requires_grad_(False)
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    n_txt, hp, wp, rh, rw = 32, 8, 12, 6, 8
+    ppc = cfg.patch_size ** 2 * cfg.in_channels
+    cap_lens = torch.tensor([20])
+    mask = (torch.arange(n_txt) < 20)[None]
+    if refs:
+        ca, ia, ra = omnigen2_pos_angles(cfg, hp, wp, cap_lens, n_txt, ref_hw=(rh, rw), n_ref=refs)
+        extra = [torch.randn((1, refs, rh * rw, ppc), generator=g), ra]
+    else:
+        ca, ia = lumina2_pos_angles(cfg, hp, wp, cap_lens, n_txt)
+        extra = []
+    inputs = [torch.randn((1, hp * wp, ppc), generator=g), torch.randn((1, n_txt, cfg.cap_feat_dim), generator=g),
+              torch.tensor([0.3]), mask, ia, ca, *extra]
+    gpu_in = [x.cuda() for x in inputs]
+    _reset_launches()
+    with torch.inference_mode():
+        ref = cpu(*inputs)
+        out = gpu(*gpu_in).cpu()
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    tol = 1e-3 * max(1.0, scale)  # f32 both sides, TF32 off; summation order only
+    print(f"forward: out {tuple(out.shape)} max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {tol:.3e}) "
+          f"kernel launches={_launches()}")
+    check(_launches() == _counts() and bool(torch.isfinite(out).all()) and err <= tol,
+          f"the {label} DiT on the card disagrees with the CPU")
+    spec = LoRASpec(rank=16, alpha=16.0, target_patterns=targets)
+    lg = build_lora(gpu, spec, torch.Generator("cuda").manual_seed(2))
+    gb = torch.Generator("cuda").manual_seed(3)
+    with torch.no_grad():
+        for m in lg.values():  # b non-zero, else a's gradient is zero and proves nothing
+            m.b.normal_(0.0, 0.01, generator=gb)
+    lc = build_lora(cpu, spec, torch.Generator().manual_seed(2))
+    cpu.load_state_dict(gpu.state_dict())
+    gpu.gradient_checkpointing = True  # the joint layer recomputed, as in training
+    target = torch.randn(out.shape, generator=g)
+    names = [f"{n}.{leaf}" for n in lg for leaf in ("a", "b", "scale")]
+
+    def loss_and_grads(model, lora, args, tgt):
+        params = [getattr(lora[n.rsplit(".", 1)[0]], n.rsplit(".", 1)[1]) for n in names]
+        loss = (model(*args).float() - tgt).square().mean()
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    _reset_launches()
+    ref_loss, ref_grads = loss_and_grads(cpu, lc, inputs, target)
+    loss, grads = loss_and_grads(gpu, lg, gpu_in, target.cuda())
+    # against the largest gradient of every trained tensor, as the CPU tests hold it: a
+    # LoRA scale's gradient is one sum, which can cancel to ~1e-10 on a seeded init
+    # (Lumina2's joint FFN linear_3), where an error relative to itself means nothing
+    gmax = max(gr.abs().max().item() for gr in ref_grads)
+    errs = sorted(((gd.cpu() - gr).abs().max().item(), n, gr.abs().max().item())
+                  for n, gd, gr in zip(names, grads, ref_grads))
+    worst = errs[-1][0] / gmax
+    stacks = sorted({n.split(".")[0] for n in lg})
+    print(f"LoRA train step ({len(lg)} modules in {stacks}): loss card {loss:.6f} vs CPU {ref_loss:.6f}; "
+          f"{len(grads)} tensors, max|dgrad| / max|grad| over all {worst:.3e} (tol 1e-3; max|grad| {gmax:.3e}; "
+          f"the largest three max|dgrad| {[(n, f'{e:.2e}', f'of {m:.2e}') for e, n, m in errs[-3:]]}); "
+          f"kernel launches={_launches()}")
+    check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss) and worst <= 1e-3 and _launches() == _counts(),
+          f"the {label} LoRA step on the card disagrees")
+    del gpu, cpu
+
+
+def gemma2_reference() -> None:
+    """Gemma2-2B at full width cut to one layer, f32, under the eos mask of
+    40 valid tokens of 256: the softcapped attention (the plain einsum),
+    the four norms with their ``1 + w`` drawn away from 1, the tanh GELU and
+    the scaled embeddings, the card against the CPU."""
+    phase("full-width Gemma2-2B text tower (1 layer, the softcap at 50, the four (1 + w) norms away from 1, "
+          "eos mask 40 of 256), f32: card vs CPU")
+    from ai_toolkit_tpu_torch.models.text_encoders.llm import LLMConfig, LLMEncoder
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    cfg = dataclasses.replace(LLMConfig.gemma2_2b(), n_layers=1, dtype=torch.float32)
+    gpu = init_parameters(LLMEncoder(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0)).eval()
+    with torch.no_grad():
+        gn = torch.Generator("cuda").manual_seed(1)
+        for name, prm in gpu.named_parameters():
+            if "norm" in name:
+                prm.normal_(0.0, 0.3, generator=gn)
+    cpu = LLMEncoder(cfg, device="cpu").eval()
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(3, cfg.vocab_size, (1, 256), generator=g)
+    mask = (torch.arange(256) < 40)[None]
+    _reset_launches()
+    with torch.inference_mode():
+        ref = cpu(ids, mask)
+        out = gpu(ids.cuda(), mask.cuda()).cpu()
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    tol = 1e-3 * max(1.0, scale)
+    print(f"Gemma2 layer: out {tuple(out.shape)} max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {tol:.3e}) "
+          f"kernel launches={_launches()}")
+    check(bool(torch.isfinite(out).all()) and err <= tol and _launches() == _counts(),
+          "the Gemma2 layer on the card disagrees with the CPU")
+    del gpu, cpu
+
+
+# the NextDiT joint attentions at 1024^2: 256 caption + 4,096 image tokens
+NEXTDIT_ATTENTION = [((1, 4352, 24, 96), "Lumina-Image-2.0's joint attention (head dim 96)"),
+                     ((1, 4352, 21, 120), "OmniGen2's joint attention (head dim 120)")]
+# OmniGen2Config's defaults under the diffusers config names OmniGen2Config.from_hf reads: the
+# transformer config a checkpoint's transformer/config.json would hold
+OMNIGEN2_TRANSFORMER = {"hidden_size": 2520, "num_layers": 32, "num_refiner_layers": 2, "num_attention_heads": 21,
+                        "num_kv_heads": 7, "text_feat_dim": 2048, "multiple_of": 256, "ffn_dim_multiplier": None,
+                        "axes_dim_rope": [40, 40, 40], "norm_eps": 1e-5, "timestep_scale": 1.0, "in_channels": 16,
+                        "patch_size": 2}
+# the shipped NextDiT files: (arch, file, quantized base, model_kwargs added)
+NEXTDIT_FILES = [("lumina2", "train_lora_lumina2_tpu.yaml", False, None),
+                 ("omnigen2", "train_lora_omnigen2_tpu.yaml", True, {"transformer_config": OMNIGEN2_TRANSFORMER})]
+
+
+def nextdit_phases(card: str, profile_dir: str | None) -> dict:
+    """The NextDiT slice: the Lumina2 and OmniGen2 (one reference) DiTs and a
+    Gemma2 layer card vs CPU, the plain joint attention at head dims 96 and
+    120 against SDPA, the two shipped files as written (but for their paths,
+    steps and OmniGen2's transformer config) on seeded weights with 0 flash
+    launches, and the OmniGen2 generate job with the LoRA it saved. Returns
+    each job's numbers and the attention times."""
+    from ai_toolkit_tpu_torch.models.lumina2_dit import Lumina2Config, lumina2_lora_targets
+    from ai_toolkit_tpu_torch.models.omnigen2_dit import OmniGen2Config, omnigen2_lora_targets
+
+    nextdit_reference("Lumina-Image-2.0 (24 x 96 heads, GQA 24 / 8)", Lumina2Config(), lumina2_lora_targets())
+    nextdit_reference("OmniGen2 (21 x 120 heads, GQA 21 / 7)", OmniGen2Config.from_hf(OMNIGEN2_TRANSFORMER),
+                      omnigen2_lora_targets(use_image_refiner=True), refs=1)
+    gemma2_reference()
+    attention = {label: masked_attention_times(card, 40, shape, label) for shape, label in NEXTDIT_ATTENTION}
+    out = {}
+    for arch, example, quantized, kwargs in NEXTDIT_FILES:
+        phase(f"{arch} LoRA sd_trainer job, configs/examples/{example} as written with seeded weights"
+              + (" and model_kwargs.transformer_config" if kwargs else "")
+              + f": {'qfloat8' if quantized else 'bf16'} base, resolutions [512, 768, 1024] (12 items, 3 buckets), "
+                f"the disk latent cache, its prompt at 1024x1024 and 20 steps first and final, 12 steps, 0 flash "
+                f"launches a step (head dims 96 / 120 and the caption mask: the plain attention)")
+        out[arch] = _shipped_flux_job(card, profile_dir, example, f"smoke_{arch}_shipped", 1, None, 0,
+                                      quantized=quantized, model_kwargs=kwargs)
+    phase("omnigen2 generate job, 1024x1024, 8 steps, 1 prompt, bf16 base, with the LoRA of the shipped omnigen2 job "
+          "(no references, as in JAX; 0 flash launches)")
+    t0 = time.perf_counter()
+    gen = generate_job({"name_or_path": "", "arch": "omnigen2",
+                        "model_kwargs": {"transformer_config": OMNIGEN2_TRANSFORMER}}, 1024, 1024, 8,
+                       ["a photo of a lighthouse on a cliff"], _counts(), lora_path=out["omnigen2"]["lora_path"])
+    print(f"{card}: omnigen2 generate job {time.perf_counter() - t0:.1f} s wall, launches {gen}")
+    return {"jobs": {arch: {"median_step_ms_by_bucket": r["by_bucket_ms"], "peak_gib": r["peak_gib"],
+                            "sample_s": r["sample_s"], "wall_s": r["wall_s"]} for arch, r in out.items()},
+            "masked_attention": attention, "omnigen2_generate_s": time.perf_counter() - t0}
 
 
 def main(argv: list[str]) -> int:
@@ -2494,6 +2713,7 @@ def main(argv: list[str]) -> int:
     flux_shipped = flux_shipped_phase(card, args.profile)
     flux_family = flux_family_phases(card, args.profile)
     mmdit = mmdit_phases(card, args.profile)
+    nextdit = nextdit_phases(card, args.profile)
 
     phase("hidream LoRA sd_trainer job, 1024x1024, fp8 base, grouped MoE, batch 1, rank 16, adamw8bit, EMA")
     # per step: the attention forward once per block (its outputs are kept by the
@@ -2544,7 +2764,7 @@ def main(argv: list[str]) -> int:
         "flux_qfloat8": {"median_step_ms_by_bucket": flux_shipped["by_bucket_ms"], "peak_gib": flux_shipped["peak_gib"],
                       "wall_s": flux_shipped["wall_s"]},
         "flux_family_qfloat8": flux_family,
-        "mmdit_qfloat8": mmdit}}))
+        "mmdit_qfloat8": mmdit, "nextdit": nextdit}}))
 
     neg = torch.Generator("cuda").manual_seed(8)
     wan_err = flash_checks("flash kernels vs plain versions at Wan 2.1's shapes (head_dim 128), bf16",

@@ -123,6 +123,9 @@ _FLUX_FAMILY_MODULES = ("ai_toolkit_tpu_torch.models.flux_dit", "ai_toolkit_tpu_
 # the MMDiT archs' modules (sd3, sd35, sd35_large, qwen_image, qwen_image_edit)
 _MMDIT_MODULES = ("ai_toolkit_tpu_torch.models.sd3_model", "ai_toolkit_tpu_torch.models.qwen_model",
                   "ai_toolkit_tpu_torch.io.sd3_layout", "ai_toolkit_tpu_torch.io.lora_file")
+_NEXTDIT_MODULES = ("ai_toolkit_tpu_torch.models.lumina2_dit", "ai_toolkit_tpu_torch.models.lumina2_model",
+                    "ai_toolkit_tpu_torch.models.omnigen2_dit", "ai_toolkit_tpu_torch.models.omnigen2_model",
+                    "ai_toolkit_tpu_torch.models.text_encoders.llm")
 
 
 def test_port_imports_without_jax():
@@ -139,6 +142,7 @@ def test_port_imports_without_jax():
     assert imported.issuperset(_WAN_MODULES), sorted(set(_WAN_MODULES) - imported)
     assert imported.issuperset(_FLUX_FAMILY_MODULES), sorted(set(_FLUX_FAMILY_MODULES) - imported)
     assert imported.issuperset(_MMDIT_MODULES), sorted(set(_MMDIT_MODULES) - imported)
+    assert imported.issuperset(_NEXTDIT_MODULES), sorted(set(_NEXTDIT_MODULES) - imported)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -122,7 +122,7 @@ def test_llm_encoder_matches_jax(masked):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flag", [{"all_bias": True}, {"post_norms": True}, {"attn_softcap": 50.0},
+@pytest.mark.parametrize("flag", [{"all_bias": True}, {"qk_head_norm": True}, {"partial_rotary": 0.5},
                                   {"rope_interleaved": True}, {"collect_layers": (0,)}])
 def test_llm_other_families_raise(flag):
     with pytest.raises(NotImplementedError, match="slice G"):

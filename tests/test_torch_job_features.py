@@ -261,7 +261,8 @@ SHIPPED = ["train_lora_flux_tpu", "train_full_finetune_flux_tpu", "train_lora_hi
            "train_lora_sdxl_tpu", "train_lora_wan21_tpu", "train_lora_wan22_14b_tpu",
            "train_textual_inversion_sd15", "train_lora_chroma_tpu", "train_lora_flex_tpu",
            "train_lora_flex2_tpu", "train_lora_flux_kontext_tpu", "train_lora_sd35_large_tpu",
-           "train_lora_qwen_image_tpu", "train_lora_qwen_image_edit_tpu"]
+           "train_lora_qwen_image_tpu", "train_lora_qwen_image_edit_tpu", "train_lora_lumina2_tpu",
+           "train_lora_omnigen2_tpu"]
 
 
 @pytest.mark.parametrize("name", SHIPPED)

@@ -267,10 +267,14 @@ def test_loader_reads_the_jax_export(layout, tmp_path, capsys, sd35_vars):
         assert "centre-cropped to 32x32" in out and "keep their seeded init" in out
 
 
-def _lora_pair(dit, tree, jm, rank=4, alpha=8.0):
+def _lora_pair(dit, tree, jm, rank=4, alpha=8.0, targets=None, module_of=None):
     """A LoRA on the port's DiT (b non-zero) and the same factors as the JAX
-    ``lora`` collection; {port name: JAX path}."""
-    lora = tlora.build_lora(dit, tlora.LoRASpec(rank=rank, alpha=alpha, target_patterns=tdit.flux_lora_targets()),
+    ``lora`` collection; {port name: JAX path}. ``targets``: the port's
+    target patterns (flux's by default); ``module_of``: JAX module path ->
+    port module name (flux's by default)."""
+    targets = tdit.flux_lora_targets() if targets is None else targets
+    module_of = from_jax._flux_module if module_of is None else module_of
+    lora = tlora.build_lora(dit, tlora.LoRASpec(rank=rank, alpha=alpha, target_patterns=targets),
                             torch.Generator().manual_seed(3))
     with torch.no_grad():
         for m in lora.values():
@@ -284,7 +288,7 @@ def _lora_pair(dit, tree, jm, rank=4, alpha=8.0):
         for k, v in node.items():
             path = f"{prefix}/{k}" if prefix else k
             if "a" in v:
-                name = from_jax._flux_module(path)
+                name = module_of(path)
                 paths[name] = path
                 node[k] = {leaf: np.array(getattr(lora[name], leaf).detach().numpy()) for leaf in ("a", "b", "scale")}
             else:
@@ -301,19 +305,21 @@ def _leaf(tree, path):
     return tree
 
 
-def lora_step_matches_jax(jm, tm, jvars, variables, inp, jc, tc, timestep_type, monkeypatch):
-    """One LoRA step (adamw8bit, clipping at 1) of the port's
+def lora_step_matches_jax(jm, tm, jvars, variables, inp, jc, tc, timestep_type, monkeypatch, optimizer="adamw8bit",
+                          **pair):
+    """One LoRA step (``optimizer``, adamw8bit by default; clipping at 1) of the port's
     ``make_train_step`` against JAX ``train/step.make_train_step`` with the
     port's draws (t, then the noise) injected: the loss, the grad norm and
     every LoRA a / b / scale gradient (captured where each step hands them to
-    its optimizer). Returns the port's LoRA names and those whose reference
+    its optimizer); ``pair``: :func:`_lora_pair`'s ``targets`` and
+    ``module_of``. Returns the port's LoRA names and those whose reference
     gradient is zero (their output reaches no loss: the last double block's
     text stream when no final block follows)."""
-    lora, jtree, paths = _lora_pair(variables["dit"], jvars["dit"], jm)
+    lora, jtree, paths = _lora_pair(variables["dit"], jvars["dit"], jm, **pair)
     seq = inp["x"].shape[1] * inp["x"].shape[2] // 4
     names = [f"{n}.{leaf}" for n in lora for leaf in ("a", "b", "scale")]
     trainable = {k: getattr(lora[k.rsplit(".", 1)[0]], k.rsplit(".", 1)[1]) for k in names}
-    state = TrainState(trainable, get_optimizer("adamw8bit", list(trainable.values()), 1e-3, max_grad_norm=1.0))
+    state = TrainState(trainable, get_optimizer(optimizer, list(trainable.values()), 1e-3, max_grad_norm=1.0))
     grads_seen = {}
     real_step = state.optimizer.step
     state.optimizer.step = lambda grads: grads_seen.update(zip(names, (g.clone() for g in grads))) or real_step(grads)
@@ -329,7 +335,7 @@ def lora_step_matches_jax(jm, tm, jvars, variables, inp, jc, tc, timestep_type, 
             return jnp.asarray(t.numpy())
 
     monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32: jnp.asarray(noise, dtype))
-    jstate = JTrainState.create(jvars, {"lora": jtree}, jget_optimizer("adamw8bit", 1e-3, max_grad_norm=1.0))
+    jstate = JTrainState.create(jvars, {"lora": jtree}, jget_optimizer(optimizer, 1e-3, max_grad_norm=1.0))
     jtrain = jstep.make_train_step(jm.predict, Injected(), jstep.TrainStepConfig(timestep_type=timestep_type))
     real_apply = JTrainState.apply_gradients
 
