@@ -1,7 +1,8 @@
 """Latent and text-embedding caches (``ai_toolkit_tpu/data/caching.py`` in the
 port): every item is VAE-encoded once, one encode call per chunk of one
 bucket, kind and frame count (an image latent ``[h, w, C]``, a video latent
-``[T, h, w, C]``), and kept in memory (:func:`cache_latents`) or on disk
+``[T, h, w, C]``, an audio latent ``[T, C]``: the model's ``encode_images``
+takes waveforms too, as JAX's ``encode_images = encode_audio`` alias does), and kept in memory (:func:`cache_latents`) or on disk
 (:func:`cache_latents_to_disk`, the job's ``cache_latents_to_disk``: one
 safetensors file of the fp16 latent per item, named by the md5 of the
 file's path, mtime, size and the item's bucket, flip and frame count, as
@@ -25,12 +26,12 @@ def latent_key(item: FileItem) -> tuple:
 
 
 def _cache_key(item: FileItem, version: str) -> str:
-    """JAX ``_cache_key`` (``num_samples``, an audio item's, is 0 for images
-    and videos). JAX leaves ``flip_y`` out, so two repeats of one file
+    """JAX ``_cache_key`` (``num_samples``, an audio item's sample count, is 0
+    for images and videos). JAX leaves ``flip_y`` out, so two repeats of one file
     flipped differently would share a file; the port adds it when it is set."""
     st = os.stat(item.path)
     raw = (f"{item.path}|{st.st_mtime_ns}|{st.st_size}|{item.bucket}|{item.flip}|"
-           f"{item.num_frames}|0|{version}")
+           f"{item.num_frames}|{item.num_samples}|{version}")
     if item.flip_y:
         raw += "|flip_y"
     return hashlib.md5(raw.encode()).hexdigest()

@@ -14,9 +14,14 @@ them: bicubic cover-resize to the bucket, center crop, the item's flips.
 Only the first control of an item is read: the control archs of the port
 (flex2, flux_kontext) take one, as in JAX.
 
-Audio (and a video's sidecar audio), masks, generated controls,
-unconditional images, augmentations and random crops raise
-``NotImplementedError`` naming their slice.
+An audio file is an item of its own (``kind`` audio, bucket ``(0, 0)``,
+``audio_duration`` seconds at ``audio_sample_rate``, JAX
+``FileItem.load_audio``), except a ``.wav`` with a video's stem, which is
+that video's sidecar track and never an item (JAX ``_scan``); with the
+dataset's ``do_audio`` the loader reads it beside the video
+(:func:`load_sidecar_audio`). Masks, generated controls, unconditional
+images, augmentations and random crops raise ``NotImplementedError``
+naming their slice.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ AUDIO_EXTS = (".wav", ".flac", ".mp3", ".ogg")
 # DatasetConfig options of the JAX dataset this port does not take yet
 _UNPORTED_OPTIONS = ("augmentations", "clip_image_path", "clip_image_augmentations", "mask_path",
                      "unconditional_path", "controls", "random_crop", "random_scale", "alpha_mask",
-                     "do_audio", "use_short_captions")
+                     "use_short_captions")
 
 
 @dataclass
@@ -54,8 +59,10 @@ class FileItem:
     is_reg: bool = False
     flip: bool = False
     flip_y: bool = False
-    kind: str = "image"  # image | video
+    kind: str = "image"  # image | video | audio
     num_frames: int = 1
+    num_samples: int = 0  # an audio item's sample count
+    sample_rate: int = 44100  # an audio item's rate
     control_paths: tuple[str, ...] = ()  # the image's control images, one per control_path folder that has it
     inpaint_path: str | None = None  # the dataset's inpaint folder
 
@@ -90,14 +97,22 @@ class FolderDataset:
                 elif lf.endswith(VIDEO_EXTS):
                     paths.append((os.path.join(root, f), "video"))
                 elif lf.endswith(AUDIO_EXTS):
-                    raise NotImplementedError(f"{f}: audio datasets (and a video's sidecar audio) come with a "
-                                              f"later slice")
+                    paths.append((os.path.join(root, f), "audio"))
+        video_stems = {os.path.splitext(p)[0] for p, k in paths if k == "video"}
+        if any(k == "audio" and os.path.splitext(p)[0] in video_stems for p, k in paths):
+            # a video's sidecar audio belongs to the video, never to the item list
+            if not self.cfg.do_audio:
+                print(f"dataset {folder}: ignoring sidecar audio files (set do_audio: true to train the joint AV "
+                      f"stream)")
+            paths = [(p, k) for p, k in paths if not (k == "audio" and os.path.splitext(p)[0] in video_stems)]
+        num_samples = int((self.cfg.audio_duration or 10.0) * self.cfg.audio_sample_rate)
         for p, kind in paths:
+            w = h = 0
             try:
                 if kind == "image":
                     with Image.open(p) as im:
                         w, h = im.size
-                else:
+                elif kind == "video":
                     import cv2
 
                     cap = cv2.VideoCapture(p)
@@ -112,17 +127,20 @@ class FolderDataset:
                              if os.path.isfile(cp := os.path.join(root, os.path.basename(p))))
             for res in self.cfg.resolution:
                 for _ in range(max(1, self.cfg.num_repeats)):
-                    if self.cfg.enable_bucketing and self.cfg.buckets and w and h:
+                    if kind == "audio":
+                        bucket = (0, 0)
+                    elif self.cfg.enable_bucketing and self.cfg.buckets and w and h:
                         bucket = get_bucket_for_image_size(w, h, res, self.divisibility)
                     else:
                         bucket = (res, res)
-                    flip = self.cfg.flip_x and self.rng.random() < 0.5
-                    flip_y = self.cfg.flip_y and self.rng.random() < 0.5
+                    flip = kind != "audio" and self.cfg.flip_x and self.rng.random() < 0.5
+                    flip_y = kind != "audio" and self.cfg.flip_y and self.rng.random() < 0.5
                     self.items.append(FileItem(
                         path=p, caption=caption, caption_short=caption_short, width=w, height=h,
                         bucket=bucket, resolution=res, is_reg=self.cfg.is_reg, flip=flip,
                         flip_y=flip_y, kind=kind, num_frames=self.cfg.num_frames if kind == "video" else 1,
-                        control_paths=controls, inpaint_path=self.cfg.inpaint_path))
+                        control_paths=controls, inpaint_path=self.cfg.inpaint_path,
+                        num_samples=num_samples if kind == "audio" else 0, sample_rate=self.cfg.audio_sample_rate))
 
     def processed_caption(self, item: FileItem) -> str:
         return process_caption(
@@ -183,8 +201,44 @@ def _rgb(item: FileItem, path: str) -> np.ndarray:
 
 def load_pixels(item: FileItem) -> np.ndarray:
     """The item's image ``[H, W, 3]`` or video ``[T, H, W, 3]``, decoded,
-    cover-resized and center-cropped to its bucket, f32 in [-1, 1]."""
+    cover-resized and center-cropped to its bucket, f32 in [-1, 1]; an audio
+    item's waveform ``[S, 2]`` (:func:`load_audio`)."""
+    if item.kind == "audio":
+        return load_audio(item.path, item.sample_rate, item.num_samples or None)
     return load_video(item) if item.kind == "video" else _rgb(item, item.path)
+
+
+def load_audio(path: str, sample_rate: int = 44100, num_samples: int | None = None) -> np.ndarray:
+    """A wav file as ``[S, C]`` f32 in [-1, 1] at ``sample_rate`` (JAX
+    ``FileItem.load_audio``): integer PCM over its type's max, unsigned
+    around 128, mono doubled to stereo, another rate resampled by linear
+    ``np.interp`` over the clip, then cropped or zero-padded to
+    ``num_samples``."""
+    from scipy.io import wavfile
+
+    sr, data = wavfile.read(path)
+    if data.dtype.kind == "i":
+        data = data.astype(np.float32) / np.iinfo(data.dtype).max
+    elif data.dtype.kind == "u":
+        data = (data.astype(np.float32) - 128) / 128.0
+    else:
+        data = data.astype(np.float32)
+    if data.ndim == 1:
+        data = np.stack([data, data], axis=-1)
+    if sr != sample_rate:
+        n_out = int(len(data) * sample_rate / sr)
+        x_old, x_new = np.linspace(0, 1, len(data)), np.linspace(0, 1, n_out)
+        data = np.stack([np.interp(x_new, x_old, data[:, c]) for c in range(data.shape[1])], -1)
+    if num_samples:
+        data = data[:num_samples] if len(data) >= num_samples else np.pad(data, ((0, num_samples - len(data)), (0, 0)))
+    return data.astype(np.float32)
+
+
+def load_sidecar_audio(item: FileItem, sample_rate: int, num_samples: int) -> np.ndarray | None:
+    """A video's track: the ``.wav`` with its stem beside it, as
+    :func:`load_audio` gives it, or None (JAX ``FileItem.load_sidecar_audio``)."""
+    p = os.path.splitext(item.path)[0] + ".wav"
+    return load_audio(p, sample_rate, num_samples) if os.path.isfile(p) else None
 
 
 def load_control(item: FileItem) -> np.ndarray | None:

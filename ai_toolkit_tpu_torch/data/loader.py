@@ -6,7 +6,11 @@ latent cache, from the disk cache's files (``latent_cache_dir``) or,
 without either, encoded on the fly with ``encode_fn``, plus
 processed captions and the per-example loss multiplier; with the dataset's
 ``do_i2v``, a video batch also carries each clip's ``first_frame`` ``[B,
-H, W, 3]`` (the clip decoded again, as the JAX loader does). When an item of
+H, W, 3]`` (the clip decoded again, as the JAX loader does), and with
+``do_audio`` its ``audio_waveform`` ``[B, S, 2]``: each clip's sidecar
+``.wav`` over the clip's duration (``audio_duration``, else frames / fps),
+zeros for a clip without one (JAX ``loader.py:116-126``). An audio batch's
+latents are ``[B, T, C]``. When an item of
 the batch has a control image, the batch carries ``control_pixels`` ``[B, H,
 W, 3]`` (zeros for an item without one), and with an inpaint image
 ``inpaint_keep`` ``[B, H, W, 1]`` (ones for an item without one), loaded
@@ -27,7 +31,7 @@ import numpy as np
 from ai_toolkit_tpu_torch.config.modules import DatasetConfig
 from ai_toolkit_tpu_torch.data.caching import latent_key, load_cached_latent
 from ai_toolkit_tpu_torch.data.dataset import (FileItem, FolderDataset, load_control, load_inpaint_keep,
-                                               load_pixels, load_video)
+                                               load_pixels, load_sidecar_audio, load_video)
 
 
 class DataLoader:
@@ -62,6 +66,12 @@ class DataLoader:
         }
         if cfg.do_i2v and batch[0].kind == "video":
             out["first_frame"] = np.stack([load_video(it)[0] for it in batch])
+        if cfg.do_audio and batch[0].kind == "video":
+            # joint AV: the sidecar tracks over the clip's duration, zeros where a video has none
+            sr = cfg.audio_sample_rate
+            n = int((cfg.audio_duration or batch[0].num_frames / float(cfg.fps or 16)) * sr)
+            wavs = [load_sidecar_audio(it, sr, n) for it in batch]
+            out["audio_waveform"] = np.stack([np.zeros((n, 2), np.float32) if w is None else w for w in wavs])
         bw, bh = batch[0].bucket
         controls = [load_control(it) for it in batch]
         if any(c is not None for c in controls):

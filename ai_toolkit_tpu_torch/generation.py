@@ -9,7 +9,9 @@ snapped to the VAE's grid, the (t, y, x) rope table, an i2v arch's first
 frame ``ctrl_img`` through its vision tower, sigmas shifted for the clip's
 token count, each step routed to a multistage pair's expert by its sigma
 through ``predict``, one decode of every frame, uint8 frames written as an
-animated webp by :func:`save_video_atomic`).
+animated webp by :func:`save_video_atomic`; LTX-2's joint model steps its
+audio tokens beside the video's and decodes them through the vocoder, and
+:func:`save_wav_atomic` writes the track).
 
 A LoRA (``{module name: {a, b, scale}}``, ``io/lora_file.load_lora_file``)
 is overlaid on the model's DiT or UNet for the call (one network on both
@@ -28,7 +30,7 @@ unconditional LoRA, the multi-reference edit archs' ``ctrl_img_2`` /
 ``ctrl_img_3``, IP-adapter
 conditioning, ``use_flux_cfg`` negative passes, x0-prediction and
 arch-specific schedules), of ``generate_sd`` (the k-diffusion, LCM and PNDM samplers, the
-unconditional LoRA) and of ``generate`` (audio) raise
+unconditional LoRA) and of ``generate`` (text-to-audio: :data:`GENERATE_AUDIO`) raise
 ``NotImplementedError``.
 """
 
@@ -45,6 +47,10 @@ from ai_toolkit_tpu_torch.adapters.lora import attach_lora, detach_lora, share_l
 from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig
 from ai_toolkit_tpu_torch.samplers.ddpm import DDPMSchedule
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
+
+
+AUDIO_SAMPLE_RATE = 48_000  # a joint model's waveform rate (JAX generate_video's default, the one its callers take)
+GENERATE_AUDIO = "text-to-audio sampling (JAX generate_audio, the ace_step family) is not ported (ROADMAP Queue 1 item 6a)"
 
 
 def _sync(device: torch.device) -> None:
@@ -210,18 +216,28 @@ def generate_video(
     noise: np.ndarray | None = None,
     stats: dict | None = None,
     cond: dict | None = None,
-) -> np.ndarray:
-    """Text- or image-to-video (JAX ``generate_video``, wan): returns uint8
-    frames ``[T, H, W, 3]``, T the snapped ``gen.num_frames``. ``noise`` ``[1,
-    t, h, w, C]`` and ``stats`` as in :func:`generate_flux`; ``cond``, the
-    prompt's (and first frame's) conditioning from :func:`encode_video_cond`,
-    spares the call the text encoder and the vision tower."""
+    noise_audio: np.ndarray | None = None,
+):
+    """Text- or image-to-video (JAX ``generate_video``, wan and ltx2): returns
+    uint8 frames ``[T, H, W, 3]``, T the snapped ``gen.num_frames``. ``noise``
+    ``[1, t, h, w, C]`` and ``stats`` as in :func:`generate_flux`; ``cond``,
+    the prompt's (and first frame's) conditioning from
+    :func:`encode_video_cond`, spares the call the text encoder and the vision
+    tower. A joint audio-video model returns ``(frames, waveform [S, 2] f32)``:
+    its audio tokens, ``round(T / fps * AUDIO_SAMPLE_RATE / downscale)`` of
+    them (``noise_audio`` ``[1, Na, C_a]``, else drawn after the video's),
+    take one Euler step at each sigma beside the video's."""
     schedule = schedule or FlowMatchSchedule()
     nf = model.frame_count_snapper(max(gen.num_frames, 1))
     shape = model.latent_shape(gen.height, gen.width, nf)
+    audio = None
+    if getattr(model, "joint_audio", False):
+        secs = nf / float(gen.fps or 16)
+        n_audio = max(1, int(round(secs * AUDIO_SAMPLE_RATE / model.audio_vae_config.downscale)))
+        audio = (n_audio, noise_audio)
     with _overlaid(model, variables, lora):
         return _generate_video(model, variables, gen, schedule, noise, stats if stats is not None else {}, shape,
-                               cond)
+                               cond, audio)
 
 
 def encode_video_cond(model, variables: dict, gen: GenerateImageConfig) -> dict:
@@ -239,7 +255,7 @@ def encode_video_cond(model, variables: dict, gen: GenerateImageConfig) -> dict:
     return cond
 
 
-def _generate_video(model, variables, gen, schedule, noise, rec, shape, cond) -> np.ndarray:
+def _generate_video(model, variables, gen, schedule, noise, rec, shape, cond, audio):
     device = model.device
     t_lat, h, w, _ = shape
     with torch.inference_mode():
@@ -253,16 +269,31 @@ def _generate_video(model, variables, gen, schedule, noise, rec, shape, cond) ->
         cond["pe"] = model.rope_table(t_lat, h, w)
         pt, ph, pw = model.dit_config.patch_size
         rec["tokens"] = (t_lat // pt) * (h // ph) * (w // pw)
+        g = torch.Generator(device=device).manual_seed(gen.seed)
         if noise is None:
-            g = torch.Generator(device=device).manual_seed(gen.seed)
             x = torch.randn((1, *shape), generator=g, dtype=torch.float32, device=device)
         else:
             x = torch.from_numpy(np.array(noise, dtype=np.float32)).to(device)
+        xa = None
+        if audio is not None:
+            n_audio, noise_audio = audio
+            cond["pe_audio"] = model.audio_rope_table(n_audio)
+            rec["audio_tokens"] = n_audio
+            if noise_audio is None:
+                xa = torch.randn((1, n_audio, model.av_config.audio_in_channels), generator=g,
+                                 dtype=torch.float32, device=device)
+            else:
+                xa = torch.from_numpy(np.array(noise_audio, dtype=np.float32)).to(device)
         sigmas = schedule.inference_sigmas(gen.sample_steps, image_seq_len=rec["tokens"])
         rec["step_ms"], rec["experts"] = [], []
         for i in range(gen.sample_steps):
-            v = model.predict(variables, x, torch.full((1,), float(sigmas[i]), device=device), cond)
-            rec["experts"].append(model.last_expert)
+            t = torch.full((1,), float(sigmas[i]), device=device)
+            if xa is not None:  # both streams, one Euler step each at the shared sigma
+                v, va = model.predict(variables, x, t, {**cond, "noisy_audio": xa})
+                xa = schedule.euler_step(xa, va, sigmas[i], sigmas[i + 1])
+            else:
+                v = model.predict(variables, x, t, cond)
+            rec["experts"].append(getattr(model, "last_expert", None))
             x = schedule.euler_step(x, v, sigmas[i], sigmas[i + 1])
             _sync(device)
             t2 = time.perf_counter()
@@ -270,16 +301,17 @@ def _generate_video(model, variables, gen, schedule, noise, rec, shape, cond) ->
             t1 = t2
         rec["latents_finite"] = bool(torch.isfinite(x).all())
         frames = _to_uint8(model.decode_latents(variables, x))
+        wav = None if xa is None else model.decode_audio(variables, xa)[0].float().cpu().numpy()
         rec["decode_ms"] = (time.perf_counter() - t1) * 1e3
         rec["total_s"] = time.perf_counter() - t0
-    return frames
+    return frames if wav is None else (frames, wav)
 
 
 def generate(model, variables, gen: GenerateImageConfig, lora=None, schedule=None, stats=None, cond=None):
     if hasattr(model, "frame_count_snapper"):
         return generate_video(model, variables, gen, lora, schedule, stats=stats, cond=cond)
     if hasattr(model, "latent_shape_audio"):
-        raise NotImplementedError("audio generation is not ported yet")
+        raise NotImplementedError(GENERATE_AUDIO)
     if not model.is_flow_matching:
         return generate_sd(model, variables, gen, lora, schedule, stats=stats)
     return generate_flux(model, variables, gen, lora, schedule, stats=stats)
@@ -313,4 +345,14 @@ def save_video_atomic(frames: np.ndarray, path: str, fps: int = 16) -> None:
     else:
         ims[0].save(tmp, save_all=True, append_images=ims[1:], duration=max(1, int(round(1000 / max(fps, 1)))),
                     loop=0)
+    os.replace(tmp, path)
+
+
+def save_wav_atomic(waveform: np.ndarray, path: str, sample_rate: int = AUDIO_SAMPLE_RATE) -> None:
+    """Write-then-rename ``[S, C]`` f32 in [-1, 1] as a 16-bit wav (JAX ``save_wav_atomic``)."""
+    from scipy.io import wavfile
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp.wav"
+    wavfile.write(tmp, sample_rate, (np.clip(waveform, -1.0, 1.0) * 32767.0).astype(np.int16))
     os.replace(tmp, path)

@@ -35,6 +35,13 @@ CLIP and T5, diffusers for the VAE).
   like a whole one; the JAX full fine-tune's flat file, keyed by
   ``_flatten_params`` (``double_0.img_mlp_moe.experts.w1.kernel``), through
   :func:`flux_dit_flat_state_dict`.
+- The audio archs: ACE-Step's waveform VAE and LTX-2's joint DiT keep the
+  JAX names (``enc_blocks_1_0.conv1``, ``blocks.3.a2v_q``, the modulation
+  tables as parameters); LTX-2's video VAE, mel VAE and vocoder take the
+  checkpoint's (``encoder.down_blocks.0.resnets.1.conv1.conv``,
+  ``encoder.down.0.block.1.conv1``, ``upsamplers.0``), 1-D kernels
+  ``(k, in, out)`` -> ``[out, in, k]`` and the vocoder's transposed ones ->
+  ``[in, out, k]``.
 - bf16 arrays (numpy's ``ml_dtypes.bfloat16``) become bf16 tensors.
 """
 
@@ -648,3 +655,119 @@ def sdxl_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
         "clip": clip_state_dict(variables["clip"]),
         "clip2": clip_state_dict(variables["clip2"]),
     }
+
+
+# ---- the audio archs: ACE-Step's waveform VAE, LTX-2's VAEs, vocoder and joint DiT ----
+
+def audio_vae_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``AudioAutoencoderKL`` params (``enc_blocks_1_0/conv1``) -> the
+    port's, which keeps the JAX names; conv kernels ``(k, in, out)`` ->
+    ``[out, in, k]``, in their own dtype."""
+    return {f"{path.rsplit('/', 1)[0].replace('/', '.')}.{'weight' if path.endswith('kernel') else 'bias'}":
+            _tensor(v.transpose(2, 1, 0) if path.endswith("kernel") else v) for path, v in _flatten(tree).items()}
+
+
+_LTX_VIDEO_VAE = [
+    (r"(encoder|decoder)/(conv_in|conv_out)", "{0}.{1}.conv"),
+    (r"(encoder|decoder)/mid_block_resnets_(\d+)/(conv1|conv2|conv_shortcut)", "{0}.mid_block.resnets.{1}.{2}.conv"),
+    (r"(encoder/down|decoder/up)_blocks_(\d+)_resnets_(\d+)/(conv1|conv2|conv_shortcut)",
+     "{0}_blocks.{1}.resnets.{2}.{3}.conv"),
+    (r"encoder/down_blocks_(\d+)_downsamplers_0/conv", "encoder.down_blocks.{0}.downsamplers.0.conv.conv"),
+    (r"decoder/up_blocks_(\d+)_upsamplers_0/conv", "decoder.up_blocks.{0}.upsamplers.0.conv.conv"),
+]
+
+
+def ltx_video_vae_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``LTXVideoVAE`` params -> the diffusers ``AutoencoderKLLTX2Video``
+    names the port carries; 3-D kernels ``(kt, kh, kw, in, out)`` ->
+    ``[out, in, kt, kh, kw]``."""
+    return _convert(tree, lambda p: _lookup(_LTX_VIDEO_VAE, p, "ltx video vae").replace("/", "."))
+
+
+_LTX_AUDIO_VAE = [
+    (r"(encoder|decoder)/(conv_in|conv_out)/conv", "{0}.{1}"),
+    (r"(encoder|decoder)/mid_block_(1|2)/(conv1|conv2)/conv", "{0}.mid.block_{1}.{2}"),
+    (r"(encoder/down|decoder/up)_(\d+)_block_(\d+)/(conv1|conv2)/conv", "{0}.{1}.block.{2}.{3}"),
+    (r"(encoder/down|decoder/up)_(\d+)_block_(\d+)/nin_shortcut", "{0}.{1}.block.{2}.nin_shortcut"),
+    (r"encoder/down_(\d+)_downsample", "encoder.down.{0}.downsample.conv"),
+    (r"decoder/up_(\d+)_upsample/conv", "decoder.up.{0}.upsample.conv"),
+    (r"(quant_conv|post_quant_conv)", "{0}"),
+]
+
+
+def ltx_audio_vae_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``LTXAudioVAE`` params -> the checkpoint's taming-style names
+    (``encoder.down.0.block.1.conv1``) the port carries; HWIO -> OIHW."""
+    return _convert(tree, lambda p: _lookup(_LTX_AUDIO_VAE, p, "ltx audio vae").replace("/", "."))
+
+
+def vocoder_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``LTX2Vocoder`` params -> the checkpoint's names; conv kernels
+    ``(k, in, out)`` -> ``[out, in, k]``, the transposed convolutions'
+    ``(k, in, out)`` -> torch's ``[in, out, k]`` (no flip: JAX's
+    ``transpose_kernel`` does it)."""
+    sd = {}
+    for path, v in _flatten(tree).items():
+        mod, leaf = path.rsplit("/", 1)
+        name = re.sub(r"_(\d+)(?=/|$)", r".\1", mod.removesuffix("/conv")).replace("/", ".")
+        if leaf == "kernel":
+            v = v.transpose(1, 2, 0) if mod.startswith("upsamplers_") else v.transpose(2, 1, 0)
+        sd[f"{name}.{'weight' if leaf == 'kernel' else 'bias'}"] = _tensor(v)
+    return sd
+
+
+def ltx2_av_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX ``LTX2AVDiT`` params (unrolled ``block_3/a2v_q`` or scanned) ->
+    the port's, which keeps the JAX names under ``blocks.{i}``; the
+    modulation tables stay f32 parameters of their own names."""
+    sd = {}
+    for path, v in _flatten(_unscan(tree, (("blocks", "block_"),))).items():
+        mod, leaf = path.rsplit("/", 1) if "/" in path else ("", path)
+        mod = re.sub(r"^block_(\d+)", r"blocks.\1", mod).replace("/", ".")
+        if leaf in ("kernel", "scale", "bias"):
+            name, arr = _leaf(v, leaf, "weight")
+            sd[f"{mod}.{name}"] = _tensor(arr)
+        else:  # a modulation table
+            sd[f"{mod}.{leaf}" if mod else leaf] = _tensor(v)
+    return sd
+
+
+def ltx2_av_lora_tree(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``lora`` collection of the joint DiT (unrolled or scanned) ->
+    ``{blocks.{i}.<JAX name>: {a, b, scale}}``."""
+    flat = _flatten(tree)
+    groups: dict[str, dict[str, np.ndarray]] = {}
+    for path, v in flat.items():
+        mod, leaf = path.rsplit("/", 1)
+        groups.setdefault(mod, {})[leaf] = v
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for mod, leaf in groups.items():
+        m = re.fullmatch(r"blocks/block/(.+)", mod)
+        if m:
+            scales = np.reshape(leaf["scale"], -1)
+            for i in range(leaf["a"].shape[0]):
+                out[f"blocks.{i}.{m.group(1)}"] = _lora_entry(leaf["a"][i], leaf["b"][i],
+                                                             scales[i if scales.size > 1 else 0])
+        else:
+            i, name = re.fullmatch(r"block_(\d+)/(.+)", mod).groups()
+            out[f"blocks.{i}.{name}"] = _lora_entry(leaf["a"], leaf["b"], np.reshape(leaf["scale"], -1)[0])
+    return out
+
+
+def ace_model_state(variables: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``AudioModel`` variables ``{dit, vae, t5}`` (the stand-in path)."""
+    return {"dit": wan_dit_state_dict(variables["dit"]), "vae": audio_vae_state_dict(variables["vae"]),
+            "t5": t5_state_dict(variables["t5"])}
+
+
+def ltx2_model_state(variables: dict, gemma: bool, joint: bool, mel: bool) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX ``LTX2Model`` variables ``{dit, vae, te}`` (and ``audio_vae``,
+    ``vocoder`` of a joint model) -> per-component state dicts; ``gemma``:
+    the caption tower's Gemma norms."""
+    out = {"dit": ltx2_av_state_dict(variables["dit"]) if joint else wan_dit_state_dict(variables["dit"]),
+           "vae": ltx_video_vae_state_dict(variables["vae"]), "te": llm_state_dict(variables["te"], gemma=gemma)}
+    if joint:
+        out["audio_vae"] = (ltx_audio_vae_state_dict if mel else audio_vae_state_dict)(variables["audio_vae"])
+        if mel:
+            out["vocoder"] = vocoder_state_dict(variables["vocoder"])
+    return out

@@ -16,7 +16,8 @@ import time
 import torch
 
 from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig, ProcessConfig
-from ai_toolkit_tpu_torch.generation import encode_video_cond, generate, save_image_atomic, save_video_atomic
+from ai_toolkit_tpu_torch.generation import (encode_video_cond, generate, save_image_atomic, save_video_atomic,
+                                             save_wav_atomic)
 from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
 from ai_toolkit_tpu_torch.models.registry import get_model_class
 
@@ -60,11 +61,16 @@ class GenerateProcess:
         outputs = []
         for i, (gen, cond) in enumerate(zip(gens, conds)):
             out = generate(model, variables, gen, lora=lora, stats=timings[i], cond=cond)
+            wav = None
+            if isinstance(out, tuple):  # a joint audio-video model: the frames and the waveform
+                out, wav = out
             if video:
                 ext = "webp" if out.shape[0] > 1 else gen.output_ext
                 path = os.path.join(self.output_dir, f"{self.job_name}_{i:04d}.{ext}")
                 timings[i]["frames"] = out.shape[0]
                 save_video_atomic(out, path, fps=gen.fps)
+                if wav is not None:
+                    save_wav_atomic(wav, os.path.splitext(path)[0] + ".wav")
             else:
                 path = os.path.join(self.output_dir, f"{self.job_name}_{i:04d}.{gen.output_ext}")
                 save_image_atomic(out, path)

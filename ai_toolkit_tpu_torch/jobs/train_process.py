@@ -20,9 +20,13 @@ copy when EMA is on) in
 the PEFT layout for a flow-matching DiT (the ComfyUI one where the model's
 ``lora_key_layout`` asks for it: Qwen-Image), under the module names the
 JAX job writes (the model's ``lora_key``: Wan's and sd3's JAX paths), the
-kohya layout (``lora_unet_...``) for the UNet -> a final sample. A video model (Wan)
+kohya layout (``lora_unet_...``) for the UNet -> a final sample. A video model (Wan, LTX-2)
 snaps each dataset's ``num_frames`` to its VAE's frame grid and trains on
-5-D latents ``[B, T, h, w, C]``; with a dataset's ``do_i2v`` the first
+5-D latents ``[B, T, h, w, C]``; an audio model (ACE-Step) on waveform
+latents ``[B, T, C]`` with the 1-D rope over T; a joint audio-video model
+(LTX-2 with ``joint_audio``) encodes each batch's ``audio_waveform`` into
+``audio_latents`` with its 1-D rope ``pe_audio``, and each sample is an
+animated webp with a ``.wav`` beside it; with a dataset's ``do_i2v`` the first
 frame of each clip goes through an i2v arch's vision tower into
 ``img_cond``. A control arch (flux_kontext, ``model_kwargs.control``, and
 qwen_image_edit, which joins them to the image tokens along the sequence)
@@ -214,6 +218,9 @@ class SDTrainProcess:
 
     def _refuse_unported(self) -> None:
         cfg, tc = self.cfg, self.cfg.train
+        # before anything reads full_finetune: a file with an adapter and no network is no full fine-tune
+        if cfg.adapter or cfg.slider:
+            raise NotImplementedError("adapters / sliders come with later slices")
         if self.textual_inversion:
             from ai_toolkit_tpu_torch.models.sd_model import SDModel
 
@@ -233,15 +240,18 @@ class SDTrainProcess:
             raise NotImplementedError(
                 "model.quantize with a full fine-tune comes with slice G (the JAX job trains only the "
                 "weights that quantization leaves unquantized)")
-        if cfg.adapter or cfg.slider:
-            raise NotImplementedError("adapters / sliders come with later slices")
         refuse_unported(tc, _UNPORTED_TRAIN, TrainConfig(), "train")
         refuse_unported(cfg.model, _UNPORTED_MODEL, ModelConfig(), "model")
         if cfg.model.quantize_kwargs:
             raise NotImplementedError("model.quantize_kwargs come with slice G")
         if not tc.train_unet:
             raise NotImplementedError("train_unet: false trains nothing the port has")
-        flow = get_model_class(cfg.model.arch).is_flow_matching
+        model_cls = get_model_class(cfg.model.arch)
+        flow = model_cls.is_flow_matching
+        if getattr(model_cls, "is_audio", False) and not tc.disable_sampling and cfg.sample.prompts:
+            from ai_toolkit_tpu_torch.generation import GENERATE_AUDIO
+
+            raise NotImplementedError(f"sample prompts on arch '{cfg.model.arch}': {GENERATE_AUDIO}")
         scheduler = (tc.noise_scheduler or "flowmatch").lower()
         if scheduler not in (("flowmatch", "flowmatch_euler") if flow else DDPM_NAMES):
             raise NotImplementedError(f"noise_scheduler '{tc.noise_scheduler}' for arch "
@@ -525,7 +535,7 @@ class SDTrainProcess:
         textual inversion's bank as it is trained, as in JAX), to
         ``<save_root>/samples/<name>_<step:09d>_<i>.<ext>``. Raises when a
         sample fails."""
-        from ai_toolkit_tpu_torch.generation import generate, save_image_atomic, save_video_atomic
+        from ai_toolkit_tpu_torch.generation import generate, save_image_atomic, save_video_atomic, save_wav_atomic
 
         cfg = self.cfg
         sample_dir = os.path.join(self.save_root, "samples")
@@ -541,15 +551,21 @@ class SDTrainProcess:
                 _sync(self.device)
                 t0 = time.perf_counter()
                 out = generate(model, variables, gen)
+                wav = None
+                if isinstance(out, tuple):  # a joint AV model: the frames and the waveform
+                    out, wav = out
                 if hasattr(model, "frame_count_snapper"):
                     ext = "webp" if out.shape[0] > 1 else gen.output_ext
                     path = os.path.join(sample_dir, f"{self.job_name}_{step:09d}_{i}.{ext}")
                     save_video_atomic(out, path, fps=gen.fps)
+                    if wav is not None:
+                        save_wav_atomic(wav, os.path.splitext(path)[0] + ".wav")
                 else:
                     path = os.path.join(sample_dir, f"{self.job_name}_{step:09d}_{i}.{gen.output_ext}")
                     save_image_atomic(out, path)
                 secs = time.perf_counter() - t0
-                self.samples.append({"step": step, "index": i, "path": path, "seconds": secs})
+                self.samples.append({"step": step, "index": i, "path": path, "seconds": secs,
+                                     **({"wav": os.path.splitext(path)[0] + ".wav"} if wav is not None else {})})
                 print(f"sample: {path} ({secs:.2f} s)")
         finally:
             with torch.no_grad():
@@ -618,6 +634,15 @@ class SDTrainProcess:
         latents = torch.from_numpy(raw["latents"]).to(dev)
         batch = {"latents": latents, "cond": cond,
                  "loss_multiplier": torch.from_numpy(raw["loss_multiplier"]).to(dev)}
+        if raw.get("audio_waveform") is not None and getattr(model, "joint_audio", False):
+            # joint AV: the sidecar audio through the audio VAE (its noise is drawn in the step)
+            with torch.no_grad():
+                batch["audio_latents"] = model.encode_audio(variables, torch.from_numpy(raw["audio_waveform"]))
+            cond["pe_audio"] = model.audio_rope_table(int(batch["audio_latents"].shape[1]))
+        if latents.dim() == 3:  # audio latents [B, T, C]: the 1-D rope over time
+            cond["pe"] = model.rope_table(int(latents.shape[1]))
+            batch["image_seq_len"] = int(latents.shape[1])
+            return batch
         if latents.dim() == 5:  # video latents [B, T, h, w, C]: rope over (t, y, x)
             tt, h, w = latents.shape[1:4]
             cond["pe"] = model.rope_table(tt, h, w)

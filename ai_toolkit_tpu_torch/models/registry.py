@@ -26,8 +26,10 @@ def register_model(cls):
 
 
 def get_model_class(arch: str):
+    import ai_toolkit_tpu_torch.models.audio_model  # noqa: F401  (registers ace_step_15, ace_step_15_xl, ace_step)
     import ai_toolkit_tpu_torch.models.flux_model  # noqa: F401  (registers flux, flux_schnell, flex*, kontext, chroma)
     import ai_toolkit_tpu_torch.models.hidream_model  # noqa: F401  (registers hidream)
+    import ai_toolkit_tpu_torch.models.ltx2_model  # noqa: F401  (registers ltx2, ltx2_3, ltx2.3, ltxv, minimax_h3)
     import ai_toolkit_tpu_torch.models.lumina2_model  # noqa: F401  (registers lumina2)
     import ai_toolkit_tpu_torch.models.omnigen2_model  # noqa: F401  (registers omnigen2)
     import ai_toolkit_tpu_torch.models.qwen_model  # noqa: F401  (registers qwen_image, qwen_image_edit)

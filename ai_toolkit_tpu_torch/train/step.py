@@ -7,6 +7,10 @@ PyTorch), the core path the flux and SDXL LoRA jobs take:
                                      target = noise (epsilon) or v,
                                      per-sample weight min(snr, gamma) / snr with min_snr_gamma
     loss = mse(predict(x_t, t, cond), target)
+    joint audio-video (a batch with ``audio_latents``): the audio tokens are
+    noised at the same t with their own noise (drawn after the video's), the
+    model returns both predictions, and
+    loss += audio_loss_multiplier * mse(audio_pred, audio_target)
     grads of the trainable tensors only; clip, AdamW(8bit), EMA
 
 with metrics ``loss``, ``loss_raw`` and ``grad_norm`` (the global norm of the
@@ -69,6 +73,7 @@ class TrainStepConfig:
     content_or_style: str = "balanced"
     min_denoising_steps: int = 0
     max_denoising_steps: int | None = None
+    audio_loss_multiplier: float = 1.0  # the joint AV audio stream's loss weight
     # multistage: the trained expert alternates every switch_every steps, t drawn from its noise range
     stage_boundary: float | None = None
     switch_every: int = 0
@@ -90,6 +95,7 @@ class TrainStepConfig:
             content_or_style=tc.content_or_style,
             min_denoising_steps=int(tc.min_denoising_steps or 0),
             max_denoising_steps=tc.max_denoising_steps,
+            audio_loss_multiplier=float(tc.audio_loss_multiplier),
         )
 
 
@@ -97,19 +103,41 @@ PredictFn = Callable[[torch.Tensor, torch.Tensor, dict], torch.Tensor]
 
 
 def train_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dict,
-               noise: torch.Tensor, t: torch.Tensor) -> tuple[torch.Tensor, dict]:
+               noise: torch.Tensor, t: torch.Tensor,
+               noise_audio: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """The loss of one micro-batch for given noise and timesteps (JAX
     ``microbatch_loss`` on the paths the ported jobs take); a DDPM schedule's
-    ``t`` are integer indices, and the UNet is called on them."""
+    ``t`` are integer indices, and the UNet is called on them. A joint
+    audio-video batch (``audio_latents``) takes ``noise_audio`` and adds the
+    audio stream's weighted loss, with the metric ``audio_loss``."""
     latents = batch["latents"]
     noisy = schedule.add_noise(latents, noise, t)
     target = schedule.target(latents, noise, t)
-    pred = predict_fn(noisy, t, batch.get("cond", {}))
+    cond = batch.get("cond", {})
+    audio = batch.get("audio_latents")
+    if audio is not None:
+        cond = {**cond, "noisy_audio": schedule.add_noise(audio, noise_audio, t)}
+    pred = predict_fn(noisy, t, cond)
+    if audio is not None:
+        pred, audio_pred = pred
     tw = None
     if cfg.min_snr_gamma and not isinstance(schedule, FlowMatchSchedule):
         tw = schedule.min_snr_weight(t, cfg.min_snr_gamma)
-    return compute_loss(pred, target, loss_type=cfg.loss_type, timestep_weights=tw,
-                        loss_multiplier=batch.get("loss_multiplier"))
+    loss, aux = compute_loss(pred, target, loss_type=cfg.loss_type, timestep_weights=tw,
+                             loss_multiplier=batch.get("loss_multiplier"))
+    if audio is not None:
+        audio_loss, _ = compute_loss(audio_pred, schedule.target(audio, noise_audio, t), loss_type=cfg.loss_type,
+                                     timestep_weights=tw, loss_multiplier=batch.get("loss_multiplier"))
+        loss = loss + cfg.audio_loss_multiplier * audio_loss
+        aux = {**aux, "audio_loss": audio_loss}
+    return loss, aux
+
+
+def _audio_noise(batch: dict, generator: torch.Generator) -> torch.Tensor | None:
+    audio = batch.get("audio_latents")
+    if audio is None:
+        return None
+    return torch.randn(audio.shape, generator=generator, dtype=audio.dtype, device=audio.device)
 
 
 @torch.no_grad()
@@ -120,8 +148,9 @@ def eval_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dict
     seeds it with ``validation.seed`` for every evaluation), flow t at the
     step's ``timestep_type`` without its bias, DDPM t from the full balanced
     range, and :func:`train_loss` without per-sample weights (no min-SNR, no
-    loss multiplier), as JAX's eval loss has none. No gradient; the optimizer
-    and the EMA are not touched."""
+    loss multiplier), as JAX's eval loss has none; a joint AV batch adds its
+    audio loss unweighted by ``audio_loss_multiplier``, as JAX's does. No
+    gradient; the optimizer and the EMA are not touched."""
     latents = batch["latents"]
     if isinstance(schedule, FlowMatchSchedule):
         t = schedule.sample_timesteps(generator, latents.shape[0], cfg.timestep_type,
@@ -130,7 +159,8 @@ def eval_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dict
         t = schedule.sample_timesteps(generator, latents.shape[0], device=latents.device)
     noise = torch.randn(latents.shape, generator=generator, dtype=latents.dtype, device=latents.device)
     unweighted = {k: v for k, v in batch.items() if k != "loss_multiplier"}
-    return train_loss(predict_fn, schedule, replace(cfg, min_snr_gamma=None), unweighted, noise, t)[0]
+    return train_loss(predict_fn, schedule, replace(cfg, min_snr_gamma=None, audio_loss_multiplier=1.0), unweighted,
+                      noise, t, _audio_noise(batch, generator))[0]
 
 
 def stage_range(cfg: TrainStepConfig, step: int) -> tuple[float, float] | None:
@@ -167,7 +197,7 @@ def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig):
                                           device=latents.device)
         noise = torch.randn(latents.shape, generator=generator, dtype=latents.dtype,
                             device=latents.device)
-        return train_loss(predict_fn, schedule, cfg, batch, noise, t)
+        return train_loss(predict_fn, schedule, cfg, batch, noise, t, _audio_noise(batch, generator))
 
     def train_step(state: TrainState, batches: list[dict], generator: torch.Generator) -> dict:
         if len(batches) != cfg.grad_accum:

@@ -45,7 +45,9 @@ Phases (any failure raises and the script exits non-zero):
      configs/examples/train_lora_{chroma,flex,flex2,flux_kontext}_tpu.yaml as
      written but for their paths and steps (12) on seeded weights, as 8b
      (the flex2 and kontext files over seeded control images beside the
-     training images, flex2 with one seeded inpaint image): 57 launches of
+     training images, flex2 with one seeded inpaint image), their DiT and
+     the flex2 generate job's cut to FLUX_FAMILY_CUT (5 + 10) of flux-dev's
+     19 + 38 blocks, widths unchanged: 15 launches of
      each flash kernel every step and denoise step, each batch's control
      latents against the VAE encode of its control images, flex2's
      [inpaint | mask | control] layout, a LoRA that moved and reloads, the
@@ -162,9 +164,26 @@ Phases (any failure raises and the script exits non-zero):
   25. the TI2V-5B LoRA ``sd_trainer`` job from
      configs/examples/train_lora_wan21_tpu.yaml (``arch: wan22_5b``, 33
      frames at 704^2) and 26. its ``generate`` job at 1280x704, 49 frames,
-     8 Euler steps, all frames decoded at once.
-The line before the last is the kernel table; the SDXL and Wan launches are
-printed on lines of their own before it; the last line is the result.
+     8 Euler steps, all frames decoded at once;
+  27. the audio archs (``audio_phases``): the flash kernels against their
+     plain versions and timed at ACE-Step's (12 x 128 over 1,722 tokens,
+     self and to 256 text tokens) and LTX-2's shapes (32 x 128 over 1,792
+     video tokens; 32 x 64 over 151 audio tokens, to text, and the a2v /
+     v2a pairs across 1,792 and 151), with strongly negative logits in the
+     151-key, 151-row and 58-row tails; the 1-D WanDiT and the LTX-2 AV
+     block at full width cut to one block, in f32, card vs CPU; then
+     configs/examples/train_lora_ace_step_audio.yaml as written but for its
+     paths and steps over four seeded 10 s wavs written with scipy (one at
+     48 kHz, one mono; [1722, 64] latents in the disk cache; 96 / 48 / 48
+     launches a step) and configs/examples/train_lora_ltx2_av_tpu.yaml as
+     written but for its paths and steps at full width and depth (48 joint
+     blocks on qfloat8, the bf16 Gemma tower, the mel chain) over four
+     seeded 49-frame 512^2 clips with 48 kHz sidecar wavs (one without):
+     576 / 288 / 288 launches a step and 288 a denoise step, 151 audio
+     tokens, the first and final samples each an animated webp of 49 frames
+     with a 48 kHz stereo wav of the length the mel chain gives.
+The line before the last is the kernel table; the SDXL, Wan and audio
+launches are printed on lines of their own before it; the last line is the result.
 """
 
 from __future__ import annotations
@@ -1125,7 +1144,6 @@ def check_lora_job(result: dict, proc) -> str:
     EMA is on) reloads under the LoRA's module names with its step in the
     metadata and non-zero b factors. Returns the save's path."""
     from ai_toolkit_tpu_torch.io.lora_file import load_lora_file
-    from ai_toolkit_tpu_torch.models.registry import get_model_class
 
     steps = result["steps"]  # the final save's step (a resume runs fewer)
     tr, ema = proc.state.trainable, proc.state.ema
@@ -1146,9 +1164,9 @@ def check_lora_job(result: dict, proc) -> str:
           "the EMA equals the trainable parameters")
     path = result["save_path"]
     check(os.path.isfile(path), f"no LoRA file at {path}")
-    arch = proc.cfg.model.arch  # the names resolve kohya keys, the model's inverse key map Wan's JAX keys
+    # the names resolve kohya keys, the model's inverse key map the JAX module paths (Wan, LTX-2)
     tree, meta = load_lora_file(path, module_names=list(proc.lora),
-                                module_name=getattr(get_model_class(arch), "lora_module_name", None))
+                                module_name=getattr(proc.model, "lora_module_name", None))
     check(sorted(tree) == sorted(proc.lora), "the LoRA file reloads under other module names")
     check(len(tree) == result["lora_modules"] and meta.get("step") == str(steps),
           f"LoRA file reloads with {len(tree)} modules, metadata {meta}")
@@ -1949,13 +1967,15 @@ def sd15_ti_phase(card: str, profile_dir: str | None) -> dict:
             "flash_launches_per_step": 0, "attention": sd15_attention_times(card)}
 
 
-def wan_reference(label: str, cfg, fwd_launches: dict, step_launches: dict, img_tokens: int = 0) -> None:
+def wan_reference(label: str, cfg, fwd_launches: dict, step_launches: dict, img_tokens: int = 0,
+                  grid: tuple[int, int, int] = (3, 10, 14), text_tokens: int = 512) -> None:
     """A full-width Wan DiT (``cfg``) cut to one block, in f32, on the card
     against the same module on the CPU (which takes the flash kernels' plain
-    versions), over a ragged 3 x 10 x 14 latent grid (105 tokens), 512 text
-    tokens and, for an i2v DiT, ``img_tokens`` CLIP-vision tokens through
-    ``img_emb``: the forward, and one LoRA training step's loss and a / b
-    gradients with the block checkpointed, as in training."""
+    versions), over a ragged latent grid (3 x 10 x 14, 105 tokens; the 1-D
+    DiT of ACE-Step: 105 x 1 x 1), ``text_tokens`` text tokens and, for an
+    i2v DiT, ``img_tokens`` CLIP-vision tokens through ``img_emb``: the
+    forward, and one LoRA training step's loss and a / b gradients with the
+    block checkpointed, as in training."""
     phase(f"full-width {label} DiT (one block, f32, 105 tokens): card vs CPU")
     from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
     from ai_toolkit_tpu_torch.models.wan_dit import WanDiT, wan_lora_targets, wan_patchify, wan_position_ids
@@ -1968,11 +1988,12 @@ def wan_reference(label: str, cfg, fwd_launches: dict, step_launches: dict, img_
     cpu = WanDiT(cfg, device="cpu").eval().requires_grad_(False)
     cpu.load_state_dict(gpu.state_dict())
     g = torch.Generator().manual_seed(1)
-    tt, hh, ww = 3, 10, 14
+    tt, hh, ww = grid
+    pt, ph, pw = cfg.patch_size
     lat = torch.randn((1, tt, hh, ww, cfg.in_channels), generator=g)
-    inputs = [wan_patchify(lat, cfg.patch_size), torch.randn((1, 512, cfg.text_dim), generator=g),
+    inputs = [wan_patchify(lat, cfg.patch_size), torch.randn((1, text_tokens, cfg.text_dim), generator=g),
               torch.tensor([0.7]),
-              multi_axis_rope(torch.from_numpy(wan_position_ids(tt, hh // 2, ww // 2)), list(cfg.axes_dim))]
+              multi_axis_rope(torch.from_numpy(wan_position_ids(tt // pt, hh // ph, ww // pw)), list(cfg.axes_dim))]
     if img_tokens:
         inputs.append(torch.randn((1, img_tokens, cfg.img_cond_dim), generator=g))
     gpu_in = [x.cuda() for x in inputs]
@@ -2279,6 +2300,27 @@ FLUX_FAMILY = [("chroma", "train_lora_chroma_tpu.yaml", ()), ("flex1", "train_lo
                ("flux_kontext", "train_lora_flux_kontext_tpu.yaml", ("control_path",))]
 
 
+# the four flux-family files and the flex2 generate job run at this many double + single
+# blocks of flux-dev's 19 + 38, widths unchanged: each block still launches every flash
+# kernel (15 launches a step instead of 57), and the cut makes room for the audio phases
+FLUX_FAMILY_CUT = (5, 10)
+
+
+@contextlib.contextmanager
+def flux_cut_depth(double: int = FLUX_FAMILY_CUT[0], single: int = FLUX_FAMILY_CUT[1]):
+    """flux-dev's DiT config at ``double`` + ``single`` blocks for the block
+    (``FluxConfig.dev`` replaced; nothing in the package changes)."""
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig
+
+    full = FluxConfig.__dict__["dev"]
+    FluxConfig.dev = classmethod(lambda cls: dataclasses.replace(full.__func__(cls), depth_double=double,
+                                                                 depth_single=single))
+    try:
+        yield
+    finally:
+        FluxConfig.dev = full
+
+
 def flux_family_phases(card: str, profile_dir: str | None) -> dict:
     """The flux family's phases: the chroma and flex2 DiTs card vs CPU at full
     width, the four shipped flux-family files as written (but for their
@@ -2299,22 +2341,27 @@ def flux_family_phases(card: str, profile_dir: str | None) -> dict:
     ctrl, inp = _control_folders()
     folders = {"control_path": ctrl, "inpaint_path": inp}
     out = {}
+    blocks = sum(FLUX_FAMILY_CUT)
     for arch, example, extra in FLUX_FAMILY:
         phase(f"{arch} LoRA sd_trainer job, configs/examples/{example} as written with seeded weights"
               + (f" and the seeded {' and '.join(extra)}" if extra else "")
               + ": qfloat8 base, resolutions [512, 768, 1024] (12 items, 3 buckets), the disk latent cache, "
-                "its prompt at 1024x1024 and 20 steps first and final, 12 steps")
+                f"its prompt at 1024x1024 and 20 steps first and final, 12 steps; the DiT cut to "
+                f"{FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks")
         watch = _ControlBatches(arch) if extra else None
-        out[arch] = _shipped_flux_job(card, profile_dir, example, f"smoke_{arch}_shipped", 1, watch,
-                                      **{k: folders[k] for k in extra})
+        with flux_cut_depth():
+            out[arch] = _shipped_flux_job(card, profile_dir, example, f"smoke_{arch}_shipped", 1, watch, blocks,
+                                          **{k: folders[k] for k in extra})
         if watch is not None:
             _check_control_batches(watch.seen, arch)
     phase("flex2 generate job, 1024x1024, 8 steps, 1 prompt with a seeded ctrl_img, bf16 base, with the LoRA "
-          "of the shipped flex2 job")
+          f"of the shipped flex2 job (the DiT cut to {FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks)")
     t0 = time.perf_counter()
-    gen = generate_job({"name_or_path": "", "arch": "flex2"}, 1024, 1024, 8,
-                       [{"prompt": "a photo of a lighthouse on a cliff", "ctrl_img": os.path.join(ctrl, "img_1.png")}],
-                       _counts(fwd=BLOCKS_PER_FORWARD), lora_path=out["flex2"]["lora_path"])
+    with flux_cut_depth():
+        gen = generate_job({"name_or_path": "", "arch": "flex2"}, 1024, 1024, 8,
+                           [{"prompt": "a photo of a lighthouse on a cliff",
+                             "ctrl_img": os.path.join(ctrl, "img_1.png")}],
+                           _counts(fwd=blocks), lora_path=out["flex2"]["lora_path"])
     print(f"{card}: flex2 generate job {time.perf_counter() - t0:.1f} s wall, launches {gen}")
     return {arch: {"median_step_ms_by_bucket": r["by_bucket_ms"], "peak_gib": r["peak_gib"],
                    "sample_s": r["sample_s"], "wall_s": r["wall_s"]} for arch, r in out.items()}
@@ -2669,6 +2716,270 @@ def nextdit_phases(card: str, profile_dir: str | None) -> dict:
             "masked_attention": attention, "omnigen2_generate_s": time.perf_counter() - t0}
 
 
+# ---- the audio archs: ACE-Step's 1-D WanDiT and LTX-2's joint audio-video DiT ----
+
+ACE_BLOCKS = 24  # the 1-D WanDiT: one self- and one cross-attention each
+ACE_CLIPS = 4
+LTX2_BLOCKS = 48  # six attentions each: video self, audio self, a2v, v2a, video and audio text
+LTX2_CLIPS = 4  # 49 frames at 512^2 and 24 fps; all but the last with a 48 kHz sidecar .wav
+LTX2_FRAMES = 49
+# (B, S, T, H, D): ACE's 10 s clip is 1,722 latent tokens against itself and 256 T5 tokens; LTX-2's
+# 49 frames at 512^2 are 7 x 16 x 16 = 1,792 video tokens, its 2.04 s of 48 kHz audio 151 tokens
+AUDIO_SHAPES = [((1, 1722, 1722, 12, 128), "ACE self"), ((1, 1722, 256, 12, 128), "ACE to text"),
+                ((1, 1792, 1792, 32, 128), "LTX-2 video self"), ((1, 1792, 256, 32, 128), "LTX-2 video to text"),
+                ((1, 151, 151, 32, 64), "LTX-2 audio self"), ((1, 151, 256, 32, 64), "LTX-2 audio to text"),
+                ((1, 1792, 151, 32, 64), "LTX-2 a2v"), ((1, 151, 1792, 32, 64), "LTX-2 v2a")]
+# the ragged tails these shapes give the kernels, with every logit near -shift^2 sqrt(D) (the lse
+# below -88: the zero fill is no mask): (shape, label, shift)
+AUDIO_NEGATIVE = [((1, 1792, 151, 32, 64), "a2v: 1,792 queries over a 151-key tail, negative logits", 4.0),
+                  ((1, 151, 1792, 32, 64), "v2a: a 151-row Q tail (dk/dv), negative logits", 4.0),
+                  ((1, 1722, 256, 12, 128), "ACE to text: a 58-row Q tail, negative logits", 3.2)]
+
+
+def _wav_folder(n: int = ACE_CLIPS) -> str:
+    """``n`` seeded 10 s clips written with scipy and captioned: 16-bit stereo
+    at 44.1 kHz, one at 48 kHz and one mono (both resampled or widened by the
+    loader)."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    folder = os.path.join(OUT_DIR, "ace_wavs")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(0)
+    styles = ["upbeat electronic dance track", "slow piano ballad", "jazz trio with brushed drums", "ambient pads"]
+    for i in range(n):
+        rate = 48000 if i == 1 else 44100
+        t = np.arange(int(10.0 * rate)) / rate
+        tone = np.sin(2 * np.pi * (110 * (i + 1)) * t)[:, None] * np.array([[0.5, 0.3]]) + rng.normal(0, 0.05, (len(t), 2))
+        pcm = (np.clip(tone, -1, 1) * 32767).astype(np.int16)
+        wavfile.write(os.path.join(folder, f"clip_{i}.wav"), rate, pcm[:, 0] if i == 2 else pcm)
+        with open(os.path.join(folder, f"clip_{i}.txt"), "w") as f:
+            f.write(styles[i % len(styles)])
+    return folder
+
+
+def _av_clips(n: int = LTX2_CLIPS, size: int = 512) -> str:
+    """``n`` seeded 49-frame clips at ``size``^2 and 24 fps (OpenCV MJPG), all
+    but the last with a 48 kHz stereo sidecar .wav of 2.1 s."""
+    import cv2
+    import numpy as np
+    from scipy.io import wavfile
+
+    folder = os.path.join(OUT_DIR, f"ltx2_clips_{size}")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    subjects = ["a dog barking in a yard", "rain on a window", "a guitar being played", "a crowd cheering"]
+    for i in range(n):
+        f, ph = rng.uniform(1, 6, 3), rng.uniform(0, 6.3, 3)
+        wr = cv2.VideoWriter(os.path.join(folder, f"clip_{i}.avi"), cv2.VideoWriter_fourcc(*"MJPG"), 24, (size, size))
+        check(wr.isOpened(), "cv2.VideoWriter cannot write MJPG")
+        for j in range(LTX2_FRAMES):
+            img = np.stack([np.sin(f[c] * 6.3 * (xx + yy * (c + 1) / 3 + 0.02 * j) + ph[c]) for c in range(3)], -1)
+            wr.write(np.clip(127.5 * (img + 1) + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8))
+        wr.release()
+        if i < n - 1:
+            t = np.arange(int(2.1 * 48000)) / 48000
+            wav = 0.4 * np.sin(2 * np.pi * 220 * (i + 1) * t)[:, None] + rng.normal(0, 0.05, (len(t), 2))
+            wavfile.write(os.path.join(folder, f"clip_{i}.wav"), 48000, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+        with open(os.path.join(folder, f"clip_{i}.txt"), "w") as fh:
+            fh.write(f"a video of {subjects[i % len(subjects)]}")
+    return folder
+
+
+def av_reference(grid: tuple[int, int, int] = (2, 4, 6), audio_tokens: int = 11, text_tokens: int = 64) -> None:
+    """LTX-2's joint audio-video DiT at full width (4096 / 2048, 32 heads of
+    128 and of 64, the 2048-wide AV attention) cut to one block, in f32, on
+    the card against the same module on the CPU (the flash kernels' plain
+    versions there) over a 2 x 4 x 6 video grid (48 tokens), 11 audio
+    tokens and 64 caption tokens: both streams' forward, and one LoRA
+    training step's loss and a / b gradients (the video and audio losses
+    summed) with the block checkpointed, as in training."""
+    phase("full-width LTX-2 joint audio-video DiT (one block, f32, 48 video + 11 audio tokens): card vs CPU")
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
+    from ai_toolkit_tpu_torch.models.ltx2_av import LTX2AVConfig, LTX2AVDiT
+    from ai_toolkit_tpu_torch.models.ltx2_model import ltx2_dit_config
+    from ai_toolkit_tpu_torch.models.wan_dit import wan_lora_targets, wan_patchify, wan_position_ids
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+    from ai_toolkit_tpu_torch.ops.rope import multi_axis_rope
+
+    video = dataclasses.replace(ltx2_dit_config(), num_layers=1, dtype=torch.float32, remat=False)
+    cfg = LTX2AVConfig(video=video)
+    gpu = init_parameters(LTX2AVDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
+    gpu.eval().requires_grad_(False)
+    cpu = LTX2AVDiT(cfg, device="cpu").eval().requires_grad_(False)
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    tt, hh, ww = grid
+    lat = torch.randn((1, tt, hh, ww, video.in_channels), generator=g)
+    inputs = [wan_patchify(lat, video.patch_size), torch.randn((1, audio_tokens, cfg.audio_in_channels), generator=g),
+              torch.randn((1, text_tokens, video.text_dim), generator=g), torch.tensor([0.7]),
+              multi_axis_rope(torch.from_numpy(wan_position_ids(tt, hh, ww)), list(video.axes_dim)),
+              multi_axis_rope(torch.arange(audio_tokens)[None, :, None], [cfg.audio_head_dim])]
+    gpu_in = [x.cuda() for x in inputs]
+    _reset_launches()
+    with torch.inference_mode():
+        ref = cpu(*inputs)
+        out = [o.cpu() for o in gpu(*gpu_in)]
+    launches = _launches()
+    for what, o, r in zip(("video", "audio"), out, ref):
+        err, scale = (o - r).abs().max().item(), r.abs().max().item()
+        tol = 1e-3 * max(1.0, scale)  # f32 both sides, TF32 off; summation order only
+        print(f"forward {what}: out {tuple(o.shape)} max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {tol:.3e})")
+        check(bool(torch.isfinite(o).all()) and err <= tol, f"the LTX-2 AV block's {what} stream disagrees")
+    print(f"forward kernel launches={launches}")
+    check(launches == _counts(fwd=6), f"the AV block launched {launches}, not 6 flash forwards")
+
+    spec = LoRASpec(rank=16, alpha=16.0, target_patterns=wan_lora_targets())
+    lg = build_lora(gpu, spec, torch.Generator("cuda").manual_seed(2))
+    gb = torch.Generator("cuda").manual_seed(3)
+    with torch.no_grad():
+        for m in lg.values():
+            m.b.normal_(0.0, 0.01, generator=gb)
+    lc = build_lora(cpu, spec, torch.Generator().manual_seed(2))
+    cpu.load_state_dict(gpu.state_dict())
+    gpu.gradient_checkpointing = cpu.gradient_checkpointing = True
+    targets = [torch.randn(o.shape, generator=g) for o in out]
+    names = [(n, leaf) for n in lg for leaf in ("a", "b")]
+
+    def loss_and_grads(model, lora, args, tgts):
+        pv, pa = model(*args)
+        loss = (pv.float() - tgts[0]).square().mean() + (pa.float() - tgts[1]).square().mean()
+        return loss.item(), torch.autograd.grad(loss, [getattr(lora[n], leaf) for n, leaf in names])
+
+    _reset_launches()
+    ref_loss, ref_grads = loss_and_grads(cpu, lc, inputs, targets)
+    loss, grads = loss_and_grads(gpu, lg, gpu_in, [t.cuda() for t in targets])
+    launches = _launches()
+    worst = max(((gd.cpu() - gr).abs().max() / gr.abs().max().clamp_min(1e-30)).item()
+                for gd, gr in zip(grads, ref_grads))
+    print(f"LoRA train step ({len(lg)} modules, checkpointed block): loss card {loss:.6f} vs CPU {ref_loss:.6f}; "
+          f"{len(grads)} a / b tensors, worst max|dgrad|/max|grad| {worst:.3e} (tol 1e-3); kernel launches={launches}")
+    check(len(lg) == 28 and abs(loss - ref_loss) <= 1e-4 * abs(ref_loss) and worst <= 1e-3
+          and launches == _counts(12, 6, 6), "the LTX-2 AV LoRA train step on the card disagrees")
+    del gpu, cpu, lg, lc, grads, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ace_phase(card: str, profile_dir: str | None) -> dict:
+    """configs/examples/train_lora_ace_step_audio.yaml as written but for its
+    paths and steps, on seeded weights: the 1-D WanDiT (1536 x 24, 12 heads
+    of 128) over 1,722 latent tokens of each 10 s clip, T5-XXL at 256
+    tokens, rank 16, adamw, bf16, the disk latent cache of [1722, 64]
+    latents; 96 flash forwards, 48 dq and 48 dk/dv a step."""
+    phase("ace_step_15 LoRA sd_trainer job, configs/examples/train_lora_ace_step_audio.yaml as written with seeded "
+          f"weights: {ACE_CLIPS} seeded 10 s wavs (44.1 kHz stereo, one at 48 kHz, one mono), the disk latent "
+          "cache, 1,722 latent tokens, rank 16, adamw, bf16, per-block checkpointing")
+    from safetensors.numpy import load_file
+
+    raw = _shipped_job("train_lora_ace_step_audio.yaml", "smoke_ace_step_shipped", _train_steps(profile_dir), "",
+                       folder=_wav_folder())
+    raw["config"]["process"][0]["logging"] = {"log_every": 1}
+    step = _counts(4 * ACE_BLOCKS, 2 * ACE_BLOCKS, 2 * ACE_BLOCKS)  # self and text attention, forward twice
+    result, proc, report = _run_job(raw, step, profile_dir)
+    cache = result["latent_cache"]
+    files = sorted(os.listdir(cache["dir"]))
+    check(cache["items"] == len(files) == cache["encoded"] == ACE_CLIPS, f"latent cache {cache}")
+    lat = load_file(os.path.join(cache["dir"], files[0]))["latent"]
+    check(lat.shape == (1722, 64), f"a cached ACE latent is {lat.shape}, not [1722, 64]")
+    check(set(map(tuple, result["buckets"])) == {(0, 0)}, f"audio buckets {set(map(tuple, result['buckets']))}")
+    lora_path = check_lora_job(result, proc)
+    print(f"{card}: ace_step_15 job: median step {report['median_step_ms']:.1f} ms, peak {report['peak_gib']:.2f} "
+          f"GiB, job wall {report['wall_s']:.1f} s, 1,722 latent tokens a step, launches per step {step}")
+    del proc
+    return {**report, "lora_path": lora_path, "tokens": 1722}
+
+
+def ltx2_phase(card: str, profile_dir: str | None) -> dict:
+    """configs/examples/train_lora_ltx2_av_tpu.yaml as written but for its
+    paths and steps, on seeded weights, at full width and depth: the joint
+    DiT (48 blocks) on a qfloat8 base, the Gemma tower in bf16, the mel audio
+    chain, rank 16, adamw8bit, EMA 0.99, per-block checkpointing, 49 frames
+    at 512^2 (1,792 video tokens) with 48 kHz sidecar audio (151 tokens; one
+    clip without a sidecar trains on silence), the disk latent cache, the
+    first and final samples (20 steps, 49 frames, an animated webp and a wav
+    each); 576 flash forwards, 288 dq and 288 dk/dv a step, 288 forwards a
+    denoise step."""
+    phase("ltx2 joint audio-video LoRA sd_trainer job, configs/examples/train_lora_ltx2_av_tpu.yaml as written with "
+          f"seeded weights: {LTX2_CLIPS} seeded {LTX2_FRAMES}-frame 512^2 clips at 24 fps with 48 kHz sidecars (one "
+          "without), qfloat8 DiT (48 blocks), bf16 Gemma tower, mel audio VAE and vocoder, adamw8bit, EMA, the disk "
+          "latent cache, its prompt at 20 steps and 49 frames first and final")
+    import numpy as np
+    from PIL import Image
+    from scipy.io import wavfile
+
+    raw = _shipped_job("train_lora_ltx2_av_tpu.yaml", "smoke_ltx2_shipped", _train_steps(profile_dir), "",
+                       folder=_av_clips())
+    raw["config"]["process"][0]["logging"] = {"log_every": 1}
+    step = _counts(12 * LTX2_BLOCKS, 6 * LTX2_BLOCKS, 6 * LTX2_BLOCKS)  # six attentions, forward twice
+    result, proc, report = _run_job(raw, step, profile_dir, _counts(fwd=6 * LTX2_BLOCKS))
+    p = proc.cfg
+    check(p.model.quantize and p.train.optimizer == "adamw8bit" and p.datasets[0].do_audio
+          and p.model.model_kwargs.get("audio_vae") == "mel", "the LTX-2 file lost its settings")
+    model, variables = proc.model, proc.variables
+    with torch.inference_mode():
+        n_audio = model.encode_audio(variables, torch.zeros(1, int(LTX2_FRAMES / 24 * 48000), 2)).shape[1]
+    check(n_audio == 151, f"{n_audio} audio tokens for 49 frames at 24 fps, not 151")
+    cache = result["latent_cache"]
+    check(cache["items"] == len(os.listdir(cache["dir"])) == cache["encoded"] == LTX2_CLIPS, f"latent cache {cache}")
+    got = [(r["step"], r["index"]) for r in result["samples"]]
+    check(got == [(0, 0), (result["steps"], 0)], f"samples at {got}")
+    n_gen = round(LTX2_FRAMES / 24 * 48000 / model.audio_vae_config.downscale)
+    want_len = (4 * n_gen - 3) * model.vocoder_config.total_upsample  # two causal mel upsamples, then the vocoder
+    for r in result["samples"]:
+        with Image.open(r["path"]) as im:
+            n_frames = getattr(im, "n_frames", 1)
+            px = np.asarray(im.convert("RGB"))
+        sr, wav = wavfile.read(r["wav"])
+        check(n_frames == LTX2_FRAMES and px.shape == (512, 512, 3) and px.std() > 0,
+              f"sample {r['path']}: {n_frames} frames of {px.shape}")
+        check(sr == 48000 and wav.shape == (want_len, 2) and wav.std() > 0,
+              f"sample {r['wav']}: {sr} Hz, {wav.shape} (want {want_len} x 2)")
+        print(f"sample {r['path']} ({n_frames} frames) and {r['wav']} ({wav.shape[0]} samples at {sr} Hz): "
+              f"{r['seconds']:.2f} s")
+    lora_path = check_lora_job(result, proc)
+    by_bucket = {"512x512": report["median_step_ms"]}  # one bucket: the warm median
+    print(f"{card}: ltx2 joint AV job: step ms by bucket {by_bucket}, peak {report['peak_gib']:.2f} GiB, job wall "
+          f"{report['wall_s']:.1f} s, samples {', '.join('%.2f' % r['seconds'] for r in result['samples'])} s, "
+          f"1,792 video + {n_audio} audio tokens a step, launches per step {step}")
+    del proc, model, variables
+    return {**report, "lora_path": lora_path, "by_bucket_ms": by_bucket, "audio_tokens": n_audio,
+            "sample_s": [r["seconds"] for r in result["samples"]]}
+
+
+def audio_phases(card: str, profile_dir: str | None) -> dict:
+    """The audio archs' phases: the flash kernels against their plain versions
+    and timed at ACE-Step's and LTX-2's shapes, the 1-D WanDiT and the AV
+    block card vs CPU, then the two shipped files. Returns the errors, the
+    times and each job's numbers."""
+    from ai_toolkit_tpu_torch.models.audio_model import ace_dit_config
+
+    t0 = time.perf_counter()
+    neg = torch.Generator("cuda").manual_seed(11)
+    err = flash_checks("flash kernels vs plain versions at ACE-Step's and LTX-2's shapes (head dims 128 and 64), bf16",
+                       [(shape, label, True, None) for shape, label in AUDIO_SHAPES]
+                       + [(shape, label, True, _negative_qkv(shape, shift, neg))
+                          for shape, label, shift in AUDIO_NEGATIVE],
+                       12)
+    times = attention_times("flash kernels at ACE-Step's and LTX-2's shapes, bf16", "audio",
+                            [(shape, label, True) for shape, label in AUDIO_SHAPES], 13)
+    wan_reference("ACE-Step 1.5 1-D WanDiT (1536 x 24, rope over time only)", ace_dit_config("ace_step_15", "full", 64),
+                  _counts(fwd=2), _counts(4, 2, 2), grid=(105, 1, 1), text_tokens=256)
+    av_reference()
+    checks_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ace = ace_phase(card, profile_dir)
+    ace_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ltx2 = ltx2_phase(card, profile_dir)
+    ltx2_s = time.perf_counter() - t1
+    print(f"{card}: audio phases: kernel checks and card-vs-CPU blocks {checks_s:.1f} s, ACE job {ace_s:.1f} s, "
+          f"LTX-2 job {ltx2_s:.1f} s")
+    return {"err": err, "times": times, "ace": ace, "ltx2": ltx2,
+            "wall_s": {"checks": checks_s, "ace": ace_s, "ltx2": ltx2_s}}
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -2796,6 +3107,17 @@ def main(argv: list[str]) -> int:
         "ms": {label: {k: row[k]["ms"] for k in row} for label, row in wan_times.items()}}}))
 
     wan22_err, wan22_times, wan14 = wan22_phases(args.profile)
+    audio = audio_phases(card, args.profile)
+    print(json.dumps({"audio": {
+        "ace_step_15": {"median_step_ms": audio["ace"]["median_step_ms"], "peak_gib": audio["ace"]["peak_gib"],
+                        "wall_s": audio["ace"]["wall_s"], "tokens": audio["ace"]["tokens"],
+                        "train_per_step": audio["ace"]["per_step"]},
+        "ltx2_av": {"median_step_ms_by_bucket": audio["ltx2"]["by_bucket_ms"], "peak_gib": audio["ltx2"]["peak_gib"],
+                    "wall_s": audio["ltx2"]["wall_s"], "sample_s": audio["ltx2"]["sample_s"],
+                    "audio_tokens": audio["ltx2"]["audio_tokens"], "train_per_step": audio["ltx2"]["per_step"]},
+        "phase_wall_s": audio["wall_s"], "flash_err": audio["err"],
+        "ms": {label: {k: {m: row[k][m] for m in ("ms", "library_ms", "bound_ms")} for k in row}
+               for label, row in audio["times"].items()}}}))
 
     banned = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ai_toolkit_tpu")]

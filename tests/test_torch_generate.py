@@ -126,6 +126,10 @@ _MMDIT_MODULES = ("ai_toolkit_tpu_torch.models.sd3_model", "ai_toolkit_tpu_torch
 _NEXTDIT_MODULES = ("ai_toolkit_tpu_torch.models.lumina2_dit", "ai_toolkit_tpu_torch.models.lumina2_model",
                     "ai_toolkit_tpu_torch.models.omnigen2_dit", "ai_toolkit_tpu_torch.models.omnigen2_model",
                     "ai_toolkit_tpu_torch.models.text_encoders.llm")
+_AUDIO_MODULES = ("ai_toolkit_tpu_torch.models.audio_vae", "ai_toolkit_tpu_torch.models.audio_model",
+                  "ai_toolkit_tpu_torch.models.ltx_video_vae", "ai_toolkit_tpu_torch.models.ltx_audio_vae",
+                  "ai_toolkit_tpu_torch.models.ltx_vocoder", "ai_toolkit_tpu_torch.models.ltx2_av",
+                  "ai_toolkit_tpu_torch.models.ltx2_model", "ai_toolkit_tpu_torch.io.ltx2_layout")
 
 
 def test_port_imports_without_jax():
@@ -143,6 +147,7 @@ def test_port_imports_without_jax():
     assert imported.issuperset(_FLUX_FAMILY_MODULES), sorted(set(_FLUX_FAMILY_MODULES) - imported)
     assert imported.issuperset(_MMDIT_MODULES), sorted(set(_MMDIT_MODULES) - imported)
     assert imported.issuperset(_NEXTDIT_MODULES), sorted(set(_NEXTDIT_MODULES) - imported)
+    assert imported.issuperset(_AUDIO_MODULES), sorted(set(_AUDIO_MODULES) - imported)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -262,7 +262,7 @@ SHIPPED = ["train_lora_flux_tpu", "train_full_finetune_flux_tpu", "train_lora_hi
            "train_textual_inversion_sd15", "train_lora_chroma_tpu", "train_lora_flex_tpu",
            "train_lora_flex2_tpu", "train_lora_flux_kontext_tpu", "train_lora_sd35_large_tpu",
            "train_lora_qwen_image_tpu", "train_lora_qwen_image_edit_tpu", "train_lora_lumina2_tpu",
-           "train_lora_omnigen2_tpu"]
+           "train_lora_omnigen2_tpu", "train_lora_ace_step_audio", "train_lora_ltx2_av_tpu"]
 
 
 @pytest.mark.parametrize("name", SHIPPED)
@@ -271,6 +271,16 @@ def test_shipped_train_files_are_taken_as_written(name):
     job = get_job(raw, device="cpu")
     for proc in job.processes:
         proc._refuse_unported()
+
+
+def test_pixtral_train_file_raises_on_its_adapter():
+    """The file has an ``adapter:`` and no ``network``: it is refused for the
+    adapter, before a missing network could read as a full fine-tune (whose
+    quantize refusal would name the wrong cause)."""
+    raw = get_config(os.path.join(ROOT, "configs", "examples", "train_vision_direct_pixtral_flux_tpu.yaml"))
+    with pytest.raises(NotImplementedError, match="^adapters / sliders come with later slices$"):
+        for proc in get_job(raw, device="cpu").processes:
+            proc._refuse_unported()
 
 
 def test_dfe_train_file_raises_on_its_losses():
