@@ -7,6 +7,9 @@ network is addressed as ``{module name: LoRA}``: module names are the port's
 (BFL for the flux DiT, ``double_blocks.0.img_attn.qkv``; diffusers for the
 UNet, ``down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q``), which
 are also the external names a LoRA file carries. Conv LoRA (``conv_rank``) is not ported.
+JAX ``scale_lora`` (a scalar or per-sample ``[B]`` multiplier on every
+scale) is ``ops.layers.lora_multiplier`` around the forward, which also
+turns the network off (``ADAPTER_OFF``).
 """
 
 from __future__ import annotations

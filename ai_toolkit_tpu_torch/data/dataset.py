@@ -12,16 +12,19 @@ matched by stem, its alpha or its inverted grey the keep mask) are loaded
 per batch as JAX ``FileItem.load_control`` / ``load_inpaint_mask`` load
 them: bicubic cover-resize to the bucket, center crop, the item's flips.
 Only the first control of an item is read: the control archs of the port
-(flex2, flux_kontext) take one, as in JAX.
+(flex2, flux_kontext) take one, as in JAX. An image's paired negative
+(``unconditional_path``: a folder, matched by the image's file name; the
+slider and guidance losses' pairs) is loaded the same way
+(:func:`load_unconditional`, JAX ``FileItem.load_unconditional``).
 
 An audio file is an item of its own (``kind`` audio, bucket ``(0, 0)``,
 ``audio_duration`` seconds at ``audio_sample_rate``, JAX
 ``FileItem.load_audio``), except a ``.wav`` with a video's stem, which is
 that video's sidecar track and never an item (JAX ``_scan``); with the
 dataset's ``do_audio`` the loader reads it beside the video
-(:func:`load_sidecar_audio`). Masks, generated controls, unconditional
-images, augmentations and random crops raise ``NotImplementedError``
-naming their slice.
+(:func:`load_sidecar_audio`). Masks, generated controls,
+augmentations and random crops raise ``NotImplementedError`` naming
+their slice.
 """
 
 from __future__ import annotations
@@ -43,8 +46,7 @@ AUDIO_EXTS = (".wav", ".flac", ".mp3", ".ogg")
 
 # DatasetConfig options of the JAX dataset this port does not take yet
 _UNPORTED_OPTIONS = ("augmentations", "clip_image_path", "clip_image_augmentations", "mask_path",
-                     "unconditional_path", "controls", "random_crop", "random_scale", "alpha_mask",
-                     "use_short_captions")
+                     "controls", "random_crop", "random_scale", "alpha_mask", "use_short_captions")
 
 
 @dataclass
@@ -65,6 +67,7 @@ class FileItem:
     sample_rate: int = 44100  # an audio item's rate
     control_paths: tuple[str, ...] = ()  # the image's control images, one per control_path folder that has it
     inpaint_path: str | None = None  # the dataset's inpaint folder
+    unconditional_path: str | None = None  # the paired negative image with the same file name
 
 
 class FolderDataset:
@@ -125,6 +128,8 @@ class FolderDataset:
             ctrl = self.cfg.control_path
             controls = tuple(cp for root in (ctrl if isinstance(ctrl, list) else [ctrl] if ctrl else [])
                              if os.path.isfile(cp := os.path.join(root, os.path.basename(p))))
+            uncond = (os.path.join(self.cfg.unconditional_path, os.path.basename(p))
+                      if self.cfg.unconditional_path else None)
             for res in self.cfg.resolution:
                 for _ in range(max(1, self.cfg.num_repeats)):
                     if kind == "audio":
@@ -140,6 +145,7 @@ class FolderDataset:
                         bucket=bucket, resolution=res, is_reg=self.cfg.is_reg, flip=flip,
                         flip_y=flip_y, kind=kind, num_frames=self.cfg.num_frames if kind == "video" else 1,
                         control_paths=controls, inpaint_path=self.cfg.inpaint_path,
+                        unconditional_path=uncond if uncond and os.path.isfile(uncond) else None,
                         num_samples=num_samples if kind == "audio" else 0, sample_rate=self.cfg.audio_sample_rate))
 
     def processed_caption(self, item: FileItem) -> str:
@@ -245,6 +251,13 @@ def load_control(item: FileItem) -> np.ndarray | None:
     """The item's first control image at its bucket, f32 ``[H, W, 3]`` in
     [-1, 1] (JAX ``FileItem.load_control``), or None without one."""
     return _rgb(item, item.control_paths[0]) if item.control_paths else None
+
+
+def load_unconditional(item: FileItem) -> np.ndarray | None:
+    """The item's paired negative image at its bucket, f32 ``[H, W, 3]`` in
+    [-1, 1], with the item's flips (JAX ``FileItem.load_unconditional``), or
+    None without one."""
+    return _rgb(item, item.unconditional_path) if item.unconditional_path else None
 
 
 def load_inpaint_keep(item: FileItem) -> np.ndarray | None:

@@ -15,7 +15,9 @@ the batch has a control image, the batch carries ``control_pixels`` ``[B, H,
 W, 3]`` (zeros for an item without one), and with an inpaint image
 ``inpaint_keep`` ``[B, H, W, 1]`` (ones for an item without one), loaded
 from their files with every batch, under either latent cache too (JAX
-``loader.py:132-145``). The JAX loader's
+``loader.py:132-145``); when every item of the batch has its paired
+negative image, the batch carries ``unconditional_pixels`` ``[B, H, W, 3]``
+(JAX ``loader.py:129-131``), and none when one item lacks it. The JAX loader's
 prefetch thread is not needed: with cached latents a batch is a dictionary
 lookup. ``iter_from(n)`` starts the stream after its first ``n`` batches,
 drawing their captions' random numbers but loading no latent, so a resumed
@@ -31,7 +33,7 @@ import numpy as np
 from ai_toolkit_tpu_torch.config.modules import DatasetConfig
 from ai_toolkit_tpu_torch.data.caching import latent_key, load_cached_latent
 from ai_toolkit_tpu_torch.data.dataset import (FileItem, FolderDataset, load_control, load_inpaint_keep,
-                                               load_pixels, load_sidecar_audio, load_video)
+                                               load_pixels, load_sidecar_audio, load_unconditional, load_video)
 
 
 class DataLoader:
@@ -72,6 +74,9 @@ class DataLoader:
             n = int((cfg.audio_duration or batch[0].num_frames / float(cfg.fps or 16)) * sr)
             wavs = [load_sidecar_audio(it, sr, n) for it in batch]
             out["audio_waveform"] = np.stack([np.zeros((n, 2), np.float32) if w is None else w for w in wavs])
+        uncond = [load_unconditional(it) for it in batch]
+        if all(u is not None for u in uncond):
+            out["unconditional_pixels"] = np.stack(uncond)
         bw, bh = batch[0].bucket
         controls = [load_control(it) for it in batch]
         if any(c is not None for c in controls):

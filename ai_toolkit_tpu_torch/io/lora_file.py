@@ -11,7 +11,9 @@ needed. Three file layouts, as the JAX job writes them
 - ``comfy`` (a model whose ``lora_key_layout()`` says so, Qwen-Image): the
   same under the root ``diffusion_model.``;
 - ``kohya`` (the UNet): ``lora_unet_<module with '.' -> '_'>.lora_down.weight``
-  = a^T, ``.lora_up.weight`` = b^T and ``.alpha`` = scale * rank.
+  = a^T, ``.lora_up.weight`` = b^T and ``.alpha`` = scale * rank (another
+  ``prefix`` than ``lora_unet`` on the way out: the extract job's
+  ``lora_transformer``).
 
 A model whose JAX files carry other module names than the port's (Wan: the
 JAX job writes its own module paths, ``block_3.self_q``) gives ``key_map``
@@ -38,7 +40,8 @@ KOHYA_PREFIX = "lora_unet"
 
 
 def flatten_lora(lora: dict[str, dict[str, torch.Tensor]], dtype=np.float16,
-                 fmt: str = "peft", key_map: Callable[[str], str] | None = None) -> dict[str, np.ndarray]:
+                 fmt: str = "peft", key_map: Callable[[str], str] | None = None,
+                 prefix: str = KOHYA_PREFIX) -> dict[str, np.ndarray]:
     """LoRA tree -> flat ``{external key: array}`` (JAX ``flatten_lora``);
     ``key_map``: port module name -> the file's module name."""
     out: dict[str, np.ndarray] = {}
@@ -52,7 +55,7 @@ def flatten_lora(lora: dict[str, dict[str, torch.Tensor]], dtype=np.float16,
             out[f"{ROOTS[fmt]}.{name}.lora_A.weight"] = down
             out[f"{ROOTS[fmt]}.{name}.lora_B.weight"] = up
         elif fmt == "kohya":
-            key = f"{KOHYA_PREFIX}_{name.replace('.', '_')}"
+            key = f"{prefix}_{name.replace('.', '_')}"
             out[f"{key}.lora_down.weight"] = down
             out[f"{key}.lora_up.weight"] = up
             out[f"{key}.alpha"] = np.asarray(float(leaf["scale"]) * a.shape[1], dtype)
@@ -106,11 +109,12 @@ def unflatten_lora(flat: dict[str, np.ndarray], module_names: Iterable[str] | No
 
 
 def save_lora_file(lora: dict[str, dict[str, torch.Tensor]], path: str, metadata: dict | None = None,
-                   dtype=np.float16, fmt: str = "peft", key_map: Callable[[str], str] | None = None) -> None:
+                   dtype=np.float16, fmt: str = "peft", key_map: Callable[[str], str] | None = None,
+                   prefix: str = KOHYA_PREFIX) -> None:
     from safetensors.numpy import save_file
 
     meta = {str(k): str(v) for k, v in (metadata or {}).items()}
-    save_file(flatten_lora(lora, dtype, fmt, key_map), path, metadata=meta)
+    save_file(flatten_lora(lora, dtype, fmt, key_map, prefix), path, metadata=meta)
 
 
 def load_lora_file(path: str, module_names: Iterable[str] | None = None,

@@ -1,9 +1,12 @@
 """Job dispatch (``ai_toolkit_tpu/jobs/dispatch.py`` in PyTorch).
 
-Ported process types: generation (``generate``, ``pure_lora_generator``) and
-the LoRA trainer (``sd_trainer``, ``diffusion_trainer``, ``ui_trainer``); every
-other process type of the JAX package raises ``NotImplementedError`` naming
-what is missing.
+Ported process types: generation (``generate``, ``pure_lora_generator``), the
+trainer (``sd_trainer``, ``diffusion_trainer``, ``ui_trainer``), the concept
+slider (``slider``, ``concept_slider``, ``slider_trainer``), the ultimate
+slider (``ultimate_slider``, ``ultimate_slider_trainer``,
+``image_reference_slider_trainer``) and LoRA extraction (``extract_lora``);
+every other process type of the JAX package raises ``NotImplementedError``
+naming what is missing. Each process runs on the job's ``device``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,13 @@ PROCESS_TYPES = {
     "sd_trainer": "train",
     "diffusion_trainer": "train",
     "ui_trainer": "train",
+    "slider": "slider",
+    "concept_slider": "slider",
+    "slider_trainer": "slider",
+    "ultimate_slider": "ultimate_slider",
+    "ultimate_slider_trainer": "ultimate_slider",
+    "image_reference_slider_trainer": "ultimate_slider",
+    "extract_lora": "extract",
 }
 
 
@@ -35,6 +45,12 @@ class Job:
                     f"(ported: {sorted(PROCESS_TYPES)})")
             if kind == "generate":
                 from ai_toolkit_tpu_torch.jobs.generate_process import GenerateProcess as Process
+            elif kind == "slider":
+                from ai_toolkit_tpu_torch.jobs.slider_process import TrainSliderProcess as Process
+            elif kind == "ultimate_slider":
+                from ai_toolkit_tpu_torch.jobs.ultimate_slider_process import UltimateSliderProcess as Process
+            elif kind == "extract":
+                from ai_toolkit_tpu_torch.jobs.extract_process import ExtractLoraProcess as Process
             else:
                 from ai_toolkit_tpu_torch.jobs.train_process import SDTrainProcess as Process
             self.processes.append(Process(job_config.name, proc_cfg, device))

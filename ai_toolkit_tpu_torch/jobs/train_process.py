@@ -83,8 +83,18 @@ fine-tune's trained tensors), written to
 clip): first unless ``skip_first_sample``, every ``sample_every`` steps and
 at the end. A sample that fails raises, where the JAX job prints and goes on.
 
+Paired-image guidance (``guidance_loss`` in the train section or the
+process, JAX ``run``'s base step): ``polarity`` and the guided kinds
+``targeted``, ``targeted_polarity``, ``direct``, ``tnt`` and
+``targeted_flow`` (``train/slider.py``) take the place of the diffusion loss
+inside the same train step, at the train section's ``network_weight``; each
+batch's ``unconditional_pixels`` (the dataset's ``unconditional_path``) go
+through the VAE into ``unconditional_latents`` every step, uncached, as in
+JAX. ``concept_replacer`` and any other kind raise.
+
 Every other branch of the JAX process raises ``NotImplementedError`` naming
-its slice: other networks and adapters, quantized text encoders
+its slice: other networks and adapters (the assistant adapter,
+``adapter_assist_name_or_path``), quantized text encoders
 (``quantize_te``), text-encoder training, the feature-extractor losses
 (``diffusion_feature_extractor_*``, ``latent_feature_*``) and the train-step knobs
 (``TrainStepConfig.from_train_config``). With ``AIT_PROFILE_DIR`` set, the
@@ -114,6 +124,7 @@ from ai_toolkit_tpu_torch.io.checkpoint import CheckpointManager
 from ai_toolkit_tpu_torch.models.registry import get_model_class
 from ai_toolkit_tpu_torch.samplers.factory import DDPM_NAMES, get_schedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer, lr_schedule
+from ai_toolkit_tpu_torch.train.slider import GUIDANCE_KINDS, make_guidance_loss
 from ai_toolkit_tpu_torch.train.state import TrainState
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, eval_loss, make_train_step
 from ai_toolkit_tpu_torch.utils.unported import refuse_unported
@@ -125,6 +136,8 @@ _UNPORTED_TRAIN = (
     "short_and_long_captions", "short_and_long_captions_encoder_split", "prompt_dropout_prob",
     "reg_weight", "img_multiplier", "latent_multiplier", "standardize_images",
     "merge_network_on_save", "learnable_snr_gos",
+    # the frozen ControlNet / T2I assistant (ROADMAP Queue 1 item 6e)
+    "adapter_assist_name_or_path",
     # the feature-extractor losses (ROADMAP Queue 1 item 6)
     "diffusion_feature_extractor_path", "diffusion_feature_extractor_weight",
     "latent_feature_extractor_path", "latent_feature_loss_weight",
@@ -211,6 +224,11 @@ class SDTrainProcess:
         return bool(self.cfg.embedding)
 
     @property
+    def guidance_kind(self) -> str | None:
+        """``guidance_loss`` of the train section, else of the process (JAX ``run``)."""
+        return self.cfg.train.extras.get("guidance_loss") or self.cfg.extras.get("guidance_loss")
+
+    @property
     def full_finetune(self) -> bool:
         if self.textual_inversion:
             return False
@@ -241,6 +259,19 @@ class SDTrainProcess:
                 "model.quantize with a full fine-tune comes with slice G (the JAX job trains only the "
                 "weights that quantization leaves unquantized)")
         refuse_unported(tc, _UNPORTED_TRAIN, TrainConfig(), "train")
+        if cfg.extras.get("adapter_assist_name_or_path"):
+            raise NotImplementedError("adapter_assist_name_or_path: the assistant adapter comes with the adapters "
+                                      "slice (ROADMAP Queue 1 item 6e)")
+        kind = self.guidance_kind
+        if kind == "concept_replacer":
+            raise NotImplementedError("guidance_loss 'concept_replacer' needs the replacement prompts that only the "
+                                      "concept_replacer job builds (ROADMAP Queue 1 item 6h)")
+        if kind and kind not in GUIDANCE_KINDS:
+            raise NotImplementedError(f"guidance_loss '{kind}' is no guidance kind of the JAX package "
+                                      f"(ported: {list(GUIDANCE_KINDS)})")
+        if kind and (self.textual_inversion or self.full_finetune):
+            raise NotImplementedError(f"guidance_loss '{kind}' trains a LoRA network (the JAX step scales the "
+                                      f"'lora' tree); give a network of type lora")
         refuse_unported(cfg.model, _UNPORTED_MODEL, ModelConfig(), "model")
         if cfg.model.quantize_kwargs:
             raise NotImplementedError("model.quantize_kwargs come with slice G")
@@ -364,7 +395,15 @@ class SDTrainProcess:
             return predict(variables, noisy, t, cond)
 
         schedule = self._schedule()
-        train_step = make_train_step(predict_fn, schedule, step_cfg)
+        guidance = None
+        if self.guidance_kind:
+            if step_cfg.switch_every:
+                raise NotImplementedError(f"guidance_loss '{self.guidance_kind}' on a switched multistage pair: "
+                                          f"the JAX guidance step draws t over the whole range")
+            weight = float(tc.extras.get("network_weight", 1.0))
+            guidance = make_guidance_loss(self.guidance_kind, predict_fn, schedule, step_cfg.timestep_type, weight)
+            print(f"guidance loss: {self.guidance_kind} (network_weight {weight})")
+        train_step = make_train_step(predict_fn, schedule, step_cfg, micro_loss=guidance)
         val_batch = None
         if cfg.validation.validate_every > 0:  # JAX step 9: the first batch of dataset 0, unshuffled
             ds0 = loader.datasets[0]
@@ -634,6 +673,8 @@ class SDTrainProcess:
         latents = torch.from_numpy(raw["latents"]).to(dev)
         batch = {"latents": latents, "cond": cond,
                  "loss_multiplier": torch.from_numpy(raw["loss_multiplier"]).to(dev)}
+        if "unconditional_pixels" in raw:  # the paired negatives through the VAE, every batch
+            batch["unconditional_latents"] = self._encode_control(model, variables, raw["unconditional_pixels"])
         if raw.get("audio_waveform") is not None and getattr(model, "joint_audio", False):
             # joint AV: the sidecar audio through the audio VAE (its noise is drawn in the step)
             with torch.no_grad():

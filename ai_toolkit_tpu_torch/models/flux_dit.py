@@ -49,7 +49,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from ai_toolkit_tpu_torch.ops.attention import dot_product_attention
 from ai_toolkit_tpu_torch.ops.embeddings import TimestepEmbedder, timestep_embedding
@@ -61,6 +61,7 @@ from ai_toolkit_tpu_torch.ops.layers import (
     QuantizedWeight,
     RMSNorm,
     lecun_normal_,
+    lora_checkpoint,
     modulate,
 )
 from ai_toolkit_tpu_torch.ops.rope import apply_rope
@@ -598,8 +599,8 @@ class FluxDiT(nn.Module):
     def _block(self, blk: nn.Module, *args):
         if self.gradient_checkpointing and torch.is_grad_enabled():
             if self.cfg.checkpoint_policy == "full":
-                return checkpoint(blk, *args, use_reentrant=False)
-            return checkpoint(blk, *args, use_reentrant=False, context_fn=_dots_flash_context)
+                return lora_checkpoint(blk, *args)
+            return lora_checkpoint(blk, *args, context_fn=_dots_flash_context)
         return blk(*args)
 
 

@@ -31,12 +31,11 @@ from dataclasses import dataclass, field
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ai_toolkit_tpu_torch.models.wan_dit import WanConfig
 from ai_toolkit_tpu_torch.ops.attention import dot_product_attention
 from ai_toolkit_tpu_torch.ops.embeddings import timestep_embedding
-from ai_toolkit_tpu_torch.ops.layers import LayerNorm, Linear, RMSNorm
+from ai_toolkit_tpu_torch.ops.layers import LayerNorm, Linear, RMSNorm, lora_checkpoint
 from ai_toolkit_tpu_torch.ops.rope import apply_rope
 
 
@@ -219,7 +218,7 @@ class LTX2AVDiT(nn.Module):
         for blk in self.blocks:
             args = (xv, xa, ctx_v, ctx_a, ev, ea, av_v, av_a, pe_v, pe_a)
             if self.gradient_checkpointing and torch.is_grad_enabled():
-                xv, xa = checkpoint(blk, *args, use_reentrant=False)
+                xv, xa = lora_checkpoint(blk, *args)
             else:
                 xv, xa = blk(*args)
         return self._head("head", xv, temb_v), self._head("audio_head", xa, temb_a)

@@ -27,11 +27,10 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ai_toolkit_tpu_torch.ops.attention import dot_product_attention
 from ai_toolkit_tpu_torch.ops.embeddings import timestep_embedding
-from ai_toolkit_tpu_torch.ops.layers import LayerNorm, Linear, RMSNorm
+from ai_toolkit_tpu_torch.ops.layers import LayerNorm, Linear, RMSNorm, lora_checkpoint
 
 
 @dataclass(frozen=True)
@@ -278,7 +277,7 @@ class Lumina2DiT(nn.Module):
         mask = key_mask(key_ok)
         for blk in self.layers:
             if self.gradient_checkpointing and torch.is_grad_enabled():
-                joint = checkpoint(blk, joint, ang, mask, temb, use_reentrant=False)
+                joint = lora_checkpoint(blk, joint, ang, mask, temb)
             else:
                 joint = blk(joint, ang, mask, temb)
         return self.norm_out(joint[:, joint.shape[1] - n_img:], temb)

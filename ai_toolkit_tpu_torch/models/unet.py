@@ -37,11 +37,10 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ai_toolkit_tpu_torch.ops.attention import dot_product_attention
 from ai_toolkit_tpu_torch.ops.embeddings import timestep_embedding
-from ai_toolkit_tpu_torch.ops.layers import Conv, GroupNorm, LayerNorm, Linear
+from ai_toolkit_tpu_torch.ops.layers import Conv, GroupNorm, LayerNorm, Linear, lora_checkpoint
 
 
 @dataclass(frozen=True)
@@ -297,7 +296,7 @@ class UNet2DCondition(nn.Module):
         """A resnet or spatial transformer, checkpointed when ``remat`` is on
         and gradients are recorded."""
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(module, *args, use_reentrant=False)
+            return lora_checkpoint(module, *args)
         return module(*args)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,

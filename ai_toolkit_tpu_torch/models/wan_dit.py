@@ -35,11 +35,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ai_toolkit_tpu_torch.ops.attention import dot_product_attention
 from ai_toolkit_tpu_torch.ops.embeddings import timestep_embedding
-from ai_toolkit_tpu_torch.ops.layers import LayerNorm, Linear, RMSNorm
+from ai_toolkit_tpu_torch.ops.layers import LayerNorm, Linear, RMSNorm, lora_checkpoint
 from ai_toolkit_tpu_torch.ops.rope import apply_rope
 
 
@@ -262,7 +261,7 @@ class WanDiT(nn.Module):
         e = ce.time_proj(F.silu(temb)).unflatten(-1, (6, cfg.dim))
         for blk in self.blocks:
             if self.gradient_checkpointing and torch.is_grad_enabled():
-                x = checkpoint(blk, x, ctx, e, pe, ic, use_reentrant=False)
+                x = lora_checkpoint(blk, x, ctx, e, pe, ic)
             else:
                 x = blk(x, ctx, e, pe, ic)
         shift, scale = (self.scale_shift_table + temb.float()[:, None]).to(dt).unbind(1)

@@ -9,15 +9,25 @@ with the JAX package's initializers (flax ``lecun_normal`` kernels, zero
 biases, unit norm scales). ``Linear`` carries the LoRA overlay of the JAX
 ``Linear`` (``_lora_delta``) and its weight-only quantized base
 (:class:`QuantizedWeight`); its ctrl / LyCORIS overlays are not ported yet.
+
+The LoRA multiplier (JAX ``adapters/lora.scale_lora``, which the slider
+losses apply to the ``lora`` tree) is set for a block of code by
+:func:`lora_multiplier`: a scalar or a per-sample ``[B]`` vector that every
+overlay's ``scale`` is multiplied by, or :data:`ADAPTER_OFF`, the base
+forward (JAX drops the ``lora`` collection). A block that is recomputed in
+the backward goes through :func:`lora_checkpoint`, which hands the
+recomputation the multiplier its forward ran under.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -40,12 +50,50 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+ADAPTER_OFF = "off"  # the lora_multiplier that gives the base forward
+
+
+class _Multiplier:
+    value: float | torch.Tensor | str | None = None  # None: every overlay as it is
+
+
+@contextlib.contextmanager
+def lora_multiplier(mult: float | torch.Tensor | str | None):
+    """Every :class:`LoRA` overlay runs at ``scale * mult`` inside the block
+    (JAX ``scale_lora``): ``mult`` a Python float, a ``[B]`` f32 tensor (one
+    multiplier per sample), :data:`ADAPTER_OFF` or None (no multiplier)."""
+    prev = _Multiplier.value
+    _Multiplier.value = mult
+    try:
+        yield
+    finally:
+        _Multiplier.value = prev
+
+
+def lora_checkpoint(fn, *args, **kwargs):
+    """``torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+    **kwargs)`` whose recomputation in the backward runs under the LoRA
+    multiplier that the forward ran under: the backward comes after the
+    forward's :func:`lora_multiplier` block has exited, and a different
+    multiplier there would give silently wrong gradients."""
+    mult = _Multiplier.value
+
+    def run(*a):
+        with lora_multiplier(mult):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
+
+
 class LoRA(nn.Module):
     """Low-rank overlay ``y += ((x @ a) @ b) * scale`` (JAX ``ops/layers.py``
     ``_lora_delta``): ``a`` ``[in, r]``, ``b`` ``[r, out]`` and the scalar
     ``scale`` are f32 master parameters, cast to the layer's dtype in the
     forward. ``scale`` is a parameter because the JAX package trains the whole
-    ``{a, b, scale}`` leaf."""
+    ``{a, b, scale}`` leaf. Under :func:`lora_multiplier` the scale is
+    ``scale * mult`` in f32 before the cast, and a ``[B]`` one is broadcast
+    over the trailing dims of the delta, as JAX applies a ``scale_lora``
+    tree; under :data:`ADAPTER_OFF` the overlay adds nothing."""
 
     def __init__(self, in_features: int, rank: int, out_features: int, scale: float, *,
                  device=None):
@@ -55,8 +103,15 @@ class LoRA(nn.Module):
         self.scale = nn.Parameter(torch.tensor(float(scale), device=device, dtype=torch.float32))
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        mult = _Multiplier.value
+        if mult is ADAPTER_OFF:
+            return y
         dt = x.dtype
-        return y + ((x @ self.a.to(dt)) @ self.b.to(dt)) * self.scale.to(dt)
+        delta = (x @ self.a.to(dt)) @ self.b.to(dt)
+        scale = (self.scale if mult is None else self.scale * mult).to(dt)
+        if scale.dim() > 0:  # per-sample [B]
+            scale = scale.reshape(scale.shape + (1,) * (delta.dim() - scale.dim()))
+        return y + delta * scale
 
 
 class QuantizedWeight(nn.Module):

@@ -175,11 +175,14 @@ def stage_range(cfg: TrainStepConfig, step: int) -> tuple[float, float] | None:
     return 0.0, cfg.stage_boundary
 
 
-def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig):
+def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, micro_loss=None):
     """``train_step(state, batches, generator) -> metrics`` over ``grad_accum``
     micro-batches. Each holds ``latents`` ``[B, h, w, C]`` (video: ``[B, T, h, w, C]``), ``cond``,
     ``loss_multiplier`` and (flow matching) ``image_seq_len``; t and the noise are drawn from
-    ``generator`` on the latents' device."""
+    ``generator`` on the latents' device. ``micro_loss(batch, generator, t_range) -> (loss,
+    aux)`` takes the place of the diffusion loss (the paired-image guidance losses,
+    ``train/slider.make_guidance_loss``); accumulation, clipping, the optimizer and the EMA
+    stay as they are."""
 
     def micro(batch, generator, t_range):
         latents = batch["latents"]
@@ -207,7 +210,7 @@ def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig):
         t_range = stage_range(cfg, state.step)
         with record_function("train_step: forward and backward"):
             for batch in batches:
-                l_i, a_i = micro(batch, generator, t_range)
+                l_i, a_i = (micro_loss or micro)(batch, generator, t_range)
                 g_i = torch.autograd.grad(l_i, params)
                 grads = g_i if grads is None else [g + x for g, x in zip(grads, g_i)]
                 loss = loss + l_i.detach()

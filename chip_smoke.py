@@ -121,6 +121,21 @@ Phases (any failure raises and the script exits non-zero):
      run, the bank moved, the a1111 file reloaded as [4, 768], 0 flash
      launches every step and denoise step (SD 1.5's 40/80/160-wide heads take
      the plain attention, as in the JAX package);
+  15c. the slider and extract jobs on that file: configs/examples/
+     train_slider.yaml as written but for its paths and steps (5; rank 8,
+     guidance 3, 512^2, ddpm: 0 flash launches), its LoRA moved and saved
+     under the JAX job's kohya keys for SD 1.5's 192 modules; configs/
+     examples/train_ultimate_slider.yaml over two seeded 512^2 folders whose
+     negatives share the positives' file names (batch 2, both losses finite
+     and each with a gradient on the LoRA); configs/examples/extract_lora.yaml
+     (rank 32, PEFT) on the UNet's 2-D kernels written flat and the same with
+     seeded rank-8 deltas on six modules: each delta recovered to 1e-4 of its
+     max, no other module written, the float64 SVD's time; the slider block
+     of train_slider.yaml on flux-dev cut to FLUX_FAMILY_CUT at 512^2
+     (flowmatch, the partial denoise: 60 / 15 / 15 flash launches a train
+     step, 15 forwards a denoise step); and a full-width flux-dev DiT cut to
+     1 double + 1 single block, f32, batch 2, the LoRA at the per-sample
+     multiplier [+1, -1] with recompute on, card vs CPU;
   16. the flash kernels at Wan 2.1's shapes (12 heads of 128, bf16): the
      forward, dq and dk/dv at the train clip's 8,100 tokens, self and across
      to the 512 text tokens (with a ragged tail tile whose lse is below -88),
@@ -939,7 +954,7 @@ def dit_reference(label: str, cfg, targets: list[str], fwd_launches: dict, step_
 
 
 def _train_dataset(n: int = 4, size: int = 1024, name: str = "train_data",
-                   caption: str = "[trigger] photo of {}") -> str:
+                   caption: str = "[trigger] photo of {}", seed: int = 0) -> str:
     """A handful of seeded size^2 PNGs with captions (smooth colour fields plus
     noise), written once: the disk latent cache keys its files by mtime."""
     import numpy as np
@@ -947,7 +962,7 @@ def _train_dataset(n: int = 4, size: int = 1024, name: str = "train_data",
 
     folder = os.path.join(OUT_DIR, name)
     os.makedirs(folder, exist_ok=True)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
     subjects = ["a red fox", "a lighthouse", "a bowl of fruit", "a mountain lake"]
     if all(os.path.isfile(os.path.join(folder, f"img_{i}.txt")) for i in range(n)):
@@ -1962,9 +1977,366 @@ def sd15_ti_phase(card: str, profile_dir: str | None) -> dict:
           f"{report['median_step_ms']:.1f} ms (steps {TRAIN_WARMUP + 1}-{TRAIN_WARMUP + TRAIN_TIMED}), peak "
           f"{report['peak_gib']:.2f} GiB, samples {', '.join('%.2f' % x for x in samples)} s each")
     del proc
-    return {"checkpoint_write_s": written["write_s"], "checkpoint_gib": written["gib"], "load_s": result["load_s"],
+    return {"checkpoint": path, "checkpoint_write_s": written["write_s"], "checkpoint_gib": written["gib"],
+            "load_s": result["load_s"],
             "median_step_ms": report["median_step_ms"], "peak_gib": report["peak_gib"], "sample_s": samples,
             "flash_launches_per_step": 0, "attention": sd15_attention_times(card)}
+
+
+# ---- the slider and extract jobs ----
+
+SLIDER_STEPS = TRAIN_WARMUP + TRAIN_TIMED
+# SD 1.5's LoRA targets: 16 spatial transformers, each with 8 attention and 2
+# feed-forward projections in its one block, and its proj_in / proj_out
+SD15_LORA_MODULES = 16 * (8 + 2) + 16 * 2
+# the modules the extract phase changes by a seeded rank-8 delta (the rest stay)
+EXTRACT_CHANGED = ("down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q",
+                   "down_blocks.2.attentions.1.transformer_blocks.0.attn2.to_k",
+                   "mid_block.attentions.0.transformer_blocks.0.ff.net.0.proj",
+                   "up_blocks.3.attentions.2.proj_out", "up_blocks.1.resnets.0.time_emb_proj",
+                   "time_embedding.linear_1")
+
+
+class _SliderLaunches:
+    """The kernel launches and device time of each slider train step (the
+    loss ``loss_name`` of ``module`` with its backward and optimizer step,
+    ``SliderSetup.step``) and of each partial denoise, per Euler step."""
+
+    def __init__(self, module, loss_name: str, first=None):
+        self.module, self.loss_name, self.first = module, loss_name, first
+
+    def __enter__(self):
+        import ai_toolkit_tpu_torch.jobs.slider_process as sp
+
+        self.sp, self.steps, self.denoise = sp, [], []
+        self.real = (getattr(self.module, self.loss_name), sp.partial_denoise, sp.SliderSetup.step)
+        real_loss, real_pd, real_step = self.real
+        mark = {}
+
+        def loss(*a, **k):
+            torch.cuda.synchronize()
+            mark.update(launches=_launches(), t=time.perf_counter())
+            out = real_loss(*a, **k)
+            if self.first is not None and not self.steps:
+                self.first(out)
+            return out
+
+        def step(setup, value):
+            out = real_step(setup, value)
+            torch.cuda.synchronize()
+            after = _launches()
+            self.steps.append({"ms": (time.perf_counter() - mark["t"]) * 1e3,
+                               "launches": {k: after[k] - mark["launches"][k] for k in after}})
+            return out
+
+        def partial_denoise(predict_fn, sigmas, x, steps_to, *a, **k):
+            torch.cuda.synchronize()
+            before, t0 = _launches(), time.perf_counter()
+            out = real_pd(predict_fn, sigmas, x, steps_to, *a, **k)
+            torch.cuda.synchronize()
+            after = _launches()
+            self.denoise.append({"steps": steps_to, "ms": (time.perf_counter() - t0) * 1e3,
+                                 "launches": {key: after[key] - before[key] for key in after}})
+            return out
+
+        setattr(self.module, self.loss_name, loss)
+        sp.partial_denoise, sp.SliderSetup.step = partial_denoise, step
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.loss_name, self.real[0])
+        self.sp.partial_denoise, self.sp.SliderSetup.step = self.real[1], self.real[2]
+
+
+def _slider_file(example: str, name: str, name_or_path: str, **over) -> dict:
+    """A shipped slider or extract file as it is written, but for its paths
+    (``training_folder``, ``model.name_or_path``, the dataset folders in
+    ``over["datasets"]``, the extract job's weights), its steps and, for the
+    flux slider, its model; written to a job file and read back."""
+    from ai_toolkit_tpu_torch.config import get_config
+
+    raw = get_config(os.path.join(ROOT, "configs", "examples", example))
+    raw["config"]["name"] = name
+    proc = raw["config"]["process"][0]
+    proc["training_folder"] = os.path.join(OUT_DIR, "train")
+    if "model" in proc:
+        proc["model"]["name_or_path"] = name_or_path
+    for key, val in over.items():
+        if key == "datasets":
+            proc["datasets"][0].update(val)
+        elif isinstance(val, dict):
+            proc[key] = {**proc.get(key, {}), **val}
+        else:
+            proc[key] = val
+    return _read_back(raw, os.path.join(OUT_DIR, f"{name}.yaml"), example)
+
+
+def _run_slider(raw: dict, module, loss_name: str, first=None):
+    """Run a slider job on the card from an empty output folder; the result,
+    the process, the launches per step and denoise and the peak GiB.
+    ``first(setup, loss)`` sees the first step's loss before its backward."""
+    import shutil
+
+    from ai_toolkit_tpu_torch.jobs import get_job
+
+    name = raw["config"]["name"]
+    shutil.rmtree(os.path.join(raw["config"]["process"][0]["training_folder"], name), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    job = get_job(raw, device="cuda")
+    _reset_launches()
+    hook = None if first is None else (lambda value: first(job.processes[0].setup, value))
+    with _SliderLaunches(module, loss_name, hook) as seen:
+        (result,) = job.run()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = result["losses"]
+    check(len(losses) == len(seen.steps) == raw["config"]["process"][0]["train"]["steps"]
+          and all(math.isfinite(x) for x in losses), f"slider losses {losses}")
+    ms = [s["ms"] for s in seen.steps]
+    print(f"losses per step: {', '.join(f'{x:.5f}' for x in losses)}")
+    print(f"train step ms (loss, backward, adamw; the denoise apart): {', '.join(f'{x:.1f}' for x in ms)}; median "
+          f"{statistics.median(ms):.1f}, min {min(ms):.1f}, max {max(ms):.1f}; job wall {wall:.1f} s, peak allocated "
+          f"{peak:.2f} GiB")
+    _check_no_tma_copies(name)
+    return result, job.processes[0], seen, peak, wall
+
+
+def _check_slider_lora(result: dict, proc, flow: bool) -> None:
+    """Every b factor moved; the final save holds the JAX job's keys for the
+    LoRA's modules (kohya ``lora_unet_`` with alpha for the UNet, PEFT
+    ``transformer.`` for a flow DiT) with their shapes, in fp16."""
+    from safetensors import safe_open
+
+    lora = proc.setup.lora
+    check(all(bool(m.b.abs().max() > 0) for m in lora.values()), "a LoRA b factor is still zero")
+    want = {}
+    for name, m in lora.items():
+        (r_in, r), (_, out) = m.a.shape, m.b.shape
+        if flow:
+            want[f"transformer.{name}.lora_A.weight"] = (r, r_in)
+            want[f"transformer.{name}.lora_B.weight"] = (out, r)
+        else:
+            key = "lora_unet_" + name.replace(".", "_")
+            want.update({f"{key}.lora_down.weight": (r, r_in), f"{key}.lora_up.weight": (out, r), f"{key}.alpha": ()})
+    with safe_open(result["save_path"], framework="pt") as f:
+        got = {k: tuple(f.get_slice(k).get_shape()) for k in f.keys()}
+        dtypes = {f.get_slice(k).get_dtype() for k in f.keys()}
+        step = (f.metadata() or {}).get("step")
+    check(got == want and dtypes == {"F16"} and step == str(result["steps"]),
+          f"the slider file's keys, shapes, dtypes {dtypes} or step {step} are not the JAX job's")
+    print(f"saved {result['save_path']}: {len(lora)} modules, {len(got)} tensors, the JAX job's "
+          f"{'PEFT' if flow else 'kohya lora_unet_'} keys and shapes, fp16, every b factor moved")
+
+
+def slider_block_reference() -> None:
+    """A full-width flux-dev DiT cut to 1 double + 1 single block, in f32,
+    batch 2, a LoRA (b non-zero) at the per-sample multiplier [+1, -1] with
+    recompute on (the dots_flash policy): the forward and the LoRA gradients
+    on the card against the same module on the CPU, each within 1e-3 of the
+    largest reference value. The backward runs after the multiplier's block
+    has exited: the recomputation must see it."""
+    phase("full-width flux-dev DiT, 1 double + 1 single block, f32, batch 2, LoRA at multiplier [+1, -1], "
+          "recompute on: card vs CPU")
+    import numpy as np
+
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig, FluxDiT, flux_lora_targets
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters, lora_multiplier
+    from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
+
+    cfg = dataclasses.replace(FluxConfig.dev(), depth_double=1, depth_single=1, dtype=torch.float32)
+    gpu = init_parameters(FluxDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
+    gpu.eval().requires_grad_(False)
+    spec = LoRASpec(rank=16, alpha=16.0, target_patterns=flux_lora_targets())
+    lg = build_lora(gpu, spec, torch.Generator("cuda").manual_seed(2))
+    with torch.no_grad():
+        for m in lg.values():
+            m.b.normal_(0.0, 0.01, generator=torch.Generator("cuda").manual_seed(3))
+    cpu = FluxDiT(cfg, device="cpu").eval().requires_grad_(False)
+    lc = build_lora(cpu, spec, torch.Generator().manual_seed(2))
+    cpu.load_state_dict(gpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    n_txt, hh, ww, b = 32, 8, 12, 2
+    pe = multi_axis_rope(torch.from_numpy(image_position_ids(hh, ww, text_len=n_txt))[None], list(cfg.axes_dim),
+                         cfg.theta)
+    args = [torch.randn((b, hh * ww, cfg.in_channels), generator=g), torch.randn((b, n_txt, cfg.context_dim), generator=g),
+            torch.tensor([0.3, 0.8]), torch.randn((b, cfg.vec_dim), generator=g), pe, torch.tensor([4.0, 4.0])]
+    target = torch.randn((b, hh * ww, cfg.out_channels or cfg.in_channels), generator=g)
+    mult = torch.tensor([1.0, -1.0])
+    names = [f"{n}.{leaf}" for n in lg for leaf in ("a", "b", "scale")]
+
+    def run(model, lora, device):
+        model.gradient_checkpointing = True
+        params = [getattr(lora[n.rsplit(".", 1)[0]], n.rsplit(".", 1)[1]) for n in names]
+        with lora_multiplier(mult.to(device)):
+            out = model(*[x.to(device) for x in args])
+        loss = (out.float() - target.to(device)).square().mean()  # the backward: after the block has exited
+        return out.detach().cpu(), loss.item(), [x.cpu() for x in torch.autograd.grad(loss, params)]
+
+    ref, ref_loss, ref_grads = run(cpu, lc, "cpu")
+    _reset_launches()
+    out, loss, grads = run(gpu, lg, "cuda")
+    launches = _launches()
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    gmax = max(gr.abs().max().item() for gr in ref_grads)
+    gerr = max((gd - gr).abs().max().item() for gd, gr in zip(grads, ref_grads))
+    print(f"forward: {tuple(out.shape)} max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {1e-3 * scale:.3e}); loss "
+          f"card {loss:.6f} vs CPU {ref_loss:.6f}; {len(grads)} LoRA gradients, max|ref|={gmax:.3e}, max_abs_err="
+          f"{gerr:.3e} (tol {1e-3 * gmax:.3e}); kernel launches={launches}")
+    check(bool(torch.isfinite(out).all()) and err <= 1e-3 * scale and gerr <= 1e-3 * gmax
+          and launches == _counts(2, 2, 2), "the LoRA multiplier under recompute disagrees between card and CPU")
+    del gpu, cpu, lg, lc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def slider_phases(card: str, sd15_path: str) -> dict:
+    """The slider and extract files (configs/examples/train_slider.yaml,
+    train_ultimate_slider.yaml, extract_lora.yaml) as written but for their
+    paths and steps, on the seeded full-width SD 1.5 LDM file; the flux
+    slider (train_slider.yaml's slider block on flux-dev cut to
+    FLUX_FAMILY_CUT); and the flux blocks with the per-sample multiplier card
+    vs CPU. Returns each job's numbers."""
+    import numpy as np
+    from safetensors.torch import save_file
+
+    import ai_toolkit_tpu_torch.jobs.slider_process as sp
+    import ai_toolkit_tpu_torch.jobs.ultimate_slider_process as usp
+    from ai_toolkit_tpu_torch.jobs.extract_process import model_kernels
+
+    out: dict = {}
+    phase(f"concept slider job, configs/examples/train_slider.yaml as written on the SD 1.5 LDM file (sd1, rank 8, "
+          f"guidance 3.0, 512x512, ddpm, adamw 2e-4), {SLIDER_STEPS} steps")
+    print("flash kernel launches a step: 0 (SD 1.5's heads are 40, 80 and 160 wide: the plain attention)")
+    raw = _slider_file("train_slider.yaml", "smoke_slider_sd15", sd15_path, train={"steps": SLIDER_STEPS})
+    result, proc, seen, peak, wall = _run_slider(raw, sp, "concept_slider_loss")
+    check(all(s["launches"] == _counts() for s in seen.steps) and not seen.denoise, "the SD 1.5 slider launched a kernel")
+    check(len(proc.setup.lora) == SD15_LORA_MODULES, f"{len(proc.setup.lora)} LoRA modules, not {SD15_LORA_MODULES}")
+    _check_slider_lora(result, proc, flow=False)
+    ms = [s["ms"] for s in seen.steps]
+    print(f"{card}: SD 1.5 slider step median {statistics.median(ms[TRAIN_WARMUP:]):.1f} ms (min {min(ms):.1f}, "
+          f"max {max(ms):.1f}), peak {peak:.2f} GiB")
+    out["slider_sd15"] = {"step_ms": ms, "peak_gib": peak, "wall_s": wall, "load_s": result["load_s"]}
+
+    # the extract phase's weights: the UNet's 2-D kernels as the JAX tree holds them, [in, out] f32
+    base = {name: k.contiguous() for name, k in model_kernels(proc.setup.variables["unet"]).items()}
+    del proc
+    gen = torch.Generator("cuda").manual_seed(17)
+    check(set(EXTRACT_CHANGED) <= set(base), f"{sorted(set(EXTRACT_CHANGED) - set(base))} are no UNet Linear")
+    deltas = {}
+    for name in EXTRACT_CHANGED:
+        fin, fout = base[name].shape
+        deltas[name] = (torch.randn((fin, 8), generator=gen, device="cuda")
+                        @ torch.randn((8, fout), generator=gen, device="cuda")) * 0.01
+    files = {side: os.path.join(OUT_DIR, f"unet_{side}_weights.safetensors") for side in ("base", "tuned")}
+    t0 = time.perf_counter()
+    save_file({f"{k}.kernel": v.cpu() for k, v in base.items()}, files["base"])
+    save_file({f"{k}.kernel": (v + deltas[k] if k in deltas else v).cpu() for k, v in base.items()}, files["tuned"])
+    gib = os.path.getsize(files["base"]) / 2**30
+    print(f"flat UNet weights: {len(base)} kernels, {gib:.2f} GiB a file, both written in "
+          f"{time.perf_counter() - t0:.2f} s; rank-8 deltas on {len(deltas)} modules")
+    del base
+
+    pos = _train_dataset(n=4, size=512, name="slider_pos", caption="a photo of a smiling person, {}")
+    neg = _train_dataset(n=4, size=512, name="slider_neg", caption="a photo of a frowning person, {}", seed=1)
+    phase(f"ultimate slider job, configs/examples/train_ultimate_slider.yaml as written on the SD 1.5 LDM file (batch "
+          f"2 of 512x512 pairs from two seeded folders with the same file names, image and concept losses at weight "
+          f"1.0, ddpm, adamw), {SLIDER_STEPS} steps")
+    raw = _slider_file("train_ultimate_slider.yaml", "smoke_ultimate_sd15", sd15_path, train={"steps": SLIDER_STEPS},
+                       datasets={"folder_path": pos, "unconditional_path": neg})
+    both = {}
+
+    def first_grads(setup, value):  # each loss's own gradient on the first step: both must reach the LoRA
+        for what, part in zip(("img_loss", "cfg_loss"), value[1:]):
+            grads = torch.autograd.grad(part, setup.params, retain_graph=True)
+            both[what] = math.sqrt(sum(float(g.square().sum()) for g in grads))
+
+    result, proc, seen, peak, wall = _run_slider(raw, usp, "ultimate_slider_loss", first_grads)
+    print(f"img_loss per step: {', '.join(f'{x:.5f}' for x in result['img_losses'])}; cfg_loss per step: "
+          f"{', '.join(f'{x:.5f}' for x in result['cfg_losses'])}; first step's gradient norms: img_loss "
+          f"{both['img_loss']:.3e}, cfg_loss {both['cfg_loss']:.3e}")
+    check(all(math.isfinite(x) for x in result["img_losses"] + result["cfg_losses"])
+          and both["img_loss"] > 0 and both["cfg_loss"] > 0, "an ultimate slider loss is not finite or moves nothing")
+    check(all(s["launches"] == _counts() for s in seen.steps), "the SD 1.5 ultimate slider launched a kernel")
+    _check_slider_lora(result, proc, flow=False)
+    ms = [s["ms"] for s in seen.steps]
+    print(f"{card}: SD 1.5 ultimate slider step (batch 2 pairs, the negatives' VAE encode included) median "
+          f"{statistics.median(ms[TRAIN_WARMUP:]):.1f} ms (min {min(ms):.1f}, max {max(ms):.1f}), peak {peak:.2f} GiB")
+    out["ultimate_sd15"] = {"step_ms": ms, "peak_gib": peak, "wall_s": wall, "grad_norms": both}
+    del proc
+
+    phase("extract job, configs/examples/extract_lora.yaml as written (rank 32, PEFT) on the flat UNet weights and "
+          "the same weights with seeded rank-8 deltas on six modules")
+    from ai_toolkit_tpu_torch.jobs import get_job
+
+    raw = _slider_file("extract_lora.yaml", "smoke_extract", "", base_weights=files["base"],
+                       tuned_weights=files["tuned"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    job = get_job(raw, device="cuda")
+    (result,) = job.run()
+    lora = job.processes[0].lora
+    check(sorted(lora) == sorted(EXTRACT_CHANGED), f"extracted {sorted(lora)}: an untouched module was written "
+                                                   f"or a changed one was not")
+    worst = 0.0
+    for name, leaf in lora.items():
+        prod = (leaf["a"].double() @ leaf["b"].double()) * leaf["scale"].double()
+        err = ((prod - deltas[name].double()).abs().max() / deltas[name].abs().max()).item()
+        worst = max(worst, err)
+        print(f"  {name}: [{leaf['a'].shape[0]}, {leaf['b'].shape[1]}] rank {leaf['a'].shape[1]}, "
+              f"max|a b s - delta| / max|delta| = {err:.3e}")
+    check(worst <= 1e-4, f"a delta is recovered to {worst:.3e} of its max, not 1e-4")
+    from safetensors import safe_open
+
+    with safe_open(result["output"], framework="pt") as f:
+        keys = set(f.keys())
+    want = {f"transformer.{n}.lora_{ab}.weight" for n in EXTRACT_CHANGED for ab in "AB"}
+    check(keys == want, f"the extracted file's keys {sorted(keys - want)[:3]} / {sorted(want - keys)[:3]}")
+    print(f"{card}: SVD of {len(lora)} modules in float64 {result['svd_s']:.3f} s, weights read in "
+          f"{result['load_s']:.2f} s; {result['output']}: {result['bytes'] / 2**20:.3f} MiB, the six modules' PEFT "
+          f"keys only; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out["extract"] = {"svd_s": result["svd_s"], "load_s": result["load_s"], "bytes": result["bytes"],
+                      "worst_rel_err": worst}
+    del job, lora, deltas
+    for f in files.values():
+        os.remove(f)
+
+    blocks = sum(FLUX_FAMILY_CUT)
+    step_want, denoise_want = _counts(4 * blocks, blocks, blocks), _counts(fwd=blocks)
+    phase(f"flux slider: train_slider.yaml's slider block (guidance 3.0, rank 8, adamw, 512x512, max_denoising_steps "
+          f"40) on seeded flux-dev cut to {FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks, flowmatch, "
+          f"{SLIDER_STEPS} steps")
+    print(f"expected flash launches: {step_want} a train step (three priors and the adapter's forward, one backward; "
+          f"no recompute), {denoise_want} a denoise step")
+    raw = _slider_file("train_slider.yaml", "smoke_slider_flux", "", train={"steps": SLIDER_STEPS,
+                                                                            "noise_scheduler": "flowmatch"},
+                       model={"arch": "flux", "model_kwargs": {"size": "dev"}})
+    with flux_cut_depth():
+        result, proc, seen, peak, wall = _run_slider(raw, sp, "concept_slider_loss")
+    per_denoise = [{k: v // max(d["steps"], 1) for k, v in d["launches"].items()} for d in seen.denoise]
+    print(f"denoise steps per train step: {[d['steps'] for d in seen.denoise]}; launches a train step "
+          f"{seen.steps[0]['launches']}, a denoise step {per_denoise[0]}")
+    check(all(s["launches"] == step_want for s in seen.steps), f"flux slider step launches {seen.steps}")
+    check(len(seen.denoise) == SLIDER_STEPS and all(1 <= d["steps"] < 39 for d in seen.denoise)
+          and all(d["launches"] == {k: v * d["steps"] for k, v in denoise_want.items()} for d in seen.denoise),
+          f"flux slider denoise launches {seen.denoise}")
+    _check_slider_lora(result, proc, flow=True)
+    ms = [s["ms"] for s in seen.steps]
+    dn = [d["ms"] / d["steps"] for d in seen.denoise]
+    print(f"{card}: flux slider ({FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks) train step median "
+          f"{statistics.median(ms[TRAIN_WARMUP:]):.1f} ms (min {min(ms):.1f}, max {max(ms):.1f}), denoise step median "
+          f"{statistics.median(dn):.2f} ms, peak {peak:.2f} GiB, job wall {wall:.1f} s")
+    out["slider_flux"] = {"step_ms": ms, "denoise_step_ms": dn, "denoise_steps": [d["steps"] for d in seen.denoise],
+                          "per_step": seen.steps[0]["launches"], "per_denoise_step": per_denoise[0],
+                          "peak_gib": peak, "wall_s": wall}
+    del proc
+    slider_block_reference()
+    return out
 
 
 def wan_reference(label: str, cfg, fwd_launches: dict, step_launches: dict, img_tokens: int = 0,
@@ -3066,6 +3438,8 @@ def main(argv: list[str]) -> int:
         "denoise_per_step": {k: v / (8 * len(prompts)) for k, v in sdxl_gen.items()},
         "ms": {label: {k: row[k]["ms"] for k in row} for label, row in sdxl_times.items()}}}))
     sd15 = sd15_ti_phase(card, args.profile)
+    sliders = slider_phases(card, sd15["checkpoint"])
+    print(json.dumps({"sliders": sliders}))
     print(json.dumps({"shipped_files": {
         "sd15_textual_inversion": sd15,
         "flux_lora_val_losses": train["val_losses"],

@@ -130,6 +130,10 @@ _AUDIO_MODULES = ("ai_toolkit_tpu_torch.models.audio_vae", "ai_toolkit_tpu_torch
                   "ai_toolkit_tpu_torch.models.ltx_video_vae", "ai_toolkit_tpu_torch.models.ltx_audio_vae",
                   "ai_toolkit_tpu_torch.models.ltx_vocoder", "ai_toolkit_tpu_torch.models.ltx2_av",
                   "ai_toolkit_tpu_torch.models.ltx2_model", "ai_toolkit_tpu_torch.io.ltx2_layout")
+# the slider and extract jobs' modules
+_SLIDER_MODULES = ("ai_toolkit_tpu_torch.train.slider", "ai_toolkit_tpu_torch.jobs.slider_process",
+                   "ai_toolkit_tpu_torch.jobs.ultimate_slider_process", "ai_toolkit_tpu_torch.adapters.extract",
+                   "ai_toolkit_tpu_torch.jobs.extract_process", "ai_toolkit_tpu_torch.jobs.dispatch")
 
 
 def test_port_imports_without_jax():
@@ -148,6 +152,7 @@ def test_port_imports_without_jax():
     assert imported.issuperset(_MMDIT_MODULES), sorted(set(_MMDIT_MODULES) - imported)
     assert imported.issuperset(_NEXTDIT_MODULES), sorted(set(_NEXTDIT_MODULES) - imported)
     assert imported.issuperset(_AUDIO_MODULES), sorted(set(_AUDIO_MODULES) - imported)
+    assert imported.issuperset(_SLIDER_MODULES), sorted(set(_SLIDER_MODULES) - imported)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -273,6 +273,19 @@ def test_shipped_train_files_are_taken_as_written(name):
         proc._refuse_unported()
 
 
+# the shipped files of the slider and extract jobs (process types slider, ultimate_slider, extract_lora)
+SHIPPED_JOBS = ["train_slider", "train_ultimate_slider", "extract_lora"]
+
+
+@pytest.mark.parametrize("name", SHIPPED_JOBS)
+def test_shipped_job_files_are_taken_as_written(name):
+    raw = get_config(os.path.join(ROOT, "configs", "examples", f"{name}.yaml"))
+    job = get_job(raw, device="cpu")
+    assert len(job.processes) == 1
+    for proc in job.processes:
+        proc._refuse_unported()
+
+
 def test_pixtral_train_file_raises_on_its_adapter():
     """The file has an ``adapter:`` and no ``network``: it is refused for the
     adapter, before a missing network could read as a full fine-tune (whose

@@ -198,3 +198,69 @@ def test_job_schedule_follows_jax_precedence(over):
     want.setdefault("prediction_type", "v_prediction")
     ref = jget_schedule("ddpm", "sd1", **want)
     assert {f.name: getattr(ours, f.name) for f in dataclasses.fields(ref)} == dataclasses.asdict(ref)
+
+
+class _Stop(Exception):
+    pass
+
+
+def _recording(cls, made):
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    return Recorded
+
+
+def _stop(*args, **kwargs):
+    raise _Stop()
+
+
+def test_jax_fault_samples_during_training_take_an_epsilon_schedule(monkeypatch):
+    """[jax_fault] The JAX job's ``_sample`` calls ``generate(model,
+    variables, gen, lora=..., uncond_lora=...)`` with no schedule, and
+    ``generate_sd`` builds ``DDPMSchedule()``: epsilon, for every arch. A
+    v-prediction ``sd2`` (its train schedule's ``prediction_type``) is
+    sampled as epsilon. The call is stopped once the schedule is built."""
+    import inspect
+
+    import ai_toolkit_tpu.generation as jgen
+    from ai_toolkit_tpu.config.modules import GenerateImageConfig as JGenerateImageConfig
+    from ai_toolkit_tpu.config.modules import ModelConfig as JModelConfig
+    from ai_toolkit_tpu.jobs.train_process import SDTrainProcess as JSDTrainProcess
+    from ai_toolkit_tpu.models.sd_model import SDModel as JSDModel
+
+    assert "generate(self.model, variables, gen, lora=lora," in inspect.getsource(JSDTrainProcess._sample)
+    made = []
+    monkeypatch.setattr(jgen, "DDPMSchedule", _recording(JDDPMSchedule, made))
+    jm = JSDModel(JModelConfig.from_dict({"name_or_path": "", "arch": "sd2", "model_kwargs": {"size": "tiny"}}))
+    monkeypatch.setattr(jm, "latent_shape", _stop)
+    with pytest.raises(_Stop):
+        jgen.generate(jm, {}, JGenerateImageConfig(prompt="a fox"), lora=None, uncond_lora=None)
+    assert [s.prediction_type for s in made] == ["epsilon"]
+    assert jget_schedule("ddpm", "sd2").prediction_type == "v_prediction"
+
+
+def test_port_samples_during_training_as_jax(monkeypatch, tmp_path):
+    """[port] The port's ``_sample`` mirrors the JAX fault: ``generate``
+    without a schedule, so ``generate_sd`` builds ``DDPMSchedule()``,
+    epsilon, for the v-prediction ``sd2`` whose train schedule is
+    ``v_prediction``."""
+    import ai_toolkit_tpu_torch.generation as tgen
+    from ai_toolkit_tpu_torch.jobs.train_process import SDTrainProcess
+    from ai_toolkit_tpu_torch.models.sd_model import SDModel
+
+    made = []
+    monkeypatch.setattr(tgen, "DDPMSchedule", _recording(DDPMSchedule, made))
+    cfg = ProcessConfig.from_dict({"training_folder": str(tmp_path), "sample": {"prompts": ["a fox"]},
+                                   "model": {"name_or_path": "", "arch": "sd2", "model_kwargs": {"size": "tiny"}},
+                                   "train": {"noise_scheduler": "ddpm"}})
+    proc = SDTrainProcess("ti", cfg, "cpu")
+    model = SDModel(cfg.model, device="cpu")
+    monkeypatch.setattr(model, "latent_shape", _stop)
+    proc.samples = []
+    with pytest.raises(_Stop):
+        proc._sample(model, {}, None, None, 0)
+    assert [s.prediction_type for s in made] == ["epsilon"]
+    assert proc._schedule().prediction_type == "v_prediction"
