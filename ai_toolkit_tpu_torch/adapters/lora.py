@@ -10,6 +10,11 @@ are also the external names a LoRA file carries. Conv LoRA (``conv_rank``) is no
 JAX ``scale_lora`` (a scalar or per-sample ``[B]`` multiplier on every
 scale) is ``ops.layers.lora_multiplier`` around the forward, which also
 turns the network off (``ADAPTER_OFF``).
+
+A frozen accuracy-recovery adapter (a LoRA or LoKr file shipped with a
+quantized base, ``model.qtype: "int8|<path>"``) sits in each ``Linear``'s
+``ara`` slot (:func:`attach_ara`), beside the trainable network, which
+stacks with it by rank-concat (:func:`concat_loras`, in the forward).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 from torch import nn
 
 from ai_toolkit_tpu_torch.config.modules import NetworkConfig
-from ai_toolkit_tpu_torch.ops.layers import Linear, LoRA
+from ai_toolkit_tpu_torch.ops.layers import Linear, LoKr, LoRA, fold_scale
 
 
 @dataclass
@@ -114,6 +119,56 @@ def share_lora(model: nn.Module, lora: dict[str, LoRA]) -> None:
         if not isinstance(mod, Linear):
             raise KeyError(f"LoRA module '{name}' is not a Linear of this model")
         mod.lora = adapter
+
+
+def attach_ara(model: nn.Module, tree: dict[str, dict[str, torch.Tensor]], kind: str = "lora") -> int:
+    """Put a frozen accuracy-recovery adapter into the ``ara`` slot of the
+    named ``Linear`` modules: ``kind`` "lora" (``{a, b, scale}``, as
+    :func:`attach_lora` takes it) or "lokr" (``{w1, w2, scale}``,
+    ``io/lora_file.load_lokr_file``). Nothing in it trains. Returns the
+    number of modules."""
+    modules = dict(model.named_modules())
+    for name, leaf in tree.items():
+        mod = modules.get(name)
+        if not isinstance(mod, Linear):
+            raise KeyError(f"ARA module '{name}' is not a Linear of this model")
+        dev = mod.stored_weight.device
+        if kind == "lokr":
+            w1, w2 = leaf["w1"], leaf["w2"]
+            if (w1.shape[0] * w2.shape[0], w1.shape[1] * w2.shape[1]) != (mod.out_features, mod.in_features):
+                raise ValueError(f"LoKr '{name}': kron({tuple(w1.shape)}, {tuple(w2.shape)}) does not fit "
+                                 f"[{mod.out_features}, {mod.in_features}]")
+            mod.ara = LoKr(w1, w2, float(leaf["scale"])).to(dev)
+        else:
+            a, b = leaf["a"], leaf["b"]
+            if a.shape[0] != mod.in_features or b.shape != (a.shape[1], mod.out_features):
+                raise ValueError(f"LoRA '{name}': a {tuple(a.shape)} / b {tuple(b.shape)} do not fit "
+                                 f"[{mod.in_features} -> {mod.out_features}]")
+            ara = LoRA(mod.in_features, a.shape[1], mod.out_features, float(leaf["scale"]), device=dev)
+            with torch.no_grad():
+                ara.a.copy_(a)
+                ara.b.copy_(b)
+            mod.ara = ara.requires_grad_(False)
+    return len(tree)
+
+
+def concat_loras(first: dict[str, LoRA], second: dict[str, LoRA]) -> dict[str, dict[str, torch.Tensor]]:
+    """Two LoRA networks as one tree (JAX ``concat_loras``): per shared module
+    ``a`` and the scale-folded ``b`` concatenated along the rank, scale 1, so
+    the delta is a1 b1 s1 + a2 b2 s2 exactly; a module in only one passes
+    through as it is. ``Linear.forward`` stacks an ARA with the trainable
+    LoRA the same way."""
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for name in {**first, **second}:
+        x, y = first.get(name), second.get(name)
+        if x is None or y is None:
+            m = x if y is None else y
+            out[name] = {"a": m.a, "b": m.b, "scale": m.scale}
+            continue
+        (ax, bx), (ay, by) = fold_scale(x), fold_scale(y)
+        out[name] = {"a": torch.cat([ax, ay], dim=-1), "b": torch.cat([bx, by], dim=0),
+                     "scale": torch.ones_like(x.scale)}
+    return out
 
 
 def detach_lora(model: nn.Module) -> None:

@@ -21,7 +21,9 @@ negative image, the batch carries ``unconditional_pixels`` ``[B, H, W, 3]``
 prefetch thread is not needed: with cached latents a batch is a dictionary
 lookup. ``iter_from(n)`` starts the stream after its first ``n`` batches,
 drawing their captions' random numbers but loading no latent, so a resumed
-job sees the batches the uninterrupted one would have.
+job sees the batches the uninterrupted one would have. With ``want_pixels``
+an image batch also carries its ``pixels`` ``[B, H, W, 3]`` in [-1, 1], the
+vision adapters' input (JAX ``loader.py:85-92``).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class DataLoader:
     def __init__(self, datasets: list[FolderDataset], batch_size: int,
                  latent_cache: dict[tuple, np.ndarray] | None = None,
                  encode_fn: Callable[[np.ndarray], np.ndarray] | None = None,
-                 latent_cache_dir: str | None = None):
+                 latent_cache_dir: str | None = None, want_pixels: bool = False):
         if latent_cache is None and encode_fn is None and latent_cache_dir is None:
             raise ValueError("need a latent cache, latent_cache_dir or encode_fn (on-the-fly encoding)")
         self.datasets = datasets
@@ -48,15 +50,18 @@ class DataLoader:
         self.latent_cache = latent_cache
         self.latent_cache_dir = latent_cache_dir
         self.encode_fn = encode_fn
+        self.want_pixels = want_pixels  # an image batch also carries its pixels (a vision adapter's input)
         self.epoch = 0
 
     def _load_batch(self, ds: FolderDataset, batch: list[FileItem]) -> dict:
+        imgs = None
         if self.latent_cache_dir is not None:
             lat = np.stack([load_cached_latent(it, self.latent_cache_dir) for it in batch])
         elif self.latent_cache is not None:
             lat = np.stack([self.latent_cache[latent_key(it)] for it in batch])
         else:
-            lat = np.asarray(self.encode_fn(np.stack([load_pixels(it) for it in batch])))
+            imgs = np.stack([load_pixels(it) for it in batch])
+            lat = np.asarray(self.encode_fn(imgs))
         cfg = ds.cfg
         mult = cfg.loss_multiplier * (cfg.network_weight if cfg.is_reg else 1.0)
         out = {
@@ -66,6 +71,8 @@ class DataLoader:
             "loss_multiplier": np.full((len(batch),), mult, np.float32),
             "is_reg": batch[0].is_reg,
         }
+        if self.want_pixels and batch[0].kind == "image":
+            out["pixels"] = imgs if imgs is not None else np.stack([load_pixels(it) for it in batch])
         if cfg.do_i2v and batch[0].kind == "video":
             out["first_frame"] = np.stack([load_video(it)[0] for it in batch])
         if cfg.do_audio and batch[0].kind == "video":
@@ -115,8 +122,8 @@ class DataLoader:
 def build_dataloader(dataset_configs: list[DatasetConfig], batch_size: int,
                      bucket_divisibility: int, trigger_word: str | None = None,
                      latent_cache: dict | None = None, encode_fn=None, seed: int = 42,
-                     latent_cache_dir: str | None = None) -> DataLoader:
+                     latent_cache_dir: str | None = None, want_pixels: bool = False) -> DataLoader:
     datasets = [FolderDataset(cfg, bucket_divisibility, trigger_word, seed=seed + i)
                 for i, cfg in enumerate(dataset_configs)]
     return DataLoader(datasets, batch_size, latent_cache=latent_cache, encode_fn=encode_fn,
-                      latent_cache_dir=latent_cache_dir)
+                      latent_cache_dir=latent_cache_dir, want_pixels=want_pixels)

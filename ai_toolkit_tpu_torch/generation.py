@@ -66,8 +66,11 @@ def generate_flux(
     schedule: FlowMatchSchedule | None = None,
     noise: np.ndarray | None = None,
     stats: dict | None = None,
+    cond: dict | None = None,
 ) -> np.ndarray:
-    """Returns a uint8 HWC image. ``noise`` ``[1, h, w, C]`` replaces the
+    """Returns a uint8 HWC image. ``cond`` adds entries to the prompt's
+    conditioning (the train job's ``ip_tokens`` from a ``ctrl_img`` through
+    a vision_direct adapter). ``noise`` ``[1, h, w, C]`` replaces the
     initial latent noise (tests inject the JAX noise); by default it comes
     from a ``torch.Generator`` seeded with ``gen.seed``. ``stats``, when
     given, receives the phase times (host clock, synchronised on a CUDA
@@ -86,7 +89,7 @@ def generate_flux(
     h, w, c = model.latent_shape(gen.height, gen.width)
     rec = stats if stats is not None else {}
     with _overlaid(model, variables, lora):
-        return _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c)
+        return _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c, cond or {})
 
 
 @contextlib.contextmanager
@@ -106,14 +109,14 @@ def _overlaid(model, variables: dict, lora: dict | None):
                 detach_lora(net)
 
 
-def _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c) -> np.ndarray:
+def _generate_flux(model, variables, gen, schedule, noise, rec, h, w, c, extra) -> np.ndarray:
     device = model.device
     with torch.inference_mode():
         t0 = time.perf_counter()
         cond = model.encode_prompt(variables, [gen.prompt])
         pe = model.rope_table(h, w, cond["txt"].shape[1])
         cond = {**cond, "pe": pe,
-                "guidance": torch.full((1,), gen.guidance_scale, dtype=torch.float32, device=device)}
+                "guidance": torch.full((1,), gen.guidance_scale, dtype=torch.float32, device=device), **extra}
         if model.takes_control:
             cond["control_latents"] = model.sampling_control_latents(variables, h, w, gen.ctrl_img, gen.width,
                                                                      gen.height)
@@ -314,7 +317,7 @@ def generate(model, variables, gen: GenerateImageConfig, lora=None, schedule=Non
         raise NotImplementedError(GENERATE_AUDIO)
     if not model.is_flow_matching:
         return generate_sd(model, variables, gen, lora, schedule, stats=stats)
-    return generate_flux(model, variables, gen, lora, schedule, stats=stats)
+    return generate_flux(model, variables, gen, lora, schedule, stats=stats, cond=cond)
 
 
 def _to_uint8(img: torch.Tensor) -> np.ndarray:

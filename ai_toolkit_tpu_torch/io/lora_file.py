@@ -20,9 +20,10 @@ JAX job writes its own module paths, ``block_3.self_q``) gives ``key_map``
 on the way out and ``module_name`` on the way back. A missing alpha means
 alpha = rank (scale 1), as in the JAX ``unflatten_lora``. Kohya keys are
 ambiguous on ``_`` (``attn1_to_q``), so loading them needs the model's
-module names. Conv factors,
-the text-encoder prefixes (``lora_te*``) and LyCORIS files come with a later
-slice.
+module names. A LyCORIS LoKr file (``lycoris_<module>.lokr_w1`` /
+``.lokr_w2``), the frozen accuracy-recovery adapter's other layout, loads
+through :func:`load_lokr_file`. Conv factors, the text-encoder prefixes
+(``lora_te*``) and trainable LyCORIS networks come with a later slice.
 """
 
 from __future__ import annotations
@@ -128,3 +129,50 @@ def load_lora_file(path: str, module_names: Iterable[str] | None = None,
         meta = dict(f.metadata() or {})
         flat = {k: f.get_tensor(k) for k in f.keys()}
     return unflatten_lora(flat, module_names, module_name), meta
+
+
+def is_lokr_file(path: str) -> bool:
+    """JAX's test for a LoKr accuracy-recovery adapter
+    (``jobs/train_process.py:129-133``): the file's first key starts with
+    ``lycoris`` and some key names ``lokr``."""
+    from safetensors import safe_open
+
+    with safe_open(path, framework="numpy") as f:
+        keys = list(f.keys())
+    return bool(keys) and keys[0].startswith("lycoris") and any("lokr" in k for k in keys)
+
+
+_LOKR_PREFIXES = ("lycoris_", "lora_transformer_", "lora_unet_")
+
+
+def load_lokr_file(path: str, module_names: Iterable[str]) -> dict[str, dict[str, torch.Tensor]]:
+    """A LyCORIS LoKr file -> ``{module name: {w1, w2, scale}}`` in the torch
+    layout (``w1`` ``[o1, i1]``, ``w2`` ``[o2, i2]``), keyed by the model's
+    module names (``module_names`` resolve the ``_``-joined keys). The scale
+    is 1 whatever alpha the file stores, the full-rank LoKr convention (JAX
+    ``io/lora_file.load_lokr_file``); a key that names no module raises."""
+    from safetensors import safe_open
+
+    names = {n.replace(".", "_"): n for n in module_names}
+    groups: dict[str, dict[str, np.ndarray]] = {}
+    with safe_open(path, framework="numpy") as f:
+        for key in f.keys():
+            for part in ("lokr_w1", "lokr_w2", "alpha"):
+                if key.endswith("." + part):
+                    groups.setdefault(key[: -(len(part) + 1)], {})[part] = f.get_tensor(key)
+                    break
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for mod, parts in groups.items():
+        if "lokr_w1" not in parts or "lokr_w2" not in parts:
+            continue
+        ext = next((mod[len(p):] for p in _LOKR_PREFIXES if mod.startswith(p)), mod)
+        name = names.get(ext)
+        if name is None:
+            raise KeyError(f"LoKr key '{mod}' names no module of this model")
+        alpha = float(np.asarray(parts.get("alpha", 1.0)).reshape(-1)[0])
+        if alpha not in (0.0, 1.0) and alpha != parts["lokr_w2"].shape[0]:
+            print(f"lokr load: non-unit alpha {alpha} on {mod} ignored (full-rank LoKr multiplier is 1.0)")
+        out[name] = {"w1": torch.from_numpy(parts["lokr_w1"].astype(np.float32)),
+                     "w2": torch.from_numpy(parts["lokr_w2"].astype(np.float32)),
+                     "scale": torch.tensor(1.0)}
+    return out

@@ -92,11 +92,47 @@ batch's ``unconditional_pixels`` (the dataset's ``unconditional_path``) go
 through the VAE into ``unconditional_latents`` every step, uncached, as in
 JAX. ``concept_replacer`` and any other kind raise.
 
+The feature-extractor losses (``diffusion_feature_extractor_path`` /
+``_weight``, else ``latent_feature_extractor_path`` /
+``latent_feature_loss_weight``; JAX ``run``, :512-550) add
+``models/dfe.py``'s aux loss to the step: v7 / v8, the TIPSv2 DPT over the
+VAE decode of the prediction, differentiated through the decoder; v1 / v2 at
+latent resolution. Its value is logged as ``aux_loss``.
+
+An accuracy-recovery adapter (``model.accuracy_recovery_adapter``, or
+``qtype: "<q>|<path>"``; JAX :98-154) is read after the model is built and
+before its base is quantized: a LoRA file, or a LyCORIS LoKr one (the file's
+first key starts with ``lycoris``), sits frozen in the ``ara`` slot of the
+named Linears, and the trainable LoRA stacks with it by rank-concat. The
+saves hold the trainable LoRA alone, as JAX's do; the samples run with both.
+
+A custom adapter (``adapter: {type: redux | vision_direct}`` on the flux
+DiT; JAX ``_build_trainable``, :911-1064) trains the adapter instead of a
+network: each image batch carries its pixels, which go through the
+adapter's vision tower (Redux: a seeded CLIP ViT-H, its penultimate hidden
+state; ``image_encoder_arch: pixtral``: the pixtral tower from
+``image_encoder_path``, or seeded when that is no directory, at
+``min(image_size, 512)`` px, normalised) into ``vision_tokens``, cached in
+memory by content, and on disk under ``<save_root>/clip_vision_cache`` with
+``cache_clip_vision_to_disk``. Redux appends its tokens to the text stream
+(the rope table covers them); vision_direct attends to them through the
+per-block decoupled K/V (``adapters/ip_adapter.py``). Each save is the
+JAX job's adapter file (``adapters/custom_adapter.save_custom_adapter``:
+the module, from the EMA copy when EMA is on, and the K/V under the
+reference's ``adapter_modules.{i}`` names); a resume restores the exact
+state from ``training_state.safetensors``. Samples run without the adapter,
+except that a vision_direct sample with a ``ctrl_img`` attends to that
+image's tokens (JAX ``_sample``). Three JAX faults are mirrored, each with
+a printed line (ROADMAP Queue 3): a ``network`` beside the adapter is not
+trained, Redux's ``image_encoder_path`` is not read, and vision_direct's
+``train_scaler: false`` is not read (the K/V scales train). A fourth is
+not: on a quantized base the JAX job cannot build the K/V (it reads the K
+weights from the emptied ``params``); the port reads them dequantized.
+
 Every other branch of the JAX process raises ``NotImplementedError`` naming
 its slice: other networks and adapters (the assistant adapter,
 ``adapter_assist_name_or_path``), quantized text encoders
-(``quantize_te``), text-encoder training, the feature-extractor losses
-(``diffusion_feature_extractor_*``, ``latent_feature_*``) and the train-step knobs
+(``quantize_te``), text-encoder training and the train-step knobs
 (``TrainStepConfig.from_train_config``). With ``AIT_PROFILE_DIR`` set, the
 last step runs under ``torch.profiler``.
 """
@@ -115,12 +151,18 @@ import torch
 
 from ai_toolkit_tpu_torch.adapters.embedding import (EMBEDDING_KEYS, TriggerTokenizer, init_embedding_bank,
                                                      load_embedding, save_embedding)
-from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora, count_lora_params, share_lora
+from ai_toolkit_tpu_torch.adapters.custom_adapter import init_custom_adapter, refuse_unported_type, save_custom_adapter
+from ai_toolkit_tpu_torch.adapters.ip_adapter import build_flux_ip_collection, flux_ip_flat
+from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, attach_ara, build_lora, count_lora_params, share_lora
 from ai_toolkit_tpu_torch.adapters.quantize import quantized_bytes, quantized_count
 from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig, ModelConfig, ProcessConfig, TrainConfig
 from ai_toolkit_tpu_torch.data.caching import TextEmbedCache, cache_latents, cache_latents_to_disk
 from ai_toolkit_tpu_torch.data.loader import build_dataloader
 from ai_toolkit_tpu_torch.io.checkpoint import CheckpointManager
+from ai_toolkit_tpu_torch.io.lora_file import is_lokr_file, load_lokr_file, load_lora_file
+from ai_toolkit_tpu_torch.models.base import BaseModel
+from ai_toolkit_tpu_torch.models.dfe import make_aux_loss
+from ai_toolkit_tpu_torch.models.flux_model import FluxModel
 from ai_toolkit_tpu_torch.models.registry import get_model_class
 from ai_toolkit_tpu_torch.samplers.factory import DDPM_NAMES, get_schedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer, lr_schedule
@@ -138,12 +180,12 @@ _UNPORTED_TRAIN = (
     "merge_network_on_save", "learnable_snr_gos",
     # the frozen ControlNet / T2I assistant (ROADMAP Queue 1 item 6e)
     "adapter_assist_name_or_path",
-    # the feature-extractor losses (ROADMAP Queue 1 item 6)
-    "diffusion_feature_extractor_path", "diffusion_feature_extractor_weight",
-    "latent_feature_extractor_path", "latent_feature_loss_weight",
 )
 _UNPORTED_MODEL = ("quantize_te", "lora_path", "assistant_lora_path",
-                   "inference_lora_path", "unconditional_lora_path", "accuracy_recovery_adapter")
+                   "inference_lora_path", "unconditional_lora_path")
+# the adapter keys the ported types read; the JAX job reads no other for them
+_ADAPTER_KEYS = ("type", "image_encoder_path", "image_encoder_arch", "cache_clip_vision_to_disk",
+                 "flux_only_double", "train_scaler", "scale")
 
 
 def _norm_pattern(p: str) -> str:
@@ -218,6 +260,8 @@ class SDTrainProcess:
         self.cfg = cfg
         self.device = torch.device(device)
         self.save_root = os.path.join(cfg.training_folder, job_name)
+        self.adapter = None  # the custom adapter's runtime (adapters/custom_adapter.py), when the job trains one
+        self.ip = {}  # vision_direct's decoupled K/V per block
 
     @property
     def textual_inversion(self) -> bool:
@@ -230,16 +274,31 @@ class SDTrainProcess:
 
     @property
     def full_finetune(self) -> bool:
-        if self.textual_inversion:
+        if self.textual_inversion or self.cfg.adapter:
             return False
         return self.cfg.network is None or self.cfg.network.type in ("full", "fine_tune")
 
+    @property
+    def feature_loss_path(self):
+        """The DFE path and weight (JAX ``run``: the diffusion extractor's, else the latent one's)."""
+        tc = self.cfg.train
+        if tc.diffusion_feature_extractor_path:
+            return tc.diffusion_feature_extractor_path, float(tc.diffusion_feature_extractor_weight)
+        if tc.latent_feature_extractor_path:
+            return tc.latent_feature_extractor_path, float(tc.latent_feature_loss_weight)
+        return None, 0.0
+
     def _refuse_unported(self) -> None:
         cfg, tc = self.cfg, self.cfg.train
-        # before anything reads full_finetune: a file with an adapter and no network is no full fine-tune
-        if cfg.adapter or cfg.slider:
-            raise NotImplementedError("adapters / sliders come with later slices")
-        if self.textual_inversion:
+        if cfg.slider:
+            raise NotImplementedError("a slider section in an sd_trainer process: the slider jobs (type slider / "
+                                      "ultimate_slider) train sliders")
+        ara = cfg.model.accuracy_recovery_adapter
+        if ara and cfg.network is not None and cfg.network.type == "lokr" and is_lokr_file(ara):
+            raise ValueError("lokr-format ARA cannot be combined with a trainable lokr network (one lokr collection)")
+        if cfg.adapter:
+            self._refuse_adapter()
+        elif self.textual_inversion:
             from ai_toolkit_tpu_torch.models.sd_model import SDModel
 
             if get_model_class(cfg.model.arch) is not SDModel:
@@ -254,6 +313,9 @@ class SDTrainProcess:
         elif not self.full_finetune and cfg.network.type not in ("lora", "locon"):
             raise NotImplementedError(f"network '{cfg.network.type}': only LoRA and the full fine-tune "
                                       f"are ported (other networks: later slices)")
+        if ara and (self.full_finetune or self.guidance_kind or self.textual_inversion):
+            raise NotImplementedError("an accuracy-recovery adapter with a full fine-tune, a guidance loss or "
+                                      "textual inversion is not ported (ported: beside a trainable LoRA or adapter)")
         if self.full_finetune and cfg.model.quantize:
             raise NotImplementedError(
                 "model.quantize with a full fine-tune comes with slice G (the JAX job trains only the "
@@ -269,15 +331,26 @@ class SDTrainProcess:
         if kind and kind not in GUIDANCE_KINDS:
             raise NotImplementedError(f"guidance_loss '{kind}' is no guidance kind of the JAX package "
                                       f"(ported: {list(GUIDANCE_KINDS)})")
-        if kind and (self.textual_inversion or self.full_finetune):
+        if kind and (self.textual_inversion or self.full_finetune or cfg.adapter):
             raise NotImplementedError(f"guidance_loss '{kind}' trains a LoRA network (the JAX step scales the "
                                       f"'lora' tree); give a network of type lora")
+        if kind and self.feature_loss_path[0]:
+            key = ("diffusion_feature_extractor_path" if tc.diffusion_feature_extractor_path
+                   else "latent_feature_extractor_path")
+            raise NotImplementedError(f"guidance_loss '{kind}' with {key}: the JAX guidance step takes no aux loss "
+                                      f"(its job drops the feature-extractor loss)")
         refuse_unported(cfg.model, _UNPORTED_MODEL, ModelConfig(), "model")
         if cfg.model.quantize_kwargs:
             raise NotImplementedError("model.quantize_kwargs come with slice G")
         if not tc.train_unet:
             raise NotImplementedError("train_unet: false trains nothing the port has")
         model_cls = get_model_class(cfg.model.arch)
+        if ara and model_cls.load_variables is not BaseModel.load_variables:
+            raise NotImplementedError(f"an accuracy-recovery adapter on arch '{cfg.model.arch}', whose experts are "
+                                      f"quantized as they are built (ported: the single-DiT archs)")
+        if cfg.adapter and not (model_cls is FluxModel and cfg.model.arch in ("flux", "flux_schnell")):
+            raise NotImplementedError(f"adapter '{cfg.adapter.get('type')}' on arch '{cfg.model.arch}' (ported: "
+                                      f"flux, flux_schnell; the others: ROADMAP Queue 1 item 6e)")
         flow = model_cls.is_flow_matching
         if getattr(model_cls, "is_audio", False) and not tc.disable_sampling and cfg.sample.prompts:
             from ai_toolkit_tpu_torch.generation import GENERATE_AUDIO
@@ -302,6 +375,25 @@ class SDTrainProcess:
             raise NotImplementedError(f"mesh {cfg.mesh.axes}: multi-GPU comes with a later slice")
         if not cfg.datasets:
             raise ValueError("no datasets configured")
+
+    def _refuse_adapter(self) -> None:
+        """What the port takes of a custom adapter: redux and vision_direct,
+        without textual inversion, with the keys the JAX job reads for them."""
+        cfg, acfg = self.cfg, self.cfg.adapter
+        refuse_unported_type(acfg.get("type"))
+        unknown = sorted(set(acfg) - set(_ADAPTER_KEYS))
+        if unknown:
+            raise NotImplementedError(f"adapter keys {unknown} are not read for '{acfg['type']}' "
+                                      f"(read: {list(_ADAPTER_KEYS)})")
+        if self.textual_inversion:
+            raise NotImplementedError("an adapter together with embedding: the JAX job trains the adapter alone")
+        arch = acfg.get("image_encoder_arch")
+        if arch not in (None, "clip", "pixtral"):
+            raise NotImplementedError(f"image_encoder_arch '{arch}' (ported: the CLIP ViT-H, pixtral)")
+        for d in cfg.datasets:
+            if d.clip_image_path:
+                raise NotImplementedError(f"dataset {d.folder_path}: clip_image_path (paired vision-encoder images) "
+                                          f"comes with the adapters slice (ROADMAP Queue 1 item 6e)")
 
     def _refuse_control_options(self, model) -> None:
         """Control images only for an arch that takes control latents, the
@@ -338,8 +430,14 @@ class SDTrainProcess:
             ckpt.fmt = model.lora_key_layout()
         self._refuse_control_options(model)
         t0 = time.perf_counter()
+        ara = cfg.model.accuracy_recovery_adapter
+        qtype = cfg.model.qtype if cfg.model.quantize else None
         variables = model.load_variables(torch.Generator(device=dev).manual_seed(seed),
-                                         qtype=cfg.model.qtype if cfg.model.quantize else None)
+                                         qtype=None if ara else qtype)
+        if ara:  # read before the base is quantized (JAX run, steps 1 and 1b)
+            self._load_ara(model, variables, ara)
+            if qtype:
+                model.quantize(variables, qtype)
         _sync(dev)
         load_s = time.perf_counter() - t0
         print(f"model: {'loaded ' + cfg.model.name_or_path if cfg.model.name_or_path else 'seeded init'} "
@@ -349,7 +447,10 @@ class SDTrainProcess:
         if cfg.model.quantize:
             print(f"quantized base: {sum(quantized_count(m) for m in experts)} weights, "
                   f"{sum(quantized_bytes(m) for m in experts) / 1e9:.2f} GB ({cfg.model.qtype})")
-        if self.textual_inversion:
+        if cfg.adapter:
+            trainable, lora = self._build_adapter(model, variables, seed), None
+            n_params = sum(p.numel() for p in trainable.values())
+        elif self.textual_inversion:
             trainable, lora = self._build_embedding(model, variables), None
             n_params = trainable["emb"].numel()
         elif self.full_finetune:
@@ -390,11 +491,20 @@ class SDTrainProcess:
             step_cfg = dataclasses.replace(step_cfg, stage_boundary=model.stage_boundary,
                                            switch_every=tc.switch_boundary_every)
         predict = getattr(model, "predict_train", model.predict)  # as the JAX job picks it
+        adapter = self.adapter
 
         def predict_fn(noisy, t, cond):
+            if adapter is not None:  # inside the differentiated step, as JAX's wrapped predict_fn
+                cond = adapter.apply_cond(cond)
             return predict(variables, noisy, t, cond)
 
         schedule = self._schedule()
+        aux_loss_fn = None
+        path, weight = self.feature_loss_path
+        if path:
+            aux_loss_fn, line = make_aux_loss(path, weight, model, variables, schedule, dev,
+                                              torch.Generator(device=dev).manual_seed(seed + 7))
+            print(line)
         guidance = None
         if self.guidance_kind:
             if step_cfg.switch_every:
@@ -403,7 +513,7 @@ class SDTrainProcess:
             weight = float(tc.extras.get("network_weight", 1.0))
             guidance = make_guidance_loss(self.guidance_kind, predict_fn, schedule, step_cfg.timestep_type, weight)
             print(f"guidance loss: {self.guidance_kind} (network_weight {weight})")
-        train_step = make_train_step(predict_fn, schedule, step_cfg, micro_loss=guidance)
+        train_step = make_train_step(predict_fn, schedule, step_cfg, micro_loss=guidance, aux_loss_fn=aux_loss_fn)
         val_batch = None
         if cfg.validation.validate_every > 0:  # JAX step 9: the first batch of dataset 0, unshuffled
             ds0 = loader.datasets[0]
@@ -418,6 +528,8 @@ class SDTrainProcess:
             self._sample(model, variables, state, lora, start_step)
         data_iter = loader.iter_from(start_step * step_cfg.grad_accum)
         losses: list[float] = []
+        aux_losses: list[float] = []  # the feature-extractor loss of each step
+        grad_norms: list[float] = []
         step_ms: list[float] = []
         experts_run: list[str] = []  # a multistage pair's expert at each step
         buckets: list[tuple[int, int]] = []  # the (w, h) pixel bucket of each step
@@ -434,11 +546,15 @@ class SDTrainProcess:
                 loss = float(metrics["loss"])  # waits for the step
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss)
+            grad_norms.append(float(metrics["grad_norm"]))
             if len(experts) > 1:
                 experts_run.append(model.last_expert)
+            if "aux_loss" in metrics:
+                aux_losses.append(float(metrics["aux_loss"]))
             if (step + 1) % cfg.logging.log_every == 0 or step == start_step:
                 expert = f" expert={model.last_expert}" if len(experts) > 1 else ""
-                print(f"step {step + 1}/{tc.steps} loss={loss:.4f} "
+                aux = f" aux_loss={aux_losses[-1]:.4f}" if "aux_loss" in metrics else ""
+                print(f"step {step + 1}/{tc.steps} loss={loss:.4f}{aux} "
                       f"grad_norm={float(metrics['grad_norm']):.4f}{expert} ({step_ms[-1]:.1f} ms)")
             if val_batch is not None and (step + 1) % cfg.validation.validate_every == 0:
                 val = float(eval_loss(predict_fn, schedule, step_cfg, val_batch,
@@ -455,7 +571,7 @@ class SDTrainProcess:
         if sampling:
             self._sample(model, variables, state, lora, tc.steps)
         return {"final_loss": losses[-1] if losses else None, "steps": tc.steps, "start_step": start_step,
-                "losses": losses, "step_ms": step_ms,
+                "losses": losses, "aux_losses": aux_losses, "grad_norms": grad_norms, "step_ms": step_ms,
                 "median_step_ms": statistics.median(step_ms) if step_ms else None,
                 "trainable_params": n_params, "lora_modules": len(lora) if lora is not None else 0,
                 "experts": experts_run, "buckets": buckets, "save_path": path, "load_s": load_s,
@@ -483,6 +599,151 @@ class SDTrainProcess:
         print(f"textual inversion: trigger '{self.ti_trigger}' -> {n_vec} vectors")
         return {"emb": variables["emb"]}
 
+    def _load_ara(self, model, variables: dict, path: str) -> None:
+        """The frozen accuracy-recovery adapter into the main component's
+        ``ara`` slots (JAX ``run``, :120-152): LoKr when the file's first key
+        starts with ``lycoris`` and a key names ``lokr``, else LoRA."""
+        net = variables[model.main_component]
+        names = [n for n, _ in net.named_modules()]
+        if is_lokr_file(path):
+            kind, tree = "lokr", load_lokr_file(path, names)
+        else:
+            kind = "lora"
+            tree, _ = load_lora_file(path, module_names=names,
+                                     module_name=getattr(model, "lora_module_name", None))
+        n = attach_ara(net, tree, kind)
+        print(f"accuracy recovery adapter active: {path} ({kind}, {n} modules)")
+
+    def _build_adapter(self, model, variables: dict, seed: int) -> dict[str, torch.Tensor]:
+        """The custom adapter's trainable tensors (JAX ``_build_trainable``'s
+        CustomAdapter branch): the vision tower, the adapter module and, for
+        vision_direct, the per-block decoupled K/V from the frozen K weights.
+        Keys: ``adapter.<path>`` and ``ip.<block>.<leaf>``."""
+        cfg, dev = self.cfg, self.device
+        acfg = cfg.adapter
+        atype = acfg["type"]
+        if cfg.network is not None:
+            print(f"JAX fault mirrored: network '{cfg.network.type}' beside adapter '{atype}' is not trained "
+                  f"(JAX _build_trainable returns the adapter alone; ROADMAP Queue 3)")
+        dit_cfg = model.dit_config
+        vision_dim = self._build_vision_tower(model, acfg, torch.Generator(device=dev).manual_seed(seed + 99))
+        hidden = dit_cfg.hidden_size if atype == "vision_direct" else None
+        self.adapter = init_custom_adapter(acfg, dit_cfg.context_dim, vision_dim,
+                                           torch.Generator(device=dev).manual_seed(seed + 98), dev, dit_hidden=hidden)
+        trainable = {f"adapter.{k}": p for k, p in self.adapter.module.named_parameters()}
+        self.ip = {}
+        if atype == "vision_direct":
+            only_double = bool(acfg.get("flux_only_double", False))
+            mid = dit_cfg.hidden_size if acfg.get("image_encoder_arch") == "pixtral" and only_double else vision_dim
+            self.ip = build_flux_ip_collection(variables[model.main_component], mid,
+                                               torch.Generator(device=dev).manual_seed(seed + 101),
+                                               only_double=only_double, scale=float(acfg.get("scale", 1.0)))
+            if "train_scaler" in acfg and not acfg["train_scaler"]:
+                print("JAX fault mirrored: train_scaler: false is not read; each block's ip scale trains "
+                      "(ROADMAP Queue 3)")
+            trainable.update({f"ip.{b}.{leaf}": p for b, m in self.ip.items() for leaf, p in m.named_parameters()})
+        print(f"CustomAdapter[{atype}]: {sum(p.numel() for p in trainable.values()):,} trainable params"
+              + (f", decoupled K/V on {len(self.ip)} blocks" if self.ip else ""))
+        return trainable
+
+    def _build_vision_tower(self, model, acfg: dict, generator: torch.Generator) -> int:
+        """The adapter's frozen vision tower (JAX :968-1020) as
+        ``self.vision_encode(pixels [B, H, W, 3] in [-1, 1]) -> (tokens,
+        pooled)``; returns the token width."""
+        from ai_toolkit_tpu_torch.models.tipsv2 import resize_linear
+
+        dev, tiny = self.device, self.cfg.model.model_kwargs.get("size") == "tiny"
+        if acfg.get("image_encoder_arch") == "pixtral":
+            from ai_toolkit_tpu_torch.models.text_encoders.pixtral_vision import (PIXTRAL_MEAN, PIXTRAL_STD,
+                                                                                  PixtralVisionConfig,
+                                                                                  init_pixtral_encoder,
+                                                                                  load_pixtral_encoder)
+
+            ppath = acfg.get("image_encoder_path") or ""
+            if ppath and os.path.isdir(ppath):
+                tower = load_pixtral_encoder(ppath, dev)
+                print(f"pixtral vision tower loaded from {ppath}")
+            else:
+                pcfg = PixtralVisionConfig.tiny() if tiny else PixtralVisionConfig()
+                tower = init_pixtral_encoder(pcfg, generator, dev)
+                print(f"pixtral vision tower: no directory at {ppath!r}: seeded init (as the JAX job)")
+            size = min(tower.cfg.image_size, 512)
+            mean = torch.tensor(PIXTRAL_MEAN, device=dev)
+            std = torch.tensor(PIXTRAL_STD, device=dev)
+
+            def encode(px):
+                px = resize_linear(px, size, size)
+                tokens = tower((((px + 1.0) / 2.0) - mean) / std)  # [-1, 1] -> [0, 1] -> normalised
+                return tokens, tokens.mean(dim=1)
+
+            dim = tower.cfg.hidden_size
+        else:
+            from ai_toolkit_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
+            from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+            if acfg.get("image_encoder_path"):
+                print(f"JAX fault mirrored: image_encoder_path {acfg['image_encoder_path']!r} is not read; the "
+                      f"CLIP ViT-H tower is a seeded init (ROADMAP Queue 3)")
+            vcfg = CLIPVisionConfig.tiny() if tiny else CLIPVisionConfig.vit_h()
+            tower = init_parameters(CLIPVisionModel(vcfg, device=dev), generator).eval().requires_grad_(False)
+            size = vcfg.image_size
+
+            def encode(px):
+                out = tower(resize_linear(px, size, size))
+                return out["penultimate_hidden_state"], out["pooled_output"]
+
+            dim = vcfg.hidden_size
+        self.vision_tower, self.vision_size = tower, size
+
+        @torch.no_grad()
+        def vision_encode(px: torch.Tensor):
+            return encode(px.to(dev).float())
+
+        self.vision_encode = vision_encode
+        return dim
+
+    def _encode_vision_cached(self, pixels: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """The vision tokens and pooled output of each image, cached in memory
+        by an md5 of its pixels and the tower's size, and with
+        ``cache_clip_vision_to_disk`` in ``<save_root>/clip_vision_cache/<key>.safetensors``
+        (JAX ``_encode_vision_cached``)."""
+        import hashlib
+
+        from safetensors.torch import load_file, save_file
+
+        if not hasattr(self, "_vision_cache"):
+            self._vision_cache, self._vision_cache_dir = {}, None
+            self.vision_cache_report = {"encoded": 0, "memory_hits": 0, "disk_hits": 0}
+            if self.cfg.adapter.get("cache_clip_vision_to_disk"):
+                self._vision_cache_dir = os.path.join(self.save_root, "clip_vision_cache")
+                os.makedirs(self._vision_cache_dir, exist_ok=True)
+        toks, pools, missing = [None] * len(pixels), [None] * len(pixels), []
+        for i in range(len(pixels)):
+            key = f"{hashlib.md5(np.ascontiguousarray(pixels[i]).tobytes()).hexdigest()}_{self.vision_size}"
+            hit = self._vision_cache.get(key)
+            if hit is not None:
+                self.vision_cache_report["memory_hits"] += 1
+            elif self._vision_cache_dir:
+                path = os.path.join(self._vision_cache_dir, key + ".safetensors")
+                if os.path.isfile(path):
+                    d = load_file(path, device=str(self.device))
+                    hit = self._vision_cache[key] = (d["tokens"], d["pooled"])
+                    self.vision_cache_report["disk_hits"] += 1
+            if hit is None:
+                missing.append((i, key))
+            else:
+                toks[i], pools[i] = hit
+        if missing:
+            t_new, p_new = self.vision_encode(torch.from_numpy(np.stack([pixels[i] for i, _ in missing])))
+            self.vision_cache_report["encoded"] += len(missing)
+            for j, (i, key) in enumerate(missing):
+                toks[i], pools[i] = t_new[j].contiguous(), p_new[j].contiguous()
+                self._vision_cache[key] = (toks[i], pools[i])
+                if self._vision_cache_dir:
+                    save_file({"tokens": toks[i].cpu(), "pooled": pools[i].cpu()},
+                              os.path.join(self._vision_cache_dir, key + ".safetensors"))
+        return torch.stack(toks), torch.stack(pools)
+
     def _resume(self, ckpt: CheckpointManager, model, state: TrainState, lora: dict | None,
                 generator: torch.Generator) -> int:
         """Restore the newest save and its training state; the step to go on
@@ -492,7 +753,11 @@ class SDTrainProcess:
         path = ckpt.latest_save_path()
         if path is None:
             return 0
-        if lora is not None:
+        if self.adapter is not None:  # the exact state, from the training state alone
+            with safe_open(path, framework="pt") as f:
+                step = int((f.metadata() or {}).get("step", 0))
+            saved = None
+        elif lora is not None:
             tree, step = ckpt.load_latest(module_names=list(lora),
                                           module_name=getattr(model, "lora_module_name", None))
             saved = {f"{n}.{leaf}": t for n, leaves in tree.items() for leaf, t in leaves.items()}
@@ -505,14 +770,17 @@ class SDTrainProcess:
                 saved = {k: f.get_tensor(k) for k in f.keys()}
                 step = int((f.metadata() or {}).get("step", 0))
         cur = {k: tuple(p.shape) for k, p in state.trainable.items()}
-        if {k: tuple(t.shape) for k, t in saved.items()} != cur:
+        if saved is not None and {k: tuple(t.shape) for k, t in saved.items()} != cur:
             print("resume checkpoint has different network shape — starting fresh "
                   "(reference skips the optimizer in this case too)")
             return 0
         with torch.no_grad():
-            for k, p in state.trainable.items():
+            for k, p in (state.trainable.items() if saved is not None else ()):
                 p.copy_(saved[k])
         extra, state_step = ckpt.load_state()
+        if saved is None and (extra is None or state_step != step):
+            print(f"resume: {path} has no matching training state: starting fresh")
+            return 0
         restored = False
         if extra is not None and state_step == step:
             rng = extra.pop("rng", None)
@@ -547,7 +815,15 @@ class SDTrainProcess:
         on) in the a1111 layout, f32. A full fine-tune's: the trained tensors
         themselves in their own dtype, keyed by parameter name, no rotation
         (JAX ``_save``). Each writes the training state a resume restores."""
-        if self.textual_inversion:
+        if self.adapter is not None:
+            # JAX _save: the module (its EMA copy when EMA is on) and the decoupled K/V as they train
+            path = ckpt.final_path() if final else ckpt.path_for_step(step)
+            src = state.ema if state.ema is not None else state.trainable
+            flat = {f"{self.adapter.adapter_type}.{k[len('adapter.'):]}": src[k].detach().float().cpu().numpy()
+                    for k in state.trainable if k.startswith("adapter.")}
+            flat.update({f"{self.adapter.adapter_type}.{k}": v for k, v in flux_ip_flat(self.ip).items()})
+            save_custom_adapter(flat, self.adapter.adapter_type, path, metadata={"step": step})
+        elif self.textual_inversion:
             path = ckpt.final_path() if final else ckpt.path_for_step(step)
             src = state.ema if state.ema is not None else state.trainable
             save_embedding(src["emb"].detach().float().cpu().numpy(), path, name=self.ti_trigger, step=step)
@@ -587,9 +863,10 @@ class SDTrainProcess:
             for i, item in enumerate(cfg.sample.prompts):
                 seed = cfg.sample.seed + (i if cfg.sample.walk_seed else 0)
                 gen = GenerateImageConfig.from_sample(cfg.sample, item, seed)
+                extra = self._sample_adapter_cond(gen)
                 _sync(self.device)
                 t0 = time.perf_counter()
-                out = generate(model, variables, gen)
+                out = generate(model, variables, gen, cond=extra)
                 wav = None
                 if isinstance(out, tuple):  # a joint AV model: the frames and the waveform
                     out, wav = out
@@ -610,6 +887,21 @@ class SDTrainProcess:
             with torch.no_grad():
                 for k, t in raw.items():
                     state.trainable[k].copy_(t)
+
+    def _sample_adapter_cond(self, gen: GenerateImageConfig) -> dict | None:
+        """A vision_direct sample with a ``ctrl_img``: the image (at its own
+        size, [-1, 1]) through the vision tower and the adapter into
+        ``ip_tokens``, and the ``ctrl_img`` consumed (JAX ``_sample``). The
+        adapter runs as it trains (not its EMA copy), as in JAX."""
+        if self.adapter is None or self.adapter.adapter_type != "vision_direct" or not gen.ctrl_img:
+            return None
+        from PIL import Image
+
+        px = np.asarray(Image.open(gen.ctrl_img).convert("RGB"), np.float32)[None] / 127.5 - 1.0
+        gen.ctrl_img = None
+        with torch.no_grad():
+            tokens, _ = self.vision_encode(torch.from_numpy(px))
+            return {"ip_tokens": self.adapter.module(tokens)}
 
     def _build_data(self, model, variables):
         cfg = self.cfg
@@ -636,7 +928,7 @@ class SDTrainProcess:
             cache_dir = os.path.join(self.save_root, "latent_cache") if to_disk else None
             loader = build_dataloader(cfg.datasets, cfg.train.batch_size, model.bucket_divisibility,
                                       trigger_word=cfg.trigger_word, latent_cache={} if cache_dir is None else None,
-                                      latent_cache_dir=cache_dir)
+                                      latent_cache_dir=cache_dir, want_pixels=self.adapter is not None)
             items = [it for ds in loader.datasets for it in ds.items]
             t0 = time.perf_counter()
             if cache_dir is not None:
@@ -652,7 +944,8 @@ class SDTrainProcess:
             print(f"latent cache: {len(items)} items in {secs:.2f} s ({where})")
         else:
             loader = build_dataloader(cfg.datasets, cfg.train.batch_size, model.bucket_divisibility,
-                                      trigger_word=cfg.trigger_word, encode_fn=encode_fn)
+                                      trigger_word=cfg.trigger_word, encode_fn=encode_fn,
+                                      want_pixels=self.adapter is not None)
 
         @torch.no_grad()
         def encode_prompt(prompts: list[str]) -> dict:
@@ -691,8 +984,13 @@ class SDTrainProcess:
             batch["image_seq_len"] = (tt // pt) * (h // ph) * (w // pw)
             return batch
         b, h, w, _ = latents.shape
+        extra_ctx = 0
+        if self.adapter is not None and "pixels" in raw:  # JAX _prepare_batch: the vision tokens of each image
+            cond["vision_tokens"], cond["vision_pooled"] = self._encode_vision_cached(raw["pixels"])
+            if self.adapter.adapter_type == "redux":
+                extra_ctx = int(cond["vision_tokens"].shape[1])  # the rope table covers the appended tokens
         if model.is_flow_matching:
-            cond["pe"] = model.rope_table(h, w, int(cond["txt"].shape[1]))
+            cond["pe"] = model.rope_table(h, w, int(cond["txt"].shape[1]) + extra_ctx)
             cond["guidance"] = torch.full((b,), 1.0, dtype=torch.float32, device=dev)
             batch["image_seq_len"] = (h // 2) * (w // 2)
         elif "pooled" in cond:  # SDXL: the added condition from the bucket's pixel size

@@ -63,9 +63,13 @@ class BaseModel:
         path = self.config.name_or_path
         variables = self.load_checkpoint(path, generator) if path else self.init_variables(generator)
         if qtype is not None:
-            for name in self.experts:
-                quantize_params(variables[name], exclude_patterns=self.quantize_exclude, qtype=qtype)
+            self.quantize(variables, qtype)
         return variables
+
+    def quantize(self, variables: dict[str, nn.Module], qtype: str) -> None:
+        """Weight-only quantization of the experts' selected weights, in place."""
+        for name in self.experts:
+            quantize_params(variables[name], exclude_patterns=self.quantize_exclude, qtype=qtype)
 
     def load_state_dicts(self, variables: dict[str, nn.Module], states: dict[str, dict]) -> None:
         """Load per-component state dicts (``io/from_jax.*_model_state``)."""

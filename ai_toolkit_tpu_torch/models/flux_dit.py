@@ -228,9 +228,28 @@ class SelfAttention(nn.Module):
         return _qkv_heads(self.cfg, self.qkv(x), self.norm)
 
 
-def _attend(q, k, v, pe, mask=None):
-    """RoPE-rotate q and k, then joint attention over ``[B, S, H, D]``."""
-    return dot_product_attention(apply_rope(q, pe), apply_rope(k, pe), v, mask=mask)
+def _attend(q, k, v, pe, mask=None, ip=None):
+    """RoPE-rotate q and k, then joint attention over ``[B, S, H, D]``. With
+    ``ip`` = (k_ip, v_ip, scale), the decoupled K/V of a vision_direct
+    adapter (JAX ``_attend(extra_kv=...)``), the same rotated query also
+    attends to the adapter's tokens and ``scale`` times that output (in f32)
+    is added before the out-projection."""
+    q = apply_rope(q, pe)
+    out = dot_product_attention(q, apply_rope(k, pe), v, mask=mask)
+    if ip is not None:
+        ik, iv, scale = ip
+        out = out + (scale * dot_product_attention(q, ik, iv).float()).to(out.dtype)
+    return out
+
+
+def _ip_kv(blk: nn.Module, ip_tokens: torch.Tensor | None, heads: int, head_dim: int, dtype: torch.dtype):
+    """The block's adapter K/V from ``ip_tokens`` (JAX ``_ip_kv``), or None
+    when the block carries no ``ip`` (``adapters/ip_adapter.IPKV``) or there
+    are no tokens."""
+    ip = getattr(blk, "ip", None)
+    if ip_tokens is None or ip is None:
+        return None
+    return ip.kv(ip_tokens, heads, head_dim, dtype)
 
 
 class SwiGLU(nn.Module):
@@ -350,7 +369,7 @@ class DoubleBlock(nn.Module):
         self.txt_attn = SelfAttention(cfg, device=device)
         self.txt_mlp = _mlp(cfg, device, moe=False)
 
-    def forward(self, img, txt, vec, pe, mask=None, mod=None):
+    def forward(self, img, txt, vec, pe, mask=None, mod=None, ip_tokens=None):
         if mod is not None:
             im, tm = mod
             i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2 = im.flatten(1, 2).unbind(1)
@@ -363,7 +382,7 @@ class DoubleBlock(nn.Module):
         tq, tk, tv = self.txt_attn.qkv_heads(modulate(self.txt_norm1(txt), t_shift1, t_scale1))
         # joint attention over [txt | img]
         attn = _attend(torch.cat([tq, iq], dim=1), torch.cat([tk, ik], dim=1),
-                       torch.cat([tv, iv], dim=1), pe, mask)
+                       torch.cat([tv, iv], dim=1), pe, mask, _ip_kv(self, ip_tokens, *iq.shape[2:], iq.dtype))
         s_txt = txt.shape[1]
         t_attn, i_attn = attn[:, :s_txt].flatten(2), attn[:, s_txt:].flatten(2)
 
@@ -444,14 +463,14 @@ class SingleBlock(nn.Module):
         if not cfg.chroma_mod:
             self.modulation = AdaLayerNormZero(h, 3, device=device, dtype=cfg.dtype)
 
-    def forward(self, x, vec, pe, mask=None, mod=None):
+    def forward(self, x, vec, pe, mask=None, mod=None, ip_tokens=None):
         shift, scale, gate = mod.unbind(1) if mod is not None else self.modulation(vec)
         lin1 = self.linear1(modulate(self.pre_norm(x), shift, scale))
         qkv, mlp = lin1[..., : 3 * self.hidden], lin1[..., 3 * self.hidden:]
         # q, k, v stay strided views of lin1; the attention reads them through strides
         q, k, v = qkv.unflatten(-1, (3, self.num_heads, self.head_dim)).unbind(2)
         q, k = self.norm(q, k)
-        attn = _attend(q, k, v, pe, mask)
+        attn = _attend(q, k, v, pe, mask, _ip_kv(self, ip_tokens, self.num_heads, self.head_dim, q.dtype))
         out = torch.cat([attn.flatten(2), F.gelu(mlp, approximate="tanh")], dim=-1)
         return x + gate[:, None] * self.linear2(out)
 
@@ -548,6 +567,7 @@ class FluxDiT(nn.Module):
         guidance: torch.Tensor | None = None,  # [B]
         txt_mask: torch.Tensor | None = None,  # [B, N_txt] bool (attn_masking)
         pos_ids: torch.Tensor | None = None,  # [N_img] rows of pos_embed (sd3)
+        ip_tokens: torch.Tensor | None = None,  # [B, N_ip, mid] vision_direct tokens (blocks with an ``ip``)
     ) -> torch.Tensor:
         cfg = self.cfg
         img = self.img_in(img)
@@ -574,14 +594,16 @@ class FluxDiT(nn.Module):
 
         for blk in getattr(self, "dual_blocks", ()):
             img, txt = self._block(blk, img, txt, vec, pe, mask)
+        ip = () if ip_tokens is None else (ip_tokens,)  # passed only with tokens: the plain call is unchanged
         for i, blk in enumerate(self.double_blocks):
-            mod = ((img_mod[:, i], txt_mod[:, i]),) if cfg.chroma_mod else ()
-            img, txt = self._block(blk, img, txt, vec, pe, mask, *mod)
+            mod = ((img_mod[:, i], txt_mod[:, i]),) if cfg.chroma_mod else (None,) * len(ip)
+            img, txt = self._block(blk, img, txt, vec, pe, mask, *mod, *ip)
         if cfg.final_context_pre_only:
             img = self._block(self.final_block, img, txt, vec, pe, mask)
         x = torch.cat([txt, img], dim=1)
         for i, blk in enumerate(self.single_blocks):
-            x = self._block(blk, x, vec, pe, mask, *((sing_mod[:, i],) if cfg.chroma_mod else ()))
+            mod = (sing_mod[:, i],) if cfg.chroma_mod else (None,) * len(ip)
+            x = self._block(blk, x, vec, pe, mask, *mod, *ip)
         return self.final_layer(x[:, txt.shape[1]:], vec, fin_mod)
 
     def chroma_mods(self, t: torch.Tensor, guidance: torch.Tensor | None):

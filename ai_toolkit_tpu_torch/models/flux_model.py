@@ -224,10 +224,9 @@ class FluxModel(BaseModel):
         """noisy_latents ``[B, h, w, C]``; cond: txt, y, pe, guidance[, txt_mask],
         and for a control arch ``control_latents`` ``[B, h, w, C_ctrl]``,
         packed and concatenated to the image tokens' channels (JAX
-        ``predict``). Differentiable: the train step takes gradients through
-        it into the DiT's LoRA factors."""
-        if cond.get("ip_tokens") is not None:
-            raise NotImplementedError("IP-adapter conditioning comes with a later slice")
+        ``predict``); ``ip_tokens`` ``[B, N, mid]`` feed the blocks' decoupled
+        K/V of a vision_direct adapter. Differentiable: the train step takes
+        gradients through it into the DiT's LoRA factors and the adapter."""
         _, h, w, _ = noisy_latents.shape
         img = pack_latents_cmajor(noisy_latents)
         ctrl = cond.get("control_latents")
@@ -237,7 +236,7 @@ class FluxModel(BaseModel):
         if ctrl is not None:
             img = torch.cat([img, pack_latents_cmajor(ctrl.to(img.device)).to(img.dtype)], dim=-1)
         out = variables["dit"](img, cond["txt"], t, cond["y"], cond["pe"], cond.get("guidance"),
-                               cond.get("txt_mask"))
+                               cond.get("txt_mask"), ip_tokens=cond.get("ip_tokens"))
         return unpack_latents_cmajor(out, h, w)
 
     def encode_images(self, variables: dict, images: torch.Tensor,

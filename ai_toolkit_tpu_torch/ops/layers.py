@@ -7,8 +7,14 @@ the JAX package. Modules are built empty on an explicit ``device``/``dtype``
 and filled by :func:`init_parameters` from an explicit ``torch.Generator``,
 with the JAX package's initializers (flax ``lecun_normal`` kernels, zero
 biases, unit norm scales). ``Linear`` carries the LoRA overlay of the JAX
-``Linear`` (``_lora_delta``) and its weight-only quantized base
-(:class:`QuantizedWeight`); its ctrl / LyCORIS overlays are not ported yet.
+``Linear`` (``_lora_delta``), its weight-only quantized base
+(:class:`QuantizedWeight`) and a frozen accuracy-recovery adapter
+(``Linear.ara``, the ARA of a quantized base): a :class:`LoRA`, whose
+factors stack with a trainable LoRA's by the exact rank-concat of JAX
+``concat_loras`` (each scale folded into its ``b``), or a :class:`LoKr`,
+whose ``kron(w1, w2) * scale`` is added to the dequantized kernel (JAX's
+``lokr`` collection). Its ctrl overlay and trainable LyCORIS networks are
+not ported.
 
 The LoRA multiplier (JAX ``adapters/lora.scale_lora``, which the slider
 losses apply to the ``lora`` tree) is set for a block of code by
@@ -114,6 +120,29 @@ class LoRA(nn.Module):
         return y + delta * scale
 
 
+def fold_scale(lora: "LoRA") -> tuple[torch.Tensor, torch.Tensor]:
+    """``(a, b * scale)`` in f32: the factors of JAX ``concat_loras``'s fold."""
+    return lora.a, lora.b * lora.scale
+
+
+class LoKr(nn.Module):
+    """A frozen LyCORIS LoKr overlay (JAX ``lokr`` collection):
+    ``delta = kron(w1, w2) * scale`` in the torch layout ``[out, in]``
+    (``w1`` ``[o1, i1]``, ``w2`` ``[o2, i2]``), cast to the layer's dtype
+    factor by factor and added to its kernel."""
+
+    def __init__(self, w1: torch.Tensor, w2: torch.Tensor, scale: float = 1.0):
+        super().__init__()
+        self.register_buffer("w1", w1.float())
+        self.register_buffer("w2", w2.float())
+        self.register_buffer("scale", torch.tensor(float(scale)))
+
+    def delta(self, dtype: torch.dtype) -> torch.Tensor:
+        from ai_toolkit_tpu_torch.adapters.lycoris import lokr_delta
+
+        return lokr_delta(self.w1, self.w2, self.scale, dtype)
+
+
 class QuantizedWeight(nn.Module):
     """A weight that ``adapters/quantize.py`` may move to weight-only storage:
     ``qvalue`` (fp8 e4m3 or int8) and ``qscale`` (f32, one per output
@@ -150,7 +179,10 @@ class QuantizedWeight(nn.Module):
 class Linear(QuantizedWeight):
     """``y = x W^T + b``; ``x`` is cast to the weight dtype first (JAX:
     ``x.astype(self.dtype)``). With a :class:`LoRA` in ``self.lora``
-    (``adapters/lora.py``) its delta is added, also on a quantized weight."""
+    (``adapters/lora.py``) its delta is added, also on a quantized weight.
+    ``self.ara`` is a frozen accuracy-recovery adapter: a :class:`LoKr`
+    changes the kernel; a :class:`LoRA` adds its delta, rank-concatenated
+    with ``self.lora``'s when both are there (one product, scale 1)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  device=None, dtype=None):
@@ -160,6 +192,7 @@ class Linear(QuantizedWeight):
         self.bias = (nn.Parameter(torch.empty(out_features, device=device, dtype=dtype))
                      if bias else None)
         self.lora: LoRA | None = None
+        self.ara: LoRA | LoKr | None = None
         self._init_quant()
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -175,9 +208,23 @@ class Linear(QuantizedWeight):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.dequantized()
+        ara = self.ara
+        if isinstance(ara, LoKr):
+            w = w + ara.delta(w.dtype)
+            ara = None
         x = x.to(w.dtype)
         y = F.linear(x, w, self.bias)
-        return y if self.lora is None else self.lora(x, y)
+        if ara is None:
+            return y if self.lora is None else self.lora(x, y)
+        if _Multiplier.value is not None:
+            raise NotImplementedError("a LoRA multiplier beside an accuracy-recovery adapter is not ported")
+        if self.lora is None:
+            return ara(x, y)
+        # the frozen and the trained factors as one rank-concatenated LoRA (JAX merge_variables)
+        a0, b0 = fold_scale(ara)
+        a1, b1 = fold_scale(self.lora)
+        dt = x.dtype
+        return y + (x @ torch.cat([a0, a1], dim=-1).to(dt)) @ torch.cat([b0, b1], dim=0).to(dt)
 
 
 class Conv(nn.Module):
@@ -249,12 +296,12 @@ class LayerNorm(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """Group norm over NHWC ``[..., C]`` in f32 with ``min(32, C)`` groups
-    (JAX ``layers.py:263``)."""
+    """Group norm over NHWC ``[..., C]`` in f32 with ``min(groups, C)`` groups
+    (JAX ``layers.py:263``; 32 by default)."""
 
-    def __init__(self, channels: int, eps: float = 1e-6, *, device=None):
+    def __init__(self, channels: int, eps: float = 1e-6, *, groups: int = 32, device=None):
         super().__init__()
-        self.groups = min(32, channels)
+        self.groups = min(groups, channels)
         self.eps = eps
         self.weight = nn.Parameter(torch.empty(channels, device=device, dtype=torch.float32))
         self.bias = nn.Parameter(torch.empty(channels, device=device, dtype=torch.float32))

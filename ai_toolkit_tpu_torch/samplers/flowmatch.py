@@ -103,6 +103,11 @@ class FlowMatchSchedule:
         """Velocity target v = noise - x0."""
         return noise - x0
 
+    @staticmethod
+    def pred_to_x0(pred: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """A velocity prediction stepped all the way to x0: x0 = x_t - t v."""
+        return x_t - t.reshape(t.shape + (1,) * (x_t.dim() - t.dim())).to(x_t.dtype) * pred
+
     # ---- sampling ----
 
     def inference_sigmas(self, num_steps: int, image_seq_len: int | None = None) -> torch.Tensor:

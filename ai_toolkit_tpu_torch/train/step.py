@@ -6,7 +6,7 @@ PyTorch), the core path the flux and SDXL LoRA jobs take:
     DDPM (balanced integer t):       x_t = sqrt(acp_t) x0 + sqrt(1 - acp_t) noise,
                                      target = noise (epsilon) or v,
                                      per-sample weight min(snr, gamma) / snr with min_snr_gamma
-    loss = mse(predict(x_t, t, cond), target)
+    loss = mse(predict(x_t, t, cond), target) [+ aux_loss_fn(pred, x_t, x0, noise, t)]
     joint audio-video (a batch with ``audio_latents``): the audio tokens are
     noised at the same t with their own noise (drawn after the video's), the
     model returns both predictions, and
@@ -104,12 +104,15 @@ PredictFn = Callable[[torch.Tensor, torch.Tensor, dict], torch.Tensor]
 
 def train_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dict,
                noise: torch.Tensor, t: torch.Tensor,
-               noise_audio: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+               noise_audio: torch.Tensor | None = None, aux_loss_fn=None) -> tuple[torch.Tensor, dict]:
     """The loss of one micro-batch for given noise and timesteps (JAX
     ``microbatch_loss`` on the paths the ported jobs take); a DDPM schedule's
     ``t`` are integer indices, and the UNet is called on them. A joint
     audio-video batch (``audio_latents``) takes ``noise_audio`` and adds the
-    audio stream's weighted loss, with the metric ``audio_loss``."""
+    audio stream's weighted loss, with the metric ``audio_loss``.
+    ``aux_loss_fn(pred, noisy, latents, noise, t) -> scalar`` adds its term
+    to the loss, with the metric ``aux_loss`` (the DFE losses,
+    ``models/dfe.py``; JAX ``step.py:740-743``)."""
     latents = batch["latents"]
     noisy = schedule.add_noise(latents, noise, t)
     target = schedule.target(latents, noise, t)
@@ -130,6 +133,10 @@ def train_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dic
                                      timestep_weights=tw, loss_multiplier=batch.get("loss_multiplier"))
         loss = loss + cfg.audio_loss_multiplier * audio_loss
         aux = {**aux, "audio_loss": audio_loss}
+    if aux_loss_fn is not None:
+        extra = aux_loss_fn(pred, noisy, latents, noise, t)
+        loss = loss + extra
+        aux = {**aux, "aux_loss": extra}
     return loss, aux
 
 
@@ -149,7 +156,8 @@ def eval_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dict
     step's ``timestep_type`` without its bias, DDPM t from the full balanced
     range, and :func:`train_loss` without per-sample weights (no min-SNR, no
     loss multiplier), as JAX's eval loss has none; a joint AV batch adds its
-    audio loss unweighted by ``audio_loss_multiplier``, as JAX's does. No
+    audio loss unweighted by ``audio_loss_multiplier``, as JAX's does, and no
+    aux loss (JAX's eval step takes none). No
     gradient; the optimizer and the EMA are not touched."""
     latents = batch["latents"]
     if isinstance(schedule, FlowMatchSchedule):
@@ -175,14 +183,14 @@ def stage_range(cfg: TrainStepConfig, step: int) -> tuple[float, float] | None:
     return 0.0, cfg.stage_boundary
 
 
-def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, micro_loss=None):
+def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, micro_loss=None, aux_loss_fn=None):
     """``train_step(state, batches, generator) -> metrics`` over ``grad_accum``
     micro-batches. Each holds ``latents`` ``[B, h, w, C]`` (video: ``[B, T, h, w, C]``), ``cond``,
     ``loss_multiplier`` and (flow matching) ``image_seq_len``; t and the noise are drawn from
     ``generator`` on the latents' device. ``micro_loss(batch, generator, t_range) -> (loss,
     aux)`` takes the place of the diffusion loss (the paired-image guidance losses,
     ``train/slider.make_guidance_loss``); accumulation, clipping, the optimizer and the EMA
-    stay as they are."""
+    stay as they are. ``aux_loss_fn`` adds its term to the diffusion loss (:func:`train_loss`)."""
 
     def micro(batch, generator, t_range):
         latents = batch["latents"]
@@ -200,7 +208,7 @@ def make_train_step(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, micro
                                           device=latents.device)
         noise = torch.randn(latents.shape, generator=generator, dtype=latents.dtype,
                             device=latents.device)
-        return train_loss(predict_fn, schedule, cfg, batch, noise, t, _audio_noise(batch, generator))
+        return train_loss(predict_fn, schedule, cfg, batch, noise, t, _audio_noise(batch, generator), aux_loss_fn)
 
     def train_step(state: TrainState, batches: list[dict], generator: torch.Generator) -> dict:
         if len(batches) != cfg.grad_accum:

@@ -136,6 +136,23 @@ Phases (any failure raises and the script exits non-zero):
      step, 15 forwards a denoise step); and a full-width flux-dev DiT cut to
      1 double + 1 single block, f32, batch 2, the LoRA at the per-sample
      multiplier [+1, -1] with recompute on, card vs CPU;
+  15d. the four flux files behind a loss or an adapter
+     (``refusal_files_phases``): the flash kernels against their plain
+     versions and timed at TIPSv2's (1,371 tokens at 12 x 64, a 91-row
+     tail; the f32 path too), vision_direct's cross-attention (4,608 queries
+     to 1,024 keys) and Redux's joint sequence (4,865 tokens); the tiny
+     flux with decoupled K/V and the DFE v7 loss through the tiny decode, and
+     a full-width flux-dev 1 + 1 block DiT on an int8 base with a LyCORIS
+     LoKr ARA and a trainable LoRA, card vs CPU; then, on flux-dev cut to
+     FLUX_FAMILY_CUT and 5 steps each, configs/examples/train_lora_flux_dfe7_tpu.yaml
+     on a seeded TIPSv2 b14-DPT written in the reference's layout (39 / 27 /
+     27 launches a step; the aux loss's own LoRA gradient norm),
+     train_lora_flux_ara_tpu.yaml on a seeded LoRA ARA over the 80 targeted
+     Linears (15 / 15 / 15; the int8 base, the deltas untouched, the save
+     the trainable LoRA alone), train_redux_adapter_flux_tpu.yaml (the
+     seeded ViT-H, its tokens appended; 15 / 15 / 15) and
+     train_vision_direct_pixtral_flux_tpu.yaml (the seeded pixtral tower,
+     24 forwards an encode; 20 / 19 / 19), each adapter file's keys checked;
   16. the flash kernels at Wan 2.1's shapes (12 heads of 128, bf16): the
      forward, dq and dk/dv at the train clip's 8,100 tokens, self and across
      to the 512 text tokens (with a ragged tail tile whose lse is below -88),
@@ -1072,12 +1089,14 @@ class _Validations:
 
 
 def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None, denoise: dict[str, int] | None = None,
-             fresh: bool = True, validate: dict[str, int] | None = None):
+             fresh: bool = True, validate: dict[str, int] | None = None, outside: list[dict] | None = None):
     """Run the train job ``raw`` on the card (from an empty output folder
     unless ``fresh`` is false: a resume) and check its losses, the launches
     of every step (``per_step``), those of its samples (``denoise`` a denoise
     step), its validations (``validate`` an evaluation; each is evaluated
-    twice, and the second must equal the first) and its TMA copies."""
+    twice, and the second must equal the first) and its TMA copies;
+    ``outside``: records ``{"launches": ...}`` of other counted calls between
+    the steps (the vision encodes), which the caller checks."""
     import shutil
 
     from ai_toolkit_tpu_torch.jobs import get_job
@@ -1126,8 +1145,8 @@ def _run_job(raw: dict, per_step: dict[str, int], profile_dir: str | None, denoi
         check(v["launches"] == {k: 2 * (validate or {}).get(k, 0) for k in launches},
               f"launches of two evaluations {v['launches']} != 2 x {validate}")
     sampled = {k: launches[k] - sum(s[k] for s in step_launches) - sum(v["launches"][k] for v in validations)
-               for k in launches}
-    n_denoise = len(result["samples"]) * proc_cfg.get("sample", {}).get("sample_steps", 0)
+               - sum(o["launches"][k] for o in outside or ()) for k in launches}
+    n_denoise = len(result["samples"]) * proc.cfg.sample.sample_steps
     want = {k: n_denoise * (denoise or {}).get(k, 0) for k in launches}
     check(sampled == want, f"launches of {n_denoise} denoise steps in the samples {sampled} != {want}")
     _check_no_tma_copies(name)
@@ -3088,6 +3107,448 @@ def nextdit_phases(card: str, profile_dir: str | None) -> dict:
             "masked_attention": attention, "omnigen2_generate_s": time.perf_counter() - t0}
 
 
+# ---- the four flux files behind a loss or an adapter: DFE v7, ARA, Redux, vision_direct ----
+
+# this slice's new flash shapes: TIPSv2 at the 512^2 decode (1 cls + 1 register + 37 x 37
+# patches: a ragged 91-row tail), the vision_direct cross-attention (4,608 flux queries to
+# 1,024 pixtral tokens) and Redux's joint sequence at 1024^2 (512 text + 257 ViT-H + 4,096)
+REFUSAL_SHAPES = [((1, 1371, 1371, 12, 64), "TIPSv2 self at 512^2"),
+                  ((1, 4608, 1024, 24, 128), "vision_direct cross"),
+                  ((1, 4865, 4865, 24, 128), "Redux joint at 1024^2")]
+TIPS_BLOCKS = 12
+PIXTRAL_LAYERS = 24
+FAMILY_BLOCKS = sum(FLUX_FAMILY_CUT)
+
+
+def _f32_flash_check(shape, seed: int = 11) -> float:
+    """The f32 path the TIPSv2 tower runs: forward, dq and dk/dv against the
+    plain versions at ``shape``, each within 1e-4 of max|ref|. Returns the
+    largest relative error."""
+    from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, s, t, h, d = shape
+    gen = torch.Generator("cuda").manual_seed(seed)
+    q, g = (_rand((b, s, h, d), torch.float32, gen) for _ in range(2))
+    k, v = (_rand((b, t, h, d), torch.float32, gen) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g)
+    ref_out, _ = fa.flash_attention_fwd_plain(q, k, v)
+    refs = fa.flash_attention_bwd_plain(q, k, v, out, lse, g)
+    rel = [((x - r).abs().max() / r.abs().max()).item() for x, r in zip((out, *grads), (ref_out, *refs))]
+    print(f"f32 {shape}: out / dq / dk / dv rel err {' / '.join(f'{x:.3e}' for x in rel)} (tol 1e-4)")
+    check(max(rel) <= 1e-4, f"the f32 flash kernels disagree with their plain versions at {shape}")
+    return max(rel)
+
+
+def dfe_ip_reference() -> None:
+    """The new modules at a tiny size in f32, on the card against the CPU: the
+    tiny flux DiT with a vision_direct decoupled K/V on every block, its
+    prediction from seeded tokens, and the DFE v7 loss through the tiny VAE's
+    decode and a tiny TIPSv2 DPT; the loss and the K/V gradients within 1e-4
+    of their largest reference value."""
+    phase("tiny flux DiT with decoupled K/V + the DFE v7 loss through the tiny VAE decode and TIPSv2 DPT, f32: "
+          "card vs CPU")
+    from ai_toolkit_tpu_torch.adapters.ip_adapter import build_flux_ip_collection
+    from ai_toolkit_tpu_torch.config.modules import ModelConfig
+    from ai_toolkit_tpu_torch.models.dfe import make_dfe7_loss
+    from ai_toolkit_tpu_torch.models.flux_model import FluxModel
+    from ai_toolkit_tpu_torch.models.tipsv2 import TIPSConfig, init_tipsv2_dpt
+    from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
+
+    cfg = ModelConfig.from_dict({"name_or_path": "", "arch": "flux", "model_kwargs": {"size": "tiny"}})
+    runs = {}
+    state = None
+    for label, dev in (("cpu", "cpu"), ("card", "cuda")):
+        model = FluxModel(cfg, device=dev)
+        variables = model.init_variables(torch.Generator(dev).manual_seed(0))
+        tips = init_tipsv2_dpt(TIPSConfig.tiny(), torch.Generator(dev).manual_seed(1), dev)
+        ip = build_flux_ip_collection(variables["dit"], 24, scale=0.7)
+        if state is None:
+            state = ({k: m.state_dict() for k, m in variables.items()}, tips.state_dict(),
+                     {k: m.state_dict() for k, m in ip.items()})
+        else:
+            for k, m in variables.items():
+                m.load_state_dict(state[0][k])
+            tips.load_state_dict(state[1])
+            for k, m in ip.items():
+                m.load_state_dict(state[2][k])
+        g = torch.Generator().manual_seed(2)
+        x = torch.randn((2, 16, 20, model.vae_config.latent_channels), generator=g).to(dev)
+        noise = torch.randn(x.shape, generator=g).to(dev)
+        t = torch.tensor([0.25, 0.8], device=dev)
+        tokens = torch.randn((2, 9, 24), generator=g).to(dev)
+        txt = torch.randn((2, 7, model.dit_config.context_dim), generator=g).to(dev)
+        cond = {"txt": txt, "y": torch.randn((2, model.dit_config.vec_dim), generator=g).to(dev),
+                "pe": model.rope_table(16, 20, 7), "guidance": torch.full((2,), 3.5, device=dev),
+                "ip_tokens": tokens}
+        sched = FlowMatchSchedule()
+        noisy = sched.add_noise(x, noise, t)
+        pred = model.predict(variables, noisy, t, cond)
+        aux = make_dfe7_loss(tips, sched, 1.0, lambda lat: model.decode_latents(variables, lat))
+        loss = aux(pred, noisy, x, noise, t)
+        params = [p for m in ip.values() for p in m.parameters()]
+        grads = torch.autograd.grad(loss, params)
+        runs[label] = (pred.detach().cpu(), loss.item(), [gr.cpu() for gr in grads])
+    (p_ref, l_ref, g_ref), (p_gpu, l_gpu, g_gpu) = runs["cpu"], runs["card"]
+    err = (p_gpu - p_ref).abs().max().item() / p_ref.abs().max().item()
+    gmax = max(gr.abs().max().item() for gr in g_ref)
+    gerr = max((a - b).abs().max().item() for a, b in zip(g_gpu, g_ref)) / gmax
+    print(f"prediction rel err {err:.3e}; DFE loss card {l_gpu:.6f} vs CPU {l_ref:.6f}; {len(g_ref)} K/V gradients "
+          f"(max|ref| {gmax:.3e}) rel err {gerr:.3e} (tol 1e-4 each)")
+    check(err <= 1e-4 and abs(l_gpu - l_ref) <= 1e-4 * abs(l_ref) and gerr <= 1e-4 and gmax > 0,
+          "the DFE loss or the decoupled K/V disagree between card and CPU")
+
+
+def _block_linears(dit) -> list[tuple[str, object]]:
+    """The DiT's Linears a flux LoRA targets (``flux_lora_targets``), in module order."""
+    from ai_toolkit_tpu_torch.models.flux_dit import flux_lora_targets
+    from ai_toolkit_tpu_torch.ops.layers import Linear
+
+    pats = flux_lora_targets()
+    return [(n, m) for n, m in dit.named_modules() if isinstance(m, Linear) and any(re.search(p, n) for p in pats)]
+
+
+def write_ara_file(path: str, kind: str, depth: tuple[int, int], rank: int = 16, seed: int = 5) -> int:
+    """A seeded accuracy-recovery adapter over every targeted Linear of
+    flux-dev at ``depth`` blocks, in the layouts the JAX job reads: ``lora``
+    (PEFT ``transformer.<module>.lora_A/B.weight``, fp16, no alpha) or
+    ``lokr`` (LyCORIS ``lycoris_<module>.lokr_w1/w2`` + ``.alpha`` 1, the
+    factors from ``adapters/lycoris.factorize``). Returns its module count."""
+    from safetensors.torch import save_file
+
+    from ai_toolkit_tpu_torch.adapters.lycoris import factorize
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig, FluxDiT
+
+    dit = FluxDiT(dataclasses.replace(FluxConfig.dev(), depth_double=depth[0], depth_single=depth[1]),
+                  device="meta")
+    g = torch.Generator().manual_seed(seed)
+    flat = {}
+    mods = _block_linears(dit)
+    for n, m in mods:
+        if kind == "lora":
+            flat[f"transformer.{n}.lora_A.weight"] = (torch.randn((rank, m.in_features), generator=g)
+                                                      * m.in_features ** -0.5).half()
+            flat[f"transformer.{n}.lora_B.weight"] = (torch.randn((m.out_features, rank), generator=g) * 1e-3).half()
+        else:
+            (o1, o2), (i1, i2) = factorize(m.out_features), factorize(m.in_features)
+            key = "lycoris_" + n.replace(".", "_")
+            flat[key + ".lokr_w1"] = torch.randn((o1, i1), generator=g) * 0.05
+            flat[key + ".lokr_w2"] = torch.randn((o2, i2), generator=g) * 0.05
+            flat[key + ".alpha"] = torch.tensor(1.0)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_file(flat, path)
+    print(f"ARA file {path} ({kind}): {len(mods)} modules, {os.path.getsize(path) / 2**20:.1f} MiB")
+    return len(mods)
+
+
+def lokr_ara_reference() -> None:
+    """A full-width flux-dev DiT cut to 1 double + 1 single block, f32, on an
+    int8 base with a LyCORIS LoKr ARA (the seeded file read through
+    ``io/lora_file.load_lokr_file``) and a trainable LoRA: the forward and the
+    LoRA gradients on the card against the CPU, within 1e-3 of the largest
+    reference value (the int8 values are the same on both)."""
+    phase("full-width flux-dev DiT, 1 double + 1 single block, f32, int8 base with a LoKr ARA and a trainable "
+          "LoRA: card vs CPU")
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, attach_ara, build_lora
+    from ai_toolkit_tpu_torch.adapters.quantize import quantize_params
+    from ai_toolkit_tpu_torch.io.lora_file import is_lokr_file, load_lokr_file
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig, FluxDiT, flux_lora_targets
+    from ai_toolkit_tpu_torch.ops.layers import LoKr, init_parameters
+    from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
+
+    path = os.path.join(OUT_DIR, "ara", "lokr_1_1.safetensors")
+    n_mods = write_ara_file(path, "lokr", (1, 1))
+    check(is_lokr_file(path), "the LoKr ARA file is not read as LoKr")
+    cfg = dataclasses.replace(FluxConfig.dev(), depth_double=1, depth_single=1, dtype=torch.float32)
+    gpu = init_parameters(FluxDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
+    gpu.eval().requires_grad_(False)
+    cpu = FluxDiT(cfg, device="cpu").eval().requires_grad_(False)
+    cpu.load_state_dict(gpu.state_dict())
+    spec = LoRASpec(rank=16, alpha=16.0, target_patterns=flux_lora_targets())
+    loras, nets = {}, (("cpu", "cpu", cpu), ("card", "cuda", gpu))
+    for label, dev, net in nets:
+        tree = load_lokr_file(path, [n for n, _ in net.named_modules()])
+        check(attach_ara(net, tree, "lokr") == n_mods, "the LoKr ARA does not cover every targeted Linear")
+        quantize_params(net, qtype="int8")
+        loras[label] = build_lora(net, spec, torch.Generator(dev).manual_seed(2))
+    with torch.no_grad():
+        for n, m in loras["card"].items():
+            m.b.normal_(0.0, 0.01, generator=torch.Generator("cuda").manual_seed(3))
+            loras["cpu"][n].a.copy_(m.a)
+            loras["cpu"][n].b.copy_(m.b)
+    check(all(isinstance(m.ara, LoKr) for _, m in _block_linears(gpu)), "a targeted Linear lost its LoKr ARA")
+    g = torch.Generator().manual_seed(1)
+    n_txt, hh, ww, b = 32, 8, 12, 1
+    pe = multi_axis_rope(torch.from_numpy(image_position_ids(hh, ww, text_len=n_txt))[None], list(cfg.axes_dim),
+                         cfg.theta)
+    args = [torch.randn((b, hh * ww, cfg.in_channels), generator=g), torch.randn((b, n_txt, cfg.context_dim), generator=g),
+            torch.tensor([0.6]), torch.randn((b, cfg.vec_dim), generator=g), pe, torch.tensor([4.0])]
+    target = torch.randn((b, hh * ww, cfg.in_channels), generator=g)
+    names = [f"{n}.{leaf}" for n in loras["cpu"] for leaf in ("a", "b")]
+    runs = {}
+    for label, dev, net in nets:
+        params = [getattr(loras[label][n.rsplit(".", 1)[0]], n.rsplit(".", 1)[1]) for n in names]
+        out = net(*[x.to(dev) for x in args])
+        loss = (out.float() - target.to(dev)).square().mean()
+        runs[label] = (out.detach().cpu(), [x.cpu() for x in torch.autograd.grad(loss, params)])
+    (ref, ref_g), (out, grads) = runs["cpu"], runs["card"]
+    scale, gmax = ref.abs().max().item(), max(x.abs().max().item() for x in ref_g)
+    err = (out - ref).abs().max().item()
+    gerr = max((a - r).abs().max().item() for a, r in zip(grads, ref_g))
+    print(f"forward max|ref|={scale:.3f} max_abs_err={err:.3e} (tol {1e-3 * scale:.3e}); {len(grads)} LoRA gradients "
+          f"max|ref|={gmax:.3e} max_abs_err={gerr:.3e} (tol {1e-3 * gmax:.3e})")
+    check(err <= 1e-3 * scale and gerr <= 1e-3 * gmax, "the LoKr ARA on the int8 base disagrees between card and CPU")
+    del gpu, cpu, loras
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def write_tipsv2_dpt(seed: int = 1234) -> str:
+    """A seeded full-width TIPSv2 b14-DPT written as the reference's
+    ``model.safetensors`` (its ``vision_encoder.*`` and ``*_head.*`` names);
+    the DFE v7 file points ``v7:<dir>`` at it."""
+    from safetensors.torch import save_file
+
+    from ai_toolkit_tpu_torch.models.tipsv2 import TIPSConfig, init_tipsv2_dpt
+
+    folder = os.path.join(OUT_DIR, "tipsv2-b14-dpt")
+    os.makedirs(folder, exist_ok=True)
+    t0 = time.perf_counter()
+    model = init_tipsv2_dpt(TIPSConfig.b14_dpt(), torch.Generator("cuda").manual_seed(seed), "cuda")
+    state = {k: v.detach().cpu().contiguous() for k, v in model.state_dict().items()}
+    save_file(state, os.path.join(folder, "model.safetensors"))
+    n = sum(v.numel() for v in state.values())
+    print(f"TIPSv2 b14-dpt: {len(state)} tensors, {n / 1e6:.1f} M parameters (f32) written to {folder} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return folder
+
+
+class _VisionEncodes:
+    """The kernel launches of each vision encode of a job run
+    (``SDTrainProcess._encode_vision_cached`` wrapped for the block): a call
+    that encodes an image runs the tower once over the batch."""
+
+    def __enter__(self) -> list[dict]:
+        import ai_toolkit_tpu_torch.jobs.train_process as tp
+
+        self.cls, self.real, self.calls = tp.SDTrainProcess, tp.SDTrainProcess._encode_vision_cached, []
+        real, calls = self.real, self.calls
+
+        def counted(proc, pixels):
+            before, enc0 = _launches(), getattr(proc, "vision_cache_report", {}).get("encoded", 0)
+            out = real(proc, pixels)
+            after = _launches()
+            calls.append({"launches": {k: after[k] - before[k] for k in after},
+                          "encoded": proc.vision_cache_report["encoded"] - enc0})
+            return out
+
+        tp.SDTrainProcess._encode_vision_cached = counted
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        self.cls._encode_vision_cached = self.real
+
+
+def _refusal_job(card: str, example: str, name: str, per_step: dict, size: int, *, train: dict | None = None,
+                 model: dict | None = None, encode: dict | None = None) -> tuple[dict, object, dict]:
+    """One of the four files as written but for its paths (``train`` /
+    ``model``: the DFE directory, the ARA file), its steps (5) and its name,
+    on seeded weights with the DiT at FLUX_FAMILY_CUT; every step's launches
+    (``per_step``), 15 a denoise step, ``encode`` the launches of a vision
+    encode that encodes (the rest: none), the first and final samples at
+    ``size``. Prints the step ms, peak and samples beside the card."""
+    raw = _shipped_job(example, name, TRAIN_WARMUP + TRAIN_TIMED, "")
+    proc_cfg = raw["config"]["process"][0]
+    proc_cfg["train"].update(train or {})
+    proc_cfg["model"].update(model or {})
+    with flux_cut_depth(), _VisionEncodes() as encodes:
+        result, proc, report = _run_job(raw, per_step, None, _counts(fwd=FAMILY_BLOCKS), outside=encodes)
+    for c in encodes:
+        want = encode if c["encoded"] else _counts()
+        check(c["launches"] == want, f"a vision encode launched {c['launches']} (encoded {c['encoded']}) != {want}")
+    _check_samples(result, [0, TRAIN_WARMUP + TRAIN_TIMED], 1, size)
+    ms = result["step_ms"]
+    timed = ms[TRAIN_WARMUP:]
+    print(f"{card}: {name}: step ms {', '.join(f'{x:.1f}' for x in ms)}; warm median {statistics.median(timed):.1f} "
+          f"(min {min(timed):.1f}, max {max(timed):.1f}); peak {report['peak_gib']:.2f} GiB; launches a step "
+          f"{per_step}; samples {', '.join('%.2f' % r['seconds'] for r in result['samples'])} s; job wall "
+          f"{report['wall_s']:.1f} s")
+    return result, proc, {**report, "step_ms": ms, "warm_min_ms": min(timed), "warm_max_ms": max(timed)}
+
+
+def _aux_grad_norm(proc) -> dict:
+    """The DFE term's own gradient on the LoRA, from the trained job: one
+    cached batch at t = 0.5, the MSE and the aux loss each differentiated
+    alone (the aux loss as the job built it, through the decode and TIPSv2;
+    the DiT without its block checkpointing, so one forward serves both)."""
+    from ai_toolkit_tpu_torch.models.dfe import make_aux_loss
+    from ai_toolkit_tpu_torch.train.optimizers import global_norm
+
+    model, variables = proc.model, proc.variables
+    loader, text_cache = proc._build_data(model, variables)
+    batch = proc._prepare_batch(model, variables, next(loader.iter_from(0)), text_cache)
+    path, weight = proc.feature_loss_path
+    aux_fn, _ = make_aux_loss(path, weight, model, variables, proc._schedule(), proc.device)
+    lat = batch["latents"]
+    g = torch.Generator("cuda").manual_seed(3)
+    noise = torch.randn(lat.shape, generator=g, device="cuda", dtype=lat.dtype)
+    t = torch.full((lat.shape[0],), 0.5, device="cuda")
+    sched = proc._schedule()
+    noisy = sched.add_noise(lat, noise, t)
+    params = list(proc.state.trainable.values())
+    net = variables[model.main_component]
+    net.gradient_checkpointing = False  # two backwards through one forward: no recompute region
+    try:
+        pred = model.predict(variables, noisy, t, batch["cond"])
+        mse = (pred.float() - sched.target(lat, noise, t).float()).square().mean()
+        aux = aux_fn(pred, noisy, lat, noise, t)
+        g_mse = torch.autograd.grad(mse, params, retain_graph=True)
+        g_aux = torch.autograd.grad(aux, params)
+    finally:
+        net.gradient_checkpointing = proc.cfg.train.gradient_checkpointing
+    return {"mse": mse.item(), "aux": aux.item(), "grad_norm_mse": float(global_norm(list(g_mse))),
+            "grad_norm_aux": float(global_norm(list(g_aux)))}
+
+
+def refusal_files_phases(card: str) -> dict:
+    """The four flux files that once stopped at a refusal, as written but for
+    their paths and steps (5), on seeded weights with flux-dev cut to
+    FLUX_FAMILY_CUT and every new module at full width and depth: the flash
+    kernels against their plain versions and timed at the slice's shapes
+    (and the f32 path at TIPSv2's), the tiny DFE + decoupled K/V and the LoKr
+    ARA on an int8 base card vs CPU, then
+    configs/examples/train_lora_flux_dfe7_tpu.yaml (the DFE v7 loss on a
+    seeded TIPSv2 b14-DPT written in the reference's layout, the decode at
+    512^2 in the graph), train_lora_flux_ara_tpu.yaml (a seeded LoRA ARA on
+    the int8 base), train_redux_adapter_flux_tpu.yaml (the seeded ViT-H, its
+    257 tokens appended to the 512 text tokens) and
+    train_vision_direct_pixtral_flux_tpu.yaml (the seeded 24-layer pixtral
+    tower at 512^2, 1,024 tokens, the K/V on the 5 double blocks). Returns
+    each phase's numbers."""
+    t_start = time.perf_counter()
+    err = flash_checks("flash kernels vs plain versions at the DFE / adapter shapes, bf16",
+                       [(shape, label, True, None) for shape, label in REFUSAL_SHAPES], 21)
+    phase("the f32 flash path at TIPSv2's shape (the DFE's tower runs in f32)")
+    err_f32 = _f32_flash_check(REFUSAL_SHAPES[0][0])
+    times = attention_times("flash kernels at the DFE / adapter shapes, bf16", "slice", [
+        (shape, label, True) for shape, label in REFUSAL_SHAPES], 22)
+    dfe_ip_reference()
+    lokr_ara_reference()
+    out = {"flash_err": {**err, "f32_rel": err_f32},
+           "ms": {label: {k: {m: row[k][m] for m in ("ms", "plain_ms", "library_ms", "bound_ms")} for k in row}
+                  for label, row in times.items()}}
+    cut = f"the DiT cut to {FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks"
+
+    phase("TIPSv2 b14-DPT written from seeded full-width modules in the reference's layout")
+    tips_dir = write_tipsv2_dpt()
+    phase(f"DFE v7 LoRA sd_trainer job, configs/examples/train_lora_flux_dfe7_tpu.yaml as written with seeded "
+          f"weights and 'v7:{tips_dir}': 512^2, the VAE decode and TIPSv2 (1,371 tokens, f32) in the step, "
+          f"{cut}")
+    dfe_step = _counts(FAMILY_BLOCKS + 2 * TIPS_BLOCKS, FAMILY_BLOCKS + TIPS_BLOCKS, FAMILY_BLOCKS + TIPS_BLOCKS)
+    result, proc, rep = _refusal_job(card, "train_lora_flux_dfe7_tpu.yaml", "smoke_dfe7", dfe_step, 512,
+                                     train={"diffusion_feature_extractor_path": f"v7:{tips_dir}"})
+    check(len(result["aux_losses"]) == len(result["losses"]) and all(x > 0 for x in result["aux_losses"]),
+          f"aux losses {result['aux_losses']}")
+    check_lora_job(result, proc)
+    norms = _aux_grad_norm(proc)
+    print(f"{card}: DFE: aux loss by step {', '.join(f'{x:.5f}' for x in result['aux_losses'])} beside the loss "
+          f"{', '.join(f'{x:.5f}' for x in result['losses'])}; at t = 0.5 on one batch: mse {norms['mse']:.5f}, aux "
+          f"{norms['aux']:.5f}, LoRA gradient norm of the mse {norms['grad_norm_mse']:.4e}, of the aux loss "
+          f"{norms['grad_norm_aux']:.4e}")
+    check(norms["grad_norm_aux"] > 0 and math.isfinite(norms["grad_norm_aux"]),
+          "the DFE loss brings no gradient to the LoRA")
+    out["dfe7"] = {**{k: rep[k] for k in ("median_step_ms", "warm_min_ms", "warm_max_ms", "peak_gib", "wall_s")},
+                   "per_step": dfe_step, "aux_losses": result["aux_losses"], "losses": result["losses"], **norms}
+    del proc
+    gc.collect()
+
+    ara_path = os.path.join(OUT_DIR, "ara", "ara_lora.safetensors")
+    n_ara = write_ara_file(ara_path, "lora", FLUX_FAMILY_CUT)
+    phase(f"ARA LoRA sd_trainer job, configs/examples/train_lora_flux_ara_tpu.yaml as written with seeded weights "
+          f"and 'int8|{ara_path}' ({n_ara} modules, rank 16): 1024^2, the ARA read before the int8 quantization, "
+          f"stacked with the trainable LoRA by rank-concat, {cut}")
+    result, proc, rep = _refusal_job(card, "train_lora_flux_ara_tpu.yaml", "smoke_ara", _counts(*(FAMILY_BLOCKS,) * 3),
+                                     1024, model={"qtype": f"int8|{ara_path}"})
+    from safetensors.torch import load_file
+
+    from ai_toolkit_tpu_torch.adapters.quantize import quantized_bytes, quantized_count
+    from ai_toolkit_tpu_torch.ops.layers import LoRA
+
+    net = proc.variables["dit"]
+    written = load_file(ara_path)
+    aras = {n: m.ara for n, m in _block_linears(net)}
+    moved = [n for n, a in aras.items() if not isinstance(a, LoRA) or a.a.requires_grad
+             or not torch.equal(a.a.detach().cpu(), written[f"transformer.{n}.lora_A.weight"].float().t())
+             or not torch.equal(a.b.detach().cpu(), written[f"transformer.{n}.lora_B.weight"].float().t())]
+    qgb = quantized_bytes(net) / 1e9
+    print(f"{card}: ARA: int8 base {quantized_count(net)} weights, {qgb:.2f} GB; {len(aras)} frozen ARA deltas "
+          f"present, {len(moved)} changed after {result['steps']} steps")
+    check(proc.cfg.model.qtype == "int8" and quantized_count(net) > 0 and len(aras) == n_ara and not moved,
+          f"the ARA is missing or moved ({moved[:3]}), or the base is not int8")
+    from safetensors import safe_open
+
+    with safe_open(check_lora_job(result, proc), framework="pt") as f:
+        check(set(f.keys()) == {f"transformer.{n}.lora_{ab}.weight" for n in proc.lora for ab in "AB"},
+              "the ARA job's save holds more than the trainable LoRA")
+    out["ara"] = {**{k: rep[k] for k in ("median_step_ms", "warm_min_ms", "warm_max_ms", "peak_gib", "wall_s")},
+                  "quantized_gb": qgb, "ara_modules": n_ara}
+    del proc, net
+    gc.collect()
+
+    phase(f"Redux adapter sd_trainer job, configs/examples/train_redux_adapter_flux_tpu.yaml as written with seeded "
+          f"weights: the seeded ViT-H (32 layers, plain attention at head dim 80), its 257 tokens appended to the "
+          f"512 text tokens, the network beside it not trained (the JAX fault), EMA, [512, 768, 1024], {cut}")
+    result, proc, rep = _refusal_job(card, "train_redux_adapter_flux_tpu.yaml", "smoke_redux",
+                                     _counts(*(FAMILY_BLOCKS,) * 3), 1024, encode=_counts())
+    out["redux"] = {**_check_adapter_job(card, result, proc, "redux", {
+        "redux.redux_up.weight", "redux.redux_up.bias", "redux.redux_down.weight", "redux.redux_down.bias"}),
+        **{k: rep[k] for k in ("median_step_ms", "warm_min_ms", "warm_max_ms", "peak_gib", "wall_s")}}
+    del proc
+    gc.collect()
+
+    d = FLUX_FAMILY_CUT[0]
+    vd_step = _counts(FAMILY_BLOCKS + d, FAMILY_BLOCKS + d - 1, FAMILY_BLOCKS + d - 1)
+    phase(f"vision_direct adapter sd_trainer job, configs/examples/train_vision_direct_pixtral_flux_tpu.yaml as "
+          f"written with seeded weights: the seeded pixtral tower (24 layers of 1024, 1,024 tokens at 512^2, f32), "
+          f"the resampler to 3072, decoupled K/V on the {d} double blocks, 1024^2, {cut}")
+    result, proc, rep = _refusal_job(card, "train_vision_direct_pixtral_flux_tpu.yaml", "smoke_vision_direct",
+                                     vd_step, 1024, encode=_counts(fwd=PIXTRAL_LAYERS))
+    keys = {f"vision_direct.{m}.{p}" for m in ("w_in", "w_out") for p in ("weight", "bias")}
+    keys |= {f"vision_direct.adapter_modules.{i}.to_{kv}_adapter.weight" for i in range(d) for kv in "kv"}
+    out["vision_direct"] = {**_check_adapter_job(card, result, proc, "vision_direct", keys),
+                            **{k: rep[k] for k in ("median_step_ms", "warm_min_ms", "warm_max_ms", "peak_gib",
+                                                   "wall_s")}, "per_step": vd_step}
+    del proc
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"{card}: the four files' phases {out['wall_s']:.1f} s")
+    return out
+
+
+def _check_adapter_job(card: str, result: dict, proc, kind: str, keys: set[str]) -> dict:
+    """An adapter run really trained its adapter and saved the JAX job's file:
+    the adapter's tensors moved, no LoRA is attached, the vision cache hit
+    after the first pass, and the final file holds ``keys`` (the names the
+    JAX job writes, held to its ``_save`` on the CPU) with its step and type."""
+    from safetensors import safe_open
+
+    check(proc.lora is None and all(k.startswith(("adapter.", "ip.")) for k in proc.state.trainable),
+          f"{kind}: the job trained more than its adapter")
+    rep = proc.vision_cache_report
+    cache_dir = getattr(proc, "_vision_cache_dir", None)
+    check(rep["encoded"] > 0 and (cache_dir is None or len(os.listdir(cache_dir)) == rep["encoded"]),
+          f"{kind}: vision cache {rep}")
+    with safe_open(result["save_path"], framework="pt") as f:
+        got, meta = set(f.keys()), f.metadata()
+        nonzero = all(bool(f.get_tensor(k).abs().max() > 0) for k in got if "weight" in k)
+    check(got == keys and meta.get("adapter_type") == kind and meta.get("step") == str(result["steps"]) and nonzero,
+          f"{kind}: the adapter file holds {sorted(got)[:6]} ({meta}), want {sorted(keys)[:6]}")
+    print(f"{card}: {kind}: {len(got)} tensors in {result['save_path']} (adapter_type {kind}); vision cache {rep}"
+          + (f", {len(os.listdir(cache_dir))} files in {cache_dir}" if cache_dir else ""))
+    return {"adapter_keys": sorted(got), "vision_cache": dict(rep)}
+
+
 # ---- the audio archs: ACE-Step's 1-D WanDiT and LTX-2's joint audio-video DiT ----
 
 ACE_BLOCKS = 24  # the 1-D WanDiT: one self- and one cross-attention each
@@ -3440,6 +3901,8 @@ def main(argv: list[str]) -> int:
     sd15 = sd15_ti_phase(card, args.profile)
     sliders = slider_phases(card, sd15["checkpoint"])
     print(json.dumps({"sliders": sliders}))
+    refusal_files = refusal_files_phases(card)
+    print(json.dumps({"dfe_ara_redux_vision_direct": refusal_files}))
     print(json.dumps({"shipped_files": {
         "sd15_textual_inversion": sd15,
         "flux_lora_val_losses": train["val_losses"],

@@ -262,7 +262,9 @@ SHIPPED = ["train_lora_flux_tpu", "train_full_finetune_flux_tpu", "train_lora_hi
            "train_textual_inversion_sd15", "train_lora_chroma_tpu", "train_lora_flex_tpu",
            "train_lora_flex2_tpu", "train_lora_flux_kontext_tpu", "train_lora_sd35_large_tpu",
            "train_lora_qwen_image_tpu", "train_lora_qwen_image_edit_tpu", "train_lora_lumina2_tpu",
-           "train_lora_omnigen2_tpu", "train_lora_ace_step_audio", "train_lora_ltx2_av_tpu"]
+           "train_lora_omnigen2_tpu", "train_lora_ace_step_audio", "train_lora_ltx2_av_tpu",
+           "train_lora_flux_dfe7_tpu", "train_lora_flux_ara_tpu", "train_redux_adapter_flux_tpu",
+           "train_vision_direct_pixtral_flux_tpu"]
 
 
 @pytest.mark.parametrize("name", SHIPPED)
@@ -287,17 +289,20 @@ def test_shipped_job_files_are_taken_as_written(name):
 
 
 def test_pixtral_train_file_raises_on_its_adapter():
-    """The file has an ``adapter:`` and no ``network``: it is refused for the
-    adapter, before a missing network could read as a full fine-tune (whose
-    quantize refusal would name the wrong cause)."""
+    """The file has an ``adapter:`` and no ``network``: it is taken as an
+    adapter run (the vision_direct adapter on the pixtral tower), not as a
+    full fine-tune, whose quantize refusal would fire on it."""
     raw = get_config(os.path.join(ROOT, "configs", "examples", "train_vision_direct_pixtral_flux_tpu.yaml"))
-    with pytest.raises(NotImplementedError, match="^adapters / sliders come with later slices$"):
-        for proc in get_job(raw, device="cpu").processes:
-            proc._refuse_unported()
+    (proc,) = get_job(raw, device="cpu").processes
+    proc._refuse_unported()
+    assert not proc.full_finetune and proc.cfg.network is None and proc.cfg.model.quantize
+    assert proc.cfg.adapter["type"] == "vision_direct" and proc.cfg.adapter["image_encoder_arch"] == "pixtral"
 
 
 def test_dfe_train_file_raises_on_its_losses():
+    """The DFE v7 file is taken with its loss: the path and weight the job
+    hands ``models/dfe.make_aux_loss``."""
     raw = get_config(os.path.join(ROOT, "configs", "examples", "train_lora_flux_dfe7_tpu.yaml"))
-    with pytest.raises(NotImplementedError, match="diffusion_feature_extractor_path"):
-        for proc in get_job(raw, device="cpu").processes:
-            proc._refuse_unported()
+    (proc,) = get_job(raw, device="cpu").processes
+    proc._refuse_unported()
+    assert proc.feature_loss_path == ("v7:/path/to/tipsv2-b14-dpt", 1.0)

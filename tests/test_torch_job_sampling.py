@@ -16,6 +16,7 @@ from PIL import Image
 from ai_toolkit_tpu.jobs import run_job as jrun_job
 from ai_toolkit_tpu.models.registry import get_model_class as jget_model_class
 from ai_toolkit_tpu_torch.jobs import run_job
+from test_torch_flux_family import OPT0
 from test_torch_job_features import TINY_FLUX, _images, _proc
 
 
@@ -39,8 +40,11 @@ def _job(tmp_path, out: str, model: dict) -> dict:
 def check_sampling_matches_jax(tmp_path, monkeypatch, model: dict) -> None:
     """The port's job and the JAX job write the same sample files; the
     port's are images of the sample size and not constant. The JAX model's
-    seeded init runs under one ``jax.jit`` (eager, it takes half a minute):
-    the weights' values do not enter what is compared."""
+    seeded init runs under one ``jax.jit`` (eager, it takes half a minute),
+    and the JAX job's jits compile at XLA's optimization level 0 (``OPT0``):
+    the weights' and the samples' values do not enter what is compared."""
+    real_jit = jax.jit
+    monkeypatch.setattr(jax, "jit", lambda *a, **k: real_jit(*a, **{"compiler_options": OPT0, **k}))
     jcls = jget_model_class(model["arch"])
     real_init = jcls.init_variables
     monkeypatch.setattr(jcls, "init_variables", lambda self, key: jax.jit(functools.partial(real_init, self))(key))

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from safetensors.numpy import load_file, save_file
+from test_torch_flux_family import OPT0, fast_jit
 
 from ai_toolkit_tpu.config.modules import ModelConfig as JModelConfig
 from ai_toolkit_tpu.io.ldm_single_file import export_ldm_checkpoint, load_ldm_checkpoint
@@ -40,7 +41,8 @@ def exported(request, tmp_path_factory):
     """(arch, the JAX-written file, the JAX package's load of it)."""
     arch = request.param
     jmodel = _jax_model(arch)
-    init = jax.jit(jmodel.init_variables)  # one compile, used by the JAX loader too
+    # one compile at XLA's optimization level 0, used by the JAX loader too
+    init = jax.jit(jmodel.init_variables, compiler_options=OPT0)
     variables = jax.tree.map(np.asarray, init(jax.random.key(3)))
     path = str(tmp_path_factory.mktemp(arch) / f"{arch}.safetensors")
     export_ldm_checkpoint(jmodel, variables, path, dtype=np.float32)
@@ -75,7 +77,7 @@ def _predict_both(arch, path, loaded, variables, model):
     if arch == "sdxl":
         jcond = {"context": jcond["context"], "added_cond": jmodel.added_cond(jcond["pooled"], 64, 64)}
         cond = {"context": cond["context"], "added_cond": model.added_cond(cond["pooled"], 64, 64)}
-    ref = jax.jit(jmodel.predict)(loaded, jnp.asarray(x), jnp.asarray(t, jnp.int32), jcond)
+    ref = fast_jit(jmodel.predict, loaded, jnp.asarray(x), jnp.asarray(t, jnp.int32), jcond)
     with torch.inference_mode():
         out = model.predict(variables, torch.from_numpy(x), torch.from_numpy(t), cond)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)

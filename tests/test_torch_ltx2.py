@@ -49,6 +49,7 @@ from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.run import main as run_main
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
+from test_torch_flux_family import OPT0
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,7 +74,7 @@ def _tol(got, ref, rel=1e-4):
 def jax_vae():
     cfg = jvae.LTXVideoVAEConfig(**VAE_NARROW, dtype=jnp.float32)
     mod = jvae.LTXVideoVAE(cfg)
-    params = jax.jit(mod.init)(jax.random.key(0), jnp.zeros((1, 9, 32, 32, 3)))["params"]
+    params = jax.jit(mod.init, compiler_options=OPT0)(jax.random.key(0), jnp.zeros((1, 9, 32, 32, 3)))["params"]
     return jax.tree.map(lambda v: np.asarray(v) + (0.01 if v.ndim == 1 else 0.0), params)  # non-zero biases
 
 
@@ -136,7 +137,7 @@ def jax_av():
     mod = _jax_av()
     pe = jnp.zeros((1, 8, 64, 2, 2))
     pa = jnp.zeros((1, 4, 32, 2, 2))
-    params = jax.jit(mod.init)(jax.random.key(2), jnp.zeros((1, 8, 16)), jnp.zeros((1, 4, 4)),
+    params = jax.jit(mod.init, compiler_options=OPT0)(jax.random.key(2), jnp.zeros((1, 8, 16)), jnp.zeros((1, 4, 4)),
                                jnp.zeros((1, 7, 64)), jnp.zeros((1,)), pe, pa)["params"]
     return jax.tree.map(np.asarray, params)
 
@@ -266,7 +267,7 @@ def test_audio_loss_multiplier_reaches_the_step():
 @pytest.fixture(scope="module")
 def joint_tiny():
     jm = JLTX2Model(JModelConfig.from_dict(dict(JOINT)))
-    jvars = jax.tree.map(np.asarray, jax.jit(jm.init_variables)(jax.random.key(0)))
+    jvars = jax.tree.map(np.asarray, jax.jit(jm.init_variables, compiler_options=OPT0)(jax.random.key(0)))
     model = LTX2Model(ModelConfig.from_dict(dict(JOINT)), device="cpu")
     variables = model.init_variables(torch.Generator().manual_seed(0))
     model.load_state_dicts(variables, from_jax.ltx2_model_state(jvars, gemma=False, joint=True, mel=True))
@@ -313,7 +314,7 @@ def test_joint_model_predict_and_audio_match_jax(joint_tiny):
 def test_video_only_ltx2_predict_matches_jax():
     """The video-only LTX-2 (the Wan DiT at LTX-2's layout) through ``predict``; f32, 1e-4 of max|ref|."""
     jm = JLTX2Model(JModelConfig.from_dict(dict(VIDEO)))
-    jvars = jax.tree.map(np.asarray, jax.jit(jm.init_variables)(jax.random.key(1)))
+    jvars = jax.tree.map(np.asarray, jax.jit(jm.init_variables, compiler_options=OPT0)(jax.random.key(1)))
     model = LTX2Model(ModelConfig.from_dict(dict(VIDEO)), device="cpu")
     variables = model.init_variables(torch.Generator().manual_seed(0))
     model.load_state_dicts(variables, from_jax.ltx2_model_state(jvars, gemma=False, joint=False, mel=False))
@@ -448,7 +449,7 @@ def test_checkpoint_directory_matches_load_ltx2_checkpoint(tmp_path, capsys):
                np.random.default_rng(8))
     cfg = {**VIDEO, "name_or_path": str(tmp_path)}
     jm = JLTX2Model(JModelConfig.from_dict(dict(cfg)))
-    jm.init_variables = jax.jit(jm.init_variables)  # the loader's seeded init, compiled once
+    jm.init_variables = jax.jit(jm.init_variables, compiler_options=OPT0)  # the loader's seeded init, compiled once
     jvars = jax.tree.map(np.asarray, load_ltx2_checkpoint(str(tmp_path), jm))
     model = LTX2Model(ModelConfig.from_dict(dict(cfg)), device="cpu")
     variables = model.load_variables(torch.Generator().manual_seed(0))
@@ -521,7 +522,7 @@ def test_jax_fault_checkpoint_audio_stream_stays_seeded(tmp_path, joint_tiny):
     _write_dir(str(tmp_path), video, video.init_variables(torch.Generator().manual_seed(0)),
                np.random.default_rng(10))
     jm = JLTX2Model(JModelConfig.from_dict({**JOINT, "name_or_path": str(tmp_path)}))
-    jm.init_variables = jax.jit(jm.init_variables)  # the loader's seeded init, compiled once
+    jm.init_variables = jax.jit(jm.init_variables, compiler_options=OPT0)  # the loader's seeded init, compiled once
     seeded = jax.tree.map(np.asarray, jm.init_variables(jax.random.key(0)))["dit"]
     loaded = jax.tree.map(np.asarray, load_ltx2_checkpoint(str(tmp_path), jm))["dit"]
     for k in ("audio_proj_in", "audio_time_proj", "time_proj"):

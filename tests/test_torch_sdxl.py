@@ -41,6 +41,7 @@ from ai_toolkit_tpu_torch.models.text_encoders import clip as tclip
 from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.samplers.ddpm import DDPMSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
+from test_torch_flux_family import OPT0
 
 torch.set_num_threads(1)
 TINY = {"name_or_path": "", "arch": "sdxl", "model_kwargs": {"size": "tiny"}}
@@ -60,7 +61,7 @@ def _jax_model():
 @pytest.fixture(scope="module")
 def jax_vars():
     # jitted: one compile instead of one per initializer
-    return jax.tree.map(np.asarray, jax.jit(_jax_model().init_variables)(jax.random.key(0)))
+    return jax.tree.map(np.asarray, jax.jit(_jax_model().init_variables, compiler_options=OPT0)(jax.random.key(0)))
 
 
 def _port(jax_vars):
@@ -80,7 +81,7 @@ def test_clip_skip_matches_jax():
     ids = np.random.default_rng(0).integers(0, 999, (2, 12)).astype(np.int32)
     ids[:, 9] = jcfg.eos_token_id
     jmod = jclip.CLIPTextModel(jcfg)
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.key(1), jnp.asarray(ids))["params"])
+    params = jax.tree.map(np.asarray, jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(1), jnp.asarray(ids))["params"])
     mod = tclip.CLIPTextModel(tclip.CLIPTextConfig.tiny())
     mod.load_state_dict(from_jax.clip_state_dict(params))
     apply = jax.jit(jmod.apply, static_argnums=2)
@@ -102,7 +103,7 @@ def test_sd_vae_with_quant_convs_matches_jax():
     jcfg = jvae.VAEConfig.tiny(use_quant_conv=True)
     jmod = jvae.AutoencoderKL(jcfg)
     img = np.random.default_rng(1).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.key(2), jnp.asarray(img))["params"])
+    params = jax.tree.map(np.asarray, jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(2), jnp.asarray(img))["params"])
     assert "quant_conv" in params and "post_quant_conv" in params
     mod = tvae.AutoencoderKL(tvae.VAEConfig.tiny(use_quant_conv=True))
     mod.load_state_dict(from_jax.vae_state_dict(params))

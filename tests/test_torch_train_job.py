@@ -84,7 +84,9 @@ def test_sd_trainer_job_trains_saves_and_generate_loads_the_lora(tmp_path):
 @pytest.mark.parametrize("over,match", [
     ({"model": {"quantize_te": True}}, "quantize"),  # the DiT's quantize is ported; the TEs' is not
     ({"embedding": {"trigger": "sks"}}, "textual inversion"),  # on flux; SD 1.x / 2.x take it
-    ({"train": {"diffusion_feature_extractor_path": "v7:/nowhere"}}, "diffusion_feature_extractor_path"),
+    # the DFE loss is ported; beside a guidance loss (which the JAX job builds without it) it raises
+    ({"train": {"diffusion_feature_extractor_path": "v7:/nowhere", "guidance_loss": "polarity"}},
+     "diffusion_feature_extractor_path"),
     ({"train": {"lr_scheduler": "one_cycle"}}, "lr_scheduler"),
     ({"train": {"noise_offset": 0.1}}, "train-step knobs"),
     ({"network": {"type": "lokr"}}, "only LoRA"),

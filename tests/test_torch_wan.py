@@ -45,6 +45,7 @@ from ai_toolkit_tpu_torch.models.wan_model import WanModel
 from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
+from test_torch_flux_family import OPT0
 
 torch.set_num_threads(1)
 TINY = {"name_or_path": "", "arch": "wan21", "model_kwargs": {"size": "tiny"}}
@@ -57,7 +58,7 @@ VAE_NARROW = dict(base_dim=8)
 @pytest.fixture(scope="module")
 def jax_tiny():
     model = JWanModel(JModelConfig.from_dict(dict(TINY)))
-    return model, jax.tree.map(np.asarray, jax.jit(model.init_variables)(jax.random.key(0)))
+    return model, jax.tree.map(np.asarray, jax.jit(model.init_variables, compiler_options=OPT0)(jax.random.key(0)))
 
 
 def _port_tiny(jax_vars):
@@ -74,7 +75,7 @@ def test_umt5_per_layer_bias_matches_jax():
     jcfg = dataclasses.replace(jt5.T5Config.tiny(), per_layer_bias=True)
     ids = np.random.default_rng(0).integers(0, 999, (2, 11)).astype(np.int32)
     jmod = jt5.T5Encoder(jcfg)
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.key(1), jnp.asarray(ids))["params"])
+    params = jax.tree.map(np.asarray, jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(1), jnp.asarray(ids))["params"])
     assert "relative_attention_bias" in params["layer_1"]
     mod = tt5.T5Encoder(dataclasses.replace(tt5.T5Config.tiny(), per_layer_bias=True))
     mod.load_state_dict(from_jax.t5_state_dict(params))
@@ -91,7 +92,7 @@ def jax_vae():
     jcfg = dataclasses.replace(jwan_vae.WanVAEConfig(), dtype=jnp.float32, **VAE_NARROW)
     jmod = jwan_vae.WanVAE(jcfg)
     x = jnp.zeros((1, 5, 16, 16, 3))
-    return jmod, jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.key(2), x)["params"])
+    return jmod, jax.tree.map(np.asarray, jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(2), x)["params"])
 
 
 @pytest.mark.parametrize("frames", [5, 9])
@@ -148,7 +149,7 @@ def jax_dit():
     cfg, mod = _jax_dit()
     x, ctx = jnp.zeros((1, 8, cfg.in_channels * 4)), jnp.zeros((1, 7, cfg.text_dim))
     pe = jnp.zeros((1, 8, cfg.head_dim // 2, 2, 2))
-    return jax.tree.map(np.asarray, jax.jit(mod.init)(jax.random.key(3), x, ctx, jnp.zeros((1,)), pe)["params"])
+    return jax.tree.map(np.asarray, jax.jit(mod.init, compiler_options=OPT0)(jax.random.key(3), x, ctx, jnp.zeros((1,)), pe)["params"])
 
 
 def _dit_inputs(seed=4):

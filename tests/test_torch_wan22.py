@@ -53,6 +53,7 @@ from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, make_train_step, stage_range, train_loss
 from ai_toolkit_tpu_torch.train.state import TrainState
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
+from test_torch_flux_family import OPT0
 
 torch.set_num_threads(1)
 PAIR = {"name_or_path": "", "arch": "wan22_14b_i2v", "model_kwargs": {"size": "tiny"}}
@@ -66,7 +67,7 @@ DIT128 = dict(in_channels=4, dim=256, ffn_dim=128, num_heads=2, num_layers=2, te
 @pytest.fixture(scope="module")
 def jax_vit():
     jmod = jclip_vision.CLIPVisionModel(jclip_vision.CLIPVisionConfig.tiny())
-    params = jax.jit(jmod.init)(jax.random.key(0), jnp.zeros((1, 32, 32, 3)))["params"]
+    params = jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(0), jnp.zeros((1, 32, 32, 3)))["params"]
     return jmod, jax.tree.map(np.asarray, params)
 
 
@@ -111,7 +112,7 @@ def jax_i2v_dit():
     mod = jwan_dit.WanDiT(cfg)
     args = (jnp.zeros((1, 8, 16)), jnp.zeros((1, 7, 64)), jnp.zeros((1,)), jnp.zeros((1, 8, 64, 2, 2)),
             jnp.zeros((1, 5, 48)))
-    params = jax.tree.map(np.asarray, jax.jit(mod.init)(jax.random.key(3), *args)["params"])
+    params = jax.tree.map(np.asarray, jax.jit(mod.init, compiler_options=OPT0)(jax.random.key(3), *args)["params"])
     # the image MLP's norms away from their identity init, so their names are checked by value
     rng = np.random.default_rng(9)
     for name in ("img_emb_norm1", "img_emb_norm2"):
@@ -199,7 +200,7 @@ def test_i2v_dit_names_are_the_importer_keys(jax_i2v_dit):
 @pytest.fixture(scope="module")
 def jax_vae22():
     jmod = jwan_vae.WanVAE(jwan_vae.WanVAEConfig.tiny22())
-    params = jax.jit(jmod.init)(jax.random.key(2), jnp.zeros((1, 5, 16, 16, 3)))["params"]
+    params = jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(2), jnp.zeros((1, 5, 16, 16, 3)))["params"]
     return jmod, jax.tree.map(np.asarray, params)
 
 
@@ -337,7 +338,7 @@ def test_full_size_parameters_match_jax(what):
 @pytest.fixture(scope="module")
 def jax_pair():
     model = JWanModel(JModelConfig.from_dict(dict(PAIR)))
-    variables = jax.tree.map(np.asarray, jax.jit(model.init_variables)(jax.random.key(0)))
+    variables = jax.tree.map(np.asarray, jax.jit(model.init_variables, compiler_options=OPT0)(jax.random.key(0)))
     assert {"dit", "dit_low", "clip_vision"} <= set(variables)
     return model, variables
 
