@@ -22,9 +22,14 @@ An audio file is an item of its own (``kind`` audio, bucket ``(0, 0)``,
 ``FileItem.load_audio``), except a ``.wav`` with a video's stem, which is
 that video's sidecar track and never an item (JAX ``_scan``); with the
 dataset's ``do_audio`` the loader reads it beside the video
-(:func:`load_sidecar_audio`). Masks, generated controls,
-augmentations and random crops raise ``NotImplementedError`` naming
-their slice.
+(:func:`load_sidecar_audio`). An image's loss mask (``mask_path``: a folder,
+matched by the image's file name) is read as grey in [0, 1], bicubic
+cover-resized and center-cropped with its image and flipped with it
+(:func:`load_mask`, JAX ``FileItem.load_mask``). Generated controls and
+augmentations raise ``NotImplementedError`` naming their slice. The
+options no JAX module reads (``random_crop``, ``random_scale``,
+``alpha_mask``, ``mask_min_value``, ...: ``_JAX_UNREAD_OPTIONS``) are not
+read here either, and each prints a line saying what the run does.
 """
 
 from __future__ import annotations
@@ -44,9 +49,26 @@ IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".webp", ".bmp")
 VIDEO_EXTS = (".mp4", ".webm", ".avi", ".mov")
 AUDIO_EXTS = (".wav", ".flac", ".mp3", ".ogg")
 
-# DatasetConfig options of the JAX dataset this port does not take yet
-_UNPORTED_OPTIONS = ("augmentations", "clip_image_path", "clip_image_augmentations", "mask_path",
-                     "controls", "random_crop", "random_scale", "alpha_mask", "use_short_captions")
+# DatasetConfig options of the JAX dataset this port does not take yet, each
+# with where it comes (ROADMAP Queue 1)
+_UNPORTED_OPTIONS = {
+    "augmentations": "the augmentations (JAX data/augmentations.py) come with ROADMAP Queue 1 item 6h",
+    "clip_image_path": "the paired vision-encoder images come with the adapters, ROADMAP Queue 1 item 6e",
+    "clip_image_augmentations": "the paired vision-encoder images come with the adapters, ROADMAP Queue 1 item 6e",
+    "controls": "the control generator comes with ROADMAP Queue 1 item 6f",
+    "use_short_captions": "the short captions come with ROADMAP Queue 1 item 5",
+}
+# DatasetConfig options that no module of the JAX config, loader, job, step or losses reads (a JAX
+# fault each, ROADMAP Queue 3): the port reads none either, and prints what a run does instead
+_JAX_UNREAD_OPTIONS = {
+    "random_crop": "each image is center-cropped to its bucket",
+    "random_scale": "each image is cover-resized to its bucket, unscaled",
+    "alpha_mask": "no loss mask comes from the image's alpha",
+    "mask_min_value": "the loss mask is clipped to [0, 1]",
+    "num_workers": "the loader runs as without it",
+    "shrink_video_to_frames": "a video gives num_frames frames sampled over the whole clip",
+    "cache_clip_vision_to_disk": "only the adapter's cache_clip_vision_to_disk caches vision embeds",
+}
 
 
 @dataclass
@@ -68,6 +90,7 @@ class FileItem:
     control_paths: tuple[str, ...] = ()  # the image's control images, one per control_path folder that has it
     inpaint_path: str | None = None  # the dataset's inpaint folder
     unconditional_path: str | None = None  # the paired negative image with the same file name
+    mask_path: str | None = None  # the loss mask with the same file name (read when it exists)
 
 
 class FolderDataset:
@@ -75,7 +98,12 @@ class FolderDataset:
 
     def __init__(self, cfg: DatasetConfig, bucket_divisibility: int = 16,
                  trigger_word: str | None = None, seed: int = 42):
-        refuse_unported(cfg, _UNPORTED_OPTIONS, DatasetConfig(), f"dataset {cfg.folder_path}")
+        default = DatasetConfig()
+        refuse_unported(cfg, _UNPORTED_OPTIONS, default, f"dataset {cfg.folder_path}")
+        for name, instead in _JAX_UNREAD_OPTIONS.items():
+            if getattr(cfg, name) != getattr(default, name):
+                print(f"JAX fault mirrored: dataset {cfg.folder_path}: {name} {getattr(cfg, name)!r} is not read by "
+                      f"the JAX loader, job or loss; {instead}")
         self.cfg = cfg
         self.divisibility = max(bucket_divisibility,
                                 cfg.bucket_tolerance if not cfg.buckets else bucket_divisibility)
@@ -130,6 +158,7 @@ class FolderDataset:
                              if os.path.isfile(cp := os.path.join(root, os.path.basename(p))))
             uncond = (os.path.join(self.cfg.unconditional_path, os.path.basename(p))
                       if self.cfg.unconditional_path else None)
+            mask = os.path.join(self.cfg.mask_path, os.path.basename(p)) if self.cfg.mask_path else None
             for res in self.cfg.resolution:
                 for _ in range(max(1, self.cfg.num_repeats)):
                     if kind == "audio":
@@ -146,6 +175,7 @@ class FolderDataset:
                         flip_y=flip_y, kind=kind, num_frames=self.cfg.num_frames if kind == "video" else 1,
                         control_paths=controls, inpaint_path=self.cfg.inpaint_path,
                         unconditional_path=uncond if uncond and os.path.isfile(uncond) else None,
+                        mask_path=mask,
                         num_samples=num_samples if kind == "audio" else 0, sample_rate=self.cfg.audio_sample_rate))
 
     def processed_caption(self, item: FileItem) -> str:
@@ -258,6 +288,19 @@ def load_unconditional(item: FileItem) -> np.ndarray | None:
     [-1, 1], with the item's flips (JAX ``FileItem.load_unconditional``), or
     None without one."""
     return _rgb(item, item.unconditional_path) if item.unconditional_path else None
+
+
+def load_mask(item: FileItem) -> np.ndarray | None:
+    """The item's loss mask ``[H, W, 1]`` f32 in [0, 1]: its grey, bicubic
+    cover-resized and center-cropped to the bucket, with the item's flips
+    (JAX ``FileItem.load_mask``); None when the file is not there."""
+    if not item.mask_path or not os.path.isfile(item.mask_path):
+        return None
+    from PIL import Image
+
+    with Image.open(item.mask_path) as im:
+        m = _fit_to_bucket(item, im.convert("L"))
+    return _flipped(item, np.asarray(m, np.float32) / 255.0)[..., None]
 
 
 def load_inpaint_keep(item: FileItem) -> np.ndarray | None:

@@ -17,7 +17,11 @@ W, 3]`` (zeros for an item without one), and with an inpaint image
 from their files with every batch, under either latent cache too (JAX
 ``loader.py:132-145``); when every item of the batch has its paired
 negative image, the batch carries ``unconditional_pixels`` ``[B, H, W, 3]``
-(JAX ``loader.py:129-131``), and none when one item lacks it. The JAX loader's
+(JAX ``loader.py:129-131``), and none when one item lacks it. When an item has
+a loss mask (``mask_path``) the batch carries ``pixel_mask`` ``[B, H, W, 1]``
+(ones for an item without one), and every batch its ``noise_seed`` ``[B]``:
+an md5 of each item's path and flips (``force_consistent_noise``'s per-image
+noise; JAX ``loader.py:157-176``). The JAX loader's
 prefetch thread is not needed: with cached latents a batch is a dictionary
 lookup. ``iter_from(n)`` starts the stream after its first ``n`` batches,
 drawing their captions' random numbers but loading no latent, so a resumed
@@ -28,13 +32,14 @@ vision adapters' input (JAX ``loader.py:85-92``).
 
 from __future__ import annotations
 
+import hashlib
 from typing import Callable, Iterator
 
 import numpy as np
 
 from ai_toolkit_tpu_torch.config.modules import DatasetConfig
 from ai_toolkit_tpu_torch.data.caching import latent_key, load_cached_latent
-from ai_toolkit_tpu_torch.data.dataset import (FileItem, FolderDataset, load_control, load_inpaint_keep,
+from ai_toolkit_tpu_torch.data.dataset import (FileItem, FolderDataset, load_control, load_inpaint_keep, load_mask,
                                                load_pixels, load_sidecar_audio, load_unconditional, load_video)
 
 
@@ -93,6 +98,12 @@ class DataLoader:
         if any(k is not None for k in keeps):
             keep_all = np.ones((bh, bw, 1), np.float32)  # no file: keep everything
             out["inpaint_keep"] = np.stack([keep_all if k is None else k for k in keeps])
+        masks = [load_mask(it) for it in batch]
+        if any(m is not None for m in masks):
+            full = np.ones((bh, bw, 1), np.float32)  # no file: the whole image counts
+            out["pixel_mask"] = np.stack([full if m is None else m for m in masks])
+        out["noise_seed"] = np.array([int(hashlib.md5((it.path + ("_fx" if it.flip else "") + (
+            "_fy" if it.flip_y else "")).encode()).hexdigest(), 16) & 0x7FFFFFFF for it in batch], np.int32)
         return out
 
     def _epoch_plan(self) -> list[tuple[FolderDataset, list[FileItem]]]:

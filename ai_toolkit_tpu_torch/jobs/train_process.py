@@ -129,12 +129,25 @@ trained, Redux's ``image_encoder_path`` is not read, and vision_direct's
 not: on a quantized base the JAX job cannot build the K/V (it reads the K
 weights from the emptied ``params``); the port reads them dequantized.
 
+The train-step knobs (``train/step.py``) get their inputs here, as JAX
+``_prepare_batch`` builds them: ``prompt_dropout_prob`` (from a host
+generator seeded by the job's seed, saved in the training state, where JAX
+draws unseeded), ``latent_multiplier``, ``do_blank_stabilization``, the loss
+mask (a dataset's ``mask_path``, area-averaged to latent size), the blank,
+unconditional and negative prompts' conditioning (``blank_cond``,
+``uncond_cond``, ``neg_cond``, with the batch's rope table), ``noise_seed``,
+``pixel_values`` for ``train_turbo`` (the VAE decode in the step); in
+``_build_data`` ``reg_weight``, ``standardize_images`` and
+``img_multiplier``; the optimizer with ``optimizer_params`` and automagic's
+``do_paramiter_swapping``; DDPM's learnable SNR state, written to
+``learnable_snr.json`` beside every save and read back on a resume without
+a matching training state, as JAX does.
+
 Every other branch of the JAX process raises ``NotImplementedError`` naming
-its slice: other networks and adapters (the assistant adapter,
-``adapter_assist_name_or_path``), quantized text encoders
-(``quantize_te``), text-encoder training and the train-step knobs
-(``TrainStepConfig.from_train_config``). With ``AIT_PROFILE_DIR`` set, the
-last step runs under ``torch.profiler``.
+its ROADMAP item (``_UNPORTED_TRAIN``): other networks and adapters (the
+assistant adapter, ``adapter_assist_name_or_path``), quantized text encoders
+(``quantize_te``), text-encoder training, per-group learning rates. With
+``AIT_PROFILE_DIR`` set, the last step runs under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -168,19 +181,25 @@ from ai_toolkit_tpu_torch.samplers.factory import DDPM_NAMES, get_schedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer, lr_schedule
 from ai_toolkit_tpu_torch.train.slider import GUIDANCE_KINDS, make_guidance_loss
 from ai_toolkit_tpu_torch.train.state import TrainState
-from ai_toolkit_tpu_torch.train.step import TrainStepConfig, eval_loss, make_train_step
+from ai_toolkit_tpu_torch.train.step import LearnableSNR, TrainStepConfig, eval_loss, make_train_step
 from ai_toolkit_tpu_torch.utils.unported import refuse_unported
 
-# TrainConfig knobs read by the JAX process (not its step) that this path does not take
-_UNPORTED_TRAIN = (
-    "train_text_encoder", "free_u", "refiner_lr", "adapter_lr", "unet_lr",
-    "text_encoder_lr", "do_blank_stabilization", "prompt_saturation_chance",
-    "short_and_long_captions", "short_and_long_captions_encoder_split", "prompt_dropout_prob",
-    "reg_weight", "img_multiplier", "latent_multiplier", "standardize_images",
-    "merge_network_on_save", "learnable_snr_gos",
-    # the frozen ControlNet / T2I assistant (ROADMAP Queue 1 item 6e)
-    "adapter_assist_name_or_path",
-)
+# TrainConfig knobs read by the JAX process (not its step) that this path does
+# not take, each with where it comes (ROADMAP Queue 1)
+_UNPORTED_TRAIN = {
+    "train_text_encoder": "text-encoder training comes with ROADMAP Queue 1 item 3",
+    "text_encoder_lr": "text-encoder training comes with ROADMAP Queue 1 item 3",
+    "refiner_lr": "the SDXL refiner comes with ROADMAP Queue 1 item 3",
+    "free_u": "FreeU comes with ROADMAP Queue 1 item 3",
+    "unet_lr": "per-group learning rates (JAX's multi_transform) come with ROADMAP Queue 1 item 5",
+    "adapter_lr": "per-group learning rates (JAX's multi_transform) come with ROADMAP Queue 1 item 5",
+    "prompt_saturation_chance": "comes with ROADMAP Queue 1 item 5",
+    "short_and_long_captions": "comes with ROADMAP Queue 1 item 5",
+    "short_and_long_captions_encoder_split": "comes with ROADMAP Queue 1 item 5",
+    "merge_network_on_save": "comes with ROADMAP Queue 1 item 5",
+    "show_turbo_outputs": "the turbo step's debug images come with ROADMAP Queue 1 item 5",
+    "adapter_assist_name_or_path": "the assistant adapter comes with ROADMAP Queue 1 item 6e",
+}
 _UNPORTED_MODEL = ("quantize_te", "lora_path", "assistant_lora_path",
                    "inference_lora_path", "unconditional_lora_path")
 # the adapter keys the ported types read; the JAX job reads no other for them
@@ -312,7 +331,7 @@ class SDTrainProcess:
                 raise NotImplementedError(f"embedding keys {unknown} are not read (read: {list(EMBEDDING_KEYS)})")
         elif not self.full_finetune and cfg.network.type not in ("lora", "locon"):
             raise NotImplementedError(f"network '{cfg.network.type}': only LoRA and the full fine-tune "
-                                      f"are ported (other networks: later slices)")
+                                      f"are ported (trainable LoKr / LoHa / DoRA: ROADMAP Queue 1 item 6e)")
         if ara and (self.full_finetune or self.guidance_kind or self.textual_inversion):
             raise NotImplementedError("an accuracy-recovery adapter with a full fine-tune, a guidance loss or "
                                       "textual inversion is not ported (ported: beside a trainable LoRA or adapter)")
@@ -321,6 +340,9 @@ class SDTrainProcess:
                 "model.quantize with a full fine-tune comes with slice G (the JAX job trains only the "
                 "weights that quantization leaves unquantized)")
         refuse_unported(tc, _UNPORTED_TRAIN, TrainConfig(), "train")
+        if tc.train_turbo and any(d.cache_latents or d.cache_latents_to_disk for d in cfg.datasets):
+            raise ValueError("train_turbo decodes to pixels in-graph — set cache_latents: false on every dataset "
+                             "so batches carry raw images")
         if cfg.extras.get("adapter_assist_name_or_path"):
             raise NotImplementedError("adapter_assist_name_or_path: the assistant adapter comes with the adapters "
                                       "slice (ROADMAP Queue 1 item 6e)")
@@ -413,7 +435,7 @@ class SDTrainProcess:
     def run(self) -> dict:
         cfg, tc, dev = self.cfg, self.cfg.train, self.device
         self._refuse_unported()
-        seed = tc.seed if tc.seed is not None else int(os.environ.get("SEED", 42))
+        seed = self._seed = tc.seed if tc.seed is not None else int(os.environ.get("SEED", 42))
         # the JAX job's layouts: PEFT for flow-matching DiTs, kohya for the UNet
         flow = get_model_class(cfg.model.arch).is_flow_matching
         ckpt = CheckpointManager(self.save_root, self.job_name,
@@ -476,10 +498,19 @@ class SDTrainProcess:
         # 3. optimizer + state, the generator of t and the noise; resume
         # the bank alone trains at embedding_lr when it is set (the JAX job's "emb" optimizer group)
         base_lr = tc.embedding_lr if self.textual_inversion and tc.embedding_lr else tc.lr
+        opt_params = dict(tc.optimizer_params or {})
+        if tc.do_paramiter_swapping and tc.optimizer.startswith("automagic"):
+            opt_params.setdefault("paramiter_swapping", tc.paramiter_swapping_factor)
         tx = get_optimizer(tc.optimizer, list(trainable.values()),
                            lr_schedule(tc.lr_scheduler, base_lr, tc.steps, tc.lr_scheduler_params),
-                           tc.optimizer_params, tc.max_grad_norm)
+                           opt_params, tc.max_grad_norm)
         state = TrainState(trainable, tx, use_ema=tc.ema_config.use_ema)
+        if tc.learnable_snr_gos:  # its own scalars and AdamW beside the trainable tensors (DDPM only, as in JAX)
+            if flow:
+                print("learnable_snr_gos: a flow-matching schedule has no SNR; the JAX job builds no learnable "
+                      "SNR state for it and neither does the port")
+            else:
+                state.lsnr = LearnableSNR(dev)
         generator = torch.Generator(device=dev).manual_seed(seed + 1)
         self.model, self.variables, self.state, self.lora = model, variables, state, lora  # introspection
         start_step = self._resume(ckpt, model, state, lora, generator)
@@ -491,6 +522,7 @@ class SDTrainProcess:
             step_cfg = dataclasses.replace(step_cfg, stage_boundary=model.stage_boundary,
                                            switch_every=tc.switch_boundary_every)
         predict = getattr(model, "predict_train", model.predict)  # as the JAX job picks it
+        decode_fn = (lambda lat: model.decode_latents(variables, lat)) if tc.train_turbo else None
         adapter = self.adapter
 
         def predict_fn(noisy, t, cond):
@@ -513,7 +545,8 @@ class SDTrainProcess:
             weight = float(tc.extras.get("network_weight", 1.0))
             guidance = make_guidance_loss(self.guidance_kind, predict_fn, schedule, step_cfg.timestep_type, weight)
             print(f"guidance loss: {self.guidance_kind} (network_weight {weight})")
-        train_step = make_train_step(predict_fn, schedule, step_cfg, micro_loss=guidance, aux_loss_fn=aux_loss_fn)
+        train_step = make_train_step(predict_fn, schedule, step_cfg, micro_loss=guidance, aux_loss_fn=aux_loss_fn,
+                                     decode_fn=decode_fn)
         val_batch = None
         if cfg.validation.validate_every > 0:  # JAX step 9: the first batch of dataset 0, unshuffled
             ds0 = loader.datasets[0]
@@ -551,6 +584,8 @@ class SDTrainProcess:
                 experts_run.append(model.last_expert)
             if "aux_loss" in metrics:
                 aux_losses.append(float(metrics["aux_loss"]))
+            if tc.max_loss_debug and float(metrics.get("max_loss_skipped", 0.0)) > 0:
+                print(f"max_loss: step {step + 1} batch exceeded {tc.max_loss} — update zeroed")
             if (step + 1) % cfg.logging.log_every == 0 or step == start_step:
                 expert = f" expert={model.last_expert}" if len(experts) > 1 else ""
                 aux = f" aux_loss={aux_losses[-1]:.4f}" if "aux_loss" in metrics else ""
@@ -784,13 +819,20 @@ class SDTrainProcess:
         restored = False
         if extra is not None and state_step == step:
             rng = extra.pop("rng", None)
-            host_rng = extra.pop("flex2_rng", None)
+            host_rngs = {k: extra.pop(k, None) for k in ("flex2_rng", "dropout_rng")}
             restored = state.load_state_dict(extra)
             if restored and rng is not None:
                 generator.set_state(rng)
-            if restored and host_rng is not None:
-                self._flex2_rng = np.random.default_rng()
-                self._flex2_rng.bit_generator.state = json.loads(bytes(host_rng.numpy()).decode())
+            for key, host_rng in host_rngs.items():
+                if restored and host_rng is not None:
+                    r = np.random.default_rng()
+                    r.bit_generator.state = json.loads(bytes(host_rng.numpy()).decode())
+                    setattr(self, f"_{key}", r)
+        snr_json = os.path.join(self.save_root, "learnable_snr.json")
+        if getattr(state, "lsnr", None) is not None and not restored and os.path.isfile(snr_json):
+            with open(snr_json) as f:  # JAX's resume: the four scalars, the rest fresh
+                state.lsnr.load_json(json.load(f))
+            print("resumed learnable_snr.json")
         state.step = step
         print(f"resumed from step {step} ({path}; "
               f"{'optimizer state, EMA and generator restored' if restored else 'fresh optimizer state'})")
@@ -837,10 +879,15 @@ class SDTrainProcess:
             path = ckpt.final_path() if final else ckpt.path_for_step(step)
             save_file({k: t.detach().contiguous().cpu() for k, t in state.trainable.items()}, path,
                       metadata={"step": str(step), "software": "ai_toolkit_tpu"})
+        if getattr(state, "lsnr", None) is not None:  # beside the checkpoint, as JAX writes it
+            with open(os.path.join(self.save_root, "learnable_snr.json"), "w") as f:
+                json.dump(state.lsnr.to_json(), f)
         host = {}
-        if getattr(self, "_flex2_rng", None) is not None:
-            host["flex2_rng"] = torch.frombuffer(bytearray(json.dumps(self._flex2_rng.bit_generator.state).encode()),
-                                                 dtype=torch.uint8)
+        for key in ("flex2_rng", "dropout_rng"):
+            rng = getattr(self, f"_{key}", None)
+            if rng is not None:
+                host[key] = torch.frombuffer(bytearray(json.dumps(rng.bit_generator.state).encode()),
+                                             dtype=torch.uint8)
         ckpt.save_state({**state.state_dict(), "rng": generator.get_state(), **host}, step)
         return path
 
@@ -915,10 +962,21 @@ class SDTrainProcess:
                               f"(VAE temporal grid)")
                         d.num_frames = snapped
 
+        tc = cfg.train
+        if tc.reg_weight != 1.0:  # the loss scale of regularisation datasets (JAX _build_data)
+            for d in cfg.datasets:
+                if d.is_reg:
+                    d.loss_multiplier = d.loss_multiplier * tc.reg_weight
+
         @torch.no_grad()
         def encode_fn(imgs: np.ndarray) -> np.ndarray:
             self.latent_cache_report["encode_calls"] += 1
-            lat = model.encode_images(variables, torch.from_numpy(imgs))
+            if tc.standardize_images:  # per image to mean 0, std 1, on the host as JAX does
+                ax = tuple(range(1, imgs.ndim))
+                imgs = (imgs - imgs.mean(axis=ax, keepdims=True)) / np.maximum(imgs.std(axis=ax, keepdims=True), 1e-6)
+            if tc.img_multiplier != 1.0:
+                imgs = imgs * tc.img_multiplier
+            lat = model.encode_images(variables, torch.from_numpy(np.ascontiguousarray(imgs, np.float32)))
             return lat.float().cpu().numpy()
 
         self.latent_cache_report = {"encode_calls": 0}
@@ -945,7 +1003,7 @@ class SDTrainProcess:
         else:
             loader = build_dataloader(cfg.datasets, cfg.train.batch_size, model.bucket_divisibility,
                                       trigger_word=cfg.trigger_word, encode_fn=encode_fn,
-                                      want_pixels=self.adapter is not None)
+                                      want_pixels=self.adapter is not None or tc.train_turbo)
 
         @torch.no_grad()
         def encode_prompt(prompts: list[str]) -> dict:
@@ -954,18 +1012,57 @@ class SDTrainProcess:
         return loader, TextEmbedCache(encode_prompt)
 
     def _prepare_batch(self, model, variables: dict, raw: dict, text_cache: TextEmbedCache) -> dict:
-        dev = self.device
+        """One step's batch on the device (JAX ``_prepare_batch``): the
+        captions (``prompt_dropout_prob`` empties each with that chance, from
+        a host generator seeded by the job's seed that rides in the training
+        state), their conditioning, the latents (``latent_multiplier``,
+        ``do_blank_stabilization``'s zeroed blank-caption latents), the loss
+        mask at latent size (the area mean of the pixel mask), the knobs'
+        inputs, then the arch's own (rope tables, control latents, ...)."""
+        dev, tc = self.device, self.cfg.train
+        captions = raw["captions"]
+        if tc.prompt_dropout_prob > 0:
+            if getattr(self, "_dropout_rng", None) is None:
+                self._dropout_rng = np.random.default_rng(self._seed + 3)
+            captions = ["" if self._dropout_rng.random() < tc.prompt_dropout_prob else c for c in captions]
         if self.textual_inversion:  # raw token ids: CLIP runs inside the step, so the bank trains
-            ids = np.stack([model.tokenizer.encode(c) for c in raw["captions"]])
+            ids = np.stack([model.tokenizer.encode(c) for c in captions])
             cond = {"input_ids": torch.from_numpy(ids).long().to(dev)}
         else:
-            cond = dict(text_cache.get(raw["captions"]))
+            cond = dict(text_cache.get(captions))
         if raw.get("first_frame") is not None:  # i2v: the clip's first frame through the vision tower
             with torch.no_grad():
                 cond["img_cond"] = model.encode_image_cond(variables, torch.from_numpy(raw["first_frame"]))
-        latents = torch.from_numpy(raw["latents"]).to(dev)
-        batch = {"latents": latents, "cond": cond,
+        lat_np = raw["latents"]
+        if tc.latent_multiplier != 1.0:
+            lat_np = lat_np * tc.latent_multiplier
+        if tc.do_blank_stabilization:  # blank-caption samples train against zeroed latents
+            keep = np.asarray([1.0 if c.strip() else 0.0 for c in captions], lat_np.dtype)
+            lat_np = lat_np * keep.reshape((-1,) + (1,) * (lat_np.ndim - 1))
+        latents = torch.from_numpy(np.ascontiguousarray(lat_np)).to(dev)
+        batch = {"latents": latents, "cond": cond, "is_reg": bool(raw.get("is_reg")),
                  "loss_multiplier": torch.from_numpy(raw["loss_multiplier"]).to(dev)}
+        if tc.force_consistent_noise and "noise_seed" in raw:
+            batch["noise_seed"] = [int(x) for x in raw["noise_seed"]]
+        if tc.train_turbo:
+            if "pixels" not in raw:
+                raise ValueError("train_turbo needs raw image batches (cache_latents: false)")
+            batch["pixel_values"] = torch.from_numpy(raw["pixels"]).to(dev)
+        if "pixel_mask" in raw:  # the pixel mask to latent size by area mean
+            m, lh, lw = raw["pixel_mask"], raw["latents"].shape[1], raw["latents"].shape[2]
+            d = m.shape[1] // lh
+            m = m.reshape(m.shape[0], lh, d, lw, d, 1).mean(axis=(2, 4))
+            batch["mask"] = torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(dev)
+        if not self.textual_inversion:  # the knobs' other prompts, encoded per batch (JAX :1685-1720)
+            n = len(captions)
+            if tc.blank_prompt_preservation:
+                batch["blank_cond"] = dict(text_cache.get([""] * n))
+            if tc.guidance_loss_target != 1.0:
+                batch["uncond_cond"] = dict(text_cache.get([tc.unconditional_prompt or ""] * n))
+            if tc.do_cfg:
+                neg = tc.negative_prompt or tc.unconditional_prompt or self.cfg.sample.neg or ""
+                batch["neg_cond"] = dict(text_cache.get([neg] * n))
+        knob_conds = [batch[k] for k in ("blank_cond", "uncond_cond", "neg_cond") if k in batch]
         if "unconditional_pixels" in raw:  # the paired negatives through the VAE, every batch
             batch["unconditional_latents"] = self._encode_control(model, variables, raw["unconditional_pixels"])
         if raw.get("audio_waveform") is not None and getattr(model, "joint_audio", False):
@@ -976,12 +1073,16 @@ class SDTrainProcess:
         if latents.dim() == 3:  # audio latents [B, T, C]: the 1-D rope over time
             cond["pe"] = model.rope_table(int(latents.shape[1]))
             batch["image_seq_len"] = int(latents.shape[1])
+            for kc in knob_conds:  # JAX hands them the batch's rope table, nothing else of its conditioning
+                kc["pe"] = cond["pe"]
             return batch
         if latents.dim() == 5:  # video latents [B, T, h, w, C]: rope over (t, y, x)
             tt, h, w = latents.shape[1:4]
             cond["pe"] = model.rope_table(tt, h, w)
             pt, ph, pw = model.dit_config.patch_size
             batch["image_seq_len"] = (tt // pt) * (h // ph) * (w // pw)
+            for kc in knob_conds:
+                kc["pe"] = cond["pe"]
             return batch
         b, h, w, _ = latents.shape
         extra_ctx = 0
@@ -993,9 +1094,12 @@ class SDTrainProcess:
             cond["pe"] = model.rope_table(h, w, int(cond["txt"].shape[1]) + extra_ctx)
             cond["guidance"] = torch.full((b,), 1.0, dtype=torch.float32, device=dev)
             batch["image_seq_len"] = (h // 2) * (w // 2)
+            for kc in knob_conds:  # JAX hands them the batch's rope table and guidance
+                kc["pe"], kc["guidance"] = cond["pe"], cond["guidance"]
         elif "pooled" in cond:  # SDXL: the added condition from the bucket's pixel size
             d = model.vae_config.downscale
-            cond["added_cond"] = model.added_cond(cond.pop("pooled"), h * d, w * d)
+            for c in [cond] + knob_conds:
+                c["added_cond"] = model.added_cond(c.pop("pooled"), h * d, w * d)
         if self.cfg.model.arch == "flex2":
             # [inpaint latents, inpaint mask, control latents] with the per-batch dropouts, on the host
             if getattr(self, "_flex2_rng", None) is None:

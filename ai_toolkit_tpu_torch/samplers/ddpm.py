@@ -1,11 +1,11 @@
 """DDPM schedule for epsilon / v-prediction models (``ai_toolkit_tpu/samplers/ddpm.py``
 ``DDPMSchedule`` in PyTorch), the parts the SDXL jobs take: the beta tables
-(numpy, on the host, as in the JAX package), the ``balanced`` timestep draw,
+(numpy, on the host, as in the JAX package), the timestep draws (the
+``balanced`` uniform one, the cubic ``content`` / ``style`` skews, the
+discrete two / four / eight step grids, ``one_step`` and ``next_sample``),
 ``add_noise``, the epsilon / v / sample targets, the SNR and its min-SNR-gamma
 loss weight, ``pred_to_x0``, and DDIM sampling (``ddim_timesteps``,
-``ddim_step``). The other timestep distributions (the discrete two/four/eight
-step grids, ``one_step``, ``next_sample``, the content/style skews) and the
-k-diffusion steppers raise ``NotImplementedError``.
+``ddim_step``). The k-diffusion steppers raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
-SLICE = "is not ported yet (slice G: the train-step knobs and the other samplers)"
+SLICE = "is not ported yet (ROADMAP Queue 1 item 3: the other samplers)"
 # the JAX schedule's k-diffusion, LCM and PNDM steppers (ddpm.py:159-389)
 _UNPORTED_STEPPERS = frozenset((
     "sigma_table", "inference_sigmas", "timestep_for_sigma", "scale_model_input", "denoised_from_eps",
@@ -59,18 +59,43 @@ class DDPMSchedule:
 
     def sample_timesteps(self, generator: torch.Generator, batch_size: int, min_t: int = 0,
                          max_t: int | None = None, content_or_style: str = "balanced",
-                         timestep_type: str | None = None, device=None) -> torch.Tensor:
-        """Integer timestep indices ``[B]``, the ``balanced`` uniform draw from
-        ``[min_t + 1, max(min_t + 2, max_t - 1))`` (JAX ``randint``'s bounds)."""
-        if timestep_type is not None:
-            raise NotImplementedError(f"DDPM timestep_type '{timestep_type}' {SLICE}")
-        if content_or_style != "balanced":
-            raise NotImplementedError(f"content_or_style '{content_or_style}' {SLICE}")
+                         timestep_type: str | None = None, next_sample_timesteps: int | None = None,
+                         device=None) -> torch.Tensor:
+        """Integer timestep indices ``[B]`` (JAX ``sample_timesteps``): a
+        discrete grid's entries (``two_step``: 0 and n/2 - 1), zeros
+        (``one_step``), ``next_sample``'s K-step ladder, the cubic skews
+        (``content`` favours low noise, ``style`` high) mapped into ``[min_t,
+        max_t)``, or the ``balanced`` uniform draw from ``[min_t + 1,
+        max(min_t + 2, max_t - 1))`` (JAX ``randint``'s bounds)."""
         device = device if device is not None else generator.device
-        max_t = max_t if max_t is not None else self.num_train_timesteps
+        n = self.num_train_timesteps
+        max_t = max_t if max_t is not None else n
+        if timestep_type in ("two_step", "four_step", "eight_step"):
+            k = {"two_step": 2, "four_step": 4, "eight_step": 8}[timestep_type]
+            choices = torch.tensor([0, n // 2 - 1] if k == 2 else [i * (n // k) for i in range(k)], device=device)
+            return choices[torch.randint(0, k, (batch_size,), generator=generator, device=device)]
+        if timestep_type == "one_step":
+            return torch.zeros((batch_size,), dtype=torch.int64, device=device)
+        if timestep_type == "next_sample":
+            k = next_sample_timesteps or n
+            return torch.randint(0, max(k - 2, 1), (batch_size,), generator=generator, device=device) * (n // k)
+        if timestep_type is not None:
+            raise ValueError(f"unknown DDPM timestep_type {timestep_type!r}")
+        if content_or_style in ("content", "style"):
+            u = torch.rand((batch_size,), generator=generator, dtype=torch.float32, device=device)
+            return self.skewed_timesteps(u, content_or_style, min_t, max_t)
+        if content_or_style != "balanced":
+            raise ValueError(f"unknown content_or_style {content_or_style!r}")
         lo = min_t + 1
         hi = max(lo + 1, max_t - 1)
         return torch.randint(lo, hi, (batch_size,), generator=generator, device=device)
+
+    def skewed_timesteps(self, u: torch.Tensor, content_or_style: str, min_t: int, max_t: int) -> torch.Tensor:
+        """The cubic content / style skew of uniform draws ``u`` in f32."""
+        n = self.num_train_timesteps
+        idx = (u ** 3 if content_or_style == "content" else 1.0 - u ** 3) * n
+        idx = min_t + idx * (max_t - 1 - min_t) / max(n - 1, 1)
+        return torch.clamp(idx.to(torch.int32), min_t, max_t - 1).long()
 
     def _gather(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
         """f32 alphas_cumprod at the integer timesteps ``t``, shaped to broadcast."""

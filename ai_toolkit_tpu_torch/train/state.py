@@ -5,7 +5,9 @@ trainable parameters updated after each optimizer step (JAX
 ``variables``; the trainable parameters are tensors of those modules (the
 LoRA factors), updated in place. :meth:`TrainState.state_dict` is what a
 resume restores: the trainable tensors, the optimizer's moments and count,
-the EMA and the step."""
+the EMA, the step and (DDPM with ``learnable_snr_gos``) the learnable SNR
+state, ``lsnr`` (``train/step.LearnableSNR``), which the step updates with
+its own AdamW."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ class TrainState:
         self.optimizer = optimizer
         self.step = 0  # optimizer steps taken (JAX ``TrainState.step``)
         self.ema = ({k: v.detach().clone() for k, v in trainable.items()} if use_ema else None)
+        self.lsnr = None
 
     @torch.no_grad()
     def apply_gradients(self, grads: list[torch.Tensor], ema_decay: float | None = None) -> None:
@@ -40,6 +43,10 @@ class TrainState:
         out.update({f"opt.{k}": v for k, v in self.optimizer.state_dict(names).items()})
         if self.ema is not None:
             out.update({f"ema.{k}": v for k, v in self.ema.items()})
+        if self.lsnr is not None:
+            for part in ("params", "m", "v"):
+                out.update({f"lsnr.{part}.{k}": v for k, v in getattr(self.lsnr, part).items()})
+            out.update({"lsnr.buffer": self.lsnr.buffer, "lsnr.count": self.lsnr.count})
         return out
 
     @torch.no_grad()
@@ -54,6 +61,12 @@ class TrainState:
             p.copy_(state[f"trainable.{k}"])
         for k, e in (self.ema or {}).items():
             e.copy_(state[f"ema.{k}"])
+        if self.lsnr is not None:
+            for part in ("params", "m", "v"):
+                setattr(self.lsnr, part, {k: state[f"lsnr.{part}.{k}"].to(self.lsnr.buffer.device).clone()
+                                          for k in getattr(self.lsnr, part)})
+            self.lsnr.buffer = state["lsnr.buffer"].to(self.lsnr.buffer.device).clone()
+            self.lsnr.count = state["lsnr.count"].to(self.lsnr.buffer.device).clone()
         self.optimizer.load_state_dict(list(self.trainable), {k[4:]: v for k, v in state.items()
                                                               if k.startswith("opt.")})
         self.step = int(state["step"])

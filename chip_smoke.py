@@ -34,16 +34,16 @@ Phases (any failure raises and the script exits non-zero):
      the LoRA the train job saved, launch count checked;
   8. a ragged resolution (1008x1008, 4481 tokens), 1 prompt, 2 steps;
   8b. configs/examples/train_lora_flux_tpu.yaml as written but for its
-     paths, its steps (12) and seeded weights: the qfloat8 base, resolutions
-     512, 768 and 1024 over the four seeded images (12 items in three
-     buckets), the disk latent cache, the file's two prompts at 20 steps
-     first and final; each step's flash launches checked, the step time
+     paths, its steps (SHIPPED_STEPS, 6: one epoch) and seeded weights: the
+     qfloat8 base, resolutions 512, 768 and 1024 over two seeded images (6
+     items in three buckets), the disk latent cache, the file's two prompts
+     at 20 steps first and final; each step's flash launches checked, the step time
      printed per bucket;
   8c. the flux family: full-width chroma (the 5120 x 5 Approximator, its
      344 rows at flux-dev's depth) and flex2 (the 196-input img_in) DiTs cut
      to 1 double + 1 single block, in f32, on the card against the CPU; then
      configs/examples/train_lora_{chroma,flex,flex2,flux_kontext}_tpu.yaml as
-     written but for their paths and steps (12) on seeded weights, as 8b
+     written but for their paths and steps (6) on seeded weights, as 8b
      (the flex2 and kontext files over seeded control images beside the
      training images, flex2 with one seeded inpaint image), their DiT and
      the flex2 generate job's cut to FLUX_FAMILY_CUT (5 + 10) of flux-dev's
@@ -62,7 +62,7 @@ Phases (any failure raises and the script exits non-zero):
      Large's shapes (1,255 / 2,535 / 4,327 tokens, ragged tails, a case of
      strongly negative logits); configs/examples/train_lora_{sd35_large,
      qwen_image,qwen_image_edit}_tpu.yaml as written but for their paths
-     and steps (12) on seeded weights, as 8b (the edit file over the seeded
+     and steps (6) on seeded weights, as 8b (the edit file over the seeded
      control images): 38 launches of each flash kernel every SD3.5-Large
      step and denoise step, 0 for Qwen-Image, each edit batch's control
      latents against the VAE encode of its control images; and the
@@ -77,7 +77,7 @@ Phases (any failure raises and the script exits non-zero):
      CPU, 0 flash launches; their plain joint attention at 1024^2, (1, 4352,
      24, 96) and (1, 4352, 21, 120) bf16 with the caption mask, timed
      against SDPA; configs/examples/train_lora_{lumina2,omnigen2}_tpu.yaml
-     as written but for their paths, steps (12) and OmniGen2's transformer
+     as written but for their paths, steps (6) and OmniGen2's transformer
      config (model_kwargs.transformer_config, which a checkpoint's
      transformer/config.json would hold), on seeded weights (Lumina2's bf16
      base, OmniGen2's qfloat8): 0 flash launches every step and denoise step
@@ -144,7 +144,7 @@ Phases (any failure raises and the script exits non-zero):
      flux with decoupled K/V and the DFE v7 loss through the tiny decode, and
      a full-width flux-dev 1 + 1 block DiT on an int8 base with a LyCORIS
      LoKr ARA and a trainable LoRA, card vs CPU; then, on flux-dev cut to
-     FLUX_FAMILY_CUT and 5 steps each, configs/examples/train_lora_flux_dfe7_tpu.yaml
+     FLUX_FAMILY_CUT and REFUSAL_STEPS (3) each, configs/examples/train_lora_flux_dfe7_tpu.yaml
      on a seeded TIPSv2 b14-DPT written in the reference's layout (39 / 27 /
      27 launches a step; the aux loss's own LoRA gradient norm),
      train_lora_flux_ara_tpu.yaml on a seeded LoRA ARA over the 80 targeted
@@ -153,6 +153,17 @@ Phases (any failure raises and the script exits non-zero):
      seeded ViT-H, its tokens appended; 15 / 15 / 15) and
      train_vision_direct_pixtral_flux_tpu.yaml (the seeded pixtral tower,
      24 forwards an encode; 20 / 19 / 19), each adapter file's keys checked;
+  15e. the train-step knobs (``train_knobs_phases``): every optimizer the
+     slice ports, 5 steps on flux-dev LoRA-shaped tensors in f32 and bf16,
+     card vs CPU; four 3-step flux-dev LoRA jobs at FLUX_FAMILY_CUT and
+     512^2 (``KNOB_JOBS``: DOP, blank-prompt preservation and CFG on prodigy,
+     75 / 45 / 45 launches a step; a ``mask_path`` dataset with the wavelet
+     loss, the inverted-mask prior and the noise knobs on adafactor, 30 / 15
+     / 15; the t0 and FFT losses with target-side CFG on automagic, 30 / 15
+     / 15; ``loss_target: source`` on muon, 15 / 15 / 15) and the SD 1.5
+     ddpm job with ``train_turbo`` and the learnable SNR on the LDM file (0
+     launches; ``learnable_snr.json``), each with its knobs on a tiny model
+     card vs CPU;
   16. the flash kernels at Wan 2.1's shapes (12 heads of 128, bf16): the
      forward, dq and dk/dv at the train clip's 8,100 tokens, self and across
      to the 512 text tokens (with a ragged tail tile whose lse is below -88),
@@ -1689,21 +1700,31 @@ def flux_shipped_phase(card: str, profile_dir: str | None) -> dict:
     weights (a flux-dev checkpoint with T5-XXL is ~34 GB of disk): the
     quantized base (``quantize: true`` at the default qtype, qfloat8, in
     both packages, though the file's comment says int8), resolutions 512,
-    768 and 1024 over the four seeded 1024^2 images (12 items, three buckets), the disk latent cache and the file's two
-    prompts at 20 steps, first and final; 12 steps, one epoch, so every
-    bucket trains, each step checked for its 57 launches of each flash kernel."""
+    768 and 1024 over SHIPPED_IMAGES seeded 1024^2 images (SHIPPED_DATA),
+    the disk latent cache and the file's two prompts at 20 steps, first and
+    final; SHIPPED_STEPS steps, one epoch, so every bucket trains, each step
+    checked for its 57 launches of each flash kernel."""
     phase("flux-dev LoRA sd_trainer job, configs/examples/train_lora_flux_tpu.yaml as written with seeded "
-          "weights: qfloat8 base, resolutions [512, 768, 1024] (12 items, 3 buckets), the disk latent cache, "
-          "2 prompts at 1024x1024 and 20 steps first and final, 12 steps")
+          f"weights: qfloat8 base, {SHIPPED_DATA}, the disk latent cache, "
+          f"2 prompts at 1024x1024 and 20 steps first and final, {SHIPPED_STEPS} steps")
     return _shipped_flux_job(card, profile_dir, "train_lora_flux_tpu.yaml", "smoke_flux_shipped", 2)
+
+
+# the shipped flux-class files (flux-dev, the flux family, the MMDiT and NextDiT files) train one
+# epoch over this many seeded 1024^2 images at the files' three resolutions: every bucket
+# trains twice, and the script stays within its time limit (the depths are the phases' own)
+SHIPPED_IMAGES = 2
+SHIPPED_STEPS = 3 * SHIPPED_IMAGES
+SHIPPED_DATA = f"resolutions [512, 768, 1024] ({SHIPPED_STEPS} items, 3 buckets)"
 
 
 def _shipped_flux_job(card: str, profile_dir: str | None, example: str, name: str, n_prompts: int,
                       watch=None, blocks: int = BLOCKS_PER_FORWARD, quantized: bool = True,
                       model_kwargs: dict | None = None, **paths) -> dict:
     """A shipped flux-family (MMDiT, NextDiT) file as written but for its
-    paths (``paths``: the control folders), 12 steps (one epoch over the 12
-    items, so every bucket trains) and ``model_kwargs``, on seeded weights:
+    paths (``paths``: the control folders), its dataset (SHIPPED_IMAGES
+    seeded images), SHIPPED_STEPS steps (one epoch over their items, so every
+    bucket trains) and ``model_kwargs``, on seeded weights:
     ``blocks`` launches of each flash kernel a step and a denoise step
     (flux: 57), the base quantized as the file says (``quantized``), the
     three buckets, the disk cache, the first and final samples, a LoRA that
@@ -1711,12 +1732,14 @@ def _shipped_flux_job(card: str, profile_dir: str | None, example: str, name: st
     control batches' check). Prints the step ms per bucket, the peak and
     the sample s beside the card."""
     with (watch or contextlib.nullcontext()):
-        result, proc, report = _run_job(_shipped_job(example, name, 12, "", model_kwargs=model_kwargs, **paths),
-                                        _counts(blocks, blocks, blocks), profile_dir, _counts(fwd=blocks))
+        job = _shipped_job(example, name, SHIPPED_STEPS, "", _train_dataset(n=SHIPPED_IMAGES, name="shipped_data"),
+                           model_kwargs=model_kwargs, **paths)
+        result, proc, report = _run_job(job, _counts(blocks, blocks, blocks), profile_dir, _counts(fwd=blocks))
     check(proc.cfg.model.quantize == quantized and proc.cfg.datasets[0].resolution == [512, 768, 1024],
           f"{example} lost its quantized base or its resolutions")
     cache = result["latent_cache"]
-    check(cache["items"] == len(os.listdir(cache["dir"])) == cache["encoded"] == 12, f"latent cache {cache}")
+    check(cache["items"] == len(os.listdir(cache["dir"])) == cache["encoded"] == SHIPPED_STEPS,
+          f"latent cache {cache}")
     by_bucket: dict[tuple, list[float]] = {}
     for bucket, ms in zip(result["buckets"], result["step_ms"]):
         by_bucket.setdefault(tuple(bucket), []).append(ms)
@@ -1725,7 +1748,7 @@ def _shipped_flux_job(card: str, profile_dir: str | None, example: str, name: st
         print(f"{card}: bucket {bucket[0]}x{bucket[1]}: step ms {', '.join(f'{x:.1f}' for x in ms)} "
               f"(median of all but the first {statistics.median(ms[1:]):.1f}), {blocks} launches of "
               f"each flash kernel a step")
-    _check_samples(result, [0, 12], n_prompts, 1024)
+    _check_samples(result, [0, SHIPPED_STEPS], n_prompts, 1024)
     lora_path = check_lora_job(result, proc)
     print(f"{card}: disk cache {cache['seconds']:.2f} s for {cache['items']} items, samples "
           f"{', '.join('%.2f' % r['seconds'] for r in result['samples'])} s each (20 steps at 1024x1024), "
@@ -1777,7 +1800,7 @@ class _ControlBatches:
 
 def _check_control_batches(seen: list[dict], arch: str, latent_channels: int = 16) -> None:
     want_c = 2 * latent_channels + 1 if arch == "flex2" else latent_channels
-    check(len(seen) == 12, f"{len(seen)} control batches prepared, not 12")
+    check(len(seen) == SHIPPED_STEPS, f"{len(seen)} control batches prepared, not {SHIPPED_STEPS}")
     for rec in seen:
         # the same encode of the same pixels: equal up to the VAE's own run-to-run order
         check(rec["channels"] == want_c and rec["err"] <= 1e-2 * max(1.0, rec["scale"]),
@@ -2736,8 +2759,8 @@ def flux_family_phases(card: str, profile_dir: str | None) -> dict:
     for arch, example, extra in FLUX_FAMILY:
         phase(f"{arch} LoRA sd_trainer job, configs/examples/{example} as written with seeded weights"
               + (f" and the seeded {' and '.join(extra)}" if extra else "")
-              + ": qfloat8 base, resolutions [512, 768, 1024] (12 items, 3 buckets), the disk latent cache, "
-                f"its prompt at 1024x1024 and 20 steps first and final, 12 steps; the DiT cut to "
+              + f": qfloat8 base, {SHIPPED_DATA}, the disk latent cache, "
+                f"its prompt at 1024x1024 and 20 steps first and final, {SHIPPED_STEPS} steps; the DiT cut to "
                 f"{FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks")
         watch = _ControlBatches(arch) if extra else None
         with flux_cut_depth():
@@ -2770,8 +2793,8 @@ MMDIT_FILES = [("sd35_large", "train_lora_sd35_large_tpu.yaml", (), SD35L_BLOCKS
                ("qwen_image_edit", "train_lora_qwen_image_edit_tpu.yaml", ("control_path",), 0)]
 # the Qwen-Image files and the edit generate job run at this many of the 60 joint blocks,
 # widths unchanged: they launch no flash kernel (their masked attention is plain), so the
-# cut drops no kernel check, and it makes room for the NextDiT phases in the time limit
-QWEN_CUT_BLOCKS = 6
+# cut drops no kernel check, and it keeps the script within its time limit
+QWEN_CUT_BLOCKS = 3
 
 
 @contextlib.contextmanager
@@ -2907,8 +2930,9 @@ def mmdit_phases(card: str, profile_dir: str | None) -> dict:
         qwen = arch.startswith("qwen")
         phase(f"{arch} LoRA sd_trainer job, configs/examples/{example} as written with seeded weights"
               + (f" and the seeded {' and '.join(extra)}" if extra else "")
-              + f": qfloat8 base, resolutions [512, 768, 1024] (12 items, 3 buckets), the disk latent cache, "
-                f"its prompt at 1024x1024 and 20 steps first and final, 12 steps, {blocks} flash launches a step"
+              + f": qfloat8 base, {SHIPPED_DATA}, the disk latent cache, "
+                f"its prompt at 1024x1024 and 20 steps first and final, {SHIPPED_STEPS} steps, {blocks} flash "
+                f"launches a step"
               + (f"; the DiT cut to {QWEN_CUT_BLOCKS} of its 60 joint blocks, widths unchanged" if qwen else ""))
         watch = _ControlBatches(arch) if extra else None
         with qwen_cut_depth() if qwen else contextlib.nullcontext():
@@ -3090,9 +3114,9 @@ def nextdit_phases(card: str, profile_dir: str | None) -> dict:
     for arch, example, quantized, kwargs in NEXTDIT_FILES:
         phase(f"{arch} LoRA sd_trainer job, configs/examples/{example} as written with seeded weights"
               + (" and model_kwargs.transformer_config" if kwargs else "")
-              + f": {'qfloat8' if quantized else 'bf16'} base, resolutions [512, 768, 1024] (12 items, 3 buckets), "
-                f"the disk latent cache, its prompt at 1024x1024 and 20 steps first and final, 12 steps, 0 flash "
-                f"launches a step (head dims 96 / 120 and the caption mask: the plain attention)")
+              + f": {'qfloat8' if quantized else 'bf16'} base, {SHIPPED_DATA}, "
+                f"the disk latent cache, its prompt at 1024x1024 and 20 steps first and final, {SHIPPED_STEPS} "
+                f"steps, 0 flash launches a step (head dims 96 / 120 and the caption mask: the plain attention)")
         out[arch] = _shipped_flux_job(card, profile_dir, example, f"smoke_{arch}_shipped", 1, None, 0,
                                       quantized=quantized, model_kwargs=kwargs)
     phase("omnigen2 generate job, 1024x1024, 8 steps, 1 prompt, bf16 base, with the LoRA of the shipped omnigen2 job "
@@ -3116,6 +3140,7 @@ REFUSAL_SHAPES = [((1, 1371, 1371, 12, 64), "TIPSv2 self at 512^2"),
                   ((1, 4608, 1024, 24, 128), "vision_direct cross"),
                   ((1, 4865, 4865, 24, 128), "Redux joint at 1024^2")]
 TIPS_BLOCKS = 12
+REFUSAL_STEPS = 3  # each of the four files' steps (the last one timed)
 PIXTRAL_LAYERS = 24
 FAMILY_BLOCKS = sum(FLUX_FAMILY_CUT)
 
@@ -3352,12 +3377,12 @@ class _VisionEncodes:
 def _refusal_job(card: str, example: str, name: str, per_step: dict, size: int, *, train: dict | None = None,
                  model: dict | None = None, encode: dict | None = None) -> tuple[dict, object, dict]:
     """One of the four files as written but for its paths (``train`` /
-    ``model``: the DFE directory, the ARA file), its steps (5) and its name,
+    ``model``: the DFE directory, the ARA file), its steps (REFUSAL_STEPS) and its name,
     on seeded weights with the DiT at FLUX_FAMILY_CUT; every step's launches
     (``per_step``), 15 a denoise step, ``encode`` the launches of a vision
     encode that encodes (the rest: none), the first and final samples at
     ``size``. Prints the step ms, peak and samples beside the card."""
-    raw = _shipped_job(example, name, TRAIN_WARMUP + TRAIN_TIMED, "")
+    raw = _shipped_job(example, name, REFUSAL_STEPS, "")
     proc_cfg = raw["config"]["process"][0]
     proc_cfg["train"].update(train or {})
     proc_cfg["model"].update(model or {})
@@ -3366,7 +3391,7 @@ def _refusal_job(card: str, example: str, name: str, per_step: dict, size: int, 
     for c in encodes:
         want = encode if c["encoded"] else _counts()
         check(c["launches"] == want, f"a vision encode launched {c['launches']} (encoded {c['encoded']}) != {want}")
-    _check_samples(result, [0, TRAIN_WARMUP + TRAIN_TIMED], 1, size)
+    _check_samples(result, [0, REFUSAL_STEPS], 1, size)
     ms = result["step_ms"]
     timed = ms[TRAIN_WARMUP:]
     print(f"{card}: {name}: step ms {', '.join(f'{x:.1f}' for x in ms)}; warm median {statistics.median(timed):.1f} "
@@ -3412,7 +3437,7 @@ def _aux_grad_norm(proc) -> dict:
 
 def refusal_files_phases(card: str) -> dict:
     """The four flux files that once stopped at a refusal, as written but for
-    their paths and steps (5), on seeded weights with flux-dev cut to
+    their paths and steps (REFUSAL_STEPS), on seeded weights with flux-dev cut to
     FLUX_FAMILY_CUT and every new module at full width and depth: the flash
     kernels against their plain versions and timed at the slice's shapes
     (and the f32 path at TIPSv2's), the tiny DFE + decoupled K/V and the LoKr
@@ -3523,6 +3548,272 @@ def refusal_files_phases(card: str) -> dict:
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t_start
     print(f"{card}: the four files' phases {out['wall_s']:.1f} s")
+    return out
+
+
+# ---- the train-step knobs ----
+
+KNOB_STEPS = 3
+# flux-dev LoRA factor shapes (qkv a / b, the MLP's a / b) and a LoRA scale
+KNOB_OPT_SHAPES = [(3072, 16), (16, 3072), (16, 12288), (12288, 16), ()]
+KNOB_OPTIMIZERS = [("adam", {}), ("lion", {}), ("adagrad", {}), ("adafactor", {}), ("prodigy", {}),
+                   ("dadapt_adamw", {}), ("ademamix", {}), ("muon", {}), ("sgd", {}), ("automagic", {}),
+                   ("automagic", {"paramiter_swapping": 0.1})]
+
+
+def knob_optimizers_reference(card: str) -> dict:
+    """Each optimizer the knobs slice ports, 5 clipped steps on seeded
+    flux-dev LoRA-shaped tensors, in f32 and bf16, on the card against the
+    same on the CPU: the parameters' largest difference over their largest
+    value (f32 within 1e-5, bf16 within one bf16 step, 2^-7; the reductions
+    run in another order on the card), and the card's ms a step."""
+    import numpy as np
+
+    from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
+
+    phase("the optimizers of the knobs slice on flux-dev LoRA-shaped tensors: card vs CPU, f32 and bf16, 5 steps")
+    rng = np.random.default_rng(9)
+    init = [rng.standard_normal(s).astype(np.float32) * 0.05 for s in KNOB_OPT_SHAPES]
+    grads = [[rng.standard_normal(s).astype(np.float32) * 0.01 * (i + 1) for s in KNOB_OPT_SHAPES]
+             for i in range(5)]
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        for name, opts in KNOB_OPTIMIZERS:
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                params = [torch.tensor(x, device=dev).to(dtype) for x in init]
+                opt = get_optimizer(name, params, 1e-3, dict(opts), max_grad_norm=1.0)
+                _sync_dev(dev)
+                t0 = time.perf_counter()
+                for g in grads:
+                    opt.step([torch.tensor(x, device=dev).to(dtype) for x in g])
+                _sync_dev(dev)
+                runs[dev] = (params, (time.perf_counter() - t0) * 1e3 / len(grads))
+            ref, got = runs["cpu"][0], runs["cuda"][0]
+            err = max(float((g.cpu().float() - r.float()).abs().max()) / max(float(r.float().abs().max()), 1e-30)
+                      for g, r in zip(got, ref))
+            moved = max(float((r.float() - torch.tensor(x)).abs().max()) for r, x in zip(ref, init))
+            label = name + ("+swap" if opts else "")
+            print(f"{card}: {label} {str(dtype)[6:]}: card vs CPU {err:.3e} of max|p| (tol {tol:.1e}); moved "
+                  f"{moved:.3e}; card {runs['cuda'][1]:.2f} ms a step, CPU {runs['cpu'][1]:.2f}")
+            check(err <= tol and moved > 0, f"{label} {dtype}: card vs CPU {err} (tol {tol}) or no update")
+            out[f"{label}_{str(dtype)[6:]}"] = {"err": err, "ms": runs["cuda"][1]}
+    return out
+
+
+def _sync_dev(dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+class _Replay:
+    """The step's draws handed back in the order they were recorded (the
+    card's step gets the CPU step's noise and knob draws)."""
+
+    def __init__(self, log: list, device):
+        self.log, self.device = list(log), torch.device(device)
+
+    def normal(self, shape, dtype=torch.float32):
+        return self.log.pop(0).to(self.device, dtype)
+
+    def uniform(self, shape, lo=0.0, hi=1.0):
+        return self.log.pop(0).to(self.device)
+
+    def randint(self, lo, hi):
+        return int(self.log.pop(0))
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def knob_step_reference(label: str, train: dict, arch: str = "flux", mask: bool = False) -> float:
+    """One micro-batch of the knobs ``train`` on a tiny ``arch`` (its LoRA's b
+    non-zero, so an adapter-off forward differs) on the CPU and on the card
+    with the same weights, batch, t and draws: the loss and every LoRA
+    gradient held to 1e-4 / 1e-3 of their largest value."""
+    import copy
+
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora
+    from ai_toolkit_tpu_torch.config.modules import ModelConfig, TrainConfig
+    from ai_toolkit_tpu_torch.models.registry import get_model_class
+    from ai_toolkit_tpu_torch.samplers.ddpm import DDPMSchedule
+    from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
+    from ai_toolkit_tpu_torch.train import step as tstep
+
+    cfg = tstep.TrainStepConfig.from_train_config(TrainConfig(**{k: v for k, v in train.items()
+                                                                 if k not in ("optimizer", "lr")}))
+    mcfg = ModelConfig.from_dict({"name_or_path": "", "arch": arch, "model_kwargs": {"size": "tiny"}})
+    cls = get_model_class(arch)
+    models = {"cpu": cls(mcfg, "cpu"), "cuda": cls(mcfg, "cuda")}
+    vc = models["cpu"].load_variables(torch.Generator().manual_seed(0))
+    main = models["cpu"].main_component
+    lora = build_lora(vc[main], LoRASpec(rank=4, alpha=4.0, target_patterns=models["cpu"].lora_targets()),
+                      torch.Generator().manual_seed(1))
+    gb = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for m in lora.values():
+            m.b.normal_(0.0, 0.05, generator=gb)
+    variables = {"cpu": vc, "cuda": {k: copy.deepcopy(v).to("cuda") for k, v in vc.items()}}
+    flow = cls.is_flow_matching
+    g = torch.Generator().manual_seed(3)
+    c = models["cpu"].vae_config.latent_channels
+    batch = {"latents": torch.randn(2, 8, 8, c, generator=g), "loss_multiplier": torch.ones(2)}
+    with torch.no_grad():
+        for key, prompt in (("cond", "a photo of a fox"), ("neg_cond", ""), ("blank_cond", ""),
+                            ("uncond_cond", "")):
+            batch[key] = dict(models["cpu"].encode_prompt(vc, [prompt, prompt + " at dusk"]))
+            if flow:
+                batch[key]["pe"] = models["cpu"].rope_table(8, 8, int(batch[key]["txt"].shape[1]))
+                batch[key]["guidance"] = torch.ones(2)
+    if flow:
+        batch["image_seq_len"] = 16
+    if mask:
+        batch["mask"] = torch.rand(2, 8, 8, 1, generator=g)
+    if cfg.train_turbo:
+        px = 8 * models["cpu"].vae_config.downscale
+        batch["pixel_values"] = torch.rand(2, px, px, 3, generator=g) * 2 - 1
+    t = torch.tensor([0.35, 0.8]) if flow else torch.tensor([150, 650])
+    sched = FlowMatchSchedule() if flow else DDPMSchedule()
+    out = {}
+    log = []
+    for dev in ("cpu", "cuda"):
+        v, model = variables[dev], models[dev]
+        params = [getattr(dict(v[main].named_modules())[n].lora, leaf) for n in lora for leaf in ("a", "b")]
+        for p in params:
+            p.requires_grad_(True)
+        if dev == "cpu":
+            draws = tstep.Draws(torch.Generator().manual_seed(4), "cpu")
+            real_n, real_u, real_i = draws.normal, draws.uniform, draws.randint
+            draws.normal = lambda *a, **k: log.append(real_n(*a, **k)) or log[-1]
+            draws.uniform = lambda *a, **k: log.append(real_u(*a, **k)) or log[-1]
+            draws.randint = lambda *a, **k: log.append(real_i(*a, **k)) or log[-1]
+        else:
+            draws = _Replay(log, "cuda")
+        decode = (lambda lat, m=model, vv=v: m.decode_latents(vv, lat)) if cfg.train_turbo else None
+        lsnr = tstep.LearnableSNR(dev) if cfg.learnable_snr else None
+        loss, _ = tstep.microbatch_loss(lambda x, tt, cc, m=model, vv=v: m.predict(vv, x, tt, cc), sched, cfg,
+                                        _to(batch, dev), t.to(dev), draws, decode_fn=decode, lsnr=lsnr)
+        out[dev] = (float(loss), [x.cpu() for x in torch.autograd.grad(loss, params)])
+    (l_ref, g_ref), (l_got, g_got) = out["cpu"], out["cuda"]
+    gmax = max(float(x.abs().max()) for x in g_ref)
+    gerr = max(float((a - b).abs().max()) for a, b in zip(g_got, g_ref)) / max(gmax, 1e-30)
+    lerr = abs(l_got - l_ref) / max(abs(l_ref), 1e-30)
+    print(f"tiny {arch} step of the {label} knobs, card vs CPU: loss {l_got:.6f} / {l_ref:.6f} (rel {lerr:.3e}, tol "
+          f"1e-4), LoRA gradients {gerr:.3e} of max|grad| {gmax:.3e} (tol 1e-3)")
+    check(lerr <= 1e-4 and gerr <= 1e-3 and gmax > 0, f"the tiny {label} step on the card disagrees")
+    return gerr
+
+
+def _knob_masks(folder: str, n: int = 4, size: int = 512) -> str:
+    """A seeded grey mask for each image of ``folder`` (a soft disc), by file name."""
+    import numpy as np
+    from PIL import Image
+
+    out = folder + "_masks"
+    os.makedirs(out, exist_ok=True)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(n):
+        r = np.sqrt((xx - 0.3 - 0.1 * i) ** 2 + (yy - 0.5) ** 2)
+        m = np.clip(1.5 - 4.0 * r, 0.0, 1.0) * 255
+        Image.fromarray(m.astype(np.uint8)).save(os.path.join(out, f"img_{i}.png"))
+    return out
+
+
+def _knob_job(card: str, name: str, train: dict, per_step: dict, model: dict | None = None,
+              dataset: dict | None = None) -> tuple[dict, object]:
+    """A LoRA ``sd_trainer`` job of the knobs ``train`` on seeded weights:
+    flux-dev at FLUX_FAMILY_CUT (or ``model``), rank 16, 512^2, batch 1,
+    KNOB_STEPS steps, bf16, latents in memory, no sampling; every step's
+    flash launches (``per_step``), the loss finite and the saved LoRA
+    trained. Prints ms a step and the peak beside the card; returns the
+    numbers and the process."""
+    folder = _train_dataset(n=4, size=512, name="knob_data")
+    raw = {"job": "extension", "config": {"name": name, "process": [{
+        "type": "sd_trainer", "training_folder": os.path.join(OUT_DIR, "train"), "trigger_word": "p3r5on",
+        "network": {"type": "lora", "linear": 16, "linear_alpha": 16},
+        "save": {"dtype": "float16", "save_every": 250, "max_step_saves_to_keep": 4},
+        "datasets": [{"folder_path": folder, "caption_ext": "txt", "cache_latents": True,
+                      "cache_latents_to_disk": False, "resolution": [512], **(dataset or {})}],
+        "train": {"batch_size": 1, "steps": KNOB_STEPS, "gradient_checkpointing": True,
+                  "noise_scheduler": "flowmatch", "timestep_type": "flux_shift", "optimizer": "adamw8bit",
+                  "lr": 1e-4, "max_grad_norm": 1.0, "dtype": "bf16", "seed": 42, **train},
+        "model": model or {**FLUX_MODEL, "quantize": False},
+        "logging": {"log_every": 1}}]}}
+    with flux_cut_depth() if model is None else contextlib.nullcontext():
+        result, proc, report = _run_job(raw, per_step, None)
+    check_lora_job(result, proc)
+    ms = result["step_ms"]
+    print(f"{card}: {name}: step ms {', '.join(f'{x:.1f}' for x in ms)}; peak {report['peak_gib']:.2f} GiB; "
+          f"launches a step {per_step}; job wall {report['wall_s']:.1f} s")
+    rep = {"step_ms": ms, "peak_gib": report["peak_gib"], "wall_s": report["wall_s"], "per_step": per_step,
+           "losses": result["losses"]}
+    return rep, proc
+
+
+KNOB_JOBS = {
+    "prior": dict(diff_output_preservation=True, diff_output_preservation_class="person",
+                  blank_prompt_preservation=True, do_cfg=True, cfg_scale=2.0, cfg_rescale=0.7, optimizer="prodigy",
+                  lr=1.0, timestep_type="weighted", loss_type="mae"),
+    "noise_mask": dict(loss_type="wavelet", inverted_mask_prior=True, noise_offset=0.1, blended_blur_noise=True,
+                       optimal_noise_pairing_samples=4, random_noise_shift=0.1, timestep_type="lognorm_blend",
+                       optimizer="adafactor", prompt_dropout_prob=0.5),
+    "x0_t0": dict(t0_loss_target=True, do_fft_loss=True, max_loss=100.0, correct_pred_norm=True,
+                  guidance_loss_target=3.0, do_guidance_loss_cfg_zero=True, optimizer="automagic",
+                  do_paramiter_swapping=True),
+    "x0_source": dict(loss_target="source", optimizer="muon", lr=1e-4),
+    "sd15_turbo": dict(train_turbo=True, learnable_snr_gos=True, noise_scheduler="ddpm", timestep_type="sigmoid",
+                       content_or_style="style", optimizer="lion", lr=1e-5),
+}
+
+
+def train_knobs_phases(card: str, sd15_path: str) -> dict:
+    """The train-step knobs slice: its optimizers card vs CPU; four short
+    flux-dev LoRA jobs at FLUX_FAMILY_CUT, 512^2, KNOB_STEPS steps, each a
+    mix of knobs the JAX step takes together (``KNOB_JOBS``: the
+    adapter-off prior, blank-prompt preservation and CFG on prodigy; a
+    ``mask_path`` dataset with the wavelet loss, the inverted-mask prior and
+    the noise knobs on adafactor; the t0 and FFT losses with target-side CFG
+    on automagic with parameter swapping; ``loss_target: source`` on muon,
+    which shadows the t0 losses in JAX, so it runs apart), each with its
+    flash launches a step as PERF.md predicts and the same knobs on a tiny
+    flux card vs CPU; then the SD 1.5 ddpm job with ``train_turbo`` (the VAE
+    decode in the step) and the learnable SNR on the LDM file."""
+    t_start = time.perf_counter()
+    out = {"optimizers": knob_optimizers_reference(card)}
+    fam = sum(FLUX_FAMILY_CUT)
+    per_step = {"prior": _counts(5 * fam, 3 * fam, 3 * fam), "noise_mask": _counts(2 * fam, fam, fam),
+                "x0_t0": _counts(2 * fam, fam, fam), "x0_source": _counts(fam, fam, fam)}
+    cut = f"flux-dev cut to {FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks"
+    for name, train in KNOB_JOBS.items():
+        sd = name == "sd15_turbo"
+        mask = name in ("noise_mask",)
+        knob_step_reference(name, train, "sd15" if sd else "flux", mask=mask or sd)
+        phase(f"knobs job '{name}': {', '.join(sorted(train))}; "
+              + ("SD 1.5 LDM file, ddpm, 512^2, pixels in the batch (0 flash launches)" if sd else cut + ", 512^2"))
+        if sd:
+            rep, proc = _knob_job(card, f"smoke_knobs_{name}", train, _counts(),
+                                  model={"name_or_path": sd15_path, "arch": "sd1"},
+                                  dataset={"cache_latents": False, "mask_path": _knob_masks(
+                                      _train_dataset(n=4, size=512, name="knob_data"))})
+            path = os.path.join(proc.save_root, "learnable_snr.json")
+            with open(path) as f:
+                saved = json.load(f)
+            check(saved == proc.state.lsnr.to_json() and saved["gamma"] != 2.03,
+                  f"learnable_snr.json {saved} is not the trained state")
+            print(f"{card}: learnable SNR after {KNOB_STEPS} steps: {saved}")
+            rep["learnable_snr"] = saved
+        else:
+            ds = {"mask_path": _knob_masks(_train_dataset(n=4, size=512, name="knob_data"))} if mask else None
+            rep, proc = _knob_job(card, f"smoke_knobs_{name}", train, per_step[name], dataset=ds)
+        out[name] = rep
+        del proc
+        gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"{card}: the knobs phases {out['wall_s']:.1f} s")
     return out
 
 
@@ -3903,6 +4194,8 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"sliders": sliders}))
     refusal_files = refusal_files_phases(card)
     print(json.dumps({"dfe_ara_redux_vision_direct": refusal_files}))
+    knobs = train_knobs_phases(card, sd15["checkpoint"])
+    print(json.dumps({"train_knobs": knobs}))
     print(json.dumps({"shipped_files": {
         "sd15_textual_inversion": sd15,
         "flux_lora_val_losses": train["val_losses"],

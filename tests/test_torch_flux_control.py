@@ -343,7 +343,7 @@ def test_generate_job_with_a_ctrl_img(tmp_path):
 @pytest.mark.parametrize("what,match", [
     ("control_path on flux", "takes no control latents"),
     ("inpaint_path on kontext", "inpaint_path"),
-    ("mask_path", "mask_path"),
+    ("augmentations", "augmentations"),  # mask_path is ported; JAX never reads alpha_mask
     ("controls", "controls"),
     ("kontext without a control", "no item of this"),
     ("unknown model_kwargs", "model_kwargs"),
@@ -361,8 +361,8 @@ def test_what_stays_refused(tmp_path, what, match):
         dataset["control_path"] = ctrl
     elif what == "inpaint_path on kontext":
         dataset.update(control_path=ctrl, inpaint_path=inp)
-    elif what in ("mask_path", "controls"):
-        dataset[what] = inp if what == "mask_path" else ["depth"]
+    elif what in ("augmentations", "controls"):
+        dataset[what] = [{"method": "HorizontalFlip"}] if what == "augmentations" else ["depth"]
     elif what == "unknown model_kwargs":
         model["model_kwargs"]["do_random_inpainting"] = True  # a flex2 knob on flux
     elif what == "chroma_radiance":

@@ -9,6 +9,7 @@ import glob
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 from PIL import Image
@@ -27,8 +28,9 @@ def _sample_names(root: str) -> list[str]:
 def _job(tmp_path, out: str, model: dict) -> dict:
     """3 steps with ``sample_every: 2`` over two square images at one
     resolution (one bucket, so each side compiles one step shape): samples
-    at steps 0 (first), 2 (every) and 3 (final), one prompt, one denoise step."""
-    over = {"train": {"disable_sampling": False, "lr_scheduler": "constant"},
+    at steps 0 (first), 2 (every) and 3 (final), one prompt, one denoise
+    step; adamw (JAX traces and compiles adamw8bit's step twice as slowly)."""
+    over = {"train": {"disable_sampling": False, "lr_scheduler": "constant", "optimizer": "adamw"},
             "sample": {"sampler": "flowmatch" if model["arch"] == "flux" else "ddim", "sample_every": 2,
                        "width": 32, "height": 32, "sample_steps": 1, "guidance_scale": 4.0,
                        "prompts": ["sks photo"]}}
@@ -37,17 +39,27 @@ def _job(tmp_path, out: str, model: dict) -> dict:
     return raw
 
 
+def _shaped_init(real_init):
+    """The JAX model's variables at the shapes its init gives (``jax.eval_shape``:
+    traced, not compiled; compiling the tiny SDXL's init takes ~25 s), filled
+    from a seeded numpy draw at the init's scale of 0.02."""
+    def init(self, key):
+        shapes = jax.eval_shape(functools.partial(real_init, self), key)
+        rng = np.random.default_rng(0)
+        return jax.tree.map(lambda s: jnp.asarray((rng.standard_normal(s.shape) * 0.02).astype(s.dtype)), shapes)
+    return init
+
+
 def check_sampling_matches_jax(tmp_path, monkeypatch, model: dict) -> None:
     """The port's job and the JAX job write the same sample files; the
     port's are images of the sample size and not constant. The JAX model's
-    seeded init runs under one ``jax.jit`` (eager, it takes half a minute),
-    and the JAX job's jits compile at XLA's optimization level 0 (``OPT0``):
-    the weights' and the samples' values do not enter what is compared."""
+    weights are seeded numpy draws at its init's shapes, and the JAX job's
+    jits compile at XLA's optimization level 0 (``OPT0``): the weights' and
+    the samples' values do not enter what is compared."""
     real_jit = jax.jit
     monkeypatch.setattr(jax, "jit", lambda *a, **k: real_jit(*a, **{"compiler_options": OPT0, **k}))
     jcls = jget_model_class(model["arch"])
-    real_init = jcls.init_variables
-    monkeypatch.setattr(jcls, "init_variables", lambda self, key: jax.jit(functools.partial(real_init, self))(key))
+    monkeypatch.setattr(jcls, "init_variables", _shaped_init(jcls.init_variables))
     _images(str(tmp_path / "imgs"), ((32, 32), (32, 32)))
     (result,) = run_job(_job(tmp_path, "port", model), device="cpu")
     jrun_job(_job(tmp_path, "jax", model))

@@ -264,10 +264,23 @@ def test_audio_loss_multiplier_reaches_the_step():
 
 # ---- the model ----
 
+_INITS = {}
+
+
+def _jit_init(jm, cfg: dict):
+    """``jm.init_variables`` compiled once per model config for the file, at
+    XLA's optimization level 0 (the models of one config differ only in their
+    path, which the init does not read); the JAX loader calls it too."""
+    key = repr(sorted(cfg["model_kwargs"].items()))
+    if key not in _INITS:
+        _INITS[key] = jax.jit(jm.init_variables, compiler_options=OPT0)
+    return _INITS[key]
+
+
 @pytest.fixture(scope="module")
 def joint_tiny():
     jm = JLTX2Model(JModelConfig.from_dict(dict(JOINT)))
-    jvars = jax.tree.map(np.asarray, jax.jit(jm.init_variables, compiler_options=OPT0)(jax.random.key(0)))
+    jvars = jax.tree.map(np.asarray, _jit_init(jm, JOINT)(jax.random.key(0)))
     model = LTX2Model(ModelConfig.from_dict(dict(JOINT)), device="cpu")
     variables = model.init_variables(torch.Generator().manual_seed(0))
     model.load_state_dicts(variables, from_jax.ltx2_model_state(jvars, gemma=False, joint=True, mel=True))
@@ -314,7 +327,7 @@ def test_joint_model_predict_and_audio_match_jax(joint_tiny):
 def test_video_only_ltx2_predict_matches_jax():
     """The video-only LTX-2 (the Wan DiT at LTX-2's layout) through ``predict``; f32, 1e-4 of max|ref|."""
     jm = JLTX2Model(JModelConfig.from_dict(dict(VIDEO)))
-    jvars = jax.tree.map(np.asarray, jax.jit(jm.init_variables, compiler_options=OPT0)(jax.random.key(1)))
+    jvars = jax.tree.map(np.asarray, _jit_init(jm, VIDEO)(jax.random.key(1)))
     model = LTX2Model(ModelConfig.from_dict(dict(VIDEO)), device="cpu")
     variables = model.init_variables(torch.Generator().manual_seed(0))
     model.load_state_dicts(variables, from_jax.ltx2_model_state(jvars, gemma=False, joint=False, mel=False))
@@ -449,7 +462,7 @@ def test_checkpoint_directory_matches_load_ltx2_checkpoint(tmp_path, capsys):
                np.random.default_rng(8))
     cfg = {**VIDEO, "name_or_path": str(tmp_path)}
     jm = JLTX2Model(JModelConfig.from_dict(dict(cfg)))
-    jm.init_variables = jax.jit(jm.init_variables, compiler_options=OPT0)  # the loader's seeded init, compiled once
+    jm.init_variables = _jit_init(jm, cfg)  # the loader's seeded init, compiled once for the file
     jvars = jax.tree.map(np.asarray, load_ltx2_checkpoint(str(tmp_path), jm))
     model = LTX2Model(ModelConfig.from_dict(dict(cfg)), device="cpu")
     variables = model.load_variables(torch.Generator().manual_seed(0))
@@ -522,7 +535,7 @@ def test_jax_fault_checkpoint_audio_stream_stays_seeded(tmp_path, joint_tiny):
     _write_dir(str(tmp_path), video, video.init_variables(torch.Generator().manual_seed(0)),
                np.random.default_rng(10))
     jm = JLTX2Model(JModelConfig.from_dict({**JOINT, "name_or_path": str(tmp_path)}))
-    jm.init_variables = jax.jit(jm.init_variables, compiler_options=OPT0)  # the loader's seeded init, compiled once
+    jm.init_variables = _jit_init(jm, JOINT)  # the loader's seeded init, compiled once for the file
     seeded = jax.tree.map(np.asarray, jm.init_variables(jax.random.key(0)))["dit"]
     loaded = jax.tree.map(np.asarray, load_ltx2_checkpoint(str(tmp_path), jm))["dit"]
     for k in ("audio_proj_in", "audio_time_proj", "time_proj"):

@@ -152,16 +152,17 @@ def test_ddpm_schedule_matches_jax(beta_schedule, prediction_type):
 
 def test_ddpm_timesteps_and_unported_branches():
     """The balanced draw lies in [min_t + 1, max_t - 1), as JAX's randint;
-    the other distributions and the k-diffusion steppers raise."""
+    the grids and skews draw from their values (ported with the train-step
+    knobs; held to JAX in ``test_torch_train_knobs.py``); the k-diffusion
+    steppers raise."""
     s = DDPMSchedule()
     t = s.sample_timesteps(torch.Generator().manual_seed(0), 4096)
     assert t.dtype == torch.int64 and int(t.min()) >= 1 and int(t.max()) <= 998
     t = s.sample_timesteps(torch.Generator().manual_seed(0), 512, min_t=100, max_t=300)
     assert int(t.min()) >= 101 and int(t.max()) <= 298
-    with pytest.raises(NotImplementedError):
-        s.sample_timesteps(torch.Generator(), 2, timestep_type="two_step")
-    with pytest.raises(NotImplementedError):
-        s.sample_timesteps(torch.Generator(), 2, content_or_style="style")
+    assert set(s.sample_timesteps(torch.Generator(), 64, timestep_type="two_step").tolist()) <= {0, 499}
+    t = s.sample_timesteps(torch.Generator(), 64, min_t=100, max_t=300, content_or_style="style")
+    assert int(t.min()) >= 100 and int(t.max()) <= 299
     with pytest.raises(NotImplementedError):
         s.euler_ancestral_step
 
