@@ -6,8 +6,11 @@ frozen params. Here each adapted ``ops.layers.Linear`` carries a
 network is addressed as ``{module name: LoRA}``: module names are the port's
 (BFL for the flux DiT, ``double_blocks.0.img_attn.qkv``; diffusers for the
 UNet, ``down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q``), which
-are also the external names a LoRA file carries. Conv LoRA (``conv_rank``) is not ported.
-JAX ``scale_lora`` (a scalar or per-sample ``[B]`` multiplier on every
+are also the external names a LoRA file carries. With ``conv_rank`` (the
+network's ``conv``, which ``type: locon`` sets to the rank) each matching
+``ops.layers.Conv`` carries a :class:`~ai_toolkit_tpu_torch.ops.layers.ConvLoRA`
+in ``.lora`` too (LoCon: ``a`` ``[r, in, kh, kw]``, ``b`` ``[out, r, 1, 1]``,
+scale conv_alpha / conv_rank). JAX ``scale_lora`` (a scalar or per-sample ``[B]`` multiplier on every
 scale) is ``ops.layers.lora_multiplier`` around the forward, which also
 turns the network off (``ADAPTER_OFF``).
 
@@ -26,7 +29,7 @@ import torch
 from torch import nn
 
 from ai_toolkit_tpu_torch.config.modules import NetworkConfig
-from ai_toolkit_tpu_torch.ops.layers import Linear, LoKr, LoRA, fold_scale
+from ai_toolkit_tpu_torch.ops.layers import Conv, ConvLoRA, Linear, LoKr, LoRA, fold_scale
 
 
 @dataclass
@@ -68,39 +71,60 @@ def _matches(name: str, spec: LoRASpec) -> bool:
     return True
 
 
-def build_lora(model: nn.Module, spec: LoRASpec, generator: torch.Generator) -> dict[str, LoRA]:
-    """Attach a LoRA to every matching ``Linear`` of ``model``, in module
-    order: ``a`` ~ normal(0, ``init_std``) drawn from ``generator``, ``b`` = 0,
-    ``scale`` = alpha / rank. Returns ``{module name: LoRA}``."""
-    if spec.conv_rank:
-        raise NotImplementedError("conv LoRA (network.conv) comes with a later slice (the UNet's conv layers)")
-    lora: dict[str, LoRA] = {}
+def build_lora(model: nn.Module, spec: LoRASpec, generator: torch.Generator) -> dict[str, LoRA | ConvLoRA]:
+    """Attach a LoRA to every matching ``Linear`` of ``model``, and with
+    ``conv_rank`` to every matching ``Conv``, in module order: ``a`` ~
+    normal(0, ``init_std``) drawn from ``generator``, ``b`` = 0, ``scale`` =
+    alpha / rank (conv: conv_alpha / conv_rank). Returns ``{module name:
+    LoRA}``."""
+    lora: dict[str, LoRA | ConvLoRA] = {}
     for name, mod in model.named_modules():
         if isinstance(mod, Linear) and _matches(name, spec):
             adapter = LoRA(mod.in_features, spec.rank, mod.out_features, spec.alpha / spec.rank,
                            device=mod.stored_weight.device)
-            with torch.no_grad():
-                adapter.a.normal_(0.0, spec.init_std, generator=generator)
-            mod.lora = adapter
-            lora[name] = adapter
+        elif isinstance(mod, Conv) and spec.conv_rank and _matches(name, spec):
+            r = int(spec.conv_rank)
+            alpha = spec.conv_alpha if spec.conv_alpha is not None else spec.alpha
+            out_ch, in_ch, k, _ = mod.weight.shape
+            adapter = ConvLoRA(in_ch, r, out_ch, k, alpha / r, device=mod.weight.device)
+        else:
+            continue
+        with torch.no_grad():
+            adapter.a.normal_(0.0, spec.init_std, generator=generator)
+        mod.lora = adapter
+        lora[name] = adapter
     return lora
 
 
-def attach_lora(model: nn.Module, tree: dict[str, dict[str, torch.Tensor]]) -> dict[str, LoRA]:
-    """Attach LoRA factors ``{module name: {a [in,r], b [r,out], scale}}``
-    (``io/lora_file.load_lora_file``) to the named ``Linear`` modules."""
+def conv_count(lora: dict) -> int:
+    """The conv modules of a network."""
+    return sum(isinstance(m, ConvLoRA) for m in lora.values())
+
+
+def attach_lora(model: nn.Module, tree: dict[str, dict[str, torch.Tensor]]) -> dict[str, LoRA | ConvLoRA]:
+    """Attach LoRA factors ``{module name: {a, b, scale}}``
+    (``io/lora_file.load_lora_file``) to the named modules: ``a`` ``[in, r]``
+    and ``b`` ``[r, out]`` on a ``Linear``, ``a`` ``[r, in, kh, kw]`` and
+    ``b`` ``[out, r, 1, 1]`` on a ``Conv``."""
     modules = dict(model.named_modules())
-    lora: dict[str, LoRA] = {}
+    lora: dict[str, LoRA | ConvLoRA] = {}
     for name, leaf in tree.items():
         mod = modules.get(name)
-        if not isinstance(mod, Linear):
-            raise KeyError(f"LoRA module '{name}' is not a Linear of this model")
         a, b = leaf["a"], leaf["b"]
-        if a.shape != (mod.in_features, a.shape[1]) or b.shape != (a.shape[1], mod.out_features):
-            raise ValueError(f"LoRA '{name}': a {tuple(a.shape)} / b {tuple(b.shape)} do not fit "
-                             f"[{mod.in_features} -> {mod.out_features}]")
-        adapter = LoRA(mod.in_features, a.shape[1], mod.out_features, float(leaf["scale"]),
-                       device=mod.stored_weight.device)
+        if isinstance(mod, Conv) and a.dim() == 4:
+            out_ch, in_ch, k, _ = mod.weight.shape
+            if a.shape[1:] != (in_ch, k, k) or b.shape != (out_ch, a.shape[0], 1, 1):
+                raise ValueError(f"conv LoRA '{name}': a {tuple(a.shape)} / b {tuple(b.shape)} do not fit "
+                                 f"{tuple(mod.weight.shape)}")
+            adapter = ConvLoRA(in_ch, a.shape[0], out_ch, k, float(leaf["scale"]), device=mod.weight.device)
+        elif isinstance(mod, Linear) and a.dim() == 2:
+            if a.shape != (mod.in_features, a.shape[1]) or b.shape != (a.shape[1], mod.out_features):
+                raise ValueError(f"LoRA '{name}': a {tuple(a.shape)} / b {tuple(b.shape)} do not fit "
+                                 f"[{mod.in_features} -> {mod.out_features}]")
+            adapter = LoRA(mod.in_features, a.shape[1], mod.out_features, float(leaf["scale"]),
+                           device=mod.stored_weight.device)
+        else:
+            raise KeyError(f"LoRA module '{name}' ({a.dim()}-D factors) is no Linear or Conv of this model")
         with torch.no_grad():
             adapter.a.copy_(a)
             adapter.b.copy_(b)
@@ -116,8 +140,8 @@ def share_lora(model: nn.Module, lora: dict[str, LoRA]) -> None:
     modules = dict(model.named_modules())
     for name, adapter in lora.items():
         mod = modules.get(name)
-        if not isinstance(mod, Linear):
-            raise KeyError(f"LoRA module '{name}' is not a Linear of this model")
+        if not isinstance(mod, (Linear, Conv)):
+            raise KeyError(f"LoRA module '{name}' is not a Linear or Conv of this model")
         mod.lora = adapter
 
 
@@ -138,7 +162,7 @@ def attach_ara(model: nn.Module, tree: dict[str, dict[str, torch.Tensor]], kind:
             if (w1.shape[0] * w2.shape[0], w1.shape[1] * w2.shape[1]) != (mod.out_features, mod.in_features):
                 raise ValueError(f"LoKr '{name}': kron({tuple(w1.shape)}, {tuple(w2.shape)}) does not fit "
                                  f"[{mod.out_features}, {mod.in_features}]")
-            mod.ara = LoKr(w1, w2, float(leaf["scale"])).to(dev)
+            mod.ara = LoKr(w1, w2, float(leaf["scale"])).to(dev).requires_grad_(False)
         else:
             a, b = leaf["a"], leaf["b"]
             if a.shape[0] != mod.in_features or b.shape != (a.shape[1], mod.out_features):
@@ -174,7 +198,7 @@ def concat_loras(first: dict[str, LoRA], second: dict[str, LoRA]) -> dict[str, d
 def detach_lora(model: nn.Module) -> None:
     """Remove every LoRA overlay from ``model``."""
     for mod in model.modules():
-        if isinstance(mod, Linear):
+        if isinstance(mod, (Linear, Conv)):
             mod.lora = None
 
 

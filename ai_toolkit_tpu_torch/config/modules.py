@@ -295,6 +295,24 @@ class NetworkConfig:
         return float(self.linear_alpha)
 
 
+# NetworkConfig fields that no module of the JAX package reads (a JAX fault, ROADMAP Queue 3): the port
+# reads none either, and the jobs print what a run does instead (:func:`print_unread_network`)
+JAX_UNREAD_NETWORK = {
+    "dropout": "no dropout is applied to the network",
+    "transformer_only": "the model's target patterns choose the adapted modules",
+    "lokr_full_rank": "a LoKr's w1 and w2 are whole Kronecker factors, as always",
+}
+
+
+def print_unread_network(net: NetworkConfig | None) -> None:
+    """One line for each :data:`JAX_UNREAD_NETWORK` field that ``net`` sets."""
+    default = NetworkConfig()
+    for name, instead in JAX_UNREAD_NETWORK.items():
+        if net is not None and getattr(net, name) != getattr(default, name):
+            print(f"JAX fault mirrored: network.{name} {getattr(net, name)!r} is not read by the JAX package; "
+                  f"{instead}")
+
+
 @dataclass
 class EMAConfig:
     use_ema: bool = False

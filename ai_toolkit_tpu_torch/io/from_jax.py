@@ -179,6 +179,37 @@ def _flux_module(path: str) -> str:
 _FLUX_STACKS = (("double_blocks", "double_"), ("single_blocks", "single_"), ("dual_blocks", "dual_"))
 
 
+def _inverted(table: list[tuple[str, str]]) -> list[tuple[str, str]]:
+    """``[(port-name regex, JAX path template)]`` for a ``(JAX regex, port
+    template)`` table: each group of the JAX regex becomes a slot, each slot
+    of the port template a group."""
+    out = []
+    for pat, tmpl in table:
+        groups = re.findall(r"\([^()]*\)", pat)
+        slots = iter(range(len(groups)))
+        jax_tmpl = re.sub(r"\([^()]*\)", lambda _: "{%d}" % next(slots), pat)
+        port_re = re.sub(r"\\\{(\d+)\\\}", lambda m: groups[int(m.group(1))], re.escape(tmpl))
+        out.append((port_re, jax_tmpl))
+    return out
+
+
+def flux_jax_path(name: str, scanned: bool = False) -> str:
+    """The JAX module path of the flux DiT's port module ``name``, dot-joined
+    as the JAX package's network files carry it (the inverse of
+    :func:`_flux_module`): ``double_3.img_qkv`` unrolled,
+    ``double_blocks.block.img_qkv.3`` in a scanned stack (one entry per
+    layer)."""
+    m = re.fullmatch(r"(double|single|dual)_blocks\.(\d+)\.(.+)", name)
+    if m:
+        kind, i, rest = m.groups()
+        sub = _lookup(_inverted(_SINGLE if kind == "single" else _DOUBLE), rest, "flux dit")
+        path = f"{kind}_blocks/block/{sub}" if scanned else f"{kind}_{i}/{sub}"
+        return path.replace("/", ".") + (f".{i}" if scanned else "")
+    if name.startswith("final_block."):
+        return "final_block." + _lookup(_inverted(_FINAL), name[len("final_block."):], "flux dit").replace("/", ".")
+    return _lookup(_inverted(_FLUX_TOP), name, "flux dit").replace("/", ".")
+
+
 def _unscan(tree: dict, stacks=_FLUX_STACKS) -> dict:
     """Scanned layout ``<stack>/block/<mod>/<leaf>`` with a leading layer axis
     -> unrolled ``<prefix><i>/<mod>/<leaf>``, for each ``(stack, prefix)``."""
@@ -391,6 +422,32 @@ def _unet_module(path: str, n: int) -> str:
     if path in _UNET_TOP:
         return _UNET_TOP[path]
     raise KeyError(f"unet: no port module for JAX path '{path}'")
+
+
+def unet_jax_path(name: str, n: int) -> str:
+    """The JAX module path of the UNet's port (diffusers) module ``name`` at
+    ``n`` levels, dot-joined (the inverse of :func:`_unet_module`)."""
+    leaves = {v: k for k, v in _UNET_LEAF.items()}
+    top = {v: k for k, v in _UNET_TOP.items()}
+    if name in top:
+        return top[name]
+    m = re.fullmatch(r"(down|up)_blocks\.(\d+)\.(resnets|attentions|downsamplers|upsamplers)\.(\d+)(?:\.(.+))?", name)
+    mid = re.fullmatch(r"mid_block\.(resnets|attentions)\.(\d+)(?:\.(.+))?", name)
+    if m:
+        kind, idx, part, j, rest = m.groups()
+        i = int(idx) if kind == "down" else n - 1 - int(idx)
+        if part in ("downsamplers", "upsamplers"):
+            return f"{kind}_{i}_{part[:-2]}"
+        head = f"{kind}_{i}_{'res' if part == 'resnets' else 'attn'}_{j}"
+    elif mid:
+        part, j, rest = mid.groups()
+        head = f"mid_res_{j}" if part == "resnets" else "mid_attn"
+    else:
+        raise KeyError(f"unet: no JAX path for port module '{name}'")
+    t = re.fullmatch(r"transformer_blocks\.(\d+)\.(.+)", rest or "")
+    if t:
+        return f"{head}.block_{t.group(1)}.{leaves.get(t.group(2), t.group(2))}"
+    return f"{head}.{rest}"
 
 
 def _unet_levels(paths) -> int:

@@ -22,8 +22,18 @@ alpha = rank (scale 1), as in the JAX ``unflatten_lora``. Kohya keys are
 ambiguous on ``_`` (``attn1_to_q``), so loading them needs the model's
 module names. A LyCORIS LoKr file (``lycoris_<module>.lokr_w1`` /
 ``.lokr_w2``), the frozen accuracy-recovery adapter's other layout, loads
-through :func:`load_lokr_file`. Conv factors, the text-encoder prefixes
-(``lora_te*``) and trainable LyCORIS networks come with a later slice.
+through :func:`load_lokr_file`. Conv factors (LoCon) keep the torch layout
+both ways: ``lora_down`` = a ``[r, in, kh, kw]``, ``lora_up`` = b ``[out, r,
+1, 1]``. The text-encoder prefixes (``lora_te*``) come with a later slice.
+
+The trainable LyCORIS networks and DoRA save through :func:`save_adapter_file`
+(JAX ``save_adapter_file``): ``<prefix>_<module with '_'>`` keys, LoKr's
+``.lokr_w1`` / ``.lokr_w2`` / ``.alpha`` (= scale), DoRA's ``.lora_down.weight``
+/ ``.lora_up.weight`` / ``.alpha`` (= scale * rank) / ``.dora_scale``
+(``[1, out]``), and LoHa's LyCORIS ``.hada_w1_a`` / ``.hada_w1_b`` /
+``.hada_w2_a`` / ``.hada_w2_b`` / ``.alpha`` (= scale * rank) in the torch
+orientation, ``(hada_w1_a @ hada_w1_b) * (hada_w2_a @ hada_w2_b) * alpha / r``
+the ``[out, in]`` delta (JAX writes no LoHa tensor: ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -50,8 +60,10 @@ def flatten_lora(lora: dict[str, dict[str, torch.Tensor]], dtype=np.float16,
         name = key_map(module) if key_map is not None else module
         a = leaf["a"].detach().float().cpu().numpy()
         b = leaf["b"].detach().float().cpu().numpy()
+        conv = a.ndim == 4  # a [r, in, kh, kw], b [out, r, 1, 1]: the file's layout already
         # safetensors writes the raw buffer: make the transposes C-contiguous
-        down, up = np.ascontiguousarray(a.T.astype(dtype)), np.ascontiguousarray(b.T.astype(dtype))
+        down, up = (np.ascontiguousarray(x.astype(dtype)) for x in ((a, b) if conv else (a.T, b.T)))
+        rank = a.shape[0] if conv else a.shape[1]
         if fmt in ROOTS:
             out[f"{ROOTS[fmt]}.{name}.lora_A.weight"] = down
             out[f"{ROOTS[fmt]}.{name}.lora_B.weight"] = up
@@ -59,7 +71,7 @@ def flatten_lora(lora: dict[str, dict[str, torch.Tensor]], dtype=np.float16,
             key = f"{prefix}_{name.replace('.', '_')}"
             out[f"{key}.lora_down.weight"] = down
             out[f"{key}.lora_up.weight"] = up
-            out[f"{key}.alpha"] = np.asarray(float(leaf["scale"]) * a.shape[1], dtype)
+            out[f"{key}.alpha"] = np.asarray(float(leaf["scale"]) * rank, dtype)
         else:
             raise NotImplementedError(f"LoRA layout '{fmt}' (ported: peft, comfy, kohya)")
     return out
@@ -98,12 +110,11 @@ def unflatten_lora(flat: dict[str, np.ndarray], module_names: Iterable[str] | No
         if "down" not in parts or "up" not in parts:
             continue
         name = _module_name(mod, kohya_names, module_name)
-        down = parts["down"].astype(np.float32)
-        if down.ndim != 2:
-            raise NotImplementedError(f"LoRA '{name}': conv factors are not ported")
-        a = torch.from_numpy(np.ascontiguousarray(down.T))
-        b = torch.from_numpy(np.ascontiguousarray(parts["up"].astype(np.float32).T))
-        rank = a.shape[1]
+        down, up = parts["down"].astype(np.float32), parts["up"].astype(np.float32)
+        conv = down.ndim == 4  # LoCon: the torch layout in the file and here
+        a = torch.from_numpy(np.ascontiguousarray(down if conv else down.T))
+        b = torch.from_numpy(np.ascontiguousarray(up if conv else up.T))
+        rank = a.shape[0] if conv else a.shape[1]
         alpha = float(np.asarray(parts.get("alpha", rank)).reshape(-1)[0])
         lora[name] = {"a": a, "b": b, "scale": torch.tensor(alpha / rank, dtype=torch.float32)}
     return lora
@@ -129,6 +140,62 @@ def load_lora_file(path: str, module_names: Iterable[str] | None = None,
         meta = dict(f.metadata() or {})
         flat = {k: f.get_tensor(k) for k in f.keys()}
     return unflatten_lora(flat, module_names, module_name), meta
+
+
+def _np32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def save_adapter_file(tree: dict[str, dict[str, torch.Tensor]], kind: str, path: str,
+                      key: Callable[[str], str], metadata: dict | None = None, dtype=np.float16) -> None:
+    """Write a LyCORIS network or DoRA ``{module name: {leaf: tensor}}`` (the
+    overlays' parameters) as JAX ``save_adapter_file`` does (module
+    docstring); ``key(name)`` gives the file's module key, without the
+    ``.<part>`` suffix."""
+    from safetensors.numpy import save_file
+
+    def c(x: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(x.astype(dtype))
+
+    flat: dict[str, np.ndarray] = {}
+    for name, leaf in tree.items():
+        k = key(name)
+        scale = float(leaf["scale"])
+        if kind == "lokr":  # already the torch layout: JAX writes its w1 / w2 transposed
+            flat[f"{k}.lokr_w1"], flat[f"{k}.lokr_w2"] = c(_np32(leaf["w1"])), c(_np32(leaf["w2"]))
+            flat[f"{k}.alpha"] = np.asarray(scale, dtype)
+        elif kind == "dora":
+            a, b = _np32(leaf["a"]), _np32(leaf["b"])
+            flat[f"{k}.lora_down.weight"], flat[f"{k}.lora_up.weight"] = c(a.T), c(b.T)
+            flat[f"{k}.alpha"] = np.asarray(scale * a.shape[1], dtype)
+            flat[f"{k}.dora_scale"] = c(_np32(leaf["magnitude"])[None, :])
+        elif kind == "loha":
+            w1a, w1b, w2a, w2b = (_np32(leaf[p]) for p in ("w1a", "w1b", "w2a", "w2b"))
+            flat[f"{k}.hada_w1_a"], flat[f"{k}.hada_w1_b"] = c(w1b.T), c(w1a.T)
+            flat[f"{k}.hada_w2_a"], flat[f"{k}.hada_w2_b"] = c(w2b.T), c(w2a.T)
+            flat[f"{k}.alpha"] = np.asarray(scale * w1a.shape[1], dtype)
+        else:
+            raise ValueError(kind)
+    save_file(flat, path, metadata={str(k): str(v) for k, v in (metadata or {}).items()})
+
+
+def load_loha_file(path: str) -> dict[str, dict[str, np.ndarray]]:
+    """A LyCORIS LoHa file -> ``{file module key: {w1a [in, r], w1b [r, out],
+    w2a, w2b, scale}}`` in JAX's leaf layout (the inverse of
+    :func:`save_adapter_file`'s ``loha``)."""
+    from safetensors import safe_open
+
+    groups: dict[str, dict[str, np.ndarray]] = {}
+    with safe_open(path, framework="numpy") as f:
+        for key in f.keys():
+            mod, _, part = key.rpartition(".")
+            groups.setdefault(mod, {})[part] = f.get_tensor(key).astype(np.float32)
+    out = {}
+    for mod, p in groups.items():
+        rank = p["hada_w1_b"].shape[0]
+        out[mod] = {"w1a": p["hada_w1_b"].T, "w1b": p["hada_w1_a"].T, "w2a": p["hada_w2_b"].T,
+                    "w2b": p["hada_w2_a"].T, "scale": np.float32(float(p["alpha"]) / rank)}
+    return out
 
 
 def is_lokr_file(path: str) -> bool:

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora, count_lora_params
-from ai_toolkit_tpu_torch.config.modules import ModelConfig, ProcessConfig, SaveConfig, TrainConfig
+from ai_toolkit_tpu_torch.config.modules import (ModelConfig, ProcessConfig, SaveConfig, TrainConfig,
+                                                 print_unread_network)
 from ai_toolkit_tpu_torch.io.checkpoint import CheckpointManager
 from ai_toolkit_tpu_torch.jobs.train_process import _UNPORTED_MODEL, _sync
 from ai_toolkit_tpu_torch.models.registry import get_model_class
@@ -100,7 +101,8 @@ def refuse_slider_config(cfg: ProcessConfig, slider_keys, train_read, datasets: 
     if extras:
         raise NotImplementedError(f"process keys {extras}: the {cfg.type} job does not read them")
     if cfg.network is not None and cfg.network.type not in ("lora", "locon"):
-        raise NotImplementedError(f"network '{cfg.network.type}': the {cfg.type} job trains a LoRA")
+        raise NotImplementedError(f"network '{cfg.network.type}': the {cfg.type} job trains a LoRA (its per-sample "
+                                  f"multiplier on other networks comes with ROADMAP Queue 1 item 6e)")
     cls = get_model_class(cfg.model.arch)
     sd = issubclass(cls, SDModel) and not issubclass(cls, SDXLModel)
     if not (sd or (issubclass(cls, FluxModel) and cfg.model.arch not in ("flex2", "flux_kontext"))):
@@ -124,6 +126,7 @@ class SliderSetup:
         self.load_s = time.perf_counter() - t0
         self.is_flow = model.is_flow_matching
         self.schedule = get_schedule(tc.noise_scheduler, cfg.model.arch)
+        print_unread_network(cfg.network)
         spec = (LoRASpec.from_network_config(cfg.network, target_patterns=model.lora_targets())
                 if cfg.network is not None else LoRASpec(rank=8, alpha=8, target_patterns=model.lora_targets()))
         self.lora = build_lora(variables[model.main_component], spec, torch.Generator(device=device).manual_seed(1))

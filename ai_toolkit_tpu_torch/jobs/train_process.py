@@ -7,7 +7,8 @@ model (seeded random weights, or the local checkpoint of ``name_or_path``,
 (``model.quantize``, fp8 or int8: ``adapters/quantize.py``; each expert of a
 multistage pair from its own weights, as it is built) -> LoRA on the
 model's main component, the DiT or the UNet (the model's targets), one
-network shared by a multistage pair's two experts ->
+network shared by a multistage pair's two experts (or LoKr, LoHa, DoRA,
+LoRM: below) ->
 AdamW(8bit) with the lr schedule (``train/optimizers.lr_schedule``) -> resume
 from the newest save in the output folder -> the schedule
 (``samplers/factory.get_schedule``: flow matching, or DDPM for the UNets,
@@ -143,11 +144,28 @@ unconditional and negative prompts' conditioning (``blank_cond``,
 ``learnable_snr.json`` beside every save and read back on a resume without
 a matching training state, as JAX does.
 
+Every network JAX ``_build_trainable`` builds (:1247-1297; ``_build_network``):
+LoRA, with conv modules when ``network.conv`` is set (``type: locon``), LoKr
+(``lokr`` / ``lycoris_lokr``, ``lokr_factor``), LoHa (``loha`` /
+``lycoris_loha``), DoRA and LoRM (``network_kwargs``' extract knobs), on the
+(dequantized) Linears of a quantized base too. LoKr, LoHa and DoRA adapt
+every targeted block Linear where JAX's scanned layout adapts none (ROADMAP
+Queue 3). Their saves are the JAX job's files (JAX ``_save``'s lorm and lyco
+branches): the EMA copy when EMA is on, fp16, LoKr / LoHa keyed by the JAX
+module paths under ``lora_transformer_`` on every arch, DoRA by the LoRA
+file's names, LoRM in the PEFT layout with ``network_type: lorm`` (LoHa in
+LyCORIS's layout, where JAX writes an empty file). A LoRM run resumes
+exactly, as a LoRA run does; a LoKr, LoHa or DoRA one over its saves raises
+(JAX cannot resume them). The network fields no JAX module reads
+(``dropout``, ``transformer_only``, ``lokr_full_rank``) each print a line.
+
 Every other branch of the JAX process raises ``NotImplementedError`` naming
-its ROADMAP item (``_UNPORTED_TRAIN``): other networks and adapters (the
-assistant adapter, ``adapter_assist_name_or_path``), quantized text encoders
-(``quantize_te``), text-encoder training, per-group learning rates. With
-``AIT_PROFILE_DIR`` set, the last step runs under ``torch.profiler``.
+its ROADMAP item (``_UNPORTED_TRAIN``): other adapters (the assistant
+adapter, ``adapter_assist_name_or_path``), a guidance loss, the adapter-off
+prior knobs, an accuracy-recovery adapter or a multistage pair beside a
+network other than LoRA, quantized text encoders (``quantize_te``),
+text-encoder training, per-group learning rates. With ``AIT_PROFILE_DIR``
+set, the last step runs under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -166,13 +184,18 @@ from ai_toolkit_tpu_torch.adapters.embedding import (EMBEDDING_KEYS, TriggerToke
                                                      load_embedding, save_embedding)
 from ai_toolkit_tpu_torch.adapters.custom_adapter import init_custom_adapter, refuse_unported_type, save_custom_adapter
 from ai_toolkit_tpu_torch.adapters.ip_adapter import build_flux_ip_collection, flux_ip_flat
-from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, attach_ara, build_lora, count_lora_params, share_lora
+from ai_toolkit_tpu_torch.adapters.lora import (LoRASpec, attach_ara, build_lora, conv_count, count_lora_params,
+                                                share_lora)
+from ai_toolkit_tpu_torch.adapters.lorm import LoRMSpec, build_lorm, lorm_stats_str
+from ai_toolkit_tpu_torch.adapters.lycoris import BUILD_FNS as LYCORIS_BUILD_FNS
 from ai_toolkit_tpu_torch.adapters.quantize import quantized_bytes, quantized_count
-from ai_toolkit_tpu_torch.config.modules import GenerateImageConfig, ModelConfig, ProcessConfig, TrainConfig
+from ai_toolkit_tpu_torch.config.modules import (GenerateImageConfig, ModelConfig, ProcessConfig, TrainConfig,
+                                                 print_unread_network)
 from ai_toolkit_tpu_torch.data.caching import TextEmbedCache, cache_latents, cache_latents_to_disk
 from ai_toolkit_tpu_torch.data.loader import build_dataloader
 from ai_toolkit_tpu_torch.io.checkpoint import CheckpointManager
-from ai_toolkit_tpu_torch.io.lora_file import is_lokr_file, load_lokr_file, load_lora_file
+from ai_toolkit_tpu_torch.io.lora_file import (is_lokr_file, load_lokr_file, load_lora_file, save_adapter_file,
+                                               save_lora_file)
 from ai_toolkit_tpu_torch.models.base import BaseModel
 from ai_toolkit_tpu_torch.models.dfe import make_aux_loss
 from ai_toolkit_tpu_torch.models.flux_model import FluxModel
@@ -200,6 +223,12 @@ _UNPORTED_TRAIN = {
     "show_turbo_outputs": "the turbo step's debug images come with ROADMAP Queue 1 item 5",
     "adapter_assist_name_or_path": "the assistant adapter comes with ROADMAP Queue 1 item 6e",
 }
+# network.type -> the network the JAX job builds for it (_build_trainable, :1247-1297; NetworkConfig
+# turns locon into lora with a conv rank)
+NETWORK_KINDS = {"lora": "lora", "lokr": "lokr", "lycoris_lokr": "lokr", "loha": "loha", "lycoris_loha": "loha",
+                 "dora": "dora", "lorm": "lorm"}
+# train-step knobs that run the network off (JAX drops the 'lora' collection alone for them)
+_ADAPTER_OFF_KNOBS = ("diff_output_preservation", "inverted_mask_prior", "blank_prompt_preservation")
 _UNPORTED_MODEL = ("quantize_te", "lora_path", "assistant_lora_path",
                    "inference_lora_path", "unconditional_lora_path")
 # the adapter keys the ported types read; the JAX job reads no other for them
@@ -281,6 +310,7 @@ class SDTrainProcess:
         self.save_root = os.path.join(cfg.training_folder, job_name)
         self.adapter = None  # the custom adapter's runtime (adapters/custom_adapter.py), when the job trains one
         self.ip = {}  # vision_direct's decoupled K/V per block
+        self.net_modules = {}  # the trained network's {module name: overlay} (_build_network)
 
     @property
     def textual_inversion(self) -> bool:
@@ -296,6 +326,15 @@ class SDTrainProcess:
         if self.textual_inversion or self.cfg.adapter:
             return False
         return self.cfg.network is None or self.cfg.network.type in ("full", "fine_tune")
+
+    @property
+    def network_kind(self) -> str | None:
+        """The network the job trains: ``lora`` (``locon`` included), ``lokr``,
+        ``loha``, ``dora`` or ``lorm``; None for a full fine-tune, an adapter
+        or textual inversion."""
+        if self.full_finetune or self.textual_inversion or self.cfg.adapter:
+            return None
+        return NETWORK_KINDS.get(self.cfg.network.type)
 
     @property
     def feature_loss_path(self):
@@ -329,9 +368,20 @@ class SDTrainProcess:
             unknown = sorted(set(cfg.embedding) - set(EMBEDDING_KEYS))
             if unknown:
                 raise NotImplementedError(f"embedding keys {unknown} are not read (read: {list(EMBEDDING_KEYS)})")
-        elif not self.full_finetune and cfg.network.type not in ("lora", "locon"):
-            raise NotImplementedError(f"network '{cfg.network.type}': only LoRA and the full fine-tune "
-                                      f"are ported (trainable LoKr / LoHa / DoRA: ROADMAP Queue 1 item 6e)")
+        elif not self.full_finetune and self.network_kind is None:
+            raise NotImplementedError(f"network '{cfg.network.type}': only LoRA, LoCon, LoKr, LoHa, DoRA, LoRM and the "
+                                      f"full fine-tune are ported (the types the JAX job builds; it trains another "
+                                      f"type as a plain LoRA)")
+        other_net = self.network_kind not in (None, "lora")
+        if ara and other_net:
+            raise NotImplementedError(f"network '{cfg.network.type}' beside an accuracy-recovery adapter is not ported "
+                                      f"(ported: beside a LoRA; ROADMAP Queue 1 item 6e)")
+        if other_net:
+            off = [k for k in _ADAPTER_OFF_KNOBS if getattr(tc, k)]
+            if off:
+                raise NotImplementedError(f"{off} with network '{cfg.network.type}': the adapter-off prediction of a "
+                                          f"network other than LoRA comes with ROADMAP Queue 1 item 6e (the JAX step "
+                                          f"drops the 'lora' collection alone, so its prior keeps this network)")
         if ara and (self.full_finetune or self.guidance_kind or self.textual_inversion):
             raise NotImplementedError("an accuracy-recovery adapter with a full fine-tune, a guidance loss or "
                                       "textual inversion is not ported (ported: beside a trainable LoRA or adapter)")
@@ -347,6 +397,10 @@ class SDTrainProcess:
             raise NotImplementedError("adapter_assist_name_or_path: the assistant adapter comes with the adapters "
                                       "slice (ROADMAP Queue 1 item 6e)")
         kind = self.guidance_kind
+        if kind and other_net:
+            raise NotImplementedError(f"guidance_loss '{kind}' on network '{cfg.network.type}': the guidance losses "
+                                      f"scale a LoRA (the JAX step's 'lora' tree); on other networks they come with "
+                                      f"ROADMAP Queue 1 item 6e")
         if kind == "concept_replacer":
             raise NotImplementedError("guidance_loss 'concept_replacer' needs the replacement prompts that only the "
                                       "concept_replacer job builds (ROADMAP Queue 1 item 6h)")
@@ -484,13 +538,8 @@ class SDTrainProcess:
             if inc or exc:
                 print(f"full fine-tune (filtered to {n_params:,} params)")
         else:
-            spec = LoRASpec.from_network_config(cfg.network, target_patterns=model.lora_targets())
-            lora = build_lora(net, spec, torch.Generator(device=dev).manual_seed(seed))
-            for other in experts[1:]:
-                share_lora(other, lora)
-            n_params = count_lora_params(lora)
-            print(f"LoRA: {len(lora)} modules, {n_params:,} trainable params (rank {spec.rank})")
-            trainable = {f"{name}.{leaf}": p for name, m in lora.items() for leaf, p in m.named_parameters()}
+            trainable, lora = self._build_network(model, net, experts, seed)
+            n_params = sum(p.numel() for p in trainable.values())
         for m in experts:
             if hasattr(m, "gradient_checkpointing"):  # the DiT; the UNet follows model.remat_policy
                 m.gradient_checkpointing = tc.gradient_checkpointing
@@ -608,10 +657,74 @@ class SDTrainProcess:
         return {"final_loss": losses[-1] if losses else None, "steps": tc.steps, "start_step": start_step,
                 "losses": losses, "aux_losses": aux_losses, "grad_norms": grad_norms, "step_ms": step_ms,
                 "median_step_ms": statistics.median(step_ms) if step_ms else None,
-                "trainable_params": n_params, "lora_modules": len(lora) if lora is not None else 0,
+                "trainable_params": n_params, "lora_modules": len(self.net_modules),
                 "experts": experts_run, "buckets": buckets, "save_path": path, "load_s": load_s,
                 "val_losses": val_losses,
                 "latent_cache": self.latent_cache_report, "samples": self.samples}
+
+    def _build_network(self, model, net, experts: list, seed: int) -> tuple[dict[str, torch.Tensor], dict | None]:
+        """The trainable network on the main component (JAX
+        ``_build_trainable``'s network branches, :1247-1297): LoRA (with
+        conv modules when ``network.conv`` is set: LoCon), LoKr, LoHa and DoRA
+        over the model's targets (``adapters/lora.py``,
+        ``adapters/lycoris.py``), or LoRM's factors in place of the targeted
+        kernels (``adapters/lorm.py``). Returns the trainable tensors
+        ``{<module>.<leaf>: parameter}`` and the LoRA ``{module: LoRA}`` (None
+        for the other networks, whose modules are ``self.net_modules``)."""
+        ncfg, kind = self.cfg.network, self.network_kind
+        print_unread_network(ncfg)
+        if kind != "lora" and len(experts) > 1:
+            raise NotImplementedError(f"network '{ncfg.type}' on a multistage pair (one network on both experts) "
+                                      f"comes with ROADMAP Queue 1 item 6e (ported: LoRA)")
+        spec = LoRASpec.from_network_config(ncfg, target_patterns=model.lora_targets())
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        lora = None
+        if kind == "lorm":
+            modules, stats = build_lorm(net, LoRMSpec.from_network_config(ncfg, spec.target_patterns),
+                                        scanned=model.jax_scans_blocks)
+            if not stats["modules"]:
+                raise ValueError("lorm: no kernels matched the target patterns")
+            print(lorm_stats_str(stats))
+        elif kind == "lora":
+            modules = lora = build_lora(net, spec, generator)
+            for other in experts[1:]:
+                share_lora(other, lora)
+            print(f"LoRA: {len(lora)} modules, {count_lora_params(lora):,} trainable params (rank {spec.rank})")
+            if spec.conv_rank:
+                n_conv = conv_count(lora)
+                print(f"LoCon: {n_conv} conv modules at rank {spec.conv_rank}"
+                      + ("" if n_conv else " (JAX fault mirrored: the model's target patterns name no conv; "
+                                          "only_if_contains reaches them; ROADMAP Queue 3)"))
+        else:
+            if model.jax_scans_blocks:
+                print(f"JAX fault not mirrored: JAX build_{kind} takes 2-D kernels only, so on this model's scanned "
+                      f"blocks it adapts none; the port adapts every targeted block Linear, as JAX does unrolled "
+                      f"(ROADMAP Queue 3)")
+            build = LYCORIS_BUILD_FNS[kind]
+            modules = (build(net, spec, generator, factor=ncfg.lokr_factor) if kind == "lokr"
+                       else build(net, spec, generator))
+            label = {"lokr": "LoKr", "loha": "LoHa", "dora": "DoRA"}[kind]
+            print(f"{label}: {len(modules)} modules" + ("" if kind == "lokr" else f" (rank {spec.rank})"))
+        if kind != "lora":
+            self._net_keys = {name: self._network_key(model, name) for name in modules}
+        self.net_modules = modules
+        return {f"{name}.{leaf}": p for name, m in modules.items() for leaf, p in m.named_parameters()}, lora
+
+    def _network_key(self, model, name: str) -> str:
+        """The module key the JAX job's file carries for ``name``: LoKr and
+        LoHa under ``lora_transformer_`` and the JAX module path on every arch
+        (JAX saves them with no key map), DoRA under ``lora_transformer_`` /
+        ``lora_unet_`` and the LoRA file's module name, LoRM (PEFT) the JAX
+        module path in the layout JAX's config has (:1282-1296, :1990-2028)."""
+        kind = self.network_kind
+        if kind == "lorm":
+            return model.jax_module_path(name, scanned=model.jax_scans_blocks)
+        if kind == "dora":
+            ext = model.lora_key(name) if hasattr(model, "lora_key") else name
+            prefix = "lora_transformer" if model.is_flow_matching else "lora_unet"
+        else:
+            ext, prefix = model.jax_module_path(name), "lora_transformer"
+        return f"{prefix}_{ext.replace('.', '_')}"
 
     def _build_embedding(self, model, variables: dict) -> dict[str, torch.Tensor]:
         """The textual-inversion bank (JAX ``_build_trainable``'s embedding
@@ -788,7 +901,11 @@ class SDTrainProcess:
         path = ckpt.latest_save_path()
         if path is None:
             return 0
-        if self.adapter is not None:  # the exact state, from the training state alone
+        if self.network_kind in ("lokr", "loha", "dora"):
+            raise NotImplementedError(f"{path}: resuming network '{self.cfg.network.type}' is not ported: the JAX "
+                                      f"job cannot (its resume reads LoRA keys into the 'lora' tree and trains this "
+                                      f"network afresh from step 0); delete the output folder for a fresh run")
+        if self.adapter is not None or self.network_kind == "lorm":  # the exact state, from the training state alone
             with safe_open(path, framework="pt") as f:
                 step = int((f.metadata() or {}).get("step", 0))
             saved = None
@@ -873,6 +990,22 @@ class SDTrainProcess:
             src = state.ema if state.ema is not None else state.trainable
             tree = {name: {leaf: src[f"{name}.{leaf}"] for leaf in ("a", "b", "scale")} for name in lora}
             path = ckpt.save(tree, step, final=final)
+        elif self.network_kind is not None:
+            # JAX _save's lorm and lyco branches: the EMA copy when EMA is on, fp16 (their default)
+            src = state.ema if state.ema is not None else state.trainable
+            tree = {name: {leaf: src[f"{name}.{leaf}"] for leaf, _ in m.named_parameters()}
+                    for name, m in self.net_modules.items()}
+            path = ckpt.final_path() if final else ckpt.path_for_step(step)
+            meta = {"step": step, "software": "ai_toolkit_tpu"}
+            if self.network_kind == "lorm":  # PEFT under the JAX module paths, rotated
+                for leaf in tree.values():
+                    leaf["scale"] = torch.tensor(1.0)
+                save_lora_file(tree, path, metadata={**meta, "network_type": "lorm"}, fmt="peft",
+                               key_map=self._net_keys.get)
+                if not final:
+                    ckpt.clean_up_saves()
+            else:
+                save_adapter_file(tree, self.network_kind, path, key=self._net_keys.get, metadata=meta)
         else:
             from safetensors.torch import save_file
 

@@ -111,6 +111,13 @@ class AudioModel(BaseModel):
     def lora_targets(self) -> list[str]:
         return wan_lora_targets()
 
+    @property
+    def jax_scans_blocks(self) -> bool:
+        return self.size != "tiny"
+
+    def jax_module_path(self, name: str, scanned: bool = False) -> str:
+        return wan_lora_key(name, scanned)
+
     def lora_key(self, name: str) -> str:
         """The JAX job's module name: scanned blocks at full size, unrolled at ``tiny``."""
         return wan_lora_key(name, scanned=self.size != "tiny")

@@ -35,6 +35,7 @@ class BaseModel:
     bucket_divisibility: int = 16
     main_component: str = "dit"  # the variables entry that is trained and sampled
     quantize_exclude: list[str] | None = None  # module-name patterns a quantized base keeps (None: the default list)
+    jax_scans_blocks: bool = False  # the JAX package's config of this model scans its blocks (nn.scan)
     takes_control: bool = False  # the denoiser reads control latents (cond["control_latents"]) beside the noisy ones
     control_optional: bool = False  # a batch without control images trains without them (OmniGen2's references)
 
@@ -123,6 +124,15 @@ class BaseModel:
 
     def decode_latents(self, variables, latents):
         raise NotImplementedError
+
+    def jax_module_path(self, name: str, scanned: bool = False) -> str:
+        """The JAX package's module path of the main component's module
+        ``name``, dot-joined as the JAX job's LoKr, LoHa and LoRM files carry
+        it (JAX saves them with no key map); ``scanned``: the path in the
+        scanned layout, one entry per layer."""
+        raise NotImplementedError(f"arch '{self.config.arch}': the JAX module paths that a LoKr, LoHa or LoRM "
+                                  f"file carries come with ROADMAP Queue 1 item 6e (ported: the flux archs, "
+                                  f"the UNets, Wan, ACE-Step, LTX-2, SD3, Lumina2 and OmniGen2)")
 
     # ---- geometry ----
 

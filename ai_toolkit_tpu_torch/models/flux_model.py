@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from ai_toolkit_tpu_torch.config.modules import ModelConfig
+from ai_toolkit_tpu_torch.io.from_jax import flux_jax_path
 from ai_toolkit_tpu_torch.io.safetensors_dir import SafetensorsIndex, safetensors_files
 from ai_toolkit_tpu_torch.utils.tokenizer import load_tokenizer
 from ai_toolkit_tpu_torch.models.base import BaseModel
@@ -87,6 +88,7 @@ class FluxModel(BaseModel):
             raise NotImplementedError(f"arch '{arch}': model_kwargs {sorted(set(kw) - known)} are not read "
                                       f"(read: {sorted(known)})")
         size = kw.get("size", "dev")
+        self.jax_scans_blocks = size != "tiny"  # JAX FluxConfig.scan_blocks
         if size == "tiny":
             self.dit_config = FluxConfig.tiny()
             self.vae_config = VAEConfig.tiny()
@@ -250,6 +252,9 @@ class FluxModel(BaseModel):
 
     def lora_targets(self) -> list[str]:
         return flux_lora_targets()
+
+    def jax_module_path(self, name: str, scanned: bool = False) -> str:
+        return flux_jax_path(name, scanned)
 
     # ---- geometry ----
 

@@ -230,6 +230,13 @@ class LTX2Model(BaseModel):
         """Every Linear of the blocks, joint or not (JAX ``wan_lora_targets``)."""
         return wan_lora_targets()
 
+    @property
+    def jax_scans_blocks(self) -> bool:
+        return self.size != "tiny"
+
+    def jax_module_path(self, name: str, scanned: bool = False) -> str:
+        return av_lora_key(name, scanned) if self.joint_audio else wan_lora_key(name, scanned)
+
     def lora_key(self, name: str) -> str:
         """The JAX job's module path: scanned at full size, unrolled at ``tiny``."""
         scanned = self.size != "tiny"

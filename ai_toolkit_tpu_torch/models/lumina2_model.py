@@ -179,6 +179,13 @@ class Lumina2Model(BaseModel):
     def lora_targets(self) -> list[str]:
         return lumina2_lora_targets()
 
+    @property
+    def jax_scans_blocks(self) -> bool:
+        return self.size != "tiny"
+
+    def jax_module_path(self, name: str, scanned: bool = False) -> str:
+        return nextdit_lora_key(name, scanned)
+
     def lora_key(self, name: str) -> str:
         """The module name the JAX job's LoRA file carries for ``name``: the
         scanned layout at every size but ``tiny``."""

@@ -238,6 +238,13 @@ class SD3Model(BaseModel):
     def lora_targets(self) -> list[str]:
         return flux_lora_targets()
 
+    @property
+    def jax_scans_blocks(self) -> bool:
+        return self.size != "tiny"
+
+    def jax_module_path(self, name: str, scanned: bool = False) -> str:
+        return sd3_lora_key(name, scanned)
+
     def lora_key(self, name: str) -> str:
         return sd3_lora_key(name, scanned=self.size != "tiny")
 

@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from ai_toolkit_tpu_torch.config.modules import ModelConfig
+from ai_toolkit_tpu_torch.io.from_jax import unet_jax_path
 from ai_toolkit_tpu_torch.io.ldm_single_file import load_ldm_checkpoint
 from ai_toolkit_tpu_torch.io.safetensors_dir import squeeze_adapt
 from ai_toolkit_tpu_torch.models.base import BaseModel
@@ -183,6 +184,9 @@ class SDModel(BaseModel):
 
     def lora_targets(self) -> list[str]:
         return unet_lora_targets()
+
+    def jax_module_path(self, name: str, scanned: bool = False) -> str:
+        return unet_jax_path(name, len(self.unet_config.block_out_channels))
 
     # ---- geometry ----
 

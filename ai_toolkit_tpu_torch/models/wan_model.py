@@ -240,6 +240,13 @@ class WanModel(BaseModel):
     def lora_targets(self) -> list[str]:
         return wan_lora_targets()
 
+    @property
+    def jax_scans_blocks(self) -> bool:
+        return self.size != "tiny"
+
+    def jax_module_path(self, name: str, scanned: bool = False) -> str:
+        return wan_lora_key(name, scanned)
+
     def lora_key(self, name: str) -> str:
         """The module name the JAX job's LoRA file carries for ``name``
         (:func:`~ai_toolkit_tpu_torch.models.wan_dit.wan_lora_key`): the

@@ -6,15 +6,20 @@ Weights use the torch layouts that checkpoints ship in: ``Linear.weight`` is
 the JAX package. Modules are built empty on an explicit ``device``/``dtype``
 and filled by :func:`init_parameters` from an explicit ``torch.Generator``,
 with the JAX package's initializers (flax ``lecun_normal`` kernels, zero
-biases, unit norm scales). ``Linear`` carries the LoRA overlay of the JAX
-``Linear`` (``_lora_delta``), its weight-only quantized base
+biases, unit norm scales). ``Linear`` carries the overlays that the JAX
+``Linear`` reads from its variable collections (JAX ``ops/layers.py``
+:84-145), in JAX's order: a :class:`LoKr` (``lokr``) and then a
+:class:`LoHa` (``loha``) add their deltas to the (dequantized) kernel; then
+a :class:`DoRA` (``dora``) rescales the columns of kernel plus its low-rank
+delta, or a :class:`LoRA` (``lora``, JAX ``_lora_delta``) adds its delta to
+the product. A :class:`LoRM` (``lorm``) replaces the kernel, whose weight
+is freed. ``Linear`` also carries its weight-only quantized base
 (:class:`QuantizedWeight`) and a frozen accuracy-recovery adapter
 (``Linear.ara``, the ARA of a quantized base): a :class:`LoRA`, whose
 factors stack with a trainable LoRA's by the exact rank-concat of JAX
-``concat_loras`` (each scale folded into its ``b``), or a :class:`LoKr`,
-whose ``kron(w1, w2) * scale`` is added to the dequantized kernel (JAX's
-``lokr`` collection). Its ctrl overlay and trainable LyCORIS networks are
-not ported.
+``concat_loras`` (each scale folded into its ``b``), or a frozen
+:class:`LoKr`. ``Conv`` carries a :class:`ConvLoRA` (JAX ``Conv``'s
+``lora``, :186-208). The ctrl overlay is not ported.
 
 The LoRA multiplier (JAX ``adapters/lora.scale_lora``, which the slider
 losses apply to the ``lora`` tree) is set for a block of code by
@@ -126,21 +131,77 @@ def fold_scale(lora: "LoRA") -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class LoKr(nn.Module):
-    """A frozen LyCORIS LoKr overlay (JAX ``lokr`` collection):
-    ``delta = kron(w1, w2) * scale`` in the torch layout ``[out, in]``
-    (``w1`` ``[o1, i1]``, ``w2`` ``[o2, i2]``), cast to the layer's dtype
-    factor by factor and added to its kernel."""
+    """A LyCORIS LoKr overlay (JAX ``lokr`` collection): ``delta = kron(w1,
+    w2) * scale`` in the torch layout ``[out, in]`` (``w1`` ``[o1, i1]``,
+    ``w2`` ``[o2, i2]``), each factor and the scale cast to the layer's dtype
+    before the product, added to its kernel. The three are f32 parameters: a
+    trainable network (``adapters/lycoris.build_lokr``) trains all of them,
+    as JAX trains the whole leaf; an accuracy-recovery adapter's are frozen."""
 
     def __init__(self, w1: torch.Tensor, w2: torch.Tensor, scale: float = 1.0):
         super().__init__()
-        self.register_buffer("w1", w1.float())
-        self.register_buffer("w2", w2.float())
-        self.register_buffer("scale", torch.tensor(float(scale)))
+        self.w1 = nn.Parameter(w1.float())
+        self.w2 = nn.Parameter(w2.float())
+        self.scale = nn.Parameter(torch.tensor(float(scale), device=w1.device))
 
     def delta(self, dtype: torch.dtype) -> torch.Tensor:
         from ai_toolkit_tpu_torch.adapters.lycoris import lokr_delta
 
         return lokr_delta(self.w1, self.w2, self.scale, dtype)
+
+
+class LoHa(nn.Module):
+    """A LyCORIS LoHa overlay (JAX ``loha`` collection): ``delta = (w1a @ w1b)
+    * (w2a @ w2b) * scale`` in the JAX layout ``[in, out]`` (``w1a`` / ``w2a``
+    ``[in, r]``, ``w1b`` / ``w2b`` ``[r, out]``), each factor and the scale
+    cast to the layer's dtype first, added transposed to the kernel. f32
+    parameters, all trained."""
+
+    def __init__(self, in_features: int, rank: int, out_features: int, scale: float, *, device=None):
+        super().__init__()
+        for name, shape in (("w1a", (in_features, rank)), ("w1b", (rank, out_features)),
+                            ("w2a", (in_features, rank)), ("w2b", (rank, out_features))):
+            setattr(self, name, nn.Parameter(torch.zeros(shape, device=device, dtype=torch.float32)))
+        self.scale = nn.Parameter(torch.tensor(float(scale), device=device, dtype=torch.float32))
+
+    def delta(self, dtype: torch.dtype) -> torch.Tensor:
+        h1 = self.w1a.to(dtype) @ self.w1b.to(dtype)
+        h2 = self.w2a.to(dtype) @ self.w2b.to(dtype)
+        return (h1 * h2 * self.scale.to(dtype)).t()
+
+
+class DoRA(nn.Module):
+    """DoRA (JAX ``dora`` collection): LoRA factors ``a`` ``[in, r]``, ``b``
+    ``[r, out]``, ``scale`` and a per-output ``magnitude``, f32 parameters.
+    The kernel becomes ``W' = W + (a @ b) * scale`` in f32 (the factors and
+    the scale rounded to the layer's dtype first), each output's column of
+    ``W'`` scaled to ``magnitude / max(|W'_col|, 1e-6)`` (the norm over the
+    input axis), cast back to the layer's dtype; no LoRA delta follows."""
+
+    def __init__(self, in_features: int, rank: int, out_features: int, scale: float, *, device=None):
+        super().__init__()
+        self.a = nn.Parameter(torch.zeros(in_features, rank, device=device, dtype=torch.float32))
+        self.b = nn.Parameter(torch.zeros(rank, out_features, device=device, dtype=torch.float32))
+        self.scale = nn.Parameter(torch.tensor(float(scale), device=device, dtype=torch.float32))
+        self.magnitude = nn.Parameter(torch.zeros(out_features, device=device, dtype=torch.float32))
+
+    def weight(self, w: torch.Tensor) -> torch.Tensor:
+        dt = w.dtype
+        delta = (self.a.to(dt).float() @ self.b.to(dt).float()) * self.scale.to(dt).float()
+        v = w.float() + delta.t()
+        norm = torch.linalg.vector_norm(v, dim=1, keepdim=True)
+        return (v * (self.magnitude[:, None] / torch.clamp(norm, min=1e-6))).to(dt)
+
+
+class LoRM(nn.Module):
+    """LoRM factors (JAX ``lorm`` collection, ``adapters/lorm.py``): ``a``
+    ``[in, r]`` and ``b`` ``[r, out]``, f32 parameters that replace the
+    kernel: ``y = (x @ a) @ b + bias`` in the layer's dtype."""
+
+    def __init__(self, a: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.a = nn.Parameter(a.float())
+        self.b = nn.Parameter(b.float())
 
 
 class QuantizedWeight(nn.Module):
@@ -157,7 +218,7 @@ class QuantizedWeight(nn.Module):
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return self.weight.dtype if self.qvalue is None else self._qdtype
+        return self.weight.dtype if self.weight is not None else self._qdtype
 
     @property
     def stored_weight(self) -> torch.Tensor:
@@ -178,11 +239,11 @@ class QuantizedWeight(nn.Module):
 
 class Linear(QuantizedWeight):
     """``y = x W^T + b``; ``x`` is cast to the weight dtype first (JAX:
-    ``x.astype(self.dtype)``). With a :class:`LoRA` in ``self.lora``
-    (``adapters/lora.py``) its delta is added, also on a quantized weight.
-    ``self.ara`` is a frozen accuracy-recovery adapter: a :class:`LoKr`
-    changes the kernel; a :class:`LoRA` adds its delta, rank-concatenated
-    with ``self.lora``'s when both are there (one product, scale 1)."""
+    ``x.astype(self.dtype)``). The overlays (module docstring) act in JAX's
+    order, on a quantized weight too. ``self.ara`` is a frozen
+    accuracy-recovery adapter: a :class:`LoKr` changes the kernel; a
+    :class:`LoRA` adds its delta, rank-concatenated with ``self.lora``'s when
+    both are there (one product, scale 1)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  device=None, dtype=None):
@@ -193,6 +254,10 @@ class Linear(QuantizedWeight):
                      if bias else None)
         self.lora: LoRA | None = None
         self.ara: LoRA | LoKr | None = None
+        self.lokr: LoKr | None = None
+        self.loha: LoHa | None = None
+        self.dora: DoRA | None = None
+        self.lorm: LoRM | None = None
         self._init_quant()
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -206,14 +271,34 @@ class Linear(QuantizedWeight):
         q, s = fn(self.weight.detach().t())
         self._set_quantized(q.t().contiguous(), s.t().contiguous())
 
+    def replace_by_lorm(self, lorm: LoRM) -> None:
+        """The factors take the kernel's place and the weight (or its
+        quantized values) is freed, as JAX deletes the kernel leaf."""
+        self._qdtype = self.compute_dtype
+        self.weight = None
+        self.qvalue = self.qscale = None
+        self.lorm = lorm
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.lorm is not None:
+            dt = self._qdtype
+            y = (x.to(dt) @ self.lorm.a.to(dt)) @ self.lorm.b.to(dt)
+            return y if self.bias is None else y + self.bias.to(dt)
         w = self.dequantized()
         ara = self.ara
+        lokr = self.lokr
         if isinstance(ara, LoKr):
-            w = w + ara.delta(w.dtype)
-            ara = None
+            lokr, ara = ara, None
+        if lokr is not None:
+            w = w + lokr.delta(w.dtype)
+        if self.loha is not None:
+            w = w + self.loha.delta(w.dtype)
+        if self.dora is not None:
+            w = self.dora.weight(w)
         x = x.to(w.dtype)
         y = F.linear(x, w, self.bias)
+        if self.dora is not None:
+            return y
         if ara is None:
             return y if self.lora is None else self.lora(x, y)
         if _Multiplier.value is not None:
@@ -225,6 +310,34 @@ class Linear(QuantizedWeight):
         a1, b1 = fold_scale(self.lora)
         dt = x.dtype
         return y + (x @ torch.cat([a0, a1], dim=-1).to(dt)) @ torch.cat([b0, b1], dim=0).to(dt)
+
+
+class ConvLoRA(nn.Module):
+    """Conv LoRA (LoCon; JAX ``Conv``'s ``lora`` collection): ``a`` ``[r, in,
+    kh, kw]``, a conv at the layer's stride and padding, then ``b`` ``[out, r,
+    1, 1]``, a 1x1 conv, times ``scale``; the factors in the torch (and kohya
+    file) layout, f32 parameters cast to the layer's dtype. The multiplier
+    acts as on :class:`LoRA`."""
+
+    def __init__(self, in_channels: int, rank: int, out_channels: int, kernel_size: int, scale: float, *,
+                 device=None):
+        super().__init__()
+        self.a = nn.Parameter(torch.zeros(rank, in_channels, kernel_size, kernel_size, device=device,
+                                          dtype=torch.float32))
+        self.b = nn.Parameter(torch.zeros(out_channels, rank, 1, 1, device=device, dtype=torch.float32))
+        self.scale = nn.Parameter(torch.tensor(float(scale), device=device, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+        """``x``, ``y``: NCHW views of the layer's input and its product."""
+        mult = _Multiplier.value
+        if mult is ADAPTER_OFF:
+            return y
+        dt = x.dtype
+        delta = F.conv2d(F.conv2d(x, self.a.to(dt), stride=stride, padding=padding), self.b.to(dt))
+        scale = (self.scale if mult is None else self.scale * mult).to(dt)
+        if scale.dim() > 0:  # per-sample [B]
+            scale = scale.reshape(scale.shape + (1,) * (delta.dim() - scale.dim()))
+        return y + delta * scale
 
 
 class Conv(nn.Module):
@@ -240,6 +353,7 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size,
                                                device=device, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(out_channels, device=device, dtype=dtype)) if bias else None
+        self.lora: ConvLoRA | None = None
 
     def init_weights(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight, self.weight[0].numel(), generator)
@@ -247,8 +361,14 @@ class Conv(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(self.weight.dtype).permute(0, 3, 1, 2), self.weight, self.bias,
-                     stride=self.stride, padding=self.padding)
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        if self.lora is None:
+            y = F.conv2d(x, self.weight, self.bias, stride=self.stride, padding=self.padding)
+        else:  # JAX: the product, its LoRA delta, then the bias
+            y = self.lora(x, F.conv2d(x, self.weight, stride=self.stride, padding=self.padding),
+                          self.stride, self.padding)
+            if self.bias is not None:
+                y = y + self.bias[:, None, None]
         return y.permute(0, 2, 3, 1)
 
 

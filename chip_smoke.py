@@ -164,6 +164,17 @@ Phases (any failure raises and the script exits non-zero):
      ddpm job with ``train_turbo`` and the learnable SNR on the LDM file (0
      launches; ``learnable_snr.json``), each with its knobs on a tiny model
      card vs CPU;
+  15f. the networks the JAX trainer builds besides LoRA (``network_phases``):
+     LoKr, LoHa, DoRA and LoRM on the Linears of a full-width flux-dev DiT
+     cut to 1 + 1 blocks and LoCon on a full-width SD 1.5 resnet +
+     transformer, in f32, card vs CPU (forward, loss, gradients); four
+     3-step flux-dev jobs at FLUX_FAMILY_CUT and 512^2 (``type: lokr`` with
+     ``lokr_factor: -1``, ``loha``, ``dora``, ``lorm`` at ratio 0.25 on the
+     double blocks' attention projections; 15 / 15 / 15 launches a step, the
+     network moved, the file's keys the JAX job's, the LoHa file read back)
+     and the SD 1.5 ``type: locon`` job on the LDM file with
+     ``only_if_contains`` reaching the resnets (every conv of the down, mid
+     and up blocks trained; 0 launches);
   16. the flash kernels at Wan 2.1's shapes (12 heads of 128, bf16): the
      forward, dq and dk/dv at the train clip's 8,100 tokens, self and across
      to the 512 text tokens (with a ragged tail tile whose lse is below -88),
@@ -3840,6 +3851,350 @@ def _check_adapter_job(card: str, result: dict, proc, kind: str, keys: set[str])
     return {"adapter_keys": sorted(got), "vision_cache": dict(rep)}
 
 
+# ---- the networks the JAX trainer builds besides LoRA: LoKr, LoHa, DoRA, LoRM and LoCon ----
+
+NETWORK_KINDS = ("lokr", "loha", "dora", "lorm")
+NETWORK_STEPS = 3  # each flux-dev network job's steps
+# LoRM keeps near-full rank on seeded weights (ratio 0.25), so its factors outweigh the base: on the
+# attention projections of the double blocks alone, its saves and training state stay a few GiB
+LORM_IGNORE = ["mod", "mlp", "linear"]
+NETWORK_JOBS = {"lokr": {"type": "lokr", "linear": 16, "linear_alpha": 16, "lokr_factor": -1},
+                "loha": {"type": "loha", "linear": 16, "linear_alpha": 16},
+                "dora": {"type": "dora", "linear": 16, "linear_alpha": 16},
+                "lorm": {"type": "lorm", "network_kwargs": {"extract_mode": "ratio", "extract_mode_param": 0.25,
+                                                            "ignore_if_contains": LORM_IGNORE}}}
+NETWORK_MODULES = {"lokr": 80, "loha": 80, "dora": 80, "lorm": 4 * FLUX_FAMILY_CUT[0]}
+LOCON_REACH = ["down_", "up_", "mid"]  # only_if_contains that reaches the UNet's resnets and samplers
+ZERO_FACTOR = {"lokr": "w2", "loha": "w2b", "dora": "b"}  # each LyCORIS network's factor that starts at 0
+# the 1 + 1 block's 13 Linears shared out between the four networks, so one CPU run checks them all
+BLOCK_TARGETS = {"lokr": [r"\.img_(attn|mlp)\."], "loha": [r"\.txt_(attn|mlp)\."], "dora": [r"mod\w*\.lin$"],
+                 "lorm": [r"^single_blocks\.\d+\.linear"]}
+
+
+def network_block_reference() -> dict:
+    """A full-width flux-dev DiT cut to 1 double + 1 single block, in f32,
+    batch 2, its 13 Linears shared out between the four networks built on
+    the card (``BLOCK_TARGETS``: LoKr on the image stream, LoHa on the text
+    stream, DoRA on the modulations, LoRM's SVD of the single block's
+    linear1 / linear2 in the scanned layout's rule), each zero-initialised
+    factor drawn non-zero so every gradient flows; the module copied to the
+    CPU: the forward and the loss and every network gradient of one step on
+    the card against the CPU, each within 1e-3 of the largest reference
+    value (as the earlier block phases)."""
+    import copy
+
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec
+    from ai_toolkit_tpu_torch.adapters.lorm import LoRMSpec, build_lorm
+    from ai_toolkit_tpu_torch.adapters.lycoris import BUILD_FNS
+    from ai_toolkit_tpu_torch.models.flux_dit import FluxConfig, FluxDiT
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+    from ai_toolkit_tpu_torch.ops.rope import image_position_ids, multi_axis_rope
+
+    phase("full-width flux-dev DiT, 1 double + 1 single block, f32, batch 2, LoKr / LoHa / DoRA / LoRM on its "
+          "Linears: card vs CPU")
+    cfg = dataclasses.replace(FluxConfig.dev(), depth_double=1, depth_single=1, dtype=torch.float32)
+    gpu = init_parameters(FluxDiT(cfg, device="cuda"), torch.Generator("cuda").manual_seed(0))
+    gpu.eval().requires_grad_(False)
+    gen = torch.Generator("cuda").manual_seed(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nets = {}
+    for kind in NETWORK_KINDS:
+        if kind == "lorm":
+            nets[kind] = build_lorm(gpu, LoRMSpec(target_patterns=BLOCK_TARGETS[kind]), scanned=True)[0]
+            continue
+        nets[kind] = BUILD_FNS[kind](gpu, LoRASpec(rank=16, alpha=16.0, target_patterns=BLOCK_TARGETS[kind]), gen)
+        with torch.no_grad():
+            for m in nets[kind].values():
+                getattr(m, ZERO_FACTOR[kind]).normal_(0.0, 0.01, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(sorted(len(v) for v in nets.values()) == [2, 3, 4, 4], f"the block's networks: {nets}")
+    cpu = copy.deepcopy(gpu).to("cpu")
+    g = torch.Generator().manual_seed(1)
+    n_txt, hh, ww, b = 16, 4, 8, 2
+    pe = multi_axis_rope(torch.from_numpy(image_position_ids(hh, ww, text_len=n_txt))[None], list(cfg.axes_dim),
+                         cfg.theta)
+    args = [torch.randn((b, hh * ww, cfg.in_channels), generator=g),
+            torch.randn((b, n_txt, cfg.context_dim), generator=g), torch.tensor([0.3, 0.8]),
+            torch.randn((b, cfg.vec_dim), generator=g), pe, torch.tensor([4.0, 4.0])]
+    target = torch.randn((b, hh * ww, cfg.out_channels or cfg.in_channels), generator=g)
+    names = [(kind, n, leaf) for kind, mods in nets.items() for n, m in mods.items()
+             for leaf, _ in m.named_parameters()]
+
+    def run(model, device):  # no recompute: the CPU's forward is most of the phase
+        model.gradient_checkpointing = False
+        linears = dict(model.named_modules())
+        params = [getattr(getattr(linears[n], kind), leaf) for kind, n, leaf in names]
+        out = model(*[x.to(device) for x in args])
+        loss = (out.float() - target.to(device)).square().mean()
+        return out.detach().cpu(), loss.item(), [x.cpu() for x in torch.autograd.grad(loss, params)]
+
+    ref, ref_loss, ref_grads = run(cpu, "cpu")
+    _reset_launches()
+    out, loss, grads = run(gpu, "cuda")
+    launches = _launches()
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    res = {"build_s": build_s, "err": err / scale}
+    for kind in NETWORK_KINDS:  # each network's gradients against its own largest one
+        pairs = [(gd, gr) for (k, _, _), gd, gr in zip(names, grads, ref_grads) if k == kind]
+        gmax = max(gr.abs().max().item() for _, gr in pairs)
+        gerr = max((gd - gr).abs().max().item() for gd, gr in pairs)
+        n_params = sum(p.numel() for m in nets[kind].values() for p in m.parameters())
+        print(f"{kind}: {len(nets[kind])} Linears, {n_params:,} params, {len(pairs)} gradients, max|ref|={gmax:.3e}, "
+              f"max_abs_err={gerr:.3e} (tol {1e-3 * gmax:.3e})")
+        check(gmax > 0 and gerr <= 1e-3 * gmax, f"the {kind} gradients disagree between card and CPU")
+        res[f"{kind}_grad_err"] = gerr / gmax
+    print(f"networks built on the card in {build_s:.2f} s (LoRM's SVD included); forward max|ref|={scale:.3f} "
+          f"max_abs_err={err:.3e} (tol {1e-3 * scale:.3e}); loss card {loss:.6f} vs CPU {ref_loss:.6f}; kernel "
+          f"launches={launches}")
+    check(bool(torch.isfinite(out).all()) and err <= 1e-3 * scale and abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
+          and launches == _counts(2, 2, 2), "the networks' block disagrees between card and CPU")
+    del gpu, cpu, nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def locon_block_reference() -> dict:
+    """A full-width SD 1.5 resnet (320 -> 640: both convs and the 1x1
+    shortcut) and spatial transformer (640 wide, 8 heads of 80, cross to 77
+    tokens of 768), in f32, batch 2 at 32x32, with a LoRA on every Linear
+    and a conv LoRA (LoCon, rank 16) on every Conv, its b drawn non-zero: the
+    forward and the loss and every LoRA gradient on the card against the CPU,
+    within 1e-3 of the largest reference value."""
+    import copy
+
+    from ai_toolkit_tpu_torch.adapters.lora import LoRASpec, build_lora, conv_count
+    from ai_toolkit_tpu_torch.models.unet import ResnetBlock, SpatialTransformer, UNetConfig
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    phase("full-width SD 1.5 resnet (320 -> 640) + transformer block (640), f32, LoRA and conv LoRA: card vs CPU")
+    cfg = dataclasses.replace(UNetConfig.sd15(), dtype=torch.float32)
+
+    class Pair(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.resnets = torch.nn.ModuleList([ResnetBlock(320, 640, cfg, device="cuda")])
+            self.attentions = torch.nn.ModuleList([SpatialTransformer(640, 1, cfg, device="cuda")])
+
+        def forward(self, x, temb, ctx):
+            return self.attentions[0](self.resnets[0](x, temb), ctx)
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    gpu = init_parameters(Pair(), gen).eval().requires_grad_(False)
+    lora = build_lora(gpu, LoRASpec(rank=16, alpha=16.0, conv_rank=16, conv_alpha=8.0), gen)
+    with torch.no_grad():
+        for m in lora.values():
+            m.b.normal_(0.0, 0.01, generator=gen)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    g = torch.Generator().manual_seed(1)
+    args = [torch.randn((2, 32, 32, 320), generator=g), torch.randn((2, cfg.time_embed_dim), generator=g),
+            torch.randn((2, 77, 768), generator=g)]
+    target = torch.randn((2, 32, 32, 640), generator=g)
+    names = [(n, leaf) for n in lora for leaf in ("a", "b", "scale")]
+
+    def run(model, device):
+        mods = dict(model.named_modules())
+        params = [getattr(mods[n].lora, leaf) for n, leaf in names]
+        out = model(*[x.to(device) for x in args])
+        loss = (out.float() - target.to(device)).square().mean()
+        return out.detach().cpu(), loss.item(), [x.cpu() for x in torch.autograd.grad(loss, params)]
+
+    ref, ref_loss, ref_grads = run(cpu, "cpu")
+    out, loss, grads = run(gpu, "cuda")
+    scale, err = ref.abs().max().item(), (out - ref).abs().max().item()
+    gmax = max(gr.abs().max().item() for gr in ref_grads)
+    gerr = max((gd - gr).abs().max().item() for gd, gr in zip(grads, ref_grads))
+    print(f"locon: {len(lora)} modules, {conv_count(lora)} of them convs; forward max|ref|={scale:.3f} "
+          f"max_abs_err={err:.3e} (tol {1e-3 * scale:.3e}); loss card {loss:.6f} vs CPU {ref_loss:.6f}; "
+          f"{len(grads)} gradients, max|ref|={gmax:.3e}, max_abs_err={gerr:.3e} (tol {1e-3 * gmax:.3e})")
+    check(conv_count(lora) == 3 and bool(torch.isfinite(out).all()) and err <= 1e-3 * scale
+          and gerr <= 1e-3 * gmax and abs(loss - ref_loss) <= 1e-4 * abs(ref_loss),
+          "the LoCon blocks disagree between card and CPU")
+    del gpu, cpu, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"err": err / scale, "grad_err": gerr / gmax}
+
+
+def _network_file_keys(kind: str, proc) -> set[str]:
+    """The keys the JAX job's file carries for the job's network (the names
+    held to JAX's ``_save`` on the CPU, tests/test_torch_lycoris.py and
+    test_torch_lorm.py): LoKr / LoHa ``lora_transformer_`` and the unrolled
+    JAX module path, DoRA ``lora_transformer_`` and the BFL name, LoRM PEFT
+    keys under the scanned layout's paths (flux-dev's)."""
+    from ai_toolkit_tpu_torch.io.from_jax import flux_jax_path
+
+    parts = {"lokr": ("lokr_w1", "lokr_w2", "alpha"), "dora": ("lora_down.weight", "lora_up.weight", "alpha",
+                                                               "dora_scale"),
+             "loha": ("hada_w1_a", "hada_w1_b", "hada_w2_a", "hada_w2_b", "alpha")}
+    if kind == "lorm":
+        return {f"transformer.{flux_jax_path(n, scanned=True)}.lora_{ab}.weight" for n in proc.net_modules
+                for ab in "AB"}
+    ext = (lambda n: n) if kind == "dora" else flux_jax_path
+    return {f"lora_transformer_{ext(n).replace('.', '_')}.{part}" for n in proc.net_modules for part in parts[kind]}
+
+
+def _network_job(card: str, kind: str) -> dict:
+    """A flux-dev ``sd_trainer`` job of ``kind``'s network (NETWORK_JOBS) at
+    FLUX_FAMILY_CUT, 512^2, batch 1, NETWORK_STEPS steps, adamw8bit, bf16,
+    EMA but for LoRM, through ``_run_job`` (15 / 15 / 15 flash launches every
+    step): the targeted Linears adapted (the 80 block Linears; LoRM's 20:
+    replaced, their weights freed), the network moved (every tensor of it
+    against its value when built; the LyCORIS zero factors no longer zero),
+    the save's keys those of the JAX job, the LoHa file's deltas read back."""
+    from safetensors import safe_open
+
+    from ai_toolkit_tpu_torch.jobs.train_process import SDTrainProcess
+
+    folder = _train_dataset(n=4, size=512, name="knob_data")
+    name = f"smoke_net_{kind}"
+    train = {"batch_size": 1, "steps": NETWORK_STEPS, "gradient_checkpointing": True,
+             "noise_scheduler": "flowmatch", "timestep_type": "flux_shift", "optimizer": "adamw8bit",
+             "lr": 1e-4, "max_grad_norm": 1.0, "dtype": "bf16", "seed": 42}
+    if kind != "lorm":
+        train["ema_config"] = {"use_ema": True, "ema_decay": 0.9}
+    raw = {"job": "extension", "config": {"name": name, "process": [{
+        "type": "sd_trainer", "training_folder": os.path.join(OUT_DIR, "train"), "trigger_word": "p3r5on",
+        "network": NETWORK_JOBS[kind],
+        "save": {"dtype": "float16", "save_every": 250, "max_step_saves_to_keep": 4},
+        "datasets": [{"folder_path": folder, "caption_ext": "txt", "cache_latents": True,
+                      "cache_latents_to_disk": False, "resolution": [512]}],
+        "train": train, "model": {**FLUX_MODEL, "quantize": False}, "logging": {"log_every": 1}}]}}
+    per_step = _counts(FAMILY_BLOCKS, FAMILY_BLOCKS, FAMILY_BLOCKS)
+    built = SDTrainProcess._build_network
+    at_build = {}
+
+    def spy(self, *args, **kwargs):  # each trainable tensor's value as built
+        trainable, lora = built(self, *args, **kwargs)
+        at_build.update({k: p.detach().clone() for k, p in trainable.items()})
+        return trainable, lora
+
+    SDTrainProcess._build_network = spy
+    try:
+        with flux_cut_depth():
+            result, proc, report = _run_job(raw, per_step, None)
+    finally:
+        SDTrainProcess._build_network = built
+    tr, ema = proc.state.trainable, proc.state.ema
+    n = NETWORK_MODULES[kind]
+    check(proc.network_kind == kind and proc.lora is None and len(proc.net_modules) == n == result["lora_modules"],
+          f"{kind}: {len(proc.net_modules)} modules, not {n}")
+    if kind == "lorm":
+        linears = dict(proc.variables["dit"].named_modules())
+        check(all(linears[m].weight is None and linears[m].lorm is o for m, o in proc.net_modules.items()),
+              "lorm: a replaced Linear kept its weight")
+    else:
+        zero = ZERO_FACTOR[kind]
+        check(all(bool(tr[f"{m}.{zero}"].abs().max() > 0) for m in proc.net_modules),
+              f"{kind}: a {zero} factor is still zero after {result['steps']} steps")
+        check(any(not torch.equal(ema[k], tr[k]) for k in tr), f"{kind}: the EMA equals the trained network")
+    moved = sum(not torch.equal(at_build[k], p.detach()) for k, p in tr.items() if not k.endswith(".scale"))
+    check(moved == sum(not k.endswith(".scale") for k in tr), f"{kind}: {moved} of the network's tensors moved")
+    with safe_open(result["save_path"], framework="pt") as f:
+        keys, meta = set(f.keys()), f.metadata()
+    want = _network_file_keys(kind, proc)
+    check(keys == want and meta.get("step") == str(result["steps"]),
+          f"{kind}: the file holds {len(keys)} keys ({sorted(keys - want)[:3]} not the JAX job's), meta {meta}")
+    rep = {"step_ms": result["step_ms"], "peak_gib": report["peak_gib"], "wall_s": report["wall_s"],
+           "per_step": per_step, "losses": result["losses"], "keys": len(keys), "modules": n}
+    if kind == "loha":  # the LyCORIS file read back into JAX's leaf layout: its deltas are the saved EMA's
+        from ai_toolkit_tpu_torch.io.from_jax import flux_jax_path
+        from ai_toolkit_tpu_torch.io.lora_file import load_loha_file
+
+        back = load_loha_file(result["save_path"])
+        worst = 0.0
+        for m in proc.net_modules:
+            got = {k: torch.as_tensor(v, device="cuda")
+                   for k, v in back[f"lora_transformer_{flux_jax_path(m).replace('.', '_')}"].items()}
+            leaf = {k: ema[f"{m}.{k}"].float() for k in ("w1a", "w1b", "w2a", "w2b", "scale")}
+            ref = (leaf["w1a"] @ leaf["w1b"]) * (leaf["w2a"] @ leaf["w2b"]) * leaf["scale"]
+            delta = (got["w1a"] @ got["w1b"]) * (got["w2a"] @ got["w2b"]) * got["scale"]
+            worst = max(worst, float((delta - ref).abs().max()) / max(float(ref.abs().max()), 1e-30))
+        print(f"loha: the file's {len(back)} deltas read back against the saved EMA's: worst {worst:.3e} of "
+              f"max|delta| (fp16 factors, tol 1e-2)")
+        check(len(back) == n and worst <= 1e-2, f"loha: the file's deltas differ from the trained ones by {worst}")
+        rep["readback_err"] = worst
+    ms = result["step_ms"]
+    print(f"{card}: {name}: {n} modules; step ms {', '.join(f'{x:.1f}' for x in ms)}; peak {report['peak_gib']:.2f} "
+          f"GiB; launches a step {per_step}; {len(keys)} keys in {result['save_path']}; job wall "
+          f"{report['wall_s']:.1f} s")
+    del proc
+    gc.collect()
+    return rep
+
+
+def _locon_job(card: str, sd15_path: str) -> dict:
+    """The SD 1.5 ``sd_trainer`` job on the LDM file with ``type: locon``
+    (rank 16, conv rank 16) and ``only_if_contains`` reaching the resnets:
+    every Conv of the down, mid and up blocks adapted and trained (their b
+    factors moved), 0 flash launches a step (SD 1.5's heads take the plain
+    attention), the kohya file's conv factors ``[r, in, kh, kw]`` / ``[out,
+    r, 1, 1]``."""
+    from safetensors import safe_open
+
+    from ai_toolkit_tpu_torch.adapters.lora import conv_count
+    from ai_toolkit_tpu_torch.ops.layers import Conv
+
+    folder = _train_dataset(n=4, size=512, name="knob_data")
+    name = "smoke_net_locon"
+    raw = {"job": "extension", "config": {"name": name, "process": [{
+        "type": "sd_trainer", "training_folder": os.path.join(OUT_DIR, "train"), "trigger_word": "p3r5on",
+        "network": {"type": "locon", "linear": 16, "linear_alpha": 16, "network_kwargs": {"only_if_contains":
+                                                                                          LOCON_REACH}},
+        "save": {"dtype": "float16", "save_every": 250, "max_step_saves_to_keep": 4},
+        "datasets": [{"folder_path": folder, "caption_ext": "txt", "cache_latents": True,
+                      "cache_latents_to_disk": False, "resolution": [512]}],
+        "train": {"batch_size": 1, "steps": NETWORK_STEPS, "noise_scheduler": "ddpm", "optimizer": "adamw8bit",
+                  "lr": 1e-4, "max_grad_norm": 1.0, "dtype": "bf16", "seed": 42},
+        "model": {"name_or_path": sd15_path, "arch": "sd1"}, "logging": {"log_every": 1}}]}}
+    result, proc, report = _run_job(raw, _counts(), None)
+    unet = proc.variables["unet"]
+    want = [n for n, m in unet.named_modules() if isinstance(m, Conv) and any(s in n for s in LOCON_REACH)]
+    n_conv = conv_count(proc.lora)
+    tr = proc.state.trainable
+    check(n_conv == len(want) > 0 and sorted(n for n in proc.lora if n in set(want)) == sorted(want),
+          f"locon: {n_conv} conv modules adapted, the down / mid / up blocks hold {len(want)}")
+    check(all(bool(tr[f"{n}.b"].abs().max() > 0) for n in proc.lora), "locon: a b factor is still zero")
+    with safe_open(result["save_path"], framework="pt") as f:
+        down = f.get_tensor("lora_unet_down_blocks_0_resnets_0_conv1.lora_down.weight")
+        up = f.get_tensor("lora_unet_down_blocks_0_resnets_0_conv1.lora_up.weight")
+        n_keys = len(list(f.keys()))
+    check(tuple(down.shape) == (16, 320, 3, 3) and tuple(up.shape) == (320, 16, 1, 1) and n_keys == 3 * len(proc.lora),
+          f"locon: the kohya conv factors are {tuple(down.shape)} / {tuple(up.shape)}, {n_keys} keys")
+    ms = result["step_ms"]
+    print(f"{card}: {name}: {len(proc.lora)} modules, {n_conv} convs; step ms {', '.join(f'{x:.1f}' for x in ms)}; "
+          f"peak {report['peak_gib']:.2f} GiB; 0 flash launches a step; job wall {report['wall_s']:.1f} s")
+    rep = {"step_ms": ms, "peak_gib": report["peak_gib"], "wall_s": report["wall_s"], "modules": len(proc.lora),
+           "convs": n_conv}
+    del proc
+    gc.collect()
+    return rep
+
+
+def network_phases(card: str, sd15_path: str) -> dict:
+    """The networks the JAX trainer builds besides LoRA: LoKr, LoHa, DoRA and
+    LoRM on a full-width flux-dev 1 + 1 block and LoCon on a full-width SD
+    1.5 resnet + transformer, card vs CPU; four flux-dev jobs
+    at FLUX_FAMILY_CUT (``_network_job``) and the SD 1.5 locon job on the
+    LDM file (``_locon_job``)."""
+    t_start = time.perf_counter()
+    out = {"blocks": network_block_reference(), "locon_block": locon_block_reference()}
+    cut = f"flux-dev cut to {FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks, 512^2, {NETWORK_STEPS} steps"
+    for kind in NETWORK_KINDS:
+        phase(f"network job '{kind}': {NETWORK_JOBS[kind]}; {cut}")
+        out[kind] = _network_job(card, kind)
+    phase(f"network job 'locon' on the SD 1.5 LDM file: only_if_contains {LOCON_REACH}, ddpm, 512^2, "
+          f"{NETWORK_STEPS} steps (0 flash launches)")
+    out["locon"] = _locon_job(card, sd15_path)
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"{card}: the network phases {out['wall_s']:.1f} s")
+    return out
+
+
 # ---- the audio archs: ACE-Step's 1-D WanDiT and LTX-2's joint audio-video DiT ----
 
 ACE_BLOCKS = 24  # the 1-D WanDiT: one self- and one cross-attention each
@@ -4196,6 +4551,8 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"dfe_ara_redux_vision_direct": refusal_files}))
     knobs = train_knobs_phases(card, sd15["checkpoint"])
     print(json.dumps({"train_knobs": knobs}))
+    networks = network_phases(card, sd15["checkpoint"])
+    print(json.dumps({"networks": networks}))
     print(json.dumps({"shipped_files": {
         "sd15_textual_inversion": sd15,
         "flux_lora_val_losses": train["val_losses"],

@@ -46,6 +46,8 @@ from ai_toolkit_tpu_torch.ops.rope import multi_axis_rope
 from ai_toolkit_tpu_torch.run import main as run_main
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
+from test_torch_lumina2 import filled
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -213,7 +215,7 @@ def test_1d_dit_lora_step_matches_jax(jax_dit):
 @pytest.fixture(scope="module")
 def ace_tiny():
     jm = JAudioModel(JModelConfig.from_dict(dict(TINY)))
-    jvars = jax.tree.map(np.asarray, jax.jit(jm.init_variables)(jax.random.key(0)))
+    jvars = filled(jax.eval_shape(jm.init_variables, jax.random.key(0)), 0)  # traced, not compiled
     model = AudioModel(ModelConfig.from_dict(dict(TINY)), device="cpu")
     variables = model.init_variables(torch.Generator().manual_seed(0))
     model.load_state_dicts(variables, from_jax.ace_model_state(jvars))

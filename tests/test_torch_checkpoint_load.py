@@ -41,6 +41,7 @@ from ai_toolkit_tpu_torch.io import from_jax
 from ai_toolkit_tpu_torch.io.hidream_layout import KEEP, hidream_reference_state
 from ai_toolkit_tpu_torch.models.registry import get_model_class
 from test_torch_flux_family import OPT0, fast_jit
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 SEED = 7

@@ -6,6 +6,7 @@ their JAX compiles run on other workers."""
 import pytest
 
 from test_torch_checkpoint_load import check_jax_loader_fault
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 
 @pytest.mark.parametrize("fault", ["hidream_transformer_only", "flux_diffusers_transformer", "clip_text_projection"])

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from test_torch_checkpoint_load import check_checkpoint_loads
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 

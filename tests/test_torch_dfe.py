@@ -45,6 +45,7 @@ from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
 from ai_toolkit_tpu_torch.train.state import TrainState
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, make_train_step
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 

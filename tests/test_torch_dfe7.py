@@ -16,6 +16,7 @@ from ai_toolkit_tpu.models import tipsv2 as jtips
 from ai_toolkit_tpu.samplers.flowmatch import FlowMatchSchedule as JSchedule
 from ai_toolkit_tpu_torch.models import dfe as tdfe
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 
 @pytest.mark.parametrize("version", ["v7", "v8"])

@@ -30,6 +30,7 @@ from ai_toolkit_tpu.models.sd_model import SDModel as JSDModel
 from ai_toolkit_tpu_torch.adapters.extract import extract_lora_from_diff, svd_extract
 from ai_toolkit_tpu_torch.config import get_config
 from ai_toolkit_tpu_torch.jobs import get_job, run_job
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -13,6 +13,7 @@ from ai_toolkit_tpu.ops.attention import _reference_attention
 from ai_toolkit_tpu.ops.pallas import flash_attention as jfa
 from ai_toolkit_tpu_torch.ops import attention as tattn
 from ai_toolkit_tpu_torch.ops.kernels import flash_attention as tfa
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -24,6 +24,7 @@ from ai_toolkit_tpu_torch.models.text_encoders import clip as tclip
 from ai_toolkit_tpu_torch.models.text_encoders import t5 as tt5
 from ai_toolkit_tpu_torch.ops.layers import init_parameters
 from ai_toolkit_tpu_torch.ops.rope import multi_axis_rope as t_multi_axis_rope
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ATOL = 1e-4  # f32 forwards through several layers: summation order only

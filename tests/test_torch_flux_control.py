@@ -36,6 +36,7 @@ from ai_toolkit_tpu_torch.data.dataset import FolderDataset, load_control, load_
 from ai_toolkit_tpu_torch.data.loader import DataLoader
 from ai_toolkit_tpu_torch.jobs import get_job, run_job
 from ai_toolkit_tpu_torch.models.flux_model import FLEX2_KNOBS, FluxModel
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -38,6 +38,7 @@ from ai_toolkit_tpu_torch.ops.rope import multi_axis_rope
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
 from ai_toolkit_tpu_torch.train.state import TrainState
+from test_torch_lumina2 import filled
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
 
 torch.set_num_threads(1)
@@ -63,8 +64,9 @@ def _jax_hidream(dispatch):
 
 @pytest.fixture(scope="module")
 def hidream_tree():
-    """The tiny hidream DiT params from the JAX package's own (jitted) init."""
-    return jax.tree.map(np.asarray, jax.jit(_jax_hidream("dense").init_variables)(jax.random.key(0))["dit"])
+    """The tiny hidream DiT params: seeded values at the JAX init's shapes
+    (traced, not compiled: ``test_torch_lumina2.filled``)."""
+    return filled(jax.eval_shape(_jax_hidream("dense").init_variables, jax.random.key(0))["dit"], 0)
 
 
 def _port_hidream(tree, dispatch):

@@ -22,6 +22,7 @@ from ai_toolkit_tpu_torch.generation import generate_flux
 from ai_toolkit_tpu_torch.io.from_jax import flux_model_state
 from ai_toolkit_tpu_torch.jobs import run_job
 from ai_toolkit_tpu_torch.models.flux_model import FluxModel
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

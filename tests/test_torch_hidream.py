@@ -38,6 +38,8 @@ from ai_toolkit_tpu_torch.models.text_encoders import clip as tclip
 from ai_toolkit_tpu_torch.models.text_encoders import llm as tllm
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
+from test_torch_lumina2 import filled
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 TINY = {"name_or_path": "", "arch": "hidream", "model_kwargs": {"size": "tiny"}}
@@ -59,8 +61,8 @@ def _jax_model(dispatch="dense"):
 
 @pytest.fixture(scope="module")
 def jax_vars():
-    # jitted: one compile instead of one per initializer
-    return jax.tree.map(np.asarray, jax.jit(_jax_model().init_variables)(jax.random.key(0)))
+    # seeded values at the JAX init's shapes (traced, not compiled: test_torch_lumina2.filled)
+    return filled(jax.eval_shape(_jax_model().init_variables, jax.random.key(0)), 0)
 
 
 def _port(jax_vars, dispatch="dense"):

@@ -15,10 +15,12 @@ import pytest
 from PIL import Image
 
 from ai_toolkit_tpu.jobs import run_job as jrun_job
+from ai_toolkit_tpu.jobs import train_process as jtp
 from ai_toolkit_tpu.models.registry import get_model_class as jget_model_class
 from ai_toolkit_tpu_torch.jobs import run_job
 from test_torch_flux_family import OPT0
 from test_torch_job_features import TINY_FLUX, _images, _proc
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 
 def _sample_names(root: str) -> list[str]:
@@ -53,13 +55,19 @@ def _shaped_init(real_init):
 def check_sampling_matches_jax(tmp_path, monkeypatch, model: dict) -> None:
     """The port's job and the JAX job write the same sample files; the
     port's are images of the sample size and not constant. The JAX model's
-    weights are seeded numpy draws at its init's shapes, and the JAX job's
-    jits compile at XLA's optimization level 0 (``OPT0``): the weights' and
-    the samples' values do not enter what is compared."""
+    weights are seeded numpy draws at its init's shapes, the JAX job's jits
+    compile at XLA's optimization level 0 (``OPT0``), and its train step and
+    its ``generate`` are stand-ins (the state as it is; a black image of the
+    sample size): the weights' and the samples' values do not enter what is
+    compared, the job's cadence of saves and samples does."""
     real_jit = jax.jit
     monkeypatch.setattr(jax, "jit", lambda *a, **k: real_jit(*a, **{"compiler_options": OPT0, **k}))
     jcls = jget_model_class(model["arch"])
     monkeypatch.setattr(jcls, "init_variables", _shaped_init(jcls.init_variables))
+    monkeypatch.setattr(jtp, "make_jitted_train_step", lambda *a, **k: (
+        lambda state, batch, rng, image_seq_len=None: (state, {"loss": np.float32(0.0)})))
+    monkeypatch.setattr(jtp, "generate", lambda model, variables, gen, **k: np.zeros((gen.height, gen.width, 3),
+                                                                                     np.uint8))
     _images(str(tmp_path / "imgs"), ((32, 32), (32, 32)))
     (result,) = run_job(_job(tmp_path, "port", model), device="cpu")
     jrun_job(_job(tmp_path, "jax", model))

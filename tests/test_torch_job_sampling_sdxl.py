@@ -5,6 +5,7 @@ import pytest
 
 from test_torch_job_features import TINY_SDXL
 from test_torch_job_sampling import check_sampling_matches_jax
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 
 @pytest.mark.parametrize("model", [TINY_SDXL], ids=["sdxl"])

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 from safetensors.numpy import load_file, save_file
-from test_torch_flux_family import OPT0, fast_jit
+from test_torch_flux_family import fast_jit
 
 from ai_toolkit_tpu.config.modules import ModelConfig as JModelConfig
 from ai_toolkit_tpu.io.ldm_single_file import export_ldm_checkpoint, load_ldm_checkpoint
@@ -24,6 +24,8 @@ from ai_toolkit_tpu_torch.config.modules import ModelConfig
 from ai_toolkit_tpu_torch.io import from_jax
 from ai_toolkit_tpu_torch.io.ldm_single_file import split_ldm_checkpoint
 from ai_toolkit_tpu_torch.models.registry import get_model_class
+from test_torch_sd15 import port_init_as_jax
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -41,13 +43,12 @@ def exported(request, tmp_path_factory):
     """(arch, the JAX-written file, the JAX package's load of it)."""
     arch = request.param
     jmodel = _jax_model(arch)
-    # one compile at XLA's optimization level 0, used by the JAX loader too
-    init = jax.jit(jmodel.init_variables, compiler_options=OPT0)
-    variables = jax.tree.map(np.asarray, init(jax.random.key(3)))
+    # the port's seeded init as the JAX tree (no JAX init to compile), also the JAX loader's template
+    variables = port_init_as_jax(arch, seed=3)
     path = str(tmp_path_factory.mktemp(arch) / f"{arch}.safetensors")
     export_ldm_checkpoint(jmodel, variables, path, dtype=np.float32)
     loader = _jax_model(arch, path)
-    loader.init_variables = init
+    loader.init_variables = lambda key: variables
     loaded = jax.tree.map(np.asarray, load_ldm_checkpoint(path, loader))
     return arch, path, loaded
 

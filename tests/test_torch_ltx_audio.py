@@ -17,6 +17,7 @@ from ai_toolkit_tpu.models import ltx_vocoder as jvoc
 from ai_toolkit_tpu_torch.io import from_jax
 from ai_toolkit_tpu_torch.models import ltx_audio_vae as tmel
 from ai_toolkit_tpu_torch.models import ltx_vocoder as tvoc
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 # a narrow mel VAE with LTX-2's structure: three levels, two downsamples, two res blocks a level

@@ -47,6 +47,7 @@ from ai_toolkit_tpu_torch.models import lumina2_dit as tdit
 from ai_toolkit_tpu_torch.models.lumina2_model import Lumina2Model
 from ai_toolkit_tpu_torch.models.text_encoders import llm as tllm
 from ai_toolkit_tpu_torch.run import main as run_main
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -16,6 +16,7 @@ from ai_toolkit_tpu.ops.pallas import moe_gmm as jmoe
 from ai_toolkit_tpu_torch.io import from_jax
 from ai_toolkit_tpu_torch.models import flux_dit as tdit
 from ai_toolkit_tpu_torch.ops.kernels import moe_gmm as tmoe
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 # f32 on both sides: summation order only

@@ -14,6 +14,7 @@ from ai_toolkit_tpu_torch.ops import embeddings as temb
 from ai_toolkit_tpu_torch.ops import layers as tl
 from ai_toolkit_tpu_torch.ops import rope as trope
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 F32 = dict(dtype=jnp.float32)

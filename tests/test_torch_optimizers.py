@@ -23,6 +23,7 @@ from ai_toolkit_tpu.train.optimizers import get_optimizer as jget_optimizer
 from ai_toolkit_tpu_torch.train.optimizers import Automagic, get_optimizer
 
 from test_torch_flux_family import OPT0
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 SHAPES = {"a": (130, 129), "b": (8, 12), "bias": (8,), "scale": ()}
 NAMES = sorted(SHAPES)

@@ -48,6 +48,8 @@ from ai_toolkit_tpu_torch.models.qwen_model import QwenImageModel
 from ai_toolkit_tpu_torch.models.text_encoders import llm as tllm
 from ai_toolkit_tpu_torch.models.wan_vae import WanVAE, WanVAEConfig
 from ai_toolkit_tpu_torch.ops.layers import init_parameters
+from test_torch_lumina2 import filled
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,7 +71,7 @@ def jvars():
     """The JAX variables of the tiny model (the same for both archs), 1-D
     leaves of the DiT and the text tower moved off their init."""
     jm, _ = _models("qwen_image")
-    v = jax.tree.map(np.asarray, jax.jit(jm.init_variables)(jax.random.key(1)))
+    v = filled(jax.eval_shape(jm.init_variables, jax.random.key(1)), 1)  # traced, not compiled
     v["dit"], v["te"] = _perturbed(v["dit"], 1), _perturbed(v["te"], 2)
     return v
 

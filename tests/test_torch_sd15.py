@@ -19,6 +19,8 @@ import torch
 from ai_toolkit_tpu.config.modules import GenerateImageConfig as JGenerateImageConfig
 from ai_toolkit_tpu.config.modules import ModelConfig as JModelConfig
 from ai_toolkit_tpu.generation import generate_sd as jax_generate_sd
+from ai_toolkit_tpu.io.sd_import import clip_rules, unet_rules, vae_rules
+from ai_toolkit_tpu.io.torch_import import torch_to_tree
 from ai_toolkit_tpu.models import unet as junet
 from ai_toolkit_tpu.models.sd_model import SDModel as JSDModel
 from ai_toolkit_tpu.samplers.factory import get_schedule as jget_schedule
@@ -32,6 +34,7 @@ from ai_toolkit_tpu_torch.models.sd_model import SDModel
 from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.samplers.factory import get_schedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ARCHS = ("sd1", "sd15", "sd2")
@@ -41,11 +44,30 @@ def _cfg(arch, size="tiny"):
     return {"name_or_path": "", "arch": arch, "model_kwargs": {"size": size}}
 
 
+def port_init_as_jax(arch="sd1", seed=0):
+    """The JAX tree (``unet``, ``vae``, ``clip``, SDXL's ``clip2``) of the
+    port's seeded tiny init, through the JAX package's importer rules (as the
+    flux-family tests build theirs): the same weights in both packages, with
+    no JAX init to compile."""
+    model = get_model_class(arch)(ModelConfig.from_dict(_cfg(arch)), device="cpu")
+    variables = model.init_variables(torch.Generator().manual_seed(seed))
+    ucfg, vcfg = model.unet_config, model.vae_config
+    out = {}
+    for key, rules in (("unet", unet_rules(len(ucfg.block_out_channels))),
+                       ("vae", vae_rules(len(vcfg.channel_multipliers), vcfg.layers_per_block)),
+                       ("clip", clip_rules()), ("clip2", clip_rules())):
+        if key not in variables:
+            continue
+        out[key], unmatched = torch_to_tree({k: v.detach().numpy() for k, v in variables[key].state_dict().items()},
+                                            rules)
+        assert not unmatched, unmatched[:3]
+    return out
+
+
 @pytest.fixture(scope="module")
 def jax_vars():
     # one seeded init serves the three archs: at the tiny size they share their widths
-    model = JSDModel(JModelConfig.from_dict(_cfg("sd1")))
-    return jax.tree.map(np.asarray, jax.jit(model.init_variables)(jax.random.key(0)))
+    return port_init_as_jax("sd1")
 
 
 def _port(arch, jax_vars):

@@ -51,6 +51,7 @@ from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
 from ai_toolkit_tpu_torch.train.state import TrainState
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, make_train_step
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,7 +89,9 @@ def _models(arch="sd35", path="", **dit_over):
 
 
 def _jax_variables(jm, seed=1):
-    v = jax.tree.map(np.asarray, jax.jit(jm.init_variables)(jax.random.key(seed)))
+    from test_torch_lumina2 import filled  # (that file imports this one)
+
+    v = filled(jax.eval_shape(jm.init_variables, jax.random.key(seed)), seed)  # traced, not compiled
     v["dit"] = _perturbed(v["dit"], seed)
     return v
 

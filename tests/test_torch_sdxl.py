@@ -20,7 +20,7 @@ from ai_toolkit_tpu.config.modules import GenerateImageConfig as JGenerateImageC
 from ai_toolkit_tpu.config.modules import ModelConfig as JModelConfig
 from ai_toolkit_tpu.generation import generate_sd as jax_generate_sd
 from ai_toolkit_tpu.io import lora_file as jlora_file
-from ai_toolkit_tpu.io.sd_import import unet_rules
+from ai_toolkit_tpu.io.sd_import import clip_rules, unet_rules, vae_rules
 from ai_toolkit_tpu.io.torch_import import torch_to_tree
 from ai_toolkit_tpu.models import unet as junet
 from ai_toolkit_tpu.models import vae as jvae
@@ -42,6 +42,7 @@ from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.samplers.ddpm import DDPMSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
 from test_torch_flux_family import OPT0
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 TINY = {"name_or_path": "", "arch": "sdxl", "model_kwargs": {"size": "tiny"}}
@@ -60,8 +61,20 @@ def _jax_model():
 
 @pytest.fixture(scope="module")
 def jax_vars():
-    # jitted: one compile instead of one per initializer
-    return jax.tree.map(np.asarray, jax.jit(_jax_model().init_variables, compiler_options=OPT0)(jax.random.key(0)))
+    """The port's seeded init as the JAX tree, through the JAX importer rules
+    (the same weights in both packages; no JAX init to compile)."""
+    model = SDXLModel(ModelConfig.from_dict(dict(TINY)), device="cpu")
+    model.unet_config = dataclasses.replace(model.unet_config, **UNET64)
+    variables = model.init_variables(torch.Generator().manual_seed(0))
+    vcfg = model.vae_config
+    out = {}
+    for key, rules in (("unet", unet_rules(len(UNET64["block_out_channels"]))),
+                       ("vae", vae_rules(len(vcfg.channel_multipliers), vcfg.layers_per_block)),
+                       ("clip", clip_rules()), ("clip2", clip_rules())):
+        out[key], unmatched = torch_to_tree({k: v.detach().numpy() for k, v in variables[key].state_dict().items()},
+                                            rules)
+        assert not unmatched, unmatched[:3]
+    return out
 
 
 def _port(jax_vars):
@@ -497,6 +510,7 @@ def test_unported_sdxl_branches_raise(tmp_path):
     unet = tunet.UNet2DCondition(tunet.UNetConfig.tiny())
     with pytest.raises(NotImplementedError):
         unet(torch.zeros((1, 8, 8, 4)), torch.tensor([5]), torch.zeros((1, 3, 64)), ip_context=torch.zeros((1, 4, 64)))
-    with pytest.raises(NotImplementedError):
-        tlora.build_lora(tunet.UNet2DCondition(tunet.UNetConfig.tiny()), tlora.LoRASpec(conv_rank=4),
-                         torch.Generator())
+    # conv LoRA is ported; a text encoder's kohya keys are not
+    with pytest.raises(NotImplementedError, match="layouts are ported"):
+        tlora_file.unflatten_lora({"lora_te1_text_model_encoder_layers_0_mlp_fc1.lora_down.weight": np.zeros((4, 8)),
+                        "lora_te1_text_model_encoder_layers_0_mlp_fc1.lora_up.weight": np.zeros((8, 4))})

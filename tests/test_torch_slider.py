@@ -51,6 +51,7 @@ from ai_toolkit_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from ai_toolkit_tpu_torch.ops.layers import ADAPTER_OFF, Linear, LoRA, init_parameters, lora_multiplier
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train import slider as tslider
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 W = 0.8  # network_weight: not 1, so a dropped multiplier shows

@@ -11,6 +11,7 @@ import torch
 from test_torch_slider import _flux_side, check_objective
 
 from ai_toolkit_tpu_torch.train.slider import GUIDED_KINDS
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 

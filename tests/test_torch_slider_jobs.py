@@ -31,6 +31,7 @@ from ai_toolkit_tpu_torch.config import get_config
 from ai_toolkit_tpu_torch.io import from_jax
 from ai_toolkit_tpu_torch.jobs import get_job, run_job
 from ai_toolkit_tpu_torch.train import slider as tslider
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -33,6 +33,7 @@ from ai_toolkit_tpu_torch.io import from_jax
 from ai_toolkit_tpu_torch.models.sd_model import SDModel
 from ai_toolkit_tpu_torch.models.unet import UNet2DCondition
 from ai_toolkit_tpu_torch.samplers.factory import get_schedule
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 CUT = dict(block_out_channels=(32,), transformer_layers=(1,))

@@ -7,6 +7,7 @@ integer timesteps and the noise injected, on the cut tiny sd1 UNet of
 import pytest
 import torch
 from test_torch_slider_sd1 import check_sd1, sd1_side  # noqa: F401 (the fixture)
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 

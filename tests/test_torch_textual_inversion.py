@@ -28,6 +28,8 @@ from ai_toolkit_tpu_torch.jobs import get_job, run_job
 from ai_toolkit_tpu_torch.models.sd_model import SDModel, SDXLModel
 from ai_toolkit_tpu_torch.models.text_encoders import clip as tclip
 from ai_toolkit_tpu_torch.utils.tokenizer import HashTokenizer
+from test_torch_sd15 import port_init_as_jax
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 TINY = {"name_or_path": "", "arch": "sd1", "model_kwargs": {"size": "tiny"}}
@@ -55,8 +57,7 @@ def test_trigger_tokenizer_ids_match_jax():
 
 @pytest.fixture(scope="module")
 def jax_vars():
-    model = JSDModel(JModelConfig.from_dict(dict(TINY)))
-    return jax.tree.map(np.asarray, jax.jit(model.init_variables)(jax.random.key(0)))
+    return port_init_as_jax(TINY["arch"])  # the port's seeded init as the JAX tree
 
 
 def test_init_words_bank_matches_jax(jax_vars, tmp_path):

@@ -89,7 +89,7 @@ def test_sd_trainer_job_trains_saves_and_generate_loads_the_lora(tmp_path):
      "diffusion_feature_extractor_path"),
     ({"train": {"lr_scheduler": "one_cycle"}}, "lr_scheduler"),
     ({"train": {"match_adapter_chance": 0.5}}, "train-step knobs"),  # the other knobs are ported
-    ({"network": {"type": "lokr"}}, "only LoRA"),
+    ({"network": {"type": "ia3"}}, "only LoRA"),  # lokr / loha / dora / lorm / locon are ported
     ({"mesh": {"axes": {"fsdp": 4}}}, "multi-GPU"),
     ({"model": {"quantize": True, "qtype": "uint4"}}, "4-bit"),
 ])

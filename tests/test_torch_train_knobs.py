@@ -31,6 +31,7 @@ from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import Draws, LearnableSNR, TrainStepConfig, microbatch_loss
 
 from test_torch_flux_family import OPT0
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 B, H, W, C, T_TXT, D_TXT = 2, 8, 8, 4, 3, 6
 

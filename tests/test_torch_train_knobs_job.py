@@ -37,6 +37,7 @@ from test_torch_flux_family import OPT0
 from test_torch_train import TINY_1_1, _jax_params
 from test_torch_train_job import _dataset, _job, _train_proc
 from test_torch_train_knobs import Recording, _inject
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -447,3 +448,38 @@ def test_port_seeds_the_prompt_dropout(tmp_path):
         job.run()
         states.append(job.processes[0]._dropout_rng.bit_generator.state)
     assert states[0] == states[1]
+
+
+def _net_reads(files: dict[str, tuple[str, ...]]) -> set[str]:
+    """The NetworkConfig fields some modules read: ``<name>.<f>`` for the
+    names each file binds the network to, and ``<x>.network.<f>``."""
+    from ai_toolkit_tpu.config.modules import NetworkConfig as JNetworkConfig
+
+    fields = {f.name for f in dataclasses.fields(JNetworkConfig)} | {"rank", "alpha"}
+    out = set()
+    for path, names in files.items():
+        for node in ast.walk(ast.parse(open(os.path.join(ROOT, path)).read())):
+            if isinstance(node, ast.Attribute) and node.attr in fields and (
+                    isinstance(node.value, ast.Name) and node.value.id in names
+                    or isinstance(node.value, ast.Attribute) and node.value.attr == "network"):
+                out.add(node.attr)
+    return out
+
+
+def test_every_network_field_jax_reads_is_read_or_refused():
+    """The guard over the network section: every field JAX
+    ``jobs/train_process.py`` (``net.<f>``, ``cfg.network.<f>``) and
+    ``adapters/lora.LoRASpec.from_network_config`` read is read by the port's
+    job, LoRA or LoRM spec; the fields no JAX module reads are mirrored with
+    a printed line (``config/modules.JAX_UNREAD_NETWORK``)."""
+    from ai_toolkit_tpu_torch.config.modules import JAX_UNREAD_NETWORK
+
+    jax_reads = _net_reads({"ai_toolkit_tpu/jobs/train_process.py": ("net",),
+                            "ai_toolkit_tpu/adapters/lora.py": ("cfg",)})
+    port = _net_reads({"ai_toolkit_tpu_torch/jobs/train_process.py": ("net", "ncfg"),
+                       "ai_toolkit_tpu_torch/adapters/lora.py": ("cfg",),
+                       "ai_toolkit_tpu_torch/adapters/lorm.py": ("net",)})
+    assert {"type", "rank", "conv", "lokr_factor", "network_kwargs", "only_if_contains"} <= jax_reads
+    missing = sorted(jax_reads - port)
+    assert not missing, f"read by JAX, not read by the port: {missing}"
+    assert not set(JAX_UNREAD_NETWORK) & jax_reads

@@ -46,6 +46,8 @@ from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
 from test_torch_flux_family import OPT0
+from test_torch_lumina2 import filled
+from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 TINY = {"name_or_path": "", "arch": "wan21", "model_kwargs": {"size": "tiny"}}
@@ -58,7 +60,7 @@ VAE_NARROW = dict(base_dim=8)
 @pytest.fixture(scope="module")
 def jax_tiny():
     model = JWanModel(JModelConfig.from_dict(dict(TINY)))
-    return model, jax.tree.map(np.asarray, jax.jit(model.init_variables, compiler_options=OPT0)(jax.random.key(0)))
+    return model, filled(jax.eval_shape(model.init_variables, jax.random.key(0)), 0)  # traced, not compiled
 
 
 def _port_tiny(jax_vars):
