@@ -283,6 +283,12 @@ def load_control(item: FileItem) -> np.ndarray | None:
     return _rgb(item, item.control_paths[0]) if item.control_paths else None
 
 
+def load_controls(item: FileItem) -> list[np.ndarray]:
+    """Every control image of the item, one per control folder that has it
+    (JAX ``FileItem.load_controls``)."""
+    return [_rgb(item, p) for p in item.control_paths]
+
+
 def load_unconditional(item: FileItem) -> np.ndarray | None:
     """The item's paired negative image at its bucket, f32 ``[H, W, 3]`` in
     [-1, 1], with the item's flips (JAX ``FileItem.load_unconditional``), or

@@ -12,7 +12,9 @@ H, W, 3]`` (the clip decoded again, as the JAX loader does), and with
 zeros for a clip without one (JAX ``loader.py:116-126``). An audio batch's
 latents are ``[B, T, C]``. When an item of
 the batch has a control image, the batch carries ``control_pixels`` ``[B, H,
-W, 3]`` (zeros for an item without one), and with an inpaint image
+W, 3]`` (zeros for an item without one) and, when an item has images in
+several control folders, ``control_pixels_multi`` ``[B, N, H, W, 3]`` (the
+blank for a slot an item lacks; JAX ``loader.py:138-150``), and with an inpaint image
 ``inpaint_keep`` ``[B, H, W, 1]`` (ones for an item without one), loaded
 from their files with every batch, under either latent cache too (JAX
 ``loader.py:132-145``); when every item of the batch has its paired
@@ -39,8 +41,9 @@ import numpy as np
 
 from ai_toolkit_tpu_torch.config.modules import DatasetConfig
 from ai_toolkit_tpu_torch.data.caching import latent_key, load_cached_latent
-from ai_toolkit_tpu_torch.data.dataset import (FileItem, FolderDataset, load_control, load_inpaint_keep, load_mask,
-                                               load_pixels, load_sidecar_audio, load_unconditional, load_video)
+from ai_toolkit_tpu_torch.data.dataset import (FileItem, FolderDataset, load_control, load_controls, load_inpaint_keep,
+                                               load_mask, load_pixels, load_sidecar_audio, load_unconditional,
+                                               load_video)
 
 
 class DataLoader:
@@ -94,6 +97,10 @@ class DataLoader:
         if any(c is not None for c in controls):
             blank = np.zeros((bh, bw, 3), np.float32)
             out["control_pixels"] = np.stack([blank if c is None else c for c in controls])
+            n_ctrl = max(len(it.control_paths) for it in batch)
+            if n_ctrl > 1:  # several control folders: [B, N, H, W, 3], each item's missing slots blank
+                out["control_pixels_multi"] = np.stack([np.stack(
+                    load_controls(it) + [blank] * (n_ctrl - len(it.control_paths))) for it in batch])
         keeps = [load_inpaint_keep(it) for it in batch]
         if any(k is not None for k in keeps):
             keep_all = np.ones((bh, bw, 1), np.float32)  # no file: keep everything

@@ -16,7 +16,8 @@ audio tokens beside the video's and decodes them through the vocoder, and
 A LoRA (``{module name: {a, b, scale}}``, ``io/lora_file.load_lora_file``)
 is overlaid on the model's DiT or UNet for the call (one network on both
 experts of a multistage pair), as the JAX package passes its ``lora``
-collection. A control arch (flex2, flux_kontext, qwen_image_edit) samples
+collection. A control arch (flex2, flux_kontext, qwen_image_edit, a base
+flux whose ``img_in`` a control-LoRA adapter widened) samples
 with the control latents of the model's ``sampling_control_latents`` (the
 encoded ``ctrl_img``, or the blank layout without one: zeros for
 qwen_image_edit, whose rope table always holds the control tokens, JAX's
@@ -81,7 +82,8 @@ def generate_flux(
         raise NotImplementedError("ctrl_img_2 / ctrl_img_3 (multi-reference edit archs) come with a later slice")
     if getattr(gen, "ctrl_img", None) and not model.takes_control:
         raise NotImplementedError(f"ctrl_img on arch '{model.config.arch}', which takes no control latents "
-                                  f"(ported: flex2, flux_kontext, model_kwargs.control, qwen_image_edit)")
+                                  f"(ported: flex2, flux_kontext, model_kwargs.control, qwen_image_edit, and "
+                                  f"flux / flux_schnell under a control_lora adapter)")
     if gen.sampler not in (None, "flowmatch"):
         raise NotImplementedError(f"sampler '{gen.sampler}' is not ported (flowmatch only)")
     schedule = schedule or FlowMatchSchedule()

@@ -93,11 +93,12 @@ class CheckpointManager:
         final = self.final_path()
         return final if os.path.isfile(final) else None
 
-    def save(self, lora: dict, step: int, final: bool = False) -> str:
+    def save(self, lora: dict, step: int, final: bool = False, extra_flat: dict | None = None) -> str:
         meta = {**SOFTWARE_META, "ss_training_comment": self.name, "step": str(int(step)),
                 "timestamp": str(int(time.time()))}
         path = self.final_path() if final else self.path_for_step(step)
-        save_lora_file(lora, path, metadata=meta, dtype=self.dtype, fmt=self.fmt, key_map=self.key_map)
+        save_lora_file(lora, path, metadata=meta, dtype=self.dtype, fmt=self.fmt, key_map=self.key_map,
+                       extra_flat=extra_flat)
         if not final:
             self.clean_up_saves()
         return path

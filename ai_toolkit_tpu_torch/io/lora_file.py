@@ -122,11 +122,15 @@ def unflatten_lora(flat: dict[str, np.ndarray], module_names: Iterable[str] | No
 
 def save_lora_file(lora: dict[str, dict[str, torch.Tensor]], path: str, metadata: dict | None = None,
                    dtype=np.float16, fmt: str = "peft", key_map: Callable[[str], str] | None = None,
-                   prefix: str = KOHYA_PREFIX) -> None:
+                   prefix: str = KOHYA_PREFIX, extra_flat: dict[str, np.ndarray] | None = None) -> None:
+    """``extra_flat``: entries written beside the LoRA's as they are (an
+    adapter's expansion or grafted tensors, JAX ``save_lora_file``)."""
     from safetensors.numpy import save_file
 
     meta = {str(k): str(v) for k, v in (metadata or {}).items()}
-    save_file(flatten_lora(lora, dtype, fmt, key_map, prefix), path, metadata=meta)
+    flat = flatten_lora(lora, dtype, fmt, key_map, prefix)
+    flat.update(extra_flat or {})
+    save_file(flat, path, metadata=meta)
 
 
 def load_lora_file(path: str, module_names: Iterable[str] | None = None,

@@ -1,7 +1,8 @@
 """Job dispatch (``ai_toolkit_tpu/jobs/dispatch.py`` in PyTorch).
 
 Ported process types: generation (``generate``, ``pure_lora_generator``), the
-trainer (``sd_trainer``, ``diffusion_trainer``, ``ui_trainer``), the concept
+trainer (``sd_trainer``, ``diffusion_trainer``, ``ui_trainer``,
+``textual_inversion_trainer``), the concept
 slider (``slider``, ``concept_slider``, ``slider_trainer``), the ultimate
 slider (``ultimate_slider``, ``ultimate_slider_trainer``,
 ``image_reference_slider_trainer``) and LoRA extraction (``extract_lora``);
@@ -23,6 +24,7 @@ PROCESS_TYPES = {
     "sd_trainer": "train",
     "diffusion_trainer": "train",
     "ui_trainer": "train",
+    "textual_inversion_trainer": "train",
     "slider": "slider",
     "concept_slider": "slider",
     "slider_trainer": "slider",

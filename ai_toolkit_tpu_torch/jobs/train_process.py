@@ -130,6 +130,34 @@ trained, Redux's ``image_encoder_path`` is not read, and vision_direct's
 not: on a quantized base the JAX job cannot build the K/V (it reads the K
 weights from the emptied ``params``); the port reads them dequantized.
 
+The two input-expansion adapters (JAX ``_build_trainable``, :1087-1246)
+train beside a LoRA, given as ``network`` or as ``adapter.lora_config``
+(without either they raise, as JAX does). ``control_lora`` on ``flux`` /
+``flux_schnell`` (``adapters/control_lora.py``): an expansion on ``img_in``
+(``ops.layers.Ctrl``) over ``num_control_images`` packed controls, or over
+``[masked latents, mask]`` with ``has_inpainting_input``, read back from
+``name_or_path`` when that is a file; every batch carries its control
+latents, assembled on the host with the job's ``default_rng(4321)`` (the
+dropout, the inpaint masks, zeros for a batch without a control, the slots
+past a batch's controls left zero), whose state rides in the training state.
+``i2v`` on a ``wan21`` t2v base (``adapters/i2v.py``): the image K/V, its
+norm and the image MLP grafted onto the loaded DiT and seeded, a seeded
+CLIP ViT-H when the base has none, and with ``i2v_do_start_frame`` a frame
+embedder on ``patch_embedding`` over each batch's first-frame conditioning;
+an image batch's image is its first frame. The LoRA skips the expanded and
+grafted Linears (JAX's ignore lists). Each save adds the expansion
+(``transformer.x_embedder.weight``, the EMA copy) or the grafted pieces
+(``attn_hog.*`` and ``image_embedder.*`` from the EMA copy,
+``frame_embedder.*`` as it trains, as JAX writes them) to the LoRA file, f32;
+a resume restores them exactly (JAX's resume restarts the i2v pieces from
+their init: ROADMAP Queue 3). Samples run with the expansion and the graft
+as they train and the LoRA's EMA copy (JAX's drop the graft: Queue 3); an
+image batch of an i2v job carries its pixels (JAX's loader gives it none, so
+its job raises on images: Queue 3); a control-LoRA sample takes its
+``ctrl_img`` as the first control; an i2v job with ``i2v_do_start_frame``
+and sample prompts raises (JAX builds no first-frame latents for a sample,
+so every one of its samples fails).
+
 The train-step knobs (``train/step.py``) get their inputs here, as JAX
 ``_prepare_batch`` builds them: ``prompt_dropout_prob`` (from a host
 generator seeded by the job's seed, saved in the training state, where JAX
@@ -161,7 +189,8 @@ exactly, as a LoRA run does; a LoKr, LoHa or DoRA one over its saves raises
 
 Every other branch of the JAX process raises ``NotImplementedError`` naming
 its ROADMAP item (``_UNPORTED_TRAIN``): other adapters (the assistant
-adapter, ``adapter_assist_name_or_path``), a guidance loss, the adapter-off
+adapter, ``adapter_assist_name_or_path``), an input-expansion adapter
+beside a network other than LoRA, a guidance loss, the adapter-off
 prior knobs, an accuracy-recovery adapter or a multistage pair beside a
 network other than LoRA, quantized text encoders (``quantize_te``),
 text-encoder training, per-group learning rates. With ``AIT_PROFILE_DIR``
@@ -189,8 +218,8 @@ from ai_toolkit_tpu_torch.adapters.lora import (LoRASpec, attach_ara, build_lora
 from ai_toolkit_tpu_torch.adapters.lorm import LoRMSpec, build_lorm, lorm_stats_str
 from ai_toolkit_tpu_torch.adapters.lycoris import BUILD_FNS as LYCORIS_BUILD_FNS
 from ai_toolkit_tpu_torch.adapters.quantize import quantized_bytes, quantized_count
-from ai_toolkit_tpu_torch.config.modules import (GenerateImageConfig, ModelConfig, ProcessConfig, TrainConfig,
-                                                 print_unread_network)
+from ai_toolkit_tpu_torch.config.modules import (GenerateImageConfig, ModelConfig, NetworkConfig, ProcessConfig,
+                                                 TrainConfig, print_unread_network)
 from ai_toolkit_tpu_torch.data.caching import TextEmbedCache, cache_latents, cache_latents_to_disk
 from ai_toolkit_tpu_torch.data.loader import build_dataloader
 from ai_toolkit_tpu_torch.io.checkpoint import CheckpointManager
@@ -198,7 +227,6 @@ from ai_toolkit_tpu_torch.io.lora_file import (is_lokr_file, load_lokr_file, loa
                                                save_lora_file)
 from ai_toolkit_tpu_torch.models.base import BaseModel
 from ai_toolkit_tpu_torch.models.dfe import make_aux_loss
-from ai_toolkit_tpu_torch.models.flux_model import FluxModel
 from ai_toolkit_tpu_torch.models.registry import get_model_class
 from ai_toolkit_tpu_torch.samplers.factory import DDPM_NAMES, get_schedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer, lr_schedule
@@ -231,9 +259,25 @@ NETWORK_KINDS = {"lora": "lora", "lokr": "lokr", "lycoris_lokr": "lokr", "loha":
 _ADAPTER_OFF_KNOBS = ("diff_output_preservation", "inverted_mask_prior", "blank_prompt_preservation")
 _UNPORTED_MODEL = ("quantize_te", "lora_path", "assistant_lora_path",
                    "inference_lora_path", "unconditional_lora_path")
-# the adapter keys the ported types read; the JAX job reads no other for them
+# the adapter keys the ported custom adapter types read; the JAX job reads no other for them
 _ADAPTER_KEYS = ("type", "image_encoder_path", "image_encoder_arch", "cache_clip_vision_to_disk",
                  "flux_only_double", "train_scaler", "scale")
+# the input-expansion adapters, trained beside a LoRA: the keys the JAX job reads for each, and the archs
+EXPANSION_KEYS = {
+    "control_lora": ("type", "num_control_images", "has_inpainting_input", "control_image_dropout",
+                     "invert_inpaint_mask_chance", "lora_config", "name_or_path"),
+    "i2v": ("type", "i2v_do_start_frame", "lora_config"),
+}
+EXPANSION_ARCHS = {"control_lora": ("flux", "flux_schnell"), "i2v": ("wan21",)}
+# what the LoRA skips beside each (JAX :1237-1246, in the port's module names)
+EXPANSION_IGNORE = {"control_lora": ["img_in"],
+                    "i2v": ["patch_embedding", "add_k_proj", "add_v_proj", "image_embedder"]}
+# the host generators whose state rides in the training state (flex2's and control_lora's control draws,
+# prompt_dropout_prob's), so a resume draws what the uninterrupted run would
+HOST_RNGS = ("flex2_rng", "cl_rng", "dropout_rng")
+I2V_START_FRAME_SAMPLE = ("i2v_do_start_frame with sample prompts: the JAX job's samples build no first-frame "
+                          "control latents, so its frame embedder fails on every sample (ROADMAP Queue 3); set "
+                          "train.disable_sampling or drop the start frame")
 
 
 def _norm_pattern(p: str) -> str:
@@ -301,11 +345,15 @@ def _profiler(out_dir: str | None, device: torch.device):
 
 
 class SDTrainProcess:
-    """Process types ``sd_trainer`` / ``diffusion_trainer`` / ``ui_trainer``."""
+    """Process types ``sd_trainer`` / ``diffusion_trainer`` / ``ui_trainer`` /
+    ``textual_inversion_trainer``."""
 
     def __init__(self, job_name: str, cfg: ProcessConfig, device: torch.device | str):
         self.job_name = job_name
         self.cfg = cfg
+        if self.expansion and cfg.network is None and cfg.adapter.get("lora_config"):
+            # the reference's layout nests the network under adapter.lora_config (JAX :741-749)
+            cfg.network = NetworkConfig.from_dict(dict(cfg.adapter["lora_config"]))
         self.device = torch.device(device)
         self.save_root = os.path.join(cfg.training_folder, job_name)
         self.adapter = None  # the custom adapter's runtime (adapters/custom_adapter.py), when the job trains one
@@ -328,13 +376,19 @@ class SDTrainProcess:
         return self.cfg.network is None or self.cfg.network.type in ("full", "fine_tune")
 
     @property
+    def expansion(self) -> str | None:
+        """``control_lora`` or ``i2v``: an input-expansion adapter trained beside the network."""
+        t = (self.cfg.adapter or {}).get("type")
+        return t if t in EXPANSION_KEYS else None
+
+    @property
     def network_kind(self) -> str | None:
         """The network the job trains: ``lora`` (``locon`` included), ``lokr``,
-        ``loha``, ``dora`` or ``lorm``; None for a full fine-tune, an adapter
-        or textual inversion."""
-        if self.full_finetune or self.textual_inversion or self.cfg.adapter:
+        ``loha``, ``dora`` or ``lorm``; None for a full fine-tune, a custom
+        adapter or textual inversion."""
+        if self.full_finetune or self.textual_inversion or (self.cfg.adapter and not self.expansion):
             return None
-        return NETWORK_KINDS.get(self.cfg.network.type)
+        return None if self.cfg.network is None else NETWORK_KINDS.get(self.cfg.network.type)
 
     @property
     def feature_loss_path(self):
@@ -424,9 +478,10 @@ class SDTrainProcess:
         if ara and model_cls.load_variables is not BaseModel.load_variables:
             raise NotImplementedError(f"an accuracy-recovery adapter on arch '{cfg.model.arch}', whose experts are "
                                       f"quantized as they are built (ported: the single-DiT archs)")
-        if cfg.adapter and not (model_cls is FluxModel and cfg.model.arch in ("flux", "flux_schnell")):
+        archs = EXPANSION_ARCHS.get(self.expansion, ("flux", "flux_schnell"))
+        if cfg.adapter and cfg.model.arch not in archs:
             raise NotImplementedError(f"adapter '{cfg.adapter.get('type')}' on arch '{cfg.model.arch}' (ported: "
-                                      f"flux, flux_schnell; the others: ROADMAP Queue 1 item 6e)")
+                                      f"{', '.join(archs)}; the others: ROADMAP Queue 1 item 6e)")
         flow = model_cls.is_flow_matching
         if getattr(model_cls, "is_audio", False) and not tc.disable_sampling and cfg.sample.prompts:
             from ai_toolkit_tpu_torch.generation import GENERATE_AUDIO
@@ -453,16 +508,34 @@ class SDTrainProcess:
             raise ValueError("no datasets configured")
 
     def _refuse_adapter(self) -> None:
-        """What the port takes of a custom adapter: redux and vision_direct,
-        without textual inversion, with the keys the JAX job reads for them."""
+        """What the port takes of an adapter: redux and vision_direct, and the
+        input-expansion adapters beside a LoRA, without textual inversion,
+        with the keys the JAX job reads for them."""
         cfg, acfg = self.cfg, self.cfg.adapter
-        refuse_unported_type(acfg.get("type"))
-        unknown = sorted(set(acfg) - set(_ADAPTER_KEYS))
+        atype = self.expansion
+        if atype is None:
+            refuse_unported_type(acfg.get("type"))
+        read = EXPANSION_KEYS[atype] if atype else _ADAPTER_KEYS
+        unknown = sorted(set(acfg) - set(read))
         if unknown:
             raise NotImplementedError(f"adapter keys {unknown} are not read for '{acfg['type']}' "
-                                      f"(read: {list(_ADAPTER_KEYS)})")
+                                      f"(read: {list(read)})")
         if self.textual_inversion:
             raise NotImplementedError("an adapter together with embedding: the JAX job trains the adapter alone")
+        if atype:
+            if cfg.network is None:
+                raise ValueError(f"{atype} requires network: {{type: lora, ...}} (or adapter.lora_config, the "
+                                 f"reference's layout)")
+            if self.network_kind != "lora":
+                raise NotImplementedError(f"adapter '{atype}' beside network '{cfg.network.type}' comes with ROADMAP "
+                                          f"Queue 1 item 6e (ported: beside a LoRA)")
+            if atype == "i2v" and acfg.get("i2v_do_start_frame") and not cfg.train.disable_sampling \
+                    and cfg.sample.prompts:
+                raise NotImplementedError(I2V_START_FRAME_SAMPLE)
+            if atype == "control_lora" and acfg.get("has_inpainting_input") \
+                    and int(acfg.get("num_control_images", 1)) != 1:
+                raise ValueError("control_lora: has_inpainting_input requires num_control_images=1 (the inpaint "
+                                 "latent is the control)")
         arch = acfg.get("image_encoder_arch")
         if arch not in (None, "clip", "pixtral"):
             raise NotImplementedError(f"image_encoder_arch '{arch}' (ported: the CLIP ViT-H, pixtral)")
@@ -472,19 +545,22 @@ class SDTrainProcess:
                                           f"comes with the adapters slice (ROADMAP Queue 1 item 6e)")
 
     def _refuse_control_options(self, model) -> None:
-        """Control images only for an arch that takes control latents, the
-        inpaint folder only for flex2 (in JAX it also feeds the control-LoRA
-        adapter, a later slice)."""
+        """Control images only for an arch that takes control latents or the
+        control-LoRA adapter, the inpaint folder only for flex2 or the
+        control-LoRA adapter's inpainting input."""
         arch = self.cfg.model.arch
+        control_lora = self.expansion == "control_lora"
+        inpaint = control_lora and bool(self.cfg.adapter.get("has_inpainting_input"))
         for d in self.cfg.datasets:
-            if d.control_path and not model.takes_control:
+            if d.control_path and not (model.takes_control or control_lora):
                 raise NotImplementedError(
                     f"dataset {d.folder_path}: control_path on arch '{arch}', which takes no control latents "
                     f"(ported: flex2, flux_kontext, model_kwargs.control, qwen_image_edit, omnigen2; the control "
                     f"adapters: later slices)")
-            if d.inpaint_path and arch != "flex2":
-                raise NotImplementedError(f"dataset {d.folder_path}: inpaint_path feeds flex2's inpaint channels; "
-                                          f"on arch '{arch}' it belongs to the control-LoRA adapter (later slice)")
+            if d.inpaint_path and not (arch == "flex2" or inpaint):
+                raise NotImplementedError(f"dataset {d.folder_path}: inpaint_path feeds flex2's inpaint channels "
+                                          f"or the control-LoRA adapter's has_inpainting_input; arch '{arch}' "
+                                          f"takes none")
 
     def run(self) -> dict:
         cfg, tc, dev = self.cfg, self.cfg.train, self.device
@@ -523,7 +599,7 @@ class SDTrainProcess:
         if cfg.model.quantize:
             print(f"quantized base: {sum(quantized_count(m) for m in experts)} weights, "
                   f"{sum(quantized_bytes(m) for m in experts) / 1e9:.2f} GB ({cfg.model.qtype})")
-        if cfg.adapter:
+        if cfg.adapter and not self.expansion:
             trainable, lora = self._build_adapter(model, variables, seed), None
             n_params = sum(p.numel() for p in trainable.values())
         elif self.textual_inversion:
@@ -538,7 +614,9 @@ class SDTrainProcess:
             if inc or exc:
                 print(f"full fine-tune (filtered to {n_params:,} params)")
         else:
+            expansion = self._build_expansion(model, variables, seed) if self.expansion else {}
             trainable, lora = self._build_network(model, net, experts, seed)
+            trainable.update(expansion)
             n_params = sum(p.numel() for p in trainable.values())
         for m in experts:
             if hasattr(m, "gradient_checkpointing"):  # the DiT; the UNet follows model.remat_policy
@@ -677,6 +755,8 @@ class SDTrainProcess:
             raise NotImplementedError(f"network '{ncfg.type}' on a multistage pair (one network on both experts) "
                                       f"comes with ROADMAP Queue 1 item 6e (ported: LoRA)")
         spec = LoRASpec.from_network_config(ncfg, target_patterns=model.lora_targets())
+        if self.expansion:  # the expanded and grafted Linears take no network (JAX's ignore lists)
+            spec.ignore_if_contains = list(spec.ignore_if_contains or []) + EXPANSION_IGNORE[self.expansion]
         generator = torch.Generator(device=self.device).manual_seed(seed)
         lora = None
         if kind == "lorm":
@@ -793,6 +873,110 @@ class SDTrainProcess:
         print(f"CustomAdapter[{atype}]: {sum(p.numel() for p in trainable.values()):,} trainable params"
               + (f", decoupled K/V on {len(self.ip)} blocks" if self.ip else ""))
         return trainable
+
+    def _build_expansion(self, model, variables: dict, seed: int) -> dict[str, torch.Tensor]:
+        """The input-expansion adapter's trainable tensors (JAX
+        ``_build_trainable``, :1105-1235), keys ``ctrl.w`` / ``ctrl.b`` (the
+        expansion) and ``i2v.<DiT parameter>`` (the graft)."""
+        from ai_toolkit_tpu_torch.ops.layers import Ctrl
+
+        acfg, dev = self.cfg.adapter, self.device
+        dit = variables[model.main_component]
+        if self.expansion == "control_lora":
+            from ai_toolkit_tpu_torch.adapters.control_lora import (init_control_lora, load_control_lora_expansion,
+                                                                    upgrade_expansion)
+
+            dc = model.dit_config
+            if dc.control_channels:
+                raise ValueError(f"control_lora needs a base arch; {self.cfg.model.arch} already takes control "
+                                 f"channels (kontext / flex2-style)")
+            nc = int(acfg.get("num_control_images", 1))
+            inpaint = bool(acfg.get("has_inpainting_input", False))
+            w = init_control_lora(dc.hidden_size, dc.in_channels, torch.Generator(device=dev).manual_seed(seed + 41),
+                                  nc, inpaint, device=dev)
+            lp = acfg.get("name_or_path")
+            if lp and os.path.isfile(str(lp)):
+                got = load_control_lora_expansion(str(lp))
+                if got is not None:  # the weight alone, as JAX reads it
+                    w = torch.from_numpy(upgrade_expansion(got["w"], w.shape[0])).float().to(dev)
+                    print(f"control_lora: restored x_embedder expansion from {lp}")
+            elif lp:
+                print(f"control_lora: name_or_path {lp!r} is no file: the expansion keeps its seeded init (as the "
+                      f"JAX job)")
+            dit.img_in.ctrl = Ctrl(w)
+            model.dit_config = dataclasses.replace(dc, control_channels=w.shape[0])
+            model.control_lora_inpaint = inpaint
+            self.control_lora_mode = {"inpaint": inpaint, "num_control": nc,
+                                      "control_image_dropout": float(acfg.get("control_image_dropout", 0.0)),
+                                      "invert_inpaint_mask_chance": float(acfg.get("invert_inpaint_mask_chance", 0.0))}
+            print(f"CustomAdapter[control_lora]: +{w.shape[0]} packed input ch on img_in"
+                  + (" (inpainting)" if inpaint else ""))
+            return {"ctrl.w": dit.img_in.ctrl.w}
+        from ai_toolkit_tpu_torch.adapters.i2v import graft_i2v, init_frame_embedder_ctrl
+        from ai_toolkit_tpu_torch.models.text_encoders.clip_vision import CLIPVisionConfig, CLIPVisionModel
+        from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+        if len(model.experts) > 1:
+            raise NotImplementedError("the i2v adapter on a multistage pair comes with ROADMAP Queue 1 item 6e "
+                                      "(ported: a wan21 t2v base)")
+        grafted = graft_i2v(dit, torch.Generator(device=dev).manual_seed(seed + 42))
+        model.dit_config = dit.cfg
+        if "clip_vision" not in variables:  # the frozen tower feeding the image K/V, seeded (JAX :1193-1204)
+            tiny = self.cfg.model.model_kwargs.get("size") == "tiny"
+            model.vision_config = CLIPVisionConfig.tiny() if tiny else CLIPVisionConfig.vit_h()
+            variables["clip_vision"] = init_parameters(
+                CLIPVisionModel(model.vision_config, device=dev),
+                torch.Generator(device=dev).manual_seed(seed + 99)).eval().requires_grad_(False)
+        trainable = {f"i2v.{n}": p for n, p in grafted.items()}
+        start = bool(acfg.get("i2v_do_start_frame", False))
+        if start:
+            vc, dc = model.vae_config, model.dit_config
+            dit.patch_embedding.ctrl = init_frame_embedder_ctrl(
+                dc.dim, vc.latent_channels, dc.patch_size, torch.Generator(device=dev).manual_seed(seed + 43),
+                mask_channels=vc.temporal_downscale, device=dev)
+            trainable.update({"ctrl.w": dit.patch_embedding.ctrl.w, "ctrl.b": dit.patch_embedding.ctrl.b})
+        self.i2v_mode = {"start_frame": start}
+        n = sum(p.numel() for p in grafted.values())
+        print(f"CustomAdapter[i2v]: {n:,} grafted i2v params" + (" + first-frame embedder" if start else ""))
+        return trainable
+
+    def _expansion_extra_flat(self, state: TrainState) -> dict[str, np.ndarray]:
+        """The expansion or the graft in the save layout (JAX ``_save``): the
+        control-LoRA expansion and the i2v graft from the EMA copy when EMA is
+        on, the frame embedder as it trains."""
+        src = state.ema if state.ema is not None else state.trainable
+        if self.expansion == "control_lora":
+            from ai_toolkit_tpu_torch.adapters.control_lora import control_lora_extra_flat
+
+            return control_lora_extra_flat(src["ctrl.w"])
+        from ai_toolkit_tpu_torch.adapters.i2v import i2v_extra_flat
+
+        grafted = {k[len("i2v."):]: src[k] for k in state.trainable if k.startswith("i2v.")}
+        return i2v_extra_flat(grafted, state.trainable.get("ctrl.w"), state.trainable.get("ctrl.b"),
+                              patch_size=self.model.dit_config.patch_size)
+
+    def _expansion_from_file(self, path: str, want: dict[str, tuple]) -> dict[str, torch.Tensor]:
+        """The expansion or the graft read back from a save file, keyed as in
+        the trainable dict (the expansion resized to ``want``'s width, JAX
+        ``upgrade_expansion``)."""
+        if self.expansion == "control_lora":
+            from ai_toolkit_tpu_torch.adapters.control_lora import load_control_lora_expansion, upgrade_expansion
+
+            got = load_control_lora_expansion(path)
+            return {} if got is None else {"ctrl.w": torch.from_numpy(upgrade_expansion(got["w"],
+                                                                                       want["ctrl.w"][0]))}
+        from safetensors.numpy import load_file
+
+        from ai_toolkit_tpu_torch.adapters.i2v import load_i2v_from_flat
+
+        flat = load_file(path)
+        if not any(k.startswith("attn_hog.") for k in flat):
+            return {}
+        grafted, ctrl = load_i2v_from_flat(flat, self.model.dit_config.patch_size)
+        out = {f"i2v.{n}": torch.from_numpy(np.ascontiguousarray(v)) for n, v in grafted.items()}
+        if ctrl is not None:
+            out["ctrl.w"], out["ctrl.b"] = (torch.from_numpy(np.ascontiguousarray(v)) for v in ctrl)
+        return out
 
     def _build_vision_tower(self, model, acfg: dict, generator: torch.Generator) -> int:
         """The adapter's frozen vision tower (JAX :968-1020) as
@@ -913,6 +1097,9 @@ class SDTrainProcess:
             tree, step = ckpt.load_latest(module_names=list(lora),
                                           module_name=getattr(model, "lora_module_name", None))
             saved = {f"{n}.{leaf}": t for n, leaves in tree.items() for leaf, t in leaves.items()}
+            if self.expansion:  # the expansion or the graft beside the LoRA in the same file
+                saved.update(self._expansion_from_file(path, {k: tuple(p.shape) for k, p in
+                                                              state.trainable.items()}))
         elif self.textual_inversion:
             saved = {"emb": torch.from_numpy(load_embedding(path))}
             with safe_open(path, framework="pt") as f:
@@ -936,7 +1123,7 @@ class SDTrainProcess:
         restored = False
         if extra is not None and state_step == step:
             rng = extra.pop("rng", None)
-            host_rngs = {k: extra.pop(k, None) for k in ("flex2_rng", "dropout_rng")}
+            host_rngs = {k: extra.pop(k, None) for k in HOST_RNGS}
             restored = state.load_state_dict(extra)
             if restored and rng is not None:
                 generator.set_state(rng)
@@ -989,7 +1176,8 @@ class SDTrainProcess:
         elif lora is not None:
             src = state.ema if state.ema is not None else state.trainable
             tree = {name: {leaf: src[f"{name}.{leaf}"] for leaf in ("a", "b", "scale")} for name in lora}
-            path = ckpt.save(tree, step, final=final)
+            path = ckpt.save(tree, step, final=final,
+                             extra_flat=self._expansion_extra_flat(state) if self.expansion else None)
         elif self.network_kind is not None:
             # JAX _save's lorm and lyco branches: the EMA copy when EMA is on, fp16 (their default)
             src = state.ema if state.ema is not None else state.trainable
@@ -1016,7 +1204,7 @@ class SDTrainProcess:
             with open(os.path.join(self.save_root, "learnable_snr.json"), "w") as f:
                 json.dump(state.lsnr.to_json(), f)
         host = {}
-        for key in ("flex2_rng", "dropout_rng"):
+        for key in HOST_RNGS:
             rng = getattr(self, f"_{key}", None)
             if rng is not None:
                 host[key] = torch.frombuffer(bytearray(json.dumps(rng.bit_generator.state).encode()),
@@ -1027,7 +1215,8 @@ class SDTrainProcess:
     def _sample(self, model, variables: dict, state: TrainState, lora: dict | None, step: int) -> None:
         """Every sample prompt through ``generation.generate`` (JAX
         ``_sample``), with the EMA copy of the LoRA when EMA is on (a
-        textual inversion's bank as it is trained, as in JAX), to
+        textual inversion's bank and an expansion as they train, as in JAX;
+        an i2v graft as it trains, which JAX's samples drop), to
         ``<save_root>/samples/<name>_<step:09d>_<i>.<ext>``. Raises when a
         sample fails."""
         from ai_toolkit_tpu_torch.generation import generate, save_image_atomic, save_video_atomic, save_wav_atomic
@@ -1035,7 +1224,9 @@ class SDTrainProcess:
         cfg = self.cfg
         sample_dir = os.path.join(self.save_root, "samples")
         swap = lora is not None and state.ema is not None
-        raw = {k: p.detach().clone() for k, p in state.trainable.items()} if swap else {}
+        # the LoRA's EMA copy; an expansion and a graft sample as they train (JAX _sample)
+        raw = {k: p.detach().clone() for k, p in state.trainable.items()
+               if not k.startswith(("ctrl.", "i2v."))} if swap else {}
         with torch.no_grad():
             for k in raw:
                 state.trainable[k].copy_(state.ema[k])
@@ -1083,6 +1274,13 @@ class SDTrainProcess:
             tokens, _ = self.vision_encode(torch.from_numpy(px))
             return {"ip_tokens": self.adapter.module(tokens)}
 
+    @property
+    def _want_pixels(self) -> bool:
+        """An image batch carries its pixels: a vision adapter's input, and the
+        i2v adapter's first frame (JAX's loader gets no pixels for it, so its
+        i2v job raises on an image batch: ROADMAP Queue 3)."""
+        return self.adapter is not None or self.expansion == "i2v"
+
     def _build_data(self, model, variables):
         cfg = self.cfg
         # a video model snaps each dataset's frame count onto its VAE's grid (wan: 4k+1)
@@ -1119,7 +1317,7 @@ class SDTrainProcess:
             cache_dir = os.path.join(self.save_root, "latent_cache") if to_disk else None
             loader = build_dataloader(cfg.datasets, cfg.train.batch_size, model.bucket_divisibility,
                                       trigger_word=cfg.trigger_word, latent_cache={} if cache_dir is None else None,
-                                      latent_cache_dir=cache_dir, want_pixels=self.adapter is not None)
+                                      latent_cache_dir=cache_dir, want_pixels=self._want_pixels)
             items = [it for ds in loader.datasets for it in ds.items]
             t0 = time.perf_counter()
             if cache_dir is not None:
@@ -1136,7 +1334,7 @@ class SDTrainProcess:
         else:
             loader = build_dataloader(cfg.datasets, cfg.train.batch_size, model.bucket_divisibility,
                                       trigger_word=cfg.trigger_word, encode_fn=encode_fn,
-                                      want_pixels=self.adapter is not None or tc.train_turbo)
+                                      want_pixels=self._want_pixels or tc.train_turbo)
 
         @torch.no_grad()
         def encode_prompt(prompts: list[str]) -> dict:
@@ -1163,9 +1361,24 @@ class SDTrainProcess:
             cond = {"input_ids": torch.from_numpy(ids).long().to(dev)}
         else:
             cond = dict(text_cache.get(captions))
-        if raw.get("first_frame") is not None:  # i2v: the clip's first frame through the vision tower
+        ff = raw.get("first_frame")
+        i2v = getattr(self, "i2v_mode", None)
+        if ff is None and i2v is not None:  # the i2v adapter on an image batch: the image is the first frame
+            px = raw.get("pixels")
+            if px is None:
+                raise ValueError("i2v adapter needs first-frame pixels: set datasets[].do_i2v for video data or "
+                                 "disable latent-only caching")
+            ff = px[:, 0] if px.ndim == 5 else px
+        if ff is not None:  # i2v: the first frame through the vision tower
             with torch.no_grad():
-                cond["img_cond"] = model.encode_image_cond(variables, torch.from_numpy(raw["first_frame"]))
+                cond["img_cond"] = model.encode_image_cond(variables, torch.from_numpy(ff))
+        if i2v is not None and i2v["start_frame"]:  # the frame embedder's first-frame conditioning
+            from ai_toolkit_tpu_torch.adapters.i2v import assemble_first_frame_control
+
+            cond["control_latents"] = torch.from_numpy(assemble_first_frame_control(
+                ff, int(raw["latents"].shape[1]),
+                lambda video: self._encode_control(model, variables, video).float().cpu().numpy(),
+                temporal_downscale=model.vae_config.temporal_downscale)).to(dev)
         lat_np = raw["latents"]
         if tc.latent_multiplier != 1.0:
             lat_np = lat_np * tc.latent_multiplier
@@ -1241,6 +1454,8 @@ class SDTrainProcess:
             ctrl_lat = None if ctrl is None else self._encode_control(model, variables, ctrl).float().cpu().numpy()
             cond["control_latents"] = torch.from_numpy(model.assemble_flex2_control(
                 raw["latents"], raw.get("inpaint_keep"), ctrl_lat, self._flex2_rng)).to(dev)
+        elif getattr(self, "control_lora_mode", None) is not None:
+            cond["control_latents"] = torch.from_numpy(self._control_lora_latents(model, variables, raw)).to(dev)
         elif model.takes_control:
             if "control_pixels" not in raw:
                 if model.control_optional:  # OmniGen2: no references in this batch
@@ -1249,6 +1464,41 @@ class SDTrainProcess:
                                  f"{raw['bucket']} batch has one (give each image one in the dataset's control_path)")
             cond["control_latents"] = self._encode_control(model, variables, raw["control_pixels"])
         return batch
+
+    def _control_lora_latents(self, model, variables: dict, raw: dict) -> np.ndarray:
+        """The control-LoRA conditioning of a batch (JAX ``_prepare_batch``,
+        :1771-1814): the inpainting ``[masked latents, mask]`` (the batch's
+        ``inpaint_keep``, else its ``pixel_mask``), or the encoded controls in
+        ``num_control_images`` slots; zeros when the dropout draw hits or the
+        batch has none. Draws from the job's ``default_rng(4321)``."""
+        from ai_toolkit_tpu_torch.adapters.control_lora import assemble_control, assemble_inpaint_control
+
+        clm = self.control_lora_mode
+        if getattr(self, "_cl_rng", None) is None:
+            self._cl_rng = np.random.default_rng(4321)
+        if clm["inpaint"]:
+            keep = raw.get("inpaint_keep")
+            if keep is None:
+                keep = raw.get("pixel_mask")
+            return assemble_inpaint_control(raw["latents"], keep, self._cl_rng, clm["control_image_dropout"],
+                                            clm["invert_inpaint_mask_chance"])
+
+        def enc(px: np.ndarray) -> np.ndarray:
+            return self._encode_control(model, variables, px).float().cpu().numpy()
+
+        one = multi = None
+        if "control_pixels" in raw:
+            def one():
+                return enc(raw["control_pixels"])
+        if "control_pixels_multi" in raw:
+            cm = raw["control_pixels_multi"]  # [B, N, H, W, 3]
+
+            def multi(nc: int) -> np.ndarray:
+                n_have = min(nc, cm.shape[1])
+                flat = enc(cm[:, :n_have].reshape((-1,) + cm.shape[2:]))
+                return flat.reshape((cm.shape[0], n_have) + flat.shape[1:])
+        return assemble_control(raw["latents"], self._cl_rng, clm["num_control"], clm["control_image_dropout"],
+                                one, multi)
 
     @staticmethod
     @torch.no_grad()

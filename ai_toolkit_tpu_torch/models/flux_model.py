@@ -11,8 +11,10 @@ concatenates the packed control latents to the image tokens' channels;
 flex2's control tensor is assembled on the host
 (:meth:`FluxModel.assemble_flex2_control`, numpy and OpenCV, as in JAX) and
 at sampling time :meth:`FluxModel.sampling_control_latents` encodes a
-``ctrl_img``. ``model_kwargs`` keys other than ``size``, ``control`` and
-flex2's seven control knobs raise.
+``ctrl_img``. A base ``flux`` / ``flux_schnell`` takes control latents once
+the control-LoRA adapter widens ``img_in`` (``dit_config.control_channels``,
+set by the train job). ``model_kwargs`` keys other than ``size``,
+``control`` and flex2's seven control knobs raise.
 
 Two archs are built as the JAX package builds them, which published
 checkpoints do not match (ROADMAP Queue 3): ``flux_kontext`` as a channel
@@ -124,6 +126,8 @@ class FluxModel(BaseModel):
             config.name_or_path, "tokenizer_2", vocab_size=self.t5_config.vocab_size,
             eos_id=1, max_len=self.max_txt_len,
         )
+
+    control_lora_inpaint = False  # a control-LoRA base whose one control is [masked latents, mask]
 
     @property
     def takes_control(self) -> bool:
@@ -322,13 +326,31 @@ class FluxModel(BaseModel):
                                  gen_width: int, gen_height: int) -> torch.Tensor:
         """The control latents of a sample (JAX ``sampling_control_latents``):
         kontext and ``control`` get the encoded ``ctrl_img`` (zeros without
-        one); flex2 gets ``[inpaint, mask = 1, control]`` with the image in the
-        control slot, or in the inpaint slot (its alpha the keep mask) when the
-        file name holds ``.inpaint.`` and the image is RGBA."""
+        one), and so does a control-LoRA base, in the first of its
+        ``num_control_images`` slots; a control-LoRA base with the inpainting
+        input gets ``[inpaint, mask]``: an RGBA image's latents where its alpha
+        keeps them and ``1 - alpha``, else zeros and ones; flex2 gets
+        ``[inpaint, mask = 1, control]`` with the image in the control slot, or
+        in the inpaint slot (its alpha the keep mask) when the file name holds
+        ``.inpaint.`` and the image is RGBA."""
         from PIL import Image
 
         dev, c = self.device, self.vae_config.latent_channels
         with torch.no_grad():
+            if self.control_lora_inpaint:
+                inpaint = torch.zeros((1, h, w, c), dtype=torch.float32, device=dev)
+                mask = torch.ones((1, h, w, 1), dtype=torch.float32, device=dev)
+                if ctrl_img:
+                    with Image.open(ctrl_img) as im:
+                        if im.mode == "RGBA":
+                            import cv2
+
+                            im = im.resize((gen_width, gen_height))
+                            keep = np.asarray(im.split()[-1], np.float32) / 255.0
+                            keep_l = torch.from_numpy(cv2.resize(keep, (w, h))[None, ..., None]).to(dev)
+                            inpaint = self._encode_image_file(variables, im, gen_width, gen_height) * keep_l
+                            mask = 1.0 - keep_l
+                return torch.cat([inpaint, mask], dim=-1)
             if self.config.arch != "flex2":
                 ctrl_c = max(c, (self.dit_config.control_channels or 4 * c) // 4)
                 out = torch.zeros((1, h, w, ctrl_c), dtype=torch.float32, device=dev)

@@ -20,8 +20,10 @@ by ``mean(t) >= stage_boundary`` (default 0.875). One LoRA network serves
 both experts. A quantized base (``init_variables(qtype=...)``, the train
 job's ``model.quantize``) quantizes each expert from its own weights as it
 is built, so the bf16 pair never sits on the device at once. Control
-latents (the i2v adapter) and sequence parallelism raise
-``NotImplementedError`` naming their slice.
+latents (the i2v adapter's first-frame conditioning) are patchified on
+their own and feature-concatenated to the noisy latents' tokens, which the
+frame embedder on ``patch_embedding`` (an ``ops.layers.Ctrl``) takes.
+Sequence parallelism raises ``NotImplementedError`` naming its slice.
 
 A local checkpoint (JAX ``io/dit_importers.load_wan_checkpoint``) is an
 HF-layout directory, ``transformer/`` (and ``transformer_2/``, a pair's
@@ -69,7 +71,6 @@ from ai_toolkit_tpu_torch.ops.rope import multi_axis_rope
 from ai_toolkit_tpu_torch.utils.tokenizer import load_tokenizer
 
 SEQUENCE_PARALLEL = "sequence parallelism (ring attention, multi-GPU) comes with slice E's last remaining item"
-CONTROL_LATENTS = "control latents (the i2v adapter's first-frame latents) come with the adapters of slice G"
 # the JAX DEFAULT_EXCLUDE over the JAX DiT's paths leaves out only its
 # ``*embedding*`` kernels: the patch embedding and the text MLP
 QUANTIZE_EXCLUDE = [r"^patch_embedding$", r"^condition_embedder\.text_embedder\."]
@@ -215,15 +216,18 @@ class WanModel(BaseModel):
         return "dit" if float(t.float().mean()) >= self.stage_boundary else "dit_low"
 
     def predict(self, variables: dict, noisy_latents: torch.Tensor, t: torch.Tensor, cond: dict) -> torch.Tensor:
-        """noisy_latents ``[B, T, h, w, C]``; cond: txt, pe, and img_cond
-        (i2v). Differentiable."""
-        if cond.get("control_latents") is not None:
-            raise NotImplementedError(CONTROL_LATENTS)
+        """noisy_latents ``[B, T, h, w, C]``; cond: txt, pe, img_cond (i2v) and
+        control_latents ``[B, T, h, w, C_ctrl]`` (the frame embedder's input,
+        patchified on its own and concatenated to the tokens' features, JAX
+        ``predict``). Differentiable."""
         _, tt, hh, ww, c = noisy_latents.shape
         patch = self.dit_config.patch_size
+        tokens = wan_patchify(noisy_latents, patch)
+        ctrl = cond.get("control_latents")
+        if ctrl is not None:
+            tokens = torch.cat([tokens, wan_patchify(ctrl.to(tokens.device), patch).to(tokens.dtype)], dim=-1)
         self.last_expert = self.expert(t) if "dit_low" in variables else "dit"
-        out = variables[self.last_expert](wan_patchify(noisy_latents, patch), cond["txt"], t, cond["pe"],
-                                          cond.get("img_cond"))
+        out = variables[self.last_expert](tokens, cond["txt"], t, cond["pe"], cond.get("img_cond"))
         return wan_unpatchify(out, tt, hh, ww, patch, c)
 
     def encode_images(self, variables: dict, images: torch.Tensor,

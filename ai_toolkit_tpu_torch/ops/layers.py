@@ -19,7 +19,12 @@ is freed. ``Linear`` also carries its weight-only quantized base
 factors stack with a trainable LoRA's by the exact rank-concat of JAX
 ``concat_loras`` (each scale folded into its ``b``), or a frozen
 :class:`LoKr`. ``Conv`` carries a :class:`ConvLoRA` (JAX ``Conv``'s
-``lora``, :186-208). The ctrl overlay is not ported.
+``lora``, :186-208). A :class:`Ctrl` (``ctrl``, JAX :95-101, 145-148) is a
+trainable input-channel expansion: the trailing ``extra_in`` input features
+bypass the (dequantized) weight and go through its own ``w`` (and ``b``),
+added after the product and its LoRA, which sees the base features alone.
+:meth:`Linear.keep_f32_master` makes a layer's weight an f32 master copy
+that the forward casts to its compute dtype, as JAX casts an f32 overlay.
 
 The LoRA multiplier (JAX ``adapters/lora.scale_lora``, which the slider
 losses apply to the ``lora`` tree) is set for a block of code by
@@ -204,12 +209,29 @@ class LoRM(nn.Module):
         self.b = nn.Parameter(b.float())
 
 
+class Ctrl(nn.Module):
+    """The input-channel expansion (JAX ``ctrl`` collection): ``w`` ``[extra_in,
+    out]`` in the JAX layout and an optional ``b`` ``[out]``, f32 parameters
+    cast to the layer's dtype; ``y += x[..., -extra_in:] @ w (+ b)``."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor | None = None):
+        super().__init__()
+        self.w = nn.Parameter(w.detach().float().clone())
+        self.b = None if b is None else nn.Parameter(b.detach().float().clone())
+
+    @property
+    def extra_in(self) -> int:
+        return self.w.shape[0]
+
+
 class QuantizedWeight(nn.Module):
     """A weight that ``adapters/quantize.py`` may move to weight-only storage:
     ``qvalue`` (fp8 e4m3 or int8) and ``qscale`` (f32, one per output
     channel) replace the ``weight`` parameter, and :meth:`dequantized` gives
     ``qvalue * qscale`` in the compute dtype next to the product (JAX:
-    the ``quant`` collection, ``qv.astype(dtype) * qs.astype(dtype)``)."""
+    the ``quant`` collection, ``qv.astype(dtype) * qs.astype(dtype)``), or
+    the weight itself, an f32 master cast to the compute dtype where
+    :meth:`Linear.keep_f32_master` made one."""
 
     def _init_quant(self) -> None:
         self.register_buffer("qvalue", None)
@@ -218,7 +240,9 @@ class QuantizedWeight(nn.Module):
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return self.weight.dtype if self.weight is not None else self._qdtype
+        if self._qdtype is not None:
+            return self._qdtype
+        return self.weight.dtype
 
     @property
     def stored_weight(self) -> torch.Tensor:
@@ -226,8 +250,9 @@ class QuantizedWeight(nn.Module):
         return self.weight if self.qvalue is None else self.qvalue
 
     def dequantized(self) -> torch.Tensor:
-        if self.qvalue is None:
-            return self.weight
+        if self.qvalue is None:  # an f32 master (Linear.keep_f32_master) in its compute dtype
+            w = self.weight
+            return w if w is None or self._qdtype is None else w.to(self._qdtype)
         dt = self._qdtype
         return self.qvalue.to(dt) * self.qscale.to(dt)
 
@@ -258,6 +283,7 @@ class Linear(QuantizedWeight):
         self.loha: LoHa | None = None
         self.dora: DoRA | None = None
         self.lorm: LoRM | None = None
+        self.ctrl: Ctrl | None = None
         self._init_quant()
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -271,6 +297,15 @@ class Linear(QuantizedWeight):
         q, s = fn(self.weight.detach().t())
         self._set_quantized(q.t().contiguous(), s.t().contiguous())
 
+    def keep_f32_master(self) -> None:
+        """Weight and bias become f32 parameters that the forward casts to the
+        layer's compute dtype (JAX trains such a grafted leaf in f32 and its
+        ``Linear`` casts it to ``self.dtype``)."""
+        self._qdtype = self.compute_dtype
+        self.weight = nn.Parameter(self.weight.detach().float(), requires_grad=self.weight.requires_grad)
+        if self.bias is not None:
+            self.bias = nn.Parameter(self.bias.detach().float(), requires_grad=self.bias.requires_grad)
+
     def replace_by_lorm(self, lorm: LoRM) -> None:
         """The factors take the kernel's place and the weight (or its
         quantized values) is freed, as JAX deletes the kernel leaf."""
@@ -280,6 +315,8 @@ class Linear(QuantizedWeight):
         self.lorm = lorm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ctrl is not None:
+            return self._forward_ctrl(x)
         if self.lorm is not None:
             dt = self._qdtype
             y = (x.to(dt) @ self.lorm.a.to(dt)) @ self.lorm.b.to(dt)
@@ -296,7 +333,7 @@ class Linear(QuantizedWeight):
         if self.dora is not None:
             w = self.dora.weight(w)
         x = x.to(w.dtype)
-        y = F.linear(x, w, self.bias)
+        y = F.linear(x, w, None if self.bias is None else self.bias.to(w.dtype))
         if self.dora is not None:
             return y
         if ara is None:
@@ -310,6 +347,27 @@ class Linear(QuantizedWeight):
         a1, b1 = fold_scale(self.lora)
         dt = x.dtype
         return y + (x @ torch.cat([a0, a1], dim=-1).to(dt)) @ torch.cat([b0, b1], dim=0).to(dt)
+
+    def _forward_ctrl(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX's order: the base features through the (dequantized) weight and
+        the LoRA, then the trailing features through the expansion, then its
+        bias, then the layer's."""
+        others = [n for n in ("ara", "lokr", "loha", "dora", "lorm") if getattr(self, n) is not None]
+        if others:
+            raise NotImplementedError(f"an input expansion (ctrl) beside {others} on one Linear is not ported "
+                                      f"(the control_lora and i2v jobs keep every network off the expanded layer)")
+        w = self.dequantized()
+        dt = w.dtype
+        x = x.to(dt)
+        extra = self.ctrl.extra_in
+        x, x_ctrl = x[..., :-extra], x[..., -extra:]
+        y = F.linear(x, w)
+        if self.lora is not None:
+            y = self.lora(x, y)
+        y = y + x_ctrl @ self.ctrl.w.to(dt)
+        if self.ctrl.b is not None:
+            y = y + self.ctrl.b.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class ConvLoRA(nn.Module):

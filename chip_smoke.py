@@ -175,6 +175,20 @@ Phases (any failure raises and the script exits non-zero):
      and the SD 1.5 ``type: locon`` job on the LDM file with
      ``only_if_contains`` reaching the resnets (every conv of the down, mid
      and up blocks trained; 0 launches);
+  15g. the input-expansion adapters (``expansion_phases``): the ``ctrl``
+     overlay on a full-width flux-dev ``img_in`` (64 and 68 extra channels)
+     and a Wan 2.1 ``patch_embedding`` (80, with its bias), in f32, card vs
+     CPU; the control_lora job on flux-dev at FLUX_FAMILY_CUT and 512^2 (a
+     control image an item, 3 steps, 15 / 15 / 15 launches a step, the
+     expansion and the LoRA moved, no LoRA on ``img_in``,
+     ``transformer.x_embedder.weight`` [3072, 64] in the file, a sample
+     with a ``ctrl_img``), its rerun one step further (the resume restores
+     the expansion exactly) and one step of the inpainting input ([3072,
+     68]); the i2v adapter job on the Wan 2.1 1.3B t2v base at full width
+     and depth (the seeded ViT-H, ``i2v_do_start_frame``, 33 frames at
+     480^2, 3 steps, 180 / 90 / 90 launches a step, the graft and the frame
+     embedder moved, the base frozen, the file's ``attn_hog.*`` /
+     ``image_embedder.*`` / ``frame_embedder.*`` keys and shapes);
   16. the flash kernels at Wan 2.1's shapes (12 heads of 128, bf16): the
      forward, dq and dk/dv at the train clip's 8,100 tokens, self and across
      to the 512 text tokens (with a ragged tail tile whose lse is below -88),
@@ -230,7 +244,7 @@ Phases (any failure raises and the script exits non-zero):
      paths and steps over four seeded 10 s wavs written with scipy (one at
      48 kHz, one mono; [1722, 64] latents in the disk cache; 96 / 48 / 48
      launches a step) and configs/examples/train_lora_ltx2_av_tpu.yaml as
-     written but for its paths and steps at full width and depth (48 joint
+     written but for its paths and steps (LTX2_STEPS) at full width and depth (48 joint
      blocks on qfloat8, the bf16 Gemma tower, the mel chain) over four
      seeded 49-frame 512^2 clips with 48 kHz sidecar wavs (one without):
      576 / 288 / 288 launches a step and 288 a denoise step, 151 audio
@@ -4195,6 +4209,310 @@ def network_phases(card: str, sd15_path: str) -> dict:
     return out
 
 
+# ---- the input-expansion adapters: control_lora on flux-dev, the i2v adapter on a Wan 2.1 t2v base ----
+
+EXPANSION_STEPS = 3  # the control_lora and i2v jobs' steps (the inpainting control_lora job: 1)
+CONTROL_SAMPLE_STEPS = 4  # the control_lora job's one sample, with a ctrl_img
+
+
+def expansion_reference() -> dict:
+    """The ``ctrl`` overlay on ``Linear`` at full width, in f32, card vs CPU:
+    flux-dev's ``img_in`` (64 -> 3072) with 64 extra packed channels and a
+    rank-16 LoRA over the base features, and with the inpainting input's 68;
+    Wan 2.1 1.3B's ``patch_embedding`` (64 -> 1536) with the frame embedder's
+    80 and its bias. The forward and the gradients of the input, the
+    expansion (and the LoRA) within 1e-3 of the largest reference value."""
+    from ai_toolkit_tpu_torch.ops.layers import Ctrl, Linear, LoRA, init_parameters
+
+    phase("the ctrl overlay on Linear at full width (f32): flux-dev img_in with 64 (+ a LoRA) and 68 extra channels, "
+          "Wan 2.1 1.3B patch_embedding with the frame embedder's 80: card vs CPU")
+    out = {}
+    g = torch.Generator().manual_seed(3)
+    for label, cin, cout, extra, tokens, lora, bias in (("flux img_in", 64, 3072, 64, 1024, True, False),
+                                                        ("flux img_in, inpainting", 64, 3072, 68, 1024, False, False),
+                                                        ("Wan patch_embedding", 64, 1536, 80, 8100, False, True)):
+        mods = []
+        for dev in ("cpu", "cuda"):
+            lin = init_parameters(Linear(cin, cout, device=dev, dtype=torch.float32),
+                                  torch.Generator(dev).manual_seed(0)).requires_grad_(False)
+            mods.append(lin)
+        w = torch.randn((extra, cout), generator=g) * 0.01
+        b = torch.randn((cout,), generator=g) * 0.1 if bias else None
+        a_b = (torch.randn((cin, 16), generator=g) * 0.05, torch.randn((16, cout), generator=g) * 0.05)
+        for lin in mods:
+            dev = lin.weight.device
+            lin.weight.copy_(mods[0].weight.to(dev))
+            lin.ctrl = Ctrl(w.to(dev), None if b is None else b.to(dev))
+            if lora:
+                lin.lora = LoRA(cin, 16, cout, 1.0, device=dev)
+                with torch.no_grad():
+                    lin.lora.a.copy_(a_b[0].to(dev))
+                    lin.lora.b.copy_(a_b[1].to(dev))
+        x = torch.randn((1, tokens, cin + extra), generator=g)
+        target = torch.randn((1, tokens, cout), generator=g)
+        res = []
+        for lin in mods:
+            dev = lin.weight.device
+            xd = x.to(dev).requires_grad_(True)
+            y = lin(xd)
+            params = [xd, lin.ctrl.w] + ([lin.ctrl.b] if bias else []) + ([lin.lora.a, lin.lora.b] if lora else [])
+            grads = torch.autograd.grad((y - target.to(dev)).square().mean(), params)
+            res.append((y.detach().cpu(), [gr.cpu() for gr in grads]))
+        (ref, ref_g), (got, got_g) = res
+        scale, err = ref.abs().max().item(), (got - ref).abs().max().item()
+        gmax = max(gr.abs().max().item() for gr in ref_g)
+        gerr = max((a - r).abs().max().item() for a, r in zip(got_g, ref_g))
+        print(f"{label} ({cin} + {extra} -> {cout}, {tokens} tokens{', LoRA rank 16' if lora else ''}"
+              f"{', expansion bias' if bias else ''}): forward max|ref|={scale:.3e} max_abs_err={err:.3e} "
+              f"(tol {1e-3 * scale:.3e}); {len(ref_g)} gradients max|ref|={gmax:.3e} max_abs_err={gerr:.3e} "
+              f"(tol {1e-3 * gmax:.3e})")
+        check(bool(torch.isfinite(got).all()) and err <= 1e-3 * scale and gmax > 0 and gerr <= 1e-3 * gmax,
+              f"the ctrl overlay ({label}) disagrees between card and CPU")
+        out[label] = {"err": err / scale, "grad_err": gerr / gmax}
+    return out
+
+
+def _spy_build(at_build: dict):
+    """Record each trainable tensor of a job as the job builds it (its network
+    and its expansion) in ``at_build``; returns the undo."""
+    from ai_toolkit_tpu_torch.jobs.train_process import SDTrainProcess
+
+    net, exp = SDTrainProcess._build_network, SDTrainProcess._build_expansion
+
+    def spy_net(self, *args, **kwargs):
+        trainable, lora = net(self, *args, **kwargs)
+        at_build.update({k: p.detach().clone() for k, p in trainable.items()})
+        return trainable, lora
+
+    def spy_exp(self, model, variables, seed):
+        out = exp(self, model, variables, seed)
+        at_build.update({k: p.detach().clone() for k, p in out.items()})
+        if self.expansion == "i2v":  # the base's own tensors, which must stay frozen
+            grafted = {k[len("i2v."):] for k in out if k.startswith("i2v.")}
+            at_build["__base__"] = {n: _checksum(p) for n, p in variables["dit"].named_parameters()
+                                    if n not in grafted and not n.startswith("patch_embedding.ctrl")}
+        return out
+
+    SDTrainProcess._build_network, SDTrainProcess._build_expansion = spy_net, spy_exp
+
+    def undo():
+        SDTrainProcess._build_network, SDTrainProcess._build_expansion = net, exp
+
+    return undo
+
+
+def _control_lora_raw(name: str, steps: int, inpaint: bool = False, sample: bool = False) -> dict:
+    """The control_lora job on flux-dev at 512^2: the four seeded images with a
+    control image each (``_control_folders``), or with the inpainting input
+    (the RGBA inpaint folder: one item's keep mask, random blobs for the
+    others), the LoRA given as ``network``, rank 16, adamw8bit, EMA, bf16,
+    the fp16 save; with ``sample``, one final sample of a prompt with a
+    ``ctrl_img``."""
+    ctrl, inp = _control_folders()
+    dataset = {"folder_path": _train_dataset(n=4, size=512, name="knob_data"), "caption_ext": "txt",
+               "cache_latents": True, "cache_latents_to_disk": False, "resolution": [512]}
+    dataset["inpaint_path" if inpaint else "control_path"] = inp if inpaint else ctrl
+    proc = {"type": "sd_trainer", "training_folder": os.path.join(OUT_DIR, "train"), "trigger_word": "p3r5on",
+            "network": {"type": "lora", "linear": 16, "linear_alpha": 16},
+            "adapter": {"type": "control_lora", "num_control_images": 1, "has_inpainting_input": inpaint,
+                        "control_image_dropout": 0.1},
+            "save": {"dtype": "float16", "save_every": 250, "max_step_saves_to_keep": 4},
+            "datasets": [dataset],
+            "train": {"batch_size": 1, "steps": steps, "gradient_checkpointing": True, "noise_scheduler": "flowmatch",
+                      "timestep_type": "flux_shift", "optimizer": "adamw8bit", "lr": 1e-4, "max_grad_norm": 1.0,
+                      "ema_config": {"use_ema": True, "ema_decay": 0.9}, "dtype": "bf16", "seed": 42,
+                      "disable_sampling": not sample, "skip_first_sample": True},
+            "model": {**FLUX_MODEL, "quantize": False}, "logging": {"log_every": 1}}
+    if sample:
+        proc["sample"] = {"sample_every": 0, "width": 512, "height": 512, "sample_steps": CONTROL_SAMPLE_STEPS,
+                          "guidance_scale": 4, "seed": 42,
+                          "prompts": [{"prompt": "p3r5on photo of a red fox", "ctrl_img": os.path.join(ctrl, "img_1.png")}]}
+    return {"job": "extension", "config": {"name": name, "process": [proc]}}
+
+
+def _expansion_file(path: str) -> dict:
+    from safetensors import safe_open
+
+    with safe_open(path, framework="pt") as f:
+        return {k: tuple(f.get_slice(k).get_shape()) for k in f.keys()}, f.metadata()
+
+
+def control_lora_phase(card: str) -> dict:
+    """The control_lora job (EXPANSION_STEPS steps and a sample with a control
+    image), its rerun one step further (the resume reads the expansion and
+    the exact state back), and one step of the inpainting input: 15 / 15 / 15
+    flash launches every step, 15 a denoise step."""
+    from ai_toolkit_tpu_torch.jobs.train_process import SDTrainProcess
+    from ai_toolkit_tpu_torch.models.flux_model import FluxModel
+
+    per_step = _counts(FAMILY_BLOCKS, FAMILY_BLOCKS, FAMILY_BLOCKS)
+    cut = f"flux-dev cut to {FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks, 512^2"
+    phase(f"control_lora job: {cut}, one control image an item, rank 16, {EXPANSION_STEPS} steps, a final sample "
+          f"with a ctrl_img ({CONTROL_SAMPLE_STEPS} steps)")
+    name = "smoke_control_lora"
+    at_build, samples = {}, []
+    real_scl = FluxModel.sampling_control_latents
+
+    def spy_scl(self, *args, **kwargs):
+        out = real_scl(self, *args, **kwargs)
+        samples.append(float(out.abs().max()))
+        return out
+
+    undo = _spy_build(at_build)
+    FluxModel.sampling_control_latents = spy_scl
+    try:
+        with flux_cut_depth():
+            result, proc, report = _run_job(_control_lora_raw(name, EXPANSION_STEPS, sample=True), per_step, None,
+                                            denoise=_counts(fwd=FAMILY_BLOCKS))
+    finally:
+        undo()
+        FluxModel.sampling_control_latents = real_scl
+    tr, ema = proc.state.trainable, proc.state.ema
+    hidden = proc.model.dit_config.hidden_size
+    check(proc.expansion == "control_lora" and tuple(tr["ctrl.w"].shape) == (64, hidden)
+          and proc.model.dit_config.control_channels == 64, f"control_lora: the expansion {tuple(tr['ctrl.w'].shape)}")
+    moved = [k for k in tr if not k.endswith(".scale") and not torch.equal(at_build[k], tr[k].detach())]
+    check("ctrl.w" in moved and len(moved) == sum(not k.endswith(".scale") for k in tr),
+          f"control_lora: {len(moved)} of {len(tr)} trainable tensors moved ('ctrl.w' moved: {'ctrl.w' in moved})")
+    check(not any(n.startswith("img_in") for n in proc.lora) and len(proc.lora) == 80,
+          f"control_lora: the LoRA has {len(proc.lora)} modules, img_in among them: "
+          f"{any(n.startswith('img_in') for n in proc.lora)}")
+    path = check_lora_job(result, proc)
+    keys, meta = _expansion_file(path)
+    check(keys.get("transformer.x_embedder.weight") == (hidden, 64),
+          f"control_lora: transformer.x_embedder.weight is {keys.get('transformer.x_embedder.weight')}")
+    check(len(result["samples"]) == 1 and os.path.isfile(result["samples"][0]["path"]) and samples
+          and samples[-1] > 0, f"control_lora: samples {result['samples']}, control latents max {samples}")
+    trained = tr["ctrl.w"].detach().clone()
+    rep = {"step_ms": result["step_ms"], "peak_gib": report["peak_gib"], "wall_s": report["wall_s"],
+           "per_step": per_step, "losses": result["losses"], "lora_modules": len(proc.lora), "keys": len(keys),
+           "sample_s": result["samples"][0]["seconds"]}
+    print(f"{card}: {name}: {len(proc.lora)} LoRA modules + the 64 x {hidden} expansion; step ms "
+          f"{', '.join(f'{x:.1f}' for x in result['step_ms'])}; peak {report['peak_gib']:.2f} GiB; launches a step "
+          f"{per_step}; {len(keys)} keys in {path}; one sample with a ctrl_img in {rep['sample_s']:.2f} s; job wall "
+          f"{report['wall_s']:.1f} s")
+    del proc, tr, ema
+    gc.collect()
+
+    phase(f"control_lora job rerun to {EXPANSION_STEPS + 1} steps: the resume reads the saved expansion and state")
+    resumed_w = {}
+    real_resume = SDTrainProcess._resume
+
+    def spy_resume(self, ckpt, model, state, lora, generator):
+        step = real_resume(self, ckpt, model, state, lora, generator)
+        resumed_w["w"] = state.trainable["ctrl.w"].detach().clone()
+        resumed_w["file"] = self._expansion_from_file(ckpt.latest_save_path(), {
+            "ctrl.w": tuple(state.trainable["ctrl.w"].shape)})["ctrl.w"]
+        return step
+
+    SDTrainProcess._resume = spy_resume
+    try:
+        with flux_cut_depth():
+            result2, proc2, report2 = _run_job(_control_lora_raw(name, EXPANSION_STEPS + 1), per_step, None,
+                                               fresh=False)
+    finally:
+        SDTrainProcess._resume = real_resume
+    ema_w = resumed_w["file"].to(trained.device)
+    check(result2["start_step"] == EXPANSION_STEPS and torch.equal(resumed_w["w"], trained)
+          and tuple(ema_w.shape) == (64, hidden) and float(ema_w.abs().max()) > 0,
+          f"control_lora: the rerun started at {result2['start_step']}, the expansion restored: "
+          f"{torch.equal(resumed_w['w'], trained)}")
+    print(f"{card}: {name} resumed at step {result2['start_step']}: the expansion restored exactly (the file's EMA "
+          f"copy read back, max {float(ema_w.abs().max()):.3e}); step ms {result2['step_ms'][0]:.1f}")
+    rep["resumed_step_ms"] = result2["step_ms"]
+    del proc2
+    gc.collect()
+
+    phase(f"control_lora job with has_inpainting_input: {cut}, the RGBA inpaint folder, 1 step")
+    result3, proc3, report3 = None, None, None
+    with flux_cut_depth():
+        result3, proc3, report3 = _run_job(_control_lora_raw("smoke_control_lora_inpaint", 1, inpaint=True),
+                                           per_step, None)
+    keys3, _ = _expansion_file(result3["save_path"])
+    check(proc3.model.control_lora_inpaint and keys3.get("transformer.x_embedder.weight") == (hidden, 68),
+          f"control_lora inpainting: transformer.x_embedder.weight is {keys3.get('transformer.x_embedder.weight')}")
+    print(f"{card}: smoke_control_lora_inpaint: the 68 x {hidden} expansion; step ms {result3['step_ms'][0]:.1f}; "
+          f"peak {report3['peak_gib']:.2f} GiB; launches a step {per_step}; job wall {report3['wall_s']:.1f} s")
+    rep.update(inpaint_step_ms=result3["step_ms"], inpaint_peak_gib=report3["peak_gib"])
+    del proc3
+    gc.collect()
+    return rep
+
+
+def i2v_phase(card: str) -> dict:
+    """The i2v adapter job on the Wan 2.1 1.3B t2v base at full width and depth
+    (configs/examples/train_lora_wan21_tpu.yaml with its network given as
+    ``adapter.lora_config``): the seeded ViT-H, ``i2v_do_start_frame``, 33
+    frames at 480^2, EXPANSION_STEPS steps. Each block's three attentions
+    (self, text, the image's 257 tokens) run twice a step (the recompute)
+    and their backward once: 180 / 90 / 90 launches a step."""
+    example = "train_lora_wan21_tpu.yaml"
+    name = "smoke_i2v_adapter"
+    phase(f"i2v adapter job on Wan 2.1 1.3B (t2v base, full width and depth), i2v_do_start_frame, {WAN_FRAMES} "
+          f"frames at {WAN_RES}^2, the seeded ViT-H, {EXPANSION_STEPS} steps")
+    raw, path = _job_file(example, name, None, _wan_clips(WAN_RES), do_i2v=True)
+    proc_cfg = raw["config"]["process"][0]
+    proc_cfg["adapter"] = {"type": "i2v", "i2v_do_start_frame": True, "lora_config": proc_cfg.pop("network")}
+    proc_cfg["train"]["steps"] = EXPANSION_STEPS
+    raw = _read_back(raw, path, example)
+    per_step = _counts(6 * WAN_BLOCKS, 3 * WAN_BLOCKS, 3 * WAN_BLOCKS)
+    at_build = {}
+    undo = _spy_build(at_build)
+    try:
+        result, proc, report = _run_job(raw, per_step, None)
+    finally:
+        undo()
+    tr = proc.state.trainable
+    dit = proc.variables["dit"]
+    grafted = [k for k in tr if k.startswith("i2v.")]
+    moved = [k for k in grafted + ["ctrl.w", "ctrl.b"] if not torch.equal(at_build[k], tr[k].detach())]
+    check(len(grafted) == 5 * WAN_BLOCKS + 8 and len(moved) == len(grafted) + 2,
+          f"i2v: {len(moved)} of the {len(grafted)} grafted tensors and the frame embedder moved")
+    base = {n: _checksum(p) for n, p in dit.named_parameters() if n in at_build["__base__"]}
+    check(base == at_build["__base__"] and len(base) > 0, "i2v: the frozen base changed")
+    check(proc.variables["clip_vision"].cfg.hidden_size == 1280 and tuple(tr["ctrl.w"].shape) == (80, 1536),
+          f"i2v: the vision tower or the frame embedder {tuple(tr['ctrl.w'].shape)}")
+    check(not any(("add_" in n) or n.startswith("patch_embedding") for n in proc.lora) and len(proc.lora) == 300,
+          f"i2v: the LoRA has {len(proc.lora)} modules")
+    path = check_lora_job(result, proc)
+    keys, _ = _expansion_file(path)
+    want = {f"attn_hog.{i}.{k}": s for i in range(WAN_BLOCKS)
+            for k, s in (("add_k_proj.weight", (1536, 1536)), ("add_k_proj.bias", (1536,)),
+                         ("add_v_proj.weight", (1536, 1536)), ("add_v_proj.bias", (1536,)),
+                         ("norm_added_k.weight", (1536,)), ("norm_added_q.weight", (1536,)))}
+    want.update({"image_embedder.norm1.weight": (1280,), "image_embedder.norm1.bias": (1280,),
+                 "image_embedder.ff.net.0.proj.weight": (1280, 1280), "image_embedder.ff.net.0.proj.bias": (1280,),
+                 "image_embedder.ff.net.2.weight": (1536, 1280), "image_embedder.ff.net.2.bias": (1536,),
+                 "image_embedder.norm2.weight": (1536,), "image_embedder.norm2.bias": (1536,),
+                 "frame_embedder.patch_embedding.weight": (1536, 20, 1, 2, 2),
+                 "frame_embedder.patch_embedding.bias": (1536,)})
+    extra = {k: v for k, v in keys.items() if ".lora_" not in k and not k.endswith(".alpha")}
+    check(extra == want, f"i2v: the file's grafted keys {sorted(set(extra) ^ set(want))[:4]} differ from the JAX "
+                         f"layout's")
+    rep = {"step_ms": result["step_ms"], "peak_gib": report["peak_gib"], "wall_s": report["wall_s"],
+           "per_step": per_step, "losses": result["losses"], "grafted_params": sum(tr[k].numel() for k in grafted),
+           "keys": len(keys)}
+    print(f"{card}: {name}: {len(grafted)} grafted tensors ({rep['grafted_params']:,} params) + the 80 x 1536 "
+          f"frame embedder moved, the base frozen; step ms {', '.join(f'{x:.1f}' for x in result['step_ms'])}; peak "
+          f"{report['peak_gib']:.2f} GiB; launches a step {per_step}; {len(keys)} keys in {path}; job wall "
+          f"{report['wall_s']:.1f} s")
+    del proc, tr, dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def expansion_phases(card: str) -> dict:
+    """The two input-expansion adapters: the ``ctrl`` overlay card vs CPU, the
+    control_lora jobs on flux-dev at FLUX_FAMILY_CUT and the i2v adapter job
+    on the Wan 2.1 1.3B t2v base."""
+    t_start = time.perf_counter()
+    out = {"overlay": expansion_reference(), "control_lora": control_lora_phase(card), "i2v": i2v_phase(card)}
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"{card}: the expansion adapter phases {out['wall_s']:.1f} s")
+    return out
+
+
 # ---- the audio archs: ACE-Step's 1-D WanDiT and LTX-2's joint audio-video DiT ----
 
 ACE_BLOCKS = 24  # the 1-D WanDiT: one self- and one cross-attention each
@@ -4202,6 +4520,9 @@ ACE_CLIPS = 4
 LTX2_BLOCKS = 48  # six attentions each: video self, audio self, a2v, v2a, video and audio text
 LTX2_CLIPS = 4  # 49 frames at 512^2 and 24 fps; all but the last with a 48 kHz sidecar .wav
 LTX2_FRAMES = 49
+# the LTX-2 file's steps: the first two warm the step, the third is timed (cut from 5 to make room for the
+# input-expansion adapters' phases within the script's time limit; SHIPPED_STEPS is at its floor)
+LTX2_STEPS = 3
 # (B, S, T, H, D): ACE's 10 s clip is 1,722 latent tokens against itself and 256 T5 tokens; LTX-2's
 # 49 frames at 512^2 are 7 x 16 x 16 = 1,792 video tokens, its 2.04 s of 48 kHz audio 151 tokens
 AUDIO_SHAPES = [((1, 1722, 1722, 12, 128), "ACE self"), ((1, 1722, 256, 12, 128), "ACE to text"),
@@ -4372,7 +4693,7 @@ def ace_phase(card: str, profile_dir: str | None) -> dict:
 
 def ltx2_phase(card: str, profile_dir: str | None) -> dict:
     """configs/examples/train_lora_ltx2_av_tpu.yaml as written but for its
-    paths and steps, on seeded weights, at full width and depth: the joint
+    paths and steps (LTX2_STEPS), on seeded weights, at full width and depth: the joint
     DiT (48 blocks) on a qfloat8 base, the Gemma tower in bf16, the mel audio
     chain, rank 16, adamw8bit, EMA 0.99, per-block checkpointing, 49 frames
     at 512^2 (1,792 video tokens) with 48 kHz sidecar audio (151 tokens; one
@@ -4388,8 +4709,8 @@ def ltx2_phase(card: str, profile_dir: str | None) -> dict:
     from PIL import Image
     from scipy.io import wavfile
 
-    raw = _shipped_job("train_lora_ltx2_av_tpu.yaml", "smoke_ltx2_shipped", _train_steps(profile_dir), "",
-                       folder=_av_clips())
+    raw = _shipped_job("train_lora_ltx2_av_tpu.yaml", "smoke_ltx2_shipped", LTX2_STEPS + (1 if profile_dir else 0),
+                       "", folder=_av_clips())
     raw["config"]["process"][0]["logging"] = {"log_every": 1}
     step = _counts(12 * LTX2_BLOCKS, 6 * LTX2_BLOCKS, 6 * LTX2_BLOCKS)  # six attentions, forward twice
     result, proc, report = _run_job(raw, step, profile_dir, _counts(fwd=6 * LTX2_BLOCKS))
@@ -4553,6 +4874,8 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"train_knobs": knobs}))
     networks = network_phases(card, sd15["checkpoint"])
     print(json.dumps({"networks": networks}))
+    expansions = expansion_phases(card)
+    print(json.dumps({"expansion_adapters": expansions}))
     print(json.dumps({"shipped_files": {
         "sd15_textual_inversion": sd15,
         "flux_lora_val_losses": train["val_losses"],

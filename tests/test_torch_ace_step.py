@@ -47,7 +47,8 @@ from ai_toolkit_tpu_torch.run import main as run_main
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
 from test_torch_lumina2 import filled
-from torch_jax_opt import jax_opt0  # noqa: F401
+from test_torch_flux_family import fast_jit
+from torch_jax_opt import jax_opt0, seeded_init  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,14 +71,14 @@ def test_audio_vae_matches_jax(kw):
     tcfg = taudio_vae.AudioVAEConfig(**kw, dtype=torch.float32) if kw else taudio_vae.AudioVAEConfig.tiny()
     jmod = jaudio_vae.AudioAutoencoderKL(jcfg)
     wav = np.random.default_rng(0).uniform(-1, 1, (2, 400, 2)).astype(np.float32)
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.key(1), jnp.asarray(wav))["params"])
+    params = jax.tree.map(np.asarray, seeded_init(jmod.init, jax.random.key(1), jnp.asarray(wav))["params"])
     params = jax.tree.map(lambda v: v + 0.01 if v.ndim == 1 else v, params)  # non-zero biases
 
-    def run(method, x):
-        return np.asarray(jax.jit(lambda p, x: jmod.apply({"params": p}, x, method=method))(params, x))
+    def run(p, x):  # one program: the latents and their decode
+        lat = jmod.apply({"params": p}, x, method=jaudio_vae.AudioAutoencoderKL.encode)
+        return lat, jmod.apply({"params": p}, lat, method=jaudio_vae.AudioAutoencoderKL.decode)
 
-    ref_lat = run(jaudio_vae.AudioAutoencoderKL.encode, wav)
-    ref_dec = run(jaudio_vae.AudioAutoencoderKL.decode, ref_lat)
+    ref_lat, ref_dec = (np.asarray(r) for r in fast_jit(run, params, wav))
     mod = taudio_vae.AudioAutoencoderKL(tcfg)
     mod.load_state_dict(from_jax.audio_vae_state_dict(params))
     assert all(p.dtype == torch.float32 for p in mod.parameters())
@@ -120,7 +121,7 @@ def _jax_dit():
 def jax_dit():
     cfg, mod = _jax_dit()
     pe = jnp.zeros((1, 8, cfg.head_dim // 2, 2, 2))
-    params = jax.jit(mod.init)(jax.random.key(3), jnp.zeros((1, 8, 4)), jnp.zeros((1, 7, 64)), jnp.zeros((1,)), pe)
+    params = seeded_init(mod.init, jax.random.key(3), jnp.zeros((1, 8, 4)), jnp.zeros((1, 7, 64)), jnp.zeros((1,)), pe)
     return jax.tree.map(np.asarray, params["params"])
 
 

@@ -15,9 +15,10 @@ missing key (the LDM single file itself: ``test_torch_ldm_single_file.py``).
 The Wan archs' loads are in ``test_torch_checkpoint_load_wan.py``, SDXL's in
 ``test_torch_checkpoint_load_sdxl.py`` and the JAX loaders' faults in
 ``test_torch_checkpoint_load_faults{,_wan}.py``, so the files' JAX compiles
-run on several workers. Each arch's JAX init compiles once per file, at
-XLA's optimization level 0 (``_jit_init``), and so does the init the JAX
-Wan loader runs for its VAE's structure (``compiled_init``)."""
+run on several workers. No JAX init is compiled: each arch's JAX init
+gives seeded values at its shapes (``_jit_init``: ``jax.eval_shape``, then
+``test_torch_lumina2.filled``, seeded by the key), and so does the init the
+JAX Wan loader runs for its VAE's structure (``compiled_init``)."""
 
 import contextlib
 import json
@@ -40,7 +41,8 @@ from ai_toolkit_tpu_torch.config.modules import ModelConfig
 from ai_toolkit_tpu_torch.io import from_jax
 from ai_toolkit_tpu_torch.io.hidream_layout import KEEP, hidream_reference_state
 from ai_toolkit_tpu_torch.models.registry import get_model_class
-from test_torch_flux_family import OPT0, fast_jit
+from test_torch_flux_family import fast_jit
+from test_torch_lumina2 import filled
 from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
@@ -50,28 +52,44 @@ JAX_CLASSES = {"flux": JFluxModel, "hidream": JHiDreamModel, "sdxl": JSDXLModel,
                "wan22_14b": JWanModel, "wan22_5b": JWanModel}
 
 
-_INITS: dict = {}
+_SHAPES: dict = {}
+_INITS: dict = {}  # an arch's init given by a test in place of the seeded values (SDXL's)
+
+
+def _key_seed(rng) -> int:
+    """A seed for ``filled`` from a JAX key: equal keys give equal values."""
+    return int(np.asarray(jax.random.key_data(rng)).astype(np.uint64).sum()) % (2 ** 31)
+
+
+def seeded_like(shapes, seed: int):
+    """``filled`` values at ``shapes`` (any tree of ``ShapeDtypeStruct``), each
+    leaf in its own dtype."""
+    return jax.tree.map(lambda v, s: np.asarray(v, s.dtype), filled(shapes, seed), shapes)
 
 
 def _jit_init(jmodel, arch: str):
-    """``jmodel.init_variables`` compiled once per arch for the file, at XLA's
-    optimization level 0 (the tests' models of an arch differ only in their
-    path, which the init does not read); the JAX loaders call it too."""
-    if arch not in _INITS:
-        _INITS[arch] = jax.jit(jmodel.init_variables, compiler_options=OPT0)
-    return _INITS[arch]
+    """``jmodel.init_variables`` as seeded values at its shapes (traced once per
+    arch for the file: the tests' models of an arch differ only in their path,
+    which the init does not read), so no init compiles; a key gives its own
+    values, so the JAX loaders' init from ``key(0)`` still differs from the
+    seed-7 source. The JAX loaders call it too."""
+    if arch in _INITS:
+        return _INITS[arch]
+    if arch not in _SHAPES:
+        _SHAPES[arch] = jax.eval_shape(jmodel.init_variables, jax.random.key(0))
+    return lambda rng: seeded_like(_SHAPES[arch], _key_seed(rng))
 
 
 @contextlib.contextmanager
 def compiled_init(cls):
-    """``cls.init`` compiled at XLA's optimization level 0 for the block. The
-    JAX loaders init a module for its tree's structure (the Wan VAE, LTX-2's
-    video VAE), which flax runs op by op (~45 s for the tiny Wan VAE); the
-    loaded tensors then replace its values, so only the time changes."""
+    """``cls.init`` as seeded values at its shapes for the block. The JAX
+    loaders init a module for its tree's structure (the Wan VAE, LTX-2's video
+    VAE), which flax runs op by op (~45 s for the tiny Wan VAE); the loaded
+    tensors then replace its values, so only the time changes."""
     real = cls.init
 
     def init(self, rngs, *args, **kwargs):
-        return jax.jit(lambda r, *a: real(self, r, *a, **kwargs), compiler_options=OPT0)(rngs, *args)
+        return seeded_like(jax.eval_shape(lambda r, *a: real(self, r, *a, **kwargs), rngs, *args), _key_seed(rngs))
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(cls, "init", init)

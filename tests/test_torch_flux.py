@@ -24,6 +24,7 @@ from ai_toolkit_tpu_torch.models.text_encoders import clip as tclip
 from ai_toolkit_tpu_torch.models.text_encoders import t5 as tt5
 from ai_toolkit_tpu_torch.ops.layers import init_parameters
 from ai_toolkit_tpu_torch.ops.rope import multi_axis_rope as t_multi_axis_rope
+from test_torch_flux_family import fast_jit
 from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
@@ -93,9 +94,9 @@ def test_flux_dit_forward_matches_jax():
     g = np.asarray([1.0, 4.0], np.float32)
     ids = image_position_ids(hh, ww, text_len=n_txt)
     pe_j = multi_axis_rope(jnp.asarray(ids)[None], list(cfg_t.axes_dim), cfg_t.theta)
-    ref = jdit.FluxDiT(jdit.FluxConfig.tiny()).apply(
-        {"params": tree}, jnp.asarray(img), jnp.asarray(txt), jnp.asarray(t), jnp.asarray(y),
-        pe_j, jnp.asarray(g))
+    ref = fast_jit(jdit.FluxDiT(jdit.FluxConfig.tiny()).apply,
+                   {"params": tree}, jnp.asarray(img), jnp.asarray(txt), jnp.asarray(t), jnp.asarray(y),
+                   pe_j, jnp.asarray(g))
     pe_t = t_multi_axis_rope(torch.from_numpy(ids)[None], list(cfg_t.axes_dim), cfg_t.theta)
     with torch.inference_mode():
         out = module(*(torch.from_numpy(a) for a in (img, txt, t, y)), pe_t, torch.from_numpy(g))
@@ -104,17 +105,17 @@ def test_flux_dit_forward_matches_jax():
     # the scanned JAX layout converts to the same port weights
     cfg_s = dataclasses.replace(jdit.FluxConfig.tiny(), scan_blocks=True)
     tree_s = _jax_tree(module, flux_dit_rules(scan_blocks=True))
-    ref_s = jdit.FluxDiT(cfg_s).apply(
-        {"params": tree_s}, jnp.asarray(img), jnp.asarray(txt), jnp.asarray(t), jnp.asarray(y),
-        pe_j, jnp.asarray(g))
+    ref_s = fast_jit(jdit.FluxDiT(cfg_s).apply,
+                     {"params": tree_s}, jnp.asarray(img), jnp.asarray(txt), jnp.asarray(t), jnp.asarray(y),
+                     pe_j, jnp.asarray(g))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_s), atol=ATOL)
 
     # attn_masking: the key-padding mask takes the plain attention path
     mask = np.ones((2, n_txt), bool)
     mask[0, 3:] = False
-    ref_m = jdit.FluxDiT(jdit.FluxConfig.tiny()).apply(
-        {"params": tree}, jnp.asarray(img), jnp.asarray(txt), jnp.asarray(t), jnp.asarray(y),
-        pe_j, jnp.asarray(g), jnp.asarray(mask))
+    ref_m = fast_jit(jdit.FluxDiT(jdit.FluxConfig.tiny()).apply,
+                     {"params": tree}, jnp.asarray(img), jnp.asarray(txt), jnp.asarray(t), jnp.asarray(y),
+                     pe_j, jnp.asarray(g), jnp.asarray(mask))
     with torch.inference_mode():
         out_m = module(*(torch.from_numpy(a) for a in (img, txt, t, y)), pe_t,
                        torch.from_numpy(g), torch.from_numpy(mask))
@@ -135,7 +136,7 @@ def test_clip_forward_matches_jax():
     ids = np.random.default_rng(2).integers(0, cfg.vocab_size - 1, (2, 77)).astype(np.int32)
     ids[0, 9:] = cfg.eos_token_id
     ids[1, 30:] = cfg.eos_token_id
-    ref = jclip.CLIPTextModel(jclip.CLIPTextConfig.tiny()).apply({"params": tree}, jnp.asarray(ids))
+    ref = fast_jit(jclip.CLIPTextModel(jclip.CLIPTextConfig.tiny()).apply, {"params": tree}, jnp.asarray(ids))
     with torch.inference_mode():
         out = module(torch.from_numpy(ids).long())
     for key in ("pooled_output", "last_hidden_state"):
@@ -156,7 +157,7 @@ def test_t5_forward_matches_jax():
     tree = _jax_tree(module, t5_rules())
     ids = np.random.default_rng(3).integers(2, 1000, (2, 40)).astype(np.int32)
     ids[0, 20:] = 1
-    ref = jt5.T5Encoder(jt5.T5Config.tiny()).apply({"params": tree}, jnp.asarray(ids))
+    ref = fast_jit(jt5.T5Encoder(jt5.T5Config.tiny()).apply, {"params": tree}, jnp.asarray(ids))
     with torch.inference_mode():
         out = module(torch.from_numpy(ids).long())
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
@@ -166,8 +167,8 @@ def test_vae_decode_matches_jax():
     module = _build("vae", seed=4)
     tree = _jax_tree(module, vae_rules(len(VAE_TINY.channel_multipliers), VAE_TINY.layers_per_block))
     z = np.random.default_rng(4).standard_normal((1, 8, 6, VAE_TINY.latent_channels), dtype=np.float32)
-    ref = jvae.AutoencoderKL(VAE_TINY).apply({"params": tree}, jnp.asarray(z),
-                                             method=jvae.AutoencoderKL.decode)
+    ref = fast_jit(lambda v, zz: jvae.AutoencoderKL(VAE_TINY).apply(v, zz, method=jvae.AutoencoderKL.decode),
+                   {"params": tree}, jnp.asarray(z))
     with torch.inference_mode():
         out = module.decode(torch.from_numpy(z))
     assert out.shape == (1, 16, 12, 3)

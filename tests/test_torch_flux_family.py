@@ -250,6 +250,17 @@ def fast_jit(fn, *args):
     return jax.jit(fn, compiler_options=OPT0)(*args)
 
 
+def jit_decode(jmodel):
+    """``jmodel`` with its ``decode_latents`` (and ``decode_audio``) compiled
+    with :data:`OPT0`: the JAX generation functions call them eagerly, which
+    flax runs op by op. The same computation; returns ``jmodel``."""
+    for name in ("decode_latents", "decode_audio"):
+        real = getattr(jmodel, name, None)
+        if real is not None:
+            setattr(jmodel, name, lambda variables, latents, real=real: fast_jit(real, variables, latents))
+    return jmodel
+
+
 def _leaf(tree, path):
     for part in path.split("/"):
         tree = tree[part]

@@ -22,6 +22,7 @@ from ai_toolkit_tpu_torch.generation import generate_flux
 from ai_toolkit_tpu_torch.io.from_jax import flux_model_state
 from ai_toolkit_tpu_torch.jobs import run_job
 from ai_toolkit_tpu_torch.models.flux_model import FluxModel
+from test_torch_flux_family import jit_decode
 from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
@@ -47,7 +48,7 @@ def test_generate_flux_matches_jax():
 
     gen = GenerateImageConfig(prompt="a watercolor fox in a misty forest", width=32, height=32,
                               seed=7, guidance_scale=4.0, sample_steps=2, sampler="flowmatch")
-    jax_model = JaxFluxModel(ModelConfig.from_dict(dict(TINY)))
+    jax_model = jit_decode(JaxFluxModel(ModelConfig.from_dict(dict(TINY))))
     ref = jax_generate_flux(jax_model, jax_vars, gen)
     h, w, c = model.latent_shape(gen.height, gen.width)
     noise = np.asarray(jax.random.normal(jax.random.key(gen.seed), (1, h, w, c), jnp.float32))

@@ -38,6 +38,7 @@ from ai_toolkit_tpu_torch.models.text_encoders import clip as tclip
 from ai_toolkit_tpu_torch.models.text_encoders import llm as tllm
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
+from test_torch_flux_family import fast_jit, jit_decode
 from test_torch_lumina2 import filled
 from torch_jax_opt import jax_opt0  # noqa: F401
 
@@ -82,8 +83,9 @@ def test_clip_gelu_is_the_tanh_approximation(monkeypatch):
     jcfg = dataclasses.replace(jclip.CLIPTextConfig.tiny(), hidden_act="gelu")
     ids = np.random.default_rng(0).integers(0, 999, (2, 12)).astype(np.int32)
     ids[:, 9] = jcfg.eos_token_id
-    params = jax.tree.map(np.asarray, jclip.CLIPTextModel(jcfg).init(jax.random.key(1), jnp.asarray(ids))["params"])
-    ref = jclip.CLIPTextModel(jcfg).apply({"params": params}, jnp.asarray(ids))
+    jmod = jclip.CLIPTextModel(jcfg)
+    params = jax.tree.map(np.asarray, fast_jit(jmod.init, jax.random.key(1), jnp.asarray(ids))["params"])
+    ref = fast_jit(jmod.apply, {"params": params}, jnp.asarray(ids))
 
     def port_out():
         cfg = dataclasses.replace(tclip.CLIPTextConfig.tiny(), hidden_act="gelu")
@@ -115,8 +117,8 @@ def test_llm_encoder_matches_jax(masked):
     mask = np.ones((2, 10), np.int32)
     mask[1, 7:] = 0
     jmod = jllm.LLMEncoder(jllm.LLMConfig.tiny())
-    params = jmod.init(jax.random.key(3), jnp.asarray(ids))["params"]
-    ref = jmod.apply({"params": params}, jnp.asarray(ids), jnp.asarray(mask) if masked else None)
+    params = fast_jit(jmod.init, jax.random.key(3), jnp.asarray(ids))["params"]
+    ref = fast_jit(jmod.apply, {"params": params}, jnp.asarray(ids), jnp.asarray(mask) if masked else None)
     mod = tllm.LLMEncoder(tllm.LLMConfig.tiny())
     mod.load_state_dict(from_jax.llm_state_dict(jax.tree.map(np.asarray, params)))
     with torch.inference_mode():
@@ -285,7 +287,7 @@ def test_generate_matches_jax(jax_vars):
                               seed=7, guidance_scale=4.0, sample_steps=2, sampler="flowmatch")
     jgen = JGenerateImageConfig(prompt=gen.prompt, width=32, height=32, seed=7, guidance_scale=4.0,
                                 sample_steps=2, sampler="flowmatch")
-    ref = np.asarray(jax_generate_flux(_jax_model(), jax_vars, jgen))
+    ref = np.asarray(jax_generate_flux(jit_decode(_jax_model()), jax_vars, jgen))
     h, w, c = model.latent_shape(32, 32)
     noise = np.asarray(jax.random.normal(jax.random.key(7), (1, h, w, c), jnp.float32))
     ours = generate_flux(model, variables, gen, noise=noise)

@@ -49,8 +49,8 @@ from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.run import main as run_main
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
-from test_torch_flux_family import OPT0
-from torch_jax_opt import jax_opt0  # noqa: F401
+from test_torch_flux_family import OPT0, fast_jit, jit_decode
+from torch_jax_opt import jax_opt0, seeded_init  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,7 +75,7 @@ def _tol(got, ref, rel=1e-4):
 def jax_vae():
     cfg = jvae.LTXVideoVAEConfig(**VAE_NARROW, dtype=jnp.float32)
     mod = jvae.LTXVideoVAE(cfg)
-    params = jax.jit(mod.init, compiler_options=OPT0)(jax.random.key(0), jnp.zeros((1, 9, 32, 32, 3)))["params"]
+    params = seeded_init(mod.init, jax.random.key(0), jnp.zeros((1, 9, 32, 32, 3)))["params"]
     return jax.tree.map(lambda v: np.asarray(v) + (0.01 if v.ndim == 1 else 0.0), params)  # non-zero biases
 
 
@@ -96,11 +96,12 @@ def test_video_vae_matches_jax(jax_vae):
     jmod = jvae.LTXVideoVAE(jvae.LTXVideoVAEConfig(**VAE_NARROW, dtype=jnp.float32, **stats))
     vid = np.random.default_rng(1).uniform(-1, 1, (1, 9, 32, 32, 3)).astype(np.float32)
 
-    def run(method, x):
-        return np.asarray(jax.jit(lambda p, x: jmod.apply({"params": p}, x, method=method))(jax_vae, x))
+    def run(p, x):  # one program: the moments, the latents and their decode
+        lat = jmod.apply({"params": p}, x, method=jvae.LTXVideoVAE.encode)
+        return (jmod.apply({"params": p}, x, method=jvae.LTXVideoVAE.raw_moments), lat,
+                jmod.apply({"params": p}, lat, method=jvae.LTXVideoVAE.decode))
 
-    ref_mom, ref_lat = run(jvae.LTXVideoVAE.raw_moments, vid), run(jvae.LTXVideoVAE.encode, vid)
-    ref_dec = run(jvae.LTXVideoVAE.decode, ref_lat)
+    ref_mom, ref_lat, ref_dec = (np.asarray(r) for r in fast_jit(run, jax_vae, vid))
     mod = _port_vae(jax_vae, **stats)
     with torch.inference_mode():
         mom = mod.raw_moments(torch.from_numpy(vid)).numpy()
@@ -138,7 +139,7 @@ def jax_av():
     mod = _jax_av()
     pe = jnp.zeros((1, 8, 64, 2, 2))
     pa = jnp.zeros((1, 4, 32, 2, 2))
-    params = jax.jit(mod.init, compiler_options=OPT0)(jax.random.key(2), jnp.zeros((1, 8, 16)), jnp.zeros((1, 4, 4)),
+    params = seeded_init(mod.init, jax.random.key(2), jnp.zeros((1, 8, 16)), jnp.zeros((1, 4, 4)),
                                jnp.zeros((1, 7, 64)), jnp.zeros((1,)), pe, pa)["params"]
     return jax.tree.map(np.asarray, params)
 
@@ -268,13 +269,19 @@ def test_audio_loss_multiplier_reaches_the_step():
 _INITS = {}
 
 
-def _jit_init(jm, cfg: dict):
-    """``jm.init_variables`` compiled once per model config for the file, at
-    XLA's optimization level 0 (the models of one config differ only in their
-    path, which the init does not read); the JAX loader calls it too."""
-    key = repr(sorted(cfg["model_kwargs"].items()))
+def _jit_init(jm, cfg: dict, compiled: bool = False):
+    """``jm.init_variables`` once per model config for the file (the models of
+    one config differ only in their path, which the init does not read), the
+    JAX loader's too: seeded values at its shapes (``seeded_init``: traced,
+    not compiled), or with ``compiled`` JAX's own init compiled at XLA's
+    optimization level 0, where a test needs its identity norms."""
+    key = (repr(sorted(cfg["model_kwargs"].items())), compiled)
     if key not in _INITS:
-        _INITS[key] = jax.jit(jm.init_variables, compiler_options=OPT0)
+        if compiled:
+            _INITS[key] = jax.jit(jm.init_variables, compiler_options=OPT0)
+        else:
+            shapes = jax.eval_shape(jm.init_variables, jax.random.key(0))
+            _INITS[key] = lambda rng: seeded_init(lambda _: shapes, rng)
     return _INITS[key]
 
 
@@ -376,7 +383,7 @@ def test_joint_sampler_matches_jax(joint_tiny):
     waveform within 1e-5 relative and 1e-4 of max|ref|."""
     jm, jvars, model, variables = joint_tiny
     kw = dict(prompt="a dog barking in the rain", width=32, height=32, seed=3, sample_steps=2, num_frames=5, fps=8)
-    ref_frames, ref_wav = jax_generate_video(jm, jvars, JGenerateImageConfig(**kw))
+    ref_frames, ref_wav = jax_generate_video(jit_decode(jm), jvars, JGenerateImageConfig(**kw))
     key = jax.random.key(3)
     noise = np.asarray(jax.random.normal(key, (1, *model.latent_shape(32, 32, 5)), jnp.float32))
     noise_a = np.asarray(jax.random.normal(jax.random.fold_in(key, 1), (1, 94, 4), jnp.float32))
@@ -463,7 +470,7 @@ def test_checkpoint_directory_matches_load_ltx2_checkpoint(tmp_path, capsys):
                np.random.default_rng(8))
     cfg = {**VIDEO, "name_or_path": str(tmp_path)}
     jm = JLTX2Model(JModelConfig.from_dict(dict(cfg)))
-    jm.init_variables = _jit_init(jm, cfg)  # the loader's seeded init, compiled once for the file
+    jm.init_variables = _jit_init(jm, cfg, compiled=True)  # the loader's init: norm2 stays at its identity
     jvars = jax.tree.map(np.asarray, load_ltx2_checkpoint(str(tmp_path), jm))
     model = LTX2Model(ModelConfig.from_dict(dict(cfg)), device="cpu")
     variables = model.load_variables(torch.Generator().manual_seed(0))
@@ -536,7 +543,7 @@ def test_jax_fault_checkpoint_audio_stream_stays_seeded(tmp_path, joint_tiny):
     _write_dir(str(tmp_path), video, video.init_variables(torch.Generator().manual_seed(0)),
                np.random.default_rng(10))
     jm = JLTX2Model(JModelConfig.from_dict({**JOINT, "name_or_path": str(tmp_path)}))
-    jm.init_variables = _jit_init(jm, JOINT)  # the loader's seeded init, compiled once for the file
+    jm.init_variables = _jit_init(jm, JOINT)  # the loader's seeded init, once for the file
     seeded = jax.tree.map(np.asarray, jm.init_variables(jax.random.key(0)))["dit"]
     loaded = jax.tree.map(np.asarray, load_ltx2_checkpoint(str(tmp_path), jm))["dit"]
     for k in ("audio_proj_in", "audio_time_proj", "time_proj"):

@@ -17,7 +17,8 @@ from ai_toolkit_tpu.models import ltx_vocoder as jvoc
 from ai_toolkit_tpu_torch.io import from_jax
 from ai_toolkit_tpu_torch.models import ltx_audio_vae as tmel
 from ai_toolkit_tpu_torch.models import ltx_vocoder as tvoc
-from torch_jax_opt import jax_opt0  # noqa: F401
+from test_torch_flux_family import fast_jit
+from torch_jax_opt import jax_opt0, seeded_init  # noqa: F401
 
 torch.set_num_threads(1)
 # a narrow mel VAE with LTX-2's structure: three levels, two downsamples, two res blocks a level
@@ -49,7 +50,7 @@ def test_mel_filterbank_and_window_are_jax_s():
 def jax_mel_vae():
     cfg = jmel.LTXAudioVAEConfig(**MEL)
     mod = jmel.LTXAudioVAE(cfg)
-    params = jax.jit(mod.init)(jax.random.key(0), jnp.zeros((1, 8, 16, 2)))["params"]
+    params = seeded_init(mod.init, jax.random.key(0), jnp.zeros((1, 8, 16, 2)))["params"]
     return mod, jax.tree.map(np.asarray, params)
 
 
@@ -69,11 +70,12 @@ def test_mel_vae_matches_jax(jax_mel_vae):
     jmod = jmel.LTXAudioVAE(jmel.LTXAudioVAEConfig(**MEL, **stats))
     mel = np.random.default_rng(1).standard_normal((1, 24, 16, 2)).astype(np.float32)
 
-    def run(method, x):
-        return np.asarray(jax.jit(lambda p, x: jmod.apply({"params": p}, x, method=method))(params, x))
+    def run(p, x):  # one program: the moments, the latents and their decode
+        lat = jmod.apply({"params": p}, x, method=jmel.LTXAudioVAE.encode)
+        return (jmod.apply({"params": p}, x, method=jmel.LTXAudioVAE.raw_moments), lat,
+                jmod.apply({"params": p}, lat, method=jmel.LTXAudioVAE.decode))
 
-    ref_mom, ref_lat = run(jmel.LTXAudioVAE.raw_moments, mel), run(jmel.LTXAudioVAE.encode, mel)
-    ref_dec = run(jmel.LTXAudioVAE.decode, ref_lat)
+    ref_mom, ref_lat, ref_dec = (np.asarray(r) for r in fast_jit(run, params, mel))
     mod = _port_mel_vae(params, **stats)
     with torch.inference_mode():
         mom = mod.raw_moments(torch.from_numpy(mel)).numpy()
@@ -136,7 +138,7 @@ def test_vocoder_matches_jax(cfg_kw):
     tcfg = tvoc.VocoderConfig(**cfg_kw) if cfg_kw else tvoc.VocoderConfig.tiny()
     jmod = jvoc.LTX2Vocoder(jcfg)
     mel = np.random.default_rng(5).standard_normal((1, 7, jcfg.in_channels)).astype(np.float32)
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.key(6), jnp.asarray(mel))["params"])
+    params = jax.tree.map(np.asarray, seeded_init(jmod.init, jax.random.key(6), jnp.asarray(mel))["params"])
     params = jax.tree.map(lambda v: v + 0.01 if v.ndim == 1 else v, params)  # non-zero biases
     ref = np.asarray(jax.jit(jmod.apply)({"params": params}, jnp.asarray(mel)))
     mod = tvoc.LTX2Vocoder(tcfg)
@@ -153,7 +155,7 @@ def test_vocoder_names_are_the_importer_keys():
     from ai_toolkit_tpu.io.torch_import import torch_to_tree
 
     jmod = jvoc.LTX2Vocoder(jvoc.VocoderConfig.tiny())
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.key(7), jnp.zeros((1, 4, 8)))["params"])
+    params = jax.tree.map(np.asarray, seeded_init(jmod.init, jax.random.key(7), jnp.zeros((1, 4, 8)))["params"])
     mod = tvoc.LTX2Vocoder(tvoc.VocoderConfig.tiny())
     mod.load_state_dict(from_jax.vocoder_state_dict(params))
     tree, unmatched = torch_to_tree({k: v.numpy() for k, v in mod.state_dict().items()}, jvoc.vocoder_rules())

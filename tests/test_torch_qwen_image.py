@@ -49,7 +49,8 @@ from ai_toolkit_tpu_torch.models.text_encoders import llm as tllm
 from ai_toolkit_tpu_torch.models.wan_vae import WanVAE, WanVAEConfig
 from ai_toolkit_tpu_torch.ops.layers import init_parameters
 from test_torch_lumina2 import filled
-from torch_jax_opt import jax_opt0  # noqa: F401
+from test_torch_flux_family import fast_jit, jit_decode
+from torch_jax_opt import jax_opt0, seeded_init  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -133,7 +134,7 @@ def test_qwen25_layers_with_biases_match_jax(masked):
     is_eos = ids == 2
     mask = (np.cumsum(is_eos, axis=1) - is_eos <= 0).astype(np.int32)
     jmod = jllm.LLMEncoder(jllm.LLMConfig.tiny(**cfg))
-    params = _perturbed(jax.jit(jmod.init)(jax.random.key(3), jnp.asarray(ids))["params"], 4)
+    params = _perturbed(seeded_init(jmod.init, jax.random.key(3), jnp.asarray(ids))["params"], 4)
     assert np.abs(params["layer_0"]["q"]["bias"]).max() > 0
     ref = jax.jit(jmod.apply)({"params": params}, jnp.asarray(ids), jnp.asarray(mask) if masked else None)
     mod = tllm.LLMEncoder(tllm.LLMConfig.tiny(**cfg))
@@ -270,18 +271,18 @@ def test_wan_vae_on_one_frame_matches_jax():
 
     jcfg = dataclasses.replace(jwan_vae.WanVAEConfig(), dtype=jnp.float32, base_dim=8)
     jmod = jwan_vae.WanVAE(jcfg)
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init)(jax.random.key(2), jnp.zeros((1, 1, 16, 16, 3)))["params"])
+    params = jax.tree.map(np.asarray, fast_jit(jmod.init, jax.random.key(2), jnp.zeros((1, 1, 16, 16, 3)))["params"])
     _, tm = _models("qwen_image")
     tm.vae_config = dataclasses.replace(WanVAEConfig.wan21(), dtype=torch.float32, base_dim=8)
     vae = WanVAE(tm.vae_config)
     vae.load_state_dict(from_jax.wan_vae_state_dict(params))
     imgs = np.random.default_rng(8).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
 
-    def run(method, x):
-        return np.asarray(jax.jit(lambda p, x: jmod.apply(p, x, method=method))({"params": params}, x))
+    def run(p, x):  # one program: the latents and their decode
+        lat = jmod.apply(p, x, method=jwan_vae.WanVAE.encode)
+        return lat, jmod.apply(p, lat, method=jwan_vae.WanVAE.decode)
 
-    ref_lat = run(jwan_vae.WanVAE.encode, imgs[:, None])[:, 0]
-    ref_img = run(jwan_vae.WanVAE.decode, ref_lat[:, None])[:, 0]
+    ref_lat, ref_img = (np.asarray(r)[:, 0] for r in fast_jit(run, {"params": params}, imgs[:, None]))
     with torch.inference_mode():
         lat = tm.encode_images({"vae": vae}, torch.from_numpy(imgs)).numpy()
         img = tm.decode_latents({"vae": vae}, torch.from_numpy(ref_lat)).numpy()
@@ -400,7 +401,7 @@ def test_generate_flux_matches_jax(jvars, tmp_path, ctrl):
         Image.fromarray(np.random.default_rng(9).integers(0, 255, (40, 48, 3), dtype=np.uint8)).save(path)
     kw = dict(prompt="a photo of a fox", width=32, height=32, sample_steps=2, guidance_scale=4.0, seed=42,
               ctrl_img=path)
-    ref = jgenerate_flux(jm, jvars, JGenerateImageConfig(**kw))
+    ref = jgenerate_flux(jit_decode(jm), jvars, JGenerateImageConfig(**kw))
     h, w, c = tm.latent_shape(32, 32)
     noise = np.asarray(jax.random.normal(jax.random.key(42), (1, h, w, c), jnp.float32))
     out = generate_flux(tm, variables, GenerateImageConfig(**kw), noise=noise)

@@ -51,7 +51,7 @@ from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
 from ai_toolkit_tpu_torch.train.state import TrainState
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, make_train_step
-from torch_jax_opt import jax_opt0  # noqa: F401
+from torch_jax_opt import jax_opt0, seeded_init  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -171,7 +171,7 @@ def test_dit_flags_match_jax(flag):
     pos = np.asarray(jm._pos_ids(8, 8)) if jcfg.pos_embed_max_size else None
     jd = jdit.FluxDiT(jcfg)
     args = (img, jc["txt"], inp["t"], jc["y"], jc["pe"])
-    tree = _perturbed(jax.jit(jd.init)(jax.random.key(2), *args)["params"], 2)
+    tree = _perturbed(seeded_init(jd.init, jax.random.key(2), *args)["params"], 2)
     assert ("dual_blocks" in tree) == (flag == "dual_scanned")
     ref = jax.jit(lambda p, *a: jd.apply({"params": p}, *a, pos_ids=pos))(tree, *args)
     dit = tdit.FluxDiT(tm.dit_config)

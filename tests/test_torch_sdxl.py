@@ -42,7 +42,7 @@ from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.samplers.ddpm import DDPMSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
 from test_torch_flux_family import OPT0
-from torch_jax_opt import jax_opt0  # noqa: F401
+from torch_jax_opt import jax_opt0, seeded_init  # noqa: F401
 
 torch.set_num_threads(1)
 TINY = {"name_or_path": "", "arch": "sdxl", "model_kwargs": {"size": "tiny"}}
@@ -94,7 +94,7 @@ def test_clip_skip_matches_jax():
     ids = np.random.default_rng(0).integers(0, 999, (2, 12)).astype(np.int32)
     ids[:, 9] = jcfg.eos_token_id
     jmod = jclip.CLIPTextModel(jcfg)
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(1), jnp.asarray(ids))["params"])
+    params = jax.tree.map(np.asarray, seeded_init(jmod.init, jax.random.key(1), jnp.asarray(ids))["params"])
     mod = tclip.CLIPTextModel(tclip.CLIPTextConfig.tiny())
     mod.load_state_dict(from_jax.clip_state_dict(params))
     apply = jax.jit(jmod.apply, static_argnums=2)
@@ -116,12 +116,15 @@ def test_sd_vae_with_quant_convs_matches_jax():
     jcfg = jvae.VAEConfig.tiny(use_quant_conv=True)
     jmod = jvae.AutoencoderKL(jcfg)
     img = np.random.default_rng(1).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(2), jnp.asarray(img))["params"])
+    params = jax.tree.map(np.asarray, seeded_init(jmod.init, jax.random.key(2), jnp.asarray(img))["params"])
     assert "quant_conv" in params and "post_quant_conv" in params
     mod = tvae.AutoencoderKL(tvae.VAEConfig.tiny(use_quant_conv=True))
     mod.load_state_dict(from_jax.vae_state_dict(params))
-    ref_lat = jax.jit(lambda p, x: jmod.apply(p, x, method=jvae.AutoencoderKL.encode))({"params": params}, img)
-    ref_img = jax.jit(lambda p, z: jmod.apply(p, z, method=jvae.AutoencoderKL.decode))({"params": params}, ref_lat)
+    def run(p, x):  # one program: the latents and their decode
+        lat = jmod.apply(p, x, method=jvae.AutoencoderKL.encode)
+        return lat, jmod.apply(p, lat, method=jvae.AutoencoderKL.decode)
+
+    ref_lat, ref_img = jax.jit(run, compiler_options=OPT0)({"params": params}, img)
     with torch.inference_mode():
         lat = mod.encode(torch.from_numpy(img))
         out = mod.decode(torch.from_numpy(np.asarray(ref_lat)))

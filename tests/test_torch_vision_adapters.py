@@ -367,8 +367,12 @@ def test_adapter_file_is_the_jax_jobs(jobs, kind, tmp_path):
 @pytest.fixture(scope="module")
 def jax_trainables(tmp_path_factory):
     """JAX ``_build_trainable`` on each tiny adapter file (the Redux file with
-    its ``image_encoder_path`` pointed at a directory that exists)."""
-    from ai_toolkit_tpu.models.flux_model import FluxModel as JFluxModel
+    its ``image_encoder_path`` pointed at a directory that exists); the
+    vision towers' inits give seeded values at their shapes (only the
+    trainable tree's structure is read)."""
+    from test_torch_checkpoint_load import compiled_init
+
+    from ai_toolkit_tpu.models.text_encoders.clip_vision import CLIPVisionModel as JCLIPVisionModel
 
     out = {}
     for kind, name in (("redux", "train_redux_adapter_flux_tpu"), ("vision_direct",
@@ -381,7 +385,8 @@ def jax_trainables(tmp_path_factory):
         jp = JSDTrainProcess("job", JProcessConfig.from_dict(proc))
         p = Pair("flux", depths=ONE_EACH, seed=1)
         jp.cfg.model.model_kwargs = {"size": "tiny"}
-        trainable, *_ = jp._build_trainable(p.jmodel, {"dit": p.tree}, jax.random.key(0))
+        with compiled_init(JCLIPVisionModel), compiled_init(jpix.PixtralVisionEncoder):
+            trainable, *_ = jp._build_trainable(p.jmodel, {"dit": p.tree}, jax.random.key(0))
         out[kind] = (jp, trainable, p)
     return out
 

@@ -45,9 +45,9 @@ from ai_toolkit_tpu_torch.models.wan_model import WanModel
 from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
-from test_torch_flux_family import OPT0
+from test_torch_flux_family import OPT0, fast_jit, jit_decode
 from test_torch_lumina2 import filled
-from torch_jax_opt import jax_opt0  # noqa: F401
+from torch_jax_opt import jax_opt0, filled_fan_in, seeded_init  # noqa: F401
 
 torch.set_num_threads(1)
 TINY = {"name_or_path": "", "arch": "wan21", "model_kwargs": {"size": "tiny"}}
@@ -77,7 +77,7 @@ def test_umt5_per_layer_bias_matches_jax():
     jcfg = dataclasses.replace(jt5.T5Config.tiny(), per_layer_bias=True)
     ids = np.random.default_rng(0).integers(0, 999, (2, 11)).astype(np.int32)
     jmod = jt5.T5Encoder(jcfg)
-    params = jax.tree.map(np.asarray, jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(1), jnp.asarray(ids))["params"])
+    params = jax.tree.map(np.asarray, seeded_init(jmod.init, jax.random.key(1), jnp.asarray(ids))["params"])
     assert "relative_attention_bias" in params["layer_1"]
     mod = tt5.T5Encoder(dataclasses.replace(tt5.T5Config.tiny(), per_layer_bias=True))
     mod.load_state_dict(from_jax.t5_state_dict(params))
@@ -94,7 +94,8 @@ def jax_vae():
     jcfg = dataclasses.replace(jwan_vae.WanVAEConfig(), dtype=jnp.float32, **VAE_NARROW)
     jmod = jwan_vae.WanVAE(jcfg)
     x = jnp.zeros((1, 5, 16, 16, 3))
-    return jmod, jax.tree.map(np.asarray, jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(2), x)["params"])
+    # seeded values at the init's shapes (traced, not compiled)
+    return jmod, filled_fan_in(jax.eval_shape(jmod.init, jax.random.key(2), x)["params"], 2)
 
 
 @pytest.mark.parametrize("frames", [5, 9])
@@ -110,11 +111,12 @@ def test_wan_vae_matches_jax(jax_vae, frames):
     assert modes == ["downsample2d", "downsample3d", "downsample3d", "upsample3d", "upsample3d", "upsample2d"]
     vid = np.random.default_rng(frames).uniform(-1, 1, (1, frames, 16, 16, 3)).astype(np.float32)
 
-    def run(method, x):
-        return np.asarray(jax.jit(lambda p, x: jmod.apply(p, x, method=method))({"params": params}, x))
+    def run(p, x):  # one program: the moments, the latents and their decode
+        lat = jmod.apply(p, x, method=jwan_vae.WanVAE.encode)
+        return (jmod.apply(p, x, method=jwan_vae.WanVAE.raw_moments), lat,
+                jmod.apply(p, lat, method=jwan_vae.WanVAE.decode))
 
-    ref_mom, ref_lat = run(jwan_vae.WanVAE.raw_moments, vid), run(jwan_vae.WanVAE.encode, vid)
-    ref_img = run(jwan_vae.WanVAE.decode, ref_lat)
+    ref_mom, ref_lat, ref_img = (np.asarray(r) for r in fast_jit(run, {"params": params}, vid))
     with torch.inference_mode():
         mom = mod.raw_moments(torch.from_numpy(vid)).numpy()
         lat = mod.encode(torch.from_numpy(vid)).numpy()
@@ -151,7 +153,7 @@ def jax_dit():
     cfg, mod = _jax_dit()
     x, ctx = jnp.zeros((1, 8, cfg.in_channels * 4)), jnp.zeros((1, 7, cfg.text_dim))
     pe = jnp.zeros((1, 8, cfg.head_dim // 2, 2, 2))
-    return jax.tree.map(np.asarray, jax.jit(mod.init, compiler_options=OPT0)(jax.random.key(3), x, ctx, jnp.zeros((1,)), pe)["params"])
+    return jax.tree.map(np.asarray, seeded_init(mod.init, jax.random.key(3), x, ctx, jnp.zeros((1,)), pe)["params"])
 
 
 def _dit_inputs(seed=4):
@@ -411,7 +413,7 @@ def test_generate_video_matches_jax(jax_tiny):
     tree = {n: {k: getattr(m, k).detach().clone() for k in ("a", "b", "scale")} for n, m in lora.items()}
     kw = dict(prompt="a cat walking through tall grass", width=32, height=32, seed=7, sample_steps=3,
               num_frames=6)
-    ref, _ = jax_generate_video(jmodel, jvars, JGenerateImageConfig(**kw), lora=jtree)
+    ref, _ = jax_generate_video(jit_decode(jmodel), jvars, JGenerateImageConfig(**kw), lora=jtree)
     shape = model.latent_shape(32, 32, 5)
     noise = np.asarray(jax.random.normal(jax.random.key(7), (1, *shape), jnp.float32))
     stats = {}

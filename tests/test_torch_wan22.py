@@ -53,9 +53,9 @@ from ai_toolkit_tpu_torch.samplers.flowmatch import FlowMatchSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, make_train_step, stage_range, train_loss
 from ai_toolkit_tpu_torch.train.state import TrainState
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
-from test_torch_flux_family import OPT0
+from test_torch_flux_family import OPT0, fast_jit
 from test_torch_lumina2 import filled
-from torch_jax_opt import jax_opt0  # noqa: F401
+from torch_jax_opt import jax_opt0, filled_fan_in, seeded_init  # noqa: F401
 
 torch.set_num_threads(1)
 PAIR = {"name_or_path": "", "arch": "wan22_14b_i2v", "model_kwargs": {"size": "tiny"}}
@@ -69,7 +69,7 @@ DIT128 = dict(in_channels=4, dim=256, ffn_dim=128, num_heads=2, num_layers=2, te
 @pytest.fixture(scope="module")
 def jax_vit():
     jmod = jclip_vision.CLIPVisionModel(jclip_vision.CLIPVisionConfig.tiny())
-    params = jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(0), jnp.zeros((1, 32, 32, 3)))["params"]
+    params = seeded_init(jmod.init, jax.random.key(0), jnp.zeros((1, 32, 32, 3)))["params"]
     return jmod, jax.tree.map(np.asarray, params)
 
 
@@ -114,7 +114,7 @@ def jax_i2v_dit():
     mod = jwan_dit.WanDiT(cfg)
     args = (jnp.zeros((1, 8, 16)), jnp.zeros((1, 7, 64)), jnp.zeros((1,)), jnp.zeros((1, 8, 64, 2, 2)),
             jnp.zeros((1, 5, 48)))
-    params = jax.tree.map(np.asarray, jax.jit(mod.init, compiler_options=OPT0)(jax.random.key(3), *args)["params"])
+    params = jax.tree.map(np.asarray, seeded_init(mod.init, jax.random.key(3), *args)["params"])
     # the image MLP's norms away from their identity init, so their names are checked by value
     rng = np.random.default_rng(9)
     for name in ("img_emb_norm1", "img_emb_norm2"):
@@ -202,8 +202,8 @@ def test_i2v_dit_names_are_the_importer_keys(jax_i2v_dit):
 @pytest.fixture(scope="module")
 def jax_vae22():
     jmod = jwan_vae.WanVAE(jwan_vae.WanVAEConfig.tiny22())
-    params = jax.jit(jmod.init, compiler_options=OPT0)(jax.random.key(2), jnp.zeros((1, 5, 16, 16, 3)))["params"]
-    return jmod, jax.tree.map(np.asarray, params)
+    # seeded values at the init's shapes (traced, not compiled)
+    return jmod, filled_fan_in(jax.eval_shape(jmod.init, jax.random.key(2), jnp.zeros((1, 5, 16, 16, 3)))["params"], 2)
 
 
 def _port_vae22(params):
@@ -221,11 +221,12 @@ def test_wan22_vae_matches_jax(jax_vae22, frames):
     jmod, params = jax_vae22
     vid = np.random.default_rng(frames).uniform(-1, 1, (1, frames, 32, 32, 3)).astype(np.float32)
 
-    def run(method, x):
-        return np.asarray(jax.jit(lambda p, x: jmod.apply(p, x, method=method))({"params": params}, x))
+    def run(p, x):  # one program: the moments, the latents and their decode
+        lat = jmod.apply(p, x, method=jwan_vae.WanVAE.encode)
+        return (jmod.apply(p, x, method=jwan_vae.WanVAE.raw_moments), lat,
+                jmod.apply(p, lat, method=jwan_vae.WanVAE.decode))
 
-    ref_mom, ref_lat = run(jwan_vae.WanVAE.raw_moments, vid), run(jwan_vae.WanVAE.encode, vid)
-    ref_img = run(jwan_vae.WanVAE.decode, ref_lat)
+    ref_mom, ref_lat, ref_img = (np.asarray(r) for r in fast_jit(run, {"params": params}, vid))
     mod = _port_vae22(params)
     with torch.inference_mode():
         mom = mod.raw_moments(torch.from_numpy(vid)).numpy()

@@ -5,9 +5,13 @@ expensive passes skipped), which takes much less compile time on the CPU.
 The comparisons and their tolerances are unchanged; the flag is restored
 when the file's tests end, so no other file's programs see it.
 
-Use: ``from torch_jax_opt import jax_opt0  # noqa: F401`` in a test file."""
+Use: ``from torch_jax_opt import jax_opt0  # noqa: F401`` in a test file.
+:func:`seeded_init` gives a flax ``init``'s tree with seeded values at its
+shapes, traced and not compiled, where a reference needs no particular
+init."""
 
 import jax
+import numpy as np
 import pytest
 
 
@@ -17,3 +21,30 @@ def jax_opt0():
     jax.config.update("jax_disable_most_optimizations", True)
     yield
     jax.config.update("jax_disable_most_optimizations", prev)
+
+
+def filled_fan_in(shapes, seed):
+    """``test_torch_lumina2.filled`` with each kernel (dense or conv) at normal / sqrt of
+    its whole fan-in (every axis but the last), the scale of JAX's
+    ``lecun_normal``, and norm scales 1 + 0.1 normal: deep conv stacks (the
+    VAEs) stay near unit scale."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("['kernel']"):
+            v = rng.standard_normal(s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        elif name.endswith(("['scale']", "['gamma']")):
+            v = 1.0 + 0.1 * rng.standard_normal(s.shape)
+        else:
+            v = 0.1 * rng.standard_normal(s.shape)
+        return v.astype(s.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def seeded_init(init, key, *args):
+    """``init(key, *args)`` (a flax ``init``) as :func:`filled_fan_in` values
+    at its shapes, traced and not compiled; equal keys give equal values."""
+    seed = int(np.asarray(jax.random.key_data(key)).astype(np.uint64).sum()) % (2 ** 31)
+    return filled_fan_in(jax.eval_shape(init, key, *args), seed)
