@@ -1,5 +1,5 @@
 """The CustomAdapter umbrella (``ai_toolkit_tpu/adapters/custom_adapter.py``
-in PyTorch), for the two types a shipped file uses:
+in PyTorch), for the types ported so far:
 
 - ``redux``: vision tokens ``[B, N, E]`` -> up x3, silu, down ->
   ``[B, N, txt_dim]`` appended to the text stream (:class:`ReduxEncoder`);
@@ -7,7 +7,11 @@ in PyTorch), for the two types a shipped file uses:
   per-block decoupled K/V projections (``adapters/ip_adapter.py``), through
   the pixtral resampler (w_in, exact-erf GELU, w_out, both biased) when the
   tower is pixtral and ``flux_only_double`` is set
-  (:class:`PixtralResampler`), else as they are (:class:`IdentityTokens`).
+  (:class:`PixtralResampler`), else as they are (:class:`IdentityTokens`);
+- ``t2i`` on a UNet: a batch's ``control_pixels`` through the trainable
+  :class:`~ai_toolkit_tpu_torch.adapters.t2i_adapter.T2IAdapterNet` into
+  ``adapter_residuals`` (the file's conv weights HWIO, as JAX writes a 4-D
+  kernel).
 
 Each module is f32, as the JAX modules are. :meth:`CustomAdapterRuntime.apply_cond`
 edits the conditioning dict inside the differentiated step (JAX
@@ -29,10 +33,10 @@ from torch import nn
 
 from ai_toolkit_tpu_torch.ops.layers import Linear, init_parameters
 
-PORTED_TYPES = ("redux", "vision_direct")
+PORTED_TYPES = ("redux", "vision_direct", "t2i")
 # the JAX package's other CustomAdapter types: the adapters slice
 UNPORTED_TYPES = ("decorator", "te_augmenter", "clip_fusion", "single_value", "photo_maker",
-                  "photo_maker_full", "mean_flow", "t2i", "ilora", "llm_adapter", "subpixel")
+                  "photo_maker_full", "mean_flow", "ilora", "llm_adapter", "subpixel")
 
 
 class ReduxEncoder(nn.Module):
@@ -89,8 +93,12 @@ class CustomAdapterRuntime:
 
     def apply_cond(self, cond: dict) -> dict:
         """The conditioning after the adapter: ``redux`` appends its tokens
-        to the text, ``vision_direct`` sets ``ip_tokens``; a batch without
-        ``vision_tokens`` passes as it is (JAX ``apply_cond``)."""
+        to the text, ``vision_direct`` sets ``ip_tokens``, ``t2i`` sets
+        ``adapter_residuals`` from ``control_pixels``; a batch without its
+        input passes as it is (JAX ``apply_cond``)."""
+        if self.adapter_type == "t2i":
+            px = cond.get("control_pixels")
+            return cond if px is None else {**cond, "adapter_residuals": self.module(px)}
         vis = cond.get("vision_tokens")
         if vis is None:
             return cond
@@ -105,15 +113,22 @@ def refuse_unported_type(adapter_type: str) -> None:
                                   f"item 6e; ported: {list(PORTED_TYPES)})")
     if adapter_type not in PORTED_TYPES:
         raise NotImplementedError(f"adapter type '{adapter_type}' (ported custom adapters: {list(PORTED_TYPES)}; "
-                                  f"ip, control_lora, i2v and the others: ROADMAP Queue 1 item 6e)")
+                                  f"besides them the port trains ip_adapter, ip_adapter_plus, control_lora and i2v)")
 
 
 def init_custom_adapter(adapter_cfg: dict, ctx_dim: int, vision_dim: int, generator: torch.Generator, device,
-                        dit_hidden: int | None = None) -> CustomAdapterRuntime:
+                        dit_hidden: int | None = None, unet_channels: tuple[int, ...] | None = None
+                        ) -> CustomAdapterRuntime:
     """The seeded adapter module (JAX ``init_custom_adapter``): ``dit_hidden``
-    marks a flux-family ``vision_direct``."""
+    marks a flux-family ``vision_direct``; ``t2i`` takes the UNet's
+    ``unet_channels`` and the adapter's ``downscale`` (the VAE's)."""
     t = adapter_cfg.get("type")
     refuse_unported_type(t)
+    if t == "t2i":
+        from ai_toolkit_tpu_torch.adapters.t2i_adapter import T2IAdapterNet
+
+        mod = T2IAdapterNet(tuple(unet_channels), int(adapter_cfg.get("downscale", 8)), device=device)
+        return CustomAdapterRuntime(t, init_parameters(mod, generator), "context")
     if t == "redux":
         mod = ReduxEncoder(vision_dim, ctx_dim, device=device)
     elif dit_hidden is None:

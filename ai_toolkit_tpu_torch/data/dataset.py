@@ -53,8 +53,8 @@ AUDIO_EXTS = (".wav", ".flac", ".mp3", ".ogg")
 # with where it comes (ROADMAP Queue 1)
 _UNPORTED_OPTIONS = {
     "augmentations": "the augmentations (JAX data/augmentations.py) come with ROADMAP Queue 1 item 6h",
-    "clip_image_path": "the paired vision-encoder images come with the adapters, ROADMAP Queue 1 item 6e",
-    "clip_image_augmentations": "the paired vision-encoder images come with the adapters, ROADMAP Queue 1 item 6e",
+    "clip_image_augmentations": "the vision-encoder images' augmentations (JAX data/augmentations.py) come with "
+                                "ROADMAP Queue 1 item 6h",
     "controls": "the control generator comes with ROADMAP Queue 1 item 6f",
     "use_short_captions": "the short captions come with ROADMAP Queue 1 item 5",
 }

@@ -29,12 +29,18 @@ lookup. ``iter_from(n)`` starts the stream after its first ``n`` batches,
 drawing their captions' random numbers but loading no latent, so a resumed
 job sees the batches the uninterrupted one would have. With ``want_pixels``
 an image batch also carries its ``pixels`` ``[B, H, W, 3]`` in [-1, 1], the
-vision adapters' input (JAX ``loader.py:85-92``).
+vision adapters' input (JAX ``loader.py:85-92``), and with the dataset's
+``clip_image_path`` its ``clip_pixels``: each item's paired image there (the
+same stem, any image extension, the first in sorted order) resized bicubic
+to the bucket, or the item's own pixels when it has none (JAX
+``_load_paired_image``).
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
+import os
 from typing import Callable, Iterator
 
 import numpy as np
@@ -81,6 +87,9 @@ class DataLoader:
         }
         if self.want_pixels and batch[0].kind == "image":
             out["pixels"] = imgs if imgs is not None else np.stack([load_pixels(it) for it in batch])
+            if cfg.clip_image_path:
+                out["clip_pixels"] = np.stack([load_paired_image(it, cfg.clip_image_path, out["pixels"][i])
+                                               for i, it in enumerate(batch)])
         if cfg.do_i2v and batch[0].kind == "video":
             out["first_frame"] = np.stack([load_video(it)[0] for it in batch])
         if cfg.do_audio and batch[0].kind == "video":
@@ -135,6 +144,19 @@ class DataLoader:
                         ds.processed_caption(it)
                     continue
                 yield self._load_batch(ds, batch)
+
+
+def load_paired_image(item: FileItem, folder: str, fallback: np.ndarray) -> np.ndarray:
+    """``<folder>/<stem>.<image ext>`` resized bicubic to ``fallback``'s size in
+    [-1, 1], else ``fallback`` (JAX ``_load_paired_image``)."""
+    from PIL import Image
+
+    stem = os.path.splitext(os.path.basename(item.path))[0]
+    for cand in sorted(glob.glob(os.path.join(folder, stem + ".*"))):
+        if os.path.splitext(cand)[1].lower() in (".png", ".jpg", ".jpeg", ".webp", ".bmp"):
+            img = Image.open(cand).convert("RGB").resize((fallback.shape[1], fallback.shape[0]), Image.BICUBIC)
+            return np.asarray(img, np.float32) / 127.5 - 1.0
+    return fallback
 
 
 def build_dataloader(dataset_configs: list[DatasetConfig], batch_size: int,

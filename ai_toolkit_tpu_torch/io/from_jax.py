@@ -42,6 +42,14 @@ CLIP and T5, diffusers for the VAE).
   ``encoder.down.0.block.1.conv1``, ``upsamplers.0``), 1-D kernels
   ``(k, in, out)`` -> ``[out, in, k]`` and the vocoder's transposed ones ->
   ``[in, out, k]``.
+- The adapters: an IP-Adapter's ``ip_proj`` params (``ImageProjModel`` /
+  ``Resampler``, whose port parameters keep the JAX module names) through
+  :func:`ip_proj_state_dict`; its UNet ``ip`` collection (``{ip_k [cross,
+  dim], ip_v, scale}`` under ``down_1_attn_0/block_0``) onto the port's
+  transformer blocks (:func:`unet_ip_state`, ``ip_k`` ``[dim, cross]``), the
+  flux one (``double_{i}`` / ``single_{i}``: ``to_k [mid, hidden]``) onto
+  ``double_blocks.{i}`` / ``single_blocks.{i}`` (:func:`flux_ip_state`); a
+  T2I adapter's params (:func:`t2i_state_dict`, the JAX module names).
 - bf16 arrays (numpy's ``ml_dtypes.bfloat16``) become bf16 tensors.
 """
 
@@ -828,3 +836,36 @@ def ltx2_model_state(variables: dict, gemma: bool, joint: bool, mel: bool) -> di
         if mel:
             out["vocoder"] = vocoder_state_dict(variables["vocoder"])
     return out
+
+
+def ip_proj_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """An IP-Adapter's ``ip_proj`` params -> the port module's state dict
+    (``latents`` as they are)."""
+    sd = _convert({k: v for k, v in params.items() if k != "latents"}, lambda m: m.replace("/", "."))
+    if "latents" in params:
+        sd["latents"] = _tensor(np.asarray(params["latents"]))
+    return sd
+
+
+def unet_ip_state(ip: dict, n: int) -> dict[str, dict[str, torch.Tensor]]:
+    """A UNet ``ip`` collection at ``n`` levels -> ``{port block name: {ip_k,
+    ip_v, scale}}``, K / V in the torch layout ``[dim, cross]``."""
+    out = {}
+    for path, v in _flatten(ip).items():
+        mod, leaf = path.rsplit("/", 1)
+        name = _unet_module(f"{mod}/attn2_k", n).rsplit(".attn2.", 1)[0]
+        out.setdefault(name, {})[leaf] = _tensor(v.T if v.ndim == 2 else v).reshape(v.shape[::-1])
+    return out
+
+
+def flux_ip_state(ip: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """An unrolled flux ``ip`` collection -> ``{double_blocks.{i} /
+    single_blocks.{i}: {to_k, to_v, scale}}``, K / V ``[hidden, mid]``."""
+    return {f"{kind}_blocks.{i}": {leaf: _tensor(np.asarray(v).T).reshape(np.shape(v)[::-1])
+                                   for leaf, v in node.items()}
+            for name, node in ip.items() for kind, i in [name.split("_")]}
+
+
+def t2i_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """A T2I adapter's params -> the port's ``T2IAdapterNet`` state dict."""
+    return _convert(params, lambda m: m.replace("/", "."))

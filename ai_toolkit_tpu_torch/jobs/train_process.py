@@ -158,6 +158,43 @@ its job raises on images: Queue 3); a control-LoRA sample takes its
 and sample prompts raises (JAX builds no first-frame latents for a sample,
 so every one of its samples fails).
 
+IP-Adapter (``adapter: {type: ip_adapter | ip_adapter_plus}``, or
+``is_plus``; JAX ``_build_trainable``, :751-817) on ``sd1`` / ``sd15`` /
+``sdxl`` and ``flux`` / ``flux_schnell`` (``adapters/ip_adapter.py``): a
+seeded CLIP ViT-H (tiny at ``size: tiny``) encodes each image batch's
+``clip_pixels`` (the dataset's ``clip_image_path``), else its pixels,
+resized bilinear to the tower's size: the pooled, projected embedding for
+the base variant, the penultimate patch states for plus, uncached, as in
+JAX. The trained projection (``ImageProjModel``, or the ``Resampler`` for
+plus and always on flux, at ``num_tokens``: 4, 16 for plus; ``resampler_dim``
+``resampler_depth``, ``resampler_heads``) turns them into ``ip_tokens``
+inside the step. The UNet's every ``attn2`` site gets its decoupled K/V from
+the frozen K / V weights; flux's every double and single block gets its K/V
+at the hidden width, drawn uniformly (``init="random"``); ``scale`` sets their
+start on flux (on a UNet JAX does not read it and every site starts at 1.0:
+mirrored with a printed line). Everything trains in f32. Each save is JAX ``save_ip_adapter``'s file
+of the trained tensors (not the EMA copy, as JAX): ``image_proj.*`` and
+``ip_adapter.{i}.to_k_ip.weight`` / ``to_v_ip.weight``, on flux through
+``flux_ip_flat(fmt="ip")`` (JAX's save finds no K/V there and writes
+``image_proj.*`` alone: ROADMAP Queue 3); a resume restores the exact state
+from the training state. A flux sample with a ``ctrl_img`` attends to that
+image; a UNet one raises (JAX's ``generate_sd`` never reads the adapter
+image, so its sample ignores it: Queue 3). A ``network`` beside the adapter
+is not trained, with a printed line (the JAX fault; Queue 3).
+
+The T2I adapter: trainable as the ``t2i`` custom adapter on the UNet archs
+(``adapters/t2i_adapter.py``; each batch's ``control_pixels``, the dataset's
+``control_path``, through the net into ``adapter_residuals`` inside the
+step; the save is JAX ``save_custom_adapter``'s file, the EMA copy when EMA
+is on, conv weights HWIO), or frozen as the assistant
+(``adapter_assist_name_or_path`` in the train or process section; JAX
+:218-240): the file, read as JAX ``load_custom_adapter`` reads it, or a
+seeded net when the path is no file (as JAX); its residuals of each batch's
+``control_pixels`` join the UNet, and the adapter-off prior runs without
+them (JAX's ``match_adapter_chance`` at 0; another chance raises). On an
+arch without a UNet the assistant raises (JAX skips it silently: Queue 3);
+``adapter_assist_type`` is not read by JAX and prints a line when set.
+
 The train-step knobs (``train/step.py``) get their inputs here, as JAX
 ``_prepare_batch`` builds them: ``prompt_dropout_prob`` (from a host
 generator seeded by the job's seed, saved in the training state, where JAX
@@ -188,8 +225,7 @@ exactly, as a LoRA run does; a LoKr, LoHa or DoRA one over its saves raises
 (``dropout``, ``transformer_only``, ``lokr_full_rank``) each print a line.
 
 Every other branch of the JAX process raises ``NotImplementedError`` naming
-its ROADMAP item (``_UNPORTED_TRAIN``): other adapters (the assistant
-adapter, ``adapter_assist_name_or_path``), an input-expansion adapter
+its ROADMAP item (``_UNPORTED_TRAIN``): the other adapters, an input-expansion adapter
 beside a network other than LoRA, a guidance loss, the adapter-off
 prior knobs, an accuracy-recovery adapter or a multistage pair beside a
 network other than LoRA, quantized text encoders (``quantize_te``),
@@ -212,7 +248,8 @@ import torch
 from ai_toolkit_tpu_torch.adapters.embedding import (EMBEDDING_KEYS, TriggerTokenizer, init_embedding_bank,
                                                      load_embedding, save_embedding)
 from ai_toolkit_tpu_torch.adapters.custom_adapter import init_custom_adapter, refuse_unported_type, save_custom_adapter
-from ai_toolkit_tpu_torch.adapters.ip_adapter import build_flux_ip_collection, flux_ip_flat
+from ai_toolkit_tpu_torch.adapters.ip_adapter import (build_flux_ip_collection, build_ip_collection, flux_ip_flat,
+                                                     init_ip_proj, ip_adapter_flat)
 from ai_toolkit_tpu_torch.adapters.lora import (LoRASpec, attach_ara, build_lora, conv_count, count_lora_params,
                                                 share_lora)
 from ai_toolkit_tpu_torch.adapters.lorm import LoRMSpec, build_lorm, lorm_stats_str
@@ -249,7 +286,6 @@ _UNPORTED_TRAIN = {
     "short_and_long_captions_encoder_split": "comes with ROADMAP Queue 1 item 5",
     "merge_network_on_save": "comes with ROADMAP Queue 1 item 5",
     "show_turbo_outputs": "the turbo step's debug images come with ROADMAP Queue 1 item 5",
-    "adapter_assist_name_or_path": "the assistant adapter comes with ROADMAP Queue 1 item 6e",
 }
 # network.type -> the network the JAX job builds for it (_build_trainable, :1247-1297; NetworkConfig
 # turns locon into lora with a conv rank)
@@ -269,6 +305,16 @@ EXPANSION_KEYS = {
     "i2v": ("type", "i2v_do_start_frame", "lora_config"),
 }
 EXPANSION_ARCHS = {"control_lora": ("flux", "flux_schnell"), "i2v": ("wan21",)}
+# IP-Adapter: the keys the JAX job reads (:751-817) and the archs; the UNet archs (t2i, the assistant)
+IP_TYPES = ("ip_adapter", "ip_adapter_plus")
+IP_KEYS = ("type", "is_plus", "num_tokens", "resampler_dim", "resampler_depth", "resampler_heads", "scale")
+IP_ARCHS = ("sd1", "sd15", "sdxl", "flux", "flux_schnell")
+UNET_ARCHS = ("sd1", "sd15", "sd2", "ssd", "vega", "sdxl")
+# t2i reads its downscale (num_tokens is read by JAX init_custom_adapter for every type, to no effect on t2i)
+T2I_KEYS = ("type", "downscale", "num_tokens")
+SD_IP_SAMPLE = ("a ctrl_img in a sample of an IP-Adapter job on a UNet arch: the JAX generate_sd never reads the "
+                "encoded adapter image and SDModel.predict applies no ip_proj, so its sample ignores the image "
+                "(ROADMAP Queue 3); drop the ctrl_img (a sample without one runs without the adapter, as in JAX)")
 # what the LoRA skips beside each (JAX :1237-1246, in the port's module names)
 EXPANSION_IGNORE = {"control_lora": ["img_in"],
                     "i2v": ["patch_embedding", "add_k_proj", "add_v_proj", "image_embedder"]}
@@ -357,7 +403,9 @@ class SDTrainProcess:
         self.device = torch.device(device)
         self.save_root = os.path.join(cfg.training_folder, job_name)
         self.adapter = None  # the custom adapter's runtime (adapters/custom_adapter.py), when the job trains one
-        self.ip = {}  # vision_direct's decoupled K/V per block
+        self.ip = {}  # vision_direct's or IP-Adapter's decoupled K/V per site
+        self.ip_mode = False  # an IP-Adapter job (_build_ip)
+        self.assistant = None  # the frozen T2I assistant (_build_assistant)
         self.net_modules = {}  # the trained network's {module name: overlay} (_build_network)
 
     @property
@@ -374,6 +422,11 @@ class SDTrainProcess:
         if self.textual_inversion or self.cfg.adapter:
             return False
         return self.cfg.network is None or self.cfg.network.type in ("full", "fine_tune")
+
+    @property
+    def assist_path(self) -> str | None:
+        """The assistant adapter's path, from the train section or the process (JAX :221-224)."""
+        return self.cfg.train.adapter_assist_name_or_path or self.cfg.extras.get("adapter_assist_name_or_path")
 
     @property
     def expansion(self) -> str | None:
@@ -447,9 +500,13 @@ class SDTrainProcess:
         if tc.train_turbo and any(d.cache_latents or d.cache_latents_to_disk for d in cfg.datasets):
             raise ValueError("train_turbo decodes to pixels in-graph — set cache_latents: false on every dataset "
                              "so batches carry raw images")
-        if cfg.extras.get("adapter_assist_name_or_path"):
-            raise NotImplementedError("adapter_assist_name_or_path: the assistant adapter comes with the adapters "
-                                      "slice (ROADMAP Queue 1 item 6e)")
+        if self.assist_path and cfg.model.arch not in UNET_ARCHS:
+            raise NotImplementedError(f"adapter_assist_name_or_path on arch '{cfg.model.arch}': the assistant is a "
+                                      f"T2I adapter on the UNet (ported: {', '.join(UNET_ARCHS)}); the JAX job skips "
+                                      f"it silently on an arch without one (ROADMAP Queue 3)")
+        if self.assist_path and tc.match_adapter_chance:
+            raise NotImplementedError("match_adapter_chance > 0 (the prior keeping the assistant's residuals on a "
+                                      "draw) comes with ROADMAP Queue 1 item 6e; at 0 the prior runs without them")
         kind = self.guidance_kind
         if kind and other_net:
             raise NotImplementedError(f"guidance_loss '{kind}' on network '{cfg.network.type}': the guidance losses "
@@ -478,7 +535,9 @@ class SDTrainProcess:
         if ara and model_cls.load_variables is not BaseModel.load_variables:
             raise NotImplementedError(f"an accuracy-recovery adapter on arch '{cfg.model.arch}', whose experts are "
                                       f"quantized as they are built (ported: the single-DiT archs)")
-        archs = EXPANSION_ARCHS.get(self.expansion, ("flux", "flux_schnell"))
+        atype = (cfg.adapter or {}).get("type")
+        archs = EXPANSION_ARCHS.get(atype) or (IP_ARCHS if atype in IP_TYPES else UNET_ARCHS if atype == "t2i"
+                                               else ("flux", "flux_schnell"))
         if cfg.adapter and cfg.model.arch not in archs:
             raise NotImplementedError(f"adapter '{cfg.adapter.get('type')}' on arch '{cfg.model.arch}' (ported: "
                                       f"{', '.join(archs)}; the others: ROADMAP Queue 1 item 6e)")
@@ -513,9 +572,11 @@ class SDTrainProcess:
         with the keys the JAX job reads for them."""
         cfg, acfg = self.cfg, self.cfg.adapter
         atype = self.expansion
-        if atype is None:
+        ip = acfg.get("type") in IP_TYPES
+        if atype is None and not ip:
             refuse_unported_type(acfg.get("type"))
-        read = EXPANSION_KEYS[atype] if atype else _ADAPTER_KEYS
+        read = (EXPANSION_KEYS[atype] if atype else IP_KEYS if ip else T2I_KEYS if acfg.get("type") == "t2i"
+                else _ADAPTER_KEYS)
         unknown = sorted(set(acfg) - set(read))
         if unknown:
             raise NotImplementedError(f"adapter keys {unknown} are not read for '{acfg['type']}' "
@@ -539,24 +600,25 @@ class SDTrainProcess:
         arch = acfg.get("image_encoder_arch")
         if arch not in (None, "clip", "pixtral"):
             raise NotImplementedError(f"image_encoder_arch '{arch}' (ported: the CLIP ViT-H, pixtral)")
-        for d in cfg.datasets:
-            if d.clip_image_path:
-                raise NotImplementedError(f"dataset {d.folder_path}: clip_image_path (paired vision-encoder images) "
-                                          f"comes with the adapters slice (ROADMAP Queue 1 item 6e)")
+        if ip and cfg.model.arch in UNET_ARCHS and not cfg.train.disable_sampling \
+                and any(getattr(item, "ctrl_img", None) for item in cfg.sample.prompts):
+            raise NotImplementedError(SD_IP_SAMPLE)
 
     def _refuse_control_options(self, model) -> None:
         """Control images only for an arch that takes control latents or the
-        control-LoRA adapter, the inpaint folder only for flex2 or the
-        control-LoRA adapter's inpainting input."""
+        control-LoRA adapter (or a T2I adapter, trained or the assistant), the
+        inpaint folder only for flex2 or the control-LoRA adapter's
+        inpainting input."""
         arch = self.cfg.model.arch
         control_lora = self.expansion == "control_lora"
+        t2i = (self.cfg.adapter or {}).get("type") == "t2i" or bool(self.assist_path)
         inpaint = control_lora and bool(self.cfg.adapter.get("has_inpainting_input"))
         for d in self.cfg.datasets:
-            if d.control_path and not (model.takes_control or control_lora):
+            if d.control_path and not (model.takes_control or control_lora or t2i):
                 raise NotImplementedError(
                     f"dataset {d.folder_path}: control_path on arch '{arch}', which takes no control latents "
-                    f"(ported: flex2, flux_kontext, model_kwargs.control, qwen_image_edit, omnigen2; the control "
-                    f"adapters: later slices)")
+                    f"(ported: flex2, flux_kontext, model_kwargs.control, qwen_image_edit, omnigen2, and the "
+                    f"control_lora, t2i and assistant adapters)")
             if d.inpaint_path and not (arch == "flex2" or inpaint):
                 raise NotImplementedError(f"dataset {d.folder_path}: inpaint_path feeds flex2's inpaint channels "
                                           f"or the control-LoRA adapter's has_inpainting_input; arch '{arch}' "
@@ -599,7 +661,12 @@ class SDTrainProcess:
         if cfg.model.quantize:
             print(f"quantized base: {sum(quantized_count(m) for m in experts)} weights, "
                   f"{sum(quantized_bytes(m) for m in experts) / 1e9:.2f} GB ({cfg.model.qtype})")
-        if cfg.adapter and not self.expansion:
+        if self.assist_path:
+            self._build_assistant(model, seed)
+        if (cfg.adapter or {}).get("type") in IP_TYPES:
+            trainable, lora = self._build_ip(model, variables, seed), None
+            n_params = sum(p.numel() for p in trainable.values())
+        elif cfg.adapter and not self.expansion:
             trainable, lora = self._build_adapter(model, variables, seed), None
             n_params = sum(p.numel() for p in trainable.values())
         elif self.textual_inversion:
@@ -735,7 +802,7 @@ class SDTrainProcess:
         return {"final_loss": losses[-1] if losses else None, "steps": tc.steps, "start_step": start_step,
                 "losses": losses, "aux_losses": aux_losses, "grad_norms": grad_norms, "step_ms": step_ms,
                 "median_step_ms": statistics.median(step_ms) if step_ms else None,
-                "trainable_params": n_params, "lora_modules": len(self.net_modules),
+                "trainable_params": n_params, "lora_modules": len(self.net_modules), "ip_sites": len(self.ip),
                 "experts": experts_run, "buckets": buckets, "save_path": path, "load_s": load_s,
                 "val_losses": val_losses,
                 "latent_cache": self.latent_cache_report, "samples": self.samples}
@@ -853,6 +920,14 @@ class SDTrainProcess:
         if cfg.network is not None:
             print(f"JAX fault mirrored: network '{cfg.network.type}' beside adapter '{atype}' is not trained "
                   f"(JAX _build_trainable returns the adapter alone; ROADMAP Queue 3)")
+        if atype == "t2i":  # the trainable T2I net on the UNet's levels, at the VAE's downscale (JAX :920-922)
+            acfg = {**acfg, "downscale": acfg.get("downscale", model.vae_config.downscale)}
+            self.adapter = init_custom_adapter(acfg, model.unet_config.cross_attention_dim, 0,
+                                               torch.Generator(device=dev).manual_seed(seed + 98), dev,
+                                               unet_channels=model.unet_config.block_out_channels)
+            trainable = {f"adapter.{k}": p for k, p in self.adapter.module.named_parameters()}
+            print(f"CustomAdapter[t2i]: {sum(p.numel() for p in trainable.values()):,} trainable params")
+            return trainable
         dit_cfg = model.dit_config
         vision_dim = self._build_vision_tower(model, acfg, torch.Generator(device=dev).manual_seed(seed + 99))
         hidden = dit_cfg.hidden_size if atype == "vision_direct" else None
@@ -873,6 +948,74 @@ class SDTrainProcess:
         print(f"CustomAdapter[{atype}]: {sum(p.numel() for p in trainable.values()):,} trainable params"
               + (f", decoupled K/V on {len(self.ip)} blocks" if self.ip else ""))
         return trainable
+
+    def _build_ip(self, model, variables: dict, seed: int) -> dict[str, torch.Tensor]:
+        """IP-Adapter's trainable tensors (JAX ``_build_trainable``, :751-817):
+        the projection ``variables["ip_proj"]`` and the decoupled K/V of every
+        site; keys ``ip_proj.<param>`` and ``ip.<site>.<leaf>``."""
+        cfg, dev = self.cfg, self.device
+        acfg = cfg.adapter
+        if cfg.network is not None:
+            print(f"JAX fault mirrored: network '{cfg.network.type}' beside adapter '{acfg['type']}' is not "
+                  f"trained (JAX _build_trainable returns the IP-Adapter alone; ROADMAP Queue 3)")
+        self._build_vision_tower(model, {}, torch.Generator(device=dev).manual_seed(seed + 99))
+        vcfg = self.vision_tower.cfg
+        self.ip_plus = acfg["type"] == "ip_adapter_plus" or bool(acfg.get("is_plus"))
+        n_tokens = int(acfg.get("num_tokens", 16 if self.ip_plus else 4))
+        rdim = int(acfg.get("resampler_dim", min(768, vcfg.hidden_size)))
+        kw = dict(resampler_dim=rdim, resampler_depth=int(acfg.get("resampler_depth", 4)),
+                  resampler_heads=int(acfg.get("resampler_heads", max(1, rdim // 64))))
+        scale = float(acfg.get("scale", 1.0))
+        main = variables[model.main_component]
+        if model.is_flow_matching:  # the Resampler at the DiT's width feeds every block's K/V (JAX :788-808)
+            hid = model.dit_config.hidden_size
+            proj = init_ip_proj(vcfg.hidden_size, hid, n_tokens, torch.Generator(device=dev).manual_seed(seed + 98),
+                                dev, plus=True, **kw)
+            self.ip_plus = True  # flux always feeds the patch tokens
+            self.ip = build_flux_ip_collection(main, hid, torch.Generator(device=dev).manual_seed(seed + 101),
+                                               scale=scale, init="random")
+        else:
+            proj = init_ip_proj(vcfg.hidden_size if self.ip_plus else vcfg.projection_dim,
+                                model.unet_config.cross_attention_dim, n_tokens,
+                                torch.Generator(device=dev).manual_seed(seed + 98), dev, plus=self.ip_plus, **kw)
+            if "scale" in acfg:
+                print(f"JAX fault mirrored: adapter.scale {acfg['scale']!r} is not read on a UNet arch; every site "
+                      f"starts at scale 1.0 (JAX init_ip_adapter builds the collection without it; ROADMAP Queue 3)")
+            self.ip = build_ip_collection(main)
+        variables["ip_proj"] = self.ip_proj = proj
+        self.ip_mode = True
+        print(f"IP-Adapter: {len(self.ip)} cross-attn sites, {n_tokens} tokens")
+        trainable = {f"ip_proj.{k}": p for k, p in proj.named_parameters()}
+        trainable.update({f"ip.{b}.{leaf}": p for b, m in self.ip.items() for leaf, p in m.named_parameters()})
+        return trainable
+
+    @torch.no_grad()
+    def _ip_embeds(self, pixels: np.ndarray) -> torch.Tensor:
+        """Images ``[B, H, W, 3]`` in [-1, 1] through the vision tower: the
+        patch states for plus, else the pooled embedding (JAX ``_prepare_batch``)."""
+        tokens, pooled = self.vision_encode(torch.from_numpy(np.ascontiguousarray(pixels, np.float32)))
+        return tokens if self.ip_plus else pooled
+
+    def _build_assistant(self, model, seed: int) -> None:
+        """The frozen T2I assistant (JAX :218-240): the file when the path is
+        one, read as ``load_custom_adapter`` reads it, else the seeded net."""
+        from ai_toolkit_tpu_torch.adapters.custom_adapter import load_custom_adapter
+        from ai_toolkit_tpu_torch.adapters.t2i_adapter import init_t2i_adapter, t2i_state_from_flat
+
+        path, tc = str(self.assist_path), self.cfg.train
+        if tc.adapter_assist_type != "t2i":
+            print(f"JAX fault mirrored: adapter_assist_type {tc.adapter_assist_type!r} is not read; the assistant "
+                  f"is a T2I adapter (ROADMAP Queue 3)")
+        net = init_t2i_adapter(model.unet_config, torch.Generator(device=self.device).manual_seed(seed + 77),
+                               self.device, downscale=model.vae_config.downscale)
+        if os.path.isfile(path):
+            loaded, _ = load_custom_adapter(path)
+            if loaded:
+                net.load_state_dict(t2i_state_from_flat(loaded))
+        else:
+            print(f"assistant adapter: {path!r} is no file: seeded init (as the JAX job)")
+        self.assistant = net.eval().requires_grad_(False)
+        print(f"assistant adapter active: {path}")
 
     def _build_expansion(self, model, variables: dict, seed: int) -> dict[str, torch.Tensor]:
         """The input-expansion adapter's trainable tensors (JAX
@@ -1089,7 +1232,7 @@ class SDTrainProcess:
             raise NotImplementedError(f"{path}: resuming network '{self.cfg.network.type}' is not ported: the JAX "
                                       f"job cannot (its resume reads LoRA keys into the 'lora' tree and trains this "
                                       f"network afresh from step 0); delete the output folder for a fresh run")
-        if self.adapter is not None or self.network_kind == "lorm":  # the exact state, from the training state alone
+        if self.adapter is not None or self.ip_mode or self.network_kind == "lorm":  # the exact state alone
             with safe_open(path, framework="pt") as f:
                 step = int((f.metadata() or {}).get("step", 0))
             saved = None
@@ -1161,12 +1304,23 @@ class SDTrainProcess:
         on) in the a1111 layout, f32. A full fine-tune's: the trained tensors
         themselves in their own dtype, keyed by parameter name, no rotation
         (JAX ``_save``). Each writes the training state a resume restores."""
-        if self.adapter is not None:
+        if self.ip_mode:  # JAX save_ip_adapter of the trained tensors, metadata {"step"}
+            from safetensors.numpy import save_file
+
+            path = ckpt.final_path() if final else ckpt.path_for_step(step)
+            save_file(ip_adapter_flat(self.ip_proj, self.ip, flux=self.model.is_flow_matching), path,
+                      metadata={"step": str(step)})
+        elif self.adapter is not None:
             # JAX _save: the module (its EMA copy when EMA is on) and the decoupled K/V as they train
             path = ckpt.final_path() if final else ckpt.path_for_step(step)
             src = state.ema if state.ema is not None else state.trainable
-            flat = {f"{self.adapter.adapter_type}.{k[len('adapter.'):]}": src[k].detach().float().cpu().numpy()
-                    for k in state.trainable if k.startswith("adapter.")}
+            mod = {k[len("adapter."):]: src[k] for k in state.trainable if k.startswith("adapter.")}
+            if self.adapter.adapter_type == "t2i":  # conv kernels HWIO, as JAX writes them
+                from ai_toolkit_tpu_torch.adapters.t2i_adapter import t2i_flat
+
+                mod = t2i_flat(mod)
+            flat = {f"{self.adapter.adapter_type}.{k}": v.detach().float().cpu().numpy() if torch.is_tensor(v) else v
+                    for k, v in mod.items()}
             flat.update({f"{self.adapter.adapter_type}.{k}": v for k, v in flux_ip_flat(self.ip).items()})
             save_custom_adapter(flat, self.adapter.adapter_type, path, metadata={"step": step})
         elif self.textual_inversion:
@@ -1264,12 +1418,15 @@ class SDTrainProcess:
         size, [-1, 1]) through the vision tower and the adapter into
         ``ip_tokens``, and the ``ctrl_img`` consumed (JAX ``_sample``). The
         adapter runs as it trains (not its EMA copy), as in JAX."""
-        if self.adapter is None or self.adapter.adapter_type != "vision_direct" or not gen.ctrl_img:
+        vd = self.adapter is not None and self.adapter.adapter_type == "vision_direct"
+        if not (vd or self.ip_mode) or not gen.ctrl_img:
             return None
         from PIL import Image
 
         px = np.asarray(Image.open(gen.ctrl_img).convert("RGB"), np.float32)[None] / 127.5 - 1.0
         gen.ctrl_img = None
+        if self.ip_mode:  # flux: the embeddings through the Resampler in predict (UNet archs refuse the image)
+            return {"ip_embeds": self._ip_embeds(px)}
         with torch.no_grad():
             tokens, _ = self.vision_encode(torch.from_numpy(px))
             return {"ip_tokens": self.adapter.module(tokens)}
@@ -1278,8 +1435,10 @@ class SDTrainProcess:
     def _want_pixels(self) -> bool:
         """An image batch carries its pixels: a vision adapter's input, and the
         i2v adapter's first frame (JAX's loader gets no pixels for it, so its
-        i2v job raises on an image batch: ROADMAP Queue 3)."""
-        return self.adapter is not None or self.expansion == "i2v"
+        i2v job raises on an image batch: ROADMAP Queue 3); not for ``t2i``,
+        whose input is the control image (JAX ``want_pixels``)."""
+        vision = self.adapter is not None and self.adapter.adapter_type != "t2i"
+        return vision or self.ip_mode or self.expansion == "i2v"
 
     def _build_data(self, model, variables):
         cfg = self.cfg
@@ -1432,8 +1591,17 @@ class SDTrainProcess:
             return batch
         b, h, w, _ = latents.shape
         extra_ctx = 0
-        if self.adapter is not None and "pixels" in raw:  # JAX _prepare_batch: the vision tokens of each image
-            cond["vision_tokens"], cond["vision_pooled"] = self._encode_vision_cached(raw["pixels"])
+        if self.ip_mode and "pixels" in raw:  # the paired image when the dataset has one (JAX :1710-1723)
+            cond["ip_embeds"] = self._ip_embeds(raw.get("clip_pixels", raw["pixels"]))
+        if "control_pixels" in raw and self.adapter is not None and self.adapter.adapter_type == "t2i":
+            cond["control_pixels"] = torch.from_numpy(raw["control_pixels"]).to(dev)  # the net runs in the step
+        if "control_pixels" in raw and self.assistant is not None:  # the frozen assistant's residuals (JAX :1834)
+            with torch.no_grad():
+                cond["adapter_residuals"] = self.assistant(torch.from_numpy(raw["control_pixels"]).to(dev))
+        if self.adapter is not None and self.adapter.adapter_type != "t2i" and "pixels" in raw:
+            # JAX _prepare_batch: the vision tokens of each image (the paired image when there is one)
+            cond["vision_tokens"], cond["vision_pooled"] = self._encode_vision_cached(
+                raw.get("clip_pixels", raw["pixels"]))
             if self.adapter.adapter_type == "redux":
                 extra_ctx = int(cond["vision_tokens"].shape[1])  # the rope table covers the appended tokens
         if model.is_flow_matching:

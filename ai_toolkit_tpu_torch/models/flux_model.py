@@ -231,7 +231,9 @@ class FluxModel(BaseModel):
         and for a control arch ``control_latents`` ``[B, h, w, C_ctrl]``,
         packed and concatenated to the image tokens' channels (JAX
         ``predict``); ``ip_tokens`` ``[B, N, mid]`` feed the blocks' decoupled
-        K/V of a vision_direct adapter. Differentiable: the train step takes
+        K/V of a vision_direct adapter, or ``ip_embeds`` (an IP-Adapter's
+        CLIP patch tokens) through ``variables["ip_proj"]`` (its
+        Resampler). Differentiable: the train step takes
         gradients through it into the DiT's LoRA factors and the adapter."""
         _, h, w, _ = noisy_latents.shape
         img = pack_latents_cmajor(noisy_latents)
@@ -241,8 +243,12 @@ class FluxModel(BaseModel):
                              f"the batch carries them: {ctrl is not None}")
         if ctrl is not None:
             img = torch.cat([img, pack_latents_cmajor(ctrl.to(img.device)).to(img.dtype)], dim=-1)
+        ip_tokens = cond.get("ip_tokens")
+        if ip_tokens is None and "ip_embeds" in cond and "ip_proj" in variables:
+            # IP-Adapter on flux: the Resampler's tokens feed the blocks' decoupled K/V (JAX predict)
+            ip_tokens = variables["ip_proj"](cond["ip_embeds"])
         out = variables["dit"](img, cond["txt"], t, cond["y"], cond["pe"], cond.get("guidance"),
-                               cond.get("txt_mask"), ip_tokens=cond.get("ip_tokens"))
+                               cond.get("txt_mask"), ip_tokens=ip_tokens)
         return unpack_latents_cmajor(out, h, w)
 
     def encode_images(self, variables: dict, images: torch.Tensor,

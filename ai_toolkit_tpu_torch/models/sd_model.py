@@ -162,14 +162,22 @@ class SDModel(BaseModel):
         return variables["unet"](noisy_latents, t, cond["context"], cond.get("added_cond"),
                                  cond.get("ip_tokens"), cond.get("adapter_residuals"))
 
+    @staticmethod
+    def _ip_tokens(variables: dict, cond: dict) -> dict:
+        """An IP-adapter batch's CLIP embeddings through the trained
+        projection (``variables["ip_proj"]``) into ``ip_tokens``, inside the
+        differentiated step (JAX ``predict_train``)."""
+        if "ip_embeds" in cond and "ip_proj" in variables:
+            return {**cond, "ip_tokens": variables["ip_proj"](cond["ip_embeds"])}
+        return cond
+
     def predict_train(self, variables: dict, noisy_latents: torch.Tensor, t: torch.Tensor,
                       cond: dict) -> torch.Tensor:
-        """The train-time forward (JAX ``predict_train``): a batch that
-        carries token ids (textual inversion) runs CLIP with the bank inside
-        the step, so that gradients reach the bank; IP-adapter embeddings
-        raise."""
-        if "ip_embeds" in cond:
-            raise NotImplementedError(f"IP-adapter training {_LATER}")
+        """The train-time forward (JAX ``predict_train``): IP-adapter
+        embeddings become ``ip_tokens`` through the trained projection; a
+        batch that carries token ids (textual inversion) runs CLIP with the
+        bank inside the step, so that gradients reach the bank."""
+        cond = self._ip_tokens(variables, cond)
         if "input_ids" in cond:
             out = variables["clip"](cond["input_ids"], bank=variables.get("emb"))
             cond = {**cond, "context": out["last_hidden_state"]}
@@ -244,10 +252,9 @@ class SDXLModel(SDModel):
 
     def predict_train(self, variables: dict, noisy_latents: torch.Tensor, t: torch.Tensor,
                       cond: dict) -> torch.Tensor:
-        """The train-time forward (JAX ``predict_train``): without token ids
-        (text-encoder training, textual inversion on SDXL) or IP-adapter
-        embeddings, which raise, it is :meth:`predict`."""
-        if "input_ids" in cond or "ip_embeds" in cond:
-            raise NotImplementedError(f"text-encoder training, textual inversion and IP-adapter training on SDXL "
-                                      f"{_LATER}")
-        return self.predict(variables, noisy_latents, t, cond)
+        """The train-time forward (JAX ``predict_train``): IP-adapter
+        embeddings become ``ip_tokens`` through the trained projection; token
+        ids (text-encoder training, textual inversion on SDXL) raise."""
+        if "input_ids" in cond:
+            raise NotImplementedError(f"text-encoder training and textual inversion on SDXL {_LATER}")
+        return self.predict(variables, noisy_latents, t, self._ip_tokens(variables, cond))

@@ -25,9 +25,19 @@ Attention goes through ``ops.attention.dot_product_attention``: at head_dim
 package sends them to XLA. SD 1.x files hold ``proj_in`` / ``proj_out`` as
 1x1 convs, read into the Linears by ``io/safetensors_dir.squeeze_to``. With ``UNetConfig.remat`` each
 ``ResnetBlock`` and ``SpatialTransformer`` is checkpointed while gradients are
-recorded (JAX ``nn.remat`` per block). IP-adapter context and T2I adapter
-residuals raise ``NotImplementedError``; FreeU (``train.free_u``) is refused
+recorded (JAX ``nn.remat`` per block). FreeU (``train.free_u``) is refused
 by the train job.
+
+The two adapter inputs (JAX ``UNet2DCondition``'s ``ip_context`` and
+``adapter_residuals``): with ``ip_context`` ``[B, N, cross_dim]`` every
+transformer block that carries an ``ip`` (``adapters/ip_adapter.UNetIP``)
+runs its ``attn2`` query over ``ip_context @ ip_k^T`` / ``@ ip_v^T`` too
+and adds ``scale`` times that output, in the UNet's dtype, before
+``attn2``'s out-projection (the decoupled cross-attention, a second
+attention at each site: the flash kernel over an ``N``-token K/V at head_dim
+64). ``adapter_residuals`` (a T2I adapter's per-level features) are added to
+the hidden states after each down level's last resnet / attention and
+before its downsample, and replace that level's last skip.
 """
 
 from __future__ import annotations
@@ -121,12 +131,22 @@ class Attention(nn.Module):
         self.to_v = Linear(context_dim, dim, bias=False, device=device, dtype=dtype)
         self.to_out = nn.ModuleList([Linear(dim, dim, device=device, dtype=dtype)])
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, ip=None, ip_context=None) -> torch.Tensor:
+        """With ``ip`` (a :class:`~ai_toolkit_tpu_torch.adapters.ip_adapter.UNetIP`)
+        and ``ip_context``, the decoupled cross-attention: the same query over
+        the image tokens' K/V, ``scale`` times it added before ``to_out``."""
         split = (self.heads, -1)
         q = self.to_q(x).unflatten(-1, split)
         k = self.to_k(context).unflatten(-1, split)
         v = self.to_v(context).unflatten(-1, split)
-        return self.to_out[0](dot_product_attention(q, k, v).flatten(2))
+        o = dot_product_attention(q, k, v)
+        if ip is not None and ip_context is not None:
+            dt = q.dtype
+            c = ip_context.to(dt)
+            k_ip = (c @ ip.ip_k.to(dt).t()).unflatten(-1, split)
+            v_ip = (c @ ip.ip_v.to(dt).t()).unflatten(-1, split)
+            o = o + ip.scale.to(dt) * dot_product_attention(q, k_ip, v_ip)
+        return self.to_out[0](o.flatten(2))
 
 
 class GEGLU(nn.Module):
@@ -169,10 +189,10 @@ class TransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, eps=1e-5, device=device)
         self.ff = FeedForward(dim, dt, device=device)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, ip_context=None) -> torch.Tensor:
         h = self.norm1(x)
         x = x + self.attn1(h, h)
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, getattr(self, "ip", None), ip_context)
         return x + self.ff(self.norm3(x))
 
 
@@ -189,11 +209,11 @@ class SpatialTransformer(nn.Module):
                                                 for _ in range(depth))
         self.proj_out = Linear(ch, ch, device=device, dtype=cfg.dtype)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, ip_context=None) -> torch.Tensor:
         b, hh, ww, c = x.shape
         h = self.proj_in(self.norm(x).reshape(b, hh * ww, c))
         for blk in self.transformer_blocks:
-            h = blk(h, context)
+            h = blk(h, context, ip_context)
         return x + self.proj_out(h).reshape(b, hh, ww, c)
 
 
@@ -303,10 +323,9 @@ class UNet2DCondition(nn.Module):
                 added_cond: dict | None = None, ip_context=None, adapter_residuals=None) -> torch.Tensor:
         """x ``[B, h, w, C]`` noisy latents; t ``[B]`` timesteps (integer
         indices or floats); context ``[B, T, cross_dim]``; ``added_cond``
-        (SDXL) ``{time_ids [B, 6], text_embeds [B, pooled]}``."""
-        if ip_context is not None or adapter_residuals is not None:
-            raise NotImplementedError("IP-adapter context and T2I adapter residuals come with the "
-                                      "adapter slices")
+        (SDXL) ``{time_ids [B, 6], text_embeds [B, pooled]}``; ``ip_context``
+        ``[B, N, cross_dim]`` (the IP-adapter's image tokens) and
+        ``adapter_residuals`` (one map per down level; module docstring)."""
         cfg = self.cfg
         dt = cfg.dtype
         temb = self.time_embedding(timestep_embedding(t, cfg.block_out_channels[0], time_factor=1.0).to(dt))
@@ -315,29 +334,33 @@ class UNet2DCondition(nn.Module):
                                      time_factor=1.0).reshape(x.shape[0], -1)
             temb = temb + self.add_embedding(torch.cat([added_cond["text_embeds"].to(dt), tid.to(dt)], dim=-1))
         context = context.to(dt)
+        attn_args = (context,) if ip_context is None else (context, ip_context)
 
         h = self.conv_in(x)
         skips = [h]
-        for blk in self.down_blocks:
+        for i, blk in enumerate(self.down_blocks):
             for j, res in enumerate(blk.resnets):
                 h = self._run(res, h, temb)
                 if hasattr(blk, "attentions"):
-                    h = self._run(blk.attentions[j], h, context)
+                    h = self._run(blk.attentions[j], h, *attn_args)
                 skips.append(h)
+            if adapter_residuals is not None and i < len(adapter_residuals):
+                h = h + adapter_residuals[i].to(h.dtype)
+                skips[-1] = h
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
                 skips.append(h)
 
         mid = self.mid_block
         h = self._run(mid.resnets[0], h, temb)
-        h = self._run(mid.attentions[0], h, context)
+        h = self._run(mid.attentions[0], h, *attn_args)
         h = self._run(mid.resnets[1], h, temb)
 
         for blk in self.up_blocks:
             for j, res in enumerate(blk.resnets):
                 h = self._run(res, torch.cat([h, skips.pop()], dim=-1), temb)
                 if hasattr(blk, "attentions"):
-                    h = self._run(blk.attentions[j], h, context)
+                    h = self._run(blk.attentions[j], h, *attn_args)
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
 

@@ -45,7 +45,9 @@ backward``, ``train_step: clip, optimizer and EMA``). :func:`eval_loss` is
 JAX ``make_eval_step``: the plain loss of a fixed batch, no knob, no update.
 ``grad_accum > 1`` sums the gradients of that many micro-batches and
 divides. What stays refused (:meth:`TrainStepConfig.from_train_config`):
-``match_adapter_chance`` (the assistant adapter, ROADMAP Queue 1 item 6e);
+``match_adapter_chance`` above 0 (the prior keeping the assistant adapter's
+residuals on a draw, ROADMAP Queue 1 item 6e; at 0 the prior runs without
+them, as JAX's does);
 the SDXL refiner's double-up is the refiner's (item 3).
 """
 
@@ -146,9 +148,9 @@ class TrainStepConfig:
         know trains as mse, and ``diff_output_preservation_class`` is not
         read (the DOP prior runs on the batch's own caption)."""
         if tc.match_adapter_chance:
-            raise NotImplementedError("train-step knobs: match_adapter_chance keeps the assistant adapter's "
-                                      "residuals in the prior; the assistant adapter comes with ROADMAP Queue 1 "
-                                      "item 6e")
+            raise NotImplementedError("train-step knobs: match_adapter_chance > 0 keeps the assistant adapter's "
+                                      "residuals in the prior on a draw; it comes with ROADMAP Queue 1 item 6e "
+                                      "(at 0 the prior runs without them, as in JAX)")
         if tc.loss_type not in _LOSS_TYPES:
             print(f"JAX fault mirrored: loss_type '{tc.loss_type}' is no loss of the JAX step; it trains as mse "
                   f"(ROADMAP Queue 3)")
@@ -464,7 +466,12 @@ def train_loss(predict_fn: PredictFn, schedule, cfg: TrainStepConfig, batch: dic
             ax = tuple(range(1, pred.dim()))
             rescaled = pred * (_std(pred_pos, ax) / torch.clamp(_std(pred, ax), min=1e-6)).to(pred.dtype)
             pred = cfg.cfg_rescale * rescaled + (1.0 - cfg.cfg_rescale) * pred
-    prior_pred = _adapter_off(predict_fn, noisy, t, cond) if cfg.do_prior_pred else None
+    prior_pred = None
+    if cfg.do_prior_pred:
+        pcond = cond
+        if "adapter_residuals" in cond:  # the assistant's residuals leave the prior (JAX match_adapter_chance 0)
+            pcond = {**cond, "adapter_residuals": tuple(r * 0 for r in cond["adapter_residuals"])}
+        prior_pred = _adapter_off(predict_fn, noisy, t, pcond)
 
     tw = None
     if cfg.use_timestep_weights and is_flow:

@@ -63,8 +63,9 @@ Phases (any failure raises and the script exits non-zero):
      strongly negative logits); configs/examples/train_lora_{sd35_large,
      qwen_image,qwen_image_edit}_tpu.yaml as written but for their paths
      and steps (6) on seeded weights, as 8b (the edit file over the seeded
-     control images): 38 launches of each flash kernel every SD3.5-Large
-     step and denoise step, 0 for Qwen-Image, each edit batch's control
+     control images), the SD3.5-Large file at SD35L_CUT_BLOCKS (19) of its
+     38 blocks: 19 launches of each flash kernel every SD3.5-Large step and
+     denoise step, 0 for Qwen-Image, each edit batch's control
      latents against the VAE encode of its control images; and the
      qwen_image_edit generate job at 1024^2, 8 steps, with a seeded ctrl_img
      and the LoRA it saved; the two Qwen files and that job run at
@@ -189,6 +190,21 @@ Phases (any failure raises and the script exits non-zero):
      480^2, 3 steps, 180 / 90 / 90 launches a step, the graft and the frame
      embedder moved, the base frozen, the file's ``attn_hog.*`` /
      ``image_embedder.*`` / ``frame_embedder.*`` keys and shapes);
+  15h. the UNet's two adapter inputs (``adapter_input_phases``): the flash
+     forward, dq and dk/dv against their plain versions and timed at the
+     IP-Adapter's short K/V (T = 4 and 16 image tokens at SDXL's levels 1
+     and 2, T = 16 at flux-dev's 512^2 joint query); a full-width SDXL
+     transformer block with its decoupled K/V, the T2I net at SDXL's
+     channels and the Resampler at ViT-H width, in f32, card vs CPU; the
+     SDXL ``ip_adapter_plus`` job on the SDXL checkpoint (1024^2, the
+     seeded ViT-H, 3 steps, 210 / 208 / 208 launches a step, the base
+     unchanged, the file's 70 sites; the sample with a ``ctrl_img``
+     refused, as the JAX fault decides; a rerun one step further that
+     resumes exactly); the SD 1.5 ``ip_adapter`` job on the LDM file; the
+     flux-dev ``ip_adapter`` job at FLUX_FAMILY_CUT (16 tokens, 30 / 29 /
+     29 a step, a final sample with a ``ctrl_img``); the SD 1.5 ``t2i`` job
+     over a control folder and its save; the SD 1.5 LoRA job with that
+     save as its assistant, which stays unchanged;
   16. the flash kernels at Wan 2.1's shapes (12 heads of 128, bf16): the
      forward, dq and dk/dv at the train clip's 8,100 tokens, self and across
      to the 512 text tokens (with a ragged tail tile whose lse is below -88),
@@ -2812,8 +2828,11 @@ def flux_family_phases(card: str, profile_dir: str | None) -> dict:
 SD35L_SHAPES = [((1, 4327, 4327, 38, 64), "1024^2 joint"), ((1, 2535, 2535, 38, 64), "768^2 joint"),
                 ((1, 1255, 1255, 38, 64), "512^2 joint")]
 SD35L_BLOCKS = 38  # 37 joint blocks and the context_pre_only one, one attention each
+# the shipped SD3.5-Large file runs at this many of its 38 blocks (18 joint + the context_pre_only
+# one), widths unchanged: the script's time limit (the flash kernels still run at its shapes)
+SD35L_CUT_BLOCKS = 19
 # the shipped MMDiT files: (arch, file, the folders chip_smoke adds, flash launches a step)
-MMDIT_FILES = [("sd35_large", "train_lora_sd35_large_tpu.yaml", (), SD35L_BLOCKS),
+MMDIT_FILES = [("sd35_large", "train_lora_sd35_large_tpu.yaml", (), SD35L_CUT_BLOCKS),
                ("qwen_image", "train_lora_qwen_image_tpu.yaml", (), 0),
                ("qwen_image_edit", "train_lora_qwen_image_edit_tpu.yaml", ("control_path",), 0)]
 # the Qwen-Image files and the edit generate job run at this many of the 60 joint blocks,
@@ -2834,6 +2853,26 @@ def qwen_cut_depth(blocks: int = QWEN_CUT_BLOCKS):
         yield
     finally:
         qm.QWEN_DIT = full
+
+
+@contextlib.contextmanager
+def sd35l_cut_depth(blocks: int = SD35L_CUT_BLOCKS):
+    """SD3.5-Large's DiT at ``blocks`` blocks (the last the context_pre_only
+    one) for the block (``sd3_model.sd3_dit_config`` wrapped; nothing in the
+    package changes)."""
+    import ai_toolkit_tpu_torch.models.sd3_model as sm
+
+    full = sm.sd3_dit_config
+
+    def cut(arch, size):
+        cfg = full(arch, size)
+        return dataclasses.replace(cfg, depth_double=blocks) if cfg.depth_double == SD35L_BLOCKS else cfg
+
+    sm.sd3_dit_config = cut
+    try:
+        yield
+    finally:
+        sm.sd3_dit_config = full
 
 
 def llm_reference() -> None:
@@ -2958,9 +2997,10 @@ def mmdit_phases(card: str, profile_dir: str | None) -> dict:
               + f": qfloat8 base, {SHIPPED_DATA}, the disk latent cache, "
                 f"its prompt at 1024x1024 and 20 steps first and final, {SHIPPED_STEPS} steps, {blocks} flash "
                 f"launches a step"
-              + (f"; the DiT cut to {QWEN_CUT_BLOCKS} of its 60 joint blocks, widths unchanged" if qwen else ""))
+              + (f"; the DiT cut to {QWEN_CUT_BLOCKS} of its 60 joint blocks, widths unchanged" if qwen else
+                 f"; the DiT cut to {SD35L_CUT_BLOCKS} of its {SD35L_BLOCKS} blocks, widths unchanged"))
         watch = _ControlBatches(arch) if extra else None
-        with qwen_cut_depth() if qwen else contextlib.nullcontext():
+        with qwen_cut_depth() if qwen else sd35l_cut_depth():
             out[arch] = _shipped_flux_job(card, profile_dir, example, f"smoke_{arch}_shipped", 1, watch, blocks,
                                           **{k: ctrl for k in extra})
         if watch is not None:
@@ -4513,6 +4553,346 @@ def expansion_phases(card: str) -> dict:
     return out
 
 
+# ---- the UNet's adapter inputs: IP-Adapter and the T2I adapter ----
+
+ADAPTER_STEPS = 3  # each adapter-input job's steps (the SDXL rerun: one more)
+# the decoupled cross-attention's short K/V: (B, S, T, H, D)
+IP_SHAPES = [((2, 4096, 4, 10, 64), "SDXL level-1, 4 image tokens"),
+             ((2, 4096, 16, 10, 64), "SDXL level-1, 16 image tokens"),
+             ((2, 1024, 16, 20, 64), "SDXL level-2, 16 image tokens"),
+             ((1, 1536, 16, 24, 128), "flux-dev 512^2 joint query, 16 image tokens")]
+SDXL_IP_SITES = SDXL_ATTENTIONS // 2  # every transformer block's attn2
+
+
+def adapter_input_reference() -> dict:
+    """Full width, f32, card vs CPU, within 1e-3 of the largest reference
+    value: one SDXL transformer block at 1280 channels (level 2's 1024
+    tokens, 77 text tokens) with its decoupled K/V over 16 image tokens, the
+    forward and the gradients of ip_k, ip_v and scale; the T2I net at SDXL's
+    channels on a 512^2 control image, its three levels' features; the
+    Resampler at ViT-H width (257 patch tokens of 1280 -> 16 x 2048, dim
+    768, depth 4, 12 heads)."""
+    from ai_toolkit_tpu_torch.adapters.ip_adapter import Resampler, UNetIP
+    from ai_toolkit_tpu_torch.adapters.t2i_adapter import T2IAdapterNet
+    from ai_toolkit_tpu_torch.models.unet import TransformerBlock, UNetConfig
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    phase("the UNet's adapter inputs at full width (f32): an SDXL transformer block with its decoupled K/V, the "
+          "T2I net at SDXL's channels, the Resampler at ViT-H width: card vs CPU")
+    cfg = dataclasses.replace(UNetConfig.sdxl(), dtype=torch.float32)
+    g = torch.Generator().manual_seed(5)
+    out = {}
+
+    def compare(label, build, inputs, grads_of=None):
+        mods = []
+        for dev in ("cpu", "cuda"):
+            m = build(dev)
+            if mods:
+                m.load_state_dict(mods[0].state_dict())
+            mods.append(m)
+        res = []
+        for m in mods:
+            dev = "cuda" if next(m.parameters()).is_cuda else "cpu"
+            y = m(*[x.to(dev) for x in inputs])
+            ys = list(y) if isinstance(y, tuple) else [y]
+            gr = []
+            if grads_of:
+                params = grads_of(m)
+                gr = [x.cpu() for x in torch.autograd.grad(sum(v.square().mean() for v in ys), params)]
+            res.append(([v.detach().cpu() for v in ys], gr))
+        (ref, ref_g), (got, got_g) = res
+        scale = max(r.abs().max().item() for r in ref)
+        err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+        msg = f"{label}: forward max|ref|={scale:.3e} max_abs_err={err:.3e} (tol {1e-3 * scale:.3e})"
+        ok = all(bool(torch.isfinite(a).all()) for a in got) and err <= 1e-3 * scale
+        gerr = 0.0
+        if ref_g:
+            gmax = max(r.abs().max().item() for r in ref_g)
+            gerr = max((a - r).abs().max().item() for a, r in zip(got_g, ref_g))
+            msg += f"; {len(ref_g)} gradients max|ref|={gmax:.3e} max_abs_err={gerr:.3e} (tol {1e-3 * gmax:.3e})"
+            ok = ok and gmax > 0 and gerr <= 1e-3 * gmax
+            gerr /= gmax
+        print(msg)
+        check(ok, f"{label} disagrees between card and CPU")
+        out[label] = {"err": err / scale, "grad_err": gerr}
+
+    def block(dev):
+        blk = init_parameters(TransformerBlock(1280, cfg, device=dev), torch.Generator(dev).manual_seed(0))
+        blk.requires_grad_(False)
+        blk.ip = UNetIP(torch.randn(1280, 2048, generator=torch.Generator(dev).manual_seed(1), device=dev) * 0.02,
+                        torch.randn(1280, 2048, generator=torch.Generator(dev).manual_seed(2), device=dev) * 0.02,
+                        0.8)
+        return blk
+
+    compare("SDXL transformer block, 1280 ch, 1024 tokens, decoupled K/V over 16 image tokens", block,
+            [torch.randn(1, 1024, 1280, generator=g), torch.randn(1, 77, 2048, generator=g),
+             torch.randn(1, 16, 2048, generator=g)], lambda m: [m.ip.ip_k, m.ip.ip_v, m.ip.scale])
+    compare("T2I net at SDXL's channels (320, 640, 1280), 512^2 control",
+            lambda dev: init_parameters(T2IAdapterNet(cfg.block_out_channels, 8, device=dev),
+                                        torch.Generator(dev).manual_seed(3)).requires_grad_(False),
+            [torch.rand(1, 512, 512, 3, generator=g) * 2 - 1])
+    compare("Resampler at ViT-H width, 257 x 1280 -> 16 x 2048",
+            lambda dev: init_parameters(Resampler(1280, 2048, 16, 768, 4, 12, device=dev),
+                                        torch.Generator(dev).manual_seed(4)).requires_grad_(False),
+            [torch.randn(1, 257, 1280, generator=g)])
+    return out
+
+
+def _footprint_gib(root: str = OUT_DIR) -> float:
+    """The bytes of the files under ``root`` now, GiB (a file overwritten or
+    deleted earlier is not counted, though the machine's disk counts its
+    writes)."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs) / 2**30
+
+
+def _adapter_raw(name: str, model: dict, folder: str, steps: int, adapter: dict | None = None, size: int = 512,
+                 network: dict | None = None, train: dict | None = None, sample: list | None = None, **dataset) -> dict:
+    """An adapter-input job over the seeded images at ``size``^2: batch 1,
+    adamw8bit at 1e-4 (its 8-bit moments halve the training state these
+    f32 adapters write: the machine's disk takes 45 GiB of writes in all;
+    the t2i and assistant jobs take adamw: adamw8bit's 8-bit second moment,
+    JAX's as the port's, lets a few elements jump by up to ~1000x the
+    learning rate, and a t2i net so trained drowns the assistant job's
+    LoRA gradients),
+    bf16, the in-memory latent cache, the trainer's cadence off;
+    ``sample``: prompts of one final sample (4 steps)."""
+    flow = model["arch"].startswith("flux")
+    proc = {"type": "sd_trainer", "training_folder": os.path.join(OUT_DIR, "train"), "trigger_word": "p3r5on",
+            "save": {"dtype": "float16", "save_every": 250, "max_step_saves_to_keep": 4},
+            "datasets": [{"folder_path": folder, "caption_ext": "txt", "cache_latents": True,
+                          "cache_latents_to_disk": False, "resolution": [size], **dataset}],
+            "train": {"batch_size": 1, "steps": steps, "noise_scheduler": "flowmatch" if flow else "ddpm",
+                      "optimizer": "adamw8bit", "lr": 1e-4, "dtype": "bf16", "seed": 42, "gradient_checkpointing": True,
+                      "disable_sampling": not sample, "skip_first_sample": True, **(train or {})},
+            "model": model, "logging": {"log_every": 1}}
+    if flow:
+        proc["train"]["timestep_type"] = "flux_shift"
+    if adapter:
+        proc["adapter"] = adapter
+    if network:
+        proc["network"] = network
+    if sample:
+        proc["sample"] = {"sample_every": 0, "width": size, "height": size, "sample_steps": CONTROL_SAMPLE_STEPS,
+                          "guidance_scale": 4, "seed": 42, "prompts": sample}
+    return {"job": "extension", "config": {"name": name, "process": [proc]}}
+
+
+def _spy_base(at_build: dict):
+    """Record the checksums of the model's main component when the job builds
+    its IP-Adapter (``at_build["__base__"]``) and the trainable tensors;
+    returns the undo."""
+    from ai_toolkit_tpu_torch.jobs.train_process import SDTrainProcess
+
+    real = SDTrainProcess._build_ip
+
+    def spy(self, model, variables, seed):
+        out = real(self, model, variables, seed)
+        at_build.update({k: p.detach().clone() for k, p in out.items()})
+        at_build["__base__"] = {n: _checksum(p) for n, p in variables[model.main_component].named_parameters()
+                                if ".ip." not in n}
+        return out
+
+    SDTrainProcess._build_ip = spy
+
+    def undo():
+        SDTrainProcess._build_ip = real
+
+    return undo
+
+
+def _ip_job(card: str, name: str, raw: dict, per_step: dict, sites: int, n_tokens: int,
+            denoise: dict | None = None) -> tuple[dict, dict, object]:
+    """Run an IP-Adapter job and check it: every trainable tensor moved (the
+    scales too), the base unchanged, the sites and tokens, the file's keys
+    and shapes (``image_proj.*`` and each site's ``ip_adapter.{i}.to_k_ip`` /
+    ``to_v_ip``), the peak."""
+    from safetensors import safe_open
+
+    at_build = {}
+    undo = _spy_base(at_build)
+    try:
+        result, proc, report = _run_job(raw, per_step, None, denoise=denoise)
+    finally:
+        undo()
+    tr = proc.state.trainable
+    main = proc.variables[proc.model.main_component]
+    moved = [k for k in tr if not torch.equal(at_build[k], tr[k].detach())]
+    check(len(moved) == len(tr) and len(proc.ip) == sites == result["ip_sites"],
+          f"{name}: {len(moved)} of {len(tr)} trainable tensors moved, {len(proc.ip)} sites (want {sites})")
+    base = {n: _checksum(p) for n, p in main.named_parameters() if ".ip." not in n}
+    check(base == at_build["__base__"] and len(base) > 0, f"{name}: the frozen base changed")
+    with safe_open(result["save_path"], framework="pt") as f:
+        keys = {k: tuple(f.get_slice(k).get_shape()) for k in f.keys()}
+        meta = f.metadata()
+    kv = [k for k in keys if k.startswith("ip_adapter.")]
+    shapes = [tuple(m.to_k.shape if hasattr(m, "to_k") else m.ip_k.shape) for m in proc.ip.values()]
+    want_kv = {f"ip_adapter.{i}.to_{x}_ip.weight": s for i, s in enumerate(shapes) for x in "kv"}
+    proj = {f"image_proj.{k}": tuple(v.shape) for k, v in proc.ip_proj.state_dict().items()}
+    check({k: keys[k] for k in kv} == want_kv and {k: v for k, v in keys.items() if k not in want_kv} == proj
+          and meta == {"step": str(result["steps"])}, f"{name}: the file's keys or shapes differ from JAX "
+                                                     f"save_ip_adapter's layout")
+    tokens = proc.ip_proj(torch.zeros((1, 257, proc.vision_tower.cfg.hidden_size) if proc.ip_plus else
+                                      (1, proc.vision_tower.cfg.projection_dim), device="cuda"))
+    check(tokens.shape[1] == n_tokens, f"{name}: {tokens.shape[1]} image tokens (want {n_tokens})")
+    rep = {"step_ms": result["step_ms"], "peak_gib": report["peak_gib"], "wall_s": report["wall_s"],
+           "per_step": per_step, "losses": result["losses"], "sites": sites, "tokens": n_tokens,
+           "trainable_params": result["trainable_params"], "keys": len(keys)}
+    print(f"{card}: {name}: {sites} sites, {n_tokens} image tokens, {result['trainable_params']:,} trainable params, "
+          f"all moved, the base unchanged; step ms {', '.join(f'{x:.1f}' for x in result['step_ms'])}; peak "
+          f"{report['peak_gib']:.2f} GiB; launches a step {per_step}; {len(keys)} keys in {result['save_path']}; "
+          f"job wall {report['wall_s']:.1f} s")
+    return rep, result, proc
+
+
+def sdxl_ip_phase(card: str) -> dict:
+    """SDXL ``ip_adapter_plus`` at full width and depth on the SDXL checkpoint
+    (written by ``sdxl_shipped_phases``): 1024^2, the seeded ViT-H's
+    penultimate states through the Resampler into 16 tokens, 3 steps. Each
+    of the 70 blocks runs self-attention, the text cross-attention and the
+    image cross-attention: 210 forward launches; the first block's two base
+    attentions need no gradient (nothing upstream of its image K/V trains),
+    so 208 dq and dk/dv. Then the sample with a ``ctrl_img`` (refused: JAX's
+    ``generate_sd`` ignores the adapter image) and a rerun one step further."""
+    from ai_toolkit_tpu_torch.jobs import get_job
+    from ai_toolkit_tpu_torch.jobs.train_process import SDTrainProcess
+
+    name = "smoke_sdxl_ip_plus"
+    root = os.path.join(OUT_DIR, "sdxl_checkpoint")
+    model = {**SDXL_MODEL, "name_or_path": root}
+    per_step = _counts(3 * SDXL_IP_SITES, 3 * SDXL_IP_SITES - 2, 3 * SDXL_IP_SITES - 2)
+    phase(f"SDXL ip_adapter_plus job: the SDXL checkpoint, 1024^2, batch 1, the seeded ViT-H, 16 tokens, "
+          f"{ADAPTER_STEPS} steps")
+    folder = _train_dataset()
+    rep, result, proc = _ip_job(card, name, _adapter_raw(name, model, folder, ADAPTER_STEPS,
+                                                         {"type": "ip_adapter_plus"}, size=1024),
+                                per_step, SDXL_IP_SITES, 16)
+    trained = {k: v.detach().clone() for k, v in proc.state.trainable.items()}
+    del proc
+    gc.collect()
+
+    ctrl, _ = _control_folders()
+    refused = _adapter_raw(name, model, folder, ADAPTER_STEPS, {"type": "ip_adapter_plus"}, size=1024,
+                           sample=[{"prompt": "p3r5on photo", "ctrl_img": os.path.join(ctrl, "img_1.png")}])
+    try:
+        get_job(refused, device="cuda").processes[0]._refuse_unported()
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    check("generate_sd never reads" in raised, f"{name}: the sample with a ctrl_img was not refused ({raised!r})")
+    print(f"{card}: {name}: a final sample with a ctrl_img refused: {raised[:120]}...")
+
+    phase(f"SDXL ip_adapter_plus job rerun to {ADAPTER_STEPS + 1} steps: the resume restores the exact state")
+    restored = {}
+    real_resume = SDTrainProcess._resume
+
+    def spy_resume(self, *args):
+        step = real_resume(self, *args)
+        restored.update({k: v.detach().clone() for k, v in self.state.trainable.items()})
+        return step
+
+    SDTrainProcess._resume = spy_resume
+    try:
+        result2, proc2, report2 = _run_job(_adapter_raw(name, model, folder, ADAPTER_STEPS + 1,
+                                                        {"type": "ip_adapter_plus"}, size=1024),
+                                           per_step, None, fresh=False)
+    finally:
+        SDTrainProcess._resume = real_resume
+    exact = sorted(restored) == sorted(trained) and all(torch.equal(restored[k], trained[k]) for k in trained)
+    check(result2["start_step"] == ADAPTER_STEPS and exact,
+          f"{name}: the rerun started at {result2['start_step']}, the trained tensors restored exactly: {exact}")
+    print(f"{card}: {name} resumed at step {result2['start_step']}: {len(trained)} trained tensors restored exactly; "
+          f"step ms {result2['step_ms'][0]:.1f}")
+    rep["resumed_step_ms"] = result2["step_ms"]
+    del proc2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def adapter_input_phases(card: str, sd15_path: str) -> dict:
+    """IP-Adapter and the T2I adapter: the flash kernels at the image
+    tokens' short K/V, the modules card vs CPU, the SDXL, SD 1.5 and flux-dev
+    IP jobs, the SD 1.5 t2i job and the LoRA job with its save as the
+    assistant."""
+    from ai_toolkit_tpu_torch.adapters.custom_adapter import load_custom_adapter
+    from ai_toolkit_tpu_torch.adapters.t2i_adapter import t2i_state_from_flat
+
+    t_start = time.perf_counter()
+    out = {"err": flash_checks("flash kernels vs plain versions at the IP-Adapter's image tokens (T = 4, 16), bf16",
+                               [(shape, label, True, None) for shape, label in IP_SHAPES], 12),
+           "times": attention_times("flash kernels at the IP-Adapter's image tokens, bf16", "IP",
+                                    [(shape, label, True) for shape, label in IP_SHAPES], 13),
+           "reference": adapter_input_reference(), "sdxl": sdxl_ip_phase(card)}
+
+    sd15 = {"name_or_path": sd15_path, "arch": "sd1"}
+    data = _train_dataset(n=4, size=512, name="knob_data")
+    phase(f"SD 1.5 ip_adapter job: the LDM file, 512^2, the seeded ViT-H's pooled embedding into 4 tokens, "
+          f"{ADAPTER_STEPS} steps (the plain attention: 0 flash launches)")
+    name = "smoke_sd15_ip"
+    out["sd15"], _, proc = _ip_job(card, name, _adapter_raw(name, sd15, data, ADAPTER_STEPS, {"type": "ip_adapter"}),
+                                   _counts(), 16, 4)
+    del proc
+    gc.collect()
+
+    ctrl, _ = _control_folders()
+    fam = sum(FLUX_FAMILY_CUT)
+    phase(f"flux-dev ip_adapter job: flux-dev cut to {FLUX_FAMILY_CUT[0]} + {FLUX_FAMILY_CUT[1]} blocks, 512^2, "
+          f"the Resampler into 16 tokens, {ADAPTER_STEPS} steps, a final sample with a ctrl_img "
+          f"({CONTROL_SAMPLE_STEPS} steps)")
+    name = "smoke_flux_ip"
+    raw = _adapter_raw(name, {**FLUX_MODEL, "quantize": False}, data, ADAPTER_STEPS,
+                       {"type": "ip_adapter", "num_tokens": 16},
+                       sample=[{"prompt": "p3r5on photo of a red fox", "ctrl_img": os.path.join(ctrl, "img_1.png")}])
+    with flux_cut_depth():
+        out["flux"], result, proc = _ip_job(card, name, raw, _counts(2 * fam, 2 * fam - 1, 2 * fam - 1), fam, 16,
+                                            denoise=_counts(fwd=2 * fam))
+    check(len(result["samples"]) == 1 and os.path.isfile(result["samples"][0]["path"]),
+          f"{name}: samples {result['samples']}")
+    out["flux"]["sample_s"] = result["samples"][0]["seconds"]
+    del proc
+    gc.collect()
+
+    phase(f"SD 1.5 t2i job: the LDM file, 512^2, a control image an item, {ADAPTER_STEPS} steps, its save")
+    name = "smoke_sd15_t2i"
+    result, proc, report = _run_job(_adapter_raw(name, sd15, data, ADAPTER_STEPS, {"type": "t2i"},
+                                                 train={"optimizer": "adamw"}, control_path=ctrl), _counts(), None)
+    t2i_path = result["save_path"]
+    keys, meta = _expansion_file(t2i_path)
+    check(meta.get("adapter_type") == "t2i" and keys.get("t2i.conv_in.weight") == (3, 3, 192, 320)
+          and keys.get("t2i.down_3.weight") == (3, 3, 1280, 1280) and len(keys) == 4 + 4 * 4 * 2 + 3 * 2,
+          f"{name}: the t2i file's keys {sorted(keys)[:4]}")
+    out["t2i"] = {"step_ms": result["step_ms"], "peak_gib": report["peak_gib"], "wall_s": report["wall_s"],
+                  "trainable_params": result["trainable_params"], "keys": len(keys)}
+    print(f"{card}: {name}: {result['trainable_params']:,} trainable params; step ms "
+          f"{', '.join(f'{x:.1f}' for x in result['step_ms'])}; peak {report['peak_gib']:.2f} GiB; {len(keys)} keys "
+          f"in {t2i_path} (conv kernels HWIO); job wall {report['wall_s']:.1f} s")
+    del proc
+    gc.collect()
+
+    phase(f"SD 1.5 LoRA job with adapter_assist_name_or_path = that t2i file: 512^2, rank 16, {ADAPTER_STEPS} steps")
+    name = "smoke_sd15_assist"
+    result, proc, report = _run_job(_adapter_raw(name, sd15, data, ADAPTER_STEPS, size=512, control_path=ctrl,
+                                                 network={"type": "lora", "linear": 16, "linear_alpha": 16},
+                                                 train={"adapter_assist_name_or_path": t2i_path, "optimizer": "adamw"}),
+                                    _counts(), None)
+    check_lora_job(result, proc)
+    want = t2i_state_from_flat(load_custom_adapter(t2i_path)[0])
+    got = proc.assistant.state_dict()
+    check(sorted(got) == sorted(want) and all(_checksum(got[k].float().cpu()) == _checksum(want[k]) for k in want),
+          f"{name}: the assistant is not the t2i file, or it changed")
+    out["assist"] = {"step_ms": result["step_ms"], "peak_gib": report["peak_gib"], "wall_s": report["wall_s"],
+                     "lora_modules": len(proc.lora)}
+    print(f"{card}: {name}: {len(proc.lora)} LoRA modules trained beside the frozen assistant ({len(want)} tensors, "
+          f"checksums unchanged); step ms {', '.join(f'{x:.1f}' for x in result['step_ms'])}; peak "
+          f"{report['peak_gib']:.2f} GiB; job wall {report['wall_s']:.1f} s")
+    del proc
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"{card}: the adapter input phases {out['wall_s']:.1f} s")
+    return out
+
+
 # ---- the audio archs: ACE-Step's 1-D WanDiT and LTX-2's joint audio-video DiT ----
 
 ACE_BLOCKS = 24  # the 1-D WanDiT: one self- and one cross-attention each
@@ -4876,6 +5256,8 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"networks": networks}))
     expansions = expansion_phases(card)
     print(json.dumps({"expansion_adapters": expansions}))
+    adapter_inputs = adapter_input_phases(card, sd15["checkpoint"])
+    print(json.dumps({"adapter_inputs": adapter_inputs}))
     print(json.dumps({"shipped_files": {
         "sd15_textual_inversion": sd15,
         "flux_lora_val_losses": train["val_losses"],
@@ -4929,6 +5311,8 @@ def main(argv: list[str]) -> int:
         "ms": {label: {k: {m: row[k][m] for m in ("ms", "library_ms", "bound_ms")} for k in row}
                for label, row in audio["times"].items()}}}))
 
+    print(f"files under {OUT_DIR}: {_footprint_gib():.2f} GiB (the machine's disk takes 45 GiB of writes in all, "
+          f"overwritten and deleted files included)")
     banned = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ai_toolkit_tpu")]
     check(not banned, f"the port imported {banned[:5]}")

@@ -452,14 +452,15 @@ def test_textual_inversion_trainer_builds_the_trainer():
     ({"adapter": {"type": "control_lora", "num_control_images": 2, "has_inpainting_input": True}}, ValueError,
      "has_inpainting_input"),
     ({"adapter": {"type": "control_lora"}, "model": {"arch": "chroma"}}, NotImplementedError, "item 6e"),
-    ({"adapter": {"type": "ip_adapter"}}, NotImplementedError, "item 6e"),
+    ({"adapter": {"type": "ip_adapter"}, "model": {"arch": "chroma"}}, NotImplementedError, "item 6e"),
     ({"adapter": {"type": "t2i"}}, NotImplementedError, "item 6e"),
     ({"adapter": {"type": "ilora"}}, NotImplementedError, "item 6e"),
 ])
 def test_what_stays_refused(tmp_path, over, err, match):
     """No network beside the adapter (JAX's ValueError), a network other than
     LoRA, an adapter key JAX does not read for the type, the inpainting input
-    with several controls, another flux arch, and the other item-6e adapters."""
+    with several controls, another flux arch, IP-Adapter on an arch it is not
+    ported to, t2i on flux (a UNet adapter), and the other item-6e adapters."""
     proc = _train_proc(tmp_path)
     for key, val in over.items():
         if val is None:

@@ -40,6 +40,7 @@ from ai_toolkit_tpu_torch.train.optimizers import get_optimizer
 from ai_toolkit_tpu_torch.train.state import TrainState
 from test_torch_lumina2 import filled
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
+from torch_jax_opt import full_jax_opt, jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 HIDREAM = {"name_or_path": "", "arch": "hidream", "model_kwargs": {"size": "tiny"}}
@@ -255,6 +256,7 @@ def test_full_finetune_step_matches_jax(hidream_tree, case):
 # ---- (c) the bf16 update ----
 
 @pytest.mark.parametrize("opt", ["adamw", "adamw8bit"])
+@pytest.mark.usefixtures("full_jax_opt")
 def test_bf16_update_and_ema_match_jax(hidream_tree, opt):
     """The expert banks in bf16 and bf16 gradients through two optimizer steps
     (one with the global norm above the clip, one below) and the EMA against

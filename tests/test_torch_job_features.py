@@ -31,6 +31,7 @@ from ai_toolkit_tpu_torch.data.dataset import FolderDataset
 from ai_toolkit_tpu_torch.jobs import get_job, run_job
 from ai_toolkit_tpu_torch.train.optimizers import get_optimizer, lr_schedule
 from ai_toolkit_tpu_torch.train.state import TrainState
+from torch_jax_opt import full_jax_opt, jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -117,6 +118,7 @@ def _f32_ulps(a: float, b: float) -> int:
 
 
 @pytest.mark.parametrize("name,params", SCHEDULES)
+@pytest.mark.usefixtures("full_jax_opt")
 def test_lr_schedule_values_match_optax(name, params):
     """Each schedule at every step of a 23-step run against optax's value as
     the JAX train step computes it, inside jit: the linear ramps and the

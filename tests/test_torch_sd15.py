@@ -34,6 +34,7 @@ from ai_toolkit_tpu_torch.models.sd_model import SDModel
 from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.samplers.factory import get_schedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
+from test_torch_flux_family import jit_decode
 from torch_jax_opt import jax_opt0  # noqa: F401
 
 torch.set_num_threads(1)
@@ -144,7 +145,7 @@ def test_generate_sd1_matches_jax(jax_vars):
     model, variables = _port("sd1", jax_vars)
     kw = dict(prompt="a watercolor fox", negative_prompt="blurry", width=64, height=64, seed=7,
               guidance_scale=7.5, sample_steps=3, sampler="ddpm")
-    ref = np.asarray(jax_generate_sd(JSDModel(JModelConfig.from_dict(_cfg("sd1"))), jax_vars,
+    ref = np.asarray(jax_generate_sd(jit_decode(JSDModel(JModelConfig.from_dict(_cfg("sd1")))), jax_vars,
                                      JGenerateImageConfig(**kw)))
     h, w, c = model.latent_shape(64, 64)
     noise = np.asarray(jax.random.normal(jax.random.key(7), (1, h, w, c), jnp.float32))

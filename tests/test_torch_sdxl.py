@@ -41,7 +41,7 @@ from ai_toolkit_tpu_torch.models.text_encoders import clip as tclip
 from ai_toolkit_tpu_torch.ops.kernels import flash_attention as fa
 from ai_toolkit_tpu_torch.samplers.ddpm import DDPMSchedule
 from ai_toolkit_tpu_torch.train.step import TrainStepConfig, train_loss
-from test_torch_flux_family import OPT0
+from test_torch_flux_family import OPT0, jit_decode
 from torch_jax_opt import jax_opt0, seeded_init  # noqa: F401
 
 torch.set_num_threads(1)
@@ -361,7 +361,7 @@ def test_generate_sd_matches_jax(jax_vars):
             for name, m in lora.items()}
     kw = dict(prompt="a watercolor fox", negative_prompt="blurry", width=64, height=64, seed=7,
               guidance_scale=7.0, sample_steps=3, sampler="ddim")
-    ref = np.asarray(jax_generate_sd(_jax_model(), jax_vars, JGenerateImageConfig(**kw), lora=jtree))
+    ref = np.asarray(jax_generate_sd(jit_decode(_jax_model()), jax_vars, JGenerateImageConfig(**kw), lora=jtree))
     h, w, c = model.latent_shape(64, 64)
     noise = np.asarray(jax.random.normal(jax.random.key(7), (1, h, w, c), jnp.float32))
     stats = {}
@@ -510,9 +510,15 @@ def test_unported_sdxl_branches_raise(tmp_path):
                   {**TINY, "refiner_name_or_path": "/nowhere/refiner"}, {**TINY, "model_kwargs": {"size": "xl"}}):
         with pytest.raises(NotImplementedError):
             SDXLModel(ModelConfig.from_dict(model), device="cpu")
-    unet = tunet.UNet2DCondition(tunet.UNetConfig.tiny())
-    with pytest.raises(NotImplementedError):
-        unet(torch.zeros((1, 8, 8, 4)), torch.tensor([5]), torch.zeros((1, 3, 64)), ip_context=torch.zeros((1, 4, 64)))
+    # IP-adapter context reaches only the blocks that carry an ``ip`` (adapters/ip_adapter): without one the
+    # UNet's output is the plain one
+    from ai_toolkit_tpu_torch.ops.layers import init_parameters
+
+    unet = init_parameters(tunet.UNet2DCondition(tunet.UNetConfig.tiny()), torch.Generator().manual_seed(0))
+    x, t, ctx = torch.randn((1, 8, 8, 4)), torch.tensor([5]), torch.randn((1, 3, 64))
+    with torch.no_grad():
+        torch.testing.assert_close(unet(x, t, ctx, ip_context=torch.randn((1, 4, 64))), unet(x, t, ctx),
+                                   rtol=0, atol=0)
     # conv LoRA is ported; a text encoder's kohya keys are not
     with pytest.raises(NotImplementedError, match="layouts are ported"):
         tlora_file.unflatten_lora({"lora_te1_text_model_encoder_layers_0_mlp_fc1.lora_down.weight": np.zeros((4, 8)),

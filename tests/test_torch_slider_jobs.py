@@ -235,8 +235,9 @@ def _flux_file(**train):
 def test_unported_guidance_raises(change, cause):
     """[port] What the trainer does not take raises, naming its cause: the
     ``concept_replacer`` kind (its job builds the replacement prompts), a
-    kind the JAX package does not know, and the assistant adapter, in the
-    train section or the process."""
+    kind the JAX package does not know, and the assistant adapter on flux,
+    which has no UNet for it (JAX skips it silently), in the train section
+    or the process."""
     with pytest.raises(NotImplementedError, match=cause):
         for proc in get_job(_flux_file(**change), device="cpu").processes:
             proc._refuse_unported()

@@ -274,7 +274,7 @@ JAX_DATA = ["ai_toolkit_tpu/config/modules.py", "ai_toolkit_tpu/data/dataset.py"
 PORT_DATA = [p.replace("ai_toolkit_tpu/", "ai_toolkit_tpu_torch/") for p in JAX_DATA]
 # DatasetConfig fields JAX reads only under an option the port refuses
 GATED_DATASET = {"shuffle_augmentations": "augmentations", "replay_transforms": "augmentations",
-                 "clip_image_shuffle_augmentations": "clip_image_path"}
+                 "clip_image_shuffle_augmentations": "clip_image_augmentations"}
 
 
 def _dataset_reads(paths: list[str]) -> set[str]:

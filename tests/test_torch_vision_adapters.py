@@ -455,15 +455,25 @@ def test_port_builds_the_ip_collection_from_the_dequantized_base(flux):
 
 @pytest.mark.parametrize("atype", ["te_augmenter", "ip_adapter"])
 def test_unported_adapter_types_raise(atype):
-    """Every custom adapter type but redux and vision_direct raises, naming
-    ROADMAP item 6e; so does ``clip_image_path``."""
+    """A custom adapter type the port has not raises, naming ROADMAP item 6e,
+    and so does IP-Adapter on a flux-family arch it is not ported to (it
+    runs on flux / flux_schnell and the UNets); ``clip_image_augmentations``
+    raises naming item 6h (``clip_image_path`` itself is read)."""
     raw = get_config(os.path.join(ROOT, "configs", "examples", "train_redux_adapter_flux_tpu.yaml"))
-    raw["config"]["process"][0]["adapter"]["type"] = atype
+    proc_cfg = raw["config"]["process"][0]
+    proc_cfg["adapter"] = {"type": atype}
+    if atype == "ip_adapter":
+        proc_cfg["model"]["arch"] = "chroma"
     (proc,) = get_job(raw, device="cpu").processes
     with pytest.raises(NotImplementedError, match="item 6e"):
         proc._refuse_unported()
-    raw["config"]["process"][0]["adapter"]["type"] = "redux"
-    raw["config"]["process"][0]["datasets"][0]["clip_image_path"] = "/x"
+    proc_cfg["adapter"] = {"type": "redux"}
+    proc_cfg["model"]["arch"] = "flux"
+    proc_cfg["datasets"][0]["clip_image_path"] = "/x"
     (proc,) = get_job(raw, device="cpu").processes
-    with pytest.raises(NotImplementedError, match="clip_image_path"):
-        proc._refuse_unported()
+    proc._refuse_unported()
+    from ai_toolkit_tpu_torch.config.modules import DatasetConfig
+    from ai_toolkit_tpu_torch.data.dataset import FolderDataset
+
+    with pytest.raises(NotImplementedError, match="clip_image_augmentations.*item 6h"):
+        FolderDataset(DatasetConfig(folder_path=ROOT, clip_image_augmentations=[{"type": "flip"}]), 16)
